@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Start-up proof of ``tpuscratch_torch`` on one CUDA card.
+
+``python3 chip_smoke.py`` (no arguments, one card) builds the hand-written
+kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
+
+1. card and toolchain: the card's name and power limit, nvcc, torch,
+   whether ``import triton`` works, and the kernels' build;
+2. every kernel against its plain torch version on the card, at a ragged
+   small shape, at the 1024^2 headline shape and at the 8192^2 world
+   (``resident`` at the largest grid its L2 rule admits, and its refusal
+   past that), plus each kernel's time beside its bound;
+3. the main path: ``distributed_stencil`` on a 1x1 mesh at 1024^2 for every
+   impl of ``bench.py``'s ladder plus ``pallas`` and ``blocked``, each held
+   against the ``xla`` impl, which is held against a float64 numpy oracle;
+   the kernels' launch counts are zeroed just before and read just after;
+4. the headline race (``bench.py``'s JSON line, measured on this card) and
+   every impl's cell-updates/s at 1024^2 and 8192^2;
+5. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+   the last line ``{"ok": true, "device": {...}}``.
+
+Any failure raises and exits non-zero; without a CUDA card, or outside a
+checkout of the repository, it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Tolerance of a kernel against its plain torch version on the same card.
+# Both round every product and sum on its own in the same order (the
+# kernels use __fmul_rn/__fadd_rn, which are never contracted into FMAs),
+# so 0 is expected; 1e-5 would still cover a few ulps of reordering on
+# unit-normal data, whose magnitude the Jacobi average only shrinks.
+KERNEL_ATOL = 1e-5
+# Main path: impls whose op order matches `xla` must agree bit for bit;
+# `resident` uses the symmetric cn*((N+S)+(W+E)) form of the reference,
+# which rounds differently: ulps per step, far below this over 64 steps.
+PATH_ATOL = 1e-5
+# `xla` against a float64 numpy oracle: float32 rounding over 64 steps.
+ORACLE_ATOL = 1e-5
+# The conv2d yardstick of deep_trapezoid against its plain version: the same
+# function, but one sum of (2k+1)^2 products in cuDNN's order instead of k
+# rounded steps; a wrong weight would be off by a tenth or more.
+LIBRARY_ATOL = 1e-3
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+STEPS = 64                  # multiple of every ladder depth (16, 32)
+SEED = 0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def randn(shape, gen) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if not bool(torch.isfinite(a).all()):
+        raise AssertionError("non-finite values")
+    return float((a.double() - b.double()).abs().max())
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time of one ``fn()``: CUDA events around ``n`` calls queued
+    behind a sleep kernel, so the host's launch cost is hidden and the
+    events bracket back-to-back device work only."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning: the host queues all n calls meanwhile
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase1_card() -> dict:
+    from tpuscratch_torch.ops.common import build_all, build_log, nvcc_path
+
+    log(f"card: {smi_line()}")
+    props = torch.cuda.get_device_properties(0)
+    log(f"device: {torch.cuda.get_device_name(0)}, {props.multi_processor_count} SMs, "
+        f"L2 {getattr(props, 'L2_cache_size', 'unknown')} B, count {torch.cuda.device_count()}")
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    log(f"nvcc: {nvcc}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    try:
+        import triton
+
+        log(f"triton: {triton.__version__}")
+    except ImportError as e:
+        log(f"triton: not importable ({e})")
+    t0 = time.perf_counter()
+    libs = build_all()
+    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(p.name for p in libs.values())})")
+    for line in build_log("stencil2d").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+    return {"nvcc": nvcc}
+
+
+def phase2_kernels(gen) -> tuple[dict, list]:
+    """Each kernel against its plain version; returns the per-kernel worst
+    error and the timing rows."""
+    from tpuscratch_torch.halo.layout import TileLayout
+    from tpuscratch_torch.halo.stencil import rebuild
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    errs = {w.__name__: 0.0 for w in sk.WRAPPERS}
+    rows = []
+
+    def check(name, got, want, what):
+        err = max_err(got, want)
+        log(f"  {name:26s} {what:34s} max_abs_err {err:.3e} (atol {KERNEL_ATOL:g})")
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"{name} {what}: {err} > {KERNEL_ATOL}")
+        errs[name] = max(errs[name], err)
+
+    odd = (0.3, 0.15, 0.2, 0.25, 0.1)
+    # five_point, both wrappers: ragged single tile, a stacked 2x4 batch,
+    # the 1024^2 headline tile and the 8192^2 world
+    for lead, (h, w), coeffs in [((), (37, 53), odd), ((2, 4), (19, 23), sk.JACOBI),
+                                 ((), (1024, 1024), sk.JACOBI), ((), (8192, 8192), sk.JACOBI)]:
+        lay = TileLayout(h, w, 1, 1)
+        tile = randn(lead + lay.padded_shape, gen)
+        want = rebuild(tile, sk.five_point_plain(tile, lay, coeffs), lay)
+        for fn in (sk.five_point_pallas, sk.five_point_blocked):
+            check(fn.__name__, fn(tile, lay, coeffs), want, f"{lead}+{h}x{w}")
+        del tile, want
+    # deep_trapezoid: ragged + partial substeps, stacked batch, a pyramid
+    # deeper than one launch holds, the ladder's k=16/32 at 1024^2 and 8192^2
+    for lead, (h, w), k, sub, coeffs in [
+        ((), (37, 53), 4, 3, odd), ((2, 4), (19, 23), 3, 3, sk.JACOBI),
+        ((), (150, 130), 70, 70, sk.JACOBI),
+        ((), (1024, 1024), 16, 16, sk.JACOBI), ((), (1024, 1024), 32, 32, sk.JACOBI),
+        ((), (8192, 8192), 16, 16, sk.JACOBI), ((), (8192, 8192), 32, 32, sk.JACOBI),
+    ]:
+        lay = TileLayout(h, w, k, k)
+        tile = randn(lead + lay.padded_shape, gen)
+        got = sk.deep_trapezoid_pallas(tile, lay, sub, coeffs)
+        check("deep_trapezoid_pallas", got, sk.deep_trapezoid_plain(tile, lay, sub, coeffs),
+              f"{lead}+{h}x{w} k={k} sub={sub}")
+        del tile, got
+    # resident: ragged (symmetric and general coefficients), 1024^2, and the
+    # largest grid the L2 rule admits (2560^2: both buffers = 50 MiB)
+    for (h, w), coeffs in [((37, 53), sk.JACOBI), ((37, 53), odd), ((1024, 1024), sk.JACOBI),
+                           ((2560, 2560), sk.JACOBI)]:
+        core = randn((h, w), gen)
+        got = sk.resident_periodic_pallas(core, STEPS, coeffs)
+        check("resident_periodic_pallas", got, sk.resident_periodic_plain(core, STEPS, coeffs),
+              f"{h}x{w} steps={STEPS}{' sym' if coeffs == sk.JACOBI else ' general'}")
+    for shape in ((2560, 2561), (8192, 8192)):
+        try:
+            sk.resident_periodic_pallas(torch.empty(shape, device="cuda"), 1)
+        except ValueError:
+            log(f"  resident_periodic_pallas   {shape[0]}x{shape[1]} refused, as its L2 rule says")
+        else:
+            raise AssertionError(f"resident accepted {shape}, past its L2 rule")
+
+    # times beside bounds, at the main path's shapes and at 8192^2
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick convolutions in full f32
+    conv = torch.nn.functional.conv2d
+    weight = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25], [0.0, 0.25, 0.0]],
+                          device="cuda").reshape(1, 1, 3, 3)
+    # k valid Jacobi steps are one valid convolution with the k-fold
+    # self-convolution of the cross, a (2k+1)^2 weight (built in float64)
+    deep_weight = {1: weight.double()}
+    for k in range(2, 33):
+        deep_weight[k] = conv(deep_weight[k - 1], deep_weight[1], padding=2)
+    deep_weight = {k: deep_weight[k].float() for k in (16, 32)}
+    for n in (1024, 8192):
+        lay = TileLayout(n, n, 1, 1)
+        tile = randn(lay.padded_shape, gen)
+        b, by = bound((tile.numel() + n * n) * 4, 9 * n * n)
+        ms = device_ms(lambda: sk._five_point_core(tile, lay, sk.JACOBI, "time"))
+        plain = device_ms(lambda: sk.five_point_plain(tile, lay))
+        lib = device_ms(lambda: conv(tile[None, None], weight))
+        for name in ("five_point_pallas", "five_point_blocked"):
+            rows.append(dict(name=name, shape=f"{n + 2}^2 -> {n}^2", ms=ms, plain_ms=plain,
+                             library_ms=lib, bound_ms=b, bound_by=by))
+        del tile
+        for k in (16, 32):
+            lay = TileLayout(n, n, k, k)
+            tile = randn(lay.padded_shape, gen)
+            pyramid = sum((n + 2 * k - 2 * j) ** 2 for j in range(1, k + 1))
+            b, by = bound((tile.numel() + n * n) * 4, 9 * pyramid)
+            lib_call = lambda: conv(tile[None, None], deep_weight[k])[0, 0]  # noqa: E731
+            err = max_err(lib_call(), sk.deep_trapezoid_plain(tile, lay, k))
+            log(f"  library conv2d {2 * k + 1}^2 vs deep_trapezoid_plain {n}^2 k={k}: "
+                f"max_abs_err {err:.3e} (atol {LIBRARY_ATOL:g})")
+            if err > LIBRARY_ATOL:
+                raise AssertionError(f"conv2d yardstick k={k} {n}^2: {err} > {LIBRARY_ATOL}")
+            rows.append(dict(
+                name="deep_trapezoid_pallas", shape=f"{n + 2 * k}^2 -> {n}^2, k={k}",
+                ms=device_ms(lambda: sk.deep_trapezoid_pallas(tile, lay, k), n=10),
+                plain_ms=device_ms(lambda: sk.deep_trapezoid_plain(tile, lay, k), n=3),
+                library_ms=device_ms(lib_call, n=3), bound_ms=b, bound_by=by))
+            del tile
+    for n, steps in ((1024, 1000), (2560, 1000)):
+        core = randn((n, n), gen)
+        b, by = bound(2 * n * n * 4, 4 * n * n * steps)
+        rows.append(dict(
+            name="resident_periodic_pallas", shape=f"{n}^2, {steps} steps",
+            ms=device_ms(lambda: sk.resident_periodic_pallas(core, steps), n=3),
+            plain_ms=device_ms(lambda: sk.resident_periodic_plain(core, steps), n=1),
+            library_ms=None, bound_ms=b, bound_by=by))
+    for r in rows:
+        log(f"  time {r['name']:26s} {r['shape']:28s} {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)})")
+    return errs, rows
+
+
+LADDER = [("xla", 1), ("deep", 16), ("deep-pallas", 16), ("deep-pallas", 32),
+          ("resident", 1), ("pallas", 1), ("blocked", 1)]
+
+
+def _oracle(world: np.ndarray, steps: int) -> np.ndarray:
+    a = world.astype(np.float64)
+    for _ in range(steps):
+        a = 0.25 * (np.roll(a, 1, 0) + np.roll(a, -1, 0) + np.roll(a, 1, 1) + np.roll(a, -1, 1))
+    return a
+
+
+def phase3_main_path() -> dict:
+    from tpuscratch_torch.halo.driver import distributed_stencil
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    world = np.random.default_rng(SEED).standard_normal((1024, 1024)).astype(np.float32)
+    sk.reset_launches()
+    outs = {}
+    for impl, halo in LADDER:
+        label = f"{impl}:{halo}" if impl.startswith("deep") else impl
+        t0 = time.perf_counter()
+        outs[label] = distributed_stencil(world, STEPS, halo=(halo, halo), impl=impl)
+        log(f"  {label:16s} 1024^2 x{STEPS} on 1x1: {time.perf_counter() - t0:.3f} s wall")
+    counts = sk.launch_counts()
+    log(f"  launches on the main path: {counts}")
+    ref = outs["xla"]
+    err = float(np.abs(ref.astype(np.float64) - _oracle(world, STEPS)).max())
+    log(f"  xla vs float64 oracle: max_abs_err {err:.3e} (atol {ORACLE_ATOL:g})")
+    if not np.isfinite(ref).all() or err > ORACLE_ATOL:
+        raise AssertionError(f"xla impl disagrees with the oracle: {err}")
+    for label, out in outs.items():
+        err = float(np.abs(out.astype(np.float64) - ref).max())
+        exact = label != "resident"
+        log(f"  {label:16s} vs xla: max_abs_err {err:.3e} "
+            f"({'bit-equal expected' if exact else f'atol {PATH_ATOL:g}'})")
+        if out.shape != ref.shape or (err != 0.0 if exact else err > PATH_ATOL):
+            raise AssertionError(f"main path impl {label} disagrees with xla: {err}")
+    missing = [name for name, n in counts.items() if n < 1]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    return counts
+
+
+def phase4_headline() -> dict:
+    from tpuscratch_torch.bench.headline import GRID, IMPLS, headline_line, race, two_phase_stencil
+    from tpuscratch_torch.bench.stencil_bench import bench_stencil
+    from tpuscratch_torch.runtime.mesh import make_mesh_2d
+
+    mesh = make_mesh_2d((1, 1))
+    final, winner, screen = two_phase_stencil(IMPLS, GRID, mesh, iters=3)
+    line = headline_line(final)
+    log(f"  headline winner {winner}: {final.summary()}")
+    log(json.dumps(line))
+    rates = {"1024": {i: r.items_per_s for i, r in screen.items()}}
+    extra = race(("pallas", "blocked"), GRID, mesh, iters=3)
+    rates["1024"].update({i: r.items_per_s for i, r in extra.items()})
+    big = [i for i in IMPLS if not i.startswith("resident")] + ["pallas", "blocked"]
+    rates["8192"] = {i: r.items_per_s for i, r in race(big, (8192, 8192), mesh, iters=3).items()}
+    try:
+        bench_stencil((8192, 8192), 8, mesh=mesh, impl="resident:8", iters=1)
+    except ValueError as e:
+        rates["8192"]["resident:8"] = f"refused: {e}"
+    else:
+        raise AssertionError("resident accepted an 8192^2 grid")
+    log("rates " + json.dumps(rates))
+    return rates
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import tpuscratch_torch  # noqa: F401  (fails outside a checkout)
+
+    t0 = time.perf_counter()
+    log("== phase 1: card and toolchain")
+    phase1_card()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    log("== phase 2: kernels against their plain versions")
+    errs, rows = phase2_kernels(gen)
+    log("== phase 3: main path (distributed_stencil, 1x1, 1024^2)")
+    counts = phase3_main_path()
+    log("== phase 4: headline and rates")
+    phase4_headline()
+
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    replaces = {
+        "five_point_pallas": "tpuscratch/ops/stencil_kernel.py:65",
+        "five_point_blocked": "tpuscratch/ops/stencil_kernel.py:658",
+        "deep_trapezoid_pallas": "tpuscratch/ops/stencil_kernel.py:136",
+        "resident_periodic_pallas": "tpuscratch/ops/stencil_kernel.py:236",
+    }
+    main_shape = {"five_point_pallas": "1026^2", "five_point_blocked": "1026^2",
+                  "deep_trapezoid_pallas": "k=16", "resident_periodic_pallas": "1024^2"}
+    kernels = []
+    for w in sk.WRAPPERS:
+        name = w.__name__
+        row = next(r for r in rows if r["name"] == name and main_shape[name] in r["shape"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tpuscratch_torch/csrc/stencil2d.cu",
+            "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
+        })
+    log(f"== done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

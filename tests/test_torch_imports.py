@@ -1,0 +1,91 @@
+"""tpuscratch_torch stands alone: no module of it (nor chip_smoke.py)
+imports JAX or anything of tpuscratch, importing builds no kernel, and
+the card-side script refuses to run without a card."""
+
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import tpuscratch_torch
+names = ["tpuscratch_torch"] + [m.name for m in pkgutil.walk_packages(
+    tpuscratch_torch.__path__, "tpuscratch_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+from tpuscratch_torch.ops import common
+print(json.dumps({
+    "modules": names,
+    "foreign": sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                      or m == "tpuscratch" or m.startswith("tpuscratch.")),
+    "libs": sorted(common._libs),
+}))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_no_jax_and_no_build_at_import():
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["foreign"] == []
+    assert got["libs"] == []
+    for mod in ("tpuscratch_torch.runtime.topology", "tpuscratch_torch.halo.exchange",
+                "tpuscratch_torch.ops.stencil_kernel", "tpuscratch_torch.bench.headline"):
+        assert mod in got["modules"]
+
+
+def test_chip_smoke_needs_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    # a directory holding chip_smoke.py and nothing else of the repo
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    from tpuscratch_torch.ops import common
+
+    if shutil.which("nvcc") or pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("nvcc is installed")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        common.nvcc_path()
+
+
+def test_sources_ship_as_package_data():
+    from tpuscratch_torch.ops import common
+
+    assert [p.name for p in common.CSRC.glob("*.cu")] == ["stencil2d.cu"]
+    assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
+    assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()

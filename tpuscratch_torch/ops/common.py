@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, loaded with
+``ctypes``. Nothing is built when a module is imported: the first kernel
+launch builds every source (one ``nvcc`` per source, all started
+together) into ``build/tpuscratch_torch/`` beside the package, and a
+library is rebuilt when its source's hash changes. A failed build raises
+with nvcc's stderr. There is no fallback: a wrapper given a CUDA tensor
+launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuscratch_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` from PATH, else from CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda/bin)")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256()
+    digest.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every stale source in parallel; return name -> library path.
+
+    Each nvcc writes a per-process temporary file that is renamed into
+    place, so a concurrent build never loads a half-written library. The
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside each library as ``<lib>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {src.stem: (src, _target(src)) for src in _sources()}
+    stale = {name: st for name, st in targets.items() if not st[1].exists()}
+    if stale:
+        nvcc = nvcc_path()
+        procs = {}
+        for name, (src, out) in stale.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            ), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{stderr}")
+                continue
+            Path(str(out) + ".log").write_text(stdout + stderr)
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return {name: out for name, (_, out) in targets.items()}
+
+
+def build_log(name: str) -> str:
+    """The compiler report of ``csrc/<name>.cu``'s current build."""
+    log = Path(str(_target(CSRC / f"{name}.cu")) + ".log")
+    return log.read_text() if log.exists() else ""
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check_cuda(t: torch.Tensor, name: str, ndim: int) -> None:
+    """What every kernel wrapper requires of a CUDA input tensor."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+    if t.ndim < ndim:
+        raise ValueError(f"{name}: need >= {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
