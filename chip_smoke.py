@@ -16,7 +16,21 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    the kernels' launch counts are zeroed just before and read just after;
 4. the headline race (``bench.py``'s JSON line, measured on this card) and
    every impl's cell-updates/s at 1024^2 and 8192^2;
-5. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+5. the dot-product and fill kernels against their plain versions: a
+   ragged 3000-vector, bf16 operands, an 8-rank stacked batch, 1e8 f32
+   with a loop-carried offset, ``fill`` at 1e8 f32 and at 37x53 in every
+   dtype, ``iota2d`` at 37x53 and 8192^2 (bit-equal); each kernel's time
+   beside its bound and its one-call library time;
+6. the dot path: BASELINE config 2 (``bench.record.config2_dot``) at 1e8
+   f32 on a 1-rank mesh -- call latency, the race of ``full`` /
+   ``partials`` / ``xla``, the winner re-measured for about a second --
+   with no method above 105% of 3.35 TB/s, and ``iota2d`` through its
+   entry point; the launch counts are zeroed just before and read just
+   after;
+7. pingpong: the echo check and config 3's sweep, 8 B - 128 MiB, on a
+   2-rank mesh stacked on the card, and pinned vs pageable host staging
+   at 1 MiB and 128 MiB;
+8. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card, or outside a
@@ -26,6 +40,7 @@ checkout of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -45,6 +60,13 @@ KERNEL_ATOL = 1e-5
 PATH_ATOL = 1e-5
 # `xla` against a float64 numpy oracle: float32 rounding over 64 steps.
 ORACLE_ATOL = 1e-5
+# A dot kernel against its plain version: both sum float32 products, in
+# other orders (the kernels with fmaf), so a few ulps of the running sums,
+# which are bounded by sum|(x+o)*y|; all-ones inputs are bit-equal (every
+# partial is an integer below 2^24). Relative to sum|(x+o)*y|:
+DOT_RTOL = 1e-5
+# config 2: no method may beat the card's memory rate by more than 5%
+DOT_MAX_GBPS = 1.05 * 3350.0
 # The conv2d yardstick of deep_trapezoid against its plain version: the same
 # function, but one sum of (2k+1)^2 products in cuDNN's order instead of k
 # rounded steps; a wrong weight would be off by a tenth or more.
@@ -124,9 +146,10 @@ def phase1_card() -> dict:
     libs = build_all()
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(p.name for p in libs.values())})")
-    for line in build_log("stencil2d").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in libs:
+        for line in build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}: {line.strip()}")
     return {"nvcc": nvcc}
 
 
@@ -310,6 +333,168 @@ def phase4_headline() -> dict:
     return rates
 
 
+def _dot_check(name, got, want, x, y, offset, errs, what):
+    """A dot kernel's result against its plain version, within DOT_RTOL of
+    sum|(x+o)*y| (per batch entry); the error is recorded relative to it."""
+    scale = ((x.double() + offset) * y.double()).abs().sum(-1)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} or non-finite")
+    err = float(((got.double() - want.double()).abs() / scale).max())
+    log(f"  {name:26s} {what:34s} rel_err {err:.3e} (of sum|(x+o)y|, rtol {DOT_RTOL:g})")
+    if err > DOT_RTOL:
+        raise AssertionError(f"{name} {what}: {err} > {DOT_RTOL}")
+    errs[name] = max(errs[name], float((got.double() - want.double()).abs().max()))
+
+
+def phase5_dot_fill_kernels(gen) -> tuple[dict, list]:
+    """The four kernels of rows 12-13 against their plain versions, and
+    their times; returns the worst absolute error per wrapper and the rows."""
+    import importlib
+
+    from tpuscratch_torch.ops import reduction as tr
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")  # ops.fill is the function
+    names = [w.__name__ for w in tr.WRAPPERS + tf.WRAPPERS]
+    errs = {n: 0.0 for n in names}
+    rows = []
+    kernel = {"full": (tr.dot_full_prepped, "dot_full_prepped"),
+              "partials": (tr.dot_partials_prepped, "dot_partials_prepped")}
+
+    def plain(method, x, y, chunk, off):
+        if method == "full":
+            return tr.dot_full_plain(x, y, off)
+        return tr.dot_partials_plain(x, y, chunk, off).sum(-1)
+
+    # ragged, bf16, 8 stacked ranks with per-rank offsets
+    cases = [((), 3000, 8, torch.float32, 0.5), ((), 1 << 20, 512, torch.bfloat16, 0.0),
+             ((8,), 2048, 2, torch.float32, "per-rank")]
+    for lead, n, block_rows, dtype, off in cases:
+        x, y = randn(lead + (n,), gen).to(dtype), randn(lead + (n,), gen).to(dtype)
+        o = torch.linspace(-1, 1, 8, device="cuda") if off == "per-rank" else off
+        x2, y2, _, block = tr.prep(x, y, block_rows)
+        for method, (fn, name) in kernel.items():
+            got = fn(x2, y2, block, offset=o)
+            want = plain(method, x, y, block * 128, o)
+            oo = o[..., None] if isinstance(o, torch.Tensor) else o
+            _dot_check(name, got, want, x.float(), y.float(), oo, errs,
+                       f"{lead}+{n} {str(dtype)[6:]} block {block}")
+            ones = torch.ones_like(x)
+            o2, p2, _, _ = tr.prep(ones, ones.clone(), block_rows)  # zero padding
+            if not torch.equal(fn(o2, p2, block), torch.full(lead, float(n), device="cuda")):
+                raise AssertionError(f"{name} {lead}+{n}: all-ones sum is not exactly {n}")
+    # 1e8 f32, the offset loop-carried on the device as dot_program carries it
+    n = 100_000_000
+    x, y = randn((n,), gen), randn((n,), gen)
+    x2, y2, _, block = tr.prep(x, y, 512)
+    for method, (fn, name) in kernel.items():
+        acc = torch.zeros((), device="cuda")
+        for _ in range(3):
+            o = acc * 1e-3  # large enough to change the result
+            got = fn(x2, y2, block, offset=o)
+            _dot_check(name, got, plain(method, x, y, block * 128, o), x, y, o, errs,
+                       f"1e8 f32 offset {float(o):.3g}")
+            acc = got
+    first = tr.dot_full_prepped(x2, y2, block)
+    if not all(torch.equal(tr.dot_full_prepped(x2, y2, block), first) for _ in range(3)):
+        raise AssertionError("dot_full_prepped is not bit-identical across runs")
+    log("  dot_full_prepped           1e8 f32: bit-identical over 4 runs")
+
+    def bit_check(name, got, want, what):
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: not bit-equal to its plain version")
+        log(f"  {name:26s} {what:34s} bit-equal")
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.int64):
+        value = 0.1 if dtype.is_floating_point else -7
+        bit_check("fill", tf.fill((37, 53), value, dtype), tf.fill_plain((37, 53), value, dtype, "cuda"),
+                  f"37x53 {str(dtype)[6:]}")
+        bit_check("iota2d", tf.iota2d((37, 53), dtype), tf.iota2d_plain((37, 53), dtype, "cuda"),
+                  f"37x53 {str(dtype)[6:]}")
+    bit_check("fill", tf.fill((n,), 1.0), tf.fill_plain((n,), 1.0, device="cuda"), "1e8 f32")
+    bit_check("iota2d", tf.iota2d((8192, 8192)), tf.iota2d_plain((8192, 8192), device="cuda"),
+              "8192^2 f32")
+
+    # times beside bounds: the main shapes (1e8, 8192^2) and a small one each
+    for n, block_rows in ((100_000_000, 512), (3000, 8)):
+        x, y = randn((n,), gen), randn((n,), gen)
+        x2, y2, _, block = tr.prep(x, y, block_rows)
+        o = torch.zeros((), device="cuda")
+        b, by = bound(2 * 4 * n + 4 + 4, 3 * n)
+        lib = device_ms(lambda: torch.dot(x, y))
+        for method, (fn, name) in kernel.items():
+            rows.append(dict(
+                name=name, shape=f"{n:.0e} f32" if n > 10**6 else f"{n} f32",
+                ms=device_ms(lambda: fn(x2, y2, block, offset=o)),
+                plain_ms=device_ms(lambda: plain(method, x, y, block * 128, o), n=5),
+                library_ms=lib, bound_ms=b, bound_by=by))
+        del x, y, x2, y2
+    for shape, label in (((100_000_000,), "1e8 f32"), ((37, 53), "37x53 f32")):
+        b, by = bound(4 * math.prod(shape), 0)
+        rows.append(dict(
+            name="fill", shape=label, ms=device_ms(lambda: tf.fill(shape, 1.0)),
+            plain_ms=device_ms(lambda: tf.fill_plain(shape, 1.0, device="cuda"), n=5),
+            library_ms=device_ms(lambda: torch.full(shape, 1.0, device="cuda")),
+            bound_ms=b, bound_by=by))
+    for (h, w) in ((8192, 8192), (37, 53)):
+        b, by = bound(4 * h * w, 2 * h * w)
+        rows.append(dict(
+            name="iota2d", shape=f"{h}x{w} f32", ms=device_ms(lambda: tf.iota2d((h, w))),
+            plain_ms=device_ms(lambda: tf.iota2d_plain((h, w), device="cuda"), n=5),
+            library_ms=device_ms(lambda: torch.arange(h * w, dtype=torch.float32,
+                                                      device="cuda").view(h, w)),
+            bound_ms=b, bound_by=by))
+    for r in rows:
+        log(f"  time {r['name']:26s} {r['shape']:28s} {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms)")
+    return errs, rows
+
+
+def phase6_dot_path() -> dict:
+    """BASELINE config 2 through the port's entry points, and iota2d through
+    its own; launch counts zeroed just before and read just after."""
+    import importlib
+
+    from tpuscratch_torch.bench.record import config2_dot
+    from tpuscratch_torch.ops import reduction as tr
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    out: list = []
+    tr.reset_launches()
+    tf.reset_launches()
+    res = config2_dot(out, iters=10)
+    pattern = tf.iota2d((8192, 8192))  # the InitKernel test pattern of the reference
+    counts = {**tr.launch_counts(), **tf.launch_counts()}
+    log(f"  launches on the dot path: {counts}")
+    want = torch.arange(8192 * 8192, device="cuda", dtype=torch.int64).view(8192, 8192)
+    # r * 8192 is exact in f32, so r * 8192 + c rounds once, as int64 -> f32 does
+    if not torch.equal(pattern, want.float()):
+        raise AssertionError("iota2d 8192^2 differs from the exact linear index")
+    for label, r in [("latency", res["latency"]), *res["screen"].items(), ("final", res["final"])]:
+        log(f"  {label:9s} {r.summary()}")
+        if r.gbps > DOT_MAX_GBPS:
+            raise AssertionError(f"config 2 {label}: {r.gbps:.0f} GB/s > {DOT_MAX_GBPS:.0f}")
+    log(f"  winner {res['winner']}; config 2 lines: {json.dumps(out)}")
+    missing = [name for name, k in counts.items() if k < 1]
+    if missing:
+        raise AssertionError(f"dot path never launched {missing}")
+    return counts
+
+
+def phase7_pingpong() -> dict:
+    from tpuscratch_torch.bench.pingpong import pinned_staging_roundtrip
+    from tpuscratch_torch.bench.record import config3_pingpong
+
+    out: list = []
+    line = config3_pingpong(out, iters=10)
+    if "echo PASSED" not in line["detail"]:
+        raise AssertionError("pingpong echo did not pass")
+    for n in (1 << 18, 1 << 25):  # 1 MiB and 128 MiB of f32
+        for pinned in (True, False):
+            log(f"  {pinned_staging_roundtrip(n, pinned=pinned).summary()}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -326,27 +511,40 @@ def main() -> int:
     counts = phase3_main_path()
     log("== phase 4: headline and rates")
     phase4_headline()
+    log("== phase 5: dot-product and fill kernels against their plain versions")
+    errs2, rows2 = phase5_dot_fill_kernels(gen)
+    log("== phase 6: dot path (config 2, 1-rank mesh, 1e8 f32) and iota2d")
+    counts2 = phase6_dot_path()
+    log("== phase 7: pingpong (config 3, 2 ranks stacked on the card) and host staging")
+    phase7_pingpong()
 
     from tpuscratch_torch.ops import stencil_kernel as sk
 
-    replaces = {
-        "five_point_pallas": "tpuscratch/ops/stencil_kernel.py:65",
-        "five_point_blocked": "tpuscratch/ops/stencil_kernel.py:658",
-        "deep_trapezoid_pallas": "tpuscratch/ops/stencil_kernel.py:136",
-        "resident_periodic_pallas": "tpuscratch/ops/stencil_kernel.py:236",
+    # name -> (source, TPU kernel it replaces, the main shape's row)
+    table = {
+        "five_point_pallas": ("stencil2d", "stencil_kernel.py:65", "1026^2"),
+        "five_point_blocked": ("stencil2d", "stencil_kernel.py:658", "1026^2"),
+        "deep_trapezoid_pallas": ("stencil2d", "stencil_kernel.py:136", "k=16"),
+        "resident_periodic_pallas": ("stencil2d", "stencil_kernel.py:236", "1024^2"),
+        "dot_partials_prepped": ("reduction", "reduction.py:132", "1e+08"),
+        "dot_full_prepped": ("reduction", "reduction.py:163", "1e+08"),
+        "fill": ("fill", "fill.py:27", "1e8"),
+        "iota2d": ("fill", "fill.py:46", "8192x8192"),
     }
-    main_shape = {"five_point_pallas": "1026^2", "five_point_blocked": "1026^2",
-                  "deep_trapezoid_pallas": "k=16", "resident_periodic_pallas": "1024^2"}
+    counts.update(counts2)
+    errs.update(errs2)
+    rows += rows2
     kernels = []
-    for w in sk.WRAPPERS:
-        name = w.__name__
-        row = next(r for r in rows if r["name"] == name and main_shape[name] in r["shape"])
+    for name, (src, tpu, main_shape) in table.items():
+        row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
         kernels.append({
-            "name": name, "route": "cuda", "source": "tpuscratch_torch/csrc/stencil2d.cu",
-            "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
+            "name": name, "route": "cuda", "source": f"tpuscratch_torch/csrc/{src}.cu",
+            "replaces": f"tpuscratch/ops/{tpu}", "launches": counts[name], "max_abs_err": errs[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
         })
+    if len(kernels) != len(sk.WRAPPERS) + 4:
+        raise AssertionError("the kernels line misses a wrapper")
     log(f"== done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels on the card, held to their plain torch
-versions on the same inputs. The kernels round every product and sum on
-its own in the plain versions' order, so the results must be equal bit
-for bit — also against the plain path run on the CPU.
+versions on the same inputs. The stencil kernels round every product and
+sum on its own in the plain versions' order, so the results must be equal
+bit for bit — also against the plain path run on the CPU. The dot kernels
+sum in another order than their plain versions (tolerance below); fill
+and iota2d are bit-equal.
 
 Imports no JAX, so it runs on a card host without it:
 
@@ -10,14 +12,24 @@ Imports no JAX, so it runs on a card host without it:
 Without a card every test skips (the kernels have no CPU mode).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+from tpuscratch_torch.bench.dot_bench import dot_program
+from tpuscratch_torch.bench.pingpong import pinned_staging_roundtrip, verify_echo
+from tpuscratch_torch.comm import P, run_spmd
 from tpuscratch_torch.halo.driver import distributed_stencil
 from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.halo.stencil import rebuild
+from tpuscratch_torch.ops import reduction as tr
 from tpuscratch_torch.ops import stencil_kernel as tk
+from tpuscratch_torch.runtime.mesh import make_mesh_1d
+
+# ``ops`` exports the function fill, which shadows the module's name there
+tf = importlib.import_module("tpuscratch_torch.ops.fill")
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +110,127 @@ def test_refusals(card):
     wide = torch.zeros(lay.padded_shape[0], 2 * lay.padded_shape[1], device=card)
     with pytest.raises(ValueError, match="contiguous"):
         tk.five_point_pallas(wide[:, ::2], lay)
+
+
+# ---------------------------------------------------------------------------
+# csrc/reduction.cu and csrc/fill.cu
+#
+# Tolerance of a dot kernel against its plain version on unit-normal data:
+# 1e-5 * sum|(x+o)*y| (the kernels sum in another order, with fmaf); on
+# ones, where every partial is an integer below 2**24, bit-equal. fill and
+# iota2d write the same bits as their plain versions.
+
+RTOL_SUM = 1e-5
+FILL_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.int64]
+
+
+def _dot_close(got, want, x, y, offset=0.0):
+    bound = RTOL_SUM * ((x.double() + offset) * y.double()).abs().sum(-1)
+    assert bool(((got.double() - want.double()).abs() <= bound).all()), (got, want)
+
+
+@pytest.mark.parametrize("dtype", FILL_DTYPES)
+@pytest.mark.parametrize("shape", [(37, 53), (8, 128), (3,), (1000, 1001)])
+def test_fill_kernel(card, dtype, shape):
+    value = 7 if not dtype.is_floating_point else 0.1
+    got = tf.fill(shape, value, dtype)
+    assert got.is_cuda and got.dtype == dtype and tuple(got.shape) == shape
+    assert torch.equal(got, tf.fill_plain(shape, value, dtype, card))
+    assert torch.equal(got.cpu(), tf.fill(shape, value, dtype, device="cpu"))
+
+
+@pytest.mark.parametrize("dtype", FILL_DTYPES)
+@pytest.mark.parametrize("shape", [(37, 53), (8, 128), (5, 257), (300, 70000)])
+def test_iota2d_kernel(card, dtype, shape):
+    # exact, with inf and NaN in the same places (w = 70000 overflows
+    # float16 to inf, and row 0 is 0 * inf)
+    got = tf.iota2d(shape, dtype)
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got, tf.iota2d_plain(shape, dtype, card), **exact)
+    torch.testing.assert_close(got.cpu(), tf.iota2d(shape, dtype, device="cpu"), **exact)
+
+
+@pytest.mark.parametrize("method", ["full", "partials"])
+@pytest.mark.parametrize("lead,n,block_rows,dtypes", [
+    ((), 3000, 8, (torch.float32, torch.float32)),
+    ((), 4099, 8, (torch.float32, torch.float32)),        # n % 8 != 0: element loads
+    ((8,), 2048, 2, (torch.float32, torch.float32)),      # 8 stacked ranks
+    ((), 8192, 8, (torch.bfloat16, torch.bfloat16)),
+    ((2, 3), 1000, 512, (torch.bfloat16, torch.float32)),
+    ((), 1 << 20, 512, (torch.float32, torch.float32)),
+])
+def test_dot_kernels(card, method, lead, n, block_rows, dtypes):
+    x = _rand(lead + (n,), 6, card).to(dtypes[0])
+    y = _rand(lead + (n,), 7, card).to(dtypes[1])
+    off = torch.full(lead, 0.25, device=card) if lead else 0.25
+    got = tr.dot(x, y, method, block_rows=block_rows, offset=off)
+    chunk = tr._chunk(n, block_rows)
+    if method == "full":
+        want = tr.dot_full_plain(x, y, off)
+    else:
+        want = tr.dot_partials_plain(x, y, chunk, off).sum(-1)
+    assert got.dtype == torch.float32 and got.shape == lead
+    _dot_close(got, want, x.float(), y.float(), 0.25)
+    _dot_close(got.cpu(), tr.dot(x.cpu(), y.cpu(), method, block_rows=block_rows,
+                                 offset=off.cpu() if lead else off), x.float().cpu(),
+               y.float().cpu(), 0.25)
+    ones = torch.ones(lead + (n,), device=card, dtype=dtypes[0])
+    assert torch.equal(tr.dot(ones, ones.clone().to(dtypes[1]), method, block_rows=block_rows),
+                       torch.full(lead, float(n), device=card))
+
+
+def test_dot_partials_kernel_per_chunk(card):
+    x, y = _rand((3, 5000), 8, card), _rand((3, 5000), 9, card)
+    got = tr._partials_launch(x, y, 1024, None, "probe")
+    want = tr.dot_partials_plain(x, y, 1024)
+    for c in range(got.shape[-1]):  # each chunk against its own bound
+        chunk = slice(c * 1024, (c + 1) * 1024)
+        _dot_close(got[:, c], want[:, c], x[:, chunk], y[:, chunk])
+
+
+def test_dot_full_is_deterministic(card):
+    x, y = _rand((1 << 22,), 10, card), _rand((1 << 22,), 11, card)
+    first = tr.dot(x, y, "full")
+    for _ in range(3):
+        assert torch.equal(tr.dot(x, y, "full"), first)
+
+
+@pytest.mark.parametrize("method", ["full", "partials", "xla"])
+def test_dot_program_card_equals_cpu(card, method):
+    x, y = _rand((8 * 3000,), 12, card), _rand((8 * 3000,), 13, card)
+    mesh = make_mesh_1d("x", 8)
+    got = dot_program(mesh, "x", method, block_rows=8, rounds=3)(x, y)
+    want = dot_program(make_mesh_1d("x", 8, device="cpu"), "x", method, block_rows=8,
+                       rounds=3)(x.cpu(), y.cpu())
+    _dot_close(got.cpu(), want, x.cpu(), y.cpu())
+    psum = run_spmd(mesh, lambda a, b: tr.local_dot_psum(a, b, "x", method), (P("x"), P("x")), P())
+    _dot_close(psum(x, y).cpu(), want, x.cpu(), y.cpu())
+
+
+def test_reduction_and_fill_count_launches(card):
+    tr.reset_launches()
+    tf.reset_launches()
+    x = tf.fill((4, 1000), 1.0)
+    tf.iota2d((3, 4))
+    tr.dot(x, x, "full")
+    tr.dot(x, x, "partials")
+    tr.dot(x, x, "xla")
+    x2, y2, _, block = tr.prep(x, x, 8)
+    tr.dot_prepped(x2, y2, block, "full")
+    assert tf.launch_counts() == {"fill": 1, "iota2d": 1}
+    assert tr.launch_counts() == {"dot_partials_prepped": 1, "dot_full_prepped": 2}
+
+
+def test_reduction_refusals(card):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tr.dot(torch.ones(8, device=card, dtype=torch.float64), torch.ones(8, device=card))
+    wide = torch.ones(8, 16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.dot(wide[:, ::2], wide[:, ::2])
+
+
+def test_pingpong_and_pinned_staging(card):
+    assert verify_echo(make_mesh_1d("x", 2), "x", 1 << 20)
+    for pinned in (True, False):
+        res = pinned_staging_roundtrip(1 << 16, pinned=pinned, iters=2)
+        assert res.bytes_moved == 2 * (1 << 18)

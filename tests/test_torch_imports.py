@@ -46,7 +46,10 @@ def test_no_jax_and_no_build_at_import():
     assert got["foreign"] == []
     assert got["libs"] == []
     for mod in ("tpuscratch_torch.runtime.topology", "tpuscratch_torch.halo.exchange",
-                "tpuscratch_torch.ops.stencil_kernel", "tpuscratch_torch.bench.headline"):
+                "tpuscratch_torch.ops.stencil_kernel", "tpuscratch_torch.bench.headline",
+                "tpuscratch_torch.comm.collectives", "tpuscratch_torch.ops.reduction",
+                "tpuscratch_torch.ops.fill", "tpuscratch_torch.bench.dot_bench",
+                "tpuscratch_torch.bench.pingpong"):
         assert mod in got["modules"]
 
 
@@ -86,6 +89,22 @@ def test_build_without_nvcc_raises(monkeypatch):
 def test_sources_ship_as_package_data():
     from tpuscratch_torch.ops import common
 
-    assert [p.name for p in common.CSRC.glob("*.cu")] == ["stencil2d.cu"]
+    assert sorted(p.name for p in common.CSRC.glob("*.cu")) == [
+        "fill.cu", "reduction.cu", "stencil2d.cu"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
     assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    import torch
+
+    from tpuscratch_torch.bench.dot_bench import bench_dot
+    from tpuscratch_torch.ops.fill import fill
+    from tpuscratch_torch.runtime.mesh import make_mesh_1d
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for call in (make_mesh_1d, lambda: fill((8, 128), 1.0), lambda: bench_dot(n_elems=64)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert make_mesh_1d(device="cpu").shape == (1,)

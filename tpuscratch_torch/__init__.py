@@ -9,7 +9,10 @@ toolchain. Entry points run on the card unless the caller passes
 ``device="cpu"``, which runs every kernel's plain torch version.
 
 Ported so far: the 2D halo-stencil path (``runtime``, ``dtypes``,
-``halo``, ``ops.stencil_kernel``, ``bench``).
+``halo``, ``ops.stencil_kernel``, ``bench``), and the distributed dot
+product with the comm layer under it (``comm``, ``runtime.context``,
+``runtime.memory``, ``ops.reduction``, ``ops.fill``, ``bench.dot_bench``,
+``bench.pingpong``, ``bench.record``).
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Timing harnesses and the stencil headline."""
+"""Timing harnesses: the stencil headline, the dot product, pingpong and the BASELINE configs."""

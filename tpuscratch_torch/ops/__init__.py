@@ -1,1 +1,9 @@
-"""Hand-written CUDA kernels for Hopper and their wrappers (built at first launch)."""
+"""Hand-written CUDA kernels for Hopper and their wrappers (built at first launch).
+
+The twin of ``tpuscratch.ops``: dot-product reductions (``reduction``),
+device-side fills (``fill``) and the 2D stencil kernels
+(``stencil_kernel``).
+"""
+
+from tpuscratch_torch.ops.fill import fill, iota2d  # noqa: F401
+from tpuscratch_torch.ops.reduction import dot, dot_full, dot_partials  # noqa: F401

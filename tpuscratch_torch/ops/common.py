@@ -106,10 +106,13 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_cuda(t: torch.Tensor, name: str, ndim: int) -> None:
-    """What every kernel wrapper requires of a CUDA input tensor."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+def check_cuda(t: torch.Tensor, name: str, ndim: int,
+               dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """What every kernel wrapper requires of a CUDA input tensor: one of
+    the ``dtypes`` its kernel takes, at least ``ndim`` dims, contiguous."""
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name}: the CUDA kernel takes {names}, got {t.dtype}")
     if t.ndim < ndim:
         raise ValueError(f"{name}: need >= {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -119,3 +122,53 @@ def check_cuda(t: torch.Tensor, name: str, ndim: int) -> None:
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
+
+def route(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def check_status(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise on a launcher's nonzero CUDA status (``lib`` exports
+    ``ts_error_string``, as every source does)."""
+    if err != 0:
+        lib.ts_error_string.argtypes = [ctypes.c_int]
+        lib.ts_error_string.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {err} ({lib.ts_error_string(err).decode()})")
+
+
+def counters(wrappers):
+    """``(reset_launches, launch_counts)`` over kernel wrappers, each of
+    which counts its kernel's launches in a ``launches`` attribute."""
+    for w in wrappers:
+        w.launches = 0
+
+    def reset_launches() -> None:
+        for w in wrappers:
+            w.launches = 0
+
+    def launch_counts() -> dict[str, int]:
+        return {w.__name__: w.launches for w in wrappers}
+
+    return reset_launches, launch_counts
+
+
+LANES = 128  # the TPU lane width: last dim of the JAX package's blocked operands
+
+
+def to_lanes(x: torch.Tensor) -> torch.Tensor:
+    """``(..., n)`` -> ``(..., rows, 128)``, zero-padding n to whole 8x128
+    tiles (the JAX package's ``to_lanes``, batched over leading dims). Zero
+    padding is neutral for sum-reductions; the CUDA kernels take the flat
+    vector and need no padding themselves."""
+    n = x.shape[-1]
+    quantum = LANES * 8
+    padded = (n + quantum - 1) // quantum * quantum
+    if padded != n:
+        x = torch.nn.functional.pad(x, (0, padded - n))
+    return x.reshape(*x.shape[:-1], -1, LANES)

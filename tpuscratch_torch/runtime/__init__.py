@@ -1,1 +1,1 @@
-"""Topology and the stacked-tile mesh."""
+"""Topology, the stacked mesh, and the runtime layer (context, errors, memory)."""

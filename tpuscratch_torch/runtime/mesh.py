@@ -1,4 +1,4 @@
-"""The stacked-tile mesh: every rank of a rows x cols grid on one device.
+"""The stacked mesh: every rank of a mesh of any rank on one device.
 
 The JAX package shards a ``(rows, cols, ph, pw)`` tile array over a device
 mesh and runs one SPMD program per device (``tpuscratch.runtime.mesh`` +
@@ -8,11 +8,14 @@ per-rank operation is a batched tensor operation over its leading
 ``CartTopology`` rank == flat tile index, exactly as in the JAX package.
 On one H100 the headline mesh is 1x1; larger meshes let the halo and
 driver code run the JAX package's multi-rank cases without a cluster.
+A 1D mesh (``make_mesh_1d``) stacks ``n`` ranks as ``n`` slices of one
+tensor, the layout of the comm layer and the dot product.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -42,15 +45,34 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class StackedMesh:
-    """A rows x cols grid of ranks whose tiles live stacked on ``device``."""
+    """A grid of ranks (any rank count per axis, any number of axes) whose
+    per-rank values live stacked on ``device``: a rank's value is the
+    slice at its mesh coordinates of the leading ``len(shape)`` dims."""
 
-    shape: tuple[int, int]
+    shape: tuple[int, ...]
     device: torch.device
-    axis_names: tuple[str, str] = ("row", "col")
+    axis_names: tuple[str, ...] = ("row", "col")
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axis_names) or min(self.shape, default=0) < 1:
+            raise ValueError(f"bad mesh shape {self.shape} for axes {self.axis_names}")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"repeated axis name in {self.axis_names}")
 
     @property
     def size(self) -> int:
-        return self.shape[0] * self.shape[1]
+        return math.prod(self.shape)
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], device=None) -> StackedMesh:
+    """A stacked mesh of any rank (the twin of ``make_mesh(shape, names)``)."""
+    return StackedMesh(tuple(int(s) for s in shape), resolve_device(device), tuple(axis_names))
+
+
+def make_mesh_1d(name: str = "x", n: Optional[int] = None, device=None) -> StackedMesh:
+    """A 1D stacked mesh of ``n`` ranks (default 1: the single-card run),
+    the MPI_COMM_WORLD analogue."""
+    return make_mesh((1 if n is None else n,), (name,), device)
 
 
 def make_mesh_2d(
