@@ -30,7 +30,19 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 7. pingpong: the echo check and config 3's sweep, 8 B - 128 MiB, on a
    2-rank mesh stacked on the card, and pinned vs pageable host staging
    at 1 MiB and 128 MiB;
-8. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+8. the streamed and DMA-halo kernels against their plain versions: a 2x3
+   stacked mesh of ragged 37x53 tiles, 5- and 9-point coefficients,
+   depths 1, 3 and 8 with step counts that leave a remainder, the
+   streamed kernel in wrap mode on 1x1 and in ghost mode on 2x2, periodic
+   and open, and the full shapes (8192^2 on 4x4, 1024^2 on 1x1); each
+   kernel's time beside its bound, its plain time and a convolution's;
+9. their path: ``distributed_stencil`` with ``stream:16``, ``dma``,
+   ``dma-deep:8`` and ``dma-hbm`` at 1024^2 on 1x1 and 8192^2 on a 4x4
+   mesh stacked on the card, each held against ``xla``; the launch counts
+   are zeroed just before and read just after;
+10. BASELINE configs 4 (8192^2 on 4x4) and 10 (the DMA halo at 1024^2)
+   through ``bench.record``;
+11. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card, or outside a
@@ -39,6 +51,7 @@ checkout of the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -76,6 +89,15 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 STEPS = 64                  # multiple of every ladder depth (16, 32)
 SEED = 0
+JACOBI = (0.25, 0.25, 0.25, 0.25, 0.0)
+C9 = (0.15, 0.15, 0.1, 0.1, 0.05, 0.05, 0.08, 0.07, 0.25)  # inexact 9-point products
+NINE = (0.125,) * 4 + (0.0625,) * 4 + (0.0,)               # exact 9-point products
+# The 5- and 9-point paths against `xla`, per the order of their terms:
+# dma, dma-deep and dma-hbm (5-point) sum in xla's order and must agree
+# bit for bit; stream sums its weight grid row by row and dma-hbm puts the
+# 9-point centre before the diagonals, so those are held to the JAX
+# tests' tolerance, |got - want| <= 1e-6 + 1e-5 |want|.
+PATH_RTOL, PATH_ATOL9 = 1e-5, 1e-6
 
 
 def log(msg: str) -> None:
@@ -495,6 +517,224 @@ def phase7_pingpong() -> dict:
     return line
 
 
+def _kfold(k: int, coeffs) -> torch.Tensor:
+    """The (2k+1)^2 weight of k valid 5/9-point steps (k-fold
+    self-convolution of the 3x3 stencil, in float64), for conv2d."""
+    from tpuscratch_torch.ops.halo_dma import as_nine
+
+    cn, cs, cw, ce, cnw, cne, csw, cse, cc = as_nine(coeffs)
+    w3 = torch.tensor([[cnw, cn, cne], [cw, cc, ce], [csw, cs, cse]],
+                      dtype=torch.float64, device="cuda").reshape(1, 1, 3, 3)
+    w = w3
+    for _ in range(k - 1):
+        w = torch.nn.functional.conv2d(w, w3.flip(-1, -2), padding=2)
+    return w.float()
+
+
+def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
+    """The four kernels of rows 8, 10a, 10b and 11 against their plain
+    versions; returns the worst error per wrapper and the timing rows."""
+    from tpuscratch_torch.ops import halo_dma as hd
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    odd = (0.3, 0.15, 0.2, 0.25, 0.1)
+    errs = {w.__name__: 0.0 for w in ss.WRAPPERS + hd.WRAPPERS}
+    rows = []
+
+    def check(name, got, want, what):
+        err = max_err(got, want)
+        log(f"  {name:26s} {what:40s} max_abs_err {err:.3e} (atol {KERNEL_ATOL:g})")
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"{name} {what}: {err} > {KERNEL_ATOL}")
+        errs[name] = max(errs[name], err)
+
+    def stream_inputs(lead, H, W, k, ghost, open_):
+        core = randn(lead + (H, W), gen)
+        top, bot = randn(lead + (k, W), gen), randn(lead + (k, W), gen)
+        gl = randn(lead + (H + 2 * k, k), gen) if ghost else None
+        gr = randn(lead + (H + 2 * k, k), gen) if ghost else None
+        flags = (torch.randint(0, 2, lead + (4,), generator=gen, device="cuda", dtype=torch.int32)
+                 if open_ else torch.zeros(lead + (4,), dtype=torch.int32, device="cuda"))
+        return core, top, bot, gl, gr, flags
+
+    # ragged: 37x53 tiles, wrap mode on 1x1, ghost mode on 2x2 and 2x3,
+    # periodic and open, 5 and 9 points, depths 1, 3, 8
+    for lead, ghost in (((1, 1), False), ((2, 2), True), ((2, 3), True)):
+        for open_ in (False, True):
+            for k in (1, 3, 8):
+                for coeffs in (odd, C9):
+                    core, top, bot, gl, gr, flags = stream_inputs(lead, 37, 53, k, ghost, open_)
+                    got = ss.nine_point_streamed_2d(core, top, bot, (37, 53), coeffs, k,
+                                                    open_flags=flags, gl=gl, gr=gr)
+                    want = ss.nine_point_streamed_2d_plain(core, top, bot, coeffs, k, flags, gl, gr)
+                    check("nine_point_streamed_2d", got, want,
+                          f"{lead}+37x53 k={k} {'ghost' if ghost else 'wrap'}"
+                          f"{' open' if open_ else ''} {len(coeffs)}pt")
+    cores = randn((2, 3, 37, 53), gen)
+    for steps, coeffs in ((7, odd), (8, JACOBI)):
+        check("dma_ring", hd.dma_ring(cores, steps, coeffs),
+              hd.dma_ring_plain(cores, steps, coeffs), f"(2, 3)+37x53 steps={steps}")
+    for depth, steps in ((1, 7), (3, 7), (8, 19)):
+        for coeffs in (odd, C9):
+            check("dma_deep", hd.dma_deep(cores, steps, coeffs, depth),
+                  hd.dma_deep_plain(cores, steps, coeffs, depth),
+                  f"(2, 3)+37x53 k={depth} steps={steps} {len(coeffs)}pt")
+    for coeffs in (odd, C9, NINE):
+        check("dma_hbm_step", hd.dma_hbm_step(cores, coeffs), hd.dma_hbm_step_plain(cores, coeffs),
+              f"(2, 3)+37x53 {len(coeffs)}pt")
+
+    # the full shapes: 8192^2 on a 4x4 mesh (2048^2 tiles), 1024^2 on 1x1;
+    # correctness, then times beside bounds (Jacobi, the main path's)
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick convolutions in full f32
+    conv = torch.nn.functional.conv2d
+    ring_steps, deep_k, stream_k = 64, 8, 16
+    for lead, n in (((4, 4), 2048), ((1, 1), 1024)):
+        label = f"{lead[0] * n}^2 on {lead[0]}x{lead[1]}"
+        cells = lead[0] * lead[1] * n * n
+        ghost = lead != (1, 1)
+        core, top, bot, gl, gr, flags = stream_inputs(lead, n, n, stream_k, ghost, False)
+        stream = lambda: ss.nine_point_streamed_2d(  # noqa: E731
+            core, top, bot, (n, n), JACOBI, stream_k, open_flags=flags, gl=gl, gr=gr)
+        stream_plain = lambda: ss.nine_point_streamed_2d_plain(  # noqa: E731
+            core, top, bot, JACOBI, stream_k, flags, gl, gr)
+        check("nine_point_streamed_2d", stream(), stream_plain(),
+              f"{label} k={stream_k} {'ghost' if ghost else 'wrap'}")
+        if ghost:
+            _, o_top, o_bot, o_gl, o_gr, o_flags = stream_inputs(lead, n, n, 3, True, True)
+            check("nine_point_streamed_2d",
+                  ss.nine_point_streamed_2d(core, o_top, o_bot, (n, n), C9, 3, open_flags=o_flags,
+                                            gl=o_gl, gr=o_gr),
+                  ss.nine_point_streamed_2d_plain(core, o_top, o_bot, C9, 3, o_flags, o_gl, o_gr),
+                  f"{label} k=3 ghost open 9pt")
+        ext = torch.cat([top, core, bot], dim=-2)  # the extended grid the kernel reads
+        ext = torch.cat([gl, ext, gr], dim=-1) if ghost else ext[
+            ..., torch.arange(-stream_k, n + stream_k, device="cuda") % n]
+        ext = ext.reshape(-1, 1, n + 2 * stream_k, n + 2 * stream_k).contiguous()
+        w_stream = _kfold(stream_k, JACOBI)
+        s_lib = lambda: conv(ext, w_stream)  # noqa: E731
+        err = max_err(s_lib().reshape(core.shape), stream_plain())
+        log(f"  library conv2d {2 * stream_k + 1}^2 vs stream plain {label}: max_abs_err "
+            f"{err:.3e} (atol {LIBRARY_ATOL:g})")
+        if err > LIBRARY_ATOL:
+            raise AssertionError(f"conv2d yardstick of the stream {label}: {err} > {LIBRARY_ATOL}")
+        slab = top.numel() + bot.numel() + (gl.numel() + gr.numel() if ghost else 0)
+        b, by = bound((2 * cells + slab) * 4, 7 * cells * stream_k)
+        rows.append(dict(name="nine_point_streamed_2d", shape=f"{label}, k={stream_k}",
+                         ms=device_ms(stream, n=5), plain_ms=device_ms(stream_plain, n=1),
+                         library_ms=device_ms(s_lib, n=2), bound_ms=b, bound_by=by))
+        del core, top, bot, gl, gr, ext
+
+        cores = randn(lead + (n, n), gen)
+        check("dma_ring", hd.dma_ring(cores, 16, JACOBI), hd.dma_ring_plain(cores, 16, JACOBI),
+              f"{label} steps=16")
+        check("dma_deep", hd.dma_deep(cores, 19, JACOBI, deep_k),
+              hd.dma_deep_plain(cores, 19, JACOBI, deep_k), f"{label} k={deep_k} steps=19")
+        check("dma_deep", hd.dma_deep(cores, 5, NINE, 3), hd.dma_deep_plain(cores, 5, NINE, 3),
+              f"{label} k=3 steps=5 9pt")
+        check("dma_hbm_step", hd.dma_hbm_step(cores, JACOBI), hd.dma_hbm_step_plain(cores, JACOBI),
+              f"{label} 5pt")
+        check("dma_hbm_step", hd.dma_hbm_step(cores, C9), hd.dma_hbm_step_plain(cores, C9),
+              f"{label} 9pt")
+        world = cores.permute(0, 2, 1, 3).reshape(lead[0] * n, lead[1] * n)
+        torus = {k: torch.nn.functional.pad(world[None, None], (k, k, k, k), mode="circular")
+                 for k in (1, deep_k)}
+        w_deep, w_one = _kfold(deep_k, JACOBI), _kfold(1, JACOBI)
+        d_lib = lambda: conv(torus[deep_k], w_deep)  # noqa: E731
+        h_lib = lambda: conv(torus[1], w_one)  # noqa: E731
+        for lib_call, want, what in (
+                (d_lib, hd.dma_deep_plain(cores, deep_k, JACOBI, deep_k), "deep"),
+                (h_lib, hd.dma_hbm_step_plain(cores, JACOBI), "hbm step")):
+            got = lib_call()[0, 0].reshape(lead[0], n, lead[1], n).permute(0, 2, 1, 3)
+            err = max_err(got, want)
+            log(f"  library conv2d vs {what} plain {label}: max_abs_err {err:.3e} "
+                f"(atol {LIBRARY_ATOL:g})")
+            if err > LIBRARY_ATOL:
+                raise AssertionError(f"conv2d yardstick of {what} {label}: {err} > {LIBRARY_ATOL}")
+        b, by = bound(2 * cells * 4, 9 * cells * ring_steps)
+        rows.append(dict(name="dma_ring", shape=f"{label}, {ring_steps} steps",
+                         ms=device_ms(lambda: hd.dma_ring(cores, ring_steps, JACOBI), n=3),
+                         plain_ms=device_ms(
+                             lambda: hd.dma_ring_plain(cores, ring_steps, JACOBI), n=1),
+                         library_ms=None, bound_ms=b, bound_by=by))
+        b, by = bound(2 * cells * 4, 7 * cells * deep_k)
+        rows.append(dict(name="dma_deep", shape=f"{label}, k={deep_k}",
+                         ms=device_ms(lambda: hd.dma_deep(cores, deep_k, JACOBI, deep_k), n=5),
+                         plain_ms=device_ms(
+                             lambda: hd.dma_deep_plain(cores, deep_k, JACOBI, deep_k), n=1),
+                         library_ms=device_ms(d_lib, n=2), bound_ms=b, bound_by=by))
+        b, by = bound(2 * cells * 4, 9 * cells)
+        rows.append(dict(name="dma_hbm_step", shape=f"{label}, 1 step",
+                         ms=device_ms(lambda: hd.dma_hbm_step(cores, JACOBI)),
+                         plain_ms=device_ms(lambda: hd.dma_hbm_step_plain(cores, JACOBI), n=3),
+                         library_ms=device_ms(h_lib, n=5), bound_ms=b, bound_by=by))
+        del cores, world, torus
+    for r in rows:
+        log(f"  time {r['name']:26s} {r['shape']:28s} {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)})")
+    return errs, rows
+
+
+NEW_IMPLS = ("stream:16", "dma", "dma-deep:8", "dma-hbm")
+
+
+def phase9_stream_dma_path() -> dict:
+    """``distributed_stencil`` with every new impl at 1024^2 on 1x1 and
+    8192^2 on 4x4, each held against ``xla``; launch counts zeroed just
+    before and read just after."""
+    from tpuscratch_torch.halo.driver import distributed_stencil
+    from tpuscratch_torch.ops import halo_dma as hd
+    from tpuscratch_torch.ops import stencil_stream as ss
+    from tpuscratch_torch.runtime.mesh import make_mesh_2d
+
+    rng = np.random.default_rng(SEED)
+    cases = [((1, 1), rng.standard_normal((1024, 1024)).astype(np.float32)),
+             ((4, 4), rng.standard_normal((8192, 8192)).astype(np.float32))]
+    ss.reset_launches()
+    hd.reset_launches()
+    outs = {}
+    for dims, world in cases:
+        mesh = make_mesh_2d(dims)
+        for impl in ("xla",) + NEW_IMPLS:
+            for coeffs in (JACOBI,) + ((NINE,) if dims == (1, 1) else ()):
+                t0 = time.perf_counter()
+                outs[dims, impl, len(coeffs)] = distributed_stencil(
+                    world, STEPS, mesh=mesh, impl=impl, coeffs=coeffs)
+                log(f"  {impl:12s} {world.shape[0]}^2 x{STEPS} on {dims[0]}x{dims[1]} "
+                    f"{len(coeffs)}pt: {time.perf_counter() - t0:.3f} s wall")
+    counts = {**ss.launch_counts(), **hd.launch_counts()}
+    log(f"  launches on the stream/dma path: {counts}")
+    for (dims, impl, npt), out in outs.items():
+        if impl == "xla":
+            continue
+        ref = outs[dims, "xla", npt]
+        exact = not impl.startswith("stream") and not (impl == "dma-hbm" and npt == 9)
+        err = float(np.abs(out.astype(np.float64) - ref).max())
+        worst = float((np.abs(out.astype(np.float64) - ref)
+                       - PATH_RTOL * np.abs(ref)).max())
+        log(f"  {impl:12s} {dims[0]}x{dims[1]} {npt}pt vs xla: max_abs_err {err:.3e} "
+            f"({'bit-equal expected' if exact else f'atol {PATH_ATOL9:g} + rtol {PATH_RTOL:g}'})")
+        if out.shape != ref.shape or not np.isfinite(out).all() or (
+                err != 0.0 if exact else worst > PATH_ATOL9):
+            raise AssertionError(f"{impl} {dims} {npt}pt disagrees with xla: {err}")
+    missing = [name for name, k in counts.items() if k < 1]
+    if missing:
+        raise AssertionError(f"the stream/dma path never launched {missing}")
+    return counts
+
+
+def phase10_configs() -> list:
+    from tpuscratch_torch.bench.record import config4_stencil_mesh, config10_dma_halo
+
+    out: list = []
+    res4 = config4_stencil_mesh(out, iters=3)
+    log(f"  config 4 winner {res4['winner']}: {res4['final'].summary()}")
+    rows10 = config10_dma_halo(out, iters=3)
+    for impl, r in rows10.items():
+        log(f"  config 10 {impl:12s} {r.summary()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -517,8 +757,19 @@ def main() -> int:
     counts2 = phase6_dot_path()
     log("== phase 7: pingpong (config 3, 2 ranks stacked on the card) and host staging")
     phase7_pingpong()
+    log("== phase 8: streamed and DMA-halo kernels against their plain versions")
+    errs3, rows3 = phase8_stream_dma_kernels(gen)
+    log("== phase 9: stream/dma path (distributed_stencil, 1024^2 on 1x1, 8192^2 on 4x4)")
+    counts3 = phase9_stream_dma_path()
+    log("== phase 10: configs 4 (8192^2 on 4x4) and 10 (DMA halo, 1024^2)")
+    phase10_configs()
 
+    from tpuscratch_torch.ops import halo_dma as hd
+    from tpuscratch_torch.ops import reduction as tr
     from tpuscratch_torch.ops import stencil_kernel as sk
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    fill_mod = importlib.import_module("tpuscratch_torch.ops.fill")
 
     # name -> (source, TPU kernel it replaces, the main shape's row)
     table = {
@@ -530,10 +781,16 @@ def main() -> int:
         "dot_full_prepped": ("reduction", "reduction.py:163", "1e+08"),
         "fill": ("fill", "fill.py:27", "1e8"),
         "iota2d": ("fill", "fill.py:46", "8192x8192"),
+        "nine_point_streamed_2d": ("stencil_stream2d", "stencil_stream.py:1067", "8192^2"),
+        "dma_ring": ("halo_dma", "halo_dma.py:1099", "8192^2"),
+        "dma_deep": ("halo_dma", "halo_dma.py:534", "8192^2"),
+        "dma_hbm_step": ("halo_dma", "halo_dma.py:951", "8192^2"),
     }
     counts.update(counts2)
+    counts.update(counts3)
     errs.update(errs2)
-    rows += rows2
+    errs.update(errs3)
+    rows += rows2 + rows3
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
@@ -543,7 +800,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
         })
-    if len(kernels) != len(sk.WRAPPERS) + 4:
+    wrappers = sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
+    if sorted(k["name"] for k in kernels) != sorted(w.__name__ for w in wrappers):
         raise AssertionError("the kernels line misses a wrapper")
     log(f"== done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on the card, held to their plain torch
-versions on the same inputs. The stencil kernels round every product and
-sum on its own in the plain versions' order, so the results must be equal
-bit for bit — also against the plain path run on the CPU. The dot kernels
+versions on the same inputs. The stencil kernels (``stencil2d.cu``,
+``stencil_stream2d.cu``, ``halo_dma.cu``) round every product and sum on
+its own in the plain versions' order, so the results must be equal bit
+for bit — also against the plain path run on the CPU. The dot kernels
 sum in another order than their plain versions (tolerance below); fill
 and iota2d are bit-equal.
 
@@ -22,11 +23,13 @@ from tpuscratch_torch.bench.dot_bench import dot_program
 from tpuscratch_torch.bench.pingpong import pinned_staging_roundtrip, verify_echo
 from tpuscratch_torch.comm import P, run_spmd
 from tpuscratch_torch.halo.driver import distributed_stencil
+from tpuscratch_torch.ops import halo_dma as th
+from tpuscratch_torch.ops import stencil_stream as ts
 from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.halo.stencil import rebuild
 from tpuscratch_torch.ops import reduction as tr
 from tpuscratch_torch.ops import stencil_kernel as tk
-from tpuscratch_torch.runtime.mesh import make_mesh_1d
+from tpuscratch_torch.runtime.mesh import make_mesh_1d, make_mesh_2d
 
 # ``ops`` exports the function fill, which shadows the module's name there
 tf = importlib.import_module("tpuscratch_torch.ops.fill")
@@ -78,12 +81,79 @@ def test_resident(card, coeffs, shape, steps):
 
 @pytest.mark.parametrize("impl,halo", [("xla", 1), ("pallas", 1), ("blocked", 1),
                                        ("overlap", 1), ("deep", 4), ("deep-pallas", 4),
-                                       ("resident", 1)])
+                                       ("resident", 1), ("stream:4", 1), ("dma", 1),
+                                       ("dma-deep:4", 1), ("dma-hbm", 1)])
 def test_card_path_equals_cpu_path(card, impl, halo):
     world = np.random.default_rng(4).standard_normal((64, 96)).astype(np.float32)
     on_card = distributed_stencil(world, 8, halo=(halo, halo), impl=impl)
     on_cpu = distributed_stencil(world, 8, halo=(halo, halo), impl=impl, device="cpu")
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+# the streamed and DMA-halo kernels: ragged stacked shapes, 5 and 9 points
+C9 = (0.15, 0.15, 0.1, 0.1, 0.05, 0.05, 0.08, 0.07, 0.25)
+
+
+@pytest.mark.parametrize("lead,hw,k,ghost,coeffs", [
+    ((), (37, 53), 3, False, GENERAL), ((2, 3), (37, 53), 3, True, C9),
+    ((2, 2), (64, 64), 8, True, tk.JACOBI), ((1, 1), (37, 53), 1, False, C9),
+    ((2, 2), (40, 9), 9, True, GENERAL),  # ghost slabs as wide as the core
+])
+def test_stream2d(card, lead, hw, k, ghost, coeffs):
+    H, W = hw
+    core, top, bot = (_rand(lead + s, 14 + i, card) for i, s in
+                      enumerate(((H, W), (k, W), (k, W))))
+    gl = _rand(lead + (H + 2 * k, k), 17, card) if ghost else None
+    gr = _rand(lead + (H + 2 * k, k), 18, card) if ghost else None
+    flags = torch.from_numpy(np.random.default_rng(19).integers(0, 2, lead + (4,))).int().to(card)
+    got = ts.nine_point_streamed_2d(core, top, bot, hw, coeffs, k, open_flags=flags, gl=gl, gr=gr)
+    assert torch.equal(got, ts.nine_point_streamed_2d_plain(core, top, bot, coeffs, k, flags,
+                                                            gl, gr))
+
+
+@pytest.mark.parametrize("coeffs", [tk.JACOBI, GENERAL])
+@pytest.mark.parametrize("dims", [(1, 1), (2, 3)])
+def test_dma_ring(card, coeffs, dims):
+    cores = _rand(dims + (37, 53), 20, card)
+    assert torch.equal(th.dma_ring(cores, 7, coeffs), th.dma_ring_plain(cores, 7, coeffs))
+
+
+@pytest.mark.parametrize("depth,steps,coeffs", [(1, 3, C9), (3, 7, C9), (8, 19, tk.JACOBI),
+                                                (3, 5, GENERAL)])
+def test_dma_deep(card, depth, steps, coeffs):
+    cores = _rand((2, 3, 37, 53), 21, card)
+    assert torch.equal(th.dma_deep(cores, steps, coeffs, depth),
+                       th.dma_deep_plain(cores, steps, coeffs, depth))
+
+
+@pytest.mark.parametrize("coeffs", [tk.JACOBI, GENERAL, C9])
+def test_dma_hbm_step(card, coeffs):
+    cores = _rand((2, 3, 37, 53), 22, card)
+    assert torch.equal(th.dma_hbm_step(cores, coeffs), th.dma_hbm_step_plain(cores, coeffs))
+
+
+@pytest.mark.parametrize("impl", ["stream:3", "dma", "dma-deep:3", "dma-hbm"])
+@pytest.mark.parametrize("coeffs", [tk.JACOBI, C9])
+def test_new_impls_card_equals_cpu_on_a_mesh(card, impl, coeffs):
+    world = np.random.default_rng(23).standard_normal((74, 106)).astype(np.float32)
+    periodic = (False, True) if impl.startswith("stream") else True
+    on_card = distributed_stencil(world, 7, mesh=make_mesh_2d((2, 2)), impl=impl,
+                                  coeffs=coeffs, periodic=periodic)
+    on_cpu = distributed_stencil(world, 7, mesh=make_mesh_2d((2, 2), device="cpu"), impl=impl,
+                                 coeffs=coeffs, periodic=periodic)
+    np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def test_new_kernels_count_launches(card):
+    ts.reset_launches()
+    th.reset_launches()
+    world = np.zeros((32, 32), np.float32)
+    distributed_stencil(world, 9, mesh=make_mesh_2d((2, 2)), impl="stream:4")  # 2 + 1 passes
+    distributed_stencil(world, 9, mesh=make_mesh_2d((2, 2)), impl="dma")
+    distributed_stencil(world, 9, mesh=make_mesh_2d((2, 2)), impl="dma-deep:4")
+    distributed_stencil(world, 2, mesh=make_mesh_2d((2, 2)), impl="dma-hbm")
+    assert ts.launch_counts() == {"nine_point_streamed_2d": 3}
+    assert th.launch_counts() == {"dma_ring": 1, "dma_deep": 3, "dma_hbm_step": 2}
 
 
 def test_explicit_cuda_device(card):

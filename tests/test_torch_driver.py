@@ -20,11 +20,14 @@ from tpuscratch_torch.bench.stencil_bench import bench_stencil
 from tpuscratch_torch.bench.timing import BenchResult, percentile, time_device
 from tpuscratch_torch.halo import driver as td
 from tpuscratch_torch.halo.layout import TileLayout
+from tpuscratch_torch.ops import halo_dma as th
 from tpuscratch_torch.ops import stencil_kernel as tk
+from tpuscratch_torch.ops import stencil_stream as ts
 from tpuscratch_torch.runtime.mesh import make_mesh_2d, resolve_device, topology_of
 from tpuscratch_torch.runtime.topology import CartTopology
 
-# (impl, halo) for every impl the port runs
+# (impl, halo) for every impl the port runs; stream and dma are held to
+# their JAX twins in test_torch_stream.py and test_torch_halo_dma.py
 IMPLS = [("xla", 1), ("pallas", 1), ("blocked", 1), ("overlap", 1),
          ("deep", 2), ("deep", 3), ("deep-pallas", 2), ("deep-pallas", 4)]
 
@@ -136,8 +139,15 @@ class TestDevice:
 class TestImplStrings:
     @pytest.mark.parametrize("impl", ["stream", "stream:4", "dma", "dma-deep:2", "dma-hbm"])
     def test_unported_impls_name_their_roadmap_item(self, impl):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            td.distributed_stencil(rand((8, 8), 49), 1, impl=impl, device="cpu")
+        # ROADMAP A9 ported these impls: each runs and matches its JAX twin
+        got, want = _run_both((1, 1), impl, 1, rand((32, 32), 49), 5)
+        np.testing.assert_array_equal(got, want)
+        assert not hasattr(td, "NOT_PORTED")
+
+    @pytest.mark.parametrize("impl", ["stream:0", "dma-deep:0", "dma-deep", "stream-x"])
+    def test_bad_depths_and_names(self, impl):
+        with pytest.raises(ValueError):
+            td.distributed_stencil(rand((16, 16), 49), 1, impl=impl, device="cpu")
 
     def test_unknown_impl(self):
         with pytest.raises(ValueError, match="unknown"):
@@ -147,6 +157,11 @@ class TestImplStrings:
         nine = (0.125,) * 4 + (0.0625,) * 4 + (0.0,)
         with pytest.raises(ValueError, match="9-point"):
             td.distributed_stencil(rand((8, 8), 51), 1, coeffs=nine, impl="pallas", device="cpu")
+        for impl in ("stream:2", "dma", "dma-deep:3", "dma-hbm"):  # as the JAX driver
+            got = td.distributed_stencil(rand((16, 16), 51), 3, coeffs=nine, impl=impl,
+                                         device="cpu")
+            xla = td.distributed_stencil(rand((16, 16), 51), 3, coeffs=nine, device="cpu")
+            np.testing.assert_allclose(got, xla, rtol=1e-5, atol=1e-6)
         out = td.distributed_stencil(rand((8, 8), 51), 1, coeffs=nine, device="cpu")
         want = jd.distributed_stencil(rand((8, 8), 51), 1, mesh=jax_mesh_2d((1, 1)), coeffs=nine)
         np.testing.assert_array_equal(out, want)
@@ -154,7 +169,8 @@ class TestImplStrings:
 
 class TestBench:
     @pytest.mark.parametrize("impl", ["xla", "deep:4", "deep-pallas:4", "resident:8",
-                                      "pallas", "blocked", "xla+unroll"])
+                                      "pallas", "blocked", "xla+unroll", "stream:4", "dma",
+                                      "dma-deep:8", "dma-hbm"])
     def test_bench_stencil_on_cpu(self, impl):
         r = bench_stencil((32, 32), 8, impl=impl, iters=2, device="cpu")
         assert isinstance(r, BenchResult) and len(r.times_s) == 2
@@ -178,8 +194,9 @@ class TestBench:
         json.dumps(line)
 
     def test_race_does_not_swallow_a_failing_impl(self):
-        with pytest.raises(NotImplementedError):
-            headline.race(("xla", "stream:4"), (16, 16), make_mesh_2d(device="cpu"),
+        # stream:32 needs a core at least 32 rows high
+        with pytest.raises(ValueError, match="depth"):
+            headline.race(("xla", "stream:32"), (16, 16), make_mesh_2d(device="cpu"),
                           iters=1, min_s=0.001)
 
     def test_headline_ladder_is_bench_py_s(self):
@@ -192,8 +209,12 @@ class TestBench:
         assert ast.literal_eval(ladder) == headline.IMPLS
 
     def test_kernels_launch_nothing_on_cpu(self):
-        tk.reset_launches()
+        mods = (tk, th, ts)
+        for m in mods:
+            m.reset_launches()
         td.distributed_stencil(rand((16, 16), 52), 4, halo=(2, 2), impl="deep-pallas",
                                device="cpu")
-        assert sum(tk.launch_counts().values()) == 0
+        for impl in ("stream:2", "dma", "dma-deep:2", "dma-hbm"):
+            td.distributed_stencil(rand((16, 16), 52), 4, impl=impl, device="cpu")
+        assert sum(sum(m.launch_counts().values()) for m in mods) == 0
         assert "tpuscratch_torch.ops.stencil_kernel" in sys.modules

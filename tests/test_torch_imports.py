@@ -49,7 +49,8 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.ops.stencil_kernel", "tpuscratch_torch.bench.headline",
                 "tpuscratch_torch.comm.collectives", "tpuscratch_torch.ops.reduction",
                 "tpuscratch_torch.ops.fill", "tpuscratch_torch.bench.dot_bench",
-                "tpuscratch_torch.bench.pingpong"):
+                "tpuscratch_torch.bench.pingpong", "tpuscratch_torch.ops.stencil_stream",
+                "tpuscratch_torch.ops.halo_dma", "tpuscratch_torch.bench.record"):
         assert mod in got["modules"]
 
 
@@ -90,7 +91,8 @@ def test_sources_ship_as_package_data():
     from tpuscratch_torch.ops import common
 
     assert sorted(p.name for p in common.CSRC.glob("*.cu")) == [
-        "fill.cu", "reduction.cu", "stencil2d.cu"]
+        "fill.cu", "halo_dma.cu", "reduction.cu", "stencil2d.cu", "stencil_stream2d.cu"]
+    assert [p.name for p in common.CSRC.glob("*.cuh")] == ["stencil_taps.cuh"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
     assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()
 

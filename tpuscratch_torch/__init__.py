@@ -12,7 +12,8 @@ Ported so far: the 2D halo-stencil path (``runtime``, ``dtypes``,
 ``halo``, ``ops.stencil_kernel``, ``bench``), and the distributed dot
 product with the comm layer under it (``comm``, ``runtime.context``,
 ``runtime.memory``, ``ops.reduction``, ``ops.fill``, ``bench.dot_bench``,
-``bench.pingpong``, ``bench.record``).
+``bench.pingpong``, ``bench.record``), and the streamed and DMA-halo 2D
+stencil (``ops.stencil_stream``, ``ops.halo_dma``).
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
-"""BASELINE configs 2 and 3 on the card: the dot product and pingpong.
+"""BASELINE configs 2, 3, 4 and 10 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3]`` prints one JSON
-line per metric, with the JAX package's metric names
-(``tpuscratch.bench.record.config2_dot`` / ``config3_pingpong``). Each
-line names the device it ran on. Unlike the JAX harness, nothing is
-caught: a failing method or re-measure fails the run.
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,10]`` prints one
+JSON line per metric, with the JAX package's metric names
+(``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
+2D stencil on a 4x4 mesh at 8192^2, 10 the DMA-halo stencil at 1024^2.
+Each line names the device it ran on. Unlike the JAX harness, nothing is
+caught: a failing method, impl or re-measure fails the run.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ import sys
 import torch
 
 from tpuscratch_torch.bench.dot_bench import bench_dot
+from tpuscratch_torch.bench.headline import race, two_phase_stencil
 from tpuscratch_torch.bench.pingpong import DEFAULT_SIZES, sweep, verify_echo
-from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh_1d
+from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh_1d, make_mesh_2d
 
 DOT_N = 100_000_000
 METHODS = ("full", "partials", "xla")
@@ -84,12 +86,60 @@ def config3_pingpong(out: list, iters: int = 10, sizes=DEFAULT_SIZES, device=Non
     )
 
 
-CONFIGS = {2: config2_dot, 3: config3_pingpong}
+#: Config 4's race (record.py:306-308 of the JAX package, its chip set).
+CONFIG4_IMPLS = ("xla", "overlap", "deep:4", "dma", "dma-hbm", "stream:16", "stream:32")
+#: Config 10's race.
+CONFIG10_IMPLS = ("overlap", "dma", "dma-deep:8", "resident:8")
+
+
+def _where(mesh: StackedMesh) -> str:
+    return "one card: on-card reads" if mesh.device.type == "cuda" else "the CPU"
+
+
+def config4_stencil_mesh(out: list, iters: int = 3, grid=(8192, 8192), impls=CONFIG4_IMPLS,
+                         screen_s: float = 0.1, final_s: float = 1.0, device=None) -> dict:
+    """The 2D stencil on a 4x4 mesh: every impl of the race sized to runs
+    of at least ``screen_s``, the winner re-measured for ``final_s``
+    (``bench.headline``'s sized race). All 16 ranks are stacked on one
+    device (a 2048^2 tile each at 8192^2), so a halo crosses no link and
+    the value is the whole card's rate: ``n_devices`` is 1 and nothing is
+    divided by 16. Returns ``{"final", "winner", "screen"}``."""
+    mesh = make_mesh_2d((4, 4), device=device)
+    final, winner, screen = two_phase_stencil(impls, grid, mesh, iters, screen_s, final_s)
+    _emit(out, mesh, config=4,
+          metric=f"stencil2d_{grid[0]}x{grid[1]}_4x4_cell_updates_per_s_per_chip",
+          value=final.items_per_s, p50_s=final.p50,
+          detail=f"{final.name}; 4x4 ranks stacked on {_where(mesh)}, no link",
+          n_devices=1, stacked=True,
+          screen={i: r.items_per_s for i, r in screen.items()})
+    return {"final": final, "winner": winner, "screen": screen}
+
+
+def config10_dma_halo(out: list, iters: int = 3, grid=(1024, 1024), impls=CONFIG10_IMPLS,
+                      min_s: float = 0.1, device=None) -> dict:
+    """The DMA-halo stencil on a 1x1 mesh against its rivals, each impl's
+    steps sized to runs of at least ``min_s``; the value is the fastest
+    ``dma*`` impl's cell-updates/s. Returns every impl's result."""
+    mesh = make_mesh_2d((1, 1), device=device)
+    rows = race(impls, grid, mesh, iters, min_s)
+    best = max((r for i, r in rows.items() if i.startswith("dma")),
+               key=lambda r: r.items_per_s, default=None)
+    if best is None:
+        raise ValueError(f"config 10 races no dma impl: {impls}")
+    cells = grid[0] * grid[1]
+    _emit(out, mesh, config=10, metric=f"dma_halo_{grid[0]}x{grid[1]}_cell_updates_per_s",
+          value=best.items_per_s, p50_s=best.p50,
+          us_per_step={i: r.p50 / (r.items // cells) * 1e6 for i, r in rows.items()},
+          detail=best.name, n_devices=1)
+    return rows
+
+
+CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh, 10: config10_dma_halo}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3", help="comma-separated config numbers")
+    ap.add_argument("--configs", default="2,3,4,10", help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []
     for c in (int(s) for s in args.configs.split(",")):

@@ -23,18 +23,11 @@ from tpuscratch_torch.halo.stencil import (
     run_stencil,
     run_stencil_deep,
     run_stencil_resident,
+    run_stencil_stream,
 )
+from tpuscratch_torch.ops.halo_dma import run_stencil_dma, run_stencil_dma_hbm
 from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh_2d, resolve_device, topology_of
 from tpuscratch_torch.runtime.topology import CartTopology
-
-#: Impls of the JAX package that this package does not run yet, and the
-#: ROADMAP item that ports each.
-NOT_PORTED = {
-    "stream": "A9 (run_stencil_stream; kernel B6)",
-    "dma": "A9 (run_stencil_dma; kernel B7)",
-    "dma-deep": "A9 (run_stencil_dma depth k; kernel B8)",
-    "dma-hbm": "A9 (run_stencil_dma_hbm; kernel B9)",
-}
 
 
 def decompose(world: np.ndarray, topo: CartTopology, layout: TileLayout) -> np.ndarray:
@@ -81,19 +74,16 @@ def tiles_from_numpy(np_tiles: np.ndarray, device=None) -> torch.Tensor:
     return host.to(resolve_device(device))
 
 
-PORTED = ("xla", "pallas", "blocked", "overlap", "deep", "deep-pallas", "resident")
+#: Impls that run one exchange and one update a step.
+PER_STEP = ("xla", "pallas", "blocked", "overlap")
 
 
-def _check_impl(impl: str) -> None:
-    if impl in PORTED:
-        return
-    base = impl.split(":", 1)[0]
-    if base in NOT_PORTED:
-        raise NotImplementedError(
-            f"impl {impl!r} is not ported to tpuscratch_torch yet "
-            f"(ROADMAP {NOT_PORTED[base]})"
-        )
-    raise ValueError(f"unknown stencil impl {impl!r}")
+def _depth(impl: str, default: int) -> int:
+    """The ``:k`` depth of an impl string (``stream:16``, ``dma-deep:8``)."""
+    depth = int(impl.split(":", 1)[1]) if ":" in impl else default
+    if depth < 1:
+        raise ValueError(f"{impl.split(':')[0]} depth must be >= 1, got {impl!r}")
+    return depth
 
 
 def make_stencil_program(
@@ -105,27 +95,42 @@ def make_stencil_program(
     unroll: int | None = None,
 ):
     """The program: (rows, cols, ph, pw) tiles on ``mesh.device`` -> same,
-    after ``steps`` exchange+compute iterations. ``impl='deep'`` /
-    ``'deep-pallas'`` select the communication-avoiding trapezoid scheme
-    (depth = the layout halo width; torch ops / the shared-memory kernel);
-    ``impl='resident'`` the single-device one-launch kernel; ``xla``,
-    ``overlap``, ``pallas`` and ``blocked`` one exchange per step.
+    after ``steps`` exchange+compute iterations. ``impl``:
+
+    - ``xla``, ``overlap``, ``pallas``, ``blocked``: one exchange per step;
+    - ``deep`` / ``deep-pallas``: the communication-avoiding trapezoid
+      (depth = the layout halo width; torch ops / the shared-memory kernel);
+    - ``resident``: the single-device one-launch kernel;
+    - ``stream[:k]``: the streamed kernel, k substeps a launch (default 8);
+    - ``dma``: the DMA-halo ring kernel, all steps in one launch;
+      ``dma-deep:k``: its depth-k kernel, k substeps a launch;
+      ``dma-hbm``: one launch per step.
+
+    9-point coefficients run on ``xla``, the ``dma`` impls and ``stream``.
     ``unroll`` is accepted for the JAX package's signature."""
-    _check_impl(impl)
-    if len(coeffs) == 9 and impl != "xla":
+    if len(coeffs) == 9 and impl != "xla" and not impl.startswith(("dma", "stream")):
         raise ValueError(
-            f"9-point coeffs need impl='xla' (the dma and stream impls are "
-            f"not ported), got {impl!r}"
+            f"9-point coeffs need impl='xla', a dma impl, or 'stream:k', got {impl!r}"
         )
     if tuple(spec.topology.dims) != tuple(mesh.shape):
         raise ValueError(f"spec topology {spec.topology.dims} != mesh {mesh.shape}")
     if impl == "resident":
         run = lambda t: run_stencil_resident(t, spec, steps, coeffs, unroll=8 if unroll is None else unroll)  # noqa: E731
+    elif impl == "dma-hbm":
+        run = lambda t: run_stencil_dma_hbm(t, spec, steps, coeffs)  # noqa: E731
+    elif impl == "stream" or impl.startswith("stream:"):
+        sdepth = _depth(impl, 8)
+        run = lambda t: run_stencil_stream(t, spec, steps, coeffs, sdepth)  # noqa: E731
+    elif impl == "dma" or impl.startswith("dma-deep:"):
+        depth = _depth(impl, 1)
+        run = lambda t: run_stencil_dma(t, spec, steps, coeffs, depth)  # noqa: E731
     elif impl in ("deep", "deep-pallas"):
         sub = "pallas" if impl == "deep-pallas" else "xla"
         run = lambda t: run_stencil_deep(t, spec, steps, coeffs, impl=sub)  # noqa: E731
-    else:
+    elif impl in PER_STEP:
         run = lambda t: run_stencil(t, spec, steps, coeffs, impl, unroll or 1)  # noqa: E731
+    else:
+        raise ValueError(f"unknown stencil impl {impl!r}")
 
     def program(tiles: torch.Tensor) -> torch.Tensor:
         if tiles.device != mesh.device:

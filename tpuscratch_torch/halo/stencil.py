@@ -7,8 +7,9 @@ torch operations, where the JAX package folds the steps into one
 ``lax.scan``. ``impl`` picks the compute path: ``xla``, ``deep`` and
 ``overlap`` are torch tensor operations; ``pallas``, ``blocked``,
 ``deep-pallas`` and ``resident`` launch the hand-written CUDA kernels of
-``ops.stencil_kernel`` on CUDA tensors (their plain torch versions on CPU
-tensors).
+``ops.stencil_kernel``, and ``run_stencil_stream`` the kernel of
+``ops.stencil_stream``, on CUDA tensors (their plain torch versions on
+CPU tensors).
 
 Every new core is written OUT OF PLACE: a kernel or update that writes the
 tile it is still reading with shifted reads races (see ``rebuild``).
@@ -20,6 +21,7 @@ import torch
 
 from tpuscratch_torch.halo.exchange import (
     HaloSpec,
+    _index,
     halo_arrivals,
     halo_exchange,
     halo_scatter,
@@ -210,6 +212,102 @@ def run_stencil_resident(tile: torch.Tensor, spec: HaloSpec, steps: int, coeffs=
     core = tile[0, 0, hy : hy + lay.core_h, hx : hx + lay.core_w].contiguous()
     new_core = resident_periodic_pallas(core, steps, tuple(coeffs), unroll)
     return halo_exchange(rebuild(tile, new_core[None, None], lay), spec)
+
+
+def _neighbor_block(block: torch.Tensor, spec: HaloSpec, off) -> torch.Tensor:
+    """Each rank's copy of ``block`` (stacked ``(rows, cols, ...)``) from
+    the rank at ``-off`` from it: the block a ``ppermute`` toward ``off``
+    delivers. Zeros where no rank sends (an open edge, MPI_PROC_NULL), the
+    block itself where every rank sends to itself."""
+    topo = spec.topology
+    pairs = topo.send_permutation(off)
+    if not pairs:
+        return torch.zeros_like(block)
+    if len(pairs) == topo.size and all(s == d for s, d in pairs):
+        return block
+    src = list(range(topo.size))
+    for s, d in pairs:
+        src[d] = s
+    flat = block.flatten(0, 1).index_select(0, _index(tuple(src), block.device))
+    missing = tuple(sorted(set(range(topo.size)) - {d for _, d in pairs}))
+    if missing:
+        flat[_index(missing, block.device)] = 0
+    return flat.view(block.shape)
+
+
+def _stream_flags(spec: HaloSpec, device) -> torch.Tensor | None:
+    """Per-rank int32 [top, bottom, left, right] open-end flags, stacked
+    ``(rows, cols, 4)``; None when the topology is fully periodic."""
+    if all(spec.topology.periodic):
+        return None
+    dims = spec.topology.dims
+    flags = _open_side_flags(spec, torch.int32, device)
+    return torch.stack([f[..., 0, 0].expand(dims) for f in flags], dim=-1).contiguous()
+
+
+def run_stencil_stream(
+    tile: torch.Tensor,
+    spec: HaloSpec,
+    steps: int,
+    coeffs=JACOBI,
+    depth: int = 8,
+    band: int | None = None,
+) -> torch.Tensor:
+    """``steps`` iterations through the streamed kernel
+    (``ops.stencil_stream.nine_point_streamed_2d``): ``depth`` substeps a
+    launch, one ``depth``-deep gather of ghosts per pass, the remainder of
+    ``steps`` as a shallower last pass. Any cartesian layout, 5- or
+    9-point coefficients, periodic or open ends:
+
+    - row ghosts travel as ``(depth, W)`` slabs, the row neighbours' far
+      rows (zeros past an open end);
+    - a periodic column axis of size 1 self-wraps in the kernel (wrap
+      mode); otherwise ``(H + 2*depth, depth)`` ghost-column slabs carry
+      the column neighbours' edge columns with the diagonal neighbours'
+      corner blocks at the ends (ghost mode);
+    - open ends are re-zeroed after every substep through per-rank flags.
+
+    The slabs are gathered from the stacked cores with torch indexing over
+    the rank dims. Takes and returns the stacked padded tiles (trailing
+    exchange), interchangeable with the other impls'.
+    """
+    from tpuscratch_torch.ops.stencil_stream import nine_point_streamed_2d
+
+    lay = spec.layout
+    topo = spec.topology
+    want = tuple(topo.dims) + lay.padded_shape
+    if tuple(tile.shape) != want:
+        raise ValueError(f"tiles {tuple(tile.shape)} != stacked padded {want}")
+    H, W = lay.core_h, lay.core_w
+    if not 1 <= depth <= H:
+        raise ValueError(f"stream depth {depth} must be in [1, core height {H}]")
+    hy, hx = lay.halo_y, lay.halo_x
+    core = tile[..., hy : hy + H, hx : hx + W]
+    wrap_x = topo.dims[1] == 1 and topo.periodic[1]
+    flags = _stream_flags(spec, tile.device)
+
+    def pass_fn(c, d):
+        gather = lambda block, off: _neighbor_block(block, spec, off)  # noqa: E731
+        a_top = gather(c[..., H - d :, :], (1, 0))
+        a_bot = gather(c[..., :d, :], (-1, 0))
+        gl = gr = None
+        if not wrap_x:
+            gl = torch.cat([gather(c[..., H - d :, W - d :], (1, 1)),
+                            gather(c[..., :, W - d :], (0, 1)),
+                            gather(c[..., :d, W - d :], (-1, 1))], dim=-2)
+            gr = torch.cat([gather(c[..., H - d :, :d], (1, -1)),
+                            gather(c[..., :, :d], (0, -1)),
+                            gather(c[..., :d, :d], (-1, -1))], dim=-2)
+        return nine_point_streamed_2d(c, a_top, a_bot, (H, W), tuple(coeffs), d, band,
+                                      open_flags=flags, gl=gl, gr=gr)
+
+    q, r = divmod(steps, depth)
+    out = core
+    for _ in range(q):
+        out = pass_fn(out, depth)
+    if r:
+        out = pass_fn(out, r)
+    return halo_exchange(rebuild(tile, out, lay), spec)
 
 
 def shrink_step(a: torch.Tensor, coeffs) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
 The twin of ``tpuscratch.ops``: dot-product reductions (``reduction``),
 device-side fills (``fill``) and the 2D stencil kernels
-(``stencil_kernel``).
+(``stencil_kernel``, ``stencil_stream``, ``halo_dma``).
 """
 
 from tpuscratch_torch.ops.fill import fill, iota2d  # noqa: F401

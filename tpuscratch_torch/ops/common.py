@@ -142,6 +142,41 @@ def check_status(lib: ctypes.CDLL, err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.ts_error_string(err).decode()})")
 
 
+def taps_args(taps) -> list:
+    """The launcher arguments ``(n, c[9], dy[9], dx[9])`` of the ``Taps``
+    (``csrc/stencil_taps.cuh``) for ``taps``, a sequence of ``(dy, dx,
+    coefficient)`` in the order the kernel sums them."""
+    n = len(taps)
+    if not 1 <= n <= 9:
+        raise ValueError(f"a 3x3 stencil has 1 to 9 taps, got {n}")
+    pad = [(0, 0, 0.0)] * (9 - n)
+    dy, dx, c = zip(*(list(taps) + pad))
+    return [n, (ctypes.c_float * 9)(*c), (ctypes.c_int * 9)(*dy), (ctypes.c_int * 9)(*dx)]
+
+
+def smem_optin(lib: ctypes.CDLL, name: str) -> int:
+    """The card's opt-in shared memory per block, in bytes, through
+    ``lib``'s ``ts_smem_optin``."""
+    lib.ts_smem_optin.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.ts_smem_optin.restype = ctypes.c_int
+    optin = ctypes.c_int(0)
+    check_status(lib, lib.ts_smem_optin(ctypes.byref(optin)), name)
+    return optin.value
+
+
+def trapezoid_tile(optin: int, depth: int, name: str) -> int:
+    """Output tile edge of a shared-memory trapezoid of ``depth`` substeps:
+    the largest of 64, 32, 16 or 8 whose two (tile + 2*depth)^2 f32
+    windows fit ``optin`` bytes. Raises when none does."""
+    for tile in (64, 32, 16, 8):
+        if 2 * (tile + 2 * depth) ** 2 * 4 <= optin:
+            return tile
+    raise ValueError(
+        f"{name}: depth {depth} is too deep for one block's shared memory "
+        f"({optin} B holds no (8 + 2*{depth})^2 window pair)"
+    )
+
+
 def counters(wrappers):
     """``(reset_launches, launch_counts)`` over kernel wrappers, each of
     which counts its kernel's launches in a ``launches`` attribute."""

@@ -27,7 +27,7 @@ import torch
 
 from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.halo.stencil import JACOBI, _new_values, rebuild, shrink_step
-from tpuscratch_torch.ops.common import check_cuda, library, stream_of
+from tpuscratch_torch.ops.common import check_cuda, library, smem_optin, stream_of
 
 Coeffs = tuple[float, float, float, float, float]
 
@@ -53,8 +53,6 @@ def _lib() -> ctypes.CDLL:
         fn.restype = _I
     lib.ts_error_string.argtypes = [_I]
     lib.ts_error_string.restype = ctypes.c_char_p
-    lib.ts_smem_optin.argtypes = [ctypes.POINTER(_I)]
-    lib.ts_smem_optin.restype = _I
     return lib
 
 
@@ -165,13 +163,12 @@ def deep_trapezoid_plain(tile: torch.Tensor, layout: TileLayout, substeps: int, 
 def _max_substeps(tile_edge: int) -> int:
     """Most substeps one ``deep_trapezoid`` launch can hold in the card's
     opt-in shared memory: 2 * (tile_edge + 2s)^2 floats."""
-    optin = _I(0)
-    _check(_lib().ts_smem_optin(ctypes.byref(optin)), "deep_trapezoid_pallas")
+    optin = smem_optin(_lib(), "deep_trapezoid_pallas")
     s = 0
-    while 2 * (tile_edge + 2 * (s + 1)) ** 2 * 4 <= optin.value:
+    while 2 * (tile_edge + 2 * (s + 1)) ** 2 * 4 <= optin:
         s += 1
     if s < 1:
-        raise RuntimeError(f"shared memory {optin.value} B holds no trapezoid")
+        raise RuntimeError(f"shared memory {optin} B holds no trapezoid")
     return s
 
 
