@@ -42,7 +42,23 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    are zeroed just before and read just after;
 10. BASELINE configs 4 (8192^2 on 4x4) and 10 (the DMA halo at 1024^2)
    through ``bench.record``;
-11. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+11. the four 3D kernels against their plain versions: a 2x1x2 stacked
+   batch of ragged 11x13x17 tiles, the one-step 7-point functions with
+   Jacobi and general coefficients (the assembled one with strips, without
+   them on y, on x, on both, and with its pointwise term), the streamed
+   kernel at depths 1, 2, 3 and 11 (chained launches) in z-slab mode and
+   with ``gy``, ``gx`` and all three strips, each open flag in turn, 27
+   points and the rhs term; then each kernel at 256x512x512, its time
+   beside its bound, its plain time and a ``conv3d``'s;
+12. their path: ``distributed_stencil3d`` at 256x512x512 on 1x1x1 and at
+   512^3 on a 2x2x2 mesh stacked on the card, 64 steps, every impl held to
+   ``compact``, ``compact`` on one rank to a float64 numpy oracle and
+   ``compact`` on 2x2x2 to ``compact`` on one rank, plus an open-boundary
+   and a 27-point case; the launch counts are zeroed just
+   before and read just after;
+13. BASELINE config 9 (the 3D stencil at 256x512x512) through
+   ``bench.record``;
+14. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card, or outside a
@@ -51,6 +67,7 @@ checkout of the repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import importlib
 import json
 import math
@@ -113,7 +130,7 @@ def smi_line() -> str:
 
 
 def randn(shape, gen) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -310,7 +327,7 @@ def phase3_main_path() -> dict:
         t0 = time.perf_counter()
         outs[label] = distributed_stencil(world, STEPS, halo=(halo, halo), impl=impl)
         log(f"  {label:16s} 1024^2 x{STEPS} on 1x1: {time.perf_counter() - t0:.3f} s wall")
-    counts = sk.launch_counts()
+    counts = {n: c for n, c in sk.launch_counts().items() if not n.startswith("seven_point")}
     log(f"  launches on the main path: {counts}")
     ref = outs["xla"]
     err = float(np.abs(ref.astype(np.float64) - _oracle(world, STEPS)).max())
@@ -702,7 +719,8 @@ def phase9_stream_dma_path() -> dict:
                     world, STEPS, mesh=mesh, impl=impl, coeffs=coeffs)
                 log(f"  {impl:12s} {world.shape[0]}^2 x{STEPS} on {dims[0]}x{dims[1]} "
                     f"{len(coeffs)}pt: {time.perf_counter() - t0:.3f} s wall")
-    counts = {**ss.launch_counts(), **hd.launch_counts()}
+    counts = {n: c for n, c in {**ss.launch_counts(), **hd.launch_counts()}.items()
+              if not n.startswith("seven_point")}  # the 3D kernels are phase 12's
     log(f"  launches on the stream/dma path: {counts}")
     for (dims, impl, npt), out in outs.items():
         if impl == "xla":
@@ -735,6 +753,342 @@ def phase10_configs() -> list:
     return out
 
 
+JACOBI7 = (1 / 6,) * 6 + (0.0,)
+ODD7 = (0.11, 0.13, 0.17, 0.19, 0.07, 0.05, 0.2)            # inexact products, a centre
+C27 = tuple(np.linspace(0.01, 0.26, 26) / 4) + (0.05,)      # 27 points, weights sum to 0.93
+SHAPE3D = (256, 512, 512)                                    # config 9's tile
+STREAM3D_K = 4
+WORLD222_TILE = (256, 256, 256)                              # a rank's tile of the 2x2x2 world
+DEVICE = "cuda"
+
+
+def _kfold3d(k: int, coeffs7) -> torch.Tensor:
+    """The (2k+1)^3 weight of k valid 7-point steps (k-fold
+    self-convolution of the 3x3x3 stencil, in float64), for conv3d."""
+    w3 = torch.zeros((3, 3, 3), dtype=torch.float64, device=DEVICE)
+    for (dz, dy, dx), c in zip(((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1),
+                                (0, 0, 1), (0, 0, 0)), coeffs7):
+        w3[1 + dz, 1 + dy, 1 + dx] = c
+    w3 = w3.reshape(1, 1, 3, 3, 3)
+    w = w3
+    for _ in range(k - 1):
+        w = torch.nn.functional.conv3d(w, w3.flip(-1, -2, -3), padding=2)
+    return w.float()
+
+
+def phase11_kernels3d(gen) -> tuple[dict, list]:
+    """The four kernels of rows 5-7 and 9 against their plain versions;
+    returns the worst error per wrapper and the timing rows."""
+    from tpuscratch_torch.ops import stencil_kernel as sk
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    names = ("seven_point_banded_pallas", "seven_point_strips_pallas",
+             "seven_point_assembled_pallas", "seven_point_streamed_pallas")
+    errs = {n: 0.0 for n in names}
+    rows = []
+
+    def check(name, got, want, what):
+        err = max_err(got, want)
+        log(f"  {name:28s} {what:44s} max_abs_err {err:.3e} (atol {KERNEL_ATOL:g})")
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"{name} {what}: {err} > {KERNEL_ATOL}")
+        errs[name] = max(errs[name], err)
+
+    def one_step_inputs(lead, shape):
+        cz, cy, cx = shape
+        core = randn(lead + shape, gen)
+        planes = [randn(lead + (1, cy, cx), gen) for _ in range(2)]
+        ys = [randn(lead + (cz, 1, cx), gen) for _ in range(2)]
+        xs = [randn(lead + (cz, cy, 1), gen) for _ in range(2)]
+        return core, planes, ys, xs
+
+    def one_step_checks(lead, shape, coeffs, label, none_cases):
+        core, (mz, pz), ys, xs = one_step_inputs(lead, shape)
+        padded = randn(lead + tuple(n + 2 for n in shape), gen)
+        check(names[0], sk.seven_point_banded_pallas(padded, shape, coeffs),
+              sk.seven_point_banded_plain(padded, coeffs), label)
+        del padded
+        zpad = torch.cat([mz, core, pz], dim=-3)
+        check(names[1], sk.seven_point_strips_pallas(zpad, *ys, *xs, shape, coeffs),
+              sk.seven_point_strips_plain(zpad, *ys, *xs, coeffs), label)
+        del zpad
+        nn = [None, None]
+        for what, y2, x2, f in none_cases:
+            y2, x2 = (ys if y2 else nn), (xs if x2 else nn)
+            fterm = randn(lead + shape, gen) if f else None
+            check(names[2],
+                  sk.seven_point_assembled_pallas(core, mz, pz, *y2, *x2, shape, coeffs,
+                                                  fterm=fterm, fc=0.3),
+                  sk.seven_point_assembled_plain(core, mz, pz, *y2, *x2, coeffs, fterm, 0.3),
+                  f"{label} {what}")
+
+    def stream_inputs(lead, shape, k, gy, gx, rhs=False, flags=None):
+        cz, cy, cx = shape
+        a = [randn(lead + shape, gen), randn(lead + (k, cy, cx), gen), randn(lead + (k, cy, cx), gen)]
+        kw = {}
+        if gy:
+            kw["gy"] = randn(lead + (cz + 2 * k, 2 * k, cx), gen)
+        if gx:
+            kw["gx"] = randn(lead + (cz + 2 * k, cy, 2 * k), gen)
+        if gy and gx:
+            kw["gc"] = randn(lead + (cz + 2 * k, 2 * k, 2 * k), gen)
+        if rhs:
+            kw["rhs"] = randn(lead + (cz + 2 * k, cy, cx), gen)
+        if flags is None:
+            f = torch.randint(0, 2, lead + (6,), generator=gen, device=DEVICE, dtype=torch.int32)
+        else:
+            f = torch.tensor(flags, device=DEVICE, dtype=torch.int32).expand(lead + (6,)).contiguous()
+        return a, kw, f
+
+    def stream_check(lead, shape, k, coeffs, gy, gx, label, rhs=False, flags=None):
+        a, kw, f = stream_inputs(lead, shape, k, gy, gx, rhs, flags)
+        rc = 0.37 if rhs else 0.0
+        before = ss.seven_point_streamed_pallas.launches
+        got = ss.seven_point_streamed_pallas(*a, shape, coeffs, k, open_flags=f, rhs_coeff=rc,
+                                             **kw)
+        launches = ss.seven_point_streamed_pallas.launches - before
+        want = ss.seven_point_streamed_plain(*a, coeffs, k, f, rhs_coeff=rc, **kw)
+        check(names[3], got, want, f"{label} k={k} ({launches} launch{'es' if launches > 1 else ''})")
+        return launches
+
+    # ragged: a 2x1x2 stacked batch of 11x13x17 tiles
+    lead, shape = (2, 1, 2), (11, 13, 17)
+    asm_cases = [("strips", True, True, False), ("no y strips", False, True, False),
+                 ("no x strips", True, False, False), ("no strips", False, False, False),
+                 ("fterm", True, True, True)]
+    for coeffs, cname in ((JACOBI7, "jacobi"), (ODD7, "general")):
+        one_step_checks(lead, shape, coeffs, f"{lead}+11x13x17 {cname}", asm_cases)
+    for mode, gy, gx in (("z-slab", False, False), ("gy", True, False), ("gx", False, True),
+                         ("gy+gx+gc", True, True)):
+        for k in (1, 2, 3, 11):
+            n = stream_check(lead, shape, k, ODD7, gy, gx, f"{lead}+11x13x17 {mode}")
+            if k == 11 and n < 2:
+                raise AssertionError("depth 11 was expected to need chained launches")
+    for i in range(6):
+        flags = [int(j == i) for j in range(6)]
+        stream_check(lead, shape, 2, ODD7, True, True, f"flag {i} of [z-,z+,y-,y+,x-,x+]",
+                     flags=flags)
+    for k in (1, 2, 11):
+        stream_check(lead, shape, k, C27, False, False, "27 points z-slab")
+    for k in (1, 3, 11):
+        stream_check(lead, shape, k, ODD7, False, False, "rhs z-slab", rhs=True)
+
+    # config 9's shape: correctness, then times beside bounds (Jacobi)
+    cz, cy, cx = SHAPE3D
+    cells = cz * cy * cx
+    label = "x".join(map(str, SHAPE3D))
+    one_step_checks((), SHAPE3D, JACOBI7, label, [("no strips", False, False, False),
+                                                  ("strips", True, True, False)])
+    k = STREAM3D_K
+    stream_check((), SHAPE3D, k, JACOBI7, False, False, f"{label} z-slab", flags=[0] * 6)
+    stream_check((1, 1, 1), SHAPE3D, 2, ODD7, True, True, f"{label} gy+gx+gc open")
+    stream_check((), SHAPE3D, 2, C27, False, False, f"{label} 27 points", flags=[1, 0, 0, 0, 0, 0])
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.allow_tf32 = False  # the yardstick convolutions in full f32
+    conv3 = torch.nn.functional.conv3d
+    core, (mz, pz), ys, xs = one_step_inputs((), SHAPE3D)
+    w1 = _kfold3d(1, JACOBI7)
+    padded = randn(tuple(n + 2 for n in SHAPE3D), gen)
+    lib = device_ms(lambda: conv3(padded[None, None], w1), n=3)
+    err = max_err(conv3(padded[None, None], w1)[0, 0], sk.seven_point_banded_plain(padded, JACOBI7))
+    log(f"  library conv3d 3^3 vs banded plain {label}: max_abs_err {err:.3e} (atol {LIBRARY_ATOL:g})")
+    if err > LIBRARY_ATOL:
+        raise AssertionError(f"conv3d yardstick of the one-step kernels: {err} > {LIBRARY_ATOL}")
+    b, by = bound((padded.numel() + cells) * 4, 11 * cells)
+    rows.append(dict(name=names[0], shape=f"{label} padded -> core", bound_ms=b, bound_by=by,
+                     ms=device_ms(lambda: sk.seven_point_banded_pallas(padded, SHAPE3D, JACOBI7), n=10),
+                     plain_ms=device_ms(lambda: sk.seven_point_banded_plain(padded, JACOBI7), n=3),
+                     library_ms=lib))
+    del padded
+    zpad = torch.cat([mz, core, pz], dim=-3)
+    strips = sum(t.numel() for t in ys + xs)
+    b, by = bound((zpad.numel() + strips + cells) * 4, 11 * cells)
+    rows.append(dict(name=names[1], shape=f"{label} zpad + 4 strips", bound_ms=b, bound_by=by,
+                     ms=device_ms(lambda: sk.seven_point_strips_pallas(zpad, *ys, *xs, SHAPE3D, JACOBI7), n=10),
+                     plain_ms=device_ms(lambda: sk.seven_point_strips_plain(zpad, *ys, *xs, JACOBI7), n=3),
+                     library_ms=lib))
+    del zpad
+    b, by = bound((2 * cells + mz.numel() + pz.numel()) * 4, 13 * cells)
+    none = [None] * 4
+    rows.append(dict(name=names[2], shape=f"{label} core + 2 planes (y, x self-wrap)",
+                     bound_ms=b, bound_by=by,
+                     ms=device_ms(lambda: sk.seven_point_assembled_pallas(core, mz, pz, *none, SHAPE3D, JACOBI7), n=10),
+                     plain_ms=device_ms(lambda: sk.seven_point_assembled_plain(core, mz, pz, *none, JACOBI7), n=3),
+                     library_ms=lib))
+    del ys, xs, mz, pz
+    # the streamed kernel: z-slab at k = 4 and k = 2; the library call is
+    # one (2k+1)^3 conv3d of the extended volume, checked and timed first
+    # at 32 planes, and at the full shape only if that stays near a second
+    for k in (STREAM3D_K, 2):
+        a, kw, f = stream_inputs((), SHAPE3D, k, False, False, flags=[0] * 6)
+        wk = _kfold3d(k, JACOBI7)
+
+        def lib_call(planes):
+            ext = ss.extended_volume(a[0][:planes], a[1], a[2], k)
+            return conv3(ext[None, None], wk)[0, 0]
+
+        small = 32
+        want = ss.seven_point_streamed_plain(a[0][:small], a[1], a[2], JACOBI7, k, f)
+        err = max_err(lib_call(small), want)
+        log(f"  library conv3d {2 * k + 1}^3 vs stream plain {small}x{cy}x{cx} k={k}: "
+            f"max_abs_err {err:.3e} (atol {LIBRARY_ATOL:g})")
+        if err > LIBRARY_ATOL:
+            raise AssertionError(f"conv3d yardstick of the stream k={k}: {err} > {LIBRARY_ATOL}")
+        lib_small = device_ms(lambda: lib_call(small), n=1)
+        if lib_small * cz / small < 1500:
+            lib_ms, lib_shape = device_ms(lambda: lib_call(cz), n=1), label
+        else:
+            lib_ms, lib_shape = lib_small, f"{small}x{cy}x{cx}"
+        b, by = bound((2 * cells + a[1].numel() + a[2].numel()) * 4, 13 * cells * k)
+        rows.append(dict(name=names[3], shape=f"{label} z-slab, k={k}", bound_ms=b, bound_by=by,
+                         ms=device_ms(lambda: ss.seven_point_streamed_pallas(
+                             *a, SHAPE3D, JACOBI7, k, open_flags=f), n=5),
+                         plain_ms=device_ms(lambda: ss.seven_point_streamed_plain(
+                             *a, JACOBI7, k, f), n=1),
+                         library_ms=lib_ms, library_shape=lib_shape))
+        del a
+        torch.cuda.empty_cache()
+    for r in rows:
+        at = f" at {r['library_shape']}" if "library_shape" in r else ""
+        log(f"  time {r['name']:28s} {r['shape']:44s} {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+            f"library conv3d {r['library_ms']:.4f} ms{at})")
+    return errs, rows
+
+
+def _oracle3d(world: np.ndarray, steps: int, workers: int = 8) -> np.ndarray:
+    """``steps`` periodic 7-point Jacobi steps in float64 numpy: the six
+    rolls of the whole grid as shifted in-place adds, ``workers`` z slabs
+    at a time (numpy releases the GIL)."""
+    a = world.astype(np.float64)
+    b = np.empty_like(a)
+    Z = a.shape[0]
+    cuts = np.linspace(0, Z, min(workers, Z) + 1).astype(int)
+
+    def slab(i):
+        z0, z1 = int(cuts[i]), int(cuts[i + 1])
+        out, mid = b[z0:z1], a[z0:z1]
+        out[1:] = a[z0:z1 - 1]          # the plane below, a[z - 1] ...
+        out[0] = a[z0 - 1]              # ... across the torus seam at z0 = 0
+        out[:-1] += a[z0 + 1:z1]        # the plane above, a[z + 1]
+        out[-1] += a[z1 % Z]
+        out[:, 1:] += mid[:, :-1]
+        out[:, 0] += mid[:, -1]
+        out[:, :-1] += mid[:, 1:]
+        out[:, -1] += mid[:, 0]
+        out[:, :, 1:] += mid[:, :, :-1]
+        out[:, :, 0] += mid[:, :, -1]
+        out[:, :, :-1] += mid[:, :, 1:]
+        out[:, :, -1] += mid[:, :, 0]
+        out /= 6.0
+
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        for _ in range(steps):
+            list(pool.map(slab, range(len(cuts) - 1)))
+            a, b = b, a
+    return a
+
+
+IMPLS3D = ("compact", "compact-pallas", "compact-strips", "compact-asm", "padded",
+           "stream:4", "stream:3")
+
+
+def _worlds3d():
+    rng = np.random.default_rng(SEED)
+    return {(1, 1, 1): rng.standard_normal(SHAPE3D).astype(np.float32),
+            (2, 2, 2): rng.standard_normal(tuple(2 * n for n in WORLD222_TILE)).astype(np.float32)}
+
+
+def phase12_path3d(worlds, oracle) -> dict:
+    """``distributed_stencil3d`` with every impl at 256x512x512 on 1x1x1
+    and 512^3 on 2x2x2, each held to ``compact`` and ``compact`` to the
+    float64 oracle (a future); an open-boundary and a 27-point case;
+    launch counts zeroed just before and read just after."""
+    from tpuscratch_torch.halo.halo3d import distributed_stencil3d
+    from tpuscratch_torch.ops import stencil_kernel as sk
+    from tpuscratch_torch.ops import stencil_stream as ss
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    sk.reset_launches()
+    ss.reset_launches()
+
+    def run(dims, world, steps, impl, **kw):
+        t0 = time.perf_counter()
+        out = distributed_stencil3d(world, steps, make_mesh(dims, ("z", "row", "col"), DEVICE),
+                                    impl=impl, **kw)
+        extra = "".join(f" {k}={'27pt' if k == 'coeffs' else v}" for k, v in kw.items())
+        log(f"  {impl:15s} {'x'.join(map(str, world.shape))} x{steps} on "
+            f"{'x'.join(map(str, dims))}{extra}: {time.perf_counter() - t0:.3f} s wall")
+        return out
+
+    def hold(label, out, ref, exact, against="compact"):
+        if out.shape == ref.shape and np.array_equal(out, ref):
+            err = worst = 0.0
+        else:
+            diff = np.abs(out.astype(np.float64) - ref)
+            err = float(diff.max())
+            worst = float((diff - PATH_RTOL * np.abs(ref)).max())
+        log(f"  {label:28s} vs {against}: max_abs_err {err:.3e} "
+            f"({'bit-equal expected' if exact else f'atol {PATH_ATOL9:g} + rtol {PATH_RTOL:g}'})")
+        if out.shape != ref.shape or not np.isfinite(out).all() or (
+                err != 0.0 if exact else worst > PATH_ATOL9):
+            raise AssertionError(f"3D path {label} disagrees with {against}: {err}")
+
+    # the 2x2x2 world first: the float64 oracle of the 1x1x1 world is still
+    # running on the host. compact on 2x2x2 is held to compact of the same
+    # world on one rank (the same sums in the same order: bit-equal), and
+    # compact on one rank, at config 9's shape, to the oracle.
+    for dims in ((2, 2, 2), (1, 1, 1)):
+        world = worlds[dims]
+        outs = {impl: run(dims, world, STEPS, impl) for impl in IMPLS3D}
+        ref = outs["compact"]
+        if dims == (1, 1, 1):
+            err = float(np.abs(ref.astype(np.float64) - oracle.result()).max())
+            log(f"  compact {dims} vs float64 numpy oracle: max_abs_err {err:.3e} "
+                f"(atol {ORACLE_ATOL:g})")
+            if not np.isfinite(ref).all() or err > ORACLE_ATOL:
+                raise AssertionError(f"compact {dims} disagrees with the oracle: {err}")
+        else:
+            hold(f"compact {dims}", ref, run((1, 1, 1), world, STEPS, "compact"),
+                 exact=True, against="compact on one rank")
+        # Jacobi's centre term is 0 * c: wherever an impl adds it, the sum
+        # of the six face terms runs in FACES order, so every impl must
+        # agree with compact bit for bit
+        for impl, out in outs.items():
+            if impl != "compact":
+                hold(f"{impl} {dims}", out, ref, exact=True)
+        del outs
+    world = worlds[(1, 1, 1)]
+    open_x = (True, True, False)  # y self-wraps, x is open: a gx strip and its flags
+    ref = run((1, 1, 1), world, 8, "compact", periodic=open_x)
+    for impl in ("padded", "compact-asm", "stream:4", "stream:3"):
+        hold(f"{impl} open x", run((1, 1, 1), world, 8, impl, periodic=open_x), ref, exact=True)
+    # 27 points: the stream sums the weight cube in (dz, dy, dx) order,
+    # compact in OFFSETS26 order
+    ref = run((1, 1, 1), world, 4, "compact", coeffs=C27)
+    hold("padded 27pt", run((1, 1, 1), world, 4, "padded", coeffs=C27), ref, exact=True)
+    hold("stream:2 27pt", run((1, 1, 1), world, 4, "stream:2", coeffs=C27), ref, exact=False)
+    counts = {n: c for n, c in {**sk.launch_counts(), **ss.launch_counts()}.items()
+              if n.startswith("seven_point")}
+    log(f"  launches on the 3D path: {counts}")
+    missing = [name for name, k in counts.items() if k < 1]
+    if missing:
+        raise AssertionError(f"the 3D path never launched {missing}")
+    return counts
+
+
+def phase13_config9() -> list:
+    from tpuscratch_torch.bench.record import config9_stencil3d
+
+    out: list = []
+    res = config9_stencil3d(out, iters=3, tile=SHAPE3D, device=DEVICE)
+    log(f"  config 9 winner {res['winner']}: {res['final'].summary()}")
+    for impl, us in out[-1]["us_per_step"].items():
+        log(f"  config 9 {impl:15s} {us:10.1f} us a step")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -763,6 +1117,18 @@ def main() -> int:
     counts3 = phase9_stream_dma_path()
     log("== phase 10: configs 4 (8192^2 on 4x4) and 10 (DMA halo, 1024^2)")
     phase10_configs()
+    # the float64 oracle of phase 12 runs on the host while phase 11 runs
+    worlds = _worlds3d()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    oracle = pool.submit(_oracle3d, worlds[(1, 1, 1)], STEPS)
+    log("== phase 11: 3D kernels against their plain versions")
+    errs4, rows4 = phase11_kernels3d(gen)
+    log("== phase 12: 3D path (distributed_stencil3d, 256x512x512 on 1x1x1, 512^3 on 2x2x2)")
+    counts4 = phase12_path3d(worlds, oracle)
+    pool.shutdown()
+    del worlds, oracle
+    log("== phase 13: config 9 (3D 7-point stencil, 256x512x512)")
+    phase13_config9()
 
     from tpuscratch_torch.ops import halo_dma as hd
     from tpuscratch_torch.ops import reduction as tr
@@ -785,12 +1151,19 @@ def main() -> int:
         "dma_ring": ("halo_dma", "halo_dma.py:1099", "8192^2"),
         "dma_deep": ("halo_dma", "halo_dma.py:534", "8192^2"),
         "dma_hbm_step": ("halo_dma", "halo_dma.py:951", "8192^2"),
+        "seven_point_banded_pallas": ("stencil3d", "stencil_kernel.py:313", "256x512x512"),
+        "seven_point_strips_pallas": ("stencil3d", "stencil_kernel.py:377", "256x512x512"),
+        "seven_point_assembled_pallas": ("stencil3d", "stencil_kernel.py:538", "256x512x512"),
+        "seven_point_streamed_pallas": ("stencil_stream3d", "stencil_stream.py:566",
+                                        f"k={STREAM3D_K}"),
     }
     counts.update(counts2)
     counts.update(counts3)
+    counts.update(counts4)
     errs.update(errs2)
     errs.update(errs3)
-    rows += rows2 + rows3
+    errs.update(errs4)
+    rows += rows2 + rows3 + rows4
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
@@ -799,6 +1172,7 @@ def main() -> int:
             "replaces": f"tpuscratch/ops/{tpu}", "launches": counts[name], "max_abs_err": errs[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),
         })
     wrappers = sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
     if sorted(k["name"] for k in kernels) != sorted(w.__name__ for w in wrappers):

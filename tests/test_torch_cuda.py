@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card, held to their plain torch
 versions on the same inputs. The stencil kernels (``stencil2d.cu``,
-``stencil_stream2d.cu``, ``halo_dma.cu``) round every product and sum on
+``stencil3d.cu``, ``stencil_stream2d.cu``, ``stencil_stream3d.cu``,
+``halo_dma.cu``) round every product and sum on
 its own in the plain versions' order, so the results must be equal bit
 for bit — also against the plain path run on the CPU. The dot kernels
 sum in another order than their plain versions (tolerance below); fill
@@ -29,7 +30,8 @@ from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.halo.stencil import rebuild
 from tpuscratch_torch.ops import reduction as tr
 from tpuscratch_torch.ops import stencil_kernel as tk
-from tpuscratch_torch.runtime.mesh import make_mesh_1d, make_mesh_2d
+from tpuscratch_torch.halo.halo3d import distributed_stencil3d
+from tpuscratch_torch.runtime.mesh import make_mesh, make_mesh_1d, make_mesh_2d
 
 # ``ops`` exports the function fill, which shadows the module's name there
 tf = importlib.import_module("tpuscratch_torch.ops.fill")
@@ -152,7 +154,7 @@ def test_new_kernels_count_launches(card):
     distributed_stencil(world, 9, mesh=make_mesh_2d((2, 2)), impl="dma")
     distributed_stencil(world, 9, mesh=make_mesh_2d((2, 2)), impl="dma-deep:4")
     distributed_stencil(world, 2, mesh=make_mesh_2d((2, 2)), impl="dma-hbm")
-    assert ts.launch_counts() == {"nine_point_streamed_2d": 3}
+    assert ts.launch_counts() == {"nine_point_streamed_2d": 3, "seven_point_streamed_pallas": 0}
     assert th.launch_counts() == {"dma_ring": 1, "dma_deep": 3, "dma_hbm_step": 2}
 
 
@@ -170,7 +172,9 @@ def test_counts_launches(card):
     tk.deep_trapezoid_pallas(tile, lay, 2)
     tk.resident_periodic_pallas(torch.zeros(16, 16, device=card), 3)
     assert tk.launch_counts() == {"five_point_pallas": 1, "five_point_blocked": 0,
-                                  "deep_trapezoid_pallas": 1, "resident_periodic_pallas": 1}
+                                  "deep_trapezoid_pallas": 1, "resident_periodic_pallas": 1,
+                                  "seven_point_banded_pallas": 0, "seven_point_strips_pallas": 0,
+                                  "seven_point_assembled_pallas": 0}
 
 
 def test_refusals(card):
@@ -180,6 +184,115 @@ def test_refusals(card):
     wide = torch.zeros(lay.padded_shape[0], 2 * lay.padded_shape[1], device=card)
     with pytest.raises(ValueError, match="contiguous"):
         tk.five_point_pallas(wide[:, ::2], lay)
+
+
+# ---------------------------------------------------------------------------
+# csrc/stencil3d.cu and csrc/stencil_stream3d.cu
+
+JACOBI7 = (1 / 6,) * 6 + (0.0,)
+GENERAL7 = (0.11, 0.13, 0.17, 0.19, 0.07, 0.05, 0.2)
+C27 = tuple(np.linspace(0.01, 0.26, 26)) + (0.3,)
+AXES3 = ("z", "row", "col")
+
+
+def _arrivals3d(lead, shape, seed, card):
+    cz, cy, cx = shape
+    shapes = [shape, (1, cy, cx), (1, cy, cx), (cz, 1, cx), (cz, 1, cx), (cz, cy, 1), (cz, cy, 1)]
+    return [_rand(lead + s, seed + i, card) for i, s in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("lead,shape", [((), (11, 13, 17)), ((2, 1, 2), (11, 13, 17)),
+                                        ((), (40, 9, 130)), ((2,), (1, 1, 1))])
+@pytest.mark.parametrize("coeffs", [JACOBI7, GENERAL7])
+def test_seven_point_one_step(card, lead, shape, coeffs):
+    core, mz, pz, my, py, mx, px = _arrivals3d(lead, shape, 30, card)
+    padded = _rand(lead + tuple(n + 2 for n in shape), 37, card)
+    assert torch.equal(tk.seven_point_banded_pallas(padded, shape, coeffs),
+                       tk.seven_point_banded_plain(padded, coeffs))
+    zpad = torch.cat([mz, core, pz], dim=-3)
+    assert torch.equal(tk.seven_point_strips_pallas(zpad, my, py, mx, px, shape, coeffs),
+                       tk.seven_point_strips_plain(zpad, my, py, mx, px, coeffs))
+    f = _rand(lead + shape, 38, card)
+    for ys, xs, fterm in (((my, py), (mx, px), None), ((None, None), (mx, px), None),
+                          ((my, py), (None, None), None), ((None, None), (None, None), f)):
+        got = tk.seven_point_assembled_pallas(core, mz, pz, *ys, *xs, shape, coeffs,
+                                              fterm=fterm, fc=0.3)
+        assert torch.equal(got, tk.seven_point_assembled_plain(core, mz, pz, *ys, *xs, coeffs,
+                                                               fterm, 0.3))
+
+
+def _stream3d_inputs(lead, shape, k, ghost_y, ghost_x, card, rhs=False):
+    cz, cy, cx = shape
+    a = [_rand(lead + s, 40 + i, card) for i, s in enumerate((shape, (k, cy, cx), (k, cy, cx)))]
+    kw = {}
+    if ghost_y:
+        kw["gy"] = _rand(lead + (cz + 2 * k, 2 * k, cx), 43, card)
+    if ghost_x:
+        kw["gx"] = _rand(lead + (cz + 2 * k, cy, 2 * k), 44, card)
+    if ghost_y and ghost_x:
+        kw["gc"] = _rand(lead + (cz + 2 * k, 2 * k, 2 * k), 45, card)
+    if rhs:
+        kw["rhs"] = _rand(lead + (cz + 2 * k, cy, cx), 46, card)
+    flags = torch.from_numpy(np.random.default_rng(47).integers(0, 2, lead + (6,))).int().to(card)
+    return a, kw, flags
+
+
+@pytest.mark.parametrize("ghost_y,ghost_x", [(False, False), (True, False), (False, True),
+                                             (True, True)])
+@pytest.mark.parametrize("k", [1, 3, 4, 11])
+def test_stream3d(card, ghost_y, ghost_x, k):
+    # k = 11 is deeper than a block's shared memory seats: chained launches
+    lead, shape = (2, 1, 2), (11, 13, 17)
+    a, kw, flags = _stream3d_inputs(lead, shape, k, ghost_y, ghost_x, card)
+    got = ts.seven_point_streamed_pallas(*a, shape, GENERAL7, k, open_flags=flags, **kw)
+    want = ts.seven_point_streamed_plain(*a, GENERAL7, k, flags, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 2, 11])
+def test_stream3d_27_point_and_rhs(card, k):
+    lead, shape = (2,), (11, 13, 17)
+    a, kw, flags = _stream3d_inputs(lead, shape, k, False, False, card, rhs=True)
+    got = ts.seven_point_streamed_pallas(*a, shape, GENERAL7, k, open_flags=flags,
+                                         rhs_coeff=0.37, **kw)
+    assert torch.equal(got, ts.seven_point_streamed_plain(*a, GENERAL7, k, flags,
+                                                          rhs_coeff=0.37, **kw))
+    got = ts.seven_point_streamed_pallas(*a, shape, C27, k, open_flags=flags)
+    assert torch.equal(got, ts.seven_point_streamed_plain(*a, C27, k, flags))
+
+
+@pytest.mark.parametrize("impl", ["compact", "compact-pallas", "compact-strips", "compact-asm",
+                                  "padded", "stream:3"])
+@pytest.mark.parametrize("dims,periodic", [((1, 1, 1), True), ((2, 2, 2), True),
+                                           ((1, 2, 2), (False, True, False))])
+def test_3d_card_path_equals_cpu_path(card, impl, dims, periodic):
+    world = np.random.default_rng(48).standard_normal((12, 20, 36)).astype(np.float32)
+    on_card = distributed_stencil3d(world, 7, make_mesh(dims, AXES3), impl=impl,
+                                    periodic=periodic, coeffs=GENERAL7)
+    on_cpu = distributed_stencil3d(world, 7, make_mesh(dims, AXES3, "cpu"), impl=impl,
+                                   periodic=periodic, coeffs=GENERAL7)
+    np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def test_3d_kernels_count_launches(card):
+    tk.reset_launches()
+    ts.reset_launches()
+    world = np.zeros((12, 8, 8), np.float32)
+    for impl in ("compact-pallas", "compact-strips", "compact-asm"):
+        distributed_stencil3d(world, 3, make_mesh((2, 1, 1), AXES3), impl=impl)
+    distributed_stencil3d(world, 9, make_mesh((2, 1, 1), AXES3), impl="stream:4")  # 2 + 1 passes
+    counts = {**tk.launch_counts(), **ts.launch_counts()}
+    assert [counts[n] for n in ("seven_point_banded_pallas", "seven_point_strips_pallas",
+                                "seven_point_assembled_pallas",
+                                "seven_point_streamed_pallas")] == [3, 3, 3, 3]
+
+
+def test_3d_refusals(card):
+    z = torch.zeros((4, 6, 6), device=card, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        tk.seven_point_banded_pallas(z, (2, 4, 4), JACOBI7)
+    with pytest.raises(TypeError, match="float32"):
+        ts.seven_point_streamed_pallas(z, z[:1], z[:1], (4, 6, 6), JACOBI7, 1)
 
 
 # ---------------------------------------------------------------------------

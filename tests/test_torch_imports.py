@@ -50,7 +50,8 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.comm.collectives", "tpuscratch_torch.ops.reduction",
                 "tpuscratch_torch.ops.fill", "tpuscratch_torch.bench.dot_bench",
                 "tpuscratch_torch.bench.pingpong", "tpuscratch_torch.ops.stencil_stream",
-                "tpuscratch_torch.ops.halo_dma", "tpuscratch_torch.bench.record"):
+                "tpuscratch_torch.ops.halo_dma", "tpuscratch_torch.bench.record",
+                "tpuscratch_torch.halo.halo3d", "tpuscratch_torch.bench.stencil_bench"):
         assert mod in got["modules"]
 
 
@@ -91,7 +92,8 @@ def test_sources_ship_as_package_data():
     from tpuscratch_torch.ops import common
 
     assert sorted(p.name for p in common.CSRC.glob("*.cu")) == [
-        "fill.cu", "halo_dma.cu", "reduction.cu", "stencil2d.cu", "stencil_stream2d.cu"]
+        "fill.cu", "halo_dma.cu", "reduction.cu", "stencil2d.cu", "stencil3d.cu",
+        "stencil_stream2d.cu", "stencil_stream3d.cu"]
     assert [p.name for p in common.CSRC.glob("*.cuh")] == ["stencil_taps.cuh"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
     assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()

@@ -163,4 +163,6 @@ class TestWrapperRouting:
     def test_wrappers_cover_the_four_tpu_kernels(self):
         assert [w.__name__ for w in tk.WRAPPERS] == [
             "five_point_pallas", "five_point_blocked",
-            "deep_trapezoid_pallas", "resident_periodic_pallas"]
+            "deep_trapezoid_pallas", "resident_periodic_pallas",
+            "seven_point_banded_pallas", "seven_point_strips_pallas",
+            "seven_point_assembled_pallas"]  # the four 2D kernels, then the 3D ones

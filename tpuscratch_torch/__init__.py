@@ -12,8 +12,10 @@ Ported so far: the 2D halo-stencil path (``runtime``, ``dtypes``,
 ``halo``, ``ops.stencil_kernel``, ``bench``), and the distributed dot
 product with the comm layer under it (``comm``, ``runtime.context``,
 ``runtime.memory``, ``ops.reduction``, ``ops.fill``, ``bench.dot_bench``,
-``bench.pingpong``, ``bench.record``), and the streamed and DMA-halo 2D
-stencil (``ops.stencil_stream``, ``ops.halo_dma``).
+``bench.pingpong``, ``bench.record``), the streamed and DMA-halo 2D
+stencil (``ops.stencil_stream``, ``ops.halo_dma``), and the 3D halo and
+7/27-point stencil (``halo.halo3d``, with the 3D kernels of
+``ops.stencil_kernel`` and ``ops.stencil_stream``).
 """
 
 __version__ = "0.1.0"

@@ -35,40 +35,43 @@ PROBE_STEPS = 64
 QUANTUM = 32  # step counts stay multiples of every ladder depth
 
 
-def sized_steps(impl: str, grid, mesh: StackedMesh, min_s: float) -> int:
+def sized_steps(impl: str, grid, mesh: StackedMesh, min_s: float, bench=bench_stencil) -> int:
     """Steps for one timed run of at least ``min_s``: probe at
     ``PROBE_STEPS`` and rescale until a probe run lasts ``min_s`` (a short
     probe overstates the per-step time by its fixed cost, so one rescale
-    can fall short)."""
+    can fall short). ``bench`` is ``bench_stencil`` or a function of its
+    signature (``bench_stencil3d``)."""
     steps = PROBE_STEPS
     for _ in range(4):
-        took = bench_stencil(grid, steps, mesh=mesh, impl=impl, iters=1).p50
+        took = bench(grid, steps, mesh=mesh, impl=impl, iters=1).p50
         if took >= min_s:
             break
         steps = math.ceil(steps * 1.1 * min_s / took / QUANTUM) * QUANTUM
     return steps
 
 
-def measure(impl: str, grid, mesh: StackedMesh, iters: int, min_s: float) -> BenchResult:
-    return bench_stencil(grid, sized_steps(impl, grid, mesh, min_s),
-                         mesh=mesh, impl=impl, iters=iters)
+def measure(impl: str, grid, mesh: StackedMesh, iters: int, min_s: float,
+            bench=bench_stencil) -> BenchResult:
+    return bench(grid, sized_steps(impl, grid, mesh, min_s, bench),
+                 mesh=mesh, impl=impl, iters=iters)
 
 
-def race(impls, grid, mesh: StackedMesh, iters: int, min_s: float = 0.1) -> dict[str, BenchResult]:
+def race(impls, grid, mesh: StackedMesh, iters: int, min_s: float = 0.1,
+         bench=bench_stencil) -> dict[str, BenchResult]:
     """Every impl's result; any failure propagates."""
     out = {}
     for impl in impls:
-        out[impl] = measure(impl, grid, mesh, iters, min_s)
+        out[impl] = measure(impl, grid, mesh, iters, min_s, bench)
         print(f"# {out[impl].summary()}", file=sys.stderr)
     return out
 
 
 def two_phase_stencil(impls, grid, mesh: StackedMesh, iters: int,
-                      screen_s: float = 0.1, final_s: float = 1.0):
+                      screen_s: float = 0.1, final_s: float = 1.0, bench=bench_stencil):
     """(final result, winning impl, every screen result)."""
-    screen = race(impls, grid, mesh, iters, screen_s)
+    screen = race(impls, grid, mesh, iters, screen_s, bench)
     best_impl = max(screen, key=lambda i: screen[i].items_per_s)
-    final = measure(best_impl, grid, mesh, iters, final_s)
+    final = measure(best_impl, grid, mesh, iters, final_s, bench)
     print(f"# final: {final.summary()}", file=sys.stderr)
     return final, best_impl, screen
 

@@ -1,9 +1,10 @@
-"""BASELINE configs 2, 3, 4 and 10 on the card.
+"""BASELINE configs 2, 3, 4, 9 and 10 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,10]`` prints one
-JSON line per metric, with the JAX package's metric names
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,9,10]`` prints
+one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
-2D stencil on a 4x4 mesh at 8192^2, 10 the DMA-halo stencil at 1024^2.
+2D stencil on a 4x4 mesh at 8192^2, 9 the 3D 7-point stencil at
+256x512x512, 10 the DMA-halo stencil at 1024^2.
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught: a failing method, impl or re-measure fails the run.
 """
@@ -20,7 +21,8 @@ import torch
 from tpuscratch_torch.bench.dot_bench import bench_dot
 from tpuscratch_torch.bench.headline import race, two_phase_stencil
 from tpuscratch_torch.bench.pingpong import DEFAULT_SIZES, sweep, verify_echo
-from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh_1d, make_mesh_2d
+from tpuscratch_torch.bench.stencil_bench import bench_stencil3d
+from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh, make_mesh_1d, make_mesh_2d
 
 DOT_N = 100_000_000
 METHODS = ("full", "partials", "xla")
@@ -134,12 +136,35 @@ def config10_dma_halo(out: list, iters: int = 3, grid=(1024, 1024), impls=CONFIG
     return rows
 
 
-CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh, 10: config10_dma_halo}
+#: Config 9's race: every one-step impl and the streamed kernel at two depths.
+CONFIG9_IMPLS = ("compact", "compact-pallas", "compact-strips", "compact-asm",
+                 "stream:2", "stream:4")
+
+
+def config9_stencil3d(out: list, iters: int = 3, tile=(256, 512, 512), impls=CONFIG9_IMPLS,
+                      screen_s: float = 0.1, final_s: float = 1.0, device=None) -> dict:
+    """The 3D 7-point stencil, periodic, on a 1x1x1 mesh with a ``tile``
+    world: every impl of the race sized to runs of at least ``screen_s``,
+    the winner re-measured for ``final_s``. Returns ``{"final", "winner",
+    "screen"}``."""
+    mesh = make_mesh((1, 1, 1), ("z", "row", "col"), device)
+    final, winner, screen = two_phase_stencil(impls, tuple(tile), mesh, iters, screen_s, final_s,
+                                              bench=bench_stencil3d)
+    cells = math.prod(tile)
+    _emit(out, mesh, config=9, metric="stencil3d_cell_updates_per_s",
+          value=final.items_per_s, p50_s=final.p50, steps=final.items // cells,
+          us_per_step={i: r.p50 / (r.items // cells) * 1e6 for i, r in screen.items()},
+          detail=final.name, n_devices=1)
+    return {"final": final, "winner": winner, "screen": screen}
+
+
+CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
+           9: config9_stencil3d, 10: config10_dma_halo}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,10", help="comma-separated config numbers")
+    ap.add_argument("--configs", default="2,3,4,9,10", help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []
     for c in (int(s) for s in args.configs.split(",")):

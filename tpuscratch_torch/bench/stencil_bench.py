@@ -1,8 +1,9 @@
 """Stencil throughput benchmark: cell-updates/s (the headline metric).
 
-The twin of ``tpuscratch.bench.stencil_bench.bench_stencil``, with the
-same impl strings. A measured iteration is one halo exchange + one
-5-point update of every core cell.
+The twin of ``tpuscratch.bench.stencil_bench``'s ``bench_stencil`` and
+``bench_stencil3d``, with the same impl strings. A measured iteration is
+one halo exchange + one 5-point (3D: 7- or 27-point) update of every core
+cell.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from tpuscratch_torch.bench.timing import BenchResult, time_device
 from tpuscratch_torch.halo.driver import decompose, make_stencil_program
 from tpuscratch_torch.halo.exchange import HaloSpec
 from tpuscratch_torch.halo.layout import TileLayout
-from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh_2d, topology_of
+from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh, make_mesh_2d, topology_of
+from tpuscratch_torch.runtime.topology import CartTopology, factor3d
 
 
 def bench_stencil(
@@ -66,4 +68,56 @@ def bench_stencil(
         iters=iters, warmup=2,
         name=f"stencil {grid[0]}x{grid[1]} x{steps} on {rows}x{cols} ({label})",
         items=grid[0] * grid[1] * steps,
+    )
+
+
+def bench_stencil3d(
+    grid: tuple[int, int, int] = (64, 64, 64),
+    steps: int = 10,
+    mesh: Optional[StackedMesh] = None,
+    impl: str = "compact",
+    iters: int = 5,
+    coeffs=None,
+    device=None,
+) -> BenchResult:
+    """cell-updates/s for the 3D halo + 7-point (27 with 27 ``coeffs``)
+    pipeline of ``halo.halo3d`` on a periodic ``grid`` world over a 3-axis
+    mesh (default: 1x1x1 on ``device``, the card unless ``device='cpu'``)."""
+    from tpuscratch_torch.halo.halo3d import (
+        HaloSpec3D,
+        TileLayout3D,
+        decompose3d,
+        decompose3d_cores,
+        make_stencil3d_program,
+    )
+
+    if mesh is None:
+        mesh = make_mesh(factor3d(1), ("z", "row", "col"), device)
+    dims = tuple(mesh.shape)
+    if any(g % d for g, d in zip(grid, dims)):
+        raise ValueError(f"grid {grid} not divisible by mesh {dims}")
+    topo = CartTopology(dims, (True,) * 3)
+    layout = TileLayout3D(tuple(g // d for g, d in zip(grid, dims)))
+    spec = HaloSpec3D(
+        layout=layout, topology=topo, axes=tuple(mesh.axis_names),
+        neighbors=26 if coeffs is not None and len(coeffs) == 27 else 6,
+    )
+    if coeffs is None:
+        program = make_stencil3d_program(mesh, spec, steps, impl=impl)
+    else:
+        program = make_stencil3d_program(mesh, spec, steps, tuple(coeffs), impl)
+    rng = np.random.default_rng(0)
+    world = rng.standard_normal(grid).astype(np.float32)
+    if impl.startswith(("compact", "stream")):
+        tiles = decompose3d_cores(world, dims)
+    else:
+        tiles = decompose3d(world, topo, layout)
+    tiles = torch.from_numpy(tiles).to(mesh.device)
+    cells = grid[0] * grid[1] * grid[2]
+    return time_device(
+        program, tiles, iters=iters, warmup=2,
+        name=f"stencil3d {grid[0]}x{grid[1]}x{grid[2]} x{steps} on "
+             f"{dims[0]}x{dims[1]}x{dims[2]} "
+             f"({impl}{'' if coeffs is None else f',{len(coeffs)}pt'})",
+        items=cells * steps,
     )

@@ -1,4 +1,5 @@
-"""2D domain decomposition with ghost-cell (halo) exchange on a stacked-tile mesh."""
+"""2D and 3D (``halo3d``) domain decomposition with ghost-cell (halo) exchange on a
+stacked-tile mesh."""
 
 from tpuscratch_torch.halo.layout import Region, TileLayout, sub_region  # noqa: F401
 from tpuscratch_torch.halo.exchange import HaloSpec, halo_exchange  # noqa: F401

@@ -74,6 +74,21 @@ def tiles_from_numpy(np_tiles: np.ndarray, device=None) -> torch.Tensor:
     return host.to(resolve_device(device))
 
 
+def tiles3d_from_numpy(np_tiles: np.ndarray, device=None) -> torch.Tensor:
+    """Stacked 3D tiles (mz, my, mx, pz, py, px) from numpy onto ``device``
+    (the card unless the caller asks for the CPU), bit for bit."""
+    if np_tiles.ndim != 6:
+        raise ValueError(f"want (mz, my, mx, pz, py, px) tiles, got {np_tiles.shape}")
+    host = torch.from_numpy(np.array(np_tiles, order="C", copy=True))
+    return host.to(resolve_device(device))
+
+
+def cores3d_from_numpy(np_cores: np.ndarray, device=None) -> torch.Tensor:
+    """Stacked 3D cores (mz, my, mx, cz, cy, cx), the state the compact and
+    stream impls of ``halo.halo3d`` carry, from numpy onto ``device``."""
+    return tiles3d_from_numpy(np_cores, device)
+
+
 #: Impls that run one exchange and one update a step.
 PER_STEP = ("xla", "pallas", "blocked", "overlap")
 

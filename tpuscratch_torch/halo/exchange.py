@@ -8,7 +8,9 @@ Plan-then-execute, as in ``tpuscratch.halo.exchange``:
   table and which ranks have a sender (open boundaries). The planner math
   is the JAX package's pure-Python one.
 - The EXECUTOR works on the ``(rows, cols, ph, pw)`` tensor holding every
-  rank's tile. Each payload is taken from the PRE-exchange tiles, moved
+  rank's tile, or on the stacked tensor of any plan with the same protocol
+  (``halo.halo3d``'s ``(mz, my, mx, pz, py, px)``): the leading dims are
+  the topology's, whatever their number. Each payload is taken from the PRE-exchange tiles, moved
   between ranks by gathering along the flat rank dim with the transfer's
   permutation table, and landed in the receive rectangle of a fresh copy.
   Ranks with no sender (open boundaries) keep their existing ghost values
@@ -98,7 +100,7 @@ def _index(ranks: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(ranks, dtype=torch.long, device=device)
 
 
-def _sources(t: Transfer) -> tuple[int, ...]:
+def _sources(t) -> tuple[int, ...]:
     """Entry r: the rank whose payload lands in rank r's halo, or r itself
     (a placeholder that is never landed) where no rank sends."""
     src = list(range(len(t.has_sender)))
@@ -107,25 +109,29 @@ def _sources(t: Transfer) -> tuple[int, ...]:
     return tuple(src)
 
 
-def _check_tiles(tiles: torch.Tensor, spec: HaloSpec) -> None:
-    want = tuple(spec.topology.dims) + spec.layout.padded_shape
+def _check_tiles(tiles: torch.Tensor, spec) -> int:
+    """Raise unless ``tiles`` is the spec's stacked padded tensor; returns
+    the number of mesh dims."""
+    want = tuple(spec.topology.dims) + tuple(spec.layout.padded_shape)
     if tuple(tiles.shape) != want:
         raise ValueError(
             f"tiles {tuple(tiles.shape)} != stacked padded {want} "
-            "(rows, cols, padded_h, padded_w)"
+            "(the mesh dims, then the padded tile)"
         )
+    return spec.topology.ndim
 
 
-def halo_arrivals(tiles: torch.Tensor, spec: HaloSpec) -> list[torch.Tensor]:
+def halo_arrivals(tiles: torch.Tensor, spec) -> list[torch.Tensor]:
     """Phase 1: every transfer's payload, packed from the PRE-exchange
     tiles and moved to its receivers. Entry ``i`` holds, for each rank, the
     strip that lands in its ``plan()[i].recv`` rectangle, shaped
-    ``(rows*cols, rh, rw)``. A self-wrapping transfer's entry is a view of
+    ``(ranks, *recv.shape)``. ``spec`` is a ``HaloSpec`` or any spec of the
+    same protocol over any number of mesh dims. A self-wrapping transfer's entry is a view of
     ``tiles``; ``halo_scatter`` lands into a copy, so the view stays valid."""
-    _check_tiles(tiles, spec)
+    nd = _check_tiles(tiles, spec)
     out = []
     for t in spec.plan():
-        payload = t.send.region(tiles).flatten(0, 1)
+        payload = t.send.region(tiles).flatten(0, nd - 1)
         if not t.is_identity:
             payload = payload.index_select(0, _index(_sources(t), tiles.device))
         out.append(payload)
@@ -133,13 +139,13 @@ def halo_arrivals(tiles: torch.Tensor, spec: HaloSpec) -> list[torch.Tensor]:
 
 
 def halo_scatter(
-    tiles: torch.Tensor, spec: HaloSpec, arrivals: list[torch.Tensor]
+    tiles: torch.Tensor, spec, arrivals: list[torch.Tensor]
 ) -> torch.Tensor:
     """Phase 2: land the arrivals in the (disjoint) border pieces of a copy
     of ``tiles``. Open boundary = no sender: the existing ghost values stay."""
-    _check_tiles(tiles, spec)
+    nd = _check_tiles(tiles, spec)
     out = tiles.clone()
-    flat = out.flatten(0, 1)  # a view of `out`
+    flat = out.flatten(0, nd - 1)  # a view of `out`
     for t, arrived in zip(spec.plan(), arrivals):
         land = t.recv.region(flat)
         if all(t.has_sender):

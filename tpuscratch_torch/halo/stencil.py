@@ -214,8 +214,8 @@ def run_stencil_resident(tile: torch.Tensor, spec: HaloSpec, steps: int, coeffs=
     return halo_exchange(rebuild(tile, new_core[None, None], lay), spec)
 
 
-def _neighbor_block(block: torch.Tensor, spec: HaloSpec, off) -> torch.Tensor:
-    """Each rank's copy of ``block`` (stacked ``(rows, cols, ...)``) from
+def _neighbor_block(block: torch.Tensor, spec, off) -> torch.Tensor:
+    """Each rank's copy of ``block`` (stacked over the mesh dims) from
     the rank at ``-off`` from it: the block a ``ppermute`` toward ``off``
     delivers. Zeros where no rank sends (an open edge, MPI_PROC_NULL), the
     block itself where every rank sends to itself."""
@@ -228,7 +228,7 @@ def _neighbor_block(block: torch.Tensor, spec: HaloSpec, off) -> torch.Tensor:
     src = list(range(topo.size))
     for s, d in pairs:
         src[d] = s
-    flat = block.flatten(0, 1).index_select(0, _index(tuple(src), block.device))
+    flat = block.flatten(0, topo.ndim - 1).index_select(0, _index(tuple(src), block.device))
     missing = tuple(sorted(set(range(topo.size)) - {d for _, d in pairs}))
     if missing:
         flat[_index(missing, block.device)] = 0

@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written 2D stencil kernels (``csrc/stencil2d.cu``).
+"""Wrappers of the hand-written one-step stencil kernels (``csrc/stencil2d.cu``,
+``csrc/stencil3d.cu``).
 
 Each public wrapper keeps the name and contract of its Pallas twin in
 ``tpuscratch.ops.stencil_kernel`` and works on a padded tile or on the
@@ -10,6 +11,10 @@ stacked ``(rows, cols, ph, pw)`` tensor (any leading dims are a batch):
   (temporal blocking in shared memory).
 - ``resident_periodic_pallas``: ``steps`` periodic steps in one
   cooperative launch.
+- ``seven_point_banded_pallas`` / ``seven_point_strips_pallas`` /
+  ``seven_point_assembled_pallas``: one 3D 7-point step of every rank's
+  core from a padded tile, from a z-padded core and four y/x strips, or
+  from the core and its six arrivals; one kernel, three input forms.
 
 On a CUDA tensor a wrapper launches its kernel on the current stream (or
 raises); on a CPU tensor it runs the kernel's plain torch version, which
@@ -27,7 +32,7 @@ import torch
 
 from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.halo.stencil import JACOBI, _new_values, rebuild, shrink_step
-from tpuscratch_torch.ops.common import check_cuda, library, smem_optin, stream_of
+from tpuscratch_torch.ops.common import check_cuda, check_status, library, smem_optin, stream_of
 
 Coeffs = tuple[float, float, float, float, float]
 
@@ -305,12 +310,221 @@ def resident_periodic_pallas(
     return bufs[(steps - 1) % 2]
 
 
+# ---------------------------------------------------------------------------
+# the one-step 3D 7-point kernels (csrc/stencil3d.cu)
+
+#: The JAX package's default VMEM budget, accepted for its signatures.
+_VMEM_CEILING = 100 << 20
+
+_PADDED, _STRIPS, _ASM = 0, 1, 2                  # where the ghosts live
+_NO_CENTRE, _CENTRE_FIRST, _CENTRE_LAST = 0, 1, 2  # where the centre term stands
+
+
+@functools.lru_cache(maxsize=None)
+def _lib3d() -> ctypes.CDLL:
+    lib = library("stencil3d")
+    lib.ts_seven_point3d.argtypes = [_I] + [_P] * 8 + [_F, _P] + [_I] * 5 + [_P, _P]
+    lib.ts_seven_point3d.restype = _I
+    return lib
+
+
+def _coeffs7(coeffs7) -> tuple:
+    if len(coeffs7) != 7:
+        raise ValueError(f"7-point coeffs (6 faces + centre) expected, got {len(coeffs7)}")
+    return tuple(float(c) for c in coeffs7)
+
+
+def _launch3d(mode, a, arrivals, fterm, fc, core_shape, centre, w, name) -> torch.Tensor:
+    """Launch ``seven_point3d_kernel`` over every rank of the batch.
+    ``arrivals`` = (mz, pz, my, py, mx, px), None where the mode has none;
+    the six faces are summed in -z, +z, -y, +y, -x, +x order with the
+    centre term where ``centre`` says."""
+    cz, cy, cx = core_shape
+    tensors = [a, *arrivals, fterm]
+    for t in tensors:
+        if t is not None:
+            check_cuda(t, name, 3)
+    lead = a.shape[:-3]
+    out = torch.empty(lead + (cz, cy, cx), dtype=a.dtype, device=a.device)
+    nb = out.numel() // (cz * cy * cx)
+    with torch.cuda.device(a.device):
+        check_status(_lib3d(), _lib3d().ts_seven_point3d(
+            mode, *(None if t is None else t.data_ptr() for t in tensors), float(fc),
+            out.data_ptr(), nb, cz, cy, cx, centre, (ctypes.c_float * 7)(*w), stream_of(a),
+        ), name)
+    return out
+
+
+def _contig(*ts):
+    return [None if t is None else t.contiguous() for t in ts]
+
+
+def seven_point_banded_plain(padded: torch.Tensor, coeffs7) -> torch.Tensor:
+    """The new core of one 7-point step of padded tile(s) (plain torch, in
+    the kernel's order: the centre term first, left out when it is 0)."""
+    w = _coeffs7(coeffs7)
+    cz, cy, cx = (n - 2 for n in padded.shape[-3:])
+    sl = lambda dz, dy, dx: padded[  # noqa: E731
+        ..., 1 + dz : 1 + dz + cz, 1 + dy : 1 + dy + cy, 1 + dx : 1 + dx + cx]
+    faces = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+    new = w[6] * sl(0, 0, 0) if w[6] else None
+    for d, c in zip(faces, w[:6]):
+        term = c * sl(*d)
+        new = term if new is None else new + term
+    return new
+
+
+def seven_point_banded_pallas(
+    padded: torch.Tensor,
+    core_shape: tuple[int, int, int],
+    coeffs7,
+    budget_bytes: int = _VMEM_CEILING,
+) -> torch.Tensor:
+    """7-point update of ``(…, cz+2, cy+2, cx+2)`` padded tile(s); emits
+    only the new core(s). ``budget_bytes`` sized the TPU kernel's z bands
+    and is accepted for its signature: the CUDA kernel tiles any core."""
+    cz, cy, cx = core_shape
+    if tuple(padded.shape[-3:]) != (cz + 2, cy + 2, cx + 2):
+        raise ValueError(
+            f"padded {tuple(padded.shape)} != core {core_shape} + 1-ghost ring")
+    w = _coeffs7(coeffs7)
+    if not _route(padded, "seven_point_banded_pallas"):
+        return seven_point_banded_plain(padded, w)
+    out = _launch3d(_PADDED, padded.contiguous(), (None,) * 6, None, 0.0, core_shape,
+                    _CENTRE_FIRST if w[6] else _NO_CENTRE, w, "seven_point_banded_pallas")
+    seven_point_banded_pallas.launches += 1
+    return out
+
+
+def seven_point_strips_plain(zpad, a_my, a_py, a_mx, a_px, coeffs7) -> torch.Tensor:
+    """One 7-point step from the z-padded core(s) and the four y/x strips
+    (plain torch, in the kernel's order: the six faces, then the centre
+    when it is not 0)."""
+    w = _coeffs7(coeffs7)
+    c = zpad[..., 1:-1, :, :]
+    up_z, dn_z = zpad[..., :-2, :, :], zpad[..., 2:, :, :]
+    ym = torch.cat([a_my, c[..., :, :-1, :]], dim=-2)
+    yp = torch.cat([c[..., :, 1:, :], a_py], dim=-2)
+    xm = torch.cat([a_mx, c[..., :, :, :-1]], dim=-1)
+    xp = torch.cat([c[..., :, :, 1:], a_px], dim=-1)
+    out = (w[0] * up_z + w[1] * dn_z + w[2] * ym + w[3] * yp
+           + w[4] * xm + w[5] * xp)
+    return out + w[6] * c if w[6] else out
+
+
+def _check_strips(lead, core_shape, a_my, a_py, a_mx, a_px) -> None:
+    cz, cy, cx = core_shape
+    for name, t, want in (("a_my", a_my, (cz, 1, cx)), ("a_py", a_py, (cz, 1, cx)),
+                          ("a_mx", a_mx, (cz, cy, 1)), ("a_px", a_px, (cz, cy, 1))):
+        if t is not None and tuple(t.shape) != tuple(lead) + want:
+            raise ValueError(f"{name} {tuple(t.shape)} != {tuple(lead) + want}")
+
+
+def seven_point_strips_pallas(
+    zpad: torch.Tensor,
+    a_my: torch.Tensor,
+    a_py: torch.Tensor,
+    a_mx: torch.Tensor,
+    a_px: torch.Tensor,
+    core_shape: tuple[int, int, int],
+    coeffs7,
+    budget_bytes: int = _VMEM_CEILING,
+) -> torch.Tensor:
+    """7-point update from the ``(…, cz+2, cy, cx)`` z-padded core(s), the
+    ``(…, cz, 1, cx)`` y strips and the ``(…, cz, cy, 1)`` x strips: the
+    kernel reads a ghost row or column straight from its strip.
+    ``budget_bytes`` is accepted for the TPU kernel's signature."""
+    cz, cy, cx = core_shape
+    if tuple(zpad.shape[-3:]) != (cz + 2, cy, cx):
+        raise ValueError(f"zpad {tuple(zpad.shape)} != core {core_shape} + 2 z planes")
+    _check_strips(zpad.shape[:-3], core_shape, a_my, a_py, a_mx, a_px)
+    w = _coeffs7(coeffs7)
+    if not _route(zpad, "seven_point_strips_pallas"):
+        return seven_point_strips_plain(zpad, a_my, a_py, a_mx, a_px, w)
+    zpad, *strips = _contig(zpad, a_my, a_py, a_mx, a_px)
+    out = _launch3d(_STRIPS, zpad, (None, None, *strips), None, 0.0, core_shape,
+                    _CENTRE_LAST if w[6] else _NO_CENTRE, w, "seven_point_strips_pallas")
+    seven_point_strips_pallas.launches += 1
+    return out
+
+
+def seven_point_assembled_plain(core, a_mz, a_pz, a_my, a_py, a_mx, a_px, coeffs7,
+                                fterm=None, fc: float = 0.0) -> torch.Tensor:
+    """One 7-point step from the core(s) and the six arrivals (plain torch,
+    in the kernel's order: all seven terms w0..w6, then ``fc * fterm``). A
+    ``None`` strip pair means that axis self-wraps: the ghost line is the
+    core's own far line."""
+    w = _coeffs7(coeffs7)
+    c = core
+    if a_my is None:
+        a_my, a_py = c[..., :, -1:, :], c[..., :, :1, :]
+    if a_mx is None:
+        a_mx, a_px = c[..., :, :, -1:], c[..., :, :, :1]
+    up = torch.cat([a_mz, c[..., :-1, :, :]], dim=-3)
+    dn = torch.cat([c[..., 1:, :, :], a_pz], dim=-3)
+    ym = torch.cat([a_my, c[..., :, :-1, :]], dim=-2)
+    yp = torch.cat([c[..., :, 1:, :], a_py], dim=-2)
+    xm = torch.cat([a_mx, c[..., :, :, :-1]], dim=-1)
+    xp = torch.cat([c[..., :, :, 1:], a_px], dim=-1)
+    out = (w[0] * up + w[1] * dn + w[2] * ym + w[3] * yp
+           + w[4] * xm + w[5] * xp + w[6] * c)
+    return out if fterm is None else out + fc * fterm
+
+
+def seven_point_assembled_pallas(
+    core: torch.Tensor,
+    a_mz: torch.Tensor,
+    a_pz: torch.Tensor,
+    a_my: torch.Tensor | None,
+    a_py: torch.Tensor | None,
+    a_mx: torch.Tensor | None,
+    a_px: torch.Tensor | None,
+    core_shape: tuple[int, int, int],
+    coeffs7,
+    budget_bytes: int = _VMEM_CEILING,
+    fterm: torch.Tensor | None = None,
+    fc: float = 0.0,
+) -> torch.Tensor:
+    """7-point update assembled inside the kernel: nothing is built
+    outside. ``a_mz``/``a_pz`` are ``(…, 1, cy, cx)`` planes; the y and x
+    strips are as in ``seven_point_strips_pallas``, or ``None`` per axis
+    when that axis self-wraps. ``fterm``/``fc``: the optional pointwise
+    term of the TPU kernel's band update, ``fc * fterm`` added to each
+    cell last. ``budget_bytes`` is accepted for the TPU kernel's signature;
+    its refusal of cores under 3 cells an axis went with the band
+    pipeline that needed it."""
+    cz, cy, cx = core_shape
+    lead = tuple(core.shape[:-3])
+    if tuple(core.shape[-3:]) != tuple(core_shape):
+        raise ValueError(f"core {tuple(core.shape)} != {core_shape}")
+    if (a_py is None) != (a_my is None) or (a_px is None) != (a_mx is None):
+        raise ValueError("strip inputs must be present or absent per axis")
+    for name, t in (("a_mz", a_mz), ("a_pz", a_pz)):
+        if tuple(t.shape) != lead + (1, cy, cx):
+            raise ValueError(f"{name} {tuple(t.shape)} != {lead + (1, cy, cx)}")
+    _check_strips(lead, core_shape, a_my, a_py, a_mx, a_px)
+    if fterm is not None and tuple(fterm.shape) != tuple(core.shape):
+        raise ValueError(f"fterm {tuple(fterm.shape)} != core {tuple(core.shape)}")
+    w = _coeffs7(coeffs7)
+    if not _route(core, "seven_point_assembled_pallas"):
+        return seven_point_assembled_plain(core, a_mz, a_pz, a_my, a_py, a_mx, a_px, w,
+                                           fterm, fc)
+    core, *rest = _contig(core, a_mz, a_pz, a_my, a_py, a_mx, a_px, fterm)
+    out = _launch3d(_ASM, core, rest[:6], rest[6], fc, core_shape, _CENTRE_LAST, w,
+                    "seven_point_assembled_pallas")
+    seven_point_assembled_pallas.launches += 1
+    return out
+
+
 #: Every kernel wrapper, in the order of the TPU kernel table.
 WRAPPERS = (
     five_point_pallas,
     five_point_blocked,
     deep_trapezoid_pallas,
     resident_periodic_pallas,
+    seven_point_banded_pallas,
+    seven_point_strips_pallas,
+    seven_point_assembled_pallas,
 )
 for _w in WRAPPERS:
     _w.launches = 0

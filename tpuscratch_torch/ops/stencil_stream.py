@@ -1,22 +1,28 @@
-"""The streamed 2D stencil: ``depth`` substeps in one pass (``csrc/stencil_stream2d.cu``).
+"""The streamed stencils: ``depth`` substeps in one pass
+(``csrc/stencil_stream2d.cu``, ``csrc/stencil_stream3d.cu``).
 
-The 2D part of ``tpuscratch.ops.stencil_stream``, with the same names and
-contracts (its 3D kernel is still to port). ``nine_point_streamed_2d``
-takes every rank's core at once: leading dims of ``core`` and of the
-slabs and flags are a batch, the stacked ``(rows, cols)`` of the mesh.
+The twin of ``tpuscratch.ops.stencil_stream``, with the same names and
+contracts. ``nine_point_streamed_2d`` and ``seven_point_streamed_pallas``
+take every rank's core at once: leading dims of the core and of the
+slabs, strips and flags are a batch, the stacked dims of the mesh.
 
-Column modes, as in the JAX package: with ``gl``/``gr`` None, x self-wraps
-(wrap mode, a periodic column axis); with ``gl``/``gr`` given as
-``(H + 2*depth, depth)`` ghost-column slabs spanning global rows
+2D column modes, as in the JAX package: with ``gl``/``gr`` None, x
+self-wraps (wrap mode, a periodic column axis); with ``gl``/``gr`` given
+as ``(H + 2*depth, depth)`` ghost-column slabs spanning global rows
 ``[-depth, H + depth)`` (the x neighbours' edge columns with the diagonal
 neighbours' corner blocks at the ends), the columns may be distributed or
 open (ghost mode). ``open_flags`` marks the physical open ends [top,
 bottom, left, right] of each rank; the rings still acting as ghosts on an
 open side stay zero after every substep.
 
-On a CUDA tensor the wrapper launches ``stream2d_kernel`` (or raises); on
-a CPU tensor it runs ``nine_point_streamed_2d_plain``, the same pyramid in
-torch ops in the kernel's order of operations.
+3D: the z ghosts are ``(depth, cy, cx)`` slabs; y and x self-wrap (z-slab
+mode) or ride the ``gy``/``gx``/``gc`` ghost strips in the JAX package's
+[plus | minus] layout; flags are [z-, z+, y-, y+, x-, x+]; 27 coefficients
+and the ``rhs`` smoother term run in z-slab mode.
+
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU
+tensor it runs its ``*_plain`` version, the same pyramid in torch ops in
+the kernel's order of operations.
 """
 
 from __future__ import annotations
@@ -225,6 +231,328 @@ def nine_point_streamed_2d(
     return nine_point_streamed_2d_plain(core, a_top, a_bot, coeffs, k, flags, gl, gr)
 
 
-#: The kernel wrapper, in the order of the TPU kernel table.
-WRAPPERS = (nine_point_streamed_2d,)
+# ---------------------------------------------------------------------------
+# the 3D kernel (csrc/stencil_stream3d.cu)
+
+#: Output tiles (tz, ty, tx) of one ``stream3d_kernel`` block, by preference.
+STREAM3D_TILES = ((8, 16, 64), (8, 8, 64), (8, 16, 32), (8, 8, 32), (4, 8, 32), (4, 4, 32),
+                  (2, 4, 32))
+
+
+def weight_cube(coeffs27, offsets26) -> tuple:
+    """OFFSETS26-ordered coefficients (+ centre last) as a nested
+    (3, 3, 3) tuple W[dz+1][dy+1][dx+1]."""
+    W = [[[0.0] * 3 for _ in range(3)] for _ in range(3)]
+    for (dz, dy, dx), cw in zip(offsets26, coeffs27[:-1]):
+        W[dz + 1][dy + 1][dx + 1] = float(cw)
+    W[1][1][1] = float(coeffs27[-1])
+    return tuple(tuple(tuple(r) for r in p) for p in W)
+
+
+def stream_band(cz: int, cy: int, cx: int, depth: int, itemsize: int,
+                nbuf: int = 2, budget_bytes: int = _VMEM_CEILING,
+                has_rhs: bool = False, ghost_y: bool = False,
+                ghost_x: bool = False) -> int:
+    """The TPU kernel's z band: the largest divisor of ``cz`` whose VMEM
+    footprint fits the budget, with >= 2 bands of >= ``depth`` planes. The
+    CUDA kernel tiles the core in 3D blocks and takes no band; this is the
+    JAX package's pure sizing rule, kept for callers that size a band."""
+    plane = cy * cx * itemsize
+    k = depth
+
+    def cost(b):
+        P0 = b + 2 * depth
+        c = (nbuf * P0 + 2 * (P0 - 2) + nbuf * b) * plane + 2 * depth * plane
+        if has_rhs:
+            c += nbuf * P0 * plane
+        if ghost_y:
+            c += ((cz + 2 * k) + 2 * (P0 - 2)) * 2 * k * cx * itemsize
+        if ghost_x:
+            c += ((cz + 2 * k) + 2 * (P0 - 2)) * cy * 128 * itemsize
+        if ghost_y and ghost_x:
+            c += ((cz + 2 * k) + 2 * (P0 - 2)) * 2 * k * 128 * itemsize
+        return c
+
+    band = cz
+    while band > 1 and cost(band) > budget_bytes:
+        band = next((d for d in range(band - 1, 0, -1) if cz % d == 0), 1)
+    if cost(band) > budget_bytes:
+        raise ValueError(
+            f"no band fits: even band=1 needs {cost(1)} B "
+            f"(> budget {budget_bytes} B); shrink the plane extents or "
+            "raise the budget"
+        )
+    while band > 1 and cz // band < 2:
+        band = next((d for d in range(band - 1, 0, -1) if cz % d == 0), 1)
+    if cost(band) > budget_bytes or band < depth or cz // band < 2:
+        raise ValueError(
+            f"no band of cz={cz} gives >= 2 bands of >= depth={depth} "
+            f"planes within {budget_bytes >> 20} MB VMEM (the window "
+            "needs band >= depth); lower the depth"
+        )
+    return band
+
+
+def _weights3d(coeffs) -> tuple[float, ...]:
+    """The kernel's weights: the 7 coefficients as given, or the 27 of the
+    weight cube in (dz, dy, dx) order."""
+    if len(coeffs) == 27:
+        from tpuscratch_torch.halo.halo3d import OFFSETS26
+
+        cube = weight_cube(tuple(coeffs), OFFSETS26)
+        return tuple(cube[z][y][x] for z in range(3) for y in range(3) for x in range(3))
+    if len(coeffs) != 7:
+        raise ValueError(f"need 7 or 27 coefficients, got {len(coeffs)}")
+    return tuple(float(c) for c in coeffs)
+
+
+def _flags3d(open_flags, lead, device) -> torch.Tensor:
+    """Per-rank int32 [z-, z+, y-, y+, x-, x+] flags shaped ``lead + (6,)``;
+    None means no open end, a trailing 2 means [z-, z+]."""
+    if open_flags is None:
+        return torch.zeros(lead + (6,), dtype=torch.int32, device=device)
+    f = torch.as_tensor(open_flags, device=device).to(torch.int32)
+    if f.shape[-1:] == (2,):
+        f = torch.cat([f, torch.zeros(f.shape[:-1] + (4,), dtype=torch.int32, device=device)], -1)
+    if f.shape[-1:] != (6,):
+        raise ValueError(f"open_flags must end in 6 (or 2) entries, got {tuple(f.shape)}")
+    return f.expand(lead + (6,)).contiguous()
+
+
+def _wrap_index(n: int, k: int, device) -> torch.Tensor:
+    return torch.arange(-k, n + k, device=device) % n
+
+
+def extended_volume(core, a_mz, a_pz, depth, gy=None, gx=None, gc=None) -> torch.Tensor:
+    """The ``(…, cz+2k, cy+2k, cx+2k)`` volume a pass reads: the slabs
+    below and above the core, and beside it the strips' [plus | minus]
+    halves or, on a self-wrapping axis, the core's own far rows/columns."""
+    k = depth
+    cy, cx = core.shape[-2:]
+    a = torch.cat([a_mz, core, a_pz], dim=-3)
+    if gy is not None:
+        a = torch.cat([gy[..., k:, :], a, gy[..., :k, :]], dim=-2)
+    else:
+        a = a[..., _wrap_index(cy, k, core.device), :]
+    if gx is None:
+        return a[..., _wrap_index(cx, k, core.device)]
+    if gy is not None:
+        gx = torch.cat([gc[..., k:, :], gx, gc[..., :k, :]], dim=-2)
+    else:
+        gx = gx[..., _wrap_index(cy, k, core.device), :]
+    return torch.cat([gx[..., k:], a, gx[..., :k]], dim=-1)
+
+
+def seven_point_streamed_plain(core, a_mz, a_pz, coeffs, depth, open_flags,
+                               gy=None, gx=None, gc=None, rhs=None,
+                               rhs_coeff: float = 0.0) -> torch.Tensor:
+    """``depth`` substeps as the kernel runs them, in torch ops: the
+    shrinking pyramid over the extended volume, the cells outside the core
+    on a flagged side set to zero after every substep but the last.
+    ``open_flags`` is the ``(…, 6)`` int32 tensor of ``_flags3d``."""
+    k = depth
+    cz, cy, cx = core.shape[-3:]
+    w = _weights3d(coeffs)
+    a = extended_volume(core, a_mz, a_pz, k, gy, gx, gc)
+    if rhs is not None:
+        rhs = rhs[..., _wrap_index(cy, k, core.device), :][..., _wrap_index(cx, k, core.device)]
+    if len(w) == 7:
+        from tpuscratch_torch.halo.halo3d import FACES
+
+        taps = list(zip(FACES, w[:6])) + [((0, 0, 0), w[6])]
+    else:
+        taps = [((t // 9 - 1, t // 3 % 3 - 1, t % 3 - 1), w[t]) for t in range(27)]
+    f = open_flags.bool()[..., None, None, None]
+    for s in range(1, k + 1):
+        P, Q, R = a.shape[-3:]
+        acc = None
+        for (dz, dy, dx), wgt in taps:
+            term = wgt * a[..., 1 + dz : P - 1 + dz, 1 + dy : Q - 1 + dy, 1 + dx : R - 1 + dx]
+            acc = term if acc is None else acc + term
+        if rhs is not None:
+            acc = acc + rhs_coeff * rhs[..., s:-s, s:-s, s:-s]
+        a = acc
+        g = k - s  # ghost rings still in play
+        if g:
+            zero = torch.zeros((), dtype=a.dtype, device=a.device)
+            sides = [(0, (slice(None, g),)), (1, (slice(-g, None),))]
+            if gy is not None:
+                sides += [(2, (slice(None), slice(None, g))), (3, (slice(None), slice(-g, None)))]
+            if gx is not None:
+                sides += [(4, (slice(None),) * 2 + (slice(None, g),)),
+                          (5, (slice(None),) * 2 + (slice(-g, None),))]
+            for i, tail in sides:
+                idx = (Ellipsis,) + tail + (slice(None),) * (3 - len(tail))
+                a[idx] = torch.where(f[..., i, :, :, :], zero, a[idx])
+    return a
+
+
+@functools.lru_cache(maxsize=None)
+def _lib3d() -> ctypes.CDLL:
+    lib = library("stencil_stream3d")
+    lib.ts_stream3d.argtypes = [_P] * 9 + [_I, _P, ctypes.c_float, _I, _P, _P]
+    lib.ts_stream3d.restype = _I
+    return lib
+
+
+def stream3d_tile(optin: int, substeps: int) -> tuple[int, int, int] | None:
+    """The first of ``STREAM3D_TILES`` whose two windows with a
+    ``substeps``-cell apron fit ``optin`` bytes of shared memory, or None."""
+    j = substeps
+    for tz, ty, tx in STREAM3D_TILES:
+        if 2 * (tz + 2 * j) * (ty + 2 * j) * (tx + 2 * j) * 4 <= optin:
+            return tz, ty, tx
+    return None
+
+
+def _launch3d(core, a_mz, a_pz, gy, gx, gc, rhs, flags, w, k,
+              rhs_coeff) -> tuple[torch.Tensor, int]:
+    """The pass on the card, as one launch or, past what a block's shared
+    memory seats, a chain of launches over dense scratch volumes. Returns
+    the new cores and the number of launches."""
+    name = "seven_point_streamed_pallas"
+    for t in (core, a_mz, a_pz, gy, gx, gc, rhs):
+        if t is not None:
+            check_cuda(t, name, 3)
+    lib = _lib3d()
+    optin = smem_optin(lib, name)
+    most = max(j for j in range(1, k + 1) if j == 1 or stream3d_tile(optin, j))
+    cz, cy, cx = core.shape[-3:]
+    lead = tuple(core.shape[:-3])
+    nb = core.numel() // (cz * cy * cx)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    src, gi, done, launches = core, -1, 0, 0
+    while done < k:
+        j = min(most, k - done)
+        tile = stream3d_tile(optin, j)
+        if tile is None:
+            raise ValueError(f"{name}: shared memory ({optin} B) seats no window of one substep")
+        go = k - done - j
+        out = torch.empty(lead + (cz + 2 * go, cy + 2 * go, cx + 2 * go),
+                          dtype=core.dtype, device=core.device)
+        columns = (tile[1] + 2 * j - 2) * (tile[2] + 2 * j - 2)
+        threads = min(1024, -(-columns // 32) * 32)
+        ints = (cz, cy, cx, k, done, j, gi, int(gy is not None), int(gx is not None),
+                *tile, threads)
+        with torch.cuda.device(core.device):
+            check_status(lib, lib.ts_stream3d(
+                src.data_ptr(), ptr(a_mz), ptr(a_pz), ptr(gy), ptr(gx), ptr(gc), ptr(rhs),
+                flags.data_ptr(), out.data_ptr(), nb, (ctypes.c_int * len(ints))(*ints),
+                float(rhs_coeff), len(w), (ctypes.c_float * len(w))(*w), stream_of(core),
+            ), name)
+        src, gi, done, launches = out, go, done + j, launches + 1
+    return src, launches
+
+
+def seven_point_streamed_pallas(
+    core: torch.Tensor,
+    a_mz: torch.Tensor,
+    a_pz: torch.Tensor,
+    core_shape: tuple[int, int, int],
+    coeffs7,
+    depth: int,
+    band: int | None = None,
+    nbuf: int = 2,
+    budget_bytes: int = _VMEM_CEILING,
+    open_flags=None,
+    carry_tail: bool | None = None,
+    ysplit27: int = 4,
+    gy: torch.Tensor | None = None,
+    gx: torch.Tensor | None = None,
+    gc: torch.Tensor | None = None,
+    rhs: torch.Tensor | None = None,
+    rhs_coeff: float = 0.0,
+) -> torch.Tensor:
+    """``depth`` 7- or 27-point Jacobi substeps of ``(…, cz, cy, cx)``
+    cores in ONE pass (see the module docstring for the modes).
+
+    ``a_mz``/``a_pz``: ``(…, depth, cy, cx)`` z-ghost slabs. ``gy``
+    ``(…, cz+2k, 2k, cx)``, ``gx`` ``(…, cz+2k, cy, 2k)`` and, with both,
+    ``gc`` ``(…, cz+2k, 2k, 2k)``: the ghost strips of a distributed or
+    open y/x axis, 7 points only. ``rhs``: a pre-ghosted ``(…, cz+2k, cy,
+    cx)`` field; every substep adds ``rhs_coeff * rhs`` at the cell's own
+    coordinates (7 points, z-slab mode only). ``coeffs7`` may be 27
+    OFFSETS26-ordered coefficients (+ centre), z-slab mode only.
+
+    ``band``, ``nbuf``, ``budget_bytes``, ``carry_tail`` and ``ysplit27``
+    shaped the TPU kernel's VMEM pipeline and are accepted for its
+    signature: the CUDA kernel tiles the core in 3D blocks, so the TPU's
+    refusals of a band that does not divide ``cz`` into >= 2 bands of >=
+    ``depth`` planes, and of ``carry_tail`` without such a band, are gone.
+    Kept: ``depth >= 1``, the slab and strip shapes, ``depth <= cz``,
+    ``depth <= cy``/``cx`` on a ghosted axis, ``cy, cx >= 3``, ``gc``
+    exactly with both ``gy`` and ``gx``, and 27 points and ``rhs`` only in
+    z-slab mode. A pass deeper than one block's shared memory seats (10
+    substeps on an H100) runs as a chain of launches over scratch copies
+    of the extended volume.
+    """
+    cz, cy, cx = core_shape
+    k = depth
+    lead = tuple(core.shape[:-3])
+    w = _weights3d(coeffs7)
+    if tuple(core.shape[-3:]) != tuple(core_shape):
+        raise ValueError(f"core {tuple(core.shape)} != {core_shape}")
+    if tuple(a_mz.shape) != lead + (k, cy, cx) or tuple(a_pz.shape) != lead + (k, cy, cx):
+        raise ValueError(
+            f"ghost slabs must be {lead + (k, cy, cx)}, got "
+            f"{tuple(a_mz.shape)}/{tuple(a_pz.shape)}"
+        )
+    if k < 1:
+        raise ValueError(f"depth must be >= 1, got {k}")
+    ghost_y, ghost_x = gy is not None, gx is not None
+    if ghost_y or ghost_x:
+        if len(w) == 27:
+            raise ValueError(
+                "ghosted y/x axes are 7-point only; the 27-point form "
+                "needs a z-slab mesh (impl='compact-asm' serves "
+                "distributed y/x)"
+            )
+        want = lead + (cz + 2 * k, 2 * k, cx)
+        if ghost_y and tuple(gy.shape) != want:
+            raise ValueError(f"gy must be {want}, got {tuple(gy.shape)}")
+        want = lead + (cz + 2 * k, cy, 2 * k)
+        if ghost_x and tuple(gx.shape) != want:
+            raise ValueError(f"gx must be {want}, got {tuple(gx.shape)}")
+        if (ghost_y and ghost_x) != (gc is not None):
+            raise ValueError(
+                "gc (the xy-corner strip) is required exactly when both "
+                "gy and gx are given"
+            )
+        want = lead + (cz + 2 * k, 2 * k, 2 * k)
+        if gc is not None and tuple(gc.shape) != want:
+            raise ValueError(f"gc must be {want}, got {tuple(gc.shape)}")
+        if (ghost_y and k > cy) or (ghost_x and k > cx):
+            raise ValueError(f"depth {k} exceeds a ghosted plane extent")
+    elif gc is not None:
+        raise ValueError(
+            "gc (the xy-corner strip) is required exactly when both gy and gx are given")
+    if rhs is not None:
+        if len(w) == 27:
+            raise ValueError("rhs smoothing is 7-point only")
+        if ghost_y or ghost_x:
+            raise ValueError(
+                "rhs smoothing needs a z-slab mesh (self-wrapping y/x); "
+                "ghosted y/x axes are not supported with rhs"
+            )
+        want = lead + (cz + 2 * k, cy, cx)
+        if tuple(rhs.shape) != want:
+            raise ValueError(f"rhs must be PRE-GHOSTED {want}, got {tuple(rhs.shape)}")
+    if band is not None and band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    if k > cz:
+        raise ValueError(f"depth {k} > core depth {cz}: the slabs are the neighbours' planes")
+    if cy < 3 or cx < 3:
+        raise ValueError(f"plane extents must be >= 3, got {cy}x{cx}")
+    flags = _flags3d(open_flags, lead, core.device)
+    if route(core, "seven_point_streamed_pallas"):
+        contig = [None if t is None else t.contiguous() for t in (core, a_mz, a_pz, gy, gx, gc, rhs)]
+        out, launches = _launch3d(*contig, flags, w, k, rhs_coeff)
+        seven_point_streamed_pallas.launches += launches
+        return out
+    return seven_point_streamed_plain(core, a_mz, a_pz, coeffs7, k, flags, gy, gx, gc,
+                                      rhs, rhs_coeff)
+
+
+#: The kernel wrappers, in the order of the TPU kernel table.
+WRAPPERS = (nine_point_streamed_2d, seven_point_streamed_pallas)
 reset_launches, launch_counts = counters(WRAPPERS)

@@ -174,10 +174,31 @@ class CartTopology:
             raise ValueError(f"operation requires a 2D grid, got dims {self.dims}")
 
 
+def square_grid(nranks: int, periodic: bool = True) -> CartTopology:
+    """A sqrt(N) x sqrt(N) periodic grid, the reference programs' default
+    layout."""
+    side = math.isqrt(nranks)
+    if side * side != nranks:
+        raise ValueError(f"{nranks} ranks do not form a square grid")
+    return CartTopology((side, side), (periodic, periodic))
+
+
 def factor2d(n: int) -> tuple[int, int]:
     """Most-square (rows, cols) factorization of n, rows <= cols."""
     best = (1, n)
     for rows in range(1, math.isqrt(n) + 1):
         if n % rows == 0:
             best = (rows, n // rows)
+    return best
+
+
+def factor3d(n: int) -> tuple[int, int, int]:
+    """Most-cubic (z, rows, cols) factorization of n, z <= rows <= cols."""
+    best, best_spread = (1, 1, n), n
+    for z in range(1, round(n ** (1 / 3)) + 2):
+        if n % z:
+            continue
+        rows, cols = factor2d(n // z)
+        if z <= rows and cols - z < best_spread:
+            best, best_spread = (z, rows, cols), cols - z
     return best
