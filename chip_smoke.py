@@ -58,7 +58,21 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    before and read just after;
 13. BASELINE config 9 (the 3D stencil at 256x512x512) through
    ``bench.record``;
-14. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+14. the paged-attention kernel against its plain version: f32, int8 and fp8
+   pools, K = 1, 4 and 20 (past page + 1), ragged lengths, sentinel table
+   entries and an idle slot, at a small ragged geometry and at config 12's
+   (8 heads, d_head 128, 16-token pages); then its time at config 12's
+   decode shape (32 sequences of 128 cached tokens) beside its bound, its
+   plain time and SDPA's over the pre-gathered view;
+15. the serving path: ``ServeEngine`` at config 12's model (d_model 1024,
+   4 layers, 4 experts) on a 1x1 mesh, 8 requests of prompt 64 and 32 new
+   tokens, greedy, with the kernel and with the plain attention: equal
+   tokens, and the kernel launched once per layer per decode tick (the
+   count zeroed just before and read just after);
+16. BASELINE config 12 (serving decode, batches 1, 8 and 32) through
+   ``bench.record``, then a profile of 16 batch-32 ticks with the kernel and
+   with the plain attention (kernel time by group, the device's idle share);
+17. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card, or outside a
@@ -1089,6 +1103,191 @@ def phase13_config9() -> list:
     return out
 
 
+# Phases 14-16: the serving path. The paged-attention kernel against its
+# plain version: both f32, the kernel's dot products and softmax sums in
+# another order and int8/fp8 pages dequantized before the product instead
+# of folded in after, so a few ulps of the O(1) outputs.
+PAGED_ATOL = 1e-5
+# config 12's geometry (H 8, d_head 128, 16-token pages) and the timed case:
+# 32 sequences of 128 cached tokens, one query each
+PAGED_GEOM = dict(H=8, D=128, page=16)
+PAGED_TIMED = dict(B=32, T=128)
+
+
+def _paged_ops(gen, B, K, H, D, page, P, max_pages, dtype, lens=None):
+    """q, pools, table, lens and scales on the card: ragged lengths with an
+    idle slot 0 (unless ``lens`` is given), shuffled page ids with sentinel
+    tail entries, int8/fp8 pools quantized from f32 pages."""
+    from tpuscratch_torch.serve.kvcache import quantize_pages
+
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen, device=DEVICE)))
+    if lens is None:
+        lens = rng.integers(1, max_pages * page - K + 2, (B,))
+        lens[0] = 0
+    table = np.full((B, max_pages), P + 5, np.int32)
+    for b in range(B):
+        need = -(-(int(lens[b]) + K - 1) // page)
+        table[b, :need] = rng.permutation(P)[:need]
+    q = randn((B, K, H, D), gen)
+    kf, vf = randn((P, page, H, D), gen), randn((P, page, H, D), gen)
+    if dtype == torch.float32:
+        k, v, ks, vs = kf, vf, None, None
+    else:
+        (k, ks), (v, vs) = quantize_pages(kf, dtype), quantize_pages(vf, dtype)
+    return (q, k, v, torch.from_numpy(table).to(DEVICE),
+            torch.from_numpy(np.asarray(lens, np.int32)).to(DEVICE), ks, vs)
+
+
+def phase14_paged_kernel(gen) -> tuple[dict, list]:
+    """The paged-attention kernel against its plain version on the dtype
+    ladder, K = 1, 4 and 20 (20 > page + 1), ragged lengths, sentinels and
+    an idle slot, at a small ragged geometry and at config 12's; then its
+    time at config 12's decode shape beside its bound, its plain time and
+    SDPA's over the pre-gathered view (gather excluded)."""
+    from tpuscratch_torch.ops import attention as ta
+
+    err = 0.0
+    dtypes = (torch.float32, torch.int8, torch.float8_e4m3fn)
+    for dtype in dtypes:
+        for K in (1, 4, 20):
+            for geom, B, P, max_pages in ((dict(H=3, D=40, page=4), 6, 64, 12),
+                                          (PAGED_GEOM, 8, 64, 9)):
+                ops = _paged_ops(gen, B, K, geom["H"], geom["D"], geom["page"], P, max_pages, dtype)
+                got = ta.paged_attention(*ops)
+                e = max_err(got, ta._verify_attention_dense(*ops))
+                if e > PAGED_ATOL or got[0].abs().max() != 0:
+                    raise AssertionError(f"paged_attention {str(dtype)[6:]} K={K} {geom}: "
+                                         f"max_abs_err {e:.3e} (atol {PAGED_ATOL:g}) or idle slot "
+                                         "not zero")
+                err = max(err, e)
+                log(f"  paged_attention {str(dtype)[6:]:14s} K={K:2d} H={geom['H']} "
+                    f"D={geom['D']:3d} page={geom['page']:2d} B={B}: max_abs_err {e:.3e}")
+    B, T = PAGED_TIMED["B"], PAGED_TIMED["T"]
+    H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
+    rows = []
+    for dtype in dtypes:
+        q, k, v, table, lens, ks, vs = _paged_ops(gen, B, 1, H, D, page, 512, 9, dtype,
+                                                  lens=np.full(B, T))
+        esize = k.element_size()
+        n_pages_read = B * -(-T // page)
+        scales = 2 * n_pages_read * H * 4 if ks is not None else 0
+        nbytes = (2 * n_pages_read * page * H * D * esize + scales
+                  + 2 * q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
+        b, by = bound(nbytes, 4 * B * H * T * D)
+        tc = table.clamp(0, k.shape[0] - 1)                          # sentinels to page 0
+        kg = ta._gather_pages(k, tc).float().transpose(1, 2)       # (B, H, T', D), gathered once
+        vg = ta._gather_pages(v, tc).float().transpose(1, 2)
+        qs = q.transpose(1, 2)                                     # (B, H, 1, D)
+        mask = (torch.arange(kg.shape[2], device=DEVICE) < lens[:, None])[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows.append(dict(
+            name="paged_attention", shape=f"B{B} T{T} H{H} D{D} page{page} K1 {str(dtype)[6:]}",
+            ms=device_ms(lambda: ta.paged_attention(q, k, v, table, lens, ks, vs)),
+            plain_ms=device_ms(lambda: ta._verify_attention_dense(q, k, v, table, lens, ks, vs),
+                               n=5),
+            library_ms=device_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
+            library_shape=f"SDPA on the pre-gathered (B, H, {kg.shape[2]}, D) f32 view",
+            bound_ms=b, bound_by=by))
+    for r in rows:
+        log(f"  time {r['name']} {r['shape']:40s} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)")
+    return {"paged_attention": err}, rows
+
+
+def _serve_setup():
+    from tpuscratch_torch.bench.decode_bench import default_decode_setup
+    from tpuscratch_torch.models.transformer import init_params
+    from tpuscratch_torch.serve.engine import init_embed
+
+    cfg, scfg, _, _ = default_decode_setup(on_card=True)
+    weights = dict(params=init_params(scfg.seed, cfg, DEVICE),
+                   embed=init_embed(scfg.seed, scfg.vocab, cfg.d_model, DEVICE))
+    return cfg, scfg, weights
+
+
+def phase15_serve_path(cfg, scfg, weights) -> dict:
+    """``ServeEngine`` at config 12's model on a 1x1 mesh: 8 requests
+    (prompt 64, 32 new tokens, greedy) with the kernel (``"on"``) and with
+    the plain attention (``"off"``); the tokens must be equal and the
+    kernel launched once per layer per decode tick. The launch count is
+    zeroed just before the kernel run and read just after."""
+    import dataclasses
+
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.runtime.mesh import make_mesh
+    from tpuscratch_torch.serve import Request, ServeEngine
+
+    mesh = make_mesh((1, 1), ("dp", "sp"), DEVICE)
+    reqs = [Request(rid=i, prompt=tuple((7 * i + 3 * t) % scfg.vocab for t in range(64)),
+                    max_new=32) for i in range(8)]
+    reports = {}
+    for mode in ("off", "on"):
+        eng = ServeEngine(mesh, cfg, dataclasses.replace(scfg, n_slots=8, max_seq=96,
+                                                         fused_attention=mode), **weights)
+        if mode == "on":
+            ta.reset_launches()
+        t0 = time.perf_counter()
+        rep = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if mode == "on":
+            counts = ta.launch_counts()
+        reports[mode] = rep
+        log(f"  engine fused_attention={mode}: {wall:.3f} s wall, completed {rep.completed}, "
+            f"tokens {rep.tokens_generated}, decode_steps {rep.decode_steps}, prefills "
+            f"{rep.prefills}, programs built {rep.decode_compiles} decode + "
+            f"{rep.prefill_compiles} prefill, prefill_s {rep.prefill_s:.3f}, decode_s "
+            f"{rep.decode_s:.3f}, slot_steps {rep.slot_steps}, dispatches {rep.dispatches}, "
+            f"host_syncs {rep.host_syncs}, kv {eng.kv_cache_bytes} B "
+            f"({eng.kv_bytes_per_token:.0f} B/token)")
+    on, off = reports["on"], reports["off"]
+    toks = [t for _, out in on.outputs for t in out]
+    if on.completed != 8 or any(len(o) != 32 for _, o in on.outputs) or not all(
+            0 <= t < scfg.vocab for t in toks):
+        raise AssertionError(f"serve path: {on.completed} completed, malformed outputs")
+    if on.outputs != off.outputs:
+        diff = sum(a != b for (_, x), (_, y) in zip(on.outputs, off.outputs) for a, b in zip(x, y))
+        raise AssertionError(f"serve path: the kernel's tokens differ from the plain "
+                             f"attention's in {diff} of {len(toks)} places")
+    want = cfg.n_layers * on.decode_steps
+    log(f"  launches on the serving path: {counts} (n_layers x decode ticks = {want}); "
+        f"tokens equal in all {len(toks)} places")
+    if counts["paged_attention"] != want:
+        raise AssertionError(f"serve path launched paged_attention {counts} times, want {want}")
+    return counts
+
+
+def phase16_config12(cfg, scfg, weights) -> list:
+    """Config 12 through ``bench.record``, then where a batch-32 tick's
+    time goes (``torch.profiler`` over 16 ticks, kernel and plain
+    attention)."""
+    import dataclasses
+
+    from tpuscratch_torch.bench.decode_bench import profile_ticks
+    from tpuscratch_torch.bench.record import config12_decode
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    out: list = []
+    config12_decode(out, device=DEVICE)
+    for r in out:
+        log(f"  config 12 {r['metric']}: {r.get('value', '')} {r['detail']}")
+    for s in out[0]["sweep"]:
+        log(f"  config 12 batch {s['batch']:2d}: {s['tokens_per_s']:.1f} tokens/s, per-token p50 "
+            f"{s['p50_s_per_token'] * 1e3:.3f} ms, p99 {s['p99_s_per_token'] * 1e3:.3f} ms")
+    mesh = make_mesh((1, 1), ("dp", "sp"), DEVICE)
+    for mode in ("on", "off"):
+        prof = profile_ticks(mesh, cfg, dataclasses.replace(scfg, n_slots=32, fused_attention=mode),
+                             **weights)
+        log(f"  profile batch 32 fused_attention={mode}: {prof['tick_ms']:.3f} ms a profiled tick, "
+            f"device {prof['device_ms']:.3f} ms (idle share {prof['idle_share']:.3f}), "
+            f"{prof['launches_per_tick']:.0f} kernel launches a tick")
+        log("    by group (ms a tick): " + ", ".join(f"{k} {v:.3f}"
+                                                  for k, v in prof["groups_ms"].items()))
+        for name, ms in prof["top_ms"]:
+            log(f"    {ms:8.4f} ms  {name}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1129,7 +1328,16 @@ def main() -> int:
     del worlds, oracle
     log("== phase 13: config 9 (3D 7-point stencil, 256x512x512)")
     phase13_config9()
+    log("== phase 14: the paged-attention kernel against its plain version")
+    errs5, rows5 = phase14_paged_kernel(gen)
+    cfg12, scfg12, weights = _serve_setup()
+    log("== phase 15: serving path (ServeEngine, config 12's model, 1x1, 8 requests)")
+    counts5 = phase15_serve_path(cfg12, scfg12, weights)
+    log("== phase 16: config 12 (serving decode: batches 1, 8, 32) and a tick's profile")
+    phase16_config12(cfg12, scfg12, weights)
+    del weights
 
+    from tpuscratch_torch.ops import attention as ta
     from tpuscratch_torch.ops import halo_dma as hd
     from tpuscratch_torch.ops import reduction as tr
     from tpuscratch_torch.ops import stencil_kernel as sk
@@ -1156,14 +1364,18 @@ def main() -> int:
         "seven_point_assembled_pallas": ("stencil3d", "stencil_kernel.py:538", "256x512x512"),
         "seven_point_streamed_pallas": ("stencil_stream3d", "stencil_stream.py:566",
                                         f"k={STREAM3D_K}"),
+        "paged_attention": ("paged_attention", "attention.py:1413",
+                            "B32 T128 H8 D128 page16 K1 float32"),
     }
     counts.update(counts2)
     counts.update(counts3)
     counts.update(counts4)
+    counts.update(counts5)
     errs.update(errs2)
     errs.update(errs3)
     errs.update(errs4)
-    rows += rows2 + rows3 + rows4
+    errs.update(errs5)
+    rows += rows2 + rows3 + rows4 + rows5
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
@@ -1174,7 +1386,8 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),
         })
-    wrappers = sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
+    wrappers = (sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
+                + ta.WRAPPERS)
     if sorted(k["name"] for k in kernels) != sorted(w.__name__ for w in wrappers):
         raise AssertionError("the kernels line misses a wrapper")
     log(f"== done in {time.perf_counter() - t0:.1f} s")

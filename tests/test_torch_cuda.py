@@ -1,5 +1,8 @@
 """The hand-written CUDA kernels on the card, held to their plain torch
-versions on the same inputs. The stencil kernels (``stencil2d.cu``,
+versions on the same inputs. The paged-attention kernel
+(``paged_attention.cu``) sums in another order than its plain version and
+dequantizes before the dot product instead of after (tolerance below). The
+stencil kernels (``stencil2d.cu``,
 ``stencil3d.cu``, ``stencil_stream2d.cu``, ``stencil_stream3d.cu``,
 ``halo_dma.cu``) round every product and sum on
 its own in the plain versions' order, so the results must be equal bit
@@ -24,6 +27,7 @@ from tpuscratch_torch.bench.dot_bench import dot_program
 from tpuscratch_torch.bench.pingpong import pinned_staging_roundtrip, verify_echo
 from tpuscratch_torch.comm import P, run_spmd
 from tpuscratch_torch.halo.driver import distributed_stencil
+from tpuscratch_torch.ops import attention as ta
 from tpuscratch_torch.ops import halo_dma as th
 from tpuscratch_torch.ops import stencil_stream as ts
 from tpuscratch_torch.halo.layout import TileLayout
@@ -32,6 +36,7 @@ from tpuscratch_torch.ops import reduction as tr
 from tpuscratch_torch.ops import stencil_kernel as tk
 from tpuscratch_torch.halo.halo3d import distributed_stencil3d
 from tpuscratch_torch.runtime.mesh import make_mesh, make_mesh_1d, make_mesh_2d
+from tpuscratch_torch.serve.kvcache import quantize_pages
 
 # ``ops`` exports the function fill, which shadows the module's name there
 tf = importlib.import_module("tpuscratch_torch.ops.fill")
@@ -417,3 +422,82 @@ def test_pingpong_and_pinned_staging(card):
     for pinned in (True, False):
         res = pinned_staging_roundtrip(1 << 16, pinned=pinned, iters=2)
         assert res.bytes_moved == 2 * (1 << 18)
+
+
+# The paged-attention kernel against its plain version: both f32, the
+# kernel's dot products and softmax sums in another order (and int8/fp8
+# pages dequantized before the product, not folded in after), so a few
+# ulps of the O(1) outputs.
+PAGED_ATOL = 1e-5
+
+
+def _paged_operands(seed, lead, B, K, H, D, page, P, max_pages, dtype, device):
+    """Ragged lengths with an idle slot, shuffled page ids with sentinel
+    tail entries, and int8/fp8 pools quantized from f32 pages."""
+    rng = np.random.default_rng(seed)
+    q = _rand(lead + (B, K, H, D), seed, device)
+    kf = torch.from_numpy(rng.standard_normal(lead + (P, page, H, D)).astype(np.float32))
+    vf = torch.from_numpy(rng.standard_normal(lead + (P, page, H, D)).astype(np.float32))
+    lens = rng.integers(1, max_pages * page - K + 2, lead + (B,))
+    lens[..., 0] = 0
+    table = np.full(lead + (B, max_pages), P + 3, np.int32)
+    for idx in np.ndindex(*lead, B):
+        need = -(-(int(lens[idx]) + K - 1) // page)
+        table[idx][:need] = rng.permutation(P)[:need]
+    ops = [q]
+    if dtype == torch.float32:
+        ops += [kf.to(device), vf.to(device)]
+        scales = [None, None]
+    else:
+        (k8, ks), (v8, vs) = quantize_pages(kf, dtype), quantize_pages(vf, dtype)
+        ops += [k8.to(device), v8.to(device)]
+        scales = [ks.to(device), vs.to(device)]
+    ops += [torch.from_numpy(table).to(device), torch.from_numpy(lens).int().to(device)]
+    return ops + scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("K", [1, 4, 20])
+def test_paged_attention(card, dtype, K):
+    # page 4: K = 20 reaches past page + 1, so an idle slot's frontier
+    # spans several (sentinel) pages
+    ops = _paged_operands(40 + K, (), 6, K, 3, 40, 4, 64, 12, dtype, card)
+    ta.reset_launches()
+    got = ta.paged_attention(*ops)
+    assert ta.launch_counts() == {"paged_attention": 1}
+    want = ta._verify_attention_dense(*ops)
+    assert float((got - want).abs().max()) <= PAGED_ATOL
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # the idle slot
+    on_cpu = ta._verify_attention_dense(*(o.cpu() if o is not None else None for o in ops))
+    assert float((got.cpu() - on_cpu).abs().max()) <= PAGED_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_paged_attention_strided_stacked_pools(card, dtype):
+    # two stacked ranks (one launch each), each pool a layer of a bigger
+    # cache whose heads are split: page, token and head strides all
+    # differ from a contiguous pool's
+    q, k, v, table, lens, ks, vs = _paged_operands(50, (2,), 5, 3, 2, 128, 16, 32, 6, dtype, card)
+    big_k = torch.zeros((2, 3, 32, 16, 4, 128), dtype=k.dtype, device=card)
+    big_v = torch.zeros_like(big_k)
+    big_k[:, 1, :, :, 2:] = k
+    big_v[:, 1, :, :, 2:] = v
+    pk, pv = big_k[:, 1, :, :, 2:], big_v[:, 1, :, :, 2:]
+    if ks is not None:
+        big_s = torch.zeros((2, 2, 32, 4), device=card)
+        big_s[:, 0, :, 2:], big_s[:, 1, :, 2:] = ks, vs
+        ks, vs = big_s[:, 0, :, 2:], big_s[:, 1, :, 2:]
+    ta.reset_launches()
+    got = ta.verify_attention(q, pk, pv, table, lens, ks, vs)
+    assert ta.launch_counts() == {"paged_attention": 2}
+    want = ta.verify_attention(q, pk, pv, table, lens, ks, vs, fused=False)
+    assert float((got - want).abs().max()) <= PAGED_ATOL
+
+
+def test_paged_attention_limits(card):
+    ops = _paged_operands(60, (), 2, 1, 1, 264, 4, 8, 2, torch.float32, card)
+    with pytest.raises(ValueError, match="256"):
+        ta.paged_attention(*ops)
+    ops = _paged_operands(61, (), 2, 65, 1, 8, 4, 40, 20, torch.float32, card)
+    with pytest.raises(ValueError, match="64"):
+        ta.paged_attention(*ops)

@@ -51,7 +51,12 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.ops.fill", "tpuscratch_torch.bench.dot_bench",
                 "tpuscratch_torch.bench.pingpong", "tpuscratch_torch.ops.stencil_stream",
                 "tpuscratch_torch.ops.halo_dma", "tpuscratch_torch.bench.record",
-                "tpuscratch_torch.halo.halo3d", "tpuscratch_torch.bench.stencil_bench"):
+                "tpuscratch_torch.halo.halo3d", "tpuscratch_torch.bench.stencil_bench",
+                "tpuscratch_torch.serve", "tpuscratch_torch.serve.kvcache",
+                "tpuscratch_torch.serve.sampling", "tpuscratch_torch.serve.decode",
+                "tpuscratch_torch.serve.engine", "tpuscratch_torch.ops.attention",
+                "tpuscratch_torch.parallel.scores", "tpuscratch_torch.parallel.expert",
+                "tpuscratch_torch.models.transformer", "tpuscratch_torch.bench.decode_bench"):
         assert mod in got["modules"]
 
 
@@ -92,7 +97,7 @@ def test_sources_ship_as_package_data():
     from tpuscratch_torch.ops import common
 
     assert sorted(p.name for p in common.CSRC.glob("*.cu")) == [
-        "fill.cu", "halo_dma.cu", "reduction.cu", "stencil2d.cu", "stencil3d.cu",
+        "fill.cu", "halo_dma.cu", "paged_attention.cu", "reduction.cu", "stencil2d.cu", "stencil3d.cu",
         "stencil_stream2d.cu", "stencil_stream3d.cu"]
     assert [p.name for p in common.CSRC.glob("*.cuh")] == ["stencil_taps.cuh"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
@@ -105,10 +110,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     from tpuscratch_torch.bench.dot_bench import bench_dot
     from tpuscratch_torch.ops.fill import fill
     from tpuscratch_torch.runtime.mesh import make_mesh_1d
+    from tpuscratch_torch.models.transformer import TransformerConfig, init_params
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    for call in (make_mesh_1d, lambda: fill((8, 128), 1.0), lambda: bench_dot(n_elems=64)):
+    for call in (make_mesh_1d, lambda: fill((8, 128), 1.0), lambda: bench_dot(n_elems=64),
+                 lambda: init_params(0, TransformerConfig())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert make_mesh_1d(device="cpu").shape == (1,)

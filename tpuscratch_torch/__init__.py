@@ -13,9 +13,12 @@ Ported so far: the 2D halo-stencil path (``runtime``, ``dtypes``,
 product with the comm layer under it (``comm``, ``runtime.context``,
 ``runtime.memory``, ``ops.reduction``, ``ops.fill``, ``bench.dot_bench``,
 ``bench.pingpong``, ``bench.record``), the streamed and DMA-halo 2D
-stencil (``ops.stencil_stream``, ``ops.halo_dma``), and the 3D halo and
+stencil (``ops.stencil_stream``, ``ops.halo_dma``), the 3D halo and
 7/27-point stencil (``halo.halo3d``, with the 3D kernels of
-``ops.stencil_kernel`` and ``ops.stencil_stream``).
+``ops.stencil_kernel`` and ``ops.stencil_stream``), and the serving path's
+default (``serve``, ``parallel.expert``, ``parallel.scores``,
+``models.transformer``, ``bench.decode_bench``, with the paged-attention
+kernel of ``ops.attention``).
 """
 
 __version__ = "0.1.0"

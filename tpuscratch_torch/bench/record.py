@@ -1,10 +1,12 @@
-"""BASELINE configs 2, 3, 4, 9 and 10 on the card.
+"""BASELINE configs 2, 3, 4, 9, 10 and 12 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,9,10]`` prints
-one JSON line per metric, with the JAX package's metric names
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,9,10,12]``
+prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
 2D stencil on a 4x4 mesh at 8192^2, 9 the 3D 7-point stencil at
-256x512x512, 10 the DMA-halo stencil at 1024^2.
+256x512x512, 10 the DMA-halo stencil at 1024^2, 12 serving decode (the
+4-layer MoE transformer at d_model 1024 behind the continuous-batching
+engine).
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught: a failing method, impl or re-measure fails the run.
 """
@@ -12,12 +14,19 @@ caught: a failing method, impl or re-measure fails the run.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
 
 import torch
 
+from tpuscratch_torch.bench.decode_bench import (
+    bench_decode,
+    default_decode_setup,
+    peak_hbm_bytes_per_s,
+)
+from tpuscratch_torch.bench.decode_bench import sweep as decode_sweep
 from tpuscratch_torch.bench.dot_bench import bench_dot
 from tpuscratch_torch.bench.headline import race, two_phase_stencil
 from tpuscratch_torch.bench.pingpong import DEFAULT_SIZES, sweep, verify_echo
@@ -158,13 +167,85 @@ def config9_stencil3d(out: list, iters: int = 3, tile=(256, 512, 512), impls=CON
     return {"final": final, "winner": winner, "screen": screen}
 
 
+def _median_of(runs, key):
+    """The run whose ``key`` is the median (one coherent run's fields,
+    never a field-wise median)."""
+    runs = sorted(runs, key=key)
+    return runs[len(runs) // 2]
+
+
+def config12_decode(out: list, device=None) -> dict:
+    """Serving decode: steady-state engine ticks (continuous batching,
+    paged KV cache) across the batch sweep, tokens/s and the per-token
+    latency tail, the median of three complete sweeps by their best
+    tokens/s. Three rows: ``serve_decode_tokens_per_s``,
+    ``serve_decode_roofline`` (the sweep's bytes over the wall against the
+    memory rate; on the card the best batch re-run with
+    ``fused_attention="on"`` against ``"off"``, their ratio
+    ``fused_speedup``), and the static ``serve_kv_cache_bytes`` (bytes per
+    token of pool capacity on the fp32 / int8 / fp8 ladder). The card
+    takes ``default_decode_setup``'s config-12 shapes, the CPU its CPU
+    shapes. The model's weights are drawn once and shared by every engine.
+    Returns ``{"sweep", "fused", "plain"}`` results."""
+    from tpuscratch_torch.models.transformer import init_params
+    from tpuscratch_torch.runtime.mesh import resolve_device
+    from tpuscratch_torch.serve.engine import init_embed
+    from tpuscratch_torch.serve.kvcache import CacheGeometry, init_kv_cache, kv_cache_bytes
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    cfg, scfg, batches, kwargs = default_decode_setup(on_card)
+    mesh = make_mesh((1, 1), ("dp", "sp"), dev)
+    weights = dict(params=init_params(scfg.seed, cfg, dev),
+                   embed=init_embed(scfg.seed, scfg.vocab, cfg.d_model, dev))
+    results = _median_of(
+        [decode_sweep(mesh, cfg, scfg, batches, **kwargs, **weights) for _ in range(3)],
+        key=lambda rs: max(r.tokens_per_s for r in rs))
+    best = max(results, key=lambda r: r.tokens_per_s)
+    _emit(out, mesh, config=12, metric="serve_decode_tokens_per_s", value=best.tokens_per_s,
+          p50_s=best.p50_s, p99_s=best.p99_s,
+          sweep=[{"batch": r.n_slots, "tokens_per_s": r.tokens_per_s,
+                  "p50_s_per_token": r.p50_s, "p99_s_per_token": r.p99_s} for r in results],
+          detail=best.summary())
+    row = dict(config=12, metric="serve_decode_roofline", value=best.achieved_frac,
+               achieved_frac=best.achieved_frac,
+               achieved_hbm_gbps=best.achieved_bytes_per_s / 1e9,
+               peak_hbm_gbps=peak_hbm_bytes_per_s(dev) / 1e9,
+               kernel="fused" if on_card else "dense")
+    fused = plain = None
+    if on_card:
+        one = dataclasses.replace(scfg, n_slots=best.n_slots)
+        fused = bench_decode(mesh, cfg, dataclasses.replace(one, fused_attention="on"),
+                             **kwargs, **weights)
+        plain = bench_decode(mesh, cfg, dataclasses.replace(one, fused_attention="off"),
+                             **kwargs, **weights)
+        row.update(value=fused.achieved_frac, achieved_frac=fused.achieved_frac,
+                   achieved_hbm_gbps=fused.achieved_bytes_per_s / 1e9,
+                   fused_speedup=fused.tokens_per_s / plain.tokens_per_s)
+    row["detail"] = (f"{row['achieved_hbm_gbps']:.3f} GB/s achieved "
+                     f"({100 * row['achieved_frac']:.2f}% of {row['peak_hbm_gbps']:.0f} GB/s, "
+                     f"{row['kernel']} kernel"
+                     + (f", fused {row['fused_speedup']:.2f}x plain" if on_card else "") + ")")
+    _emit(out, mesh, **row)
+    geom = CacheGeometry(cfg.n_layers, scfg.n_pages, scfg.page_size, cfg.n_heads, cfg.d_head)
+    per_tok = {name: kv_cache_bytes(init_kv_cache(geom, dtype=dt, device="meta")) / geom.max_tokens
+               for name, dt in (("f32", torch.float32), ("int8", torch.int8),
+                                ("fp8", torch.float8_e4m3fn))}
+    _emit(out, mesh, config=12, metric="serve_kv_cache_bytes",
+          bytes_per_token_f32=per_tok["f32"], bytes_per_token_int8=per_tok["int8"],
+          bytes_per_token_fp8=per_tok["fp8"], int8_ratio=per_tok["int8"] / per_tok["f32"],
+          detail=f"{per_tok['f32']:.0f} -> {per_tok['int8']:.0f} B/token "
+                 f"({per_tok['int8'] / per_tok['f32']:.3f}x) at config-12 geometry")
+    return {"sweep": results, "fused": fused, "plain": plain}
+
+
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
-           9: config9_stencil3d, 10: config10_dma_halo}
+           9: config9_stencil3d, 10: config10_dma_halo, 12: config12_decode}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,9,10", help="comma-separated config numbers")
+    ap.add_argument("--configs", default="2,3,4,9,10,12", help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []
     for c in (int(s) for s in args.configs.split(",")):

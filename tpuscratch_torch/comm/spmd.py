@@ -139,34 +139,72 @@ def _join(y: torch.Tensor, spec, mesh: StackedMesh) -> torch.Tensor:
     return y.permute(perm).reshape(shape)
 
 
-def _per_arg(specs, n: int) -> tuple:
-    if isinstance(specs, PartitionSpec):
-        return (specs,) * n
-    specs = tuple(specs)
-    if len(specs) != n:
-        raise ValueError(f"{len(specs)} specs for {n} values")
-    return specs
+def _tree_map(f, tree, spec):
+    """``f(leaf, leaf_spec)`` over a tree of tensors (nested dicts, lists
+    and tuples) and its spec tree; one PartitionSpec applies to every leaf
+    below it, as a spec prefix does in ``shard_map``."""
+    if isinstance(tree, torch.Tensor):
+        if not isinstance(spec, PartitionSpec):
+            raise ValueError(f"a tensor needs one PartitionSpec, got {spec!r}")
+        return f(tree, spec)
+    if isinstance(tree, dict):
+        if isinstance(spec, PartitionSpec):
+            return {k: _tree_map(f, v, spec) for k, v in tree.items()}
+        if set(spec) != set(tree):
+            raise ValueError(f"spec keys {sorted(spec)} != tree keys {sorted(tree)}")
+        return {k: _tree_map(f, v, spec[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        specs = (spec,) * len(tree) if isinstance(spec, PartitionSpec) else tuple(spec)
+        if len(specs) != len(tree):
+            raise ValueError(f"{len(specs)} specs for {len(tree)} values")
+        return type(tree)(_tree_map(f, t, s) for t, s in zip(tree, specs))
+    raise ValueError(f"run_spmd wants tensors, got {type(tree).__name__}")
 
 
 def run_spmd(mesh: StackedMesh, fn: Callable[..., Any], in_specs, out_specs) -> Callable[..., Any]:
     """The program ``fn`` over ``mesh``: global tensors in (on
-    ``mesh.device``), global tensors out. ``fn`` sees stacked tensors."""
+    ``mesh.device``), global tensors out. ``fn`` sees stacked tensors.
+    Arguments and results may be trees (dicts, lists, tuples) of tensors
+    with a spec tree each, or one spec for a whole tree."""
+
+    def split(a, s):
+        if a.device != mesh.device:
+            raise ValueError(f"run_spmd wants tensors on {mesh.device}, got {a.device}")
+        return _split(a, s, mesh)
 
     def program(*args):
-        for a in args:
-            if not isinstance(a, torch.Tensor) or a.device != mesh.device:
-                where = a.device if isinstance(a, torch.Tensor) else type(a).__name__
-                raise ValueError(f"run_spmd wants tensors on {mesh.device}, got {where}")
-        stacked = [_split(a, s, mesh) for a, s in zip(args, _per_arg(in_specs, len(args)))]
+        specs = (in_specs,) * len(args) if isinstance(in_specs, PartitionSpec) else in_specs
+        stacked = _tree_map(split, tuple(args), tuple(specs))
         with mesh_context(mesh):
             out = fn(*stacked)
-        if isinstance(out, (tuple, list)):
-            return type(out)(_join(o, s, mesh) for o, s in zip(out, _per_arg(out_specs, len(out))))
-        if not isinstance(out_specs, PartitionSpec):
-            raise ValueError("one output needs one PartitionSpec")
-        return _join(out, out_specs, mesh)
+        return _tree_map(lambda o, s: _join(o, s, mesh), out, out_specs)
 
     return program
+
+
+def axis_index(axis: AxisName) -> torch.Tensor:
+    """Each rank's index along ``axis`` (row-major over several names), as
+    a ``mesh.shape`` tensor: the stacked ``lax.axis_index``."""
+    mesh = current_mesh()
+    idx = torch.zeros(mesh.shape, dtype=torch.int64, device=mesh.device)
+    for d in axis_dims(axis, mesh):
+        shape = [1] * len(mesh.shape)
+        shape[d] = mesh.shape[d]
+        idx = idx * mesh.shape[d] + torch.arange(mesh.shape[d], device=mesh.device).view(shape)
+    return idx
+
+
+def lead_index(lead: Sequence[int], ndim: int, device=None) -> tuple[torch.Tensor, ...]:
+    """One index tensor per leading dim of sizes ``lead`` (a stacked
+    value's mesh dims), each shaped to broadcast against a ``(*lead,
+    ...)`` index tensor of ``ndim`` dims: ``x[(*lead_index(...), idx)]``
+    gathers each rank's own rows."""
+    out = []
+    for i, n in enumerate(lead):
+        shape = [1] * ndim
+        shape[i] = n
+        out.append(torch.arange(n, device=device).view(shape))
+    return tuple(out)
 
 
 def shards_from_numpy(a: np.ndarray, n: int, device=None) -> torch.Tensor:

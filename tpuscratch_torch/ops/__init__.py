@@ -2,8 +2,9 @@
 
 The twin of ``tpuscratch.ops``: dot-product reductions (``reduction``),
 device-side fills (``fill``), the one-step 2D and 3D stencil kernels
-(``stencil_kernel``), the streamed 2D and 3D kernels (``stencil_stream``)
-and the DMA-halo kernels (``halo_dma``).
+(``stencil_kernel``), the streamed 2D and 3D kernels (``stencil_stream``),
+the DMA-halo kernels (``halo_dma``) and paged decode attention
+(``attention``).
 """
 
 from tpuscratch_torch.ops.fill import fill, iota2d  # noqa: F401
