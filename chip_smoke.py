@@ -1174,8 +1174,16 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
         nbytes = (2 * n_pages_read * page * H * D * esize + scales
                   + 2 * q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
         b, by = bound(nbytes, 4 * B * H * T * D)
-        tc = table.clamp(0, k.shape[0] - 1)                          # sentinels to page 0
-        kg = ta._gather_pages(k, tc).float().transpose(1, 2)       # (B, H, T', D), gathered once
+        e = max_err(ta.paged_attention(q, k, v, table, lens, ks, vs),
+                    ta._verify_attention_dense(q, k, v, table, lens, ks, vs))
+        if e > PAGED_ATOL:
+            raise AssertionError(f"paged_attention {str(dtype)[6:]} B={B} T={T} P=512: "
+                                 f"max_abs_err {e:.3e} (atol {PAGED_ATOL:g})")
+        err = max(err, e)
+        log(f"  paged_attention {str(dtype)[6:]:14s} K= 1 H={H} D={D:3d} page={page:2d} B={B} "
+            f"P=512 (the timed case): max_abs_err {e:.3e}")
+        tc = table[:, :-(-T // page)]                              # the pages the kernel reads
+        kg = ta._gather_pages(k, tc).float().transpose(1, 2)       # (B, H, T, D), gathered once
         vg = ta._gather_pages(v, tc).float().transpose(1, 2)
         qs = q.transpose(1, 2)                                     # (B, H, 1, D)
         mask = (torch.arange(kg.shape[2], device=DEVICE) < lens[:, None])[:, None, None, :]
@@ -1278,8 +1286,10 @@ def phase16_config12(cfg, scfg, weights) -> list:
     for mode in ("on", "off"):
         prof = profile_ticks(mesh, cfg, dataclasses.replace(scfg, n_slots=32, fused_attention=mode),
                              **weights)
-        log(f"  profile batch 32 fused_attention={mode}: {prof['tick_ms']:.3f} ms a profiled tick, "
-            f"device {prof['device_ms']:.3f} ms (idle share {prof['idle_share']:.3f}), "
+        log(f"  profile batch 32 fused_attention={mode}: {prof['tick_ms']:.3f} ms an unprofiled "
+            f"tick, {prof['profiled_tick_ms']:.3f} ms a profiled one, device "
+            f"{prof['device_ms']:.3f} ms (idle share {prof['idle_share']:.3f} of the unprofiled "
+            f"tick, {prof['idle_share_profiled']:.3f} of the profiled), "
             f"{prof['launches_per_tick']:.0f} kernel launches a tick")
         log("    by group (ms a tick): " + ", ".join(f"{k} {v:.3f}"
                                                   for k, v in prof["groups_ms"].items()))

@@ -63,7 +63,7 @@ def test_prefill_decode_and_context_prefill(dims, kv):
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     geom_args = (cfg.n_layers, N_PAGES, PAGE, cfg.n_heads, cfg.d_head)
     jkv = jk.init_kv_cache(jk.CacheGeometry(*geom_args), dims[0], jdt)
-    tkv = tk.init_kv_cache(tk.CacheGeometry(*geom_args), dims[0], tdt)
+    tkv = tk.init_kv_cache(tk.CacheGeometry(*geom_args), dims[0], tdt, device="cpu")
     jgeom, tgeom = jk.CacheGeometry(*geom_args), tk.CacheGeometry(*geom_args)
     rng = np.random.default_rng(7)
     per_group = B // dims[0]
@@ -142,7 +142,7 @@ def test_program_counter_and_refusals():
                                 counter=counter)
     params = params_from_numpy(jax.tree_util.tree_map(
         np.asarray, jax_init_params(0, JaxConfig(**CFG))), "cpu")
-    kv = tk.init_kv_cache(geom)
+    kv = tk.init_kv_cache(geom, device="cpu")
     z = torch.zeros(2, dtype=torch.int32)
     for _ in range(3):
         step(params, kv, torch.zeros(2, cfg.d_model), torch.full((2, 1), N_PAGES, dtype=torch.int32),

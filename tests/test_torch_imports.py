@@ -111,11 +111,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     from tpuscratch_torch.ops.fill import fill
     from tpuscratch_torch.runtime.mesh import make_mesh_1d
     from tpuscratch_torch.models.transformer import TransformerConfig, init_params
+    from tpuscratch_torch.serve import CacheGeometry, init_kv_cache, request_key
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     for call in (make_mesh_1d, lambda: fill((8, 128), 1.0), lambda: bench_dot(n_elems=64),
-                 lambda: init_params(0, TransformerConfig())):
+                 lambda: init_params(0, TransformerConfig()),
+                 lambda: init_kv_cache(CacheGeometry(1, 2, 4, 2, 8)),
+                 lambda: request_key(0, 0, 0)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert make_mesh_1d(device="cpu").shape == (1,)

@@ -17,7 +17,7 @@ POS = np.array([0, 1, 2, 63, 9, 100000], np.int32)
 
 def _keys(seed):
     jk = js.request_keys(jax.random.key(seed), jnp.asarray(RIDS), jnp.asarray(POS))
-    tk = ts.request_keys(ts.key(seed), torch.from_numpy(RIDS).long(), torch.from_numpy(POS).long())
+    tk = ts.request_keys(ts.key(seed, "cpu"), torch.from_numpy(RIDS).long(), torch.from_numpy(POS).long())
     return jk, tk
 
 
@@ -27,7 +27,7 @@ def test_key_data_bit_equal(seed):
     np.testing.assert_array_equal(tk.numpy().astype(np.uint32),
                                   np.asarray(jax.random.key_data(jk)))
     one = js.request_key(seed, 7, 2)
-    np.testing.assert_array_equal(ts.request_key(seed, 7, 2).numpy().astype(np.uint32),
+    np.testing.assert_array_equal(ts.request_key(seed, 7, 2, "cpu").numpy().astype(np.uint32),
                                   np.asarray(jax.random.key_data(one)))
 
 
@@ -53,7 +53,7 @@ def test_sample_batch_tokens_equal(temperature, top_k, vocab):
 
 def test_top_k_support_and_refusal():
     logits = torch.arange(16, dtype=torch.float32)
-    keys = ts.request_keys(ts.key(0), torch.zeros(64, dtype=torch.int64), torch.arange(64))
+    keys = ts.request_keys(ts.key(0, "cpu"), torch.zeros(64, dtype=torch.int64), torch.arange(64))
     toks = ts.sample_batch(keys, logits.expand(64, 16), 1.0, 4)
     assert set(toks.tolist()) <= {12, 13, 14, 15}
     with pytest.raises(ValueError, match="temperature"):

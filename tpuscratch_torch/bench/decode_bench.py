@@ -165,23 +165,28 @@ def profile_ticks(mesh, cfg, scfg, prompt_len: int = 64, ticks: int = 16, warmup
                   params=None, embed=None) -> dict:
     """Where a steady-state decode tick's time goes: ``ticks`` engine
     ticks with every slot busy under ``torch.profiler`` (CPU and CUDA
-    activity). Returns the profiled wall per tick, the device's kernel
-    time per tick (one stream, so kernels do not overlap), its idle share,
-    kernel launches per tick, and kernel time per tick by group and by
-    name (the ten largest). The profiler's own host cost lengthens the
-    profiled tick; the unprofiled tick is :func:`bench_decode`'s."""
+    activity), after as many unprofiled ones. Returns the unprofiled and
+    the profiled wall per tick, the device's kernel time per tick (one
+    stream, so kernels do not overlap), its idle share against each wall
+    (the profiler's own host cost lengthens the profiled tick, so
+    ``idle_share`` is the unprofiled one), kernel launches per tick, and
+    kernel time per tick by group and by name (the ten largest)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpuscratch_torch.serve import Request, ServeEngine
 
-    scfg = dataclasses.replace(scfg, max_seq=max(scfg.max_seq,
-                                                 prompt_len + warmup_steps + ticks + 2))
+    budget = warmup_steps + 2 * ticks + 2
+    scfg = dataclasses.replace(scfg, max_seq=max(scfg.max_seq, prompt_len + budget))
     engine = ServeEngine(mesh, cfg, scfg, params=params, embed=embed)
     prompt = tuple(t % scfg.vocab for t in range(1, prompt_len + 1))
     for i in range(scfg.n_slots):
-        engine.submit(Request(rid=i, prompt=prompt, max_new=warmup_steps + ticks + 2))
+        engine.submit(Request(rid=i, prompt=prompt, max_new=budget))
     for _ in range(warmup_steps):
         engine.step()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        engine.step()
+    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(ticks):
@@ -199,9 +204,10 @@ def profile_ticks(mesh, cfg, scfg, prompt_len: int = 64, ticks: int = 16, warmup
     for name, us in kernels.items():
         groups[_kind(name)] = groups.get(_kind(name), 0.0) + us / 1e3 / ticks
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    tick_ms = wall / ticks * 1e3
-    return {"batch": scfg.n_slots, "tick_ms": tick_ms, "device_ms": busy,
-            "idle_share": 1.0 - busy / tick_ms, "launches_per_tick": launches / ticks,
+    tick_ms, profiled_ms = plain_wall / ticks * 1e3, wall / ticks * 1e3
+    return {"batch": scfg.n_slots, "tick_ms": tick_ms, "profiled_tick_ms": profiled_ms,
+            "device_ms": busy, "idle_share": 1.0 - busy / tick_ms,
+            "idle_share_profiled": 1.0 - busy / profiled_ms, "launches_per_tick": launches / ticks,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_ms": [(name[:60], us / 1e3 / ticks) for name, us in top]}
 

@@ -181,7 +181,7 @@ def config12_decode(out: list, device=None) -> dict:
     tokens/s. Three rows: ``serve_decode_tokens_per_s``,
     ``serve_decode_roofline`` (the sweep's bytes over the wall against the
     memory rate; on the card the best batch re-run with
-    ``fused_attention="on"`` against ``"off"``, their ratio
+    ``fused_attention="on"`` and then ``"off"``, back to back, their ratio
     ``fused_speedup``), and the static ``serve_kv_cache_bytes`` (bytes per
     token of pool capacity on the fp32 / int8 / fp8 ladder). The card
     takes ``default_decode_setup``'s config-12 shapes, the CPU its CPU
@@ -213,7 +213,7 @@ def config12_decode(out: list, device=None) -> dict:
                peak_hbm_gbps=peak_hbm_bytes_per_s(dev) / 1e9,
                kernel="fused" if on_card else "dense")
     fused = plain = None
-    if on_card:
+    if on_card:  # the host-bound tick drifts between windows: time both modes back to back
         one = dataclasses.replace(scfg, n_slots=best.n_slots)
         fused = bench_decode(mesh, cfg, dataclasses.replace(one, fused_attention="on"),
                              **kwargs, **weights)

@@ -28,6 +28,7 @@ from typing import Iterable, Optional
 import torch
 
 from tpuscratch_torch.comm.spmd import P
+from tpuscratch_torch.runtime.mesh import resolve_device
 
 #: symmetric int8 range: q in [-127, 127], value = q * scale
 INT8_QMAX = 127.0
@@ -72,14 +73,16 @@ class CacheGeometry:
 
 
 def init_kv_cache(geom: CacheGeometry, dp_size: int = 1, dtype=torch.float32,
-                  device="cpu") -> dict:
+                  device=None) -> dict:
     """The global cache: ``{"k", "v"}`` of shape ``(n_layers, dp_size *
-    n_pages, page_size, n_heads, d_head)``, zeroed on ``device``, plus
+    n_pages, page_size, n_heads, d_head)``, zeroed on ``device`` (the card
+    unless another device is named), plus
     ``{"k_scale", "v_scale"}`` ``(n_layers, dp_size * n_pages, n_heads)``
     f32 planes for a quantized ``dtype``."""
     if dtype != torch.float32 and not is_quantized_kv_dtype(dtype):
         raise ValueError(
             f"kv cache dtype {dtype} not in the ladder (float32, int8, float8_e4m3fn)")
+    device = resolve_device(device)
     shape = (geom.n_layers, dp_size * geom.n_pages, geom.page_size, geom.n_heads, geom.d_head)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}

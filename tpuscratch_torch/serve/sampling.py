@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from tpuscratch_torch.parallel.scores import NEG_INF
+from tpuscratch_torch.runtime.mesh import resolve_device
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -46,9 +47,11 @@ def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
     return x0, x1
 
 
-def key(seed: int, device="cpu") -> torch.Tensor:
-    """``jax.random.key(seed)``'s data: ``(0, seed)`` as two uint32 words."""
-    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64, device=device)
+def key(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.key(seed)``'s data: ``(0, seed)`` as two uint32 words,
+    on ``device`` (the card unless another device is named)."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
@@ -59,7 +62,7 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def request_key(seed: int, rid: int, position: int, device="cpu") -> torch.Tensor:
+def request_key(seed: int, rid: int, position: int, device=None) -> torch.Tensor:
     """The key of request ``rid``'s ``position``-th generated token."""
     return fold_in(fold_in(key(seed, device), rid), position)
 
