@@ -61,7 +61,8 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 14. the paged-attention kernel against its plain version: f32, int8 and fp8
    pools, K = 1, 4 and 20 (past page + 1), ragged lengths, sentinel table
    entries and an idle slot, at a small ragged geometry and at config 12's
-   (8 heads, d_head 128, 16-token pages); then its time at config 12's
+   (8 heads, d_head 128, 16-token pages); K = 65 and 128 (several query
+   groups), d_head 384 (several output tiles) and a bf16 q; then its time at config 12's
    decode shape (32 sequences of 128 cached tokens) beside its bound, its
    plain time and SDPA's over the pre-gathered view;
 15. the serving path: ``ServeEngine`` at config 12's model (d_model 1024,
@@ -72,7 +73,23 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 16. BASELINE config 12 (serving decode, batches 1, 8 and 32) through
    ``bench.record``, then a profile of 16 batch-32 ticks with the kernel and
    with the plain attention (kernel time by group, the device's idle share);
-17. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+17. the three flash-attention kernels through their four wrappers against
+   their plain versions: f32 and bf16, causal and full, int and per-entry
+   offsets (one entry fully masked), ragged S and T, D 64 to 256, the state
+   outputs, the backward at dense and compact offsets; then each wrapper at
+   config 6's shape (S 4096, H 8, D 128) and config 11's attention shape
+   (batch 8 of S 2048), its time beside its bound, its plain time and
+   SDPA's (forward, or its autograd backward);
+18. the training path: ``train_step`` at config 11's model (d_model 1024,
+   4 layers, 4 experts, batch 8, seq 2048, f32) on a 1x1 mesh, 3 SGD steps
+   each with the plain ring ("xla"), the ring through the flash kernels
+   ("pallas") and Ulysses through them ("ulysses-pallas"), from the same
+   weights: equal losses, and one forward and one backward launch per layer
+   per step (the counts zeroed just before each kernel run, read just after);
+19. BASELINE configs 6 (flash attention TFLOP/s, causal and full) and 11
+   (train tokens/s, f32 and bf16) through ``bench.record``, then a profile
+   of a config-11 step (kernel time by group, the device's idle share);
+20. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card, or outside a
@@ -1108,6 +1125,9 @@ def phase13_config9() -> list:
 # another order and int8/fp8 pages dequantized before the product instead
 # of folded in after, so a few ulps of the O(1) outputs.
 PAGED_ATOL = 1e-5
+# a bf16 q: kernel and plain version each round an f32 result to bf16 once,
+# so one bf16 ulp of the O(1) outputs (2^-7 below magnitude 2)
+PAGED_BF16_ATOL = 1e-2
 # config 12's geometry (H 8, d_head 128, 16-token pages) and the timed case:
 # 32 sequences of 128 cached tokens, one query each
 PAGED_GEOM = dict(H=8, D=128, page=16)
@@ -1162,6 +1182,27 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
                 err = max(err, e)
                 log(f"  paged_attention {str(dtype)[6:]:14s} K={K:2d} H={geom['H']} "
                     f"D={geom['D']:3d} page={geom['page']:2d} B={B}: max_abs_err {e:.3e}")
+    # past the old refusals: 65 and 128 queries (two groups of 64), d_head
+    # 384 (three output tiles), and a bf16 q (bf16 out, one bf16 ulp)
+    for K, D, dtype, qdt in ((65, 128, torch.float32, torch.float32),
+                             (128, 128, torch.int8, torch.float32),
+                             (4, 384, torch.float32, torch.float32),
+                             (65, 384, torch.float8_e4m3fn, torch.float32),
+                             (20, 128, torch.float32, torch.bfloat16),
+                             (128, 384, torch.int8, torch.bfloat16)):
+        ops = list(_paged_ops(gen, 6, K, 8, D, 16, 64, 16, dtype))
+        ops[0] = ops[0].to(qdt)
+        got = ta.paged_attention(*ops)
+        atol = PAGED_ATOL if qdt == torch.float32 else PAGED_BF16_ATOL
+        e = max_err(got.float(), ta._verify_attention_dense(*ops).float())
+        if e > atol or got.dtype != qdt or got[0].abs().max() != 0:
+            raise AssertionError(f"paged_attention K={K} D={D} {str(dtype)[6:]} q {str(qdt)[6:]}: "
+                                 f"max_abs_err {e:.3e} (atol {atol:g}), dtype {got.dtype}, or "
+                                 "idle slot not zero")
+        if qdt == torch.float32:
+            err = max(err, e)
+        log(f"  paged_attention {str(dtype)[6:]:14s} K={K:3d} H=8 D={D:3d} page=16 B=6 "
+            f"q {str(qdt)[6:]}: max_abs_err {e:.3e} (atol {atol:g}), out {str(got.dtype)[6:]}")
     B, T = PAGED_TIMED["B"], PAGED_TIMED["T"]
     H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
     rows = []
@@ -1298,6 +1339,401 @@ def phase16_config12(cfg, scfg, weights) -> list:
     return out
 
 
+# Phases 17-19: the training path. The flash kernels against their plain
+# versions on the card. f32: both sum f32 products in other orders (the
+# kernels with FMAs over the D and key axes, the plain version through
+# cuBLAS), so a few ulps of the largest output: held to FLASH_TOL of
+# max(1, max|want|). bf16 operands: q * scale, k * scale, p and ds are
+# rounded to bf16 in both, so an output differs where an f32 value a few
+# ulps apart rounded to the other bf16 neighbour, plus one bf16 ulp (2^-7
+# of |want|) where the output is bf16 itself. Each output is held element
+# by element, |got - want| <= a |want| + b rms(want) (a = 2^-7 for a bf16
+# output, 0 for an f32 one), and as a whole, rms(got - want) <= c
+# rms(want). The forward rounds p against the running max of each key
+# tile, the plain version against the row's final max, so p rounds
+# differently in every tile before the max: its (b, c) are larger. The
+# backward recomputes p from the final lse in both, so only values on a
+# rounding boundary differ. Sound runs read, at worst over every case and
+# config 11's shape: forward (1.8e-2, 1.7e-3), backward (9.3e-7, 1.1e-7).
+# The backward's p or ds left unrounded reads (1.9e-2, 2.5e-3) or more, dv
+# scaled by 0.9 (0.76, 0.10): the backward's limits sit 10x under those
+# faults; the forward's about 2x over its sound readings (its p left
+# unrounded reads (1.4e-2, 2.3e-3) and cannot be told from rounding against
+# the running max). PERF.md has the runs.
+FLASH_TOL = 1e-5
+FLASH_BF16 = {"fwd": (4e-2, 4e-3), "bwd": (2e-3, 2.5e-4)}
+BF16_ULP = 2.0 ** -7
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
+FLASH_PEAK = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
+FLASH_WRAPPERS = ("_flash_fwd_call", "_flash_fwd_compact", "_flash_bwd_call",
+                  "_flash_bwd_compact")
+# (lead, S, T, H, D, causal, q_offset, kv_offset): ragged S and T, D 64 /
+# 128 / 256, per-entry offsets with one fully masked entry (its queries all
+# precede its keys)
+FLASH_CASES = [
+    ((), 70, 70, 2, 64, True, 0, 0),
+    ((2,), 45, 83, 3, 128, False, 0, 0),
+    ((), 64, 96, 2, 128, True, 16, 0),
+    ((2, 3), 40, 40, 2, 64, True, [[0, 40, 80], [0, 0, 0]], [[0, 0, 0], [100, 40, 30]]),
+    ((2,), 33, 65, 2, 256, True, 0, 0),
+    ((), 17, 129, 1, 96, False, 0, 0),
+    ((2,), 200, 200, 2, 128, True, [0, 64], [0, 0]),
+]
+# the timed shapes: config 6 (S 4096, H 8, D 128, one sequence) and config
+# 11's attention (batch 8 of S 2048, H 8, D 128, per-entry offsets as the
+# ring hands them over)
+FLASH_TIMED = [("config 6", (), 4096, False), ("config 11", (8,), 2048, True)]
+
+
+def _flash_errs(got, want, dtype, part: str) -> tuple[float, float, tuple]:
+    """(max abs error, the share of its limit used (over 1 fails), the
+    readings) of one output of a flash call on ``dtype`` operands, ``part``
+    "fwd" or "bwd". f32: the error over max(1, max|want|), against
+    FLASH_TOL. bf16: (max(|got - want| - a |want|) / rms(want), rms(got -
+    want) / rms(want)), against FLASH_BF16[part]. The m state's -1e30
+    sentinel (a fully masked row) must match exactly and stays out of the
+    rms."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} != {tuple(want.shape)} {want.dtype}")
+    for what, t in (("got", got), ("want", want)):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"non-finite values in {what}")
+    d = (got.double() - want.double()).abs()
+    w = want.double().abs()
+    err = float(d.max())
+    if dtype == torch.float32:
+        rel = err / max(1.0, float(w.max()))
+        return err, rel / FLASH_TOL, (rel,)
+    live = w < 1e29
+    if bool((d[~live] != 0).any()):
+        return err, math.inf, (math.inf, math.inf)
+    d, w = d[live], w[live]
+    rms = float(w.square().mean().sqrt())
+    a = BF16_ULP if got.dtype == torch.bfloat16 else 0.0
+    if rms == 0.0:
+        readings = (0.0, 0.0) if err == 0.0 else (math.inf, math.inf)
+    else:
+        readings = (max(0.0, float((d - a * w).max())) / rms,
+                    float(d.square().mean().sqrt()) / rms)
+    b, c = FLASH_BF16[part]
+    return err, max(readings[0] / b, readings[1] / c), readings
+
+
+def _flash_bound(nbytes: int, flops: float, dtype) -> tuple[float, str]:
+    """The least time of a flash call: its bytes at the memory rate or its
+    FLOPs at the card's peak for the operand dtype, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLASH_PEAK[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kept_pairs(S, T, lead, qo, ko, causal) -> int:
+    """(query, key) pairs the mask keeps, summed over the leading entries:
+    the work the kernels must do on these inputs."""
+    if not causal:
+        return S * T * math.prod(lead)
+    qo = torch.broadcast_to(torch.as_tensor(qo), lead).reshape(-1).tolist()
+    ko = torch.broadcast_to(torch.as_tensor(ko), lead).reshape(-1).tolist()
+    total = 0
+    for a, b in zip(qo, ko):
+        rows = np.arange(S) + a - b + 1           # keys each row keeps
+        total += int(np.clip(rows, 0, T).sum())
+    return total
+
+
+def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[dict, list]:
+    """The three flash kernels through their four wrappers against the plain
+    versions: f32 and bf16, causal and full, static and per-entry offsets
+    (one entry fully masked), ragged S and T, D 64 to 256, the state
+    outputs, the backward at dense and compact offsets with q-dtype and f32
+    gradients; then each wrapper at config 6's and config 11's shapes, its
+    time beside its bound, its plain time and SDPA's (forward, or SDPA's
+    autograd backward). ``dtypes`` narrows the operand types checked."""
+    from tpuscratch_torch.ops import attention as ta
+
+    errs = {n: 0.0 for n in FLASH_WRAPPERS}
+    seen: dict = {}     # (dtype, part) -> the worst of each reading, all cases
+    case: dict = {}     # the same, this case
+
+    def check(name, got, want, dtype, what):
+        part = "bwd" if "bwd" in name else "fwd"
+        err, share, readings = _flash_errs(got, want, dtype, part)
+        key = (str(dtype)[6:], part)
+        for d in (seen, case):
+            d[key] = tuple(max(r) for r in zip(d.get(key, readings), readings))
+        if share > 1.0:
+            limit = (FLASH_TOL,) if dtype == torch.float32 else FLASH_BF16[part]
+            raise AssertionError(f"{name} {str(dtype)[6:]} {what}: readings "
+                                 + ", ".join(f"{r:.3e}" for r in readings) + f" over {limit}")
+        if dtype == torch.float32:
+            errs[name] = max(errs[name], err)
+        return share
+
+    def inputs(lead, S, T, H, D, dtype):
+        return [randn(lead + (n, H, D), gen).to(dtype) for n in (S, T, T, S)]
+
+    for dtype in dtypes:
+        for lead, S, T, H, D, causal, qo, ko in FLASH_CASES:
+            case.clear()
+            q, k, v, do = inputs(lead, S, T, H, D, dtype)
+            if not isinstance(qo, int):
+                qo, ko = torch.tensor(qo, device=DEVICE), torch.tensor(ko, device=DEVICE)
+            worst = check("_flash_fwd_call", ta._flash_fwd_call(q, k, v, qo, ko, causal),
+                          ta._flash_fwd_plain(q, k, v, qo, ko, causal, False), dtype, "out")
+            state = ta._flash_fwd_call(q, k, v, qo, ko, causal, return_state=True)
+            pstate = ta._flash_fwd_plain(q, k, v, qo, ko, causal, True)
+            for got, want in zip(state, pstate):
+                worst = max(worst, check("_flash_fwd_call", got, want, dtype, "state"))
+            o, lse = ta._normalize(*pstate, dtype)
+            delta = ta._delta(do, o)
+            for od in (None, torch.float32):
+                got = ta._flash_bwd_call(q, k, v, do, lse, delta, qo, ko, causal, out_dtype=od)
+                want = ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko, causal, od)
+                for g, w in zip(got, want):
+                    worst = max(worst, check("_flash_bwd_call", g, w, dtype, f"grads {od}"))
+            if causal and isinstance(qo, int):
+                worst = max(worst, check(
+                    "_flash_fwd_compact", ta._flash_fwd_compact(q, k, v, qo, ko),
+                    ta._flash_fwd_plain(q, k, v, qo, ko, True, False), dtype, "out"))
+                got = ta._flash_bwd_compact(q, k, v, do, lse, delta, qo, ko)
+                want = ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko, True)
+                for g, w in zip(got, want):
+                    worst = max(worst, check("_flash_bwd_compact", g, w, dtype, "grads"))
+            if not isinstance(qo, int) and bool((state[2] == 0).any()):
+                masked = state[2] == 0                   # rows that attend nothing
+                out = ta._flash_fwd_call(q, k, v, qo, ko, causal)
+                if bool(out.transpose(-2, -3)[masked].any()):
+                    raise AssertionError("a fully masked row is not zero")
+            log(f"  flash {str(dtype)[6:]:8s} lead={lead} S={S} T={T} H={H} D={D} "
+                f"causal={int(causal)} offsets={'per-entry' if not isinstance(qo, int) else (qo, ko)}"
+                f": worst share of the limit {worst:.3f}; readings "
+                + "; ".join(f"{part} " + ", ".join(f"{r:.3e}" for r in rs)
+                            for (_, part), rs in sorted(case.items())))
+
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, lead, S, per_entry in FLASH_TIMED:
+        H, D = 8, 128
+        for dtype in ((torch.float32,) if label == "config 6" else
+                      (torch.float32, torch.bfloat16)):
+            if dtype not in dtypes:
+                continue
+            for causal in ((True, False) if label == "config 6" else (True,)):
+                q, k, v, do = inputs(lead, S, S, H, D, dtype)
+                qo = torch.zeros(lead, dtype=torch.int32, device=DEVICE) if per_entry else 0
+                ko = qo
+                pairs = _kept_pairs(S, S, lead, 0, 0, causal)
+                fflops = 4 * D * H * pairs
+                esize = q.element_size()
+                B = math.prod(lead)
+                state = per_entry      # the ring asks for the state, config 6 for the output
+                fwd_name = "_flash_fwd_compact" if causal and not per_entry else "_flash_fwd_call"
+                bwd_name = "_flash_bwd_compact" if causal and not per_entry else "_flash_bwd_call"
+                fwd = getattr(ta, fwd_name)
+                if fwd_name == "_flash_fwd_compact":
+                    fcall = lambda: fwd(q, k, v, 0, 0, return_state=state)  # noqa: E731
+                else:
+                    fcall = lambda: fwd(q, k, v, qo, ko, causal, return_state=state)  # noqa: E731
+                pcall = lambda: ta._flash_fwd_plain(q, k, v, qo, ko, causal, state)  # noqa: E731
+                got, want = fcall(), pcall()
+                for g, w in zip(got if state else (got,), want if state else (want,)):
+                    check(fwd_name, g, w, dtype, f"{label} timed")
+                del got, want
+                out_bytes = (4 * q.numel() + 8 * B * H * S) if state else q.numel() * esize
+                b, by = _flash_bound(3 * q.numel() * esize + out_bytes, fflops, dtype)
+                qt, kt, vt = (t.transpose(-3, -2).contiguous() for t in (q, k, v))
+                shape = (f"{label} B{B} S{S} H{H} D{D} {'causal' if causal else 'full'} "
+                         f"{str(dtype)[6:]}{' state' if state else ''}")
+                rows.append(dict(
+                    name=fwd_name, shape=shape, ms=device_ms(fcall, n=10),
+                    plain_ms=device_ms(pcall, n=3),
+                    library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=10),
+                    library_shape="SDPA forward on (B, H, S, D) copies", bound_ms=b, bound_by=by,
+                    gflop=fflops / 1e9))
+                acc, m, l = ta._flash_fwd_plain(q, k, v, qo, ko, causal, True)
+                o, lse = ta._normalize(acc, m, l, dtype)
+                del acc
+                delta = ta._delta(do, o)
+                od = torch.float32 if per_entry else None   # the ring asks for f32 partials
+                bwd = getattr(ta, bwd_name)
+                if bwd_name == "_flash_bwd_compact":
+                    bcall = lambda: bwd(q, k, v, do, lse, delta, 0, 0)  # noqa: E731
+                else:
+                    bcall = lambda: bwd(q, k, v, do, lse, delta, qo, ko, causal,  # noqa: E731
+                                        out_dtype=od)
+                pbcall = lambda: ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko,  # noqa: E731
+                                                     causal, od)
+                for g, w in zip(bcall(), pbcall()):
+                    check(bwd_name, g, w, dtype, f"{label} timed")
+                bflops = 2.5 * fflops
+                gsize = 4 if od == torch.float32 else esize
+                nbytes = 4 * q.numel() * esize + 8 * B * H * S + 3 * q.numel() * gsize
+                b, by = _flash_bound(nbytes, bflops, dtype)
+                qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
+                so = sdpa(qg, kg, vg, is_causal=causal)
+                dot = do.transpose(-3, -2).contiguous()
+                lib = device_ms(lambda: torch.autograd.grad(so, (qg, kg, vg), dot,
+                                                            retain_graph=True), n=5)
+                rows.append(dict(
+                    name=bwd_name, shape=shape.replace(" state", "") + (" f32 grads" if od else ""),
+                    ms=device_ms(bcall, n=5), plain_ms=device_ms(pbcall, n=2), library_ms=lib,
+                    library_shape="SDPA's autograd backward on (B, H, S, D) copies",
+                    bound_ms=b, bound_by=by, gflop=bflops / 1e9))
+                del q, k, v, do, qt, kt, vt, qg, kg, vg, so, dot, o, lse, delta
+                torch.cuda.empty_cache()
+    for (dt, part), readings in sorted(seen.items()):
+        limit = (FLASH_TOL,) if dt == "float32" else FLASH_BF16[part]
+        log(f"  flash {dt} {part}: worst readings " + ", ".join(f"{r:.3e}" for r in readings)
+            + f" (limits {limit})")
+    for r in rows:
+        log(f"  time {r['name']:20s} {r['shape']:48s} {r['ms']:.4f} ms "
+            f"({r['gflop'] / r['ms']:.2f} TFLOP/s; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms)")
+    return errs, rows
+
+
+TRAIN_STEPS = 3
+# The training path at config 11's model, the flash kernels against the
+# plain ring from the same weights and batch: the same function with
+# attention summed in another order. One step's reduced gradients are held
+# leaf by leaf, rms(g - g_xla) / rms(g_xla), and the losses of TRAIN_STEPS
+# SGD steps (f32) or one (bf16) relatively. A step moves the loss by about
+# 3e-4 of itself, so the losses alone would miss a wrong attention
+# gradient; the gradients do not. f32 reads losses 9.3e-8 and gradients
+# 2.4e-4 apart at worst; bf16 (the plain ring rounds its scores and softmax
+# to bf16 once per op, the kernels keep them in f32 and round p) 9.6e-6 and
+# 3.6e-2. dv scaled by 0.9 in the dk/dv kernel reads losses 5.2e-5 (f32)
+# and gradients 0.27 apart. The limits are about 3-10x the sound readings
+# (PERF.md has the runs).
+TRAIN_TOL = {"float32": (1e-6, 1e-3), "bfloat16": (4e-5, 0.1)}   # (loss, gradients)
+
+
+def _train_grads(mesh, cfg, params, x, y) -> list:
+    """One step's reduced (logical) gradients as (path, leaf) pairs in
+    flatten order: ``train_step_fn``'s own ``_value_and_grad`` and
+    ``_grad_reduce``."""
+    from tpuscratch_torch.comm.spmd import P, run_spmd
+    from tpuscratch_torch.models.transformer import (_grad_reduce, _paths, _value_and_grad,
+                                                     param_spec)
+
+    def body(p, xs, ys):
+        return _grad_reduce(_value_and_grad(p, xs, ys, cfg, "sp", "dp")[1], "dp", "sp")
+
+    pspec = param_spec(cfg)
+    return _paths(run_spmd(mesh, body, (pspec, P("dp", "sp"), P("dp", "sp")), pspec)(
+        params, x, y))
+
+
+def phase18_train_path() -> dict:
+    """``train_step`` at config 11's model (d_model 1024, 8 heads, 4 experts,
+    d_ff 4096, 4 layers, batch 8, seq 2048, seed-0 weights) on a 1x1 mesh
+    with ``attn_impl`` "xla" (the plain ring), "pallas" (the ring through
+    the dense flash wrappers) and "ulysses-pallas" (the differentiable
+    flash_attention, compact wrappers): ``TRAIN_STEPS`` f32 SGD steps each,
+    with one forward and one backward launch per layer per step, the launch
+    counts zeroed just before each kernel run and read just after; then one
+    step's gradients in f32 and one bf16 step with its gradients, each
+    against the plain ring's within TRAIN_TOL."""
+    import dataclasses
+
+    from tpuscratch_torch.bench.train_bench import default_train_setup, train_data
+    from tpuscratch_torch.models.transformer import init_params, train_step
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    base, batch, seq, _ = default_train_setup(on_card=True)
+    mesh = make_mesh((1, 1), ("dp", "sp"), DEVICE)
+    x, y = train_data(0, batch, seq, base.d_model, DEVICE)
+    params0 = init_params(0, base, DEVICE)
+    impls = ("xla", "pallas", "ulysses-pallas")
+    counts = {}
+    for dtype in ("float32", "bfloat16"):
+        n = TRAIN_STEPS if dtype == "float32" else 1
+        loss_tol, grad_tol = TRAIN_TOL[dtype]
+        losses, grads = {}, {}
+        for impl in impls:
+            cfg = dataclasses.replace(base, attn_impl=impl, compute_dtype=dtype)
+            step = train_step(mesh, cfg, lr=1e-3)
+            p, ls = params0, []
+            torch.cuda.synchronize()
+            if impl != "xla" and dtype == "float32":
+                ta.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                p, loss = step(p, x, y)
+                ls.append(float(loss))
+            wall = time.perf_counter() - t0
+            if impl != "xla" and dtype == "float32":
+                counts[impl] = ta.launch_counts()
+            del p
+            losses[impl] = ls
+            if not all(math.isfinite(v) for v in ls):
+                raise AssertionError(f"train path {impl} {dtype}: losses {ls}")
+            g = _train_grads(mesh, cfg, params0, x, y)
+            if impl == "xla":
+                grads, worst, leaf = g, 0.0, ""
+            else:
+                worst, leaf = max(
+                    (float((a.double() - b.double()).square().mean().sqrt())
+                     / float(b.double().square().mean().sqrt()), "/".join(map(str, path)))
+                    for (path, a), (_, b) in zip(g, grads))
+            del g
+            dl = max(abs(a - b) / abs(b) for a, b in zip(ls, losses["xla"]))
+            log(f"  train_step {dtype} attn_impl={impl:14s} {n} steps in {wall:.3f} s: losses "
+                + ", ".join(f"{v:.7f}" for v in ls)
+                + ("" if impl == "xla" else f"; against xla: losses {dl:.3e} (limit "
+                   f"{loss_tol:g}), gradients' worst leaf rms {worst:.3e} ({leaf}; limit {grad_tol:g})"))
+            if dl > loss_tol or worst > grad_tol or not math.isfinite(worst):
+                raise AssertionError(f"train path {impl} {dtype} differs from the plain ring: "
+                                     f"losses {dl:.3e} (limit {loss_tol:g}), gradients "
+                                     f"{worst:.3e} (limit {grad_tol:g})")
+        del grads
+        torch.cuda.empty_cache()
+    want = base.n_layers * TRAIN_STEPS
+    ring, uly = counts["pallas"], counts["ulysses-pallas"]
+    log(f"  launches: pallas {ring}; ulysses-pallas {uly} (n_layers x steps = {want})")
+    if (ring["_flash_fwd_call"], ring["_flash_bwd_call"]) != (want, want) or \
+            (uly["_flash_fwd_compact"], uly["_flash_bwd_compact"]) != (want, want):
+        raise AssertionError(f"train path launched the flash kernels {ring} / {uly}, want {want}")
+    return {"_flash_fwd_call": ring["_flash_fwd_call"], "_flash_bwd_call": ring["_flash_bwd_call"],
+            "_flash_fwd_compact": uly["_flash_fwd_compact"],
+            "_flash_bwd_compact": uly["_flash_bwd_compact"]}
+
+
+def phase19_configs6_11() -> list:
+    """Configs 6 and 11 through ``bench.record``, then where a config-11
+    train step's time goes (``torch.profiler`` over 2 steps, f32 and bf16)."""
+    import dataclasses
+
+    from tpuscratch_torch.bench.record import config6_flash_attention, config11_train
+    from tpuscratch_torch.bench.train_bench import default_train_setup, profile_train
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    out: list = []
+    config6_flash_attention(out, device=DEVICE)
+    config11_train(out, device=DEVICE)
+    for r in out:
+        if not math.isfinite(r["value"]) or r["value"] <= 0:
+            raise AssertionError(f"config {r['config']} {r['metric']}: {r['value']}")
+        extra = (f", {r['model_tflops']:.2f} model TFLOP/s, {r['flops_per_token']:.4g} FLOPs/token"
+                 if "model_tflops" in r else "")
+        log(f"  config {r['config']} {r['metric']}: {r['value']:.6g} (p50 {r['p50_s']:.4f} s"
+            f"{extra}) {r['detail']}")
+    base, batch, seq, _ = default_train_setup(on_card=True)
+    mesh = make_mesh((1, 1), ("dp", "sp"), DEVICE)
+    for dtype in ("float32", "bfloat16"):
+        prof = profile_train(mesh, dataclasses.replace(base, compute_dtype=dtype), batch, seq)
+        log(f"  profile config 11 {dtype}: {prof['step_ms']:.3f} ms an unprofiled step, "
+            f"{prof['profiled_step_ms']:.3f} ms a profiled one, device {prof['device_ms']:.3f} ms "
+            f"(idle share {prof['idle_share']:.3f} of the unprofiled step), "
+            f"{prof['launches_per_step']:.0f} kernel launches a step")
+        log("    by group (ms a step): " + ", ".join(f"{k} {v:.3f}"
+                                                  for k, v in prof["groups_ms"].items()))
+        for name, ms in prof["top_ms"]:
+            log(f"    {ms:9.4f} ms  {name}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1346,6 +1782,15 @@ def main() -> int:
     log("== phase 16: config 12 (serving decode: batches 1, 8, 32) and a tick's profile")
     phase16_config12(cfg12, scfg12, weights)
     del weights
+    torch.cuda.empty_cache()
+    log("== phase 17: the flash kernels against their plain versions")
+    errs6, rows6 = phase17_flash_kernels(gen)
+    torch.cuda.empty_cache()
+    log("== phase 18: training path (train_step, config 11's model, 1x1, xla / pallas / ulysses)")
+    counts6 = phase18_train_path()
+    torch.cuda.empty_cache()
+    log("== phase 19: configs 6 (flash attention, S 4096) and 11 (train step) and a step's profile")
+    phase19_configs6_11()
 
     from tpuscratch_torch.ops import attention as ta
     from tpuscratch_torch.ops import halo_dma as hd
@@ -1376,16 +1821,26 @@ def main() -> int:
                                         f"k={STREAM3D_K}"),
         "paged_attention": ("paged_attention", "attention.py:1413",
                             "B32 T128 H8 D128 page16 K1 float32"),
+        "_flash_fwd_call": ("flash_attention", "attention.py:865",
+                            "config 11 B8 S2048 H8 D128 causal float32 state"),
+        "_flash_fwd_compact": ("flash_attention", "attention.py:356",
+                               "config 6 B1 S4096 H8 D128 causal float32"),
+        "_flash_bwd_call": ("flash_attention", "attention.py:800",
+                            "config 11 B8 S2048 H8 D128 causal float32 f32 grads"),
+        "_flash_bwd_compact": ("flash_attention", "attention.py:675",
+                               "config 6 B1 S4096 H8 D128 causal float32"),
     }
     counts.update(counts2)
     counts.update(counts3)
     counts.update(counts4)
     counts.update(counts5)
+    counts.update(counts6)
     errs.update(errs2)
     errs.update(errs3)
     errs.update(errs4)
     errs.update(errs5)
-    rows += rows2 + rows3 + rows4 + rows5
+    errs.update(errs6)
+    rows += rows2 + rows3 + rows4 + rows5 + rows6
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])

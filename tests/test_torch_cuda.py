@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on the card, held to their plain torch
 versions on the same inputs. The paged-attention kernel
 (``paged_attention.cu``) sums in another order than its plain version and
-dequantizes before the dot product instead of after (tolerance below). The
+dequantizes before the dot product instead of after, and the flash kernels
+(``flash_attention.cu``) sum in another order too (tolerances below). The
 stencil kernels (``stencil2d.cu``,
 ``stencil3d.cu``, ``stencil_stream2d.cu``, ``stencil_stream3d.cu``,
 ``halo_dma.cu``) round every product and sum on
@@ -464,7 +465,7 @@ def test_paged_attention(card, dtype, K):
     ops = _paged_operands(40 + K, (), 6, K, 3, 40, 4, 64, 12, dtype, card)
     ta.reset_launches()
     got = ta.paged_attention(*ops)
-    assert ta.launch_counts() == {"paged_attention": 1}
+    assert ta.launch_counts()["paged_attention"] == 1
     want = ta._verify_attention_dense(*ops)
     assert float((got - want).abs().max()) <= PAGED_ATOL
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # the idle slot
@@ -489,15 +490,150 @@ def test_paged_attention_strided_stacked_pools(card, dtype):
         ks, vs = big_s[:, 0, :, 2:], big_s[:, 1, :, 2:]
     ta.reset_launches()
     got = ta.verify_attention(q, pk, pv, table, lens, ks, vs)
-    assert ta.launch_counts() == {"paged_attention": 2}
+    assert ta.launch_counts()["paged_attention"] == 2
     want = ta.verify_attention(q, pk, pv, table, lens, ks, vs, fused=False)
     assert float((got - want).abs().max()) <= PAGED_ATOL
 
 
-def test_paged_attention_limits(card):
-    ops = _paged_operands(60, (), 2, 1, 1, 264, 4, 8, 2, torch.float32, card)
-    with pytest.raises(ValueError, match="256"):
-        ta.paged_attention(*ops)
-    ops = _paged_operands(61, (), 2, 65, 1, 8, 4, 40, 20, torch.float32, card)
-    with pytest.raises(ValueError, match="64"):
-        ta.paged_attention(*ops)
+# bf16 q: the kernel and the plain version both round an f32 result to
+# bf16 once, and the f32 results differ by a few ulps, so one bf16 ulp of
+# the O(1) outputs (2^-7 at magnitudes below 2).
+PAGED_BF16_ATOL = 1e-2
+
+
+@pytest.mark.parametrize("K,D,dtype,qdtype", [
+    (65, 40, torch.float32, torch.float32),     # past one query group of 64
+    (128, 128, torch.int8, torch.float32),      # two full groups
+    (3, 384, torch.float32, torch.float32),     # three output tiles, not a multiple of 128
+    (65, 384, torch.float8_e4m3fn, torch.float32),
+    (4, 128, torch.float32, torch.bfloat16),    # bf16 q returns bf16
+    (70, 200, torch.int8, torch.bfloat16),
+])
+def test_paged_attention_any_k_d_and_bf16(card, K, D, dtype, qdtype):
+    ops = _paged_operands(70 + K + D, (), 5, K, 2, D, 8, 96, 28, dtype, card)
+    ops[0] = ops[0].to(qdtype)
+    ta.reset_launches()
+    got = ta.paged_attention(*ops)
+    assert ta.launch_counts()["paged_attention"] == 1
+    assert got.dtype == qdtype and got.shape == ops[0].shape
+    want = ta._verify_attention_dense(*ops)
+    atol = PAGED_ATOL if qdtype == torch.float32 else PAGED_BF16_ATOL
+    assert float((got.float() - want.float()).abs().max()) <= atol
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # the idle slot
+
+
+# The flash kernels against their plain versions on the card, as
+# chip_smoke.py holds them. f32: both sum f32 products in other orders (the
+# kernels with FMAs over the D and key axes, the plain version through
+# cuBLAS), so a few ulps of the largest output; held to 1e-5 of max(1,
+# max|want|). bf16 operands: q/k * scale, p and ds are rounded to bf16 in
+# both, so an output differs where an f32 value a few ulps apart rounded to
+# the other bf16 neighbour, plus one bf16 ulp (2^-7 of |want|) where the
+# output is bf16 itself: held element by element to a |want| + b
+# rms(want) (a = 2^-7 for a bf16 output, else 0) and as a whole to
+# rms(got - want) <= c rms(want). The forward rounds p against each key
+# tile's running max, the plain version against the final one, so its
+# (b, c) are larger than the backward's, which recomputes p from the final
+# lse in both. The limits and their readings: chip_smoke.py's FLASH_BF16.
+FLASH_TOL = 1e-5
+FLASH_BF16 = {"fwd": (4e-2, 4e-3), "bwd": (2e-3, 2.5e-4)}
+
+
+def _flash_ok(got, want, dtype, part="fwd", tol=FLASH_TOL) -> bool:
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got.float()).all()) and bool(torch.isfinite(want.float()).all())
+    d = (got.double() - want.double()).abs()
+    w = want.double().abs()
+    if dtype == torch.float32:
+        return float(d.max()) <= tol * max(1.0, float(w.max()))
+    live = w < 1e29                  # the m state's -1e30 sentinel must match exactly
+    if bool((d[~live] != 0).any()):
+        return False
+    d, w = d[live], w[live]
+    rms = w.square().mean().sqrt()
+    a = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    b, c = FLASH_BF16[part]
+    return bool((d <= a * w + b * rms).all()) and float(d.square().mean().sqrt()) <= c * float(rms)
+
+
+def _flash_inputs(seed, lead, S, T, H, D, dtype, device):
+    q = _rand(lead + (S, H, D), seed, device).to(dtype)
+    k = _rand(lead + (T, H, D), seed + 1, device).to(dtype)
+    v = _rand(lead + (T, H, D), seed + 2, device).to(dtype)
+    do = _rand(lead + (S, H, D), seed + 3, device).to(dtype)
+    return q, k, v, do
+
+
+# (lead, S, T, H, D, causal, q_offset, kv_offset): ragged S and T, per-entry
+# offsets with one fully masked entry (its queries all precede its keys)
+FLASH_CASES = [
+    ((), 70, 70, 2, 64, True, 0, 0),
+    ((2,), 45, 83, 3, 128, False, 0, 0),
+    ((), 64, 96, 2, 128, True, 16, 0),
+    ((2, 3), 40, 40, 2, 64, True, [[0, 40, 80], [0, 0, 0]], [[0, 0, 0], [100, 40, 30]]),
+    ((2,), 33, 65, 2, 256, True, 0, 0),
+    ((), 17, 129, 1, 96, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[f"case{i}" for i in range(len(FLASH_CASES))])
+def test_flash_kernels_match_plain(card, case, dtype):
+    lead, S, T, H, D, causal, qo, ko = case
+    q, k, v, do = _flash_inputs(len(lead) + S + D, lead, S, T, H, D, dtype, card)
+    if not isinstance(qo, int):
+        qo, ko = torch.tensor(qo, device=card), torch.tensor(ko, device=card)
+    ta.reset_launches()
+    assert _flash_ok(ta._flash_fwd_call(q, k, v, qo, ko, causal),
+                     ta._flash_fwd_plain(q, k, v, qo, ko, causal, False), dtype)
+    acc, m, l = ta._flash_fwd_call(q, k, v, qo, ko, causal, return_state=True)
+    pacc, pm, pl = ta._flash_fwd_plain(q, k, v, qo, ko, causal, True)
+    for got, want in ((acc, pacc), (m, pm), (l, pl)):
+        assert _flash_ok(got, want, dtype)
+    o, lse = ta._normalize(pacc, pm, pl, dtype)
+    delta = ta._delta(do, o)
+    for out_dtype in (None, torch.float32):
+        got = ta._flash_bwd_call(q, k, v, do, lse, delta, qo, ko, causal, out_dtype=out_dtype)
+        want = ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko, causal, out_dtype)
+        for g, w in zip(got, want):
+            assert _flash_ok(g, w, dtype, "bwd")
+    counts = ta.launch_counts()
+    assert counts["_flash_fwd_call"] == 2 and counts["_flash_bwd_call"] == 2
+    if causal and isinstance(qo, int):
+        assert _flash_ok(ta._flash_fwd_compact(q, k, v, qo, ko),
+                         ta._flash_fwd_plain(q, k, v, qo, ko, True, False), dtype)
+        got = ta._flash_bwd_compact(q, k, v, do, lse, delta, qo, ko)
+        want = ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko, True)
+        for g, w in zip(got, want):
+            assert _flash_ok(g, w, dtype, "bwd")
+        assert ta.launch_counts()["_flash_fwd_compact"] == 1
+        assert ta.launch_counts()["_flash_bwd_compact"] == 1
+
+
+def test_flash_fully_masked_entry_is_zero(card):
+    q, k, v, do = _flash_inputs(5, (2,), 40, 40, 2, 64, torch.float32, card)
+    qo, ko = torch.tensor([0, 0], device=card), torch.tensor([0, 100], device=card)
+    out = ta._flash_fwd_call(q, k, v, qo, ko, True)
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    acc, m, l = ta._flash_fwd_call(q, k, v, qo, ko, True, return_state=True)
+    assert torch.equal(l[1], torch.zeros_like(l[1])) and bool((m[1] == -1e30).all())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gradients_match_autograd_of_plain(card, causal):
+    # the autograd.Functions (kernels both ways) against torch's own
+    # autograd through the plain forward, f32
+    q, k, v, do = _flash_inputs(9, (2,), 70, 70, 2, 64, torch.float32, card)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    ta.reset_launches()
+    out = ta.flash_attention(qs, ks, vs, causal=causal)
+    out.backward(do)
+    want = ta._flash_fwd_plain(qp, kp, vp, 0, 0, causal, False)
+    want.backward(do)
+    assert _flash_ok(out.detach(), want.detach(), torch.float32)
+    for a, b in ((qs, qp), (ks, kp), (vs, vp)):
+        assert _flash_ok(a.grad, b.grad, torch.float32, tol=1e-4)
+    counts = ta.launch_counts()
+    name = "compact" if causal else "call"
+    assert counts[f"_flash_fwd_{name}"] == 1 and counts[f"_flash_bwd_{name}"] == 1

@@ -56,7 +56,10 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.serve.sampling", "tpuscratch_torch.serve.decode",
                 "tpuscratch_torch.serve.engine", "tpuscratch_torch.ops.attention",
                 "tpuscratch_torch.parallel.scores", "tpuscratch_torch.parallel.expert",
-                "tpuscratch_torch.models.transformer", "tpuscratch_torch.bench.decode_bench"):
+                "tpuscratch_torch.models.transformer", "tpuscratch_torch.bench.decode_bench",
+                "tpuscratch_torch.parallel.ring", "tpuscratch_torch.parallel.ring_attention",
+                "tpuscratch_torch.parallel.ulysses", "tpuscratch_torch.bench.train_bench",
+                "tpuscratch_torch.bench.attention_bench", "tpuscratch_torch.bench.attn_bwd_bench"):
         assert mod in got["modules"]
 
 
@@ -97,8 +100,8 @@ def test_sources_ship_as_package_data():
     from tpuscratch_torch.ops import common
 
     assert sorted(p.name for p in common.CSRC.glob("*.cu")) == [
-        "fill.cu", "halo_dma.cu", "paged_attention.cu", "reduction.cu", "stencil2d.cu", "stencil3d.cu",
-        "stencil_stream2d.cu", "stencil_stream3d.cu"]
+        "fill.cu", "flash_attention.cu", "halo_dma.cu", "paged_attention.cu", "reduction.cu",
+        "stencil2d.cu", "stencil3d.cu", "stencil_stream2d.cu", "stencil_stream3d.cu"]
     assert [p.name for p in common.CSRC.glob("*.cuh")] == ["stencil_taps.cuh"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
     assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()
@@ -110,15 +113,22 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     from tpuscratch_torch.bench.dot_bench import bench_dot
     from tpuscratch_torch.ops.fill import fill
     from tpuscratch_torch.runtime.mesh import make_mesh_1d
-    from tpuscratch_torch.models.transformer import TransformerConfig, init_params
+    from tpuscratch_torch.models.transformer import TransformerConfig, init_params, train_step
     from tpuscratch_torch.serve import CacheGeometry, init_kv_cache, request_key
+    from tpuscratch_torch.bench.attention_bench import bench_attention
+    from tpuscratch_torch.bench.train_bench import bench_train
+    from tpuscratch_torch.runtime.mesh import make_mesh
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     for call in (make_mesh_1d, lambda: fill((8, 128), 1.0), lambda: bench_dot(n_elems=64),
                  lambda: init_params(0, TransformerConfig()),
                  lambda: init_kv_cache(CacheGeometry(1, 2, 4, 2, 8)),
-                 lambda: request_key(0, 0, 0)):
+                 lambda: request_key(0, 0, 0),
+                 lambda: train_step(make_mesh((1, 1), ("dp", "sp")), TransformerConfig()),
+                 bench_train, lambda: bench_attention(S=16, H=2, D=8, rounds=1, iters=1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert make_mesh_1d(device="cpu").shape == (1,)
+    assert bench_attention(S=16, H=2, D=8, rounds=1, iters=1, device="cpu").items > 0
+    assert bench_train(make_mesh((1, 1), ("dp", "sp"), device="cpu"), iters=1).items > 0

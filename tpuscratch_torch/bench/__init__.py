@@ -1,1 +1,1 @@
-"""Timing harnesses: the stencil headline, the dot product, pingpong and the BASELINE configs."""
+"""Timing harnesses: the stencil headline, the dot product, pingpong, decode, training, flash attention and the BASELINE configs."""

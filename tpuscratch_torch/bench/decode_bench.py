@@ -150,6 +150,8 @@ def _kind(name: str) -> str:
     low = name.lower()
     if "paged_attention" in low:
         return "paged attention"
+    if "flash_" in low:
+        return "flash attention"
     if any(w in low for w in ("gemm", "gemv", "cutlass", "sm90_xmma", "ampere", "dot_kernel")):
         return "matmul"
     if "index" in low or "gather" in low or "scatter" in low:
@@ -192,24 +194,34 @@ def profile_ticks(mesh, cfg, scfg, prompt_len: int = 64, ticks: int = 16, warmup
         for _ in range(ticks):
             engine.step()
         wall = time.perf_counter() - t0
-    kernels = {}
+    split = device_time_split(prof, ticks)
+    tick_ms, profiled_ms = plain_wall / ticks * 1e3, wall / ticks * 1e3
+    return {"batch": scfg.n_slots, "tick_ms": tick_ms, "profiled_tick_ms": profiled_ms,
+            "device_ms": split["device_ms"], "idle_share": 1.0 - split["device_ms"] / tick_ms,
+            "idle_share_profiled": 1.0 - split["device_ms"] / profiled_ms,
+            "launches_per_tick": split["launches"], "groups_ms": split["groups_ms"],
+            "top_ms": split["top_ms"]}
+
+
+def device_time_split(prof, per: int) -> dict:
+    """A ``torch.profiler`` window's CUDA kernel time, divided by ``per``
+    (the ticks or steps it covered): ``device_ms`` in all (one stream, so
+    kernels do not overlap), ``launches``, ms by group (``_kind``) and the
+    ten largest kernels by name."""
+    kernels: dict[str, float] = {}
     launches = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
         if us > 0 and e.device_type.name == "CUDA":
             kernels[e.key] = kernels.get(e.key, 0.0) + us
             launches += e.count
-    busy = sum(kernels.values()) / 1e3 / ticks          # ms a tick
     groups: dict[str, float] = {}
     for name, us in kernels.items():
-        groups[_kind(name)] = groups.get(_kind(name), 0.0) + us / 1e3 / ticks
+        groups[_kind(name)] = groups.get(_kind(name), 0.0) + us / 1e3 / per
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    tick_ms, profiled_ms = plain_wall / ticks * 1e3, wall / ticks * 1e3
-    return {"batch": scfg.n_slots, "tick_ms": tick_ms, "profiled_tick_ms": profiled_ms,
-            "device_ms": busy, "idle_share": 1.0 - busy / tick_ms,
-            "idle_share_profiled": 1.0 - busy / profiled_ms, "launches_per_tick": launches / ticks,
+    return {"device_ms": sum(kernels.values()) / 1e3 / per, "launches": launches / per,
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top_ms": [(name[:60], us / 1e3 / ticks) for name, us in top]}
+            "top_ms": [(name[:60], us / 1e3 / per) for name, us in top]}
 
 
 def sweep(mesh, cfg, scfg, batch_sizes, **kw) -> list[DecodeBenchResult]:

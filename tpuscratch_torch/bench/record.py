@@ -1,12 +1,13 @@
-"""BASELINE configs 2, 3, 4, 9, 10 and 12 on the card.
+"""BASELINE configs 2, 3, 4, 6, 9, 10, 11 and 12 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,9,10,12]``
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,9,10,11,12]``
 prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
-2D stencil on a 4x4 mesh at 8192^2, 9 the 3D 7-point stencil at
-256x512x512, 10 the DMA-halo stencil at 1024^2, 12 serving decode (the
-4-layer MoE transformer at d_model 1024 behind the continuous-batching
-engine).
+2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 9 the 3D
+7-point stencil at 256x512x512, 10 the DMA-halo stencil at 1024^2, 11 the
+composed train step (the 4-layer MoE transformer at d_model 1024, batch 8,
+seq 2048), 12 serving decode (the same model behind the
+continuous-batching engine).
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught: a failing method, impl or re-measure fails the run.
 """
@@ -167,6 +168,63 @@ def config9_stencil3d(out: list, iters: int = 3, tile=(256, 512, 512), impls=CON
     return {"final": final, "winner": winner, "screen": screen}
 
 
+def config6_flash_attention(out: list, iters: int = 3, device=None) -> list:
+    """Flash-attention TFLOP/s, causal and full: S 4096, H 8, D 128, f32 on
+    the card (50 calls a timed run), the JAX package's CPU shapes on the
+    CPU. Returns the two results."""
+    from tpuscratch_torch.bench.attention_bench import bench_attention
+    from tpuscratch_torch.runtime.mesh import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    mesh = make_mesh((1,), ("x",), dev)
+    results = []
+    for causal in (True, False):
+        r = bench_attention(S=4096 if on_card else 64, H=8 if on_card else 2,
+                            D=128 if on_card else 16, causal=causal,
+                            rounds=50 if on_card else 2, iters=iters, device=dev)
+        print(f"# {r.summary()}", file=sys.stderr)
+        _emit(out, mesh, config=6,
+              metric=f"flash_attention_{'causal' if causal else 'full'}_tflops",
+              value=r.items_per_s / 1e12, p50_s=r.p50, detail=r.name)
+        results.append(r)
+    return results
+
+
+def config11_train(out: list, iters: int = 3, device=None) -> list:
+    """Composed-training throughput: tokens/s of the full dp x sp train
+    step (ring attention through the flash kernels, expert MoE, gradients,
+    SGD), f32 and bf16, on a 1x1 mesh, with the FLOP estimate; the card
+    takes the JAX package's TPU shapes (the 4-layer model at d_model 1024,
+    batch 8, seq 2048, 20 steps), the CPU its CPU shapes. A failing dtype
+    fails the config. The pipelined row waits for ROADMAP A13d. Returns the
+    two results."""
+    from tpuscratch_torch.bench.train_bench import (
+        bench_train,
+        default_train_setup,
+        train_flops_per_token,
+    )
+    from tpuscratch_torch.runtime.mesh import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    mesh = make_mesh((1, 1), ("dp", "sp"), dev)
+    base, batch, seq, steps = default_train_setup(on_card)
+    results = []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        r = bench_train(mesh=mesh, cfg=cfg, batch=batch, seq=seq, steps=steps, iters=iters,
+                        fence="readback" if on_card else "block")
+        fpt = train_flops_per_token(cfg, seq)
+        print(f"# {r.summary()} -> {r.items_per_s:.3e} tok/s, "
+              f"~{r.items_per_s * fpt / 1e12:.1f} TFLOP/s model", file=sys.stderr)
+        _emit(out, mesh, config=11, metric=f"train_tokens_per_s_{dtype}", value=r.items_per_s,
+              p50_s=r.p50, flops_per_token=fpt, model_tflops=r.items_per_s * fpt / 1e12,
+              detail=r.name)
+        results.append(r)
+    return results
+
+
 def _median_of(runs, key):
     """The run whose ``key`` is the median (one coherent run's fields,
     never a field-wise median)."""
@@ -240,12 +298,14 @@ def config12_decode(out: list, device=None) -> dict:
 
 
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
-           9: config9_stencil3d, 10: config10_dma_halo, 12: config12_decode}
+           6: config6_flash_attention, 9: config9_stencil3d, 10: config10_dma_halo,
+           11: config11_train, 12: config12_decode}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,9,10,12", help="comma-separated config numbers")
+    ap.add_argument("--configs", default="2,3,4,6,9,10,11,12",
+                    help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []
     for c in (int(s) for s in args.configs.split(",")):

@@ -1,2 +1,2 @@
-"""The models the port serves (``transformer``: the MoE transformer's
-configuration, parameters and the shared norm)."""
+"""The models the port serves and trains (``transformer``: the MoE
+transformer's configuration, parameters, forward and training steps)."""

@@ -1,10 +1,32 @@
-"""Cached decode attention over the paged KV pool (``csrc/paged_attention.cu``).
+"""Attention kernels: flash attention (``csrc/flash_attention.cu``) and
+cached decode attention over the paged KV pool (``csrc/paged_attention.cu``).
 
-The twin of the cached-attention part of ``tpuscratch.ops.attention``
-(:1129-1640): decode (one query per sequence), speculative verify and
-chunked context prefill (K queries per sequence) against a block-paged
-pool, with ragged ``seq_lens``, sentinel table entries, idle slots and
-int8/fp8 pages dequantized through per-page per-head scale planes.
+The twin of ``tpuscratch.ops.attention``. Its first half is exact
+blockwise attention with an online softmax and a recomputing backward
+(:62-1127 there); its second half serves decode, speculative verify and
+chunked context prefill against a block-paged pool (:1129-1640).
+
+Flash attention, q ``(..., S, H, D)`` and k/v ``(..., T, H, D)`` with any
+leading dims (the stacked mesh's ranks, the batch) written out in place
+of ``vmap``:
+
+- ``flash_attention``: the public entry point, differentiable through the
+  two ``torch.autograd.Function``s below (their backward launches the
+  backward kernels), or ``return_state=True`` for a ring merge.
+- the kernel wrappers, each with its own launch count: ``_flash_fwd_call``
+  (any offsets: ints or per-entry int tensors), ``_flash_fwd_compact``
+  (causal, int offsets: self-attention), ``_flash_bwd_call`` (with
+  ``out_dtype``) and ``_flash_bwd_compact``. On a CUDA tensor each launches
+  its kernel(s) or raises; on a CPU tensor it runs the plain version
+  (``_flash_fwd_plain`` / ``_flash_bwd_plain``). The dense and compact
+  TPU grids are one CUDA loop with another bound, so a compact wrapper
+  launches the same kernel as its dense twin with static offsets.
+- ``_pick_block``: a tile hint (the TPU's power-of-two divisor rule no
+  longer refuses anything): the kernels take any S, T >= 1 and mask their
+  ragged edges. ``block_q``/``block_k`` are accepted everywhere and do not
+  steer the CUDA tile, which depends on D and the card's shared memory.
+
+Paged attention:
 
 - ``paged_attention``: the wrapper of the hand-written CUDA kernel (the
   port of the Pallas ``paged_attention``); on a CPU tensor it runs the
@@ -17,10 +39,11 @@ int8/fp8 pages dequantized through per-page per-head scale planes.
   CPU, where there is none), False forces the plain version on either
   device (the JAX ``"off"`` mode, the oracle on the card).
 
-Every operand may carry leading dims (the stacked mesh's ranks): rank r's
-queries attend rank r's pool. The kernel takes any ``d_head <= 256`` and
-``K <= 64`` and raises beyond them; the TPU's layout rules (``D % 128``,
-``H % 8``, ``page_size % 8``, the VMEM head-block budget) do not apply.
+Every paged operand may carry leading dims (the stacked mesh's ranks):
+rank r's queries attend rank r's pool. The kernel takes any query count K,
+any ``d_head`` and an f32 or bf16 q, and returns q's dtype; the TPU's
+layout rules (``D % 128``, ``H % 8``, ``page_size % 8``, the VMEM
+head-block budget) do not apply.
 """
 
 from __future__ import annotations
@@ -28,19 +51,368 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 
+import numpy as np
 import torch
 
 from tpuscratch_torch.comm.spmd import lead_index
 from tpuscratch_torch.ops.common import check_status, counters, library, route, stream_of
 from tpuscratch_torch.parallel.scores import NEG_INF, masked_softmax
 
-#: the kernel's limits: q's K x D rows and the f32 accumulator live in one
-#: block's shared memory
-MAX_D = 256
-MAX_K = 64
 #: pool dtype -> the kernel's dtype code (``csrc/paged_attention.cu``)
 POOL_DTYPES = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+#: q dtypes the paged kernel takes (its output has q's dtype)
+PAGED_Q_DTYPES = (torch.float32, torch.bfloat16)
+#: q/k/v dtypes the flash kernels take
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+
+
+# ---- flash attention -------------------------------------------------------------
+
+
+def _mm_dtype(x: torch.Tensor) -> torch.dtype:
+    """The product operand dtype: bf16 inputs stay bf16 (f32 accumulation),
+    everything else computes in f32 (the JAX package's ``_mm_dtype``)."""
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+
+
+def _scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """``x * scale`` in the operand dtype (rounded there), as f32 values."""
+    mm = _mm_dtype(x)
+    return (x.to(mm) * torch.tensor(scale, dtype=mm)).float()
+
+
+def _pick_block(n: int, want: int) -> int:
+    """Largest power-of-two block <= ``want`` that divides ``n``, at least 1.
+    A hint only: the CUDA kernels mask ragged edges, so no length is
+    refused (the TPU's 8-row rule is gone)."""
+    b = max(1, int(want))
+    while b > 1 and n % b:
+        b //= 2
+    return b
+
+
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if (q.ndim < 3 or k.shape != v.shape or q.ndim != k.ndim
+            or q.shape[:-3] != k.shape[:-3] or q.shape[-2:] != k.shape[-2:]):
+        raise ValueError(f"bad attention shapes {tuple(q.shape)}/{tuple(k.shape)}/"
+                         f"{tuple(v.shape)}")
+
+
+def _is_static(off) -> bool:
+    return isinstance(off, (int, np.integer))
+
+
+def _offsets(off, lead: tuple, device) -> torch.Tensor:
+    """An offset (an int or a tensor broadcasting to the leading dims) as an
+    int64 tensor of the leading dims' shape."""
+    t = torch.as_tensor(off, device=device).to(torch.int64)
+    return torch.broadcast_to(t, lead)
+
+
+def _keep(q_offset, kv_offset, S: int, T: int, lead: tuple, causal: bool, device):
+    """The boolean ``(*lead, 1, S, T)`` mask (True = attend) on global
+    positions; None when nothing is masked."""
+    if not causal:
+        return None
+    rows = _offsets(q_offset, lead, device)[..., None, None, None] + torch.arange(
+        S, device=device)[:, None]
+    cols = _offsets(kv_offset, lead, device)[..., None, None, None] + torch.arange(
+        T, device=device)
+    return rows >= cols
+
+
+def _plain_scores(q, k, q_offset, kv_offset, causal):
+    """Scaled scores ``(..., H, S, T)`` f32 with q * scale rounded to the
+    operand dtype, and the mask."""
+    S, T, D = q.shape[-3], k.shape[-3], q.shape[-1]
+    s = torch.einsum("...shd,...thd->...hst", _scaled(q, 1.0 / math.sqrt(D)), k.float())
+    keep = _keep(q_offset, kv_offset, S, T, tuple(q.shape[:-3]), causal, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.tensor(NEG_INF, device=s.device))
+    return s, keep
+
+
+def _flash_fwd_plain(q, k, v, q_offset, kv_offset, causal: bool, return_state: bool):
+    """The forward kernel's function in torch ops: the full softmax at once
+    (the kernel's online one is the same up to rounding order); p is rounded
+    to the operand dtype before P.V. State: (acc (..., S, H, D) f32, m, l
+    (..., H, S)); else acc / l (l == 0 -> 0) in q's dtype."""
+    s, keep = _plain_scores(q, k, q_offset, kv_offset, causal)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("...hst,...thd->...shd", p.to(_mm_dtype(v)).float(), v.float())
+    if return_state:
+        return acc, m, l
+    safe = torch.where(l > 0, l, torch.ones((), device=l.device))
+    return (acc / safe.transpose(-1, -2)[..., None]).to(q.dtype)
+
+
+def _flash_bwd_plain(q, k, v, do, lse, delta, q_offset, kv_offset, causal: bool,
+                     out_dtype=None):
+    """The backward kernels' function in torch ops: p recomputed from lse,
+    ds = p * (do v^T - delta), dq = ds (k * scale), dk = ds^T (q * scale),
+    dv = p^T do; do, p and ds rounded to the operand dtype before their
+    products."""
+    mm = _mm_dtype(q)
+    D = q.shape[-1]
+    s, keep = _plain_scores(q, k, q_offset, kv_offset, causal)
+    p = torch.exp(s - lse[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+    dof = do.to(mm).float()
+    dp = torch.einsum("...shd,...thd->...hst", dof, v.float())
+    ds = (p * (dp - delta[..., None])).to(mm).float()
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.einsum("...hst,...thd->...shd", ds, _scaled(k, scale))
+    dk = torch.einsum("...hst,...shd->...thd", ds, _scaled(q, scale))
+    dv = torch.einsum("...hst,...shd->...thd", p.to(mm).float(), dof)
+    od = out_dtype or q.dtype
+    return dq.to(od), dk.to(od), dv.to(od)
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_lib() -> ctypes.CDLL:
+    lib = library("flash_attention")
+    lib.ts_flash_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                                 + [ctypes.c_float, ctypes.c_void_p])
+    lib.ts_flash_fwd.restype = ctypes.c_int
+    lib.ts_flash_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                                 + [ctypes.c_float, ctypes.c_void_p])
+    lib.ts_flash_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _kernel_scale(D: int, dtype: torch.dtype) -> float:
+    """1/sqrt(D) rounded to the operand dtype, as the kernels multiply by it."""
+    return float(torch.tensor(1.0 / math.sqrt(D), dtype=dtype).float())
+
+
+def _offset_args(off, lead: tuple, device):
+    """(per-entry int32 tensor or None, scalar) for a kernel launch: an int
+    offset rides as the scalar, a tensor as one int32 an entry."""
+    if _is_static(off):
+        return None, int(off)
+    t = torch.broadcast_to(torch.as_tensor(off, device=device).to(torch.int32), lead)
+    return t.contiguous().reshape(-1), 0
+
+
+def _flash_operands(name, tensors):
+    for t in tensors:
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: operands on {t.device} and {tensors[0].device}")
+        if t.dtype not in FLASH_DTYPES or t.dtype != tensors[0].dtype:
+            raise TypeError(f"{name}: the CUDA kernels take float32 or bfloat16 operands of "
+                            f"one dtype, got {[str(x.dtype) for x in tensors]}")
+    return [t.contiguous() for t in tensors]
+
+
+def _launch_fwd(wrapper, q, k, v, q_offset, kv_offset, causal, return_state):
+    _check_flash(q, k, v)
+    q, k, v = _flash_operands(wrapper.__name__, [q, k, v])
+    lead = tuple(q.shape[:-3])
+    S, H, D = q.shape[-3:]
+    T = k.shape[-3]
+    B = math.prod(lead)
+    qo_t, qo = _offset_args(q_offset, lead, q.device)
+    ko_t, ko = _offset_args(kv_offset, lead, q.device)
+    if return_state:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty(lead + (H, S), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    else:
+        out, m, l = torch.empty_like(q), None, None
+    lib = _flash_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ts_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if qo_t is None else qo_t.data_ptr(), None if ko_t is None else ko_t.data_ptr(),
+            out.data_ptr(), None if m is None else m.data_ptr(),
+            None if l is None else l.data_ptr(),
+            B, S, T, H, D, int(causal), int(q.dtype == torch.bfloat16), int(return_state),
+            qo, ko, _kernel_scale(D, q.dtype), stream_of(q))
+    check_status(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+    return (out, m, l) if return_state else out
+
+
+def _launch_bwd(wrapper, q, k, v, do, lse, delta, q_offset, kv_offset, causal, out_dtype):
+    _check_flash(q, k, v)
+    q, k, v = _flash_operands(wrapper.__name__, [q, k, v])
+    do = do.to(q.dtype).contiguous()
+    lead = tuple(q.shape[:-3])
+    S, H, D = q.shape[-3:]
+    T = k.shape[-3]
+    if do.shape != q.shape or tuple(lse.shape) != lead + (H, S) or lse.shape != delta.shape:
+        raise ValueError(f"{wrapper.__name__}: do {tuple(do.shape)}, lse {tuple(lse.shape)}, "
+                         f"delta {tuple(delta.shape)} for q {tuple(q.shape)}")
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    od = out_dtype or q.dtype
+    if od not in (torch.float32, q.dtype):
+        raise TypeError(f"{wrapper.__name__}: out_dtype {od} is neither float32 nor q's dtype")
+    qo_t, qo = _offset_args(q_offset, lead, q.device)
+    ko_t, ko = _offset_args(kv_offset, lead, q.device)
+    dq = torch.empty(q.shape, dtype=od, device=q.device)
+    dk = torch.empty(k.shape, dtype=od, device=q.device)
+    dv = torch.empty(k.shape, dtype=od, device=q.device)
+    lib = _flash_lib()
+    with torch.cuda.device(q.device):
+        err = lib.ts_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if qo_t is None else qo_t.data_ptr(),
+            None if ko_t is None else ko_t.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), math.prod(lead), S, T, H, D, int(causal),
+            int(q.dtype == torch.bfloat16), int(od == torch.float32), qo, ko,
+            _kernel_scale(D, q.dtype), stream_of(q))
+    check_status(lib, err, wrapper.__name__)
+    wrapper.launches += 1
+    return dq, dk, dv
+
+
+def _flash_fwd_call(q, k, v, q_offset, kv_offset, causal: bool, block_q=None, block_k=None,
+                    return_state: bool = False):
+    """The forward at any offsets (ints, or int tensors broadcasting to the
+    leading dims: one per ring rank and batch row): q ``(..., S, H, D)``,
+    k/v ``(..., T, H, D)`` -> out ``(..., S, H, D)`` in q's dtype, or with
+    ``return_state`` (acc f32 ``(..., S, H, D)``, m, l ``(..., H, S)``).
+    One launch of ``flash_fwd_kernel``; ``block_q``/``block_k`` are ignored."""
+    del block_q, block_k
+    if not route(q, "_flash_fwd_call"):
+        return _flash_fwd_plain(q, k, v, q_offset, kv_offset, causal, return_state)
+    return _launch_fwd(_flash_fwd_call, q, k, v, q_offset, kv_offset, causal, return_state)
+
+
+def _flash_fwd_compact(q, k, v, q_offset: int, kv_offset: int, block_q=None, block_k=None,
+                       return_state: bool = False):
+    """The causal forward at int offsets (self-attention): the TPU's compact
+    grid, here ``flash_fwd_kernel`` with its causal loop bound. Never None:
+    fully masked rows come out zero."""
+    del block_q, block_k
+    if not (_is_static(q_offset) and _is_static(kv_offset)):
+        raise TypeError("_flash_fwd_compact takes int offsets")
+    if not route(q, "_flash_fwd_compact"):
+        return _flash_fwd_plain(q, k, v, q_offset, kv_offset, True, return_state)
+    return _launch_fwd(_flash_fwd_compact, q, k, v, q_offset, kv_offset, True, return_state)
+
+
+def _flash_bwd_call(q, k, v, do, lse, delta, q_offset, kv_offset, causal: bool, block_q=None,
+                    block_k=None, out_dtype=None):
+    """dq, dk, dv from the saved lse and delta (``(..., H, S)`` f32), at any
+    offsets; ``out_dtype`` float32 gives f32 partials (the ring backward
+    sums several calls), else q's dtype. One call launches
+    ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (counted once)."""
+    del block_q, block_k
+    if not route(q, "_flash_bwd_call"):
+        return _flash_bwd_plain(q, k, v, do, lse, delta, q_offset, kv_offset, causal, out_dtype)
+    return _launch_bwd(_flash_bwd_call, q, k, v, do, lse, delta, q_offset, kv_offset, causal,
+                       out_dtype)
+
+
+def _flash_bwd_compact(q, k, v, do, lse, delta, q_offset: int, kv_offset: int, block_q=None,
+                       block_k=None, out_dtype=None):
+    """The causal backward at int offsets (the TPU's compact backward
+    grids), the same two kernels as :func:`_flash_bwd_call`."""
+    del block_q, block_k
+    if not (_is_static(q_offset) and _is_static(kv_offset)):
+        raise TypeError("_flash_bwd_compact takes int offsets")
+    if not route(q, "_flash_bwd_compact"):
+        return _flash_bwd_plain(q, k, v, do, lse, delta, q_offset, kv_offset, True, out_dtype)
+    return _launch_bwd(_flash_bwd_compact, q, k, v, do, lse, delta, q_offset, kv_offset, True,
+                       out_dtype)
+
+
+def _normalize(acc, m, l, dtype):
+    """(o in ``dtype``, lse) from a forward state, as the custom VJPs make
+    them: l clamped at 1e-30, lse = m + log(l)."""
+    l_safe = torch.clamp_min(l, 1e-30)
+    o = (acc / l_safe.transpose(-1, -2)[..., None]).to(dtype)
+    return o, m + torch.log(l_safe)
+
+
+def _delta(do, o):
+    """sum(do * o) over D in f32, ``(..., H, S)``."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(-1, -2)
+
+
+class _FlashDiff(torch.autograd.Function):
+    """Differentiable flash attention at any offsets (the JAX ``_flash_diff``):
+    the forward runs the state kernel and saves o in q's dtype and lse; the
+    backward launches the two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_offset, causal):
+        acc, m, l = _flash_fwd_call(q, k, v, q_offset, kv_offset, causal, return_state=True)
+        o, lse = _normalize(acc, m, l, q.dtype)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.offsets, ctx.causal = (q_offset, kv_offset), causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_call(q, k, v, do, lse, _delta(do, o), *ctx.offsets, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+class _FlashDiffCompact(torch.autograd.Function):
+    """Differentiable causal flash attention at int offsets (the JAX
+    ``_flash_diff_compact``): the compact wrappers both ways."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, kv_offset):
+        acc, m, l = _flash_fwd_compact(q, k, v, q_offset, kv_offset, return_state=True)
+        o, lse = _normalize(acc, m, l, q.dtype)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.offsets = (q_offset, kv_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_compact(q, k, v, do, lse, _delta(do, o), *ctx.offsets)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False, q_offset=0, kv_offset=0, block_q: int = 1024,
+                    block_k: int | None = None, return_state: bool = False):
+    """Exact attention with O(S·D) memory a head: q ``(..., S, H, D)``, k/v
+    ``(..., T, H, D)`` -> ``(..., S, H, D)`` in q's dtype. Offsets place the
+    rows and columns in global coordinates for causal masking: ints, or
+    int tensors broadcasting to the leading dims (each ring rank and batch
+    row its own). A row that attends nothing comes out zero, its gradients
+    zero.
+
+    Differentiable: the backward recomputes the scores from the saved
+    log-sum-exp in the two backward kernels (with no gradient to take, one
+    forward launch writes the normalized output). Causal calls with int offsets
+    take the compact wrappers, every other call the dense ones (on the card
+    the same kernels with another loop bound).
+
+    ``return_state=True`` returns ``(acc, m, l)`` instead: the unnormalized
+    f32 weighted sum ``(..., S, H, D)`` and the running max / normalizer
+    ``(..., H, S)`` f32, for an exact merge across blocks (forward only).
+
+    ``block_q``/``block_k`` are accepted for the JAX signature and do not
+    steer the CUDA tile."""
+    _check_flash(q, k, v)
+    del block_q, block_k
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if causal and _is_static(q_offset) and _is_static(kv_offset):
+        qo, ko = int(q_offset), int(kv_offset)
+        if return_state or not grad:
+            return _flash_fwd_compact(q, k, v, qo, ko, return_state=return_state)
+        return _FlashDiffCompact.apply(q, k, v, qo, ko)
+    if return_state or not grad:
+        return _flash_fwd_call(q, k, v, q_offset, kv_offset, causal, return_state=return_state)
+    return _FlashDiff.apply(q, k, v, q_offset, kv_offset, causal)
+
+
+# ---- cached decode attention -------------------------------------------------------
 
 
 def _gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -77,16 +449,6 @@ def _check_decode_operands(q, k_pages, v_pages, page_table, seq_lens) -> None:
                          f"lens={tuple(seq_lens.shape)}")
 
 
-def paged_attention_supported(H: int, D: int, page_size: int, kv_dtype) -> str | None:
-    """None when the CUDA kernel takes this geometry, else why not."""
-    del H, page_size  # any head count and page size
-    if D > MAX_D:
-        return f"d_head {D} above the kernel's limit of {MAX_D}"
-    if kv_dtype not in POOL_DTYPES:
-        return f"pool dtype {kv_dtype} not in the ladder (float32, int8, float8_e4m3fn)"
-    return None
-
-
 def _verify_attention_dense(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                             v_scale=None) -> torch.Tensor:
     """The plain version of the paged kernel: q ``(*lead, B, K, H, D)``
@@ -120,7 +482,7 @@ def _verify_attention_dense(q, k_pages, v_pages, page_table, seq_lens, k_scale=N
 def _lib() -> ctypes.CDLL:
     lib = library("paged_attention")
     lib.ts_paged_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 10
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 10
         + [ctypes.c_void_p])
     lib.ts_paged_attention.restype = ctypes.c_int
     return lib
@@ -128,14 +490,16 @@ def _lib() -> ctypes.CDLL:
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                     v_scale=None) -> torch.Tensor:
-    """The paged-attention sweep: q ``(*lead, B, K, H, D)`` f32 against
-    ``(*lead, P, page, H, D)`` pools (f32, int8 or fp8-e4m3; ``(*lead, P,
-    H)`` f32 scales when quantized) through a ``(*lead, B, max_pages)``
-    table and ``(*lead, B)`` lengths -> ``(*lead, B, K, H, D)`` f32. On a
-    CUDA tensor one kernel launch per rank reads each needed page once,
-    dequantizes it in shared memory and keeps an online softmax; on a CPU
-    tensor, the plain version. The pools may be strided views (a layer of
-    the stacked cache) as long as ``d_head`` is contiguous."""
+    """The paged-attention sweep: q ``(*lead, B, K, H, D)`` f32 or bf16
+    against ``(*lead, P, page, H, D)`` pools (f32, int8 or fp8-e4m3;
+    ``(*lead, P, H)`` f32 scales when quantized) through a ``(*lead, B,
+    max_pages)`` table and ``(*lead, B)`` lengths -> ``(*lead, B, K, H, D)``
+    in q's dtype (softmax and accumulator in f32). On a CUDA tensor one
+    kernel launch per rank reads each needed page once per group of 64
+    queries and output tile of 128 columns, dequantizes it in shared memory
+    and keeps an online softmax; on a CPU tensor, the plain version. The
+    pools may be strided views (a layer of the stacked cache) as long as
+    ``d_head`` is contiguous."""
     _check_decode_operands(q, k_pages, v_pages, page_table, seq_lens)
     if not route(q, "paged_attention"):
         return _verify_attention_dense(q, k_pages, v_pages, page_table, seq_lens,
@@ -143,13 +507,11 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
     n = page_table.ndim - 2
     B, K, H, D = q.shape[n:]
     n_pages, page_size = k_pages.shape[n:n + 2]
-    why = paged_attention_supported(H, D, page_size, k_pages.dtype)
-    if why is None and K > MAX_K:
-        why = f"{K} queries per sequence above the kernel's limit of {MAX_K}"
-    if why is not None:
-        raise ValueError(f"paged_attention: {why}")
-    if q.dtype != torch.float32:
-        raise TypeError(f"paged_attention: q must be float32, got {q.dtype}")
+    if k_pages.dtype not in POOL_DTYPES:
+        raise ValueError(f"paged_attention: pool dtype {k_pages.dtype} not in the ladder "
+                         "(float32, int8, float8_e4m3fn)")
+    if q.dtype not in PAGED_Q_DTYPES:
+        raise TypeError(f"paged_attention: q must be float32 or bfloat16, got {q.dtype}")
     quantized = k_scale is not None
     if quantized != (k_pages.dtype != torch.float32) or (v_scale is None) == quantized:
         raise ValueError("paged_attention: scales go with (and only with) quantized pools")
@@ -176,7 +538,7 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                 ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
                 table[r].data_ptr(), lens[r].data_ptr(), out[r].data_ptr(),
                 B, K, H, D, page_size, n_pages, table.shape[-1], POOL_DTYPES[k_pages.dtype],
-                *strides, stream_of(q))
+                int(q.dtype == torch.bfloat16), *strides, stream_of(q))
         check_status(lib, err, "paged_attention")
         paged_attention.launches += 1
     return out
@@ -222,5 +584,6 @@ def verify_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None, v_
 
 
 #: Every kernel wrapper, in the order of the TPU kernel table.
-WRAPPERS = (paged_attention,)
+WRAPPERS = (_flash_fwd_call, _flash_fwd_compact, _flash_bwd_call, _flash_bwd_compact,
+            paged_attention)
 reset_launches, launch_counts = counters(WRAPPERS)

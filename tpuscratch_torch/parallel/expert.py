@@ -1,7 +1,6 @@
-"""Expert parallelism: the routed MoE feed-forward over a mesh axis (forward).
+"""Expert parallelism: the routed MoE feed-forward over a mesh axis.
 
-The twin of ``tpuscratch.parallel.expert`` without its custom VJPs (the
-training slice brings those). Switch-style: a linear gate scores every
+The twin of ``tpuscratch.parallel.expert``. Switch-style: a linear gate scores every
 local token, greedy iterated top-1 rounds with per-expert capacity ``C``
 assign slots (tokens past capacity are dropped), the packed slots go to
 their expert's rank by one ``all_to_all``, each rank runs its local
@@ -12,6 +11,11 @@ Inside ``run_spmd`` every tensor carries the stacked mesh's leading dims,
 so each function here works on ``(*mesh, ...)`` tensors and counts its
 own dims from the end. A JAX ``mode="drop"`` scatter is a scatter into
 one extra slot that is then cut off.
+
+The dispatch and combine gathers are ``torch.autograd.Function``s (the JAX
+custom VJPs): the routing map is a bijection on filled slots, so both of
+their backward passes are gathers through the inverse index, not the
+scatter-adds autograd would run.
 """
 
 from __future__ import annotations
@@ -111,7 +115,7 @@ def sparse_topk_routing(logits: torch.Tensor, cap: int, k: int = 1) -> SparseRou
         oob = torch.where(kept, flat, E * cap)
         slot_token.scatter_(-1, oob, tokens)
         slot_filled.scatter_(-1, oob, torch.ones_like(gate))
-        slot_gate.scatter_(-1, oob, gate)
+        slot_gate.scatter_(-1, oob, gate.detach())  # feeds the combine's backward only
         tok_flat.append(torch.where(kept, flat, 0))
         tok_gate.append(torch.where(kept, gate, torch.zeros_like(gate)))
         tok_kept.append(kept.float())
@@ -122,22 +126,50 @@ def sparse_topk_routing(logits: torch.Tensor, cap: int, k: int = 1) -> SparseRou
         slot_gate[..., :-1].reshape(cut), aux)
 
 
-def _sparse_dispatch(x: torch.Tensor, slot_token: torch.Tensor,
-                     slot_filled: torch.Tensor) -> torch.Tensor:
-    """``(..., T, D)`` tokens -> ``(..., E, C, D)`` packed slots by gather."""
-    E, C = slot_token.shape[-2:]
-    g = torch.take_along_dim(x, slot_token.reshape(*slot_token.shape[:-2], E * C, 1), dim=-2)
-    return g.reshape(*slot_token.shape, x.shape[-1]) * slot_filled[..., None]
+def _flat_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x (..., N, D)`` rows at ``idx (..., *ishape)`` -> ``(..., *ishape, D)``."""
+    g = torch.take_along_dim(x, idx.reshape(*x.shape[:-2], -1, 1), dim=-2)
+    return g.reshape(*idx.shape, x.shape[-1])
 
 
-def _sparse_combine(flat: torch.Tensor, tok_gate: torch.Tensor,
-                    tok_flat: torch.Tensor) -> torch.Tensor:
-    """``(..., E*C, D)`` slot outputs -> ``(..., T, D)``: each token reads
-    its k slots back, weighted by its gate."""
-    T, k = tok_flat.shape[-2:]
-    g = torch.take_along_dim(flat, tok_flat.reshape(*tok_flat.shape[:-2], T * k, 1), dim=-2)
-    g = g.reshape(*tok_flat.shape, flat.shape[-1])
-    return torch.sum(tok_gate[..., None] * g, dim=-2)
+class _SparseDispatch(torch.autograd.Function):
+    """The JAX ``_sparse_dispatch``: ``(..., T, D)`` tokens -> ``(..., E, C,
+    D)`` packed slots by gather; dx[t] = sum_j kept[t, j] *
+    ct[tok_flat[t, j]] by gather, in place of autograd's (E*C, D)
+    scatter-add into (T, D)."""
+
+    @staticmethod
+    def forward(ctx, x, slot_token, slot_filled, tok_flat, tok_kept):
+        ctx.save_for_backward(tok_flat, tok_kept)
+        return _flat_gather(x, slot_token) * slot_filled[..., None]
+
+    @staticmethod
+    def backward(ctx, ct):
+        tok_flat, tok_kept = ctx.saved_tensors
+        flat = ct.reshape(*ct.shape[:-3], -1, ct.shape[-1])
+        dx = torch.sum(tok_kept[..., None] * _flat_gather(flat, tok_flat), dim=-2)
+        return dx, None, None, None, None
+
+
+class _SparseCombine(torch.autograd.Function):
+    """The JAX ``_sparse_combine``: ``(..., E*C, D)`` slot outputs -> ``(...,
+    T, D)``, each token reading its k slots back weighted by its gate.
+    Backward: dflat[s] = slot_gate[s] * ct[slot_token[s]] (unclaimed slots
+    have zero gate) and dgate recomputed from flat and ct, both gathers."""
+
+    @staticmethod
+    def forward(ctx, flat, tok_gate, tok_flat, slot_token, slot_gate):
+        ctx.save_for_backward(flat, tok_flat, slot_token, slot_gate)
+        return torch.sum(tok_gate[..., None] * _flat_gather(flat, tok_flat), dim=-2)
+
+    @staticmethod
+    def backward(ctx, ct):
+        flat, tok_flat, slot_token, slot_gate = ctx.saved_tensors
+        lead = slot_token.shape[:-2]
+        dflat = (_flat_gather(ct, slot_token.reshape(*lead, -1))
+                 * slot_gate.reshape(*lead, -1, 1)).to(flat.dtype)
+        dgate = torch.einsum("...tkd,...td->...tk", _flat_gather(flat, tok_flat), ct)
+        return dflat, dgate.float(), None, None, None
 
 
 def expert_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
@@ -172,7 +204,8 @@ def expert_parallel_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_in: torch.Tenso
         packed = torch.einsum("...tec,...td->...ecd", route.dispatch, x.float())
     else:
         route = sparse_topk_routing(logits, cap, k=k)
-        packed = _sparse_dispatch(x.float(), route.slot_token, route.slot_filled)
+        packed = _SparseDispatch.apply(x.float(), route.slot_token, route.slot_filled,
+                                       route.tok_flat, route.tok_kept)
     routed = all_to_all(packed, axis, split_axis=0, concat_axis=1, tiled=True)
     y = expert_ffn(routed, w_in.float(), w_out.float())
     back = all_to_all(y, axis, split_axis=1, concat_axis=0, tiled=True)
@@ -180,5 +213,6 @@ def expert_parallel_ffn(x: torch.Tensor, gate_w: torch.Tensor, w_in: torch.Tenso
         out = torch.einsum("...tec,...ecd->...td", route.combine, back)
     else:
         flat = back.reshape(*back.shape[:-3], e_total * cap, D)
-        out = _sparse_combine(flat, route.tok_gate, route.tok_flat)
+        out = _SparseCombine.apply(flat, route.tok_gate, route.tok_flat, route.slot_token,
+                                   route.slot_gate)
     return out.to(x.dtype), route.aux_loss

@@ -35,8 +35,15 @@ from typing import Sequence
 import torch
 
 from tpuscratch_torch.comm.collectives import allreduce_sum
-from tpuscratch_torch.comm.spmd import P, axis_index, axis_size, current_mesh, lead_index, run_spmd
-from tpuscratch_torch.models.transformer import TransformerConfig, _rms_norm, param_spec
+from tpuscratch_torch.comm.spmd import P, axis_index, axis_size, lead_index, run_spmd
+from tpuscratch_torch.models.transformer import (
+    TransformerConfig,
+    _lead,
+    _mm,
+    _nmesh,
+    _rms_norm,
+    param_spec,
+)
 from tpuscratch_torch.ops.attention import decode_attention, verify_attention
 from tpuscratch_torch.parallel.expert import expert_parallel_ffn
 from tpuscratch_torch.parallel.scores import masked_scores, masked_softmax
@@ -164,22 +171,6 @@ def _check_geometry(cfg: TransformerConfig, geom: CacheGeometry) -> None:
             f"cache geometry (layers={geom.n_layers}, heads={geom.n_heads}, "
             f"d_head={geom.d_head}) does not match the model (layers={cfg.n_layers}, "
             f"heads={cfg.n_heads}, d_head={cfg.d_head})")
-
-
-def _nmesh() -> int:
-    return len(current_mesh().shape)
-
-
-def _lead(w: torch.Tensor, ndim: int) -> torch.Tensor:
-    """A stacked weight ``(*mesh, ...)`` with unit dims after the mesh dims,
-    so it broadcasts against a stacked ``ndim``-dim operand."""
-    m = _nmesh()
-    return w[(slice(None),) * m + (None,) * (ndim - w.ndim)]
-
-
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` per rank: x ``(*mesh, ..., a)``, w ``(*mesh, a, b)``."""
-    return x @ _lead(w, x.ndim)
 
 
 def _own_block(t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
