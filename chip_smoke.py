@@ -89,7 +89,27 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 19. BASELINE configs 6 (flash attention TFLOP/s, causal and full) and 11
    (train tokens/s, f32 and bf16) through ``bench.record``, then a profile
    of a config-11 step (kernel time by group, the device's idle share);
-20. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+20. the fused Adam kernel against its plain version: lengths 1, 3, 1023,
+   1025 and 3001 and a stacked (4, 3001) with four step sizes, f32 and bf16
+   moments, donated and not, bit-equal; then its time at adam_bench's tree
+   (253,921,280 elements, a launch a leaf) and at config 13's dp-4 shard
+   beside its bound, its plain time and ``torch._fused_adam_``'s, and the
+   experts' elementwise update at dp 4;
+21. the ZeRO path at config 13's model: on 1x1 the elementwise and the
+   fused ZeRO step against ``train_step_adam``, bit-identical over 3 steps,
+   with one fused Adam launch and n_layers flash launches each way a step
+   (the counts zeroed just before and read just after); on dp 2 and dp 4
+   stacked, ZeRO against replicated within ZERO_TOL, a planted fault (alpha
+   x 0.9) outside it, two identical microbatches against one, the overlap
+   schedule against the serial one (bit-identical, a launch a block), the
+   grad-sync bytes and the optimizer bytes a rank, the peak device memory;
+22. BASELINE config 13 (replicated against ZeRO at dp 1, 2, 4 and the
+   accumulation sweep) through ``bench.record`` with its steps cut, a
+   profile of a dp-4 ZeRO step, and the adam_bench race;
+23. the four copy probes against clone / x * c (bit-equal), each probe's
+   marginal GB/s at 256x512x512 f32 beside ``copy_``'s, and the measured
+   copy rate;
+24. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card, or outside a
@@ -1734,6 +1754,381 @@ def phase19_configs6_11() -> list:
     return out
 
 
+# Phases 20-23: ZeRO training and the copy probes. The fused Adam kernel
+# rounds every product, sum, quotient and root as its plain version does,
+# in the same association, so it must equal it bit for bit; so must the
+# copy probes their clone / multiply.
+ADAM_LENGTHS = (1, 3, 1023, 1025, 3001)
+ADAM_FLOPS = 12             # per element: m' 3, v' 4, w' 5
+# The ZeRO path at config 13's model on dp 2 and 4 against the replicated
+# Adam step from the same weights and batch, TRAIN_STEPS steps: the
+# reduce-scatter sums each flat element over the dp ranks as the all-reduce
+# does, so the two are expected to agree bit for bit; the limits below
+# (losses relative, params' worst element relative to the leaf's largest)
+# are set from the sound readings and the planted fault (alpha x 0.9 through
+# the same kernel): sound runs read 0 and 0 on dp 2 and 4, the fault 4.9e-2
+# (the second loss) and 1.4e-3 (params after one step); PERF.md has the run.
+ZERO_TOL = (1e-7, 1e-6)
+ZERO_OVERLAP_BLOCKS = 4
+
+
+def _adam_case(gen, shape, mdt, alpha_shape):
+    w, g, m = (randn(shape, gen) for _ in range(3))
+    v = randn(shape, gen).abs()
+    n_alpha = math.prod(alpha_shape)
+    alpha = torch.linspace(1e-3, 4e-3, n_alpha, device="cuda").reshape(alpha_shape)
+    return w, g, m.to(mdt), v.to(mdt), alpha
+
+
+def _bit_err(got, want) -> float:
+    """max |got - want| over the outputs, non-finite values refused in both."""
+    err = 0.0
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype:
+            raise AssertionError(f"dtype {a.dtype} != {b.dtype}")
+        if not bool(torch.isfinite(b.float()).all()):
+            raise AssertionError("non-finite values in the plain version")
+        err = max(err, max_err(a.float(), b.float()))
+    return err
+
+
+def _adam_bytes(n: int, mdt) -> int:
+    return n * (28 if mdt == torch.float32 else 20)
+
+
+def phase20_fused_adam(gen) -> tuple[dict, list]:
+    """The fused Adam kernel against its plain version: lengths 1, 3, 1023,
+    1025, 3001 and a stacked (4, 3001) with four alphas, f32 and bf16
+    moments, donated and not, bit-equal; then its time at adam_bench's tree
+    (one launch a leaf) and at config 13's dp-4 shard (4 stacked ranks of
+    4,200,448), beside the byte bound, the plain time and
+    ``torch._fused_adam_`` over the same tensors (f32 moments only; it puts
+    eps after the bias correction: a yardstick of the same traffic)."""
+    from tpuscratch_torch.bench import adam_bench
+    from tpuscratch_torch.ops import adam as tadam
+
+    err = 0.0
+    cases = [((n,), ()) for n in ADAM_LENGTHS] + [((4, 3001), (4,))]
+    for mdt in (torch.float32, torch.bfloat16):
+        for shape, ashape in cases:
+            for donate in (False, True):
+                w, g, m, v, alpha = _adam_case(gen, shape, mdt, ashape)
+                want = tadam.fused_adam_plain(w, g, m, v, alpha)
+                got = tadam.fused_adam_flat(w, g, m, v, alpha, donate=donate)
+                torch.cuda.synchronize()
+                e = _bit_err(got, want)
+                if e != 0.0 or (donate and got[0].data_ptr() != w.data_ptr()):
+                    raise AssertionError(f"fused_adam_flat {shape} {str(mdt)[6:]} donate={donate}: "
+                                         f"max_abs_err {e:.3e}, want bit-equal and in place")
+                err = max(err, e)
+        log(f"  fused_adam_flat {str(mdt)[6:]:8s} lengths {ADAM_LENGTHS} and (4, 3001) x 4 "
+            f"alphas, donated and not: bit-equal")
+
+    rows = []
+    gen_t = torch.Generator(device="cuda").manual_seed(SEED)
+    shard = (4, 1, 4_200_448)
+    for what, mdt in (("adam_bench tree", torch.float32), ("adam_bench tree", torch.bfloat16),
+                      ("config 13 dp-4 shard", torch.float32)):
+        if what == "adam_bench tree":
+            leaves = adam_bench.LEAVES
+            alpha = torch.tensor(1e-3, device="cuda")
+        else:
+            leaves = {"flat": shard}
+            alpha = torch.linspace(1e-3, 4e-3, 4, device="cuda").reshape(4, 1)
+        n = sum(math.prod(s) for s in leaves.values())
+        w, g = adam_bench.make_tree(gen_t, leaves=leaves), adam_bench.make_tree(gen_t, leaves=leaves)
+        m = adam_bench.make_tree(gen_t, mdt, leaves)
+        v = adam_bench.make_tree(gen_t, mdt, leaves, positive=True)
+        want = tadam.fused_adam_tree(w, g, m, v, alpha)
+        got = tadam.fused_adam_tree(w, g, m, v, alpha, donate=False)
+        err = max(err, max(_bit_err([got[i][k] for i in range(3)], [want[i][k] for i in range(3)])
+                           for k in leaves))
+        ms = device_ms(lambda: tadam.fused_adam_tree(w, g, m, v, alpha, donate=True), n=10)
+        plain = device_ms(lambda: [tadam.fused_adam_plain(w[k], g[k], m[k], v[k], alpha)
+                                   for k in leaves], n=3)
+        lib = None
+        if mdt == torch.float32:
+            ks = list(leaves)
+            steps = [torch.tensor(1.0, device="cuda") for _ in ks]
+            lib = device_ms(lambda: torch._fused_adam_(
+                [w[k] for k in ks], [g[k] for k in ks], [m[k] for k in ks], [v[k] for k in ks], [],
+                steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=0.0, eps=1e-8,
+                amsgrad=False, maximize=False), n=10)
+        b, by = bound(_adam_bytes(n, mdt), ADAM_FLOPS * n)
+        rows.append(dict(name="fused_adam_flat",
+                         shape=f"{what} {n:,} {str(mdt)[6:]} moments ({len(leaves)} launch"
+                               f"{'es' if len(leaves) > 1 else ''})",
+                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by))
+        del w, g, m, v, want, got
+        torch.cuda.empty_cache()
+    # the experts' update at config 13's dp 4: the elementwise Adam of the
+    # train step (not the kernel) over 4 ranks x 8 expert leaves
+    from tpuscratch_torch.models.transformer import _adam_apply
+
+    leaves = [randn((4, 1, 1, 1024, 4096), gen_t) for _ in range(8)]
+    grads = [randn(t.shape, gen_t) for t in leaves]
+    nus = [t.abs() for t in grads]
+    alpha = torch.linspace(1e-3, 4e-3, 4, device="cuda").reshape(4, 1)
+    n = sum(t.numel() for t in leaves)
+    ms = device_ms(lambda: _adam_apply(leaves, leaves, nus, grads, alpha, 0.9, 0.999, 1e-8), n=3)
+    log(f"  time the experts' elementwise Adam at config 13 dp 4 ({n:,} elements, 8 leaves): "
+        f"{ms:.4f} ms (a fused pass: {_adam_bytes(n, torch.float32) / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms at 3.35 TB/s)")
+    del leaves, grads, nus
+    for r in rows:
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"  time fused_adam_flat {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, {r['bound_ms'] / r['ms']:.2f} of it; plain {r['plain_ms']:.4f} "
+            f"ms, torch._fused_adam_ {lib})")
+    return {"fused_adam_flat": err}, rows
+
+
+def _config13_setup(dp: int):
+    import dataclasses
+
+    from tpuscratch_torch.bench.train_bench import default_train_setup
+    from tpuscratch_torch.models.transformer import init_params
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    base, batch, seq, _ = default_train_setup(on_card=True)
+    cfg = dataclasses.replace(base, n_experts=max(base.n_experts, dp))
+    return (cfg, make_mesh((dp, 1), ("dp", "sp"), DEVICE), init_params(0, cfg, DEVICE),
+            batch * dp, seq)
+
+
+def _param_err(a, b) -> float:
+    """Worst leaf of max|a - b| / max|b| over two parameter trees."""
+    from tpuscratch_torch.models.transformer import _leaves
+
+    return max(float((x.double() - y.double()).abs().max()) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _run_steps(step, params, opt, x, y, n):
+    losses = []
+    for _ in range(n):
+        params, opt, loss = step(params, opt, x, y)
+        losses.append(float(loss))
+    return params, opt, losses
+
+
+def phase21_zero_path() -> dict:
+    """The ZeRO step at config 13's model (d_model 1024, 8 heads, 4 layers,
+    d_ff 4096, ``n_experts = max(4, dp)``, batch 8 a dp rank of seq 2048,
+    flash attention), seed-0 weights: on 1x1 the elementwise ZeRO step
+    against ``train_step_adam`` and the fused step against the elementwise
+    one, bit-identical over TRAIN_STEPS steps (the launch counts zeroed just
+    before the fused run and read just after: one fused Adam launch a step,
+    n_layers flash forward and backward launches a step); on dp 2 and 4
+    stacked, ZeRO against replicated within ZERO_TOL, with the planted fault
+    (alpha x 0.9 through the same kernel) outside it; the overlap schedule
+    against the serial one on dp 4, bit-identical, one launch a block; two
+    identical microbatches against one on dp 2 at 1e-6; the grad-sync leg
+    at dp 4 <= 0.55x the replicated one; optimizer bytes a rank; the peak
+    device memory at dp 4."""
+    from tpuscratch_torch.bench.train_bench import train_data
+    from tpuscratch_torch.comm import count_wire_bytes
+    from tpuscratch_torch.models import zero as tz
+    from tpuscratch_torch.models.transformer import (_leaves, init_adam_state,
+                                                     train_step_adam)
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+
+    counts = {}
+    n = TRAIN_STEPS
+    # 1x1: ZeRO elementwise == replicated, fused == elementwise
+    cfg, mesh, params, batch, seq = _config13_setup(1)
+    x, y = train_data(0, batch, seq, cfg.d_model, DEVICE)
+    rp, _, rl = _run_steps(train_step_adam(mesh, cfg), params, init_adam_state(params), x, y, n)
+    up, uo, ul = _run_steps(tz.train_step_zero(mesh, cfg, fused=False), params,
+                            tz.init_zero_adam_state(params, 1), x, y, n)
+    torch.cuda.synchronize()
+    tadam.reset_launches()
+    ta.reset_launches()
+    fp, fo, fl = _run_steps(tz.train_step_zero(mesh, cfg, fused=True), params,
+                            tz.init_zero_adam_state(params, 1), x, y, n)
+    torch.cuda.synchronize()
+    counts.update(tadam.launch_counts())
+    flash = ta.launch_counts()
+    log(f"  1x1: replicated losses {rl}; ZeRO elementwise {ul}; ZeRO fused {fl}")
+    same = (rl == ul == fl and all(torch.equal(a, b) and torch.equal(b, c) for a, b, c in
+                                   zip(_leaves(rp), _leaves(up), _leaves(fp)))
+            and torch.equal(uo["mu_flat"], fo["mu_flat"]) and torch.equal(uo["nu_flat"], fo["nu_flat"]))
+    log(f"  1x1 bit-identical (replicated = ZeRO elementwise = ZeRO fused): {same}; launches "
+        f"fused_adam_flat {counts['fused_adam_flat']} (want {n}), flash fwd "
+        f"{flash['_flash_fwd_call']} bwd {flash['_flash_bwd_call']} (want {cfg.n_layers * n})")
+    if not same:
+        raise AssertionError("the 1x1 ZeRO step is not bit-identical to the replicated one")
+    if counts["fused_adam_flat"] != n or (flash["_flash_fwd_call"], flash["_flash_bwd_call"]) != \
+            (cfg.n_layers * n,) * 2:
+        raise AssertionError(f"ZeRO path launches: {counts} {flash}")
+    del rp, up, fp, uo, fo, x, y, params
+    torch.cuda.empty_cache()
+
+    for dp in (2, 4):
+        cfg, mesh, params, batch, seq = _config13_setup(dp)
+        x, y = train_data(0, batch, seq, cfg.d_model, DEVICE)
+        rstep = train_step_adam(mesh, cfg)
+        with count_wire_bytes() as rep_b:
+            rp1, ro, rl = _run_steps(rstep, params, init_adam_state(params), x, y, 1)
+        rp, _, more = _run_steps(rstep, rp1, ro, x, y, n - 1)
+        rl += more
+        del ro
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zstep = tz.train_step_zero(mesh, cfg)
+        with count_wire_bytes() as zero_b:
+            zp1, zo, zl = _run_steps(zstep, params, tz.init_zero_adam_state(params, dp), x, y, 1)
+        zp, zo, more = _run_steps(zstep, zp1, zo, x, y, n - 1)
+        zl += more
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        dl = max(abs(a - b) / abs(b) for a, b in zip(zl, rl))
+        dpar = max(_param_err(zp1, rp1), _param_err(zp, rp))
+        log(f"  dp {dp}: replicated losses {rl}; ZeRO {zl}; losses {dl:.3e} apart (limit "
+            f"{ZERO_TOL[0]:g}), params after 1 and {n} steps {dpar:.3e} (limit {ZERO_TOL[1]:g}); "
+            f"peak device memory of the ZeRO run {peak:,} B")
+        if dl > ZERO_TOL[0] or dpar > ZERO_TOL[1]:
+            raise AssertionError(f"ZeRO dp {dp} differs from replicated: {dl:.3e}, {dpar:.3e}")
+        log(f"  dp {dp} grad-sync bytes a step: replicated {rep_b}, ZeRO {zero_b}; grad ratio "
+            f"{zero_b.grad / rep_b.grad:.4f}")
+        if dp == 4 and not zero_b.grad <= 0.55 * rep_b.grad:
+            raise AssertionError(f"ZeRO grad leg {zero_b.grad} > 0.55 x {rep_b.grad}")
+        rep_state = sum(t.numel() * t.element_size() for t in _leaves(params)) * 2
+        zbytes = tz.zero_state_bytes_per_rank(cfg, params, dp)
+        log(f"  dp {dp} optimizer bytes a rank: ZeRO {zbytes:,} against replicated {rep_state:,} / "
+            f"{dp} = {rep_state // dp:,}")
+        if zbytes > rep_state / dp + 2 * 4 * dp * 8:
+            raise AssertionError("per-rank ZeRO optimizer bytes do not divide by dp")
+        if dp == 2:
+            # the planted fault: a 10% step-size error through the same kernel
+            real = tz.fused_adam_tree
+            tz.fused_adam_tree = lambda p, g, m, v, alpha, *a, **k: real(p, g, m, v, alpha * 0.9,
+                                                                        *a, **k)
+            try:
+                bstep = tz.train_step_zero(mesh, cfg)
+                bp1, bo, bl = _run_steps(bstep, params, tz.init_zero_adam_state(params, dp), x, y, 1)
+                bl += _run_steps(bstep, bp1, bo, x, y, 1)[2]
+            finally:
+                tz.fused_adam_tree = real
+            bdl, bdp = abs(bl[1] - rl[1]) / abs(rl[1]), _param_err(bp1, rp1)
+            log(f"  dp 2 planted fault (alpha x 0.9): second loss {bdl:.3e}, params after one "
+                f"step {bdp:.3e} apart")
+            if bdl <= ZERO_TOL[0] or bdp <= ZERO_TOL[1]:
+                raise AssertionError("the planted fault passes a ZeRO limit")
+            del bp1, bo
+            # two identical microbatches against one
+            xk, yk = torch.stack([x, x]), torch.stack([y, y])
+            _, _, al = _run_steps(tz.train_step_zero(mesh, cfg, accum_steps=2), params,
+                                  tz.init_zero_adam_state(params, dp), xk, yk, 2)
+            ad = max(abs(a - b) / abs(b) for a, b in zip(al, zl[:2]))
+            log(f"  dp 2 accum_steps=2 on identical microbatches: losses {al}, {ad:.3e} from "
+                f"accum_steps=1 (limit 1e-6)")
+            if ad > 1e-6:
+                raise AssertionError(f"accumulation drifts: {ad}")
+            del xk, yk
+        else:
+            torch.cuda.synchronize()
+            tadam.reset_launches()
+            op, oo, ol = _run_steps(tz.train_step_zero(mesh, cfg,
+                                                       overlap_blocks=ZERO_OVERLAP_BLOCKS),
+                                    params, tz.init_zero_adam_state(params, dp), x, y, n)
+            torch.cuda.synchronize()
+            blocks = tadam.launch_counts()["fused_adam_flat"]
+            same = ol == zl and all(torch.equal(a, b) for a, b in zip(_leaves(op), _leaves(zp))) \
+                and torch.equal(oo["mu_flat"], zo["mu_flat"])
+            log(f"  dp 4 overlap_blocks={ZERO_OVERLAP_BLOCKS} against serial: bit-identical {same}, "
+                f"{blocks} fused launches in {n} steps")
+            if not same or blocks != ZERO_OVERLAP_BLOCKS * n:
+                raise AssertionError(f"overlap schedule: identical {same}, launches {blocks}")
+            log(f"  dp 4 torch.cuda.max_memory_allocated: {peak:,} B")
+            del op, oo
+        del rp1, rp, zp1, zp, zo, x, y, params
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase22_config13() -> list:
+    """Config 13 through ``bench.record`` (steps cut, listed in each row's
+    ``reduced``), a profile of one dp-4 ZeRO step, and the adam_bench race."""
+    from tpuscratch_torch.bench import adam_bench
+    from tpuscratch_torch.bench.record import config13_zero_train
+    from tpuscratch_torch.bench.train_bench import profile_train
+
+    out: list = []
+    config13_zero_train(out, iters=1, steps=2, sweep_steps=1, device=DEVICE)
+    for r in out:
+        log(f"  config 13 {r['metric']}: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()
+            if k not in ("config", "metric", "platform")))
+        for key in ("repl_tokens_per_s", "zero_tokens_per_s"):
+            if key in r and not (math.isfinite(r[key]) and r[key] > 0):
+                raise AssertionError(f"config 13 {r['metric']} {key}: {r[key]}")
+    cfg, mesh, params, batch, seq = _config13_setup(4)
+    del params
+    prof = profile_train(mesh, cfg, batch, seq, steps=1, zero=True)
+    log(f"  profile config 13 dp 4 ZeRO: {prof['step_ms']:.3f} ms an unprofiled step, "
+        f"{prof['profiled_step_ms']:.3f} ms a profiled one, device {prof['device_ms']:.3f} ms "
+        f"(idle share {prof['idle_share']:.3f} of the unprofiled step), "
+        f"{prof['launches_per_step']:.0f} kernel launches a step")
+    log("    by group (ms a step): " + ", ".join(f"{k} {v:.3f}" for k, v in prof["groups_ms"].items()))
+    for name, ms in prof["top_ms"]:
+        log(f"    {ms:9.4f} ms  {name}")
+    torch.cuda.empty_cache()
+    r = adam_bench.race(20, device=DEVICE)
+    log(f"  adam_bench: {r['n']:,} params, kernel vs 3-map after 3 updates {r['gate_err']:.3e}")
+    for form, v in r["forms"].items():
+        log(f"    {form:13s} {v['ms']:.4f} ms/update ({v['gbps']:.0f} GB/s effective)")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase23_copy_probes() -> tuple[dict, list, dict]:
+    """The copy probes against clone / x * c, bit-equal, at a ragged small
+    array and at 256x512x512; then every probe's marginal GB/s (the launch
+    counts zeroed just before and read just after), ``copy_``'s and the
+    measured copy rate; each wrapper's best configuration is its row."""
+    from tpuscratch_torch.bench import dma_bound as tb
+
+    c = torch.full((1,), 1.0 + 2 ** -20, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    err = {w.__name__: 0.0 for w in tb.WRAPPERS}
+    probes = tb.probes()
+    for shape in ((8, 37, 12), (tb.NZ, tb.CY, tb.CX)):
+        x = randn(shape, gen)
+        for name, step in probes[:-2]:
+            want = tb.touch_plain(x, c) if "touch" in name else tb.copy_plain(x, c)
+            e = max_err(step(x, c), want)
+            if e != 0.0:
+                raise AssertionError(f"{name} {shape}: max_abs_err {e:.3e}, want bit-equal")
+        log(f"  every probe at {shape}: bit-equal to clone / x * c")
+        del x
+    tb.reset_launches()
+    results = {name: tb.race(name, step, device=DEVICE) for name, step in probes}
+    counts = tb.launch_counts()
+    plain = {"copy": tb.race("clone", tb.copy_plain, device=DEVICE),
+             "touch": tb.race("x * c", tb.touch_plain, device=DEVICE)}
+    for r in list(results.values()) + list(plain.values()):
+        log(f"  {r['name']:32s} marginal {r['ms']:.4f} ms/step ({r['gbps']:.1f} GB/s rd+wr)")
+    best = max(results.values(), key=lambda r: r["gbps"])
+    log(f"measured copy rate: {best['gbps']:.1f} GB/s rd+wr ({best['name']}; data sheet 3350 GB/s)")
+    b, by = bound(2 * tb.BYTES, 0)
+    prefix = {"manual_stream": "manual-", "hbm2hbm": "hbm2hbm", "kway_hbm2hbm": "hbm2hbm-",
+              "lanes_stream": "lanes"}
+    rows = []
+    for w in tb.WRAPPERS:
+        mine = [r for n, r in results.items() if n.startswith(prefix[w.__name__])
+                and (("way" in n) == (w.__name__ == "kway_hbm2hbm"))]
+        top = max(mine, key=lambda r: r["gbps"])
+        kind = "touch" if "touch" in top["name"] else "copy"
+        rows.append(dict(name=w.__name__, shape=f"256x512x512 f32 {top['name']}", ms=top["ms"],
+                         plain_ms=plain[kind]["ms"],
+                         library_ms=results["xla-touch" if kind == "touch" else "copy_"]["ms"],
+                         library_shape="x * c" if kind == "touch" else "Tensor.copy_",
+                         bound_ms=b, bound_by=by))
+    return err, rows, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1791,7 +2186,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== phase 19: configs 6 (flash attention, S 4096) and 11 (train step) and a step's profile")
     phase19_configs6_11()
+    torch.cuda.empty_cache()
+    log("== phase 20: the fused Adam kernel against its plain version")
+    errs7, rows7 = phase20_fused_adam(gen)
+    log("== phase 21: ZeRO path (train_step_zero, config 13's model, 1x1, dp 2 and dp 4 stacked)")
+    counts7 = phase21_zero_path()
+    log("== phase 22: config 13 (replicated vs ZeRO, dp 1/2/4, accumulation), a step's profile, "
+        "adam_bench")
+    phase22_config13()
+    log("== phase 23: the copy probes (256x512x512 f32) and the measured copy rate")
+    errs8, rows8, counts8 = phase23_copy_probes()
 
+    from tpuscratch_torch.bench import dma_bound as tb
+    from tpuscratch_torch.ops import adam as tadam
     from tpuscratch_torch.ops import attention as ta
     from tpuscratch_torch.ops import halo_dma as hd
     from tpuscratch_torch.ops import reduction as tr
@@ -1802,57 +2209,66 @@ def main() -> int:
 
     # name -> (source, TPU kernel it replaces, the main shape's row)
     table = {
-        "five_point_pallas": ("stencil2d", "stencil_kernel.py:65", "1026^2"),
-        "five_point_blocked": ("stencil2d", "stencil_kernel.py:658", "1026^2"),
-        "deep_trapezoid_pallas": ("stencil2d", "stencil_kernel.py:136", "k=16"),
-        "resident_periodic_pallas": ("stencil2d", "stencil_kernel.py:236", "1024^2"),
-        "dot_partials_prepped": ("reduction", "reduction.py:132", "1e+08"),
-        "dot_full_prepped": ("reduction", "reduction.py:163", "1e+08"),
-        "fill": ("fill", "fill.py:27", "1e8"),
-        "iota2d": ("fill", "fill.py:46", "8192x8192"),
-        "nine_point_streamed_2d": ("stencil_stream2d", "stencil_stream.py:1067", "8192^2"),
-        "dma_ring": ("halo_dma", "halo_dma.py:1099", "8192^2"),
-        "dma_deep": ("halo_dma", "halo_dma.py:534", "8192^2"),
-        "dma_hbm_step": ("halo_dma", "halo_dma.py:951", "8192^2"),
-        "seven_point_banded_pallas": ("stencil3d", "stencil_kernel.py:313", "256x512x512"),
-        "seven_point_strips_pallas": ("stencil3d", "stencil_kernel.py:377", "256x512x512"),
-        "seven_point_assembled_pallas": ("stencil3d", "stencil_kernel.py:538", "256x512x512"),
-        "seven_point_streamed_pallas": ("stencil_stream3d", "stencil_stream.py:566",
+        "five_point_pallas": ("stencil2d", "tpuscratch/ops/stencil_kernel.py:65", "1026^2"),
+        "five_point_blocked": ("stencil2d", "tpuscratch/ops/stencil_kernel.py:658", "1026^2"),
+        "deep_trapezoid_pallas": ("stencil2d", "tpuscratch/ops/stencil_kernel.py:136", "k=16"),
+        "resident_periodic_pallas": ("stencil2d", "tpuscratch/ops/stencil_kernel.py:236", "1024^2"),
+        "dot_partials_prepped": ("reduction", "tpuscratch/ops/reduction.py:132", "1e+08"),
+        "dot_full_prepped": ("reduction", "tpuscratch/ops/reduction.py:163", "1e+08"),
+        "fill": ("fill", "tpuscratch/ops/fill.py:27", "1e8"),
+        "iota2d": ("fill", "tpuscratch/ops/fill.py:46", "8192x8192"),
+        "nine_point_streamed_2d": ("stencil_stream2d", "tpuscratch/ops/stencil_stream.py:1067", "8192^2"),
+        "dma_ring": ("halo_dma", "tpuscratch/ops/halo_dma.py:1099", "8192^2"),
+        "dma_deep": ("halo_dma", "tpuscratch/ops/halo_dma.py:534", "8192^2"),
+        "dma_hbm_step": ("halo_dma", "tpuscratch/ops/halo_dma.py:951", "8192^2"),
+        "seven_point_banded_pallas": ("stencil3d", "tpuscratch/ops/stencil_kernel.py:313", "256x512x512"),
+        "seven_point_strips_pallas": ("stencil3d", "tpuscratch/ops/stencil_kernel.py:377", "256x512x512"),
+        "seven_point_assembled_pallas": ("stencil3d", "tpuscratch/ops/stencil_kernel.py:538", "256x512x512"),
+        "seven_point_streamed_pallas": ("stencil_stream3d", "tpuscratch/ops/stencil_stream.py:566",
                                         f"k={STREAM3D_K}"),
-        "paged_attention": ("paged_attention", "attention.py:1413",
+        "paged_attention": ("paged_attention", "tpuscratch/ops/attention.py:1413",
                             "B32 T128 H8 D128 page16 K1 float32"),
-        "_flash_fwd_call": ("flash_attention", "attention.py:865",
+        "_flash_fwd_call": ("flash_attention", "tpuscratch/ops/attention.py:865",
                             "config 11 B8 S2048 H8 D128 causal float32 state"),
-        "_flash_fwd_compact": ("flash_attention", "attention.py:356",
+        "_flash_fwd_compact": ("flash_attention", "tpuscratch/ops/attention.py:356",
                                "config 6 B1 S4096 H8 D128 causal float32"),
-        "_flash_bwd_call": ("flash_attention", "attention.py:800",
+        "_flash_bwd_call": ("flash_attention", "tpuscratch/ops/attention.py:800",
                             "config 11 B8 S2048 H8 D128 causal float32 f32 grads"),
-        "_flash_bwd_compact": ("flash_attention", "attention.py:675",
+        "_flash_bwd_compact": ("flash_attention", "tpuscratch/ops/attention.py:675",
                                "config 6 B1 S4096 H8 D128 causal float32"),
+        "fused_adam_flat": ("adam", "tpuscratch/ops/adam.py:87", "config 13 dp-4 shard"),
+        "manual_stream": ("copy_probes", "tpuscratch/bench/dma_bound.py:38", "256x512x512"),
+        "hbm2hbm": ("copy_probes", "tpuscratch/bench/dma_bound.py:106", "256x512x512"),
+        "kway_hbm2hbm": ("copy_probes", "tpuscratch/bench/dma_bound.py:184", "256x512x512"),
+        "lanes_stream": ("copy_probes", "tpuscratch/bench/dma_bound.py:216", "256x512x512"),
     }
     counts.update(counts2)
     counts.update(counts3)
     counts.update(counts4)
     counts.update(counts5)
     counts.update(counts6)
+    counts.update(counts7)
+    counts.update(counts8)
     errs.update(errs2)
     errs.update(errs3)
     errs.update(errs4)
     errs.update(errs5)
     errs.update(errs6)
-    rows += rows2 + rows3 + rows4 + rows5 + rows6
+    errs.update(errs7)
+    errs.update(errs8)
+    rows += rows2 + rows3 + rows4 + rows5 + rows6 + rows7 + rows8
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"tpuscratch_torch/csrc/{src}.cu",
-            "replaces": f"tpuscratch/ops/{tpu}", "launches": counts[name], "max_abs_err": errs[name],
+            "replaces": tpu, "launches": counts[name], "max_abs_err": errs[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),
         })
     wrappers = (sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
-                + ta.WRAPPERS)
+                + ta.WRAPPERS + tadam.WRAPPERS + tb.WRAPPERS)
     if sorted(k["name"] for k in kernels) != sorted(w.__name__ for w in wrappers):
         raise AssertionError("the kernels line misses a wrapper")
     log(f"== done in {time.perf_counter() - t0:.1f} s")

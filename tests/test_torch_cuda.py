@@ -9,7 +9,9 @@ stencil kernels (``stencil2d.cu``,
 its own in the plain versions' order, so the results must be equal bit
 for bit — also against the plain path run on the CPU. The dot kernels
 sum in another order than their plain versions (tolerance below); fill
-and iota2d are bit-equal.
+and iota2d are bit-equal. The fused Adam kernel (``adam.cu``) and the
+copy probes (``copy_probes.cu``) round every operation as their plain
+versions do: bit-equal, also for the ZeRO step that runs the kernel.
 
 Imports no JAX, so it runs on a card host without it:
 
@@ -19,6 +21,7 @@ Without a card every test skips (the kernels have no CPU mode).
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -38,6 +41,8 @@ from tpuscratch_torch.ops import stencil_kernel as tk
 from tpuscratch_torch.halo.halo3d import distributed_stencil3d
 from tpuscratch_torch.runtime.mesh import make_mesh, make_mesh_1d, make_mesh_2d
 from tpuscratch_torch.serve.kvcache import quantize_pages
+from tpuscratch_torch.bench import dma_bound as tb
+from tpuscratch_torch.ops import adam as tadam
 
 # ``ops`` exports the function fill, which shadows the module's name there
 tf = importlib.import_module("tpuscratch_torch.ops.fill")
@@ -637,3 +642,95 @@ def test_flash_attention_gradients_match_autograd_of_plain(card, causal):
     counts = ta.launch_counts()
     name = "compact" if causal else "call"
     assert counts[f"_flash_fwd_{name}"] == 1 and counts[f"_flash_bwd_{name}"] == 1
+
+
+# ---- fused Adam (adam.cu) and the copy probes (copy_probes.cu) ----------------------
+
+
+def _adam_inputs(shape, mdt, seed, device):
+    w, g, m = (_rand(shape, seed + i, device) for i in range(3))
+    v = _rand(shape, seed + 3, device).abs()
+    return w, g, m.to(mdt), v.to(mdt)
+
+
+def _bits_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all()) and bool(torch.isfinite(b.float()).all())
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,alpha_shape", [((1,), ()), ((3,), ()), ((1023,), ()),
+                                               ((1025,), ()), ((3001,), ()), ((4, 3001), (4,)),
+                                               ((2, 3, 1024), (2, 3))])
+@pytest.mark.parametrize("donate", [False, True])
+def test_fused_adam_kernel(card, mdt, shape, alpha_shape, donate):
+    w, g, m, v = _adam_inputs(shape, mdt, 40, card)
+    alpha = torch.linspace(1e-3, 4e-3, math.prod(alpha_shape) or 1, device=card).reshape(alpha_shape)
+    want = tadam.fused_adam_plain(w, g, m, v, alpha)
+    ptrs = (w.data_ptr(), m.data_ptr(), v.data_ptr())
+    tadam.reset_launches()
+    got = tadam.fused_adam_flat(w, g, m, v, alpha, donate=donate)
+    torch.cuda.synchronize()
+    assert tadam.launch_counts() == {"fused_adam_flat": 1}
+    _bits_equal(got, want)
+    assert ((tuple(t.data_ptr() for t in got) == ptrs) if donate
+            else all(t.data_ptr() not in ptrs for t in got))
+
+
+def test_fused_adam_kernel_strided_rows(card):
+    # the overlap schedule hands the kernel one block of every rank's shard:
+    # rows of a strided view, updated in place
+    w, g, m, v = _adam_inputs((4, 3, 520), torch.float32, 41, card)
+    alpha = torch.tensor([1e-3, 2e-3, 3e-3, 4e-3], device=card)
+    want = tadam.fused_adam_plain(w[:, 1], g[:, 1], m[:, 1], v[:, 1], alpha)
+    got = tadam.fused_adam_flat(w[:, 1], g[:, 1].contiguous(), m[:, 1], v[:, 1], alpha)
+    _bits_equal(got, want)
+    _bits_equal((w[:, 1], m[:, 1], v[:, 1]), want)
+
+
+def test_zero_step_card_equals_cpu(card):
+    from tpuscratch_torch.models import transformer as tt
+    from tpuscratch_torch.models import zero as tz
+
+    cfg = tt.TransformerConfig(d_model=16, n_heads=2, n_experts=2, d_ff=32)
+    x, y = (_rand((4, 16, 16), s, "cpu") for s in (1, 2))
+    out = {}
+    for dev in ("cpu", card):
+        mesh = make_mesh((2, 1), ("dp", "sp"), device=dev)
+        p = tt.init_params(0, cfg, dev)
+        o = tz.init_zero_adam_state(p, 2)
+        step = tz.train_step_zero(mesh, cfg, lr=0.01, overlap_blocks=2)
+        for _ in range(2):
+            p, o, loss = step(p, o, x.to(dev), y.to(dev))
+        out[str(dev)] = (float(loss), [t.cpu() for t in tt._leaves(p)])
+    (lc, pc), (lg, pg) = out.values()
+    # sums through matmuls and attention differ between the CPU and the card
+    assert abs(lc - lg) <= 1e-5 * abs(lc)
+    for a, b in zip(pc, pg):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("make,plain", [
+    (lambda: tb.manual_stream(4096, 2, "copy"), tb.copy_plain),
+    (lambda: tb.manual_stream(4096, 3, "touch"), tb.touch_plain),
+    (lambda: tb.hbm2hbm(), tb.copy_plain), (lambda: tb.kway_hbm2hbm(4), tb.copy_plain),
+    (lambda: tb.kway_hbm2hbm(8), tb.copy_plain),
+    (lambda: tb.lanes_stream(2048, 2, 4), tb.touch_plain),
+    (lambda: tb.lanes_stream(4096, 3, 2, "copy"), tb.copy_plain)])
+@pytest.mark.parametrize("shape", [(8, 37, 12), (tb.NZ, tb.CY, tb.CX)])
+def test_copy_probes(card, make, plain, shape):
+    x = _rand(shape, 5, card)
+    c = torch.full((1,), 1.0 + 2 ** -20, device=card)
+    got = make()(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(x, c))
+
+
+def test_copy_probe_refusals(card):
+    c = torch.ones(1, device=card)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tb.hbm2hbm()(torch.zeros(5, device=card), c)
+    with pytest.raises(ValueError, match="shared memory"):
+        tb.manual_stream(65536, 4, "touch")(torch.zeros(64, device=card), c)

@@ -59,7 +59,9 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.models.transformer", "tpuscratch_torch.bench.decode_bench",
                 "tpuscratch_torch.parallel.ring", "tpuscratch_torch.parallel.ring_attention",
                 "tpuscratch_torch.parallel.ulysses", "tpuscratch_torch.bench.train_bench",
-                "tpuscratch_torch.bench.attention_bench", "tpuscratch_torch.bench.attn_bwd_bench"):
+                "tpuscratch_torch.bench.attention_bench", "tpuscratch_torch.bench.attn_bwd_bench",
+                "tpuscratch_torch.ops.adam", "tpuscratch_torch.models.zero",
+                "tpuscratch_torch.bench.adam_bench", "tpuscratch_torch.bench.dma_bound"):
         assert mod in got["modules"]
 
 
@@ -100,8 +102,9 @@ def test_sources_ship_as_package_data():
     from tpuscratch_torch.ops import common
 
     assert sorted(p.name for p in common.CSRC.glob("*.cu")) == [
-        "fill.cu", "flash_attention.cu", "halo_dma.cu", "paged_attention.cu", "reduction.cu",
-        "stencil2d.cu", "stencil3d.cu", "stencil_stream2d.cu", "stencil_stream3d.cu"]
+        "adam.cu", "copy_probes.cu", "fill.cu", "flash_attention.cu", "halo_dma.cu",
+        "paged_attention.cu", "reduction.cu", "stencil2d.cu", "stencil3d.cu",
+        "stencil_stream2d.cu", "stencil_stream3d.cu"]
     assert [p.name for p in common.CSRC.glob("*.cuh")] == ["stencil_taps.cuh"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
     assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()
@@ -132,3 +135,33 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     assert make_mesh_1d(device="cpu").shape == (1,)
     assert bench_attention(S=16, H=2, D=8, rounds=1, iters=1, device="cpu").items > 0
     assert bench_train(make_mesh((1, 1), ("dp", "sp"), device="cpu"), iters=1).items > 0
+
+
+def test_zero_and_probe_entry_points_need_a_card_unless_asked_for_the_cpu():
+    import torch
+
+    from tpuscratch_torch.bench import adam_bench, dma_bound
+    from tpuscratch_torch.bench.record import config13_zero_train
+    from tpuscratch_torch.bench.train_bench import bench_train
+    from tpuscratch_torch.models.transformer import TransformerConfig
+    from tpuscratch_torch.models.zero import (init_zero_adam_state, train_step_zero,
+                                              zero_state_from_numpy)
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = TransformerConfig(n_experts=2)
+    for call in (lambda: train_step_zero(make_mesh((1, 1), ("dp", "sp")), cfg),
+                 lambda: bench_train(optimizer="adam", zero=True),
+                 lambda: config13_zero_train([]), adam_bench.race,
+                 lambda: dma_bound.race("copy_", dma_bound.library_copy()),
+                 lambda: zero_state_from_numpy({"mu_flat": [], "nu_flat": [], "mu_exp": [],
+                                                "nu_exp": [], "t": 0})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mesh = make_mesh((1, 1), ("dp", "sp"), device="cpu")
+    assert bench_train(mesh, optimizer="adam", zero=True, accum_steps=2, iters=1).items > 0
+    with pytest.raises(RuntimeError, match="needs the card"):
+        adam_bench.race(device="cpu")
+    state = init_zero_adam_state({"layers": [{"wq": torch.zeros(3)}]}, 1)
+    assert state["mu_flat"].device.type == "cpu" and state["mu_flat"].shape == (8,)

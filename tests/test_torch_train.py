@@ -180,5 +180,8 @@ def test_bench_train_on_the_cpu():
     for opt in ("sgd", "adam"):
         r = bench_train(mesh, tc, iters=1, optimizer=opt, fence="block")
         assert r.items == 2 * 2 * 16 * 2 and r.items_per_s > 0
-    with pytest.raises(NotImplementedError, match="A13c"):
-        bench_train(mesh, tc, iters=1, zero=True, optimizer="adam")
+    # the ZeRO step runs since it was ported; plans still wait for A13d
+    r = bench_train(mesh, tc, iters=1, zero=True, optimizer="adam", fence="block")
+    assert r.items == 2 * 2 * 16 * 2 and r.items_per_s > 0
+    with pytest.raises(NotImplementedError, match="A13d"):
+        bench_train(mesh, tc, iters=1, optimizer="adam", plan=object())

@@ -1,13 +1,14 @@
-"""BASELINE configs 2, 3, 4, 6, 9, 10, 11 and 12 on the card.
+"""BASELINE configs 2, 3, 4, 6, 9, 10, 11, 12 and 13 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,9,10,11,12]``
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,9,10,11,12,13]``
 prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
 2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 9 the 3D
 7-point stencil at 256x512x512, 10 the DMA-halo stencil at 1024^2, 11 the
 composed train step (the 4-layer MoE transformer at d_model 1024, batch 8,
 seq 2048), 12 serving decode (the same model behind the
-continuous-batching engine).
+continuous-batching engine), 13 replicated against ZeRO-sharded training of
+that model at dp 1, 2 and 4 stacked on the card, and the accumulation sweep.
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught: a failing method, impl or re-measure fails the run.
 """
@@ -297,14 +298,126 @@ def config12_decode(out: list, device=None) -> dict:
     return {"sweep": results, "fused": fused, "plain": plain}
 
 
+def _sync_bytes(step, *args):
+    """Wire bytes of one call of ``step`` (a train step) by leg."""
+    from tpuscratch_torch.comm.collectives import count_wire_bytes
+
+    with count_wire_bytes() as wb:
+        step(*args)
+    return wb
+
+
+def config13_zero_train(out: list, iters: int = 3, steps: int | None = None,
+                        sweep_steps: int | None = None, device=None) -> dict:
+    """Replicated against ZeRO-sharded training (Adam): tokens/s of both
+    steps at dp 1, 2 and 4 (ranks stacked on the one device), beside the
+    grad-sync wire bytes of one step of each, counted per collective call
+    with the JAX package's ledger formulas (``comm.count_wire_bytes``; the
+    JAX row reads them off the compiled program), then the deferred-sync
+    sweep at k = 1, 2, 4 on the dp-4 mesh: sync bytes per microbatch and
+    tokens/s. The card takes the JAX package's TPU shapes (the 4-layer model
+    at d_model 1024, ``n_experts = max(4, dp)``, seq 2048, batch 8 a dp
+    rank, 20 steps, 10 in the sweep), the CPU its CPU shapes (2 steps). Each
+    row records the peak device memory of its runs (None on the CPU) and the
+    per-rank optimizer bytes; ``reduced`` lists every cut of the JAX row's
+    steps or repeats. Nothing is caught: a failing point fails the config.
+    Returns ``{"rows": [...], "sweep": [...]}``."""
+    from tpuscratch_torch.bench.train_bench import bench_train, train_data
+    from tpuscratch_torch.models.transformer import (
+        TransformerConfig,
+        init_adam_state,
+        init_params,
+        train_step_adam,
+    )
+    from tpuscratch_torch.models.zero import (
+        init_zero_adam_state,
+        train_step_zero,
+        zero_state_bytes_per_rank,
+    )
+    from tpuscratch_torch.runtime.mesh import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        base = TransformerConfig(d_model=1024, n_heads=8, n_experts=4, d_ff=4096, n_layers=4,
+                                 capacity_factor=2.0, attn_impl="pallas")
+        seq, batch_per_dp, full_steps, full_sweep = 2048, 8, 20, 10
+    else:
+        base = TransformerConfig(d_model=32, n_heads=2, n_experts=4, d_ff=64, n_layers=1)
+        seq, batch_per_dp, full_steps, full_sweep = 16, 2, 2, 2
+    steps = full_steps if steps is None else steps
+    sweep_steps = full_sweep if sweep_steps is None else sweep_steps
+    reduced = [f"{name} {got} (JAX row: {want})" for name, got, want in
+               (("steps", steps, full_steps), ("sweep steps", sweep_steps, full_sweep),
+                ("iters", iters, 3)) if got != want]
+    fence = "readback" if on_card else "block"
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if on_card else None
+
+    def one_mesh(dp):
+        cfg = dataclasses.replace(base, n_experts=max(base.n_experts, dp))
+        return cfg, make_mesh((dp, 1), ("dp", "sp"), dev), init_params(0, cfg, dev)
+
+    rows = []
+    for dp in (1, 2, 4):
+        cfg, mesh, params = one_mesh(dp)
+        batch = dp * batch_per_dp
+        peak_reset()
+        x, y = train_data(0, batch, seq, cfg.d_model, dev)
+        rep = _sync_bytes(train_step_adam(mesh, cfg), params, init_adam_state(params), x, y)
+        zero = _sync_bytes(train_step_zero(mesh, cfg), params,
+                           init_zero_adam_state(params, dp), x, y)
+        del x, y
+        row = {"dp": dp, "grad_sync_bytes_replicated": rep.grad,
+               "grad_sync_bytes_zero": zero.grad,
+               "grad_ratio": zero.grad / rep.grad if rep.grad else None,
+               "zero_all_gather_bytes": zero.all_gather,
+               "zero_state_bytes_per_rank": zero_state_bytes_per_rank(cfg, params, dp)}
+        for z in (False, True):
+            r = bench_train(mesh=mesh, cfg=cfg, batch=batch, seq=seq, steps=steps, iters=iters,
+                            fence=fence, optimizer="adam", zero=z)
+            print(f"# {r.summary()} -> {r.items_per_s:.3e} tok/s", file=sys.stderr)
+            row["zero_tokens_per_s" if z else "repl_tokens_per_s"] = r.items_per_s
+        row["peak_mem_bytes"] = peak()
+        rows.append(_emit(out, mesh, config=13, metric=f"zero_vs_replicated_dp{dp}", **row,
+                          reduced=reduced))
+        del params
+
+    dp = 4
+    cfg, mesh, params = one_mesh(dp)
+    batch = dp * batch_per_dp
+    sweep = []
+    peak_reset()
+    for k in (1, 2, 4):
+        x, y = train_data(0, batch, seq, cfg.d_model, dev, k)
+        wb = _sync_bytes(train_step_zero(mesh, cfg, accum_steps=k), params,
+                         init_zero_adam_state(params, dp), x, y)
+        del x, y
+        r = bench_train(mesh=mesh, cfg=cfg, batch=batch, seq=seq, steps=sweep_steps, iters=iters,
+                        fence=fence, optimizer="adam", zero=True, accum_steps=k)
+        print(f"# {r.summary()} -> {r.items_per_s:.3e} tok/s", file=sys.stderr)
+        sweep.append({"accum": k, "sync_bytes_per_microbatch": wb.per_microbatch(k),
+                      "tokens_per_s": r.items_per_s})
+    _emit(out, mesh, config=13, metric="zero_accum_sweep", dp=dp, sweep=sweep,
+          peak_mem_bytes=peak(), zero_state_bytes_per_rank=zero_state_bytes_per_rank(
+              cfg, params, dp), reduced=reduced)
+    return {"rows": rows, "sweep": sweep}
+
+
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
            6: config6_flash_attention, 9: config9_stencil3d, 10: config10_dma_halo,
-           11: config11_train, 12: config12_decode}
+           11: config11_train, 12: config12_decode, 13: config13_zero_train}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,6,9,10,11,12",
+    ap.add_argument("--configs", default="2,3,4,6,9,10,11,12,13",
                     help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []

@@ -1,12 +1,14 @@
 """Composed-training throughput: tokens/s of the full train step.
 
-The twin of ``tpuscratch.bench.train_bench``'s plain steps: the dp x sp
-transformer train step (``models.transformer``: ring attention over sp,
+The twin of ``tpuscratch.bench.train_bench``: the dp x sp transformer
+train step (``models.transformer``: ring attention over sp,
 expert-parallel MoE over dp, gradients, the copy-axis reduction and the
 update) end to end. There, ``steps`` steps are one compiled scan; here
 they are an eager loop, each step reading the previous one's parameters,
-the whole loop fenced. ``optimizer`` "sgd" or "adam"; the ZeRO step
-(``zero``, ``accum_steps``) waits for ROADMAP A13c and ``plan`` for A13d.
+the whole loop fenced. ``optimizer`` "sgd" or "adam"; ``zero=True`` the
+ZeRO step (``models.zero``, Adam with dp-sharded moments through the fused
+kernel), ``accum_steps=k`` its deferred-sync accumulation; ``plan`` waits
+for ROADMAP A13d.
 
 FLOP accounting (reported beside tokens/s): active parameters a token =
 4 d^2 (attention projections) + capacity_factor * 2 d d_ff (the routed
@@ -31,6 +33,7 @@ from tpuscratch_torch.models.transformer import (
     train_step,
     train_step_adam,
 )
+from tpuscratch_torch.models.zero import init_zero_adam_state, train_step_zero
 from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh
 
 
@@ -47,18 +50,30 @@ def train_throughput_program(mesh: StackedMesh, cfg: TransformerConfig, steps: i
                              accum_steps: int = 1, plan=None):
     """fn(params, x, y) -> (params, loss) running ``steps`` train steps (the
     data is reused: throughput, not learning). ``optimizer="adam"`` starts
-    fresh moments inside the program and carries them through."""
+    fresh moments inside the program and carries them through;
+    ``zero=True`` (Adam only) runs the ZeRO step with fresh dp-sharded
+    moments, and ``accum_steps=k`` (ZeRO only) shapes x and y as ``(k,
+    batch, seq, d)`` and syncs once a step."""
     if optimizer not in ("sgd", "adam"):
         raise ValueError(f"optimizer must be sgd|adam, got {optimizer!r}")
-    if zero:
-        raise NotImplementedError("the ZeRO step is not ported to tpuscratch_torch yet "
-                                  "(ROADMAP A13c)")
+    if zero and optimizer != "adam":
+        raise ValueError("zero=True requires optimizer='adam'")
+    if accum_steps > 1 and not zero:
+        raise ValueError("accum_steps > 1 is the ZeRO deferred-sync path")
     if plan is not None:
         raise NotImplementedError("plan-composed steps are not ported to tpuscratch_torch yet "
                                   "(ROADMAP A13d)")
-    if accum_steps > 1:
-        raise ValueError("accum_steps > 1 is the ZeRO deferred-sync path")
-    if optimizer == "adam":
+    if zero:
+        step = train_step_zero(mesh, cfg, lr=lr, accum_steps=accum_steps)
+        n_dp = mesh.shape[mesh.axis_names.index("dp")]
+
+        def run(params, x, y):
+            opt = init_zero_adam_state(params, n_dp)
+            loss = None
+            for _ in range(steps):
+                params, opt, loss = step(params, opt, x, y)
+            return params, loss
+    elif optimizer == "adam":
         step = train_step_adam(mesh, cfg, lr=lr)
 
         def run(params, x, y):
@@ -91,10 +106,12 @@ def default_train_setup(on_card: bool):
     return TransformerConfig(d_model=32, n_heads=2, n_experts=2, d_ff=64, n_layers=1), 2, 16, 2
 
 
-def train_data(seed: int, batch: int, seq: int, d_model: int, device) -> tuple:
-    """(x, y) ``(batch, seq, d_model)`` f32 standard normals from ``seed``."""
+def train_data(seed: int, batch: int, seq: int, d_model: int, device,
+               accum_steps: int = 1) -> tuple:
+    """(x, y) ``(batch, seq, d_model)`` f32 standard normals from ``seed``,
+    ``(accum_steps, batch, seq, d_model)`` when ``accum_steps > 1``."""
     rng = np.random.default_rng(seed)
-    shape = (batch, seq, d_model)
+    shape = (batch, seq, d_model) if accum_steps == 1 else (accum_steps, batch, seq, d_model)
     return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
                  for _ in range(2))
 
@@ -118,27 +135,29 @@ def bench_train(mesh: Optional[StackedMesh] = None, cfg: Optional[TransformerCon
     batch = batch if batch is not None else (dbatch if on_card else dbatch * n_dp)
     seq = seq if seq is not None else (dseq if on_card else 8 * n_sp)
     steps = steps if steps is not None else dsteps
-    x, y = train_data(seed, batch, seq, cfg.d_model, mesh.device)
-    params = init_params(seed, cfg, mesh.device)
     prog = train_throughput_program(mesh, cfg, steps, optimizer=optimizer, zero=zero,
                                     accum_steps=accum_steps, plan=plan)
+    x, y = train_data(seed, batch, seq, cfg.d_model, mesh.device, accum_steps)
+    params = init_params(seed, cfg, mesh.device)
     _, loss = prog(params, x, y)
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"train step produced loss {float(loss)}")
     mesh_tag = "x".join(str(s) for s in mesh.shape)
+    opt_tag = (f"{'zero-' if zero else ''}{optimizer}"
+               + (f"-accum{accum_steps}" if accum_steps > 1 else ""))
     return time_device(
         prog, params, x, y, iters=iters, warmup=1, fence=fence,
         name=(f"train d{cfg.d_model} ff{cfg.d_ff} L{cfg.n_layers} e{cfg.n_experts} "
-              f"{cfg.compute_dtype} {optimizer} b{batch} s{seq} x{steps} on {mesh_tag} "
+              f"{cfg.compute_dtype} {opt_tag} b{batch} s{seq} x{steps} on {mesh_tag} "
               f"({cfg.attn_impl})"),
-        items=batch * seq * steps)
+        items=batch * seq * steps * accum_steps)
 
 
 def profile_train(mesh: StackedMesh, cfg: TransformerConfig, batch: int, seq: int,
-                  steps: int = 2, seed: int = 0) -> dict:
-    """Where a train step's time goes: ``steps`` SGD steps timed unprofiled,
-    then as many under ``torch.profiler`` (CPU and CUDA activity), after one
-    warm-up step. Returns the unprofiled and profiled wall a step, the
+                  steps: int = 2, seed: int = 0, zero: bool = False) -> dict:
+    """Where a train step's time goes: ``steps`` SGD steps (``zero``: ZeRO
+    Adam steps) timed unprofiled, then as many under ``torch.profiler`` (CPU
+    and CUDA activity), after one warm-up run. Returns the unprofiled and profiled wall a step, the
     device's kernel time a step (one stream, so kernels do not overlap), its
     idle share against the unprofiled wall, kernel launches a step, and
     kernel time a step by group and by name (the ten largest)."""
@@ -148,7 +167,16 @@ def profile_train(mesh: StackedMesh, cfg: TransformerConfig, batch: int, seq: in
 
     x, y = train_data(seed, batch, seq, cfg.d_model, mesh.device)
     params = init_params(seed, cfg, mesh.device)
-    step = train_step(mesh, cfg, lr=1e-3)
+    if zero:
+        zstep = train_step_zero(mesh, cfg, lr=1e-3)
+        opt = init_zero_adam_state(params, mesh.shape[mesh.axis_names.index("dp")])
+
+        def step(p, xs, ys):
+            nonlocal opt
+            p, opt, loss = zstep(p, opt, xs, ys)
+            return p, loss
+    else:
+        step = train_step(mesh, cfg, lr=1e-3)
 
     def run(p):
         loss = None

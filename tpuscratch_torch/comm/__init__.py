@@ -9,6 +9,7 @@ Mapping table (reference -> here), as in the JAX package:
 - MPI_Isend/Irecv rings -> ``ring_shift`` / ``neighbor_exchange``
 - MPI_Send/Recv pairs   -> ``send_pairs`` / ``pingpong``
 - MPI_Scan/Exscan       -> ``prefix_sum``
+- analytic wire bytes   -> ``count_wire_bytes`` (the ledger's formulas)
 - sub-communicators     -> collectives over one axis of a multi-axis mesh
 
 All ranks are slices of one tensor on one device; a ``torch.distributed``
@@ -16,12 +17,14 @@ backend across cards is not ported yet.
 """
 
 from tpuscratch_torch.comm.collectives import (  # noqa: F401
+    WireBytes,
     all_gather,
     all_to_all,
     allreduce_max,
     allreduce_min,
     allreduce_sum,
     broadcast,
+    count_wire_bytes,
     gather_to_root,
     prefix_sum,
     reduce_scatter,

@@ -13,13 +13,86 @@ MPI_Allreduce -> ``allreduce_*``; MPI_Reduce to rank 0 ->
 ``reduce_to_root`` (non-roots hold zeros); MPI_Gather ->
 ``gather_to_root``; MPI_Bcast -> ``broadcast``; MPI_Scatter ->
 ``scatter_from_root``; MPI_Scan/Exscan -> ``prefix_sum``.
+
+Wire bytes: inside ``with count_wire_bytes() as wb:`` every collective adds
+its analytic per-rank wire bytes to ``wb``, by the formulas of the JAX
+package's ``obs.ledger`` (:108-124): an all-reduce 2(n-1)/n of the payload,
+a reduce-scatter and an all-gather (n-1) shards. The three legs are those of
+``obs.ledger.GradSyncBytes``; all_to_all and the p2p hops move activations
+and are not counted. The JAX package reads these bytes off a compiled
+program's collectives; here they are counted per call, so a collective the
+compiler would merge or elide still counts. With no counter open a
+collective pays one list test.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import math
+
 import torch
 
 from tpuscratch_torch.comm.spmd import AxisName, axis_dims, current_mesh
+
+
+@dataclasses.dataclass
+class WireBytes:
+    """Per-rank wire bytes of the collectives called while counting, by
+    leg: ``all_reduce`` (psum-shaped calls: allreduce_*, reduce_to_root,
+    broadcast, scatter_from_root), ``reduce_scatter`` and ``all_gather``
+    (all_gather, gather_to_root, prefix_sum)."""
+
+    all_reduce: float = 0.0
+    reduce_scatter: float = 0.0
+    all_gather: float = 0.0
+
+    @property
+    def grad(self) -> float:
+        """The gradient-reduction leg: all-reduce plus reduce-scatter."""
+        return self.all_reduce + self.reduce_scatter
+
+    @property
+    def total(self) -> float:
+        """The whole sync of an update: the gradient leg plus the gathers."""
+        return self.grad + self.all_gather
+
+    def per_microbatch(self, accum_steps: int = 1) -> float:
+        """Sync bytes amortized over ``accum_steps`` microbatches."""
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        return self.total / accum_steps
+
+
+_counting: list[WireBytes] = []
+
+
+@contextlib.contextmanager
+def count_wire_bytes():
+    """Tally every collective's wire bytes into a fresh :class:`WireBytes`
+    while the block runs (nested counters each see every call)."""
+    wb = WireBytes()
+    _counting.append(wb)
+    try:
+        yield wb
+    finally:
+        _counting.remove(wb)
+
+
+def _tally(leg: str, x: torch.Tensor, n: int) -> None:
+    """Add a collective over ``n`` ranks of the stacked value ``x`` (its
+    per-rank payload) to every open counter."""
+    if not _counting:
+        return
+    payload = x.numel() // math.prod(current_mesh().shape) * x.element_size()
+    if leg == "all_reduce":
+        wire = 2.0 * (n - 1) / n * payload
+    elif leg == "reduce_scatter":
+        wire = float((n - 1) * (payload // n))
+    else:  # all_gather: every shard but one's own
+        wire = float((n - 1) * payload)
+    for wb in _counting:
+        setattr(wb, leg, getattr(wb, leg) + wire)
 
 
 class _Front:
@@ -86,22 +159,26 @@ def _local_dim(dim: int, f: _Front) -> int:
 
 def allreduce_sum(x, axis: AxisName):
     f = _Front(x, axis)
+    _tally("all_reduce", x, f.n)
     return f.back(f.psum())
 
 
 def allreduce_max(x, axis: AxisName):
     f = _Front(x, axis)
+    _tally("all_reduce", x, f.n)
     return f.back(f.y.amax(0, keepdim=True).expand_as(f.y))
 
 
 def allreduce_min(x, axis: AxisName):
     f = _Front(x, axis)
+    _tally("all_reduce", x, f.n)
     return f.back(f.y.amin(0, keepdim=True).expand_as(f.y))
 
 
 def reduce_to_root(x, axis: AxisName, root: int = 0):
     """Sum-reduce; root rank holds the result, others hold zeros."""
     f = _Front(x, axis)
+    _tally("all_reduce", x, f.n)
     total = f.psum()
     return f.back(torch.where(f.rank() == root, total, torch.zeros_like(total)))
 
@@ -110,6 +187,7 @@ def broadcast(x, axis: AxisName, root: int = 0):
     """Every rank receives root's value: a masked sum, as in the JAX
     package, so that it rounds as that does."""
     f = _Front(x, axis)
+    _tally("all_reduce", x, f.n)
     return f.back(f.psum(torch.where(f.rank() == root, f.y, torch.zeros_like(f.y))))
 
 
@@ -126,12 +204,14 @@ def all_gather(x, axis: AxisName, tiled: bool = False):
     """Every rank's shard along a new leading local dim (or, ``tiled``,
     concatenated along local dim 0)."""
     f = _Front(x, axis)
+    _tally("all_gather", x, f.n)
     return f.back(_gather(f, tiled))
 
 
 def gather_to_root(x, axis: AxisName, root: int = 0, tiled: bool = False):
     """Root holds the gathered array, others hold zeros (MPI_Gather shape)."""
     f = _Front(x, axis)
+    _tally("all_gather", x, f.n)
     g = _gather(f, tiled)
     return f.back(torch.where(f.rank(g.ndim) == root, g, torch.zeros_like(g)))
 
@@ -141,6 +221,7 @@ def scatter_from_root(x, axis: AxisName, root: int = 0):
     piece i. Only root's copy matters (MPI_Scatter's non-root send
     buffers are ignored)."""
     f = _Front(x, axis)
+    _tally("all_reduce", x, f.n)
     if f.y.ndim == f.lead or f.y.shape[f.lead] % f.n:
         raise ValueError(
             f"scatter: leading dim {tuple(f.y.shape[f.lead:])[:1]} not divisible "
@@ -154,6 +235,7 @@ def reduce_scatter(x, axis: AxisName, scatter_dimension: int = 0, tiled: bool = 
     (``tiled``) or index i of it (that dim's size must equal the axis
     size, and it is dropped)."""
     f = _Front(x, axis)
+    _tally("reduce_scatter", x, f.n)
     d = _local_dim(scatter_dimension, f)
     if not tiled and f.y.shape[f.lead + d] != f.n:
         raise ValueError(f"reduce_scatter: dim {d} of size {f.y.shape[f.lead + d]} "
@@ -195,6 +277,7 @@ def prefix_sum(x, axis: AxisName, exclusive: bool = False):
     (exclusive; rank 0 gets zeros). As in the JAX package: one all_gather
     and a masked sum over the gathered dim."""
     f = _Front(x, axis)
+    _tally("all_gather", x, f.n)
     g = f.gathered()  # (n, *others, n, *local)
     j = torch.arange(f.n, device=g.device).reshape(
         (1,) * f.lead + (-1,) + (1,) * (g.ndim - f.lead - 1))

@@ -1,7 +1,7 @@
 """The mini MoE transformer: configuration, parameters, forward and training.
 
 The twin of ``tpuscratch.models.transformer`` (its pipeline steps wait for
-ROADMAP A13d, ZeRO for A13c). ``init_params`` makes the same numpy draws,
+ROADMAP A13d; the ZeRO step is ``models.zero``). ``init_params`` makes the same numpy draws,
 so a seed gives the same arrays as the JAX package; ``params_from_numpy``
 and ``adam_state_from_numpy`` carry trees made elsewhere (the JAX
 package's, as numpy arrays) onto a device.
@@ -21,6 +21,7 @@ is updated in place.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -164,6 +165,67 @@ def _leaves(tree) -> list:
 def _unflatten(tree, leaves):
     it = iter(leaves)
     return _map(lambda _p, _leaf: next(it), tree)
+
+
+def _jax_paths(tree, path=()) -> list:
+    """(path, leaf) pairs in the JAX package's tree-flatten order: dict keys
+    sorted, lists in order (the order its ZeRO flat vector is packed in,
+    whatever order a torch dict was built in)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _jax_paths(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree) for pl in _jax_paths(t, path + (i,))]
+    return [(path, tree)]
+
+
+def nonexpert_size(tree, lead: int = 0) -> int:
+    """Element count of the non-expert (replicated) leaves, each counted
+    from dim ``lead`` on (``lead`` = the mesh dims of stacked leaves): the
+    population the ZeRO path packs into one dp-sharded vector."""
+    return sum(math.prod(leaf.shape[lead:]) for path, leaf in _jax_paths(tree)
+               if not _is_expert_leaf(path))
+
+
+def expert_leaves(tree) -> list:
+    """The expert leaves in the JAX package's tree-flatten order (the order
+    :func:`pack_nonexpert` and :func:`unpack_nonexpert` also walk)."""
+    return [leaf for path, leaf in _jax_paths(tree) if _is_expert_leaf(path)]
+
+
+def pack_nonexpert(tree, pad_to: int | None = None, lead: int = 0) -> torch.Tensor:
+    """Every non-expert leaf flattened from dim ``lead`` on and joined, in
+    the JAX package's tree-flatten order, into one ``(*lead_dims, n)``
+    vector, zero-padded to ``pad_to`` elements: the layout the ZeRO path
+    reduce-scatters over "dp" and the fused update runs on in shards. Zero
+    padding is exact: padded slots carry zero gradients and moments."""
+    flats = [leaf.flatten(lead) for path, leaf in _jax_paths(tree) if not _is_expert_leaf(path)]
+    flat = torch.cat(flats, dim=-1)
+    if pad_to is not None:
+        if pad_to < flat.shape[-1]:
+            raise ValueError(f"pad_to {pad_to} smaller than packed size {flat.shape[-1]}")
+        flat = torch.nn.functional.pad(flat, (0, pad_to - flat.shape[-1]))
+    return flat
+
+
+def unpack_nonexpert(flat: torch.Tensor, experts: list, like, lead: int = 0):
+    """The inverse of :func:`pack_nonexpert` and :func:`expert_leaves`: a
+    tree shaped like ``like``, its non-expert leaves views of ``flat``'s
+    last dim (the padding ignored), its expert leaves ``experts`` in order."""
+    offset = 0
+    exp_iter = iter(experts)
+    parts = {}
+    for path, leaf in _jax_paths(like):
+        if _is_expert_leaf(path):
+            parts[path] = next(exp_iter)
+            continue
+        local = leaf.shape[lead:]
+        n = math.prod(local)
+        parts[path] = flat[..., offset:offset + n].reshape(*flat.shape[:-1], *local)
+        offset += n
+    rest = list(exp_iter)
+    if rest:
+        raise ValueError(f"{len(rest)} expert leaves left over in unpack")
+    return _map(lambda path, _leaf: parts[path], like)
 
 
 # ---- forward -------------------------------------------------------------------------
@@ -347,13 +409,20 @@ def adam_alpha(t: torch.Tensor, lr: float, b1: float, b2: float) -> torch.Tensor
     return lr * torch.sqrt(1.0 - b2 ** tf) / (1.0 - b1 ** tf)
 
 
+def _under(alpha: torch.Tensor, ndim: int) -> torch.Tensor:
+    """``alpha`` with unit dims appended up to ``ndim`` dims, so that one
+    value per leading index broadcasts over the rest."""
+    return alpha.reshape(*alpha.shape, *(1,) * (ndim - alpha.ndim))
+
+
 def _adam_apply(params, mu, nu, grads, alpha, b1: float, b2: float, eps: float):
     """One elementwise Adam application with the bias-corrected step size
-    ``alpha`` (stacked, ``(*mesh)``): (new_params, new_mu, new_nu), new
+    ``alpha`` (a tensor whose shape leads every leaf's: ``(*mesh)`` inside
+    ``run_spmd``, 0-dim outside): (new_params, new_mu, new_nu), new
     tensors."""
     mu = _map(lambda _p, m, g: b1 * m + (1.0 - b1) * g, mu, grads)
     nu = _map(lambda _p, v, g: b2 * v + (1.0 - b2) * g * g, nu, grads)
-    new_params = _map(lambda _p, w, m, v: w - _lead(alpha, w.ndim) * m / (torch.sqrt(v) + eps),
+    new_params = _map(lambda _p, w, m, v: w - _under(alpha, w.ndim) * m / (torch.sqrt(v) + eps),
                       params, mu, nu)
     return new_params, mu, nu
 
