@@ -73,13 +73,17 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 16. BASELINE config 12 (serving decode, batches 1, 8 and 32) through
    ``bench.record``, then a profile of 16 batch-32 ticks with the kernel and
    with the plain attention (kernel time by group, the device's idle share);
-17. the three flash-attention kernels through their four wrappers against
-   their plain versions: f32 and bf16, causal and full, int and per-entry
-   offsets (one entry fully masked), ragged S and T, D 64 to 256, the state
-   outputs, the backward at dense and compact offsets; then each wrapper at
-   config 6's shape (S 4096, H 8, D 128) and config 11's attention shape
-   (batch 8 of S 2048), its time beside its bound, its plain time and
-   SDPA's (forward, or its autograd backward);
+17. the flash-attention kernels through their four wrappers against their
+   plain versions: f32 (FMA kernels) and bf16 (tensor-core kernels, whose
+   SASS must hold HGMMA instructions), causal and full, int and per-entry
+   offsets (one entry fully masked), ragged S and T, D 20 (rows TMA cannot
+   address) to 320 (column chunks), S = T = 1000 off the tile grid, the
+   state outputs, the backward at dense and compact offsets; the planted
+   faults (p or ds unrounded, dv x 0.9), each of which the bf16 limits must
+   catch; then each wrapper at config 6's shape (S 4096, H 8, D 128) and
+   config 11's attention shape (batch 8 of S 2048) in f32 and bf16, its time
+   beside its bound, its plain time and SDPA's (forward, or its autograd
+   backward), and at config 11 two backward calls a wrapper, bit-equal;
 18. the training path: ``train_step`` at config 11's model (d_model 1024,
    4 layers, 4 experts, batch 8, seq 2048, f32) on a 1x1 mesh, 3 SGD steps
    each with the plain ring ("xla"), the ring through the flash kernels
@@ -122,6 +126,7 @@ import concurrent.futures
 import importlib
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import time
@@ -1360,26 +1365,31 @@ def phase16_config12(cfg, scfg, weights) -> list:
 
 
 # Phases 17-19: the training path. The flash kernels against their plain
-# versions on the card. f32: both sum f32 products in other orders (the
-# kernels with FMAs over the D and key axes, the plain version through
-# cuBLAS), so a few ulps of the largest output: held to FLASH_TOL of
-# max(1, max|want|). bf16 operands: q * scale, k * scale, p and ds are
-# rounded to bf16 in both, so an output differs where an f32 value a few
-# ulps apart rounded to the other bf16 neighbour, plus one bf16 ulp (2^-7
-# of |want|) where the output is bf16 itself. Each output is held element
-# by element, |got - want| <= a |want| + b rms(want) (a = 2^-7 for a bf16
-# output, 0 for an f32 one), and as a whole, rms(got - want) <= c
-# rms(want). The forward rounds p against the running max of each key
-# tile, the plain version against the row's final max, so p rounds
-# differently in every tile before the max: its (b, c) are larger. The
-# backward recomputes p from the final lse in both, so only values on a
-# rounding boundary differ. Sound runs read, at worst over every case and
-# config 11's shape: forward (1.8e-2, 1.7e-3), backward (9.3e-7, 1.1e-7).
-# The backward's p or ds left unrounded reads (1.9e-2, 2.5e-3) or more, dv
-# scaled by 0.9 (0.76, 0.10): the backward's limits sit 10x under those
-# faults; the forward's about 2x over its sound readings (its p left
-# unrounded reads (1.4e-2, 2.3e-3) and cannot be told from rounding against
-# the running max). PERF.md has the runs.
+# versions on the card. f32 (the FMA kernels): both sum f32 products in
+# other orders (the kernels with FMAs over the D and key axes, the plain
+# version through cuBLAS), so a few ulps of the largest output: held to
+# FLASH_TOL of max(1, max|want|). bf16 operands (the tensor-core kernels):
+# q * scale, k * scale, p and ds are rounded to bf16 in both, so an output
+# differs where an f32 value a few ulps apart rounded to the other bf16
+# neighbour, plus one bf16 ulp (2^-7 of |want|) where the output is bf16
+# itself. Each output is held element by element, |got - want| <= a |want|
+# + b rms(want) (a = 2^-7 for a bf16 output, 0 for an f32 one), and as a
+# whole, rms(got - want) <= c rms(want). The forward rounds p against the
+# running max of each key tile, the plain version against the row's final
+# max, so p rounds differently in every tile before the max: its (b, c) are
+# larger. The backward recomputes p from the final lse in both and rounds p
+# and ds as the plain version does (the kernels redo a value near a
+# rounding midpoint in cuBLAS's order), so what is left is the outputs' own
+# f32 sums: the tensor cores' round toward zero, cuBLAS's to nearest, and a
+# bf16 output rounds to the other neighbour where the two straddle a
+# midpoint. Sound runs read, at worst over every case and the timed
+# shapes: forward (2.1e-2, 2.4e-3), backward (4.0e-4, 2.3e-4; the rms from
+# config 6's bf16 gradients, sums of 4096 terms). The backward's p or ds
+# left unrounded reads (1.3e-2, 2.6e-3) or more, dv scaled by 0.9 (2.5,
+# 0.11): phase 17 plants each in its own reference and fails unless the
+# limits catch it. The forward's limits sit about 2x over its sound readings
+# (its p left unrounded cannot be told from rounding against the running
+# max). PERF.md has the runs.
 FLASH_TOL = 1e-5
 FLASH_BF16 = {"fwd": (4e-2, 4e-3), "bwd": (2e-3, 2.5e-4)}
 BF16_ULP = 2.0 ** -7
@@ -1389,7 +1399,10 @@ FLASH_WRAPPERS = ("_flash_fwd_call", "_flash_fwd_compact", "_flash_bwd_call",
                   "_flash_bwd_compact")
 # (lead, S, T, H, D, causal, q_offset, kv_offset): ragged S and T, D 64 /
 # 128 / 256, per-entry offsets with one fully masked entry (its queries all
-# precede its keys)
+# precede its keys); then the tensor-core kernels' other branches: bf16 rows
+# of 40 bytes (D 20, H 3), which TMA cannot address and the producer stages
+# itself; D 320, split over output-column chunks; and S = T = 1000, causal,
+# per-entry offsets off the tile grid with one entry fully masked
 FLASH_CASES = [
     ((), 70, 70, 2, 64, True, 0, 0),
     ((2,), 45, 83, 3, 128, False, 0, 0),
@@ -1398,11 +1411,18 @@ FLASH_CASES = [
     ((2,), 33, 65, 2, 256, True, 0, 0),
     ((), 17, 129, 1, 96, False, 0, 0),
     ((2,), 200, 200, 2, 128, True, [0, 64], [0, 0]),
+    ((), 40, 40, 3, 20, True, 0, 0),
+    ((), 50, 70, 2, 320, False, 0, 0),
+    ((2,), 1000, 1000, 2, 128, True, [0, 300], [37, 1400]),
 ]
 # the timed shapes: config 6 (S 4096, H 8, D 128, one sequence) and config
 # 11's attention (batch 8 of S 2048, H 8, D 128, per-entry offsets as the
 # ring hands them over)
 FLASH_TIMED = [("config 6", (), 4096, False), ("config 11", (8,), 2048, True)]
+# The three faults of the first design's review, planted in phase 17's own
+# copy of the plain backward: each must fail the bf16 limits on the
+# kernels' sound output (the 200-row case and config 11's shape).
+FLASH_FAULTS = ("p unrounded", "ds unrounded", "dv x 0.9")
 
 
 def _flash_errs(got, want, dtype, part: str) -> tuple[float, float, tuple]:
@@ -1461,14 +1481,79 @@ def _kept_pairs(S, T, lead, qo, ko, causal) -> int:
     return total
 
 
+def _flash_bwd_planted(q, k, v, do, lse, delta, qo, ko, causal, out_dtype, fault: str):
+    """``_flash_bwd_plain``'s arithmetic with one of FLASH_FAULTS planted."""
+    from tpuscratch_torch.ops import attention as ta
+
+    mm = ta._mm_dtype(q)
+    s, keep = ta._plain_scores(q, k, qo, ko, causal)
+    p = torch.exp(s - lse[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+    dof = do.to(mm).float()
+    dp = torch.einsum("...shd,...thd->...hst", dof, v.float())
+    ds = p * (dp - delta[..., None])
+    if fault != "ds unrounded":
+        ds = ds.to(mm).float()
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("...hst,...thd->...shd", ds, ta._scaled(k, scale))
+    dk = torch.einsum("...hst,...shd->...thd", ds, ta._scaled(q, scale))
+    pv = p if fault == "p unrounded" else p.to(mm).float()
+    dv = torch.einsum("...hst,...shd->...thd", pv, dof)
+    if fault == "dv x 0.9":
+        dv = dv * 0.9
+    od = out_dtype or q.dtype
+    return dq.to(od), dk.to(od), dv.to(od)
+
+
+def _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od, label) -> None:
+    """Each planted fault's reference against the kernels' sound ``got``
+    must fail the bf16 backward limits (the limits have teeth)."""
+    for fault in FLASH_FAULTS:
+        want = _flash_bwd_planted(q, k, v, do, lse, delta, qo, ko, causal, od, fault)
+        share, readings = 0.0, None
+        for g, w in zip(got, want):
+            _, sh, rd = _flash_errs(g, w, torch.bfloat16, "bwd")
+            if sh > share:
+                share, readings = sh, rd
+        log(f"  planted fault '{fault}' at {label}: readings "
+            + ", ".join(f"{r:.3e}" for r in readings) + f" ({share:.1f}x the limits)")
+        if share <= 1.0:
+            raise AssertionError(f"the bf16 backward limits do not catch '{fault}' at {label}")
+
+
+def _hgmma_counts() -> dict:
+    """``cuobjdump -sass`` of the built flash library: the HGMMA
+    (warpgroup MMA) instructions of each tensor-core kernel."""
+    from tpuscratch_torch.ops.common import build_all, nvcc_path
+
+    lib = build_all()["flash_attention"]
+    tool = str(pathlib.Path(nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            if "wgmma" in fn:
+                counts[fn] = 0
+            else:
+                fn = None
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[dict, list]:
-    """The three flash kernels through their four wrappers against the plain
-    versions: f32 and bf16, causal and full, static and per-entry offsets
-    (one entry fully masked), ragged S and T, D 64 to 256, the state
-    outputs, the backward at dense and compact offsets with q-dtype and f32
-    gradients; then each wrapper at config 6's and config 11's shapes, its
-    time beside its bound, its plain time and SDPA's (forward, or SDPA's
-    autograd backward). ``dtypes`` narrows the operand types checked."""
+    """The flash kernels through their four wrappers against the plain
+    versions: f32 and bf16 (the tensor-core kernels, HGMMA in their SASS),
+    causal and full, static and per-entry offsets (one entry fully masked),
+    ragged S and T, D 20 to 320, the state outputs, the backward at dense
+    and compact offsets with q-dtype and f32 gradients, the planted faults;
+    then each wrapper at config 6's and config 11's shapes, its time beside
+    its bound, its plain time and SDPA's (forward, or SDPA's autograd
+    backward), and two backward calls bit-equal at config 11's.
+    ``dtypes`` narrows the operand types checked."""
     from tpuscratch_torch.ops import attention as ta
 
     errs = {n: 0.0 for n in FLASH_WRAPPERS}
@@ -1492,6 +1577,13 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
     def inputs(lead, S, T, H, D, dtype):
         return [randn(lead + (n, H, D), gen).to(dtype) for n in (S, T, T, S)]
 
+    if torch.bfloat16 in dtypes:
+        hgmma = _hgmma_counts()
+        for fn, n in sorted(hgmma.items()):
+            log(f"  sass {fn}: {n} HGMMA")
+        if not hgmma or min(hgmma.values()) == 0:
+            raise AssertionError(f"a bf16 flash kernel has no HGMMA instruction: {hgmma}")
+
     for dtype in dtypes:
         for lead, S, T, H, D, causal, qo, ko in FLASH_CASES:
             case.clear()
@@ -1511,6 +1603,9 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                 want = ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko, causal, od)
                 for g, w in zip(got, want):
                     worst = max(worst, check("_flash_bwd_call", g, w, dtype, f"grads {od}"))
+                if dtype == torch.bfloat16 and od is None and (lead, S) == ((2,), 200):
+                    _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od,
+                                  f"lead={lead} S={S}")
             if causal and isinstance(qo, int):
                 worst = max(worst, check(
                     "_flash_fwd_compact", ta._flash_fwd_compact(q, k, v, qo, ko),
@@ -1534,10 +1629,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for label, lead, S, per_entry in FLASH_TIMED:
         H, D = 8, 128
-        for dtype in ((torch.float32,) if label == "config 6" else
-                      (torch.float32, torch.bfloat16)):
-            if dtype not in dtypes:
-                continue
+        for dtype in dtypes:
             for causal in ((True, False) if label == "config 6" else (True,)):
                 q, k, v, do = inputs(lead, S, S, H, D, dtype)
                 qo = torch.zeros(lead, dtype=torch.int32, device=DEVICE) if per_entry else 0
@@ -1561,7 +1653,10 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                 del got, want
                 out_bytes = (4 * q.numel() + 8 * B * H * S) if state else q.numel() * esize
                 b, by = _flash_bound(3 * q.numel() * esize + out_bytes, fflops, dtype)
-                qt, kt, vt = (t.transpose(-3, -2).contiguous() for t in (q, k, v))
+                # SDPA's copies (B, H, S, D): 4-D even at config 6, whose lone
+                # sequence would give 3-D ones and SDPA's plain math path
+                qt, kt, vt = (t.transpose(-3, -2).contiguous().reshape(B, H, S, D)
+                              for t in (q, k, v))
                 shape = (f"{label} B{B} S{S} H{H} D{D} {'causal' if causal else 'full'} "
                          f"{str(dtype)[6:]}{' state' if state else ''}")
                 rows.append(dict(
@@ -1583,15 +1678,31 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                                         out_dtype=od)
                 pbcall = lambda: ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko,  # noqa: E731
                                                      causal, od)
-                for g, w in zip(bcall(), pbcall()):
+                got = bcall()
+                for g, w in zip(got, pbcall()):
                     check(bwd_name, g, w, dtype, f"{label} timed")
+                if per_entry:
+                    # no atomics: every call gives the same bits, through both wrappers
+                    for name, call in (
+                            (bwd_name, bcall),
+                            ("_flash_bwd_compact",
+                             lambda: ta._flash_bwd_compact(q, k, v, do, lse, delta, 0, 0))):
+                        a, b = call(), call()
+                        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                            raise AssertionError(f"{name} {label} {str(dtype)[6:]}: two calls "
+                                                 "differ")
+                        log(f"  {name} {label} {str(dtype)[6:]}: two calls bit-equal")
+                        del a, b
+                    if dtype == torch.bfloat16:
+                        _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od, label)
+                del got
                 bflops = 2.5 * fflops
                 gsize = 4 if od == torch.float32 else esize
                 nbytes = 4 * q.numel() * esize + 8 * B * H * S + 3 * q.numel() * gsize
                 b, by = _flash_bound(nbytes, bflops, dtype)
                 qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
                 so = sdpa(qg, kg, vg, is_causal=causal)
-                dot = do.transpose(-3, -2).contiguous()
+                dot = do.transpose(-3, -2).contiguous().reshape(B, H, S, D)
                 lib = device_ms(lambda: torch.autograd.grad(so, (qg, kg, vg), dot,
                                                             retain_graph=True), n=5)
                 rows.append(dict(

@@ -528,18 +528,20 @@ def test_paged_attention_any_k_d_and_bf16(card, K, D, dtype, qdtype):
 
 
 # The flash kernels against their plain versions on the card, as
-# chip_smoke.py holds them. f32: both sum f32 products in other orders (the
-# kernels with FMAs over the D and key axes, the plain version through
-# cuBLAS), so a few ulps of the largest output; held to 1e-5 of max(1,
-# max|want|). bf16 operands: q/k * scale, p and ds are rounded to bf16 in
-# both, so an output differs where an f32 value a few ulps apart rounded to
-# the other bf16 neighbour, plus one bf16 ulp (2^-7 of |want|) where the
-# output is bf16 itself: held element by element to a |want| + b
-# rms(want) (a = 2^-7 for a bf16 output, else 0) and as a whole to
-# rms(got - want) <= c rms(want). The forward rounds p against each key
-# tile's running max, the plain version against the final one, so its
-# (b, c) are larger than the backward's, which recomputes p from the final
-# lse in both. The limits and their readings: chip_smoke.py's FLASH_BF16.
+# chip_smoke.py holds them. f32 (the FMA kernels): both sum f32 products in
+# other orders (the kernels with FMAs over the D and key axes, the plain
+# version through cuBLAS), so a few ulps of the largest output; held to 1e-5
+# of max(1, max|want|). bf16 (the tensor-core kernels): q/k * scale, p and ds
+# are rounded to bf16 in both (the kernels redo a value near a rounding
+# midpoint in cuBLAS's order), so an output differs where its f32 sum, in
+# the tensor cores' order, rounds to the other bf16 neighbour, plus one
+# bf16 ulp (2^-7 of |want|) where the output is bf16 itself: held element
+# by element to a |want| + b rms(want) (a = 2^-7 for a bf16 output, else 0)
+# and as a whole to rms(got - want) <= c rms(want). The forward rounds p
+# against each key tile's running max, the plain version against the final
+# one, so its (b, c) are larger than the backward's, which recomputes p from
+# the final lse in both. The limits and their readings: chip_smoke.py's
+# FLASH_BF16.
 FLASH_TOL = 1e-5
 FLASH_BF16 = {"fwd": (4e-2, 4e-3), "bwd": (2e-3, 2.5e-4)}
 
@@ -570,7 +572,11 @@ def _flash_inputs(seed, lead, S, T, H, D, dtype, device):
 
 
 # (lead, S, T, H, D, causal, q_offset, kv_offset): ragged S and T, per-entry
-# offsets with one fully masked entry (its queries all precede its keys)
+# offsets with one fully masked entry (its queries all precede its keys);
+# then the bf16 tensor-core kernels' other branches: rows of 40 bytes (D 20,
+# H 3) that TMA cannot address, D 320 split over output-column chunks, and
+# S = T = 1000 causal with per-entry offsets off the tile grid (one entry
+# fully masked)
 FLASH_CASES = [
     ((), 70, 70, 2, 64, True, 0, 0),
     ((2,), 45, 83, 3, 128, False, 0, 0),
@@ -578,6 +584,9 @@ FLASH_CASES = [
     ((2, 3), 40, 40, 2, 64, True, [[0, 40, 80], [0, 0, 0]], [[0, 0, 0], [100, 40, 30]]),
     ((2,), 33, 65, 2, 256, True, 0, 0),
     ((), 17, 129, 1, 96, False, 0, 0),
+    ((), 40, 40, 3, 20, True, 0, 0),
+    ((), 50, 70, 2, 320, False, 0, 0),
+    ((2,), 1000, 1000, 2, 128, True, [0, 300], [37, 1400]),
 ]
 
 
@@ -613,6 +622,19 @@ def test_flash_kernels_match_plain(card, case, dtype):
             assert _flash_ok(g, w, dtype, "bwd")
         assert ta.launch_counts()["_flash_fwd_compact"] == 1
         assert ta.launch_counts()["_flash_bwd_compact"] == 1
+
+
+def test_flash_bf16_backward_is_deterministic(card):
+    # no atomics: two calls give the same bits, through both backward wrappers
+    q, k, v, do = _flash_inputs(7, (2,), 300, 300, 2, 128, torch.bfloat16, card)
+    acc, m, l = ta._flash_fwd_plain(q, k, v, 0, 0, True, True)
+    o, lse = ta._normalize(acc, m, l, torch.bfloat16)
+    delta = ta._delta(do, o)
+    for call in (lambda: ta._flash_bwd_call(q, k, v, do, lse, delta, 0, 0, True,
+                                            out_dtype=torch.float32),
+                 lambda: ta._flash_bwd_compact(q, k, v, do, lse, delta, 0, 0)):
+        a, b = call(), call()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_flash_fully_masked_entry_is_zero(card):

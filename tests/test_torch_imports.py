@@ -105,7 +105,7 @@ def test_sources_ship_as_package_data():
         "adam.cu", "copy_probes.cu", "fill.cu", "flash_attention.cu", "halo_dma.cu",
         "paged_attention.cu", "reduction.cu", "stencil2d.cu", "stencil3d.cu",
         "stencil_stream2d.cu", "stencil_stream3d.cu"]
-    assert [p.name for p in common.CSRC.glob("*.cuh")] == ["stencil_taps.cuh"]
+    assert sorted(p.name for p in common.CSRC.glob("*.cuh")) == ["hopper.cuh", "stencil_taps.cuh"]
     assert common.BUILD_DIR == ROOT / "build" / "tpuscratch_torch"
     assert '"tpuscratch_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in (ROOT / "pyproject.toml").read_text()
 
