@@ -74,16 +74,19 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    ``bench.record``, then a profile of 16 batch-32 ticks with the kernel and
    with the plain attention (kernel time by group, the device's idle share);
 17. the flash-attention kernels through their four wrappers against their
-   plain versions: f32 (FMA kernels) and bf16 (tensor-core kernels, whose
-   SASS must hold HGMMA instructions), causal and full, int and per-entry
-   offsets (one entry fully masked), ragged S and T, D 20 (rows TMA cannot
-   address) to 320 (column chunks), S = T = 1000 off the tile grid, the
-   state outputs, the backward at dense and compact offsets; the planted
-   faults (p or ds unrounded, dv x 0.9), each of which the bf16 limits must
-   catch; then each wrapper at config 6's shape (S 4096, H 8, D 128) and
-   config 11's attention shape (batch 8 of S 2048) in f32 and bf16, its time
-   beside its bound, its plain time and SDPA's (forward, or its autograd
-   backward), and at config 11 two backward calls a wrapper, bit-equal;
+   plain versions: f32 (split TF32 on the tensor cores up to D 128, the FMA
+   kernels above) and bf16 (tensor-core kernels), every tensor-core kernel's
+   SASS holding HGMMA instructions, causal and full, int and per-entry
+   offsets (one entry fully masked), ragged S and T, D 18 and 20 (rows TMA
+   cannot address) to 320 (column chunks), S = T = 1000 off the tile grid,
+   the state outputs, the backward at dense and compact offsets, each call's
+   route by the shape rule; the planted faults (p or ds unrounded, dv x 0.9),
+   each of which the bf16 limits must catch, and one-pass TF32 products,
+   which the f32 limit must catch; then each wrapper at config 6's shape (S
+   4096, H 8, D 128) and config 11's attention shape (batch 8 of S 2048) in
+   f32 and bf16, its time beside its bound, its plain time and SDPA's
+   (forward, or its autograd backward), and at config 11 two backward calls
+   a wrapper, bit-equal;
 18. the training path: ``train_step`` at config 11's model (d_model 1024,
    4 layers, 4 experts, batch 8, seq 2048, f32) on a 1x1 mesh, 3 SGD steps
    each with the plain ring ("xla"), the ring through the flash kernels
@@ -245,6 +248,20 @@ def phase1_card() -> dict:
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the tensor-core flash kernels (bf16 wgmma and split TF32) hold their
+    # accumulators in registers: a spill is a design fault, not a slowdown
+    spills, fn = {}, None
+    for line in build_log("flash_attention").splitlines():
+        if "Function properties for " in line:
+            fn = line.split("Function properties for ")[1].strip()
+        elif fn and "spill stores" in line:
+            if "wgmma" in fn or "tf32" in fn:
+                spills[fn] = int(line.split("bytes spill stores")[0].split(",")[-1])
+            fn = None
+    log(f"  ptxas: {len(spills)} tensor-core flash kernels, spill stores "
+        f"{sorted(set(spills.values()))} bytes")
+    if len(spills) != 24 or any(spills.values()):
+        raise AssertionError(f"a tensor-core flash kernel spills or is missing: {spills}")
     return {"nvcc": nvcc}
 
 
@@ -1365,10 +1382,13 @@ def phase16_config12(cfg, scfg, weights) -> list:
 
 
 # Phases 17-19: the training path. The flash kernels against their plain
-# versions on the card. f32 (the FMA kernels): both sum f32 products in
-# other orders (the kernels with FMAs over the D and key axes, the plain
-# version through cuBLAS), so a few ulps of the largest output: held to
-# FLASH_TOL of max(1, max|want|). bf16 operands (the tensor-core kernels):
+# versions on the card. f32 (split TF32 on the tensor cores up to D 128,
+# FMAs above): the kernels' products drop the lo*lo terms and the tensor
+# cores truncate each k8 step's sum, while the plain version sums full f32
+# products through cuBLAS (TF32 off, set below), so a few ulps of the
+# largest output: held to FLASH_TOL of max(1, max|want|), where the
+# split-TF32 kernels read at most 0.47 of it and one-pass TF32 products
+# (phase 17 plants them) read far over it. bf16 operands (the tensor-core kernels):
 # q * scale, k * scale, p and ds are rounded to bf16 in both, so an output
 # differs where an f32 value a few ulps apart rounded to the other bf16
 # neighbour, plus one bf16 ulp (2^-7 of |want|) where the output is bf16
@@ -1394,15 +1414,20 @@ FLASH_TOL = 1e-5
 FLASH_BF16 = {"fwd": (4e-2, 4e-3), "bwd": (2e-3, 2.5e-4)}
 BF16_ULP = 2.0 ** -7
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 on the tensor cores
-FLASH_PEAK = {torch.float32: F32_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
+# f32 flash runs as split TF32: three TF32 tensor-core products (495 TFLOP/s
+# dense) for each f32 product, so no kernel can beat 495 / 3 TFLOP/s of f32
+# work; the f32 FMA rate (F32_FLOP_PER_S) is logged beside it
+TF32_SPLIT_FLOP_PER_S = 495e12 / 3
+FLASH_PEAK = {torch.float32: TF32_SPLIT_FLOP_PER_S, torch.bfloat16: BF16_FLOP_PER_S}
 FLASH_WRAPPERS = ("_flash_fwd_call", "_flash_fwd_compact", "_flash_bwd_call",
                   "_flash_bwd_compact")
 # (lead, S, T, H, D, causal, q_offset, kv_offset): ragged S and T, D 64 /
 # 128 / 256, per-entry offsets with one fully masked entry (its queries all
 # precede its keys); then the tensor-core kernels' other branches: bf16 rows
 # of 40 bytes (D 20, H 3), which TMA cannot address and the producer stages
-# itself; D 320, split over output-column chunks; and S = T = 1000, causal,
-# per-entry offsets off the tile grid with one entry fully masked
+# itself; D 320, split over output-column chunks; S = T = 1000, causal,
+# per-entry offsets off the tile grid with one entry fully masked; and D 18,
+# whose f32 rows (72 bytes) TMA cannot address either
 FLASH_CASES = [
     ((), 70, 70, 2, 64, True, 0, 0),
     ((2,), 45, 83, 3, 128, False, 0, 0),
@@ -1414,7 +1439,19 @@ FLASH_CASES = [
     ((), 40, 40, 3, 20, True, 0, 0),
     ((), 50, 70, 2, 320, False, 0, 0),
     ((2,), 1000, 1000, 2, 128, True, [0, 300], [37, 1400]),
+    ((), 40, 40, 3, 18, True, 0, 0),
 ]
+# the kernels a flash call takes, by dtype and head width alone
+# (csrc/flash_attention.cu): split TF32 up to D 128 (f32), the bf16
+# tensor-core kernels up to D 448, the FMA kernels above
+FLASH_TC_MAX_D = {torch.float32: 128, torch.bfloat16: 448}
+FLASH_TC_ROUTE = {torch.float32: "tf32", torch.bfloat16: "bf16"}
+# the CUDA kernels behind each route, for the kernels line
+FLASH_KERNELS = {
+    ("tf32", "fwd"): ["flash_fwd_tf32"], ("tf32", "bwd"): ["flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"],
+    ("bf16", "fwd"): ["flash_fwd_wgmma"], ("bf16", "bwd"): ["flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"],
+    ("fma", "fwd"): ["flash_fwd_kernel"], ("fma", "bwd"): ["flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"],
+}
 # the timed shapes: config 6 (S 4096, H 8, D 128, one sequence) and config
 # 11's attention (batch 8 of S 2048, H 8, D 128, per-entry offsets as the
 # ring hands them over)
@@ -1522,9 +1559,65 @@ def _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od, label) -> No
             raise AssertionError(f"the bf16 backward limits do not catch '{fault}' at {label}")
 
 
+def _flash_route_check(wrapper, dtype, D, what) -> str:
+    """The kernels ``wrapper``'s last launch took, which must be the shape
+    rule's: the tensor-core kernels of ``dtype`` up to FLASH_TC_MAX_D, the
+    FMA kernels above."""
+    want = FLASH_TC_ROUTE[dtype] if D <= FLASH_TC_MAX_D[dtype] else "fma"
+    if wrapper.route != want:
+        raise AssertionError(f"{wrapper.__name__} {str(dtype)[6:]} D={D} {what}: took "
+                             f"{wrapper.route}, the shape rule says {want}")
+    return wrapper.route
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (to nearest, ties away): the operand of one TF32 pass."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _flash_one_pass(q, k, v, do, lse, delta, qo, ko, causal):
+    """(out, dq, dk, dv): the f32 flash function with every product one TF32
+    pass, its operands rounded to TF32 and the split's lo terms dropped
+    (phase 17's planted f32 fault)."""
+    from tpuscratch_torch.ops import attention as ta
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs, ks = ta._scaled(q, scale), ta._scaled(k, scale)
+    s = torch.einsum("...shd,...thd->...hst", _tf32(qs), _tf32(k))
+    keep = ta._keep(qo, ko, q.shape[-3], k.shape[-3], tuple(q.shape[:-3]), causal, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.tensor(ta.NEG_INF, device=s.device))
+    zero = torch.zeros((), device=s.device)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p if keep is None else torch.where(keep, p, zero)
+    l = p.sum(-1)
+    acc = torch.einsum("...hst,...thd->...shd", _tf32(p), _tf32(v))
+    out = acc / torch.where(l > 0, l, torch.ones((), device=l.device)).transpose(-1, -2)[..., None]
+    p = torch.exp(s - lse[..., None])
+    p = p if keep is None else torch.where(keep, p, zero)
+    dp = torch.einsum("...shd,...thd->...hst", _tf32(do), _tf32(v))
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("...hst,...thd->...shd", _tf32(ds), _tf32(ks))
+    dk = torch.einsum("...hst,...shd->...thd", _tf32(ds), _tf32(qs))
+    dv = torch.einsum("...hst,...shd->...thd", _tf32(p), _tf32(do))
+    return out, dq, dk, dv
+
+
+def _flash_one_pass_fault(got, q, k, v, do, lse, delta, qo, ko, causal, label) -> None:
+    """The kernels' sound f32 (out, dq, dk, dv) against the one-pass TF32
+    reference must fail FLASH_TOL (the f32 limit has teeth)."""
+    want = _flash_one_pass(q, k, v, do, lse, delta, qo, ko, causal)
+    shares = [_flash_errs(g, w, torch.float32, "fwd")[1] for g, w in zip(got, want)]
+    log(f"  planted fault 'one-pass TF32' at {label}: out, dq, dk, dv at "
+        + ", ".join(f"{x:.1f}" for x in shares) + "x FLASH_TOL")
+    if max(shares) <= 1.0:
+        raise AssertionError(f"FLASH_TOL does not catch one-pass TF32 products at {label}")
+
+
 def _hgmma_counts() -> dict:
     """``cuobjdump -sass`` of the built flash library: the HGMMA
-    (warpgroup MMA) instructions of each tensor-core kernel."""
+    (warpgroup MMA) instructions of each tensor-core kernel (bf16 and
+    split TF32)."""
     from tpuscratch_torch.ops.common import build_all, nvcc_path
 
     lib = build_all()["flash_attention"]
@@ -1535,7 +1628,7 @@ def _hgmma_counts() -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            if "wgmma" in fn:
+            if "wgmma" in fn or "tf32" in fn:
                 counts[fn] = 0
             else:
                 fn = None
@@ -1546,15 +1639,20 @@ def _hgmma_counts() -> dict:
 
 def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[dict, list]:
     """The flash kernels through their four wrappers against the plain
-    versions: f32 and bf16 (the tensor-core kernels, HGMMA in their SASS),
-    causal and full, static and per-entry offsets (one entry fully masked),
-    ragged S and T, D 20 to 320, the state outputs, the backward at dense
-    and compact offsets with q-dtype and f32 gradients, the planted faults;
-    then each wrapper at config 6's and config 11's shapes, its time beside
-    its bound, its plain time and SDPA's (forward, or SDPA's autograd
-    backward), and two backward calls bit-equal at config 11's.
-    ``dtypes`` narrows the operand types checked."""
+    versions: f32 (split TF32) and bf16 (the tensor-core kernels, HGMMA in
+    their SASS), causal and full, static and per-entry offsets (one entry
+    fully masked), ragged S and T, D 18 to 320, the state outputs, the
+    backward at dense and compact offsets with q-dtype and f32 gradients,
+    each call's route, the planted faults; then each wrapper at config 6's
+    and config 11's shapes, its time beside its bound, its plain time and
+    SDPA's (forward, or SDPA's autograd backward), and two backward calls
+    bit-equal at config 11's. ``dtypes`` narrows the operand types checked.
+    The plain versions and SDPA run in full f32: TF32 is off for cuBLAS
+    and cuDNN here."""
     from tpuscratch_torch.ops import attention as ta
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     errs = {n: 0.0 for n in FLASH_WRAPPERS}
     seen: dict = {}     # (dtype, part) -> the worst of each reading, all cases
@@ -1577,12 +1675,13 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
     def inputs(lead, S, T, H, D, dtype):
         return [randn(lead + (n, H, D), gen).to(dtype) for n in (S, T, T, S)]
 
-    if torch.bfloat16 in dtypes:
-        hgmma = _hgmma_counts()
-        for fn, n in sorted(hgmma.items()):
-            log(f"  sass {fn}: {n} HGMMA")
-        if not hgmma or min(hgmma.values()) == 0:
-            raise AssertionError(f"a bf16 flash kernel has no HGMMA instruction: {hgmma}")
+    hgmma = _hgmma_counts()
+    for fn, n in sorted(hgmma.items()):
+        log(f"  sass {fn}: {n} HGMMA")
+    for tag, dt in (("tf32", torch.float32), ("wgmma", torch.bfloat16)):
+        mine = [n for fn, n in hgmma.items() if tag in fn]
+        if dt in dtypes and (len(mine) != 12 or min(mine) == 0):
+            raise AssertionError(f"a {tag} flash kernel is missing or has no HGMMA: {hgmma}")
 
     for dtype in dtypes:
         for lead, S, T, H, D, causal, qo, ko in FLASH_CASES:
@@ -1592,6 +1691,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                 qo, ko = torch.tensor(qo, device=DEVICE), torch.tensor(ko, device=DEVICE)
             worst = check("_flash_fwd_call", ta._flash_fwd_call(q, k, v, qo, ko, causal),
                           ta._flash_fwd_plain(q, k, v, qo, ko, causal, False), dtype, "out")
+            routes = [_flash_route_check(ta._flash_fwd_call, dtype, D, "out")]
             state = ta._flash_fwd_call(q, k, v, qo, ko, causal, return_state=True)
             pstate = ta._flash_fwd_plain(q, k, v, qo, ko, causal, True)
             for got, want in zip(state, pstate):
@@ -1600,12 +1700,18 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
             delta = ta._delta(do, o)
             for od in (None, torch.float32):
                 got = ta._flash_bwd_call(q, k, v, do, lse, delta, qo, ko, causal, out_dtype=od)
+                routes.append(_flash_route_check(ta._flash_bwd_call, dtype, D, "grads"))
                 want = ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, ko, causal, od)
                 for g, w in zip(got, want):
                     worst = max(worst, check("_flash_bwd_call", g, w, dtype, f"grads {od}"))
-                if dtype == torch.bfloat16 and od is None and (lead, S) == ((2,), 200):
-                    _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od,
-                                  f"lead={lead} S={S}")
+                if od is None and (lead, S) == ((2,), 200):
+                    if dtype == torch.bfloat16:
+                        _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od,
+                                      f"lead={lead} S={S}")
+                    else:
+                        _flash_one_pass_fault(
+                            (ta._flash_fwd_call(q, k, v, qo, ko, causal), *got), q, k, v, do,
+                            lse, delta, qo, ko, causal, f"lead={lead} S={S}")
             if causal and isinstance(qo, int):
                 worst = max(worst, check(
                     "_flash_fwd_compact", ta._flash_fwd_compact(q, k, v, qo, ko),
@@ -1621,6 +1727,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                     raise AssertionError("a fully masked row is not zero")
             log(f"  flash {str(dtype)[6:]:8s} lead={lead} S={S} T={T} H={H} D={D} "
                 f"causal={int(causal)} offsets={'per-entry' if not isinstance(qo, int) else (qo, ko)}"
+                f" route {'/'.join(sorted(set(routes)))}"
                 f": worst share of the limit {worst:.3f}; readings "
                 + "; ".join(f"{part} " + ", ".join(f"{r:.3e}" for r in rs)
                             for (_, part), rs in sorted(case.items())))
@@ -1650,6 +1757,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                 got, want = fcall(), pcall()
                 for g, w in zip(got if state else (got,), want if state else (want,)):
                     check(fwd_name, g, w, dtype, f"{label} timed")
+                fwd_route = _flash_route_check(fwd, dtype, D, f"{label} timed")
                 del got, want
                 out_bytes = (4 * q.numel() + 8 * B * H * S) if state else q.numel() * esize
                 b, by = _flash_bound(3 * q.numel() * esize + out_bytes, fflops, dtype)
@@ -1664,7 +1772,9 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                     plain_ms=device_ms(pcall, n=3),
                     library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=10),
                     library_shape="SDPA forward on (B, H, S, D) copies", bound_ms=b, bound_by=by,
-                    gflop=fflops / 1e9))
+                    gflop=fflops / 1e9, cuda_kernels=FLASH_KERNELS[(fwd_route, "fwd")],
+                    **({"fma_bound_ms": fflops / F32_FLOP_PER_S * 1e3}
+                       if dtype == torch.float32 else {})))
                 acc, m, l = ta._flash_fwd_plain(q, k, v, qo, ko, causal, True)
                 o, lse = ta._normalize(acc, m, l, dtype)
                 del acc
@@ -1681,6 +1791,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                 got = bcall()
                 for g, w in zip(got, pbcall()):
                     check(bwd_name, g, w, dtype, f"{label} timed")
+                bwd_route = _flash_route_check(bwd, dtype, D, f"{label} timed")
                 if per_entry:
                     # no atomics: every call gives the same bits, through both wrappers
                     for name, call in (
@@ -1695,6 +1806,11 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                         del a, b
                     if dtype == torch.bfloat16:
                         _flash_faults(got, q, k, v, do, lse, delta, qo, ko, causal, od, label)
+                    else:
+                        out = ta._normalize(*fcall(), dtype)[0] if state else fcall()
+                        _flash_one_pass_fault((out, *got), q, k, v, do, lse, delta, qo, ko,
+                                              causal, label)
+                        del out
                 del got
                 bflops = 2.5 * fflops
                 gsize = 4 if od == torch.float32 else esize
@@ -1709,7 +1825,10 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                     name=bwd_name, shape=shape.replace(" state", "") + (" f32 grads" if od else ""),
                     ms=device_ms(bcall, n=5), plain_ms=device_ms(pbcall, n=2), library_ms=lib,
                     library_shape="SDPA's autograd backward on (B, H, S, D) copies",
-                    bound_ms=b, bound_by=by, gflop=bflops / 1e9))
+                    bound_ms=b, bound_by=by, gflop=bflops / 1e9,
+                    cuda_kernels=FLASH_KERNELS[(bwd_route, "bwd")],
+                    **({"fma_bound_ms": bflops / F32_FLOP_PER_S * 1e3}
+                       if dtype == torch.float32 else {})))
                 del q, k, v, do, qt, kt, vt, qg, kg, vg, so, dot, o, lse, delta
                 torch.cuda.empty_cache()
     for (dt, part), readings in sorted(seen.items()):
@@ -1717,9 +1836,11 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
         log(f"  flash {dt} {part}: worst readings " + ", ".join(f"{r:.3e}" for r in readings)
             + f" (limits {limit})")
     for r in rows:
+        fma = f", {r['fma_bound_ms']:.4f} ms at the f32 FMA rate" if "fma_bound_ms" in r else ""
         log(f"  time {r['name']:20s} {r['shape']:48s} {r['ms']:.4f} ms "
-            f"({r['gflop'] / r['ms']:.2f} TFLOP/s; bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms)")
+            f"({r['gflop'] / r['ms']:.2f} TFLOP/s; {'+'.join(r['cuda_kernels'])}; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}{fma}, plain {r['plain_ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms)")
     return errs, rows
 
 
@@ -2377,6 +2498,8 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),
+            **({"cuda_kernels": row["cuda_kernels"]} if "cuda_kernels" in row else {}),
+            **({"fma_bound_ms": row["fma_bound_ms"]} if "fma_bound_ms" in row else {}),
         })
     wrappers = (sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
                 + ta.WRAPPERS + tadam.WRAPPERS + tb.WRAPPERS)

@@ -576,7 +576,8 @@ def _flash_inputs(seed, lead, S, T, H, D, dtype, device):
 # then the bf16 tensor-core kernels' other branches: rows of 40 bytes (D 20,
 # H 3) that TMA cannot address, D 320 split over output-column chunks, and
 # S = T = 1000 causal with per-entry offsets off the tile grid (one entry
-# fully masked)
+# fully masked); and D 18, whose f32 rows (72 bytes) the split-TF32 kernels
+# stage without TMA too
 FLASH_CASES = [
     ((), 70, 70, 2, 64, True, 0, 0),
     ((2,), 45, 83, 3, 128, False, 0, 0),
@@ -587,6 +588,7 @@ FLASH_CASES = [
     ((), 40, 40, 3, 20, True, 0, 0),
     ((), 50, 70, 2, 320, False, 0, 0),
     ((2,), 1000, 1000, 2, 128, True, [0, 300], [37, 1400]),
+    ((), 40, 40, 3, 18, True, 0, 0),
 ]
 
 
@@ -635,6 +637,55 @@ def test_flash_bf16_backward_is_deterministic(card):
                  lambda: ta._flash_bwd_compact(q, k, v, do, lse, delta, 0, 0)):
         a, b = call(), call()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_f32_backward_is_deterministic(card):
+    # the split-TF32 backward: two kernels, no atomics, the same bits every call
+    q, k, v, do = _flash_inputs(8, (2,), 300, 300, 2, 128, torch.float32, card)
+    acc, m, l = ta._flash_fwd_plain(q, k, v, 0, 0, True, True)
+    o, lse = ta._normalize(acc, m, l, torch.float32)
+    delta = ta._delta(do, o)
+    for call in (lambda: ta._flash_bwd_call(q, k, v, do, lse, delta, 0, 0, True),
+                 lambda: ta._flash_bwd_compact(q, k, v, do, lse, delta, 0, 0)):
+        a, b = call(), call()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_tf32_kernels_hold_tf32_hgmma(card):
+    # every instantiation of the three split-TF32 kernels issues TF32 warpgroup MMAs
+    import pathlib
+    import subprocess
+
+    from tpuscratch_torch.ops.common import build_all, nvcc_path
+
+    tool = pathlib.Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(build_all()["flash_attention"])],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fn = fn if "tf32" in fn else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    assert len(counts) == 12, counts      # 3 kernels x (TMA, own loads) x (64, 128 columns)
+    assert min(counts.values()) > 0, counts
+
+
+@pytest.mark.parametrize("dtype,D,want", [(torch.float32, 128, "tf32"), (torch.float32, 20, "tf32"),
+                                          (torch.float32, 18, "tf32"), (torch.float32, 256, "fma"),
+                                          (torch.bfloat16, 128, "bf16")])
+def test_flash_route_follows_the_shape_rule(card, dtype, D, want):
+    # f32 heads up to 128 columns take the split-TF32 kernels, wider ones
+    # the FMA kernels; bf16 the bf16 tensor-core kernels
+    q, k, v, do = _flash_inputs(4, (), 64, 64, 2, D, dtype, card)
+    ta._flash_fwd_call(q, k, v, 0, 0, True)
+    acc, m, l = ta._flash_fwd_plain(q, k, v, 0, 0, True, True)
+    o, lse = ta._normalize(acc, m, l, dtype)
+    ta._flash_bwd_call(q, k, v, do, lse, ta._delta(do, o), 0, 0, True)
+    assert ta._flash_fwd_call.route == want and ta._flash_bwd_call.route == want
 
 
 def test_flash_fully_masked_entry_is_zero(card):

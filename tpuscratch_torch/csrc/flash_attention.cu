@@ -26,7 +26,8 @@
 // kernels do 4 S T D flops a (b, h) forward and 10 S T D backward (half
 // each when causal) against 4 (S + T) D elements moved: hundreds of flops a
 // byte, above the card's ridge. The least time is the flops over 989
-// TFLOP/s (bf16 on the tensor cores) or 67 TFLOP/s (f32 FMAs).
+// TFLOP/s (bf16 on the tensor cores), 495 / 3 = 165 TFLOP/s (f32 as split
+// TF32 on the tensor cores) or 67 TFLOP/s (f32 FMAs, the wide heads).
 //
 // bf16: the tensor-core kernels (flash_fwd_wgmma, flash_bwd_dq_wgmma,
 // flash_bwd_dkv_wgmma; hopper.cuh has the building blocks). Their bound on
@@ -76,8 +77,17 @@
 //     the replicated one, and both run this backward, so it must give the
 //     same bits on every call.
 //
-// f32: the FMA kernels (flash_fwd_kernel, flash_bwd_dq_kernel,
-// flash_bwd_dkv_kernel), the first design, bound by the f32 rate above.
+// f32 heads up to TF_MAX_D = 128 columns: the split-TF32 tensor-core
+// kernels (flash_fwd_tf32, flash_bwd_dq_tf32, flash_bwd_dkv_tf32; their
+// section below has the design): three TF32 products a product, so their
+// bound on this card is 495 / 3 = 165 TFLOP/s of f32-accurate products
+// (2.5x the 67 TFLOP/s of f32 FMAs). tests/test_torch_flash_split.py holds
+// their arithmetic, accumulation included, to the f32 limit on the CPU.
+//
+// Wider heads (f32 D > 128, bf16 D > 448): the FMA kernels
+// (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel), the first
+// design, bound by the f32 rate above. ts_flash_fwd and ts_flash_bwd choose
+// by shape alone, before any launch; ts_flash_last_route reports the choice.
 // One block of 256 threads (16 x 16) per (entry, head, tile of R = 16 * RT
 // rows) loops over the other side's tiles in f32 shared memory (rows at an
 // odd stride); each thread holds an RT x RT micro-tile of scores and an
@@ -85,10 +95,7 @@
 // cores. RT shrinks (4, 2, 1) until the tiles fit; a head wider than
 // 16 * NC splits over blocks by column. They keep their own helpers
 // (entry_offsets .. block_coords) apart from the tensor-core kernels' wg_*
-// ones: compiled with shared ones, the f32 backward ran slower. The
-// tensor-core f32 design (split TF32: three TF32 products a product,
-// 495 / 3 TFLOP/s) is later work; tests/test_torch_flash_split.py holds
-// its arithmetic to the f32 limit.
+// ones: compiled with shared ones, the f32 backward ran slower.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_runtime.h>
@@ -99,7 +106,7 @@
 
 #include "hopper.cuh"
 
-// ==== f32 (and very wide bf16 heads): FMA kernels on the CUDA cores ========================
+// ==== wide heads: FMA kernels on the CUDA cores ===========================================
 
 constexpr int FA_THREADS = 256;
 constexpr float FA_NEG_INF = -1e30f;
@@ -1537,6 +1544,843 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constan
   }
 }
 
+// ==== f32 on the tensor cores: split TF32 ===============================================
+//
+// Every f32 product runs as three TF32 wgmma passes with f32 accumulation:
+// x = hi + lo, hi = tf32(x) (cvt.rna: to nearest, ties away from zero),
+// lo = tf32(x - hi), and a b ~ hi_a lo_b + lo_a hi_b + hi_a hi_b, added into
+// the accumulator in that order a k8 step (the lo lo term and lo's own
+// rounding are below 2^-21 of the product). TF32 wgmma reads its B operand
+// K-major from shared memory only, and its A operand from shared memory or
+// from registers (4 values a thread a k8 step), so:
+//   - the score products take the other side's tiles as TMA lands them (K
+//     and V rows, or q and dO rows: K-major for S = (q * scale) K^T, dP =
+//     dO V^T, S^T = K (q * scale)^T, dP^T = V dO^T), split into hi (in
+//     place) and lo (a side tile) by the producer warpgroup's three helper
+//     warps; the CTA's own tile is the A operand, gathered from shared
+//     memory into registers and split there;
+//   - a product whose B would be MN-major is computed transposed, so that
+//     the operand that would need a transposed tile is the A side, gathered:
+//     dq: dQ^T = K^T dS^T (B = dS, [queries x keys], written hi and lo by
+//     the consumers from their accumulator fragments); dk/dv: dV^T = dO^T P
+//     and dK^T = (q * scale)^T dS (B = P^T and dS^T, [keys x queries], the
+//     layout of the S^T accumulator itself). dq takes k unscaled and
+//     multiplies dQ by scale once at the end (a 2^-24 difference a term from
+//     the plain version's k * scale, below the split's own 2^-22);
+//   - the forward computes O = P V: P, its score accumulator, is the A
+//     operand in registers with the keys of each k8 step permuted (position
+//     p holds key 2p, position p + 4 key 2p + 1: the accumulator's pairs),
+//     and the helpers write V^T hi and lo tiles in that key order.
+// The tensor cores add each k8 step into the accumulator with truncation:
+// over the 2048-4096 keys (or queries) of the training shapes that bias
+// alone would cost up to 9e-5 of an output (tests/test_torch_flash_split.py
+// models it), so every key (or query) tile of TF_BN sums into a fresh
+// accumulator, which is added into an f32 register total with
+// round-to-nearest adds (promotion a tile). The scores' 128-term sums over
+// D are not promoted.
+//
+// Roles (as in the bf16 kernels: a producer warpgroup whose first warp loads
+// and whose other three warps prepare each landed tile, setmaxnreg 56 / 224):
+//   - forward: 1-2 consumer warpgroups of 64 query rows, each computing S,
+//     the online softmax and O for its rows.
+//   - dq: one tile of 64 queries, two consumer warpgroups: the first forms S
+//     and p, the second dP and dS = p (dP - delta) (p handed over in shared
+//     memory); each then computes dQ^T for one 64-column half of the head.
+//   - dk/dv: one tile of 64 keys: the first consumer warpgroup forms S^T and
+//     P^T, then dV^T; the second dP^T and dS^T (p read back as hi + lo, to
+//     2^-22), then dK^T. Two kernels and no atomics: every call gives the
+//     same bits.
+// Shared memory (fwd_tf_layout, dq_tf_layout, dkv_tf_layout) at D 128 and
+// TF_BN = 32: forward Q 64 KB (two warpgroups) + 2 stages of K, K lo, V,
+// V^T hi, V^T lo (80 KB each) = 224 KB; dq Q and dO 64 KB + 2 stages of K,
+// K lo, V, V lo (64 KB) + dS hi, lo and p (24 KB) = 216 KB; dk/dv K and V
+// 64 KB + 2 stages of q * scale, its lo, dO, dO lo (64 KB) + P^T and dS^T
+// hi and lo (32 KB) = 224 KB, of the card's 227 KB.
+// Heads up to TF_MAX_D = 128 columns take these kernels: each output column
+// chunk of 64 keeps a total and a tile accumulator in registers and the
+// contracted width is whole in shared memory, so a wider head overflows
+// both at two stages; wider f32 heads take the FMA kernels above.
+
+constexpr int TF_BN = 32;         // inner tile: keys (forward, dq) or queries (dk/dv)
+constexpr int TF_MAX_STAGES = 3;
+constexpr int TF_MAX_D = 128;
+
+__host__ __device__ inline uint32_t tf_tile(int rows, int DC) { return (uint32_t)rows * DC * 4; }
+
+// Shared-memory layout in bytes from a 1024-aligned base: the CTA's own
+// tiles at 0, the ring of stages from `ring`, per-kernel extras from `side`.
+struct TfLayout {
+  uint32_t ring, stage, side, bars, total;
+};
+
+// forward: Q (nwg * 64 x DC); a stage = K (hi in place), K lo, V, V^T hi,
+// V^T lo (TF_BN x DC each)
+__host__ __device__ inline TfLayout fwd_tf_layout(int nwg, int st, int DC) {
+  TfLayout L{};
+  L.ring = tf_tile(64 * nwg, DC);
+  L.stage = 5 * tf_tile(TF_BN, DC);
+  L.side = L.ring + st * L.stage;
+  L.bars = L.side;
+  L.total = L.bars + 8 * (3 * TF_MAX_STAGES + 1) + 1024;
+  return L;
+}
+
+// dq: Q (scaled in place), dO (64 x DC each); a stage = K (hi in place), K
+// lo, V (hi in place), V lo; side = dS hi, dS lo (64 x TF_BN each), p (64 x
+// TF_BN f32 in fragment order)
+__host__ __device__ inline TfLayout dq_tf_layout(int st, int DC) {
+  TfLayout L{};
+  L.ring = 2 * tf_tile(64, DC);
+  L.stage = 4 * tf_tile(TF_BN, DC);
+  L.side = L.ring + st * L.stage;
+  L.bars = L.side + 3 * tf_tile(64, TF_BN);
+  L.total = L.bars + 8 * (3 * TF_MAX_STAGES + 1) + 1024;
+  return L;
+}
+
+// dk/dv: K, V (64 x DC each); a stage = q * scale (hi in place), its lo, dO
+// (hi in place), dO lo; side = P^T hi, lo, dS^T hi, lo (64 x TF_BN each),
+// then each stage's lse and delta (TF_BN f32 each)
+__host__ __device__ inline TfLayout dkv_tf_layout(int st, int DC) {
+  TfLayout L{};
+  L.ring = 2 * tf_tile(64, DC);
+  L.stage = 4 * tf_tile(TF_BN, DC);
+  L.side = L.ring + st * L.stage;
+  L.bars = L.side + 4 * tf_tile(64, TF_BN) + st * 2 * TF_BN * 4;
+  L.total = L.bars + 8 * (3 * TF_MAX_STAGES + 1) + 1024;
+  return L;
+}
+
+// Key tiles of TF_BN a query tile [i0, i0 + rows) needs (all, or when
+// causal those at or left of its last row's diagonal), and the first query
+// tile of TF_BN that sees key column c0.
+__device__ __forceinline__ int tf_kv_tiles(const WgShape& f, int rows, int i0, int qo, int ko) {
+  if (!f.causal) return f.nk;
+  const long long lim = (long long)qo - ko + min(i0 + rows, f.S) - 1;
+  if (lim < 0) return 0;
+  const long long n = lim / TF_BN + 1;
+  return n < f.nk ? (int)n : f.nk;
+}
+
+__device__ __forceinline__ int tf_first_q(const WgShape& f, int c0, int qo, int ko) {
+  if (!f.causal) return 0;
+  const long long first = (long long)ko + c0 - qo;
+  if (first <= 0) return 0;
+  const long long t = first / TF_BN;
+  return t < f.nq ? (int)t : f.nq;
+}
+
+// One f32 tile a producer brings in: rows x DC values of x[b, row0 + r, h, c]
+// (zeros past n rows or D columns) into the swizzled f32 layout.
+struct TfReq {
+  uint8_t* dst;
+  const CUtensorMap* map;
+  const float* src;
+  int rows, row0, n;
+};
+
+// As produce() for f32 tiles of nblk 32-column blocks: by TMA, or where TMA
+// cannot address the rows by the 32 lanes' own loads. Every lane arrives once.
+template <bool TMA, int NT>
+__device__ __forceinline__ void produce_tf(uint64_t* bar, const TfReq (&t)[NT], int nblk,
+                                           const WgShape& f, int b, int h, int lane) {
+  if (TMA) {
+    if (lane == 0) {
+      uint32_t bytes = 0;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) bytes += t[i].rows * nblk * 128;
+      hop::bar_arrive_tx(bar, bytes);
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        for (int k = 0; k < nblk; ++k)
+          hop::tma_load_4d(t[i].dst + k * t[i].rows * 128, t[i].map, bar, 32 * k, h, t[i].row0, b);
+    } else {
+      hop::bar_arrive(bar);
+    }
+  } else {
+    for (int i = 0; i < NT; ++i) {
+      const TfReq& q = t[i];
+      for (int e = lane; e < q.rows * 32 * nblk; e += 32) {
+        const int r = e / (32 * nblk), c = e - r * 32 * nblk, gr = q.row0 + r;
+        *reinterpret_cast<float*>(q.dst + hop::swz32(q.rows, r, c)) =
+            (gr < q.n && c < f.D) ? q.src[(((long long)b * q.n + gr) * f.H + h) * f.D + c] : 0.0f;
+      }
+    }
+    hop::fence_async_smem();
+    hop::bar_arrive(bar);
+  }
+}
+
+// n 16-byte chunks of f32 values, shared out over nth threads: each value
+// (times mul first, an f32 product, when mul != 1) is replaced by its TF32
+// hi, and its lo goes to the same place in `lo`. The swizzle permutes whole
+// chunks, so this is layout-blind.
+__device__ __forceinline__ void split_chunks(uint8_t* t, uint8_t* lo, int n, float mul, int tid,
+                                             int nth) {
+  for (int i = tid; i < n; i += nth) {
+    float4 x = reinterpret_cast<const float4*>(t)[i];
+    if (mul != 1.0f) {
+      x.x = __fmul_rn(x.x, mul);
+      x.y = __fmul_rn(x.y, mul);
+      x.z = __fmul_rn(x.z, mul);
+      x.w = __fmul_rn(x.w, mul);
+    }
+    uint4 h, l;
+    hop::split_tf32(x.x, h.x, l.x);
+    hop::split_tf32(x.y, h.y, l.y);
+    hop::split_tf32(x.z, h.z, l.z);
+    hop::split_tf32(x.w, h.w, l.w);
+    reinterpret_cast<uint4*>(t)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
+
+__device__ __forceinline__ float lds32(const uint8_t* t, int rows, int r, int c) {
+  return *reinterpret_cast<const float*>(t + hop::swz32(rows, r, c));
+}
+
+// The A fragment of one k8 step (rows r, r + 8 and columns c, c + 4 of the
+// thread's quad position) from a tile of `rows` rows: A[m][k] = t[m][k]
+// (rows) or t[k][m] (cols, the transposed gather).
+__device__ __forceinline__ void frag_rows(const uint8_t* t, int rows, int r, int c, float (&x)[4]) {
+  x[0] = lds32(t, rows, r, c);
+  x[1] = lds32(t, rows, r + 8, c);
+  x[2] = lds32(t, rows, r, c + 4);
+  x[3] = lds32(t, rows, r + 8, c + 4);
+}
+__device__ __forceinline__ void frag_cols(const uint8_t* t, int rows, int r, int c, uint32_t (&x)[4]) {
+  x[0] = __float_as_uint(lds32(t, rows, c, r));
+  x[1] = __float_as_uint(lds32(t, rows, c, r + 8));
+  x[2] = __float_as_uint(lds32(t, rows, c + 4, r));
+  x[3] = __float_as_uint(lds32(t, rows, c + 4, r + 8));
+}
+
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) hop::split_tf32(x[i], hi[i], lo[i]);
+}
+
+// A K-major TF32 descriptor of k8 step kk of a tile of `rows` rows.
+__device__ __forceinline__ uint64_t desc_tf(uint32_t tile, int rows, int kk) {
+  return hop::desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024);
+}
+
+// S (64 x 32) = A B^T over DC columns in split TF32: A gathered from rows
+// (r, r + 8) of an (arows x DC) tile and split, B the hi and lo tiles of
+// TF_BN rows. A wgmma's register operands stay live until it completes, so
+// each 32-column block is a group of its own, finished before the next
+// block's gathers: 32 A registers live, not 128 (with one group the
+// forward spilled and the backward ran slower; a second group in flight
+// gained nothing). Returns with every wgmma done.
+template <int DC>
+__device__ __forceinline__ void tf_scores(float (&s)[16], const uint8_t* a, int arows, int r,
+                                          int t4, uint32_t bh, uint32_t bl) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.0f;  // no stale value kept live across the tile
+#pragma unroll
+  for (int blk = 0; blk < DC / 32; ++blk) {
+    hop::wgmma_fence();
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      const int kk = 4 * blk + k4;
+      float x[4];
+      uint32_t ah[4], al[4];
+      frag_rows(a, arows, r, 8 * kk + t4, x);
+      split4(x, ah, al);
+      hop::wgmma_tf32_n32(s, ah, desc_tf(bl, TF_BN, kk), 1);
+      hop::wgmma_tf32_n32(s, al, desc_tf(bh, TF_BN, kk), 1);
+      hop::wgmma_tf32_n32(s, ah, desc_tf(bh, TF_BN, kk), 1);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+  }
+  hop::fence_regs(s);
+}
+
+// D (64 x 64) = A B^T over TF_BN in split TF32, the transposed products:
+// A[m][k] = t[k][m0 + m] gathered from the hi and lo tiles of an operand
+// ([TF_BN rows x DC], already split), B the hi and lo tiles (64 x TF_BN).
+// Returns with every wgmma done.
+__device__ __forceinline__ void tf_outer(float (&d)[32], const uint8_t* th, const uint8_t* tl,
+                                         int r, int t4, uint32_t bh, uint32_t bl) {
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TF_BN / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    frag_cols(th, TF_BN, r, 8 * kk + t4, ah);
+    frag_cols(tl, TF_BN, r, 8 * kk + t4, al);
+    hop::wgmma_tf32_n64(d, ah, desc_tf(bl, 64, kk), kk > 0);
+    hop::wgmma_tf32_n64(d, al, desc_tf(bh, 64, kk), 1);
+    hop::wgmma_tf32_n64(d, ah, desc_tf(bh, 64, kk), 1);
+  }
+  hop::wgmma_commit();
+  hop::wgmma_wait_all();
+  hop::fence_regs(d);
+}
+
+// Values (i, i + 1) of an m64n32 accumulator, split, into the hi and lo
+// tiles (64 x TF_BN) at its rows and columns.
+__device__ __forceinline__ void store_split(uint8_t* th, uint8_t* tl, int row, int col, float x0,
+                                            float x1) {
+  uint2 h, l;
+  hop::split_tf32(x0, h.x, l.x);
+  hop::split_tf32(x1, h.y, l.y);
+  const uint32_t o = hop::swz32(64, row, col);
+  *reinterpret_cast<uint2*>(th + o) = h;
+  *reinterpret_cast<uint2*>(tl + o) = l;
+}
+
+// ---- forward (TF32) ----------------------------------------------------------------------
+// One CTA per (entry, head, query tile of nwg * 64 rows), walking the key tiles.
+template <bool TMA, int DC>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, const float* __restrict__ q,
+               const float* __restrict__ k, const float* __restrict__ v, void* __restrict__ out,
+               float* __restrict__ m_out, float* __restrict__ l_out, WgShape f, int state) {
+  uint8_t* sm = smem_base();
+  const TfLayout L = fwd_tf_layout(f.nwg, f.stages, DC);
+  const uint32_t TILE = tf_tile(TF_BN, DC);  // K, K lo, V, V^T hi, V^T lo of a stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + TF_MAX_STAGES;
+  uint64_t* ready = empty + TF_MAX_STAGES;
+  uint64_t* qbar = ready + TF_MAX_STAGES;
+  const int BM = 64 * f.nwg;
+  int b, dz, it;
+  wg_coords(f.nq, 1, f.causal != 0, b, dz, it);
+  const int h = blockIdx.y, i0 = it * BM;
+  int qo, ko;
+  wg_offsets(f, b, qo, ko);
+  const int nkv = tf_kv_tiles(f, BM, i0, qo, ko);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_MAX_STAGES; ++s) {
+      hop::bar_init(full + s, 32);
+      hop::bar_init(empty + s, 4 * f.nwg);
+      hop::bar_init(ready + s, WG_HELPERS);
+    }
+    hop::bar_init(qbar, 32);
+    hop::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * f.nwg) {
+    hop::setmaxnreg_dec<REG_PROD>();
+    if (warp == 4 * f.nwg) {  // loads
+      const TfReq tq[1] = {{sm, &mq, q, BM, i0, f.S}};
+      produce_tf<TMA>(qbar, tq, DC / 32, f, b, h, lane);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < nkv; ++j) {
+        hop::bar_wait(empty + stage, phase ^ 1);
+        uint8_t* st = sm + L.ring + stage * L.stage;
+        const TfReq t[2] = {{st, &mk, k, TF_BN, j * TF_BN, f.T},
+                            {st + 2 * TILE, &mv, v, TF_BN, j * TF_BN, f.T}};
+        produce_tf<TMA>(full + stage, t, DC / 32, f, b, h, lane);
+        if (++stage == f.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      return;
+    }
+    // helpers: K split in place (hi) and beside (lo); V into V^T hi and lo,
+    // one key a lane, its keys permuted as the A fragments of P hold them
+    const int ht = threadIdx.x - 128 * f.nwg - 32, hw = ht / 32;
+    const int pos = (lane & ~7) | ((lane & 7) >> 1) | ((lane & 1) << 2);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < nkv; ++j) {
+      uint8_t* st = sm + L.ring + stage * L.stage;
+      hop::bar_wait(full + stage, phase);
+      split_chunks(st, st + TILE, TILE / 16, 1.0f, ht, WG_HELPERS);
+      for (int dc = hw; dc < DC / 4; dc += WG_HELPERS / 32) {
+        const float4 x = *reinterpret_cast<const float4*>(st + 2 * TILE + hop::swz32(TF_BN, lane, 4 * dc));
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          uint32_t hi, lo;
+          hop::split_tf32(xs[c], hi, lo);
+          const uint32_t o = hop::swz32(DC, 4 * dc + c, pos);
+          *reinterpret_cast<uint32_t*>(st + 3 * TILE + o) = hi;
+          *reinterpret_cast<uint32_t*>(st + 4 * TILE + o) = lo;
+        }
+      }
+      hop::fence_async_smem();
+      hop::bar_arrive(ready + stage);
+      if (++stage == f.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: query rows [64 wg, 64 wg + 64) of the tile
+  hop::setmaxnreg_inc<REG_CONS>();
+  const int wg = warp / 4, wl = threadIdx.x % 128, t4 = lane % 4;
+  const int rlo = 64 * wg + 16 * (wl / 32) + lane / 4;  // tile row of values with frag_row 0
+  const int rmin = i0 + 64 * wg;
+  hop::bar_wait(qbar, 0);
+  // q * scale in f32, in place: this warpgroup's rows
+  for (int blk = 0; blk < DC / 32; ++blk) {
+    float4* p = reinterpret_cast<float4*>(sm + blk * BM * 128 + 64 * wg * 128);
+    for (int i = wl; i < 512; i += 128) {
+      float4 x = p[i];
+      x.x = __fmul_rn(x.x, f.scale);
+      x.y = __fmul_rn(x.y, f.scale);
+      x.z = __fmul_rn(x.z, f.scale);
+      x.w = __fmul_rn(x.w, f.scale);
+      p[i] = x;
+    }
+  }
+  hop::named_sync(1 + wg, 128);
+
+  float o[DC / 2], ot[32], s[16];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ot[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+  float mrow[2] = {FA_NEG_INF, FA_NEG_INF}, lrow[2] = {0.0f, 0.0f};
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < nkv; ++j) {
+    const int c0 = j * TF_BN;
+    hop::bar_wait(full + stage, phase);
+    hop::bar_wait(ready + stage, phase);
+    const bool skip = rmin >= f.S || (f.causal && (long long)qo + rmin + 63 < (long long)ko + c0);
+    if (!skip) {
+      const uint32_t kt = hop::smem_u32(sm + L.ring + stage * L.stage);
+      tf_scores<DC>(s, sm, BM, rlo, t4, kt, kt + TILE);
+      if (rmin + 64 > f.S || c0 + TF_BN > f.T ||
+          (f.causal && (long long)qo + rmin < (long long)ko + c0 + TF_BN - 1)) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (!wg_keep(f, i0 + rlo + frag_row(i), c0 + frag_col(i, t4), qo, ko)) s[i] = FA_NEG_INF;
+      }
+      float mx[2] = {FA_NEG_INF, FA_NEG_INF}, sum[2] = {0.0f, 0.0f}, corr[2];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(mrow[r], mx[r]);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = s[i] > 0.5f * FA_NEG_INF ? expf(s[i] - mx[r]) : 0.0f;
+        sum[r] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        corr[r] = expf(mrow[r] - mx[r]);
+        lrow[r] = lrow[r] * corr[r] + sum[r];
+        mrow[r] = mx[r];
+      }
+      // this key tile's P V into a fresh accumulator, a 64-column half of O
+      // at a time: P the A operand in registers (positions t4, t4 + 4 of a
+      // k8 step hold keys 2 t4, 2 t4 + 1), V^T's rows 64 hf .. 64 hf + 63
+#pragma unroll
+      for (int hf = 0; hf < DC / 64; ++hf) {
+        const uint32_t vh = kt + 3 * TILE + hf * 64 * 128, vl = vh + TILE;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) ot[i] = 0.0f;
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TF_BN / 8; ++kk) {
+          const float x[4] = {s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3]};
+          uint32_t ah[4], al[4];
+          split4(x, ah, al);
+          hop::wgmma_tf32_n64(ot, ah, desc_tf(vl, 64, kk), 1);
+          hop::wgmma_tf32_n64(ot, al, desc_tf(vh, 64, kk), 1);
+          hop::wgmma_tf32_n64(ot, ah, desc_tf(vh, 64, kk), 1);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait_all();
+        hop::fence_regs(ot);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[32 * hf + i] = fmaf(o[32 * hf + i], corr[(i >> 1) & 1], ot[i]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hop::bar_arrive(empty + stage);
+    if (++stage == f.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + rlo + 8 * r;
+    if (row >= f.S) continue;
+    const long long base = (((long long)b * f.S + row) * f.H + h) * f.D;
+    const float inv = 1.0f / (lrow[r] > 0.0f ? lrow[r] : 1.0f);
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) {
+      if (((i >> 1) & 1) != r) continue;
+      const int col = frag_col(i, t4);
+      if (col >= f.D) continue;
+      reinterpret_cast<float*>(out)[base + col] = state ? o[i] : o[i] * inv;
+    }
+    if (state && t4 == 0) {
+      const long long ri = ((long long)b * f.H + h) * f.S + row;
+      m_out[ri] = mrow[r];
+      l_out[ri] = lrow[r];
+    }
+  }
+}
+
+// ---- backward: dq (TF32) -----------------------------------------------------------------
+// One CTA per (entry, head, query tile of 64), walking the key tiles:
+// warpgroup 0 forms S = (q * scale) K^T and p = exp(S - lse), warpgroup 1
+// dP = dO V^T and dS = p (dP - delta) into hi and lo tiles; then warpgroup w
+// adds dQ^T's columns [64 w, 64 w + 64) += K^T dS^T. The helpers split each
+// landed K and V tile.
+template <bool TMA, int DC>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                  const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dq, WgShape f) {
+  uint8_t* sm = smem_base();
+  const TfLayout L = dq_tf_layout(f.stages, DC);
+  const uint32_t TILE = tf_tile(TF_BN, DC), OWN = tf_tile(64, DC), SIDE = tf_tile(64, TF_BN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + TF_MAX_STAGES;
+  uint64_t* ready = empty + TF_MAX_STAGES;
+  uint64_t* qbar = ready + TF_MAX_STAGES;
+  int b, dz, it;
+  wg_coords(f.nq, 1, f.causal != 0, b, dz, it);
+  const int h = blockIdx.y, i0 = it * 64;
+  int qo, ko;
+  wg_offsets(f, b, qo, ko);
+  const int nkv = tf_kv_tiles(f, 64, i0, qo, ko);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_MAX_STAGES; ++s) {
+      hop::bar_init(full + s, 32);
+      hop::bar_init(empty + s, 8);
+      hop::bar_init(ready + s, WG_HELPERS);
+    }
+    hop::bar_init(qbar, 32);
+    hop::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    hop::setmaxnreg_dec<REG_PROD>();
+    if (warp == 8) {  // loads
+      const TfReq tq[2] = {{sm, &mq, q, 64, i0, f.S}, {sm + OWN, &mdo, dout, 64, i0, f.S}};
+      produce_tf<TMA>(qbar, tq, DC / 32, f, b, h, lane);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < nkv; ++j) {
+        hop::bar_wait(empty + stage, phase ^ 1);
+        uint8_t* st = sm + L.ring + stage * L.stage;
+        const TfReq t[2] = {{st, &mk, k, TF_BN, j * TF_BN, f.T},
+                            {st + 2 * TILE, &mv, v, TF_BN, j * TF_BN, f.T}};
+        produce_tf<TMA>(full + stage, t, DC / 32, f, b, h, lane);
+        if (++stage == f.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      return;
+    }
+    // helpers: K and V split, hi in place and lo beside
+    const int ht = threadIdx.x - 256 - 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < nkv; ++j) {
+      uint8_t* st = sm + L.ring + stage * L.stage;
+      hop::bar_wait(full + stage, phase);
+      split_chunks(st, st + TILE, TILE / 16, 1.0f, ht, WG_HELPERS);
+      split_chunks(st + 2 * TILE, st + 3 * TILE, TILE / 16, 1.0f, ht, WG_HELPERS);
+      hop::fence_async_smem();
+      hop::bar_arrive(ready + stage);
+      if (++stage == f.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<REG_CONS>();
+  const int wg = warp / 4, wl = threadIdx.x % 128, t4 = lane % 4;
+  const int rlo = 16 * (wl / 32) + lane / 4;  // tile row (query) of values with frag_row 0
+  uint8_t* dsh = sm + L.side;
+  uint8_t* dsl = dsh + SIDE;
+  float* pbuf = reinterpret_cast<float*>(dsl + SIDE);  // [value][thread]
+  float stat[2];  // lse (warpgroup 0) or delta (warpgroup 1) of the thread's rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = i0 + rlo + 8 * r;
+    const long long ri = ((long long)b * f.H + h) * f.S + row;
+    stat[r] = row < f.S ? (wg == 0 ? lse[ri] : delta[ri]) : 0.0f;
+  }
+  hop::bar_wait(qbar, 0);
+  {  // q * scale in f32, in place, by both warpgroups
+    float4* p = reinterpret_cast<float4*>(sm);
+    for (int i = threadIdx.x; i < (int)(OWN / 16); i += 256) {
+      float4 x = p[i];
+      x.x = __fmul_rn(x.x, f.scale);
+      x.y = __fmul_rn(x.y, f.scale);
+      x.z = __fmul_rn(x.z, f.scale);
+      x.w = __fmul_rn(x.w, f.scale);
+      p[i] = x;
+    }
+    hop::named_sync(1, 256);
+  }
+  // this warpgroup's 64 columns of dQ (at DC 64 both compute the one block,
+  // and the first stores it: no wgmma on a divergent path)
+  const int mb = DC == 128 ? wg : 0;
+  float tot[32], acc[32], s[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tot[i] = acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < nkv; ++j) {
+    const int c0 = j * TF_BN;
+    const uint8_t* st = sm + L.ring + stage * L.stage;
+    const uint32_t sta = hop::smem_u32(st);
+    hop::bar_wait(full + stage, phase);
+    hop::bar_wait(ready + stage, phase);
+    // S = (q scale) K^T (warpgroup 0) or dP = dO V^T (1)
+    tf_scores<DC>(s, sm + wg * OWN, 64, rlo, t4, sta + 2 * wg * TILE, sta + (2 * wg + 1) * TILE);
+    // Warpgroup 0's values are p, warpgroup 1's dS; each computes both and
+    // stores its own (no register of a wgmma is touched on a divergent path,
+    // which would serialize the wgmmas)
+    const bool need = i0 + 64 > f.S || c0 + TF_BN > f.T ||
+                      (f.causal && (long long)qo + i0 < (long long)ko + c0 + TF_BN - 1);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = (i >> 1) & 1;
+      const bool keep = !need || wg_keep(f, i0 + rlo + 8 * r, c0 + frag_col(i, t4), qo, ko);
+      const float p = keep ? expf(s[i] - stat[r]) : 0.0f;
+      if (wg == 0) pbuf[i * 128 + wl] = p;
+    }
+    hop::named_sync(3, 256);  // p handed over
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float d0 = pbuf[i * 128 + wl] * (s[i] - stat[r]);
+      const float d1 = pbuf[(i + 1) * 128 + wl] * (s[i + 1] - stat[r]);
+      if (wg == 1) store_split(dsh, dsl, rlo + 8 * r, frag_col(i, t4), d0, d1);
+    }
+    hop::fence_async_smem();
+    hop::named_sync(4, 256);  // dS written
+    tf_outer(acc, st, st + TILE, 64 * mb + rlo, t4, hop::smem_u32(dsh), hop::smem_u32(dsl));
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[i] += acc[i];
+    __syncwarp();
+    if (lane == 0) hop::bar_arrive(empty + stage);
+    if (++stage == f.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  if (mb != wg) return;
+  // dQ^T: value i is column (query) frag_col(i) and row (head column)
+  // 64 mb + rlo + frag_row(i)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = i0 + frag_col(i, t4), d = 64 * mb + rlo + frag_row(i);
+    if (row < f.S && d < f.D)
+      dq[(((long long)b * f.S + row) * f.H + h) * f.D + d] = __fmul_rn(tot[i], f.scale);
+  }
+}
+
+// ---- backward: dk, dv (TF32) ---------------------------------------------------------------
+// One CTA per (entry, head, key tile of 64), walking the query tiles from
+// the first that sees the tile: warpgroup 0 forms S^T = K (q * scale)^T,
+// P^T into hi and lo tiles and dV^T += dO^T P^T; warpgroup 1 dP^T = V dO^T,
+// dS^T = p (dP^T - delta) into hi and lo tiles and dK^T += (q * scale)^T
+// dS^T. The helpers scale each landed query tile (f32) and split it and the
+// dO tile, and stage the tile's lse and delta.
+template <bool TMA, int DC>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                   const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dk, float* __restrict__ dv, WgShape f) {
+  uint8_t* sm = smem_base();
+  const TfLayout L = dkv_tf_layout(f.stages, DC);
+  const uint32_t TILE = tf_tile(TF_BN, DC), OWN = tf_tile(64, DC), SIDE = tf_tile(64, TF_BN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t* empty = full + TF_MAX_STAGES;
+  uint64_t* ready = empty + TF_MAX_STAGES;
+  uint64_t* kvbar = ready + TF_MAX_STAGES;
+  uint8_t* pth = sm + L.side;  // P^T hi, lo, dS^T hi, lo
+  float* stats = reinterpret_cast<float*>(pth + 4 * SIDE);  // [stage][lse, delta][TF_BN]
+  int b, dz, jt;
+  wg_coords(f.nk, 1, false, b, dz, jt);
+  const int h = blockIdx.y, c0 = jt * 64;
+  int qo, ko;
+  wg_offsets(f, b, qo, ko);
+  const int iq0 = tf_first_q(f, c0, qo, ko);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TF_MAX_STAGES; ++s) {
+      hop::bar_init(full + s, 32);
+      hop::bar_init(empty + s, 8);
+      hop::bar_init(ready + s, WG_HELPERS);
+    }
+    hop::bar_init(kvbar, 32);
+    hop::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    hop::setmaxnreg_dec<REG_PROD>();
+    if (warp == 8) {  // loads
+      const TfReq tk[2] = {{sm, &mk, k, 64, c0, f.T}, {sm + OWN, &mv, v, 64, c0, f.T}};
+      produce_tf<TMA>(kvbar, tk, DC / 32, f, b, h, lane);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = iq0; i < f.nq; ++i) {
+        hop::bar_wait(empty + stage, phase ^ 1);
+        uint8_t* st = sm + L.ring + stage * L.stage;
+        const TfReq t[2] = {{st, &mq, q, TF_BN, i * TF_BN, f.S},
+                            {st + 2 * TILE, &mdo, dout, TF_BN, i * TF_BN, f.S}};
+        produce_tf<TMA>(full + stage, t, DC / 32, f, b, h, lane);
+        if (++stage == f.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      return;
+    }
+    // helpers: q * scale (f32) and dO split, hi in place and lo beside; lse, delta
+    const int ht = threadIdx.x - 256 - 32;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = iq0; i < f.nq; ++i) {
+      const int r0 = i * TF_BN;
+      uint8_t* st = sm + L.ring + stage * L.stage;
+      float* sd = stats + stage * 2 * TF_BN;
+      hop::bar_wait(full + stage, phase);
+      split_chunks(st, st + TILE, TILE / 16, f.scale, ht, WG_HELPERS);
+      split_chunks(st + 2 * TILE, st + 3 * TILE, TILE / 16, 1.0f, ht, WG_HELPERS);
+      for (int r = ht; r < TF_BN; r += WG_HELPERS) {
+        const long long ri = ((long long)b * f.H + h) * f.S + r0 + r;
+        sd[r] = r0 + r < f.S ? lse[ri] : 0.0f;
+        sd[TF_BN + r] = r0 + r < f.S ? delta[ri] : 0.0f;
+      }
+      hop::fence_async_smem();
+      hop::bar_arrive(ready + stage);
+      if (++stage == f.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hop::setmaxnreg_inc<REG_CONS>();
+  const int wg = warp / 4, wl = threadIdx.x % 128, t4 = lane % 4;
+  const int rlo = 16 * (wl / 32) + lane / 4;  // key row of values with frag_row 0
+  uint8_t* ph = pth;
+  uint8_t* pl = pth + SIDE;
+  uint8_t* dh = pth + 2 * SIDE;
+  uint8_t* dl = pth + 3 * SIDE;
+  hop::bar_wait(kvbar, 0);
+  const int nmb = DC / 64;  // 64-column blocks of dK^T / dV^T
+  float tot[DC / 2], acc[32], s[16];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) tot[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = iq0; it < f.nq; ++it) {
+    const int r0 = it * TF_BN;
+    const uint8_t* st = sm + L.ring + stage * L.stage;
+    const uint32_t sta = hop::smem_u32(st);
+    const float* sd = stats + stage * 2 * TF_BN;
+    hop::bar_wait(full + stage, phase);
+    hop::bar_wait(ready + stage, phase);
+    const bool skip = f.causal && (long long)qo + r0 + TF_BN - 1 < (long long)ko + c0;
+    if (!skip) {
+      // S^T = K (q scale)^T (warpgroup 0) or dP^T = V dO^T (1)
+      tf_scores<DC>(s, sm + wg * OWN, 64, rlo, t4, sta + 2 * wg * TILE,
+                    sta + (2 * wg + 1) * TILE);
+      // Warpgroup 0's values are P^T, warpgroup 1's dS^T; each computes
+      // both and stores its own (no register of a wgmma is touched on a
+      // divergent path, which would serialize the wgmmas)
+      const bool need = c0 + 64 > f.T || r0 + TF_BN > f.S ||
+                        (f.causal && (long long)qo + r0 < (long long)ko + c0 + 63);
+      float p[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int qc = frag_col(i, t4), r = (i >> 1) & 1;
+        const bool keep = !need || wg_keep(f, r0 + qc, c0 + rlo + 8 * r, qo, ko);
+        p[i] = keep ? expf(s[i] - sd[qc]) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < 16; i += 2)
+        if (wg == 0) store_split(ph, pl, rlo + frag_row(i), frag_col(i, t4), p[i], p[i + 1]);
+      hop::fence_async_smem();
+      hop::named_sync(3, 256);  // P^T written
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int row = rlo + frag_row(i), col = frag_col(i, t4);
+        p[i] = lds32(ph, 64, row, col) + lds32(pl, 64, row, col);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int qc = frag_col(i, t4);
+        const float d0 = p[i] * (s[i] - sd[TF_BN + qc]);
+        const float d1 = p[i + 1] * (s[i + 1] - sd[TF_BN + qc + 1]);
+        if (wg == 1) store_split(dh, dl, rlo + frag_row(i), qc, d0, d1);
+      }
+      hop::fence_async_smem();
+      hop::named_sync(2, 256);  // dS^T written, P^T read (warpgroup 0 may overwrite it next tile)
+      // warpgroup 0: dV^T += dO^T P^T; warpgroup 1: dK^T += (q scale)^T dS^T,
+      // a 64-column block at a time, each tile into a fresh accumulator
+      const uint8_t* oh = wg == 0 ? st + 2 * TILE : st;
+      const uint32_t bh = hop::smem_u32(wg == 0 ? ph : dh), bl = hop::smem_u32(wg == 0 ? pl : dl);
+#pragma unroll
+      for (int mb = 0; mb < nmb; ++mb) {
+        tf_outer(acc, oh, oh + TILE, 64 * mb + rlo, t4, bh, bl);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) tot[32 * mb + i] += acc[i];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hop::bar_arrive(empty + stage);
+    if (++stage == f.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  // dV^T (warpgroup 0) or dK^T (1): value 32 mb + i is column (key)
+  // frag_col(i) and row (head column) 64 mb + rlo + frag_row(i)
+  float* g = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int mb = 0; mb < nmb; ++mb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = c0 + frag_col(i, t4), d = 64 * mb + rlo + frag_row(i);
+      if (key < f.T && d < f.D) g[(((long long)b * f.T + key) * f.H + h) * f.D + d] = tot[32 * mb + i];
+    }
+}
+
 // ---- launchers -------------------------------------------------------------------------
 
 // shared-memory floats of each kernel at R rows
@@ -1750,6 +2594,11 @@ static int bwd_wg_launch(const CUtensorMap* maps, const void* q, const void* k, 
 
 constexpr int WG_NOT_TAKEN = -1;  // the shape's tiles overflow shared memory: the FMA kernels
 
+// Which kernels a call took: the FMA kernels, the split-TF32 kernels (f32)
+// or the bf16 tensor-core kernels.
+constexpr int ROUTE_FMA = 0, ROUTE_TF32 = 1, ROUTE_BF16 = 2;
+static int g_last_route = -1;
+
 static int fwd_wgmma(const void* q, const void* k, const void* v, const int* qoff,
                      const int* koff, void* out, float* m, float* l, int B, int S, int T, int H,
                      int D, int causal, int state, int qo0, int ko0, float scale, int optin,
@@ -1814,6 +2663,155 @@ static int bwd_wgmma(const void* q, const void* k, const void* v, const void* do
 #undef FA_WG_BWD
 }
 
+// ---- tensor-core launchers (f32: split TF32) --------------------------------------------
+
+// TMA addresses f32 rows whose base and strides are multiples of 16 bytes.
+static bool tma_ok32(int D, std::initializer_list<const void*> ptrs) {
+  if ((D * 4) % 16 != 0 || encode_tiled() == nullptr) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// The 4-D map of x (B, n, H, D) f32, innermost first, with boxes of 32
+// columns x box_rows rows of one (entry, head), 128-byte swizzled.
+static int make_map32(CUtensorMap* m, const void* x, int B, int n, int H, int D, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)n, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4,
+                                 (cuuint64_t)n * H * D * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x),
+                                    dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The deepest ring of a backward TF32 kernel that fits `optin` bytes.
+static bool pick_tf_stages(TfLayout (*layout)(int, int), int DC, int optin, int* st) {
+  for (int s = TF_MAX_STAGES; s >= 1; --s)
+    if (layout(s, DC).total <= (uint32_t)optin) {
+      *st = s;
+      return true;
+    }
+  return false;
+}
+
+template <bool TMA, int DC>
+static int fwd_tf_launch(const CUtensorMap* maps, const void* q, const void* k, const void* v,
+                         void* out, float* m, float* l, const WgShape& f, int state,
+                         cudaStream_t stream) {
+  const uint32_t smem = fwd_tf_layout(f.nwg, f.stages, DC).total;
+  int e = (int)cudaFuncSetAttribute(flash_fwd_tf32<TMA, DC>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e) return e;
+  const dim3 grid((unsigned)((long long)f.B * f.nq), f.H);
+  flash_fwd_tf32<TMA, DC><<<grid, 128 * (f.nwg + 1), smem, stream>>>(
+      maps[0], maps[1], maps[2], (const float*)q, (const float*)k, (const float*)v, out, m, l, f,
+      state);
+  return (int)cudaGetLastError();
+}
+
+template <bool TMA, int DC>
+static int bwd_tf_launch(const CUtensorMap* maps, const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse, const float* delta, void* dq,
+                         void* dk, void* dv, const WgShape& f1, const WgShape& f2,
+                         cudaStream_t stream) {
+  const uint32_t s1 = dq_tf_layout(f1.stages, DC).total;
+  const uint32_t s2 = dkv_tf_layout(f2.stages, DC).total;
+  int e = (int)cudaFuncSetAttribute(flash_bwd_dq_tf32<TMA, DC>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  if (!e)
+    e = (int)cudaFuncSetAttribute(flash_bwd_dkv_tf32<TMA, DC>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
+  if (e) return e;
+  const dim3 g1((unsigned)((long long)f1.B * f1.nq), f1.H);
+  flash_bwd_dq_tf32<TMA, DC><<<g1, WG_THREADS, s1, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], (const float*)q, (const float*)k, (const float*)v,
+      (const float*)dout, lse, delta, (float*)dq, f1);
+  e = (int)cudaGetLastError();
+  if (e) return e;
+  const dim3 g2((unsigned)((long long)f2.B * f2.nk), f2.H);
+  flash_bwd_dkv_tf32<TMA, DC><<<g2, WG_THREADS, s2, stream>>>(
+      maps[4], maps[5], maps[6], maps[7], (const float*)q, (const float*)k, (const float*)v,
+      (const float*)dout, lse, delta, (float*)dk, (float*)dv, f2);
+  return (int)cudaGetLastError();
+}
+
+// f32 heads of D <= TF_MAX_D take the split-TF32 kernels; WG_NOT_TAKEN
+// sends wider ones to the FMA kernels. A shape rule, decided before any launch.
+static int fwd_tf32(const void* q, const void* k, const void* v, const int* qoff,
+                    const int* koff, void* out, float* m, float* l, int B, int S, int T, int H,
+                    int D, int causal, int state, int qo0, int ko0, float scale, int optin,
+                    cudaStream_t s) {
+  if (D > TF_MAX_D) return WG_NOT_TAKEN;
+  const int DC = D <= 64 ? 64 : 128;
+  int nwg = 0, st = 0;
+  for (int w = 2; w >= 1 && !nwg; --w)
+    for (int x = TF_MAX_STAGES; x >= 1; --x)
+      if (fwd_tf_layout(w, x, DC).total <= (uint32_t)optin) {
+        nwg = w;
+        st = x;
+        break;
+      }
+  if (!nwg) return WG_NOT_TAKEN;
+  const WgShape f = wg_shape(B, S, T, H, D, causal, nwg, st, DC, 64 * nwg, TF_BN, qoff, koff,
+                             qo0, ko0, scale);
+  if (!grid_ok(f, f.nq)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  const bool tma = tma_ok32(D, {q, k, v});
+  if (tma) {
+    int e = make_map32(&maps[0], q, B, S, H, D, 64 * nwg);
+    if (!e) e = make_map32(&maps[1], k, B, T, H, D, TF_BN);
+    if (!e) e = make_map32(&maps[2], v, B, T, H, D, TF_BN);
+    if (e) return e;
+  }
+#define FA_TF_FWD(TMA, C) fwd_tf_launch<TMA, C>(maps, q, k, v, out, m, l, f, state, s)
+  if (tma) return DC == 64 ? FA_TF_FWD(true, 64) : FA_TF_FWD(true, 128);
+  return DC == 64 ? FA_TF_FWD(false, 64) : FA_TF_FWD(false, 128);
+#undef FA_TF_FWD
+}
+
+static int bwd_tf32(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, const int* qoff, const int* koff,
+                    void* dq, void* dk, void* dv, int B, int S, int T, int H, int D, int causal,
+                    int qo0, int ko0, float scale, int optin, cudaStream_t s) {
+  if (D > TF_MAX_D) return WG_NOT_TAKEN;
+  const int DC = D <= 64 ? 64 : 128;
+  int st1 = 0, st2 = 0;
+  if (!pick_tf_stages(dq_tf_layout, DC, optin, &st1) ||
+      !pick_tf_stages(dkv_tf_layout, DC, optin, &st2))
+    return WG_NOT_TAKEN;
+  // dq: query tiles of 64 over key tiles of TF_BN; dk/dv: key tiles of 64
+  // over query tiles of TF_BN
+  const WgShape f1 = wg_shape(B, S, T, H, D, causal, 2, st1, DC, 64, TF_BN, qoff, koff, qo0,
+                              ko0, scale);
+  const WgShape f2 = wg_shape(B, S, T, H, D, causal, 2, st2, DC, TF_BN, 64, qoff, koff, qo0,
+                              ko0, scale);
+  if (!grid_ok(f1, f1.nq) || !grid_ok(f2, f2.nk)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[8];
+  memset(maps, 0, sizeof(maps));
+  const bool tma = tma_ok32(D, {q, k, v, dout});
+  if (tma) {
+    int e = make_map32(&maps[0], q, B, S, H, D, 64);
+    if (!e) e = make_map32(&maps[1], k, B, T, H, D, TF_BN);
+    if (!e) e = make_map32(&maps[2], v, B, T, H, D, TF_BN);
+    if (!e) e = make_map32(&maps[3], dout, B, S, H, D, 64);
+    if (!e) e = make_map32(&maps[4], q, B, S, H, D, TF_BN);
+    if (!e) e = make_map32(&maps[5], k, B, T, H, D, 64);
+    if (!e) e = make_map32(&maps[6], v, B, T, H, D, 64);
+    if (!e) e = make_map32(&maps[7], dout, B, S, H, D, TF_BN);
+    if (e) return e;
+  }
+#define FA_TF_BWD(TMA, C) \
+  bwd_tf_launch<TMA, C>(maps, q, k, v, dout, lse, delta, dq, dk, dv, f1, f2, s)
+  if (tma) return DC == 64 ? FA_TF_BWD(true, 64) : FA_TF_BWD(true, 128);
+  return DC == 64 ? FA_TF_BWD(false, 64) : FA_TF_BWD(false, 128);
+#undef FA_TF_BWD
+}
+
 // Tiles of the FMA kernels for a bf16 head too wide for the tensor-core
 // kernels (D > 448: NC = 16 there).
 #define FA_DISPATCH_WIDE(RT, NC, CALL)                  \
@@ -1825,8 +2823,8 @@ static int bwd_wgmma(const void* q, const void* k, const void* v, const void* do
 // q (B, S, H, D), k/v (B, T, H, D) in f32 (bf16 == 0) or bf16; qoff/koff (B,)
 // int32 or null (then qo0/ko0 for every entry). state == 0: out (B, S, H, D)
 // in q's type, m/l unused; state == 1: out the raw f32 accumulator, m and l
-// (B, H, S) f32. bf16 runs on the tensor cores, f32 (and a bf16 head wider
-// than the tensor-core tiles fit) on the FMA kernels.
+// (B, H, S) f32. bf16 runs on the bf16 tensor-core kernels, f32 heads up to
+// TF_MAX_D on the split-TF32 ones, wider heads of either on the FMA kernels.
 extern "C" int ts_flash_fwd(const void* q, const void* k, const void* v, const int* qoff,
                             const int* koff, void* out, float* m, float* l, int B, int S, int T,
                             int H, int D, int causal, int bf16, int state, int qo0, int ko0,
@@ -1836,11 +2834,15 @@ extern "C" int ts_flash_fwd(const void* q, const void* k, const void* v, const i
   int e = smem_optin(&optin);
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    e = fwd_wgmma(q, k, v, qoff, koff, out, m, l, B, S, T, H, D, causal, state, qo0, ko0, scale,
-                  optin, s);
-    if (e != WG_NOT_TAKEN) return e;
+  e = bf16 ? fwd_wgmma(q, k, v, qoff, koff, out, m, l, B, S, T, H, D, causal, state, qo0, ko0,
+                       scale, optin, s)
+           : fwd_tf32(q, k, v, qoff, koff, out, m, l, B, S, T, H, D, causal, state, qo0, ko0,
+                      scale, optin, s);
+  if (e != WG_NOT_TAKEN) {
+    g_last_route = bf16 ? ROUTE_BF16 : ROUTE_TF32;
+    return e;
   }
+  g_last_route = ROUTE_FMA;
   e = pick_tile(D, fwd_smem, optin, &rt, &nc);
   if (e) return e;
   const FlashShape f = make_shape(B, S, T, H, D, causal, rt, nc, qoff, koff, qo0, ko0, scale);
@@ -1865,11 +2867,15 @@ extern "C" int ts_flash_bwd(const void* q, const void* k, const void* v, const v
   int e = smem_optin(&optin);
   if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    e = bwd_wgmma(q, k, v, dout, lse, delta, qoff, koff, dq, dk, dv, B, S, T, H, D, causal,
-                  out_f32, qo0, ko0, scale, optin, s);
-    if (e != WG_NOT_TAKEN) return e;
+  e = bf16 ? bwd_wgmma(q, k, v, dout, lse, delta, qoff, koff, dq, dk, dv, B, S, T, H, D, causal,
+                       out_f32, qo0, ko0, scale, optin, s)
+           : bwd_tf32(q, k, v, dout, lse, delta, qoff, koff, dq, dk, dv, B, S, T, H, D, causal,
+                      qo0, ko0, scale, optin, s);
+  if (e != WG_NOT_TAKEN) {
+    g_last_route = bf16 ? ROUTE_BF16 : ROUTE_TF32;
+    return e;
   }
+  g_last_route = ROUTE_FMA;
   e = pick_tile(D, dkv_smem, optin, &rt, &nc);  // the larger of the pair's needs
   if (e) return e;
   const FlashShape f = make_shape(B, S, T, H, D, causal, rt, nc, qoff, koff, qo0, ko0, scale);
@@ -1882,6 +2888,10 @@ extern "C" int ts_flash_bwd(const void* q, const void* k, const void* v, const v
   }
   FA_DISPATCH(rt, nc, FA_BWD_F32)
 }
+
+// The kernels the last ts_flash_fwd or ts_flash_bwd call took (ROUTE_*),
+// -1 before any; a record of the shape rule, read by the wrappers.
+extern "C" int ts_flash_last_route() { return g_last_route; }
 
 extern "C" const char* ts_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);

@@ -20,7 +20,12 @@ of ``vmap``:
   its kernel(s) or raises; on a CPU tensor it runs the plain version
   (``_flash_fwd_plain`` / ``_flash_bwd_plain``). The dense and compact
   TPU grids are one CUDA loop with another bound, so a compact wrapper
-  launches the same kernel as its dense twin with static offsets.
+  launches the same kernel as its dense twin with static offsets. The
+  kernels are chosen by dtype and head width alone (``csrc/
+  flash_attention.cu``): f32 heads up to 128 columns run split TF32 on the
+  tensor cores, bf16 heads up to 448 the bf16 tensor-core kernels, wider
+  heads the FMA kernels; after each launch a wrapper's ``route`` attribute
+  names the kernels it took (``FLASH_ROUTES``).
 - ``_pick_block``: a tile hint (the TPU's power-of-two divisor rule no
   longer refuses anything): the kernels take any S, T >= 1 and mask their
   ragged edges. ``block_q``/``block_k`` are accepted everywhere and do not
@@ -66,6 +71,9 @@ POOL_DTYPES = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 PAGED_Q_DTYPES = (torch.float32, torch.bfloat16)
 #: q/k/v dtypes the flash kernels take
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
+#: ``ts_flash_last_route()`` -> the kernels a flash launch took: the FMA
+#: kernels (wide heads), split TF32 (f32) or the bf16 tensor-core kernels
+FLASH_ROUTES = ("fma", "tf32", "bf16")
 
 
 # ---- flash attention -------------------------------------------------------------
@@ -184,6 +192,8 @@ def _flash_lib() -> ctypes.CDLL:
     lib.ts_flash_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                                  + [ctypes.c_float, ctypes.c_void_p])
     lib.ts_flash_bwd.restype = ctypes.c_int
+    lib.ts_flash_last_route.argtypes = []
+    lib.ts_flash_last_route.restype = ctypes.c_int
     return lib
 
 
@@ -237,6 +247,7 @@ def _launch_fwd(wrapper, q, k, v, q_offset, kv_offset, causal, return_state):
             qo, ko, _kernel_scale(D, q.dtype), stream_of(q))
     check_status(lib, err, wrapper.__name__)
     wrapper.launches += 1
+    wrapper.route = FLASH_ROUTES[lib.ts_flash_last_route()]
     return (out, m, l) if return_state else out
 
 
@@ -271,6 +282,7 @@ def _launch_bwd(wrapper, q, k, v, do, lse, delta, q_offset, kv_offset, causal, o
             _kernel_scale(D, q.dtype), stream_of(q))
     check_status(lib, err, wrapper.__name__)
     wrapper.launches += 1
+    wrapper.route = FLASH_ROUTES[lib.ts_flash_last_route()]
     return dq, dk, dv
 
 
@@ -280,7 +292,8 @@ def _flash_fwd_call(q, k, v, q_offset, kv_offset, causal: bool, block_q=None, bl
     leading dims: one per ring rank and batch row): q ``(..., S, H, D)``,
     k/v ``(..., T, H, D)`` -> out ``(..., S, H, D)`` in q's dtype, or with
     ``return_state`` (acc f32 ``(..., S, H, D)``, m, l ``(..., H, S)``).
-    One launch of ``flash_fwd_kernel``; ``block_q``/``block_k`` are ignored."""
+    One launch of the forward kernel (``route`` names which);
+    ``block_q``/``block_k`` are ignored."""
     del block_q, block_k
     if not route(q, "_flash_fwd_call"):
         return _flash_fwd_plain(q, k, v, q_offset, kv_offset, causal, return_state)
@@ -290,7 +303,7 @@ def _flash_fwd_call(q, k, v, q_offset, kv_offset, causal: bool, block_q=None, bl
 def _flash_fwd_compact(q, k, v, q_offset: int, kv_offset: int, block_q=None, block_k=None,
                        return_state: bool = False):
     """The causal forward at int offsets (self-attention): the TPU's compact
-    grid, here ``flash_fwd_kernel`` with its causal loop bound. Never None:
+    grid, here the forward kernel with its causal loop bound. Never None:
     fully masked rows come out zero."""
     del block_q, block_k
     if not (_is_static(q_offset) and _is_static(kv_offset)):
@@ -304,8 +317,8 @@ def _flash_bwd_call(q, k, v, do, lse, delta, q_offset, kv_offset, causal: bool, 
                     block_k=None, out_dtype=None):
     """dq, dk, dv from the saved lse and delta (``(..., H, S)`` f32), at any
     offsets; ``out_dtype`` float32 gives f32 partials (the ring backward
-    sums several calls), else q's dtype. One call launches
-    ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (counted once)."""
+    sums several calls), else q's dtype. One call launches the dq and the
+    dk/dv kernel (counted once; ``route`` names which pair)."""
     del block_q, block_k
     if not route(q, "_flash_bwd_call"):
         return _flash_bwd_plain(q, k, v, do, lse, delta, q_offset, kv_offset, causal, out_dtype)
@@ -587,3 +600,5 @@ def verify_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None, v_
 WRAPPERS = (_flash_fwd_call, _flash_fwd_compact, _flash_bwd_call, _flash_bwd_compact,
             paged_attention)
 reset_launches, launch_counts = counters(WRAPPERS)
+for _w in WRAPPERS[:4]:
+    _w.route = None
