@@ -130,6 +130,7 @@ import importlib
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -1446,12 +1447,9 @@ FLASH_CASES = [
 # tensor-core kernels up to D 448, the FMA kernels above
 FLASH_TC_MAX_D = {torch.float32: 128, torch.bfloat16: 448}
 FLASH_TC_ROUTE = {torch.float32: "tf32", torch.bfloat16: "bf16"}
-# the CUDA kernels behind each route, for the kernels line
-FLASH_KERNELS = {
-    ("tf32", "fwd"): ["flash_fwd_tf32"], ("tf32", "bwd"): ["flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"],
-    ("bf16", "fwd"): ["flash_fwd_wgmma"], ("bf16", "bwd"): ["flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"],
-    ("fma", "fwd"): ["flash_fwd_kernel"], ("fma", "bwd"): ["flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"],
-}
+# the suffix of each route's kernel names in the built library
+# (flash_fwd_tf32, flash_bwd_dq_wgmma, flash_bwd_dkv_kernel, ...)
+FLASH_ROUTE_SUFFIX = {"tf32": "_tf32", "bf16": "_wgmma", "fma": "_kernel"}
 # the timed shapes: config 6 (S 4096, H 8, D 128, one sequence) and config
 # 11's attention (batch 8 of S 2048, H 8, D 128, per-entry offsets as the
 # ring hands them over)
@@ -1616,8 +1614,8 @@ def _flash_one_pass_fault(got, q, k, v, do, lse, delta, qo, ko, causal, label) -
 
 def _hgmma_counts() -> dict:
     """``cuobjdump -sass`` of the built flash library: the HGMMA
-    (warpgroup MMA) instructions of each tensor-core kernel (bf16 and
-    split TF32)."""
+    (warpgroup MMA) instructions of each flash kernel instantiation, by its
+    mangled name (0 for the FMA kernels)."""
     from tpuscratch_torch.ops.common import build_all, nvcc_path
 
     lib = build_all()["flash_attention"]
@@ -1628,13 +1626,30 @@ def _hgmma_counts() -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            if "wgmma" in fn or "tf32" in fn:
+            if "flash_" in fn:
                 counts[fn] = 0
             else:
                 fn = None
         elif fn and "HGMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def _kernel_name(mangled: str) -> str:
+    """The source name of a mangled kernel name (_Z14flash_fwd_tf32I... ->
+    flash_fwd_tf32)."""
+    m = re.match(r"_Z(\d+)", mangled)
+    return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+
+
+def _route_kernels(built, route: str, part: str) -> list:
+    """The names, read from the built library's SASS, of the kernels a flash
+    call of ``route`` launches, ``part`` "fwd" or "bwd"."""
+    names = sorted({n for n in map(_kernel_name, built) if n.startswith(f"flash_{part}_")
+                    and n.endswith(FLASH_ROUTE_SUFFIX[route])})
+    if not names:
+        raise AssertionError(f"no {route} {part} flash kernel in the built library: {built}")
+    return names
 
 
 def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[dict, list]:
@@ -1678,10 +1693,11 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
     hgmma = _hgmma_counts()
     for fn, n in sorted(hgmma.items()):
         log(f"  sass {fn}: {n} HGMMA")
-    for tag, dt in (("tf32", torch.float32), ("wgmma", torch.bfloat16)):
-        mine = [n for fn, n in hgmma.items() if tag in fn]
+    for route, dt in (("tf32", torch.float32), ("bf16", torch.bfloat16)):
+        mine = [n for fn, n in hgmma.items()
+                if _kernel_name(fn).endswith(FLASH_ROUTE_SUFFIX[route])]
         if dt in dtypes and (len(mine) != 12 or min(mine) == 0):
-            raise AssertionError(f"a {tag} flash kernel is missing or has no HGMMA: {hgmma}")
+            raise AssertionError(f"a {route} flash kernel is missing or has no HGMMA: {hgmma}")
 
     for dtype in dtypes:
         for lead, S, T, H, D, causal, qo, ko in FLASH_CASES:
@@ -1772,7 +1788,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                     plain_ms=device_ms(pcall, n=3),
                     library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=10),
                     library_shape="SDPA forward on (B, H, S, D) copies", bound_ms=b, bound_by=by,
-                    gflop=fflops / 1e9, cuda_kernels=FLASH_KERNELS[(fwd_route, "fwd")],
+                    gflop=fflops / 1e9, cuda_kernels=_route_kernels(hgmma, fwd_route, "fwd"),
                     **({"fma_bound_ms": fflops / F32_FLOP_PER_S * 1e3}
                        if dtype == torch.float32 else {})))
                 acc, m, l = ta._flash_fwd_plain(q, k, v, qo, ko, causal, True)
@@ -1826,7 +1842,7 @@ def phase17_flash_kernels(gen, dtypes=(torch.float32, torch.bfloat16)) -> tuple[
                     ms=device_ms(bcall, n=5), plain_ms=device_ms(pbcall, n=2), library_ms=lib,
                     library_shape="SDPA's autograd backward on (B, H, S, D) copies",
                     bound_ms=b, bound_by=by, gflop=bflops / 1e9,
-                    cuda_kernels=FLASH_KERNELS[(bwd_route, "bwd")],
+                    cuda_kernels=_route_kernels(hgmma, bwd_route, "bwd"),
                     **({"fma_bound_ms": bflops / F32_FLOP_PER_S * 1e3}
                        if dtype == torch.float32 else {})))
                 del q, k, v, do, qt, kt, vt, qg, kg, vg, so, dot, o, lse, delta
@@ -2499,7 +2515,6 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),
             **({"cuda_kernels": row["cuda_kernels"]} if "cuda_kernels" in row else {}),
-            **({"fma_bound_ms": row["fma_bound_ms"]} if "fma_bound_ms" in row else {}),
         })
     wrappers = (sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
                 + ta.WRAPPERS + tadam.WRAPPERS + tb.WRAPPERS)

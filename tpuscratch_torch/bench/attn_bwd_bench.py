@@ -8,7 +8,8 @@ D = 128, f32 and bf16, causal and full, through ``_flash_bwd_call``
 causal credited at half. The TPU block retunes it raced have no CUDA
 counterpart: the kernels' tile follows D and the card's shared memory.
 
-Usage: python -m tpuscratch_torch.bench.attn_bwd_bench [rounds]
+Usage: python -m tpuscratch_torch.bench.attn_bwd_bench [rounds] [D]
+(D, the head width, 128 unless given)
 """
 
 from __future__ import annotations
@@ -66,11 +67,13 @@ def time_backward(S: int = S, T: int = T, H: int = H, D: int = D, dtype=torch.fl
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     rounds = int(argv[0]) if argv else 20
+    d = int(argv[1]) if len(argv) > 1 else D
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             for compact in ((False, True) if causal else (False,)):
-                r = time_backward(dtype=dtype, causal=causal, compact=compact, rounds=rounds)
-                print(f"# {r['dtype']} causal={int(causal)} "
+                r = time_backward(D=d, dtype=dtype, causal=causal, compact=compact,
+                                  rounds=rounds)
+                print(f"# D={d} {r['dtype']} causal={int(causal)} "
                       f"{'compact' if compact else 'dense'}: {r['s'] * 1e3:.3f} ms/bwd = "
                       f"{r['tflops']:.1f} TFLOP/s", flush=True)
     return 0

@@ -1585,7 +1585,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constan
 //     the online softmax and O for its rows.
 //   - dq: one tile of 64 queries, two consumer warpgroups: the first forms S
 //     and p, the second dP and dS = p (dP - delta) (p handed over in shared
-//     memory); each then computes dQ^T for one 64-column half of the head.
+//     memory); each then computes half of dQ^T: one 64-column half of the
+//     head (D over 64) or, at D 64 or less, half of the tile's queries.
 //   - dk/dv: one tile of 64 keys: the first consumer warpgroup forms S^T and
 //     P^T, then dV^T; the second dP^T and dS^T (p read back as hi + lo, to
 //     2^-22), then dK^T. Two kernels and no atomics: every call gives the
@@ -1797,11 +1798,21 @@ __device__ __forceinline__ void tf_scores(float (&s)[16], const uint8_t* a, int 
   hop::fence_regs(s);
 }
 
-// D (64 x 64) = A B^T over TF_BN in split TF32, the transposed products:
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  if constexpr (N == 32)
+    hop::wgmma_tf32_n32(d, a, db, acc);
+  else
+    hop::wgmma_tf32_n64(d, a, db, acc);
+}
+
+// D (64 x N) = A B^T over TF_BN in split TF32, the transposed products:
 // A[m][k] = t[k][m0 + m] gathered from the hi and lo tiles of an operand
-// ([TF_BN rows x DC], already split), B the hi and lo tiles (64 x TF_BN).
-// Returns with every wgmma done.
-__device__ __forceinline__ void tf_outer(float (&d)[32], const uint8_t* th, const uint8_t* tl,
+// ([TF_BN rows x DC], already split), B the hi and lo tiles (N x TF_BN, N
+// 32 or 64). Returns with every wgmma done.
+template <int N>
+__device__ __forceinline__ void tf_outer(float (&d)[N / 2], const uint8_t* th, const uint8_t* tl,
                                          int r, int t4, uint32_t bh, uint32_t bl) {
   hop::wgmma_fence();
 #pragma unroll
@@ -1809,9 +1820,9 @@ __device__ __forceinline__ void tf_outer(float (&d)[32], const uint8_t* th, cons
     uint32_t ah[4], al[4];
     frag_cols(th, TF_BN, r, 8 * kk + t4, ah);
     frag_cols(tl, TF_BN, r, 8 * kk + t4, al);
-    hop::wgmma_tf32_n64(d, ah, desc_tf(bl, 64, kk), kk > 0);
-    hop::wgmma_tf32_n64(d, al, desc_tf(bh, 64, kk), 1);
-    hop::wgmma_tf32_n64(d, ah, desc_tf(bh, 64, kk), 1);
+    wgmma_tf32<N>(d, ah, desc_tf(bl, 64, kk), kk > 0);
+    wgmma_tf32<N>(d, al, desc_tf(bh, 64, kk), 1);
+    wgmma_tf32<N>(d, ah, desc_tf(bh, 64, kk), 1);
   }
   hop::wgmma_commit();
   hop::wgmma_wait_all();
@@ -2040,9 +2051,10 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ C
 // ---- backward: dq (TF32) -----------------------------------------------------------------
 // One CTA per (entry, head, query tile of 64), walking the key tiles:
 // warpgroup 0 forms S = (q * scale) K^T and p = exp(S - lse), warpgroup 1
-// dP = dO V^T and dS = p (dP - delta) into hi and lo tiles; then warpgroup w
-// adds dQ^T's columns [64 w, 64 w + 64) += K^T dS^T. The helpers split each
-// landed K and V tile.
+// dP = dO V^T and dS = p (dP - delta) into hi and lo tiles; then each
+// warpgroup adds its block of dQ^T += K^T dS^T: at DC 128 the head columns
+// [64 w, 64 w + 64) for all 64 queries, at DC 64 the 64 head columns for
+// the queries [32 w, 32 w + 32). The helpers split each landed K and V tile.
 template <bool TMA, int DC>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
@@ -2141,12 +2153,13 @@ flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     }
     hop::named_sync(1, 256);
   }
-  // this warpgroup's 64 columns of dQ (at DC 64 both compute the one block,
-  // and the first stores it: no wgmma on a divergent path)
-  const int mb = DC == 128 ? wg : 0;
-  float tot[32], acc[32], s[16];
+  // this warpgroup's block of dQ^T: head columns from 64 mb, queries from
+  // 32 qb, QN of them
+  constexpr int QN = DC == 128 ? 64 : 32;
+  const int mb = DC == 128 ? wg : 0, qb = DC == 128 ? 0 : wg;
+  float tot[QN / 2], acc[QN / 2], s[16];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) tot[i] = acc[i] = 0.0f;
+  for (int i = 0; i < QN / 2; ++i) tot[i] = acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < 16; ++i) s[i] = 0.0f;
   int stage = 0;
@@ -2181,9 +2194,11 @@ flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
     }
     hop::fence_async_smem();
     hop::named_sync(4, 256);  // dS written
-    tf_outer(acc, st, st + TILE, 64 * mb + rlo, t4, hop::smem_u32(dsh), hop::smem_u32(dsl));
+    // rows 32 qb on of the dS tiles: whole 8-row swizzle atoms
+    tf_outer<QN>(acc, st, st + TILE, 64 * mb + rlo, t4, hop::smem_u32(dsh) + qb * 32 * 128,
+                 hop::smem_u32(dsl) + qb * 32 * 128);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) tot[i] += acc[i];
+    for (int i = 0; i < QN / 2; ++i) tot[i] += acc[i];
     __syncwarp();
     if (lane == 0) hop::bar_arrive(empty + stage);
     if (++stage == f.stages) {
@@ -2191,12 +2206,11 @@ flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant_
       phase ^= 1;
     }
   }
-  if (mb != wg) return;
-  // dQ^T: value i is column (query) frag_col(i) and row (head column)
-  // 64 mb + rlo + frag_row(i)
+  // dQ^T: value i is column (query) 32 qb + frag_col(i) and row (head
+  // column) 64 mb + rlo + frag_row(i)
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int row = i0 + frag_col(i, t4), d = 64 * mb + rlo + frag_row(i);
+  for (int i = 0; i < QN / 2; ++i) {
+    const int row = i0 + 32 * qb + frag_col(i, t4), d = 64 * mb + rlo + frag_row(i);
     if (row < f.S && d < f.D)
       dq[(((long long)b * f.S + row) * f.H + h) * f.D + d] = __fmul_rn(tot[i], f.scale);
   }
@@ -2357,7 +2371,7 @@ flash_bwd_dkv_tf32(const __grid_constant__ CUtensorMap mq, const __grid_constant
       const uint32_t bh = hop::smem_u32(wg == 0 ? ph : dh), bl = hop::smem_u32(wg == 0 ? pl : dl);
 #pragma unroll
       for (int mb = 0; mb < nmb; ++mb) {
-        tf_outer(acc, oh, oh + TILE, 64 * mb + rlo, t4, bh, bl);
+        tf_outer<64>(acc, oh, oh + TILE, 64 * mb + rlo, t4, bh, bl);
 #pragma unroll
         for (int i = 0; i < 32; ++i) tot[32 * mb + i] += acc[i];
       }
