@@ -5,7 +5,9 @@
 kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 
 1. card and toolchain: the card's name and power limit, nvcc, torch,
-   whether ``import triton`` works, and the kernels' build;
+   whether ``import triton`` works, and the kernels' build, with no spill
+   store in a tensor-core flash, paged-attention or ``dma_hbm_step``
+   instantiation;
 2. every kernel against its plain torch version on the card, at a ragged
    small shape, at the 1024^2 headline shape and at the 8192^2 world
    (``resident`` at the largest grid its L2 rule admits, and its refusal
@@ -34,8 +36,9 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    stacked mesh of ragged 37x53 tiles, 5- and 9-point coefficients,
    depths 1, 3 and 8 with step counts that leave a remainder, the
    streamed kernel in wrap mode on 1x1 and in ghost mode on 2x2, periodic
-   and open, and the full shapes (8192^2 on 4x4, 1024^2 on 1x1); each
-   kernel's time beside its bound, its plain time and a convolution's;
+   and open, and the full shapes (8192^2 on 4x4, 1024^2 on 1x1), the
+   route ``dma_hbm_step`` took logged; each kernel's time beside its bound,
+   its plain time and a convolution's;
 9. their path: ``distributed_stencil`` with ``stream:16``, ``dma``,
    ``dma-deep:8`` and ``dma-hbm`` at 1024^2 on 1x1 and 8192^2 on a 4x4
    mesh stacked on the card, each held against ``xla``; the launch counts
@@ -58,13 +61,18 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    before and read just after;
 13. BASELINE config 9 (the 3D stencil at 256x512x512) through
    ``bench.record``;
-14. the paged-attention kernel against its plain version: f32, int8 and fp8
-   pools, K = 1, 4 and 20 (past page + 1), ragged lengths, sentinel table
-   entries and an idle slot, at a small ragged geometry and at config 12's
-   (8 heads, d_head 128, 16-token pages); K = 65 and 128 (several query
-   groups), d_head 384 (several output tiles) and a bf16 q; then its time at config 12's
-   decode shape (32 sequences of 128 cached tokens) beside its bound, its
-   plain time and SDPA's over the pre-gathered view;
+14. the paged-attention kernels against their plain version: f32, int8 and
+   fp8 pools, K = 1, 4 and 20 (past page + 1), ragged lengths, sentinel
+   table entries and an idle slot, at a small ragged geometry and at config
+   12's (8 heads, d_head 128, 16-token pages); K = 65 and 128 (several
+   query groups), d_head 384 and a bf16 q; each case's load route and split
+   count logged; then their time at config 12's decode shape (32 sequences
+   of 128 cached tokens), warm and L2-cold (8 tables over disjoint pages of
+   a 2048-page pool, rotated), and at 4 sequences of 4096 (split over the
+   positions, two calls bit-equal, beside the same kernels unsplit), each
+   beside its bound, its plain time and SDPA's over the pre-gathered view;
+   and a planted fault the unchanged limit must catch: the split model's
+   combine with one split's rescale factor dropped;
 15. the serving path: ``ServeEngine`` at config 12's model (d_model 1024,
    4 layers, 4 experts) on a 1x1 mesh, 8 requests of prompt 64 and 32 new
    tokens, greedy, with the kernel and with the plain attention: equal
@@ -126,7 +134,9 @@ checkout of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import importlib
+import itertools
 import json
 import math
 import pathlib
@@ -224,6 +234,11 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the paged kernel's instantiations: 3 pool dtypes x (16-byte or narrower
+# loads) x (nj 1, 2, 4 or a wide head), and the combine kernel
+PAGED_INSTANTIATIONS = 3 * 2 * 4 + 1
+
+
 def phase1_card() -> dict:
     from tpuscratch_torch.ops.common import build_all, build_log, nvcc_path
 
@@ -249,21 +264,36 @@ def phase1_card() -> dict:
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    # the tensor-core flash kernels (bf16 wgmma and split TF32) hold their
-    # accumulators in registers: a spill is a design fault, not a slowdown
+    # kernels that hold their working set in registers, where a spill is a
+    # design fault, not a slowdown: the tensor-core flash kernels (bf16
+    # wgmma and split TF32: accumulators), the paged-attention kernels (q,
+    # the accumulator and a warp's tokens) and the stencil step (its
+    # register window of rows)
+    for lib, what, pick, want in (
+            ("flash_attention", "tensor-core flash", lambda f: "wgmma" in f or "tf32" in f, 24),
+            ("paged_attention", "paged-attention", lambda f: "paged_" in f, PAGED_INSTANTIATIONS),
+            ("halo_dma", "dma_hbm_step", lambda f: "dma_hbm_step" in f, 4)):
+        spills = _spill_stores(build_log(lib), pick)
+        log(f"  ptxas: {len(spills)} {what} kernels, spill stores "
+            f"{sorted(set(spills.values()))} bytes")
+        if len(spills) != want or any(spills.values()):
+            raise AssertionError(f"a {what} kernel spills or is missing "
+                                 f"(want {want}): {spills}")
+    return {"nvcc": nvcc}
+
+
+def _spill_stores(log_text: str, pick) -> dict:
+    """Spill-store bytes of every kernel of a ptxas report whose mangled
+    name ``pick`` accepts."""
     spills, fn = {}, None
-    for line in build_log("flash_attention").splitlines():
+    for line in log_text.splitlines():
         if "Function properties for " in line:
             fn = line.split("Function properties for ")[1].strip()
         elif fn and "spill stores" in line:
-            if "wgmma" in fn or "tf32" in fn:
+            if pick(fn):
                 spills[fn] = int(line.split("bytes spill stores")[0].split(",")[-1])
             fn = None
-    log(f"  ptxas: {len(spills)} tensor-core flash kernels, spill stores "
-        f"{sorted(set(spills.values()))} bytes")
-    if len(spills) != 24 or any(spills.values()):
-        raise AssertionError(f"a tensor-core flash kernel spills or is missing: {spills}")
-    return {"nvcc": nvcc}
+    return spills
 
 
 def phase2_kernels(gen) -> tuple[dict, list]:
@@ -672,7 +702,7 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
                   f"(2, 3)+37x53 k={depth} steps={steps} {len(coeffs)}pt")
     for coeffs in (odd, C9, NINE):
         check("dma_hbm_step", hd.dma_hbm_step(cores, coeffs), hd.dma_hbm_step_plain(cores, coeffs),
-              f"(2, 3)+37x53 {len(coeffs)}pt")
+              f"(2, 3)+37x53 {len(coeffs)}pt {hd.dma_hbm_step.route}")
 
     # the full shapes: 8192^2 on a 4x4 mesh (2048^2 tiles), 1024^2 on 1x1;
     # correctness, then times beside bounds (Jacobi, the main path's)
@@ -723,9 +753,9 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
         check("dma_deep", hd.dma_deep(cores, 5, NINE, 3), hd.dma_deep_plain(cores, 5, NINE, 3),
               f"{label} k=3 steps=5 9pt")
         check("dma_hbm_step", hd.dma_hbm_step(cores, JACOBI), hd.dma_hbm_step_plain(cores, JACOBI),
-              f"{label} 5pt")
+              f"{label} 5pt {hd.dma_hbm_step.route}")
         check("dma_hbm_step", hd.dma_hbm_step(cores, C9), hd.dma_hbm_step_plain(cores, C9),
-              f"{label} 9pt")
+              f"{label} 9pt {hd.dma_hbm_step.route}")
         world = cores.permute(0, 2, 1, 3).reshape(lead[0] * n, lead[1] * n)
         torus = {k: torch.nn.functional.pad(world[None, None], (k, k, k, k), mode="circular")
                  for k in (1, deep_k)}
@@ -1175,6 +1205,13 @@ PAGED_BF16_ATOL = 1e-2
 # 32 sequences of 128 cached tokens, one query each
 PAGED_GEOM = dict(H=8, D=128, page=16)
 PAGED_TIMED = dict(B=32, T=128)
+# the split case (few sequences, a long cache) and the L2-cold setup: a
+# 2048-page pool read through 8 tables over disjoint pages (a 32 x 128
+# table reads 33.5 MB of f32 pages, 8.4 MB of int8 or fp8: 8 tables keep
+# even those past the 50 MB L2 before a table comes back)
+PAGED_LONG = dict(B=4, T=4096)
+PAGED_COLD_POOL = 2048
+PAGED_COLD_TABLES = 8
 
 
 def _paged_ops(gen, B, K, H, D, page, P, max_pages, dtype, lens=None):
@@ -1201,12 +1238,73 @@ def _paged_ops(gen, B, K, H, D, page, P, max_pages, dtype, lens=None):
             torch.from_numpy(np.asarray(lens, np.int32)).to(DEVICE), ks, vs)
 
 
+def _paged_route() -> str:
+    from tpuscratch_torch.ops import attention as ta
+
+    return f"route {ta.paged_attention.route}, {ta.paged_attention.splits} split(s)"
+
+
+def _paged_bytes(B, T, page, H, D, k, q, table, lens) -> int:
+    """What a call must move: the pages it reads (K, V and their scales),
+    q in, out, the table and the lengths."""
+    n_pages_read = B * -(-T // page)
+    scales = 2 * n_pages_read * H * 4 if k.dtype != torch.float32 else 0
+    return (2 * n_pages_read * page * H * D * k.element_size() + scales
+            + 2 * q.numel() * q.element_size() + table.numel() * 4 + lens.numel() * 4)
+
+
+def _pregathered(k, v, table, T):
+    """SDPA's operands: the pages a call reads, gathered once into
+    (B, H, T, D) f32 views (the gather is not timed)."""
+    from tpuscratch_torch.ops import attention as ta
+
+    tc = table[:, :-(-T // PAGED_GEOM["page"])]
+    return (ta._gather_pages(k, tc).float().transpose(1, 2).contiguous(),
+            ta._gather_pages(v, tc).float().transpose(1, 2).contiguous())
+
+
+def _rotating(fns):
+    """One call of each of ``fns`` in turn, a call per invocation."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+def _cold_pool(gen, dtype, B, T):
+    """An L2-cold setup at config 12's geometry: a PAGED_COLD_POOL-page
+    pool and PAGED_COLD_TABLES tables over disjoint pages of it, so that a
+    table comes back only after the others have read more than the L2."""
+    from tpuscratch_torch.serve.kvcache import quantize_pages
+
+    H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
+    P = PAGED_COLD_POOL
+    per = B * -(-T // page)
+    rng = np.random.default_rng(int(torch.randint(0, 2**31, (1,), generator=gen, device=DEVICE)))
+    perm = rng.permutation(P)
+    tables = [torch.from_numpy(perm[j * per:(j + 1) * per].reshape(B, -1).astype(np.int32))
+              .to(DEVICE) for j in range(P // per)][:PAGED_COLD_TABLES]
+    kf, vf = randn((P, page, H, D), gen), randn((P, page, H, D), gen)
+    if dtype == torch.float32:
+        k, v, ks, vs = kf, vf, None, None
+    else:
+        (k, ks), (v, vs) = quantize_pages(kf, dtype), quantize_pages(vf, dtype)
+    del kf, vf
+    q = randn((B, 1, H, D), gen)
+    lens = torch.full((B,), T, dtype=torch.int32, device=DEVICE)
+    return q, k, v, tables, lens, ks, vs
+
+
 def phase14_paged_kernel(gen) -> tuple[dict, list]:
-    """The paged-attention kernel against its plain version on the dtype
+    """The paged-attention kernels against their plain version on the dtype
     ladder, K = 1, 4 and 20 (20 > page + 1), ragged lengths, sentinels and
-    an idle slot, at a small ragged geometry and at config 12's; then its
-    time at config 12's decode shape beside its bound, its plain time and
-    SDPA's over the pre-gathered view (gather excluded)."""
+    an idle slot, at a small ragged geometry and at config 12's, each
+    case's route and split count logged; then their time at config 12's
+    decode shape (warm, and L2-cold over rotating tables) and at B 4 x T
+    4096 (the split case, beside the same kernels unsplit) beside the
+    bound, the plain time and SDPA's over the pre-gathered view (gather
+    excluded); and the planted fault the limit must catch: the combine
+    with one split's rescale factor dropped."""
+    import dataclasses
+
     from tpuscratch_torch.ops import attention as ta
 
     err = 0.0
@@ -1224,7 +1322,8 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
                                          "not zero")
                 err = max(err, e)
                 log(f"  paged_attention {str(dtype)[6:]:14s} K={K:2d} H={geom['H']} "
-                    f"D={geom['D']:3d} page={geom['page']:2d} B={B}: max_abs_err {e:.3e}")
+                    f"D={geom['D']:3d} page={geom['page']:2d} B={B}: max_abs_err {e:.3e}, "
+                    f"{_paged_route()}")
     # past the old refusals: 65 and 128 queries (two groups of 64), d_head
     # 384 (three output tiles), and a bf16 q (bf16 out, one bf16 ulp)
     for K, D, dtype, qdt in ((65, 128, torch.float32, torch.float32),
@@ -1245,19 +1344,16 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
         if qdt == torch.float32:
             err = max(err, e)
         log(f"  paged_attention {str(dtype)[6:]:14s} K={K:3d} H=8 D={D:3d} page=16 B=6 "
-            f"q {str(qdt)[6:]}: max_abs_err {e:.3e} (atol {atol:g}), out {str(got.dtype)[6:]}")
-    B, T = PAGED_TIMED["B"], PAGED_TIMED["T"]
+            f"q {str(qdt)[6:]}: max_abs_err {e:.3e} (atol {atol:g}), out {str(got.dtype)[6:]}, "
+            f"{_paged_route()}")
     H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
+    B, T = PAGED_TIMED["B"], PAGED_TIMED["T"]
     for dtype in dtypes:
         q, k, v, table, lens, ks, vs = _paged_ops(gen, B, 1, H, D, page, 512, 9, dtype,
                                                   lens=np.full(B, T))
-        esize = k.element_size()
-        n_pages_read = B * -(-T // page)
-        scales = 2 * n_pages_read * H * 4 if ks is not None else 0
-        nbytes = (2 * n_pages_read * page * H * D * esize + scales
-                  + 2 * q.numel() * 4 + table.numel() * 4 + lens.numel() * 4)
-        b, by = bound(nbytes, 4 * B * H * T * D)
+        b, by = bound(_paged_bytes(B, T, page, H, D, k, q, table, lens), 4 * B * H * T * D)
         e = max_err(ta.paged_attention(q, k, v, table, lens, ks, vs),
                     ta._verify_attention_dense(q, k, v, table, lens, ks, vs))
         if e > PAGED_ATOL:
@@ -1265,13 +1361,10 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
                                  f"max_abs_err {e:.3e} (atol {PAGED_ATOL:g})")
         err = max(err, e)
         log(f"  paged_attention {str(dtype)[6:]:14s} K= 1 H={H} D={D:3d} page={page:2d} B={B} "
-            f"P=512 (the timed case): max_abs_err {e:.3e}")
-        tc = table[:, :-(-T // page)]                              # the pages the kernel reads
-        kg = ta._gather_pages(k, tc).float().transpose(1, 2)       # (B, H, T, D), gathered once
-        vg = ta._gather_pages(v, tc).float().transpose(1, 2)
+            f"P=512 (the timed case): max_abs_err {e:.3e}, {_paged_route()}")
+        kg, vg = _pregathered(k, v, table, T)
         qs = q.transpose(1, 2)                                     # (B, H, 1, D)
         mask = (torch.arange(kg.shape[2], device=DEVICE) < lens[:, None])[:, None, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         rows.append(dict(
             name="paged_attention", shape=f"B{B} T{T} H{H} D{D} page{page} K1 {str(dtype)[6:]}",
             ms=device_ms(lambda: ta.paged_attention(q, k, v, table, lens, ks, vs)),
@@ -1280,9 +1373,93 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
             library_ms=device_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
             library_shape=f"SDPA on the pre-gathered (B, H, {kg.shape[2]}, D) f32 view",
             bound_ms=b, bound_by=by))
+        del q, k, v, table, kg, vg
+        # L2-cold: each call reads pages (and SDPA a view) that the other
+        # tables' calls have pushed out of the 50 MB L2
+        q, k, v, tables, lens, ks, vs = _cold_pool(gen, dtype, B, T)
+        views = [_pregathered(k, v, t, T) for t in tables]
+        mask = (torch.arange(T, device=DEVICE) < lens[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)
+        for t in tables:
+            e = max_err(ta.paged_attention(q, k, v, t, lens, ks, vs),
+                        ta._verify_attention_dense(q, k, v, t, lens, ks, vs))
+            if e > PAGED_ATOL:
+                raise AssertionError(f"paged_attention {str(dtype)[6:]} L2-cold table: "
+                                     f"max_abs_err {e:.3e} (atol {PAGED_ATOL:g})")
+            err = max(err, e)
+        rows.append(dict(
+            name="paged_attention",
+            shape=f"L2-cold {len(tables)} tables: B{B} T{T} K1 {str(dtype)[6:]}",
+            ms=device_ms(_rotating([functools.partial(ta.paged_attention, q, k, v, t, lens, ks, vs)
+                                    for t in tables]), n=4 * len(tables)),
+            plain_ms=device_ms(_rotating([functools.partial(
+                ta._verify_attention_dense, q, k, v, t, lens, ks, vs) for t in tables]),
+                n=len(tables)),
+            library_ms=device_ms(_rotating([functools.partial(sdpa, qs, kv[0], kv[1],
+                                                              attn_mask=mask)
+                                            for kv in views]), n=4 * len(tables)),
+            library_shape=f"SDPA on {len(tables)} rotating pre-gathered f32 views",
+            bound_ms=b, bound_by=by))
+        del q, k, v, tables, views
+    # the split case: B 4 x T 4096, where (head, sequence) blocks alone
+    # leave most SMs idle; beside it the same kernels under an unsplit plan
+    B, T = PAGED_LONG["B"], PAGED_LONG["T"]
+    for dtype in dtypes:
+        q, k, v, tables, lens, ks, vs = _cold_pool(gen, dtype, B, T)
+        table = tables[0]
+        ops = (q, k, v, table, lens, ks, vs)
+        got = ta.paged_attention(*ops)
+        route, splits = _paged_route(), ta.paged_attention.splits
+        want = ta._verify_attention_dense(*ops)
+        e = max_err(got, want)
+        if e > PAGED_ATOL or splits < 2 or not torch.equal(got, ta.paged_attention(*ops)):
+            raise AssertionError(f"paged_attention {str(dtype)[6:]} B={B} T={T}: max_abs_err "
+                                 f"{e:.3e} (atol {PAGED_ATOL:g}), {route}, or two calls differ")
+        err = max(err, e)
+        esize = k.element_size()
+        vb = ta.paged_load_width(esize, D, k.stride()[:-1] + v.stride()[:-1],
+                                 (k.data_ptr(), v.data_ptr()))
+        plan = ta.paged_plan(B, 1, H, D, page, table.shape[-1], esize, vb,
+                             *ta._paged_device(torch.cuda.current_device()))
+        whole = dataclasses.replace(plan, n_split=1, split_len=-(-T // plan.tt) * plan.tt)
+        e1 = max_err(ta._paged_launch(whole, *ops), want)
+        if e1 > PAGED_ATOL:
+            raise AssertionError(f"paged_attention {str(dtype)[6:]} B={B} T={T} unsplit: "
+                                 f"max_abs_err {e1:.3e} (atol {PAGED_ATOL:g})")
+        log(f"  paged_attention {str(dtype)[6:]:14s} K= 1 H={H} D={D:3d} page={page:2d} B={B} "
+            f"T={T}: max_abs_err {e:.3e} ({route}), unsplit {e1:.3e}; two calls bit-equal")
+        if dtype == torch.float32:
+            # the planted fault: the split model of the kernel's plan, its
+            # combine with split 0's exp(m_0 - M) taken as 1
+            m, l, acc = ta.paged_split_plain(*ops, split_len=plan.split_len, n_split=plan.n_split)
+            good = max_err(ta.combine_splits_plain(m, l, acc), want)
+            bad = max_err(ta.combine_splits_plain(m, l, acc, drop_rescale=0), want)
+            log(f"  planted fault (combine, split 0's rescale factor dropped): max_abs_err "
+                f"{bad:.3e} against the unchanged atol {PAGED_ATOL:g} (the split model unplanted: "
+                f"{good:.3e})")
+            if good > PAGED_ATOL or bad <= PAGED_ATOL:
+                raise AssertionError(f"the planted combine fault: model {good:.3e}, planted "
+                                     f"{bad:.3e}, atol {PAGED_ATOL:g}")
+            del m, l, acc
+        b, by = bound(_paged_bytes(B, T, page, H, D, k, q, table, lens), 4 * B * H * T * D)
+        kg, vg = _pregathered(k, v, table, T)
+        mask = (torch.arange(T, device=DEVICE) < lens[:, None])[:, None, None, :]
+        qs = q.transpose(1, 2)
+        rows.append(dict(
+            name="paged_attention", shape=f"B{B} T{T} H{H} D{D} page{page} K1 {str(dtype)[6:]}",
+            ms=device_ms(lambda: ta.paged_attention(*ops)),
+            unsplit_ms=device_ms(lambda: ta._paged_launch(whole, *ops)),
+            plain_ms=device_ms(lambda: ta._verify_attention_dense(*ops), n=5),
+            library_ms=device_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
+            library_shape=f"SDPA on the pre-gathered (B, H, {T}, D) f32 view",
+            bound_ms=b, bound_by=by, splits=splits))
+        del q, k, v, tables, ops, kg, vg, got, want
     for r in rows:
+        extra = (f", unsplit {r['unsplit_ms']:.4f} ms ({r['splits']} splits)"
+                 if "unsplit_ms" in r else "")
         log(f"  time {r['name']} {r['shape']:40s} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
-            f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms)")
+            f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+            f"{extra})")
     return {"paged_attention": err}, rows
 
 

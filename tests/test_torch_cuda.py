@@ -145,6 +145,19 @@ def test_dma_hbm_step(card, coeffs):
     assert torch.equal(th.dma_hbm_step(cores, coeffs), th.dma_hbm_step_plain(cores, coeffs))
 
 
+@pytest.mark.parametrize("coeffs", [tk.JACOBI, C9])
+@pytest.mark.parametrize("core", [(1, 1), (2, 3), (3, 1), (37, 53), (100, 392)])
+@pytest.mark.parametrize("dims", [(1, 1), (2, 3), (4, 4)])
+def test_dma_hbm_step_tiles(card, dims, core, coeffs):
+    # cores of 1-3 cells (a neighbour is the rank itself, or one step
+    # crosses two ranks' edges), W not a multiple of 4 (one column a lane),
+    # and 100 x 392 (16-byte rows, tiles whose halo lies inside the core)
+    cores = _rand(dims + core, 24, card)
+    got = th.dma_hbm_step(cores, coeffs)
+    assert th.dma_hbm_step.route == ("vec4" if core[1] % 4 == 0 else "scalar")
+    assert torch.equal(got, th.dma_hbm_step_plain(cores, coeffs))
+
+
 @pytest.mark.parametrize("impl", ["stream:3", "dma", "dma-deep:3", "dma-hbm"])
 @pytest.mark.parametrize("coeffs", [tk.JACOBI, C9])
 def test_new_impls_card_equals_cpu_on_a_mesh(card, impl, coeffs):
@@ -498,6 +511,66 @@ def test_paged_attention_strided_stacked_pools(card, dtype):
     assert ta.launch_counts()["paged_attention"] == 2
     want = ta.verify_attention(q, pk, pv, table, lens, ks, vs, fused=False)
     assert float((got - want).abs().max()) <= PAGED_ATOL
+
+
+def _long_paged(dtype, B, T, card, seed=80):
+    """Config 12's geometry (H 8, d_head 128, 16-token pages), B sequences
+    whose lengths reach T, sequence 0 idle, pages shuffled over a pool of
+    twice what they need."""
+    rng = np.random.default_rng(seed)
+    H, D, page = 8, 128, 16
+    max_pages = T // page
+    P = 2 * B * max_pages
+    q = _rand((B, 1, H, D), seed, card)
+    kf = torch.from_numpy(rng.standard_normal((P, page, H, D)).astype(np.float32))
+    vf = torch.from_numpy(rng.standard_normal((P, page, H, D)).astype(np.float32))
+    lens = np.concatenate([[0], rng.integers(T - 3 * page, T + 1, B - 1)]).astype(np.int32)
+    table = rng.permutation(P)[:B * max_pages].reshape(B, max_pages).astype(np.int32)
+    if dtype == torch.float32:
+        k, v, ks, vs = kf.to(card), vf.to(card), None, None
+    else:
+        (k, ks), (v, vs) = quantize_pages(kf, dtype), quantize_pages(vf, dtype)
+        k, v, ks, vs = k.to(card), v.to(card), ks.to(card), vs.to(card)
+    return [q, k, v, torch.from_numpy(table).to(card), torch.from_numpy(lens).to(card), ks, vs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.float8_e4m3fn])
+def test_paged_attention_split_is_exact_and_deterministic(card, dtype):
+    # B 2 x T 4096: too few (head, sequence) blocks for the SMs, so the
+    # host rule splits the positions and a second kernel combines them
+    ops = _long_paged(dtype, 2, 4096, card)
+    ta.reset_launches()
+    got = ta.paged_attention(*ops)
+    again = ta.paged_attention(*ops)
+    assert ta.launch_counts()["paged_attention"] == 2            # one a call
+    assert ta.paged_attention.splits > 1 and ta.paged_attention.route == "16B"
+    assert torch.equal(got, again)                               # the same bits
+    assert torch.equal(got[0], torch.zeros_like(got[0]))         # the idle slot
+    assert float((got - ta._verify_attention_dense(*ops)).abs().max()) <= PAGED_ATOL
+
+
+@pytest.mark.parametrize("K,H,D,dtype,view,route", [
+    (4, 3, 40, torch.int8, False, "8B"),             # 40-byte rows
+    (1, 3, 20, torch.float32, False, "16B"),         # 80-byte rows
+    (3, 3, 20, torch.int8, False, "4B"),
+    (2, 2, 3, torch.float8_e4m3fn, False, "1B"),     # 3-byte rows: byte loads
+    (5, 2, 128, torch.float32, True, "4B"),          # a view of 129-column rows
+    (1, 2, 128, torch.int8, True, "1B"),
+])
+def test_paged_attention_load_width_routes(card, K, H, D, dtype, view, route):
+    q, k, v, table, lens, ks, vs = _paged_operands(90 + D, (), 5, K, H, D, 8, 40, 6, dtype, card)
+    if view:  # the pools as views of rows one column wider: 4-byte (1-byte) strides
+        wk = torch.zeros(k.shape[:-1] + (D + 1,), dtype=k.dtype, device=card)
+        wv = torch.zeros_like(wk)
+        wk[..., 1:], wv[..., 1:] = k, v
+        k, v = wk[..., 1:], wv[..., 1:]
+    ta.reset_launches()
+    got = ta.paged_attention(q, k, v, table, lens, ks, vs)
+    assert ta.paged_attention.route == route
+    assert ta.launch_counts()["paged_attention"] == 1
+    want = ta._verify_attention_dense(q, k, v, table, lens, ks, vs)
+    assert float((got - want).abs().max()) <= PAGED_ATOL
+    assert torch.equal(got, ta.paged_attention(q, k, v, table, lens, ks, vs))
 
 
 # bf16 q: the kernel and the plain version both round an f32 result to

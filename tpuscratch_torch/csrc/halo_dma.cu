@@ -19,7 +19,8 @@
 //   ring:  n, s, w, e, c (halo_dma.py:114-161), zero coefficients included
 //   deep:  n, s, w, e, nw, ne, sw, se, c, zero coefficients skipped (:83-111)
 //   hbm:   n, s, w, e, c, then nw, ne, sw, se when any diagonal is nonzero
-//          (:830-840)
+//          (:830-840); the hbm kernel checks that order and takes only the
+//          coefficients, with the tap count (5 or 9) a template parameter
 //
 // No kernel writes the buffer it reads: every step or round goes out of
 // place into the other of two ping-pong buffers.
@@ -27,6 +28,7 @@
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <climits>
+#include <cstdint>
 
 #include "stencil_taps.cuh"
 
@@ -194,33 +196,185 @@ extern "C" int ts_dma_deep(const float* src, float* dst, int R, int C, int H,
 }
 
 // ---------------------------------------------------------------------------
-// dma_hbm_step: ONE step of the torus per launch, out of place; one thread
-// a cell, edges read straight from the neighbour ranks' cores. The TPU
+// dma_hbm_step: ONE step of the torus per launch, out of place. The TPU
 // kernel's carried column stages and band windows exist to avoid strided
 // HBM access and are not part of the function, so nothing is carried.
 // Bound: bytes. A step must read the torus and write it, 8 bytes a cell
-// (at 8192^2 f32, 0.160 ms at 3.35 TB/s); neighbouring threads read
-// neighbouring addresses, and the row above and below come from L1/L2.
-constexpr int HBM_BX = 32;
-constexpr int HBM_BY = 8;
+// (at 8192^2 f32, 0.160 ms at 3.35 TB/s). Design, so that each input is
+// read from device memory about once and no tap pays for the wrap:
+//  - a block of HBM_WARPS warps owns a tile of 32 * VEC columns and
+//    HBM_WARPS * HBM_RY rows of one rank's core; a lane owns VEC adjacent
+//    columns (VEC = 4: one 16-byte load and store a row, where W % 4 == 0
+//    and the base is 16-byte aligned; VEC = 1 otherwise) and HBM_RY rows
+//    down them, held with the rows above and below as a register window of
+//    HBM_RY + 2 rows, each loaded once;
+//  - a row's left and right neighbours come from the adjacent lanes by
+//    shuffles; only the warp's edge lanes load one more cell a row;
+//  - the torus wrap is resolved once a loaded row (its rank and row) and
+//    once an edge cell (the left or right rank), never a tap; a tile whose
+//    one-cell halo lies inside the core (block-uniform test) takes a path
+//    with no wrap test at all;
+//  - NT (5 or 9) taps in hbm_taps order, n, s, w, e, c, then nw, ne, sw,
+//    se, are a template parameter: the tap sum is straight-line code with
+//    compile-time offsets, every product and sum rounded on its own.
+constexpr int HBM_WARPS = 4;
+constexpr int HBM_RY = 4;
 
-__global__ void __launch_bounds__(HBM_BX * HBM_BY)
-dma_hbm_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                    Torus g, Taps taps) {
-  const int b = blockIdx.z, r = b / g.C, c = b - r * g.C;
-  const int i = blockIdx.y * HBM_BY + threadIdx.y, j = blockIdx.x * HBM_BX + threadIdx.x;
-  if (i < g.H && j < g.W)
-    dst[((size_t)b * g.H + i) * g.W + j] = torus_step(g, taps, src, r, c, i, j);
+struct HbmCoeffs {
+  float c[9];
+};
+
+// The value at (row pointer rp of rank column c, column j), j in [-1, W]:
+// one step past the core's side edge lands in rank column c -/+ 1 (lstep /
+// rstep: the element distance from a row to the same row of that rank).
+template <bool WRAP>
+__device__ __forceinline__ float hbm_side(const float* rp, int j, int W, long long lstep,
+                                          long long rstep) {
+  if (WRAP) {
+    if (j < 0) return rp[lstep + W - 1];
+    if (j >= W) return rp[rstep];
+  }
+  return rp[j];
 }
 
+// Row i (in [-1, H]) of the window: VEC values from column x0, the left
+// neighbour in w[0] and the right one in w[VEC + 1].
+template <int VEC, bool WRAP>
+__device__ __forceinline__ void hbm_load_row(float (&w)[VEC + 2], const float* __restrict__ src,
+                                             const Torus& g, int r, int c, int i, int x0,
+                                             int lane, long long lstep, long long rstep) {
+  const float* rp;
+  if (WRAP) {
+    int rr = r;
+    if (i < 0) {
+      i += g.H;
+      rr = r == 0 ? g.R - 1 : r - 1;
+    } else if (i >= g.H) {
+      i -= g.H;
+      rr = r == g.R - 1 ? 0 : r + 1;
+    }
+    rp = src + ((size_t)(rr * g.C + c) * g.H + i) * g.W;
+  } else {
+    rp = src + ((size_t)(r * g.C + c) * g.H + i) * g.W;
+  }
+  const bool in = !WRAP || x0 < g.W;
+  if (VEC == 4) {
+    float4 v = in ? *reinterpret_cast<const float4*>(rp + x0) : make_float4(0.f, 0.f, 0.f, 0.f);
+    w[1] = v.x;
+    w[2] = v.y;
+    w[3] = v.z;
+    w[4] = v.w;
+  } else {
+    w[1] = in ? rp[x0] : 0.0f;
+  }
+  const float left = __shfl_up_sync(0xffffffffu, w[VEC], 1);
+  const float right = __shfl_down_sync(0xffffffffu, w[1], 1);
+  w[0] = lane > 0 ? left : (in ? hbm_side<WRAP>(rp, x0 - 1, g.W, lstep, rstep) : 0.0f);
+  w[VEC + 1] = lane < 31 && (!WRAP || x0 + VEC < g.W)
+                   ? right
+                   : (in ? hbm_side<WRAP>(rp, x0 + VEC, g.W, lstep, rstep) : 0.0f);
+}
+
+template <int NT>
+__device__ __forceinline__ float hbm_cell(const float* a, const float* m, const float* b,
+                                          const HbmCoeffs& k) {
+  // a, m, b: the rows above, at and below, each from the cell's left neighbour
+  float v = __fmul_rn(k.c[0], a[1]);
+  v = __fadd_rn(v, __fmul_rn(k.c[1], b[1]));
+  v = __fadd_rn(v, __fmul_rn(k.c[2], m[0]));
+  v = __fadd_rn(v, __fmul_rn(k.c[3], m[2]));
+  v = __fadd_rn(v, __fmul_rn(k.c[4], m[1]));
+  if (NT == 9) {
+    v = __fadd_rn(v, __fmul_rn(k.c[5], a[0]));
+    v = __fadd_rn(v, __fmul_rn(k.c[6], a[2]));
+    v = __fadd_rn(v, __fmul_rn(k.c[7], b[0]));
+    v = __fadd_rn(v, __fmul_rn(k.c[8], b[2]));
+  }
+  return v;
+}
+
+template <int NT, int VEC, bool WRAP>
+__device__ __forceinline__ void hbm_tile(const float* __restrict__ src, float* __restrict__ dst,
+                                         const Torus& g, const HbmCoeffs& k, int r, int c,
+                                         int y0, int ye, int x0, int lane) {
+  const long long core = (long long)g.H * g.W;
+  const long long lstep = (c == 0 ? g.C - 1 : -1) * core;
+  const long long rstep = (c == g.C - 1 ? -(g.C - 1) : 1) * core;
+  float w[HBM_RY + 2][VEC + 2];
+#pragma unroll
+  for (int u = 0; u < HBM_RY + 2; ++u)
+    if (y0 - 1 + u <= ye) hbm_load_row<VEC, WRAP>(w[u], src, g, r, c, y0 - 1 + u, x0, lane,
+                                                  lstep, rstep);
+  if (WRAP && x0 >= g.W) return;
+  float* out = dst + ((size_t)(r * g.C + c) * g.H + y0) * g.W + x0;
+#pragma unroll
+  for (int u = 0; u < HBM_RY; ++u) {
+    if (y0 + u >= ye) break;
+    float o[VEC];
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) o[x] = hbm_cell<NT>(w[u] + x, w[u + 1] + x, w[u + 2] + x, k);
+    if (VEC == 4)
+      *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
+    else
+      out[0] = o[0];
+    out += g.W;
+  }
+}
+
+// (a min-blocks bound of 8, 64 registers a thread: ptxas, left to the thread
+// count alone, spilled the 9-point 16-byte instantiation's window)
+template <int NT, int VEC>
+__global__ void __launch_bounds__(32 * HBM_WARPS, 8)
+dma_hbm_step_kernel(const float* __restrict__ src, float* __restrict__ dst, Torus g,
+                    HbmCoeffs k) {
+  const int b = blockIdx.z, r = b / g.C, c = b - r * g.C;
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tx0 = blockIdx.x * 32 * VEC, ty0 = blockIdx.y * HBM_WARPS * HBM_RY;
+  const int x0 = tx0 + VEC * lane, y0 = ty0 + warp * HBM_RY;
+  if (y0 >= g.H) return;  // a whole warp: no shuffle partner is lost
+  const int ye = y0 + HBM_RY < g.H ? y0 + HBM_RY : g.H;
+  // the block's one-cell halo inside the core: no wrap test anywhere
+  const bool interior = ty0 >= 1 && ty0 + HBM_WARPS * HBM_RY < g.H && tx0 >= 1 &&
+                        tx0 + 32 * VEC < g.W;
+  if (interior)
+    hbm_tile<NT, VEC, false>(src, dst, g, k, r, c, y0, ye, x0, lane);
+  else
+    hbm_tile<NT, VEC, true>(src, dst, g, k, r, c, y0, ye, x0, lane);
+}
+
+template <int NT>
+static int launch_hbm(const float* src, float* dst, Torus g, const HbmCoeffs& k, int vec,
+                      cudaStream_t s) {
+  const dim3 block(32, HBM_WARPS);
+  const unsigned gy = (g.H + HBM_WARPS * HBM_RY - 1) / (HBM_WARPS * HBM_RY);
+  if (vec == 4) {
+    dma_hbm_step_kernel<NT, 4><<<dim3((g.W + 127) / 128, gy, g.R * g.C), block, 0, s>>>(
+        src, dst, g, k);
+  } else {
+    dma_hbm_step_kernel<NT, 1><<<dim3((g.W + 31) / 32, gy, g.R * g.C), block, 0, s>>>(
+        src, dst, g, k);
+  }
+  return (int)cudaGetLastError();
+}
+
+// taps: hbm_taps order (5: n, s, w, e, c; 9: then nw, ne, sw, se); vec: 4
+// (16-byte rows: W % 4 == 0 and both bases 16-byte aligned) or 1.
 extern "C" int ts_dma_hbm_step(const float* src, float* dst, int R, int C,
                                int H, int W, int ntaps, const float* c,
-                               const int* dy, const int* dx, void* stream) {
-  Taps taps;
-  if (!torus_ok(R, C, H, W) || R * C > 65535 || !make_taps(&taps, ntaps, c, dy, dx))
+                               const int* dy, const int* dx, int vec, void* stream) {
+  static const int kdy[9] = {-1, 1, 0, 0, 0, -1, -1, 1, 1};
+  static const int kdx[9] = {0, 0, -1, 1, 0, -1, 1, -1, 1};
+  if (!torus_ok(R, C, H, W) || R * C > 65535 || (ntaps != 5 && ntaps != 9))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + HBM_BX - 1) / HBM_BX, (H + HBM_BY - 1) / HBM_BY, R * C);
-  dma_hbm_step_kernel<<<grid, dim3(HBM_BX, HBM_BY), 0, (cudaStream_t)stream>>>(
-      src, dst, Torus{R, C, H, W}, taps);
-  return (int)cudaGetLastError();
+  HbmCoeffs k{};
+  for (int u = 0; u < ntaps; ++u) {
+    if (dy[u] != kdy[u] || dx[u] != kdx[u]) return (int)cudaErrorInvalidValue;
+    k.c[u] = c[u];
+  }
+  if (vec != 1 && vec != 4) return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (W % 4 != 0 || (uintptr_t)src % 16 != 0 || (uintptr_t)dst % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  const Torus g{R, C, H, W};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return ntaps == 5 ? launch_hbm<5>(src, dst, g, k, vec, s) : launch_hbm<9>(src, dst, g, k, vec, s);
 }

@@ -33,11 +33,17 @@ of ``vmap``:
 
 Paged attention:
 
-- ``paged_attention``: the wrapper of the hand-written CUDA kernel (the
+- ``paged_attention``: the wrapper of the hand-written CUDA kernels (the
   port of the Pallas ``paged_attention``); on a CPU tensor it runs the
-  plain version.
+  plain version. ``paged_plan`` and ``paged_load_width`` are its host
+  rules (ring, load width, split over the positions); after each launch
+  its ``route`` attribute names the load width taken and ``splits`` the
+  split count.
 - ``_verify_attention_dense``: the plain version (the JAX package's dense
   oracle): gather, scale-folded contractions, masked softmax.
+- ``paged_split_plain`` / ``combine_splits_plain``: the kernel's
+  split-and-combine arithmetic in torch ops (each split's partial
+  ``(m, l, acc)``, then their merge in split order), for the tests.
 - ``decode_attention`` / ``verify_attention``: the entry points. ``fused``
   None routes by device (a CUDA tensor launches the kernel, a CPU tensor
   takes the plain version), True demands the kernel (and raises on the
@@ -54,6 +60,7 @@ head-block budget) do not apply.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import itertools
 import math
@@ -491,14 +498,204 @@ def _verify_attention_dense(q, k_pages, v_pages, page_table, seq_lens, k_scale=N
     return out.to(q.dtype)
 
 
+def paged_split_plain(q, k_pages, v_pages, page_table, seq_lens, k_scale=None, v_scale=None,
+                      *, split_len: int, n_split: int):
+    """The kernel's splits in torch ops: split ``s`` attends the positions
+    ``[s * split_len, (s + 1) * split_len)`` of what the plain version
+    attends and leaves its partial state, ``m`` (the running max, NEG_INF
+    where it attends nothing), ``l`` (the sum of ``exp(score - m)``) and
+    ``acc`` (the unnormalized, V-scale-folded P.V): ``(n_split, *lead, B,
+    K, H)``, ``(n_split, *lead, B, K, H)`` and ``(n_split, *lead, B, K, H,
+    D)`` f32. A split that attends nothing gives m = NEG_INF, l = 0 and
+    acc = 0."""
+    K, D = q.shape[-3], q.shape[-1]
+    n_pages, page_size = k_pages.shape[-4:-2]
+    table = torch.clamp(page_table.long(), 0, n_pages - 1)
+    T = page_table.shape[-1] * page_size
+    k = _gather_pages(k_pages, table)
+    v = _gather_pages(v_pages, table).float()
+    s = torch.einsum("...bkhd,...bthd->...bkht", q.float(), k.float()) * (1.0 / float(D) ** 0.5)
+    if k_scale is not None:
+        s = s * _position_scale(k_scale, table, page_size).transpose(-1, -2).unsqueeze(-3)
+    t = torch.arange(T, device=q.device)
+    lens = seq_lens[..., None, None, None] + torch.arange(K, device=q.device)[:, None, None]
+    valid = (t < lens) & (seq_lens[..., None, None, None] > 0)     # (*lead, B, K, 1, T)
+    vs = (None if v_scale is None else
+          _position_scale(v_scale, table, page_size).transpose(-1, -2).unsqueeze(-3))
+    neg = torch.tensor(NEG_INF, device=q.device)
+    ms, ls, accs = [], [], []
+    for sp in range(n_split):
+        ok = valid & (t >= sp * split_len) & (t < (sp + 1) * split_len)
+        sm = torch.where(ok, s, neg)
+        m = sm.amax(dim=-1)
+        p = torch.where(ok, torch.exp(sm - m[..., None]), torch.zeros((), device=q.device))
+        ls.append(p.sum(dim=-1))
+        ms.append(m)
+        if vs is not None:
+            p = p * vs
+        accs.append(torch.einsum("...bkht,...bthd->...bkhd", p, v))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_splits_plain(m, l, acc, dtype=torch.float32, drop_rescale: int | None = None):
+    """The combine kernel's merge of split partials (``paged_split_plain``'s
+    layout) in split order: ``M = max_s m_s``, ``f_s = exp(m_s - M)``,
+    out = ``sum_s f_s acc_s / sum_s f_s l_s`` (0 where the sum is 0), in
+    ``dtype``. ``drop_rescale=s`` plants a fault: split ``s``'s factor
+    is taken as 1."""
+    M = m.amax(dim=0)
+    f = torch.exp(m - M)
+    if drop_rescale is not None:
+        f = f.clone()
+        f[drop_rescale] = 1.0
+    L = (l * f).sum(dim=0)
+    O = (acc * f[..., None]).sum(dim=0)
+    safe = torch.where(L > 0, L, torch.ones((), device=L.device))
+    return torch.where(L[..., None] > 0, O / safe[..., None],
+                       torch.zeros((), device=L.device)).to(dtype)
+
+
+# The paged kernel's host rules (csrc/paged_attention.cu). A block of 8
+# warps owns (head, sequence, group of <= 8 queries, output tile, split)
+# and streams its positions through a ring of `stages` chunks of `tt`
+# tokens.
+PAGED_THREADS = 256
+PAGED_STAGES = 4
+PAGED_STAGE_BYTES = 32 << 10   # K and V rows a ring stage holds, at most
+PAGED_MAX_TT = 64              # tokens a chunk, at most
+PAGED_TILE = 512               # output columns a block owns (4 a lane, NJ = 4)
+PAGED_MIN_SPLIT = 256          # positions a split covers, at least
+PAGED_MAX_SPLITS = 64
+PAGED_WAVES = 2                # blocks an SM the split aims for
+PAGED_SM_SMEM = 233472         # shared memory an SM has for blocks (228 KB)
+PAGED_BLOCK_RESERVED = 1024    # of which the runtime keeps a block
+PAGED_SM_BLOCKS = 2            # blocks an SM holds at most (<= 128 registers a thread)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """One launch's shape: the load width ``vb`` (bytes a cp.async), ``nj``
+    4-column groups a lane owns of the output tile (``wide``: D > 512, in
+    ``n_dt`` tiles), ``wq`` queries a block, ``tt`` tokens a chunk,
+    ``stages`` ring stages, ``n_split`` splits of ``split_len`` positions
+    and the dynamic shared memory ``smem``."""
+
+    vb: int
+    nj: int
+    wide: bool
+    n_dt: int
+    wq: int
+    tt: int
+    stages: int
+    n_split: int
+    split_len: int
+    smem: int
+
+    @property
+    def route(self) -> str:
+        return f"{self.vb}B"
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def paged_load_width(esize: int, D: int, strides, data_ptrs) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) that divides a pool row
+    (``D * esize`` bytes), every pool stride (elements) and both pools'
+    base addresses; 1-byte elements that allow none take plain byte loads
+    (1)."""
+    sizes = [D * esize] + [s * esize for s in strides] + list(data_ptrs)
+    for w in (16, 8, 4):
+        if w >= esize and all(x % w == 0 for x in sizes):
+            return w
+    return esize
+
+
+def paged_smem(esize: int, D: int, nj: int, wide: bool, wq: int, tt: int, stages: int) -> int:
+    """Dynamic shared memory of a launch (the launcher's ``smem_bytes``):
+    a wide head's q rows, then the ring (K rows, V rows, their scales a
+    stage, rows padded to 16 bytes), which the warps' final merge reuses."""
+    d4 = _ceil(D, 4)
+    rs = _ceil(4 * d4 * esize, 16) * 16
+    stage = _ceil(2 * tt * rs + 8 * tt, 16) * 16
+    merge = PAGED_THREADS // 32 * (4 + 128 * nj) * 4
+    return (wq * 16 * d4 if wide else 0) + max(stages * stage, merge)
+
+
+@functools.lru_cache(maxsize=4096)
+def paged_plan(B: int, K: int, H: int, D: int, page: int, max_pages: int, esize: int, vb: int,
+               n_sm: int, smem_optin: int) -> PagedPlan:
+    """The paged kernel's shape rule. Heads up to 512 columns keep a
+    lane's columns in registers (``nj`` 1, 2 or 4 groups of 4 a 32-lane
+    slice), wider ones take output tiles of 512 (q in shared memory). One
+    query a block at K = 1, 2 at K = 2, 4 up to K = 4, else 8 (the 8 warps
+    split a chunk's tokens 8, 4, 2 or 1 ways and its queries the other way). A
+    chunk holds at most PAGED_STAGE_BYTES of K and V rows and
+    PAGED_MAX_TT tokens (a power of two, at most the positions the table
+    covers). The positions (``max_pages * page``, the lengths' upper
+    bound) are split when the other block dims leave fewer blocks than
+    the SMs: as many splits as PAGED_WAVES blocks an SM hold (never a
+    second, partial wave), each of at least PAGED_MIN_SPLIT positions (a
+    multiple of the chunk). The ring then
+    takes as many stages (2 to PAGED_STAGES) as keep every block of the
+    launch resident at once, shrunk further until it fits
+    ``smem_optin``."""
+    d4 = _ceil(D, 4)
+    wide = d4 > 128
+    nj = 4 if wide else (1 if d4 <= 32 else 2 if d4 <= 64 else 4)
+    n_dt = _ceil(d4, 128) if wide else 1
+    wq = 1 if K == 1 else 2 if K == 2 else 4 if K <= 4 else 8
+    rs = _ceil(4 * d4 * esize, 16) * 16
+    tcap = max_pages * page
+    tt = PAGED_MAX_TT
+    while tt > 1 and (2 * tt * rs > PAGED_STAGE_BYTES or tt >= 2 * tcap):
+        tt //= 2
+    base = B * H * _ceil(K, wq) * n_dt
+    n_split = 1
+    if base < n_sm:
+        n_split = max(1, min(PAGED_WAVES * n_sm // base, tcap // PAGED_MIN_SPLIT,
+                             PAGED_MAX_SPLITS))
+    split_len = _ceil(_ceil(tcap, n_split), tt) * tt
+    n_split = _ceil(tcap, split_len)
+    per_sm = _ceil(base * n_split, n_sm)                      # blocks an SM must hold
+    room = PAGED_SM_SMEM // min(per_sm, PAGED_SM_BLOCKS) - PAGED_BLOCK_RESERVED
+    stages = PAGED_STAGES
+    while stages > 2 and paged_smem(esize, D, nj, wide, wq, tt, stages) > room:
+        stages -= 1
+    while paged_smem(esize, D, nj, wide, wq, tt, stages) > smem_optin:
+        if stages > 2:
+            stages -= 1
+        elif tt > 1:
+            tt //= 2
+        else:
+            raise ValueError(f"paged_attention: d_head {D} is too wide for one block's "
+                             f"{smem_optin} B of shared memory")
+    return PagedPlan(vb, nj, wide, n_dt, wq, tt, stages, n_split, split_len,
+                     paged_smem(esize, D, nj, wide, wq, tt, stages))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("paged_attention")
     lib.ts_paged_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 10
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 18 + [ctypes.c_longlong] * 10
         + [ctypes.c_void_p])
     lib.ts_paged_attention.restype = ctypes.c_int
+    lib.ts_paged_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.ts_paged_device.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_device(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory a block) of card ``index``."""
+    lib = _lib()
+    sms, optin = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        check_status(lib, lib.ts_paged_device(ctypes.byref(sms), ctypes.byref(optin)),
+                     "paged_attention")
+    return sms.value, optin.value
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
@@ -508,18 +705,19 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
     ``(*lead, P, H)`` f32 scales when quantized) through a ``(*lead, B,
     max_pages)`` table and ``(*lead, B)`` lengths -> ``(*lead, B, K, H, D)``
     in q's dtype (softmax and accumulator in f32). On a CUDA tensor one
-    kernel launch per rank reads each needed page once per group of 64
-    queries and output tile of 128 columns, dequantizes it in shared memory
-    and keeps an online softmax; on a CPU tensor, the plain version. The
-    pools may be strided views (a layer of the stacked cache) as long as
-    ``d_head`` is contiguous."""
+    call per rank, counted as one launch, streams each needed page through
+    a shared-memory ring (``paged_plan``), split over the positions when
+    the batch leaves the SMs idle, the splits merged by a second kernel in
+    split order; on a CPU tensor, the plain version. The pools may be
+    strided views (a layer of the stacked cache) as long as ``d_head`` is
+    contiguous."""
     _check_decode_operands(q, k_pages, v_pages, page_table, seq_lens)
     if not route(q, "paged_attention"):
         return _verify_attention_dense(q, k_pages, v_pages, page_table, seq_lens,
                                        k_scale, v_scale)
     n = page_table.ndim - 2
     B, K, H, D = q.shape[n:]
-    n_pages, page_size = k_pages.shape[n:n + 2]
+    page_size = k_pages.shape[n + 1]
     if k_pages.dtype not in POOL_DTYPES:
         raise ValueError(f"paged_attention: pool dtype {k_pages.dtype} not in the ladder "
                          "(float32, int8, float8_e4m3fn)")
@@ -529,9 +727,29 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
     if quantized != (k_pages.dtype != torch.float32) or (v_scale is None) == quantized:
         raise ValueError("paged_attention: scales go with (and only with) quantized pools")
     for t, what in ((k_pages, "k_pages"), (v_pages, "v_pages")):
-        if t.device != q.device or t.stride(-1) != 1:
-            raise ValueError(f"paged_attention: {what} must be on {q.device} "
-                             "with d_head contiguous")
+        if t.device != q.device or t.stride(-1) != 1 or t.dtype != k_pages.dtype:
+            raise ValueError(f"paged_attention: {what} must be on {q.device}, of one pool "
+                             "dtype, with d_head contiguous")
+    esize = k_pages.element_size()
+    vb = paged_load_width(esize, D, k_pages.stride()[:-1] + v_pages.stride()[:-1],
+                          (k_pages.data_ptr(), v_pages.data_ptr()))
+    plan = paged_plan(B, K, H, D, page_size, page_table.shape[-1], esize, vb,
+                      *_paged_device(q.device.index))
+    out = _paged_launch(plan, q, k_pages, v_pages, page_table, seq_lens, k_scale, v_scale)
+    paged_attention.route = plan.route
+    paged_attention.splits = plan.n_split
+    return out
+
+
+def _paged_launch(plan: PagedPlan, q, k_pages, v_pages, page_table, seq_lens, k_scale,
+                  v_scale) -> torch.Tensor:
+    """The kernels of one ``paged_attention`` call on checked CUDA operands
+    under ``plan`` (a rank at a time, each counted as one launch; with
+    ``n_split > 1`` the combine kernel follows the split kernel)."""
+    n = page_table.ndim - 2
+    B, K, H, D = q.shape[n:]
+    n_pages, page_size = k_pages.shape[n:n + 2]
+    quantized = k_scale is not None
     q = q.contiguous()
     table = page_table.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
@@ -539,6 +757,13 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
     if quantized:
         k_scale = k_scale.to(torch.float32)
         v_scale = v_scale.to(torch.float32)
+    parts = [None, None, None]
+    if plan.n_split > 1:
+        rows = (plan.n_split, B, K, H)
+        parts = [torch.empty(rows, dtype=torch.float32, device=q.device),
+                 torch.empty(rows, dtype=torch.float32, device=q.device),
+                 torch.empty(rows + (D,), dtype=torch.float32, device=q.device)]
+    ptrs = [None if t is None else t.data_ptr() for t in parts]
     lib = _lib()
     for r in itertools.product(*(range(s) for s in table.shape[:n])):
         kp, vp = k_pages[r], v_pages[r]
@@ -549,9 +774,11 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
             err = lib.ts_paged_attention(
                 q[r].data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 ks.data_ptr() if quantized else None, vs.data_ptr() if quantized else None,
-                table[r].data_ptr(), lens[r].data_ptr(), out[r].data_ptr(),
+                table[r].data_ptr(), lens[r].data_ptr(), out[r].data_ptr(), *ptrs,
                 B, K, H, D, page_size, n_pages, table.shape[-1], POOL_DTYPES[k_pages.dtype],
-                int(q.dtype == torch.bfloat16), *strides, stream_of(q))
+                int(q.dtype == torch.bfloat16), plan.vb, plan.tt, plan.stages, plan.n_split,
+                plan.split_len, plan.wq, plan.nj, int(plan.wide), plan.n_dt, *strides,
+                stream_of(q))
         check_status(lib, err, "paged_attention")
         paged_attention.launches += 1
     return out
@@ -600,5 +827,6 @@ def verify_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None, v_
 WRAPPERS = (_flash_fwd_call, _flash_fwd_compact, _flash_bwd_call, _flash_bwd_compact,
             paged_attention)
 reset_launches, launch_counts = counters(WRAPPERS)
-for _w in WRAPPERS[:4]:
+for _w in WRAPPERS:
     _w.route = None
+paged_attention.splits = None

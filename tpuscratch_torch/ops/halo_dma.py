@@ -17,7 +17,8 @@ kernel wrappers work on the stacked cores ``(rows, cols, H, W)``:
 - ``dma_ring``: ``steps`` 5-point steps in one cooperative launch;
 - ``dma_deep``: one launch per round of ``depth`` substeps (5 or 9
   points), a shared-memory trapezoid over the neighbours' k-deep edges;
-- ``dma_hbm_step``: one step per launch, 5 or 9 points.
+- ``dma_hbm_step``: one step per launch, 5 or 9 points, over register
+  tiles whose width and load width ``hbm_step_plan`` picks.
 
 On a CUDA tensor each launches its kernel (or raises); on a CPU tensor it
 runs its plain torch version, the same steps on the assembled torus with
@@ -149,7 +150,7 @@ def _lib() -> ctypes.CDLL:
     taps = [_I, _P, _P, _P]
     lib.ts_dma_ring.argtypes = [_P, _P, _P] + [_I] * 5 + taps + [_P]
     lib.ts_dma_deep.argtypes = [_P, _P] + [_I] * 6 + taps + [_P]
-    lib.ts_dma_hbm_step.argtypes = [_P, _P] + [_I] * 4 + taps + [_P]
+    lib.ts_dma_hbm_step.argtypes = [_P, _P] + [_I] * 4 + taps + [_I, _P]
     for fn in (lib.ts_dma_ring, lib.ts_dma_deep, lib.ts_dma_hbm_step):
         fn.restype = _I
     return lib
@@ -209,21 +210,39 @@ def dma_deep(cores: torch.Tensor, steps: int, coeffs9, depth: int) -> torch.Tens
     return src
 
 
+#: rows a thread of ``dma_hbm_step_kernel`` computes, and its warps a block
+#: (``csrc/halo_dma.cu``: HBM_RY, HBM_WARPS)
+HBM_RY, HBM_WARPS = 4, 4
+
+
+def hbm_step_plan(W: int, *data_ptrs: int) -> tuple[int, int, int]:
+    """The stencil step's shape rule: ``(vec, tile_h, tile_w)``. A lane
+    owns ``vec`` adjacent columns, loaded and stored as one 16-byte vector
+    a row where every row starts 16-byte aligned (``W % 4 == 0`` and the
+    buffers 16-byte aligned), else one column (``vec`` 1); a block's tile
+    is 32 lanes of ``vec`` columns by ``HBM_WARPS * HBM_RY`` rows."""
+    vec = 4 if W % 4 == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
+    return vec, HBM_WARPS * HBM_RY, 32 * vec
+
+
 def dma_hbm_step(cores: torch.Tensor, coeffs9) -> torch.Tensor:
     """One periodic 5/9-point step of the torus, out of place, in one
-    launch. Returns fresh cores."""
+    launch. Returns fresh cores; ``route`` names the load width taken
+    (``"vec4"`` or ``"scalar"``, by :func:`hbm_step_plan`)."""
     _check_cores(cores, "dma_hbm_step")
     taps = hbm_taps(coeffs9)
     if not route(cores, "dma_hbm_step"):
         return dma_hbm_step_plain(cores, coeffs9)
     check_cuda(cores, "dma_hbm_step", 4)
     out = torch.empty_like(cores)
+    vec, _, _ = hbm_step_plan(cores.shape[-1], cores.data_ptr(), out.data_ptr())
     with torch.cuda.device(cores.device):
         check_status(_lib(), _lib().ts_dma_hbm_step(
-            cores.data_ptr(), out.data_ptr(), *cores.shape, *taps_args(taps),
+            cores.data_ptr(), out.data_ptr(), *cores.shape, *taps_args(taps), vec,
             stream_of(cores),
         ), "dma_hbm_step")
     dma_hbm_step.launches += 1
+    dma_hbm_step.route = "vec4" if vec == 4 else "scalar"
     return out
 
 
@@ -345,3 +364,4 @@ def run_stencil_dma(
 #: Every kernel wrapper, in the order of the TPU kernel table.
 WRAPPERS = (dma_ring, dma_deep, dma_hbm_step)
 reset_launches, launch_counts = counters(WRAPPERS)
+dma_hbm_step.route = None
