@@ -65,8 +65,9 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    fp8 pools, K = 1, 4 and 20 (past page + 1), ragged lengths, sentinel
    table entries and an idle slot, at a small ragged geometry and at config
    12's (8 heads, d_head 128, 16-token pages); K = 65 and 128 (several
-   query groups), d_head 384 and a bf16 q; each case's load route and split
-   count logged; then their time at config 12's decode shape (32 sequences
+   query groups), d_head 384 and a bf16 q; d_head 16384 at K = 1 and 8 on
+   f32 and int8 pools (512-column units through the ring), two calls
+   bit-equal; each case's load route and split count logged; then their time at config 12's decode shape (32 sequences
    of 128 cached tokens), warm and L2-cold (8 tables over disjoint pages of
    a 2048-page pool, rotated), and at 4 sequences of 4096 (split over the
    positions, two calls bit-equal, beside the same kernels unsplit), each
@@ -617,7 +618,8 @@ def phase6_dot_path() -> dict:
         log(f"  {label:9s} {r.summary()}")
         if r.gbps > DOT_MAX_GBPS:
             raise AssertionError(f"config 2 {label}: {r.gbps:.0f} GB/s > {DOT_MAX_GBPS:.0f}")
-    log(f"  winner {res['winner']}; config 2 lines: {json.dumps(out)}")
+    log(f"  winner {res['winner']} at {res['final'].items_per_s:.6e} elements/s; "
+        f"config 2 lines: {json.dumps(out)}")
     missing = [name for name, k in counts.items() if k < 1]
     if missing:
         raise AssertionError(f"dot path never launched {missing}")
@@ -1346,6 +1348,20 @@ def phase14_paged_kernel(gen) -> tuple[dict, list]:
         log(f"  paged_attention {str(dtype)[6:]:14s} K={K:3d} H=8 D={D:3d} page=16 B=6 "
             f"q {str(qdt)[6:]}: max_abs_err {e:.3e} (atol {atol:g}), out {str(got.dtype)[6:]}, "
             f"{_paged_route()}")
+    # a head no whole-row ring fits (ROADMAP C2): d_head 16384, one
+    # sequence over 3 pages, 512-column units through the ring
+    for K in (1, 8):
+        for dtype in (torch.float32, torch.int8):
+            ops = _paged_ops(gen, 1, K, 1, 16384, 16, 8, 3, dtype, lens=np.array([37]))
+            got = ta.paged_attention(*ops)
+            e = max_err(got, ta._verify_attention_dense(*ops))
+            if e > PAGED_ATOL or not torch.equal(got, ta.paged_attention(*ops)):
+                raise AssertionError(f"paged_attention D=16384 K={K} {str(dtype)[6:]}: "
+                                     f"max_abs_err {e:.3e} (atol {PAGED_ATOL:g}) or two calls "
+                                     "differ")
+            err = max(err, e)
+            log(f"  paged_attention {str(dtype)[6:]:14s} K={K:3d} H=1 D=16384 page=16 B=1 "
+                f"T=37: max_abs_err {e:.3e}, two calls bit-equal, {_paged_route()}")
     H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []

@@ -346,6 +346,22 @@ def test_fill_kernel(card, dtype, shape):
     assert torch.equal(got.cpu(), tf.fill(shape, value, dtype, device="cpu"))
 
 
+@pytest.mark.parametrize("mode", list(tf.FILL_MODES))
+@pytest.mark.parametrize("waves", [1, 8])
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (37, 53)), (torch.int8, (3,)),
+                                         (torch.bfloat16, (1000, 1001)),
+                                         (torch.int64, (70_001,))])
+def test_fill_kernel_under_every_plan(card, mode, waves, dtype, shape):
+    # both ways to store the body (registers, bulk copies of a tile) at a
+    # grid of one block an SM and of eight
+    nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
+    plan = tf.fill_plan(nbytes, torch.cuda.get_device_properties(card).multi_processor_count,
+                        mode, waves)
+    value = -7 if not dtype.is_floating_point else 0.1
+    assert torch.equal(tf.fill(shape, value, dtype, plan=plan),
+                       tf.fill_plain(shape, value, dtype, card))
+
+
 @pytest.mark.parametrize("dtype", FILL_DTYPES)
 @pytest.mark.parametrize("shape", [(37, 53), (8, 128), (5, 257), (300, 70000)])
 def test_iota2d_kernel(card, dtype, shape):
@@ -393,6 +409,20 @@ def test_dot_partials_kernel_per_chunk(card):
     for c in range(got.shape[-1]):  # each chunk against its own bound
         chunk = slice(c * 1024, (c + 1) * 1024)
         _dot_close(got[:, c], want[:, c], x[:, chunk], y[:, chunk])
+
+
+@pytest.mark.parametrize("unroll", [2, 4])
+@pytest.mark.parametrize("blocks", [1, 7, 132, 1056])
+def test_dot_full_under_other_plans(card, blocks, unroll):
+    # a grid of one block (no ticket), a few, a wave and eight: the last
+    # block's tail sums 1 to 1056 partials in its fixed order
+    x, y = _rand((2, 1 << 20), 14, card), _rand((2, 1 << 20), 15, card)
+    got = tr._full_launch(x, y, 0.5, "probe", blocks, unroll)
+    _dot_close(got, tr.dot_full_plain(x, y, 0.5), x, y, 0.5)
+    assert torch.equal(got, tr._full_launch(x, y, 0.5, "probe", blocks, unroll))
+    ones = torch.ones((2, 1 << 20), device=card)
+    assert torch.equal(tr._full_launch(ones, ones, None, "probe", blocks, unroll),
+                       torch.full((2,), float(1 << 20), device=card))
 
 
 def test_dot_full_is_deterministic(card):
@@ -571,6 +601,41 @@ def test_paged_attention_load_width_routes(card, K, H, D, dtype, view, route):
     want = ta._verify_attention_dense(q, k, v, table, lens, ks, vs)
     assert float((got - want).abs().max()) <= PAGED_ATOL
     assert torch.equal(got, ta.paged_attention(q, k, v, table, lens, ks, vs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("K", [1, 8])
+def test_paged_attention_wide_head(card, dtype, K):
+    # d_head 16384 (ROADMAP C2): no whole row fits a ring stage and no q a
+    # block's shared memory, so a chunk streams through the ring in
+    # 512-column units; one sequence (slot 1 of the operands) over 3 pages
+    ops = _paged_operands(110 + K, (), 2, K, 1, 16384, 16, 8, 3, dtype, card)
+    one = [ops[0][1:], ops[1], ops[2], ops[3][1:], ops[4][1:], ops[5], ops[6]]
+    ta.reset_launches()
+    got = ta.paged_attention(*one)
+    assert ta.launch_counts()["paged_attention"] == 1
+    assert float((got - ta._verify_attention_dense(*one)).abs().max()) <= PAGED_ATOL
+    assert torch.equal(got, ta.paged_attention(*one))
+
+
+@pytest.mark.parametrize("K,D,dtype,qdtype", [
+    (3, 1030, torch.float32, torch.float32),      # 3 tiles, a 2-column last group: 8-byte loads
+    (5, 1030, torch.int8, torch.bfloat16),        # byte loads, bf16 q
+    (2, 2048, torch.float8_e4m3fn, torch.float32),
+])
+def test_paged_attention_wide_units_and_split(card, K, D, dtype, qdtype):
+    # wide heads through every load route, and split over the positions
+    # (2 heads x 4 tiles leave the SMs idle): two calls give the same bits
+    ops = _paged_operands(120 + D, (), 3, K, 2, D, 16, 160, 64, dtype, card)
+    ops[0] = ops[0].to(qdtype)
+    got = ta.paged_attention(*ops)
+    assert torch.equal(got, ta.paged_attention(*ops))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # the idle slot
+    want = ta._verify_attention_dense(*ops)
+    atol = PAGED_ATOL if qdtype == torch.float32 else PAGED_BF16_ATOL
+    assert float((got.float() - want.float()).abs().max()) <= atol
+    if D == 2048:
+        assert ta.paged_attention.splits > 1
 
 
 # bf16 q: the kernel and the plain version both round an f32 result to

@@ -161,9 +161,29 @@ def test_paged_plan_splits_small_batches_only():
     assert ta.paged_plan(2, 1, 2, 64, 2, 3, 4, 16, **H100).tt <= 8
 
 
-def test_paged_plan_refuses_a_head_no_ring_fits():
-    with pytest.raises(ValueError, match="too wide"):
-        ta.paged_plan(1, 1, 1, 16384, 16, 4, 4, 16, **H100)
+# config 12's decode plans (B 32, T 128, H 8, D 128, 16-byte loads), which
+# the wide heads' repair leaves as they were: (tt, stages, smem) by pool
+# element size
+NARROW_B32_T128 = {4: (32, 3, 99072), 1: (64, 4, 67584)}
+
+
+@pytest.mark.parametrize("esize", [4, 1])   # f32 and int8 pools
+@pytest.mark.parametrize("K", [1, 8])
+def test_paged_plan_takes_a_head_no_whole_row_ring_fits(K, esize):
+    # D 16384: two stages of one token's K and V rows (256 KB in f32) and,
+    # at K 8, eight q rows (512 KB) exceed a block's shared memory; the
+    # plan streams a chunk through the ring in 512-column units instead
+    # and refuses no width
+    p = ta.paged_plan(1, K, 1, 16384, 16, 4, esize, 16, **H100)
+    assert p.wide and p.nj == 4 and p.n_dt == 16384 // 4 // 128
+    assert p.smem == ta.paged_smem(esize, 16384, p.nj, p.wide, p.wq, p.tt, p.stages)
+    assert p.smem <= H100["smem_optin"]
+    assert p.wq == {1: 1, 8: 8}[K] and p.split_len * p.n_split >= 4 * 16
+    # the narrow plans at config 12's decode shape are unchanged
+    tt, stages, smem = NARROW_B32_T128[esize]
+    assert ta.paged_plan(32, K, 8, 128, 16, 8, esize, 16, **H100) == ta.PagedPlan(
+        vb=16, nj=1, wide=False, n_dt=1, wq=K, tt=tt, stages=stages, n_split=1, split_len=128,
+        smem=smem)
 
 
 @pytest.mark.parametrize("W,ptrs,want", [

@@ -1,8 +1,9 @@
-"""Device times of the paged-attention and ``dma_hbm_step`` kernels through
-their wrappers, for an A/B of two checkouts on one card.
+"""Device times of the paged-attention, ``dma_hbm_step``, dot and fill
+kernels through their wrappers, for an A/B of two checkouts on one card.
 
 Cases (config 12's attention geometry: 8 heads, d_head 128, 16-token
-pages, one query a sequence; config 4's and 10's stencil steps):
+pages, one query a sequence; config 4's and 10's stencil steps; config 2's
+vectors):
 
 - ``paged warm``: 32 sequences of 128 cached tokens, f32, int8 and fp8
   pools, the same call back to back (its 33.5 MB of f32 pages stay in L2);
@@ -10,14 +11,20 @@ pages, one query a sequence; config 4's and 10's stencil steps):
   2048-page pool, rotated, so that a table's pages have left the 50 MB L2
   before it comes back;
 - ``paged long``: 4 sequences of 4096 cached tokens;
-- ``hbm``: one Jacobi step of 8192^2 stacked on 4x4 and of 1024^2 on 1x1.
+- ``hbm``: one Jacobi step of 8192^2 stacked on 4x4 and of 1024^2 on 1x1;
+- ``dot``: ``dot_full_prepped``, ``dot_partials_prepped`` and ``torch.dot``
+  over two f32 vectors of 1e8 and of 3000 elements;
+- ``fill``: ``fill`` and ``torch.full`` at 1e8 f32 and 37x53 f32.
 
 Usage, from the root of a checkout, on a machine with a card:
 
     python tpuscratch_torch/bench/kernel_ab.py [--root DIR] [--label NAME]
 
-``--sweep`` times the paged kernels under other plans than the host
-rule's instead (chunk tokens, ring stages, split count). ``--root`` imports ``tpuscratch_torch`` from another checkout (for example
+``--sweep`` times the kernels under other plans than the host rules'
+instead (paged: chunk tokens, ring stages, split count; dot_full: blocks an
+SM and groups in flight a thread; fill: the two ways to store and blocks
+an SM). ``--only paged,hbm,dot,fill`` picks case groups. ``--root``
+imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
 kernels build into that checkout's own build directory; the wrappers'
 signatures are the same on both sides. Prints the card's name and power
@@ -164,12 +171,110 @@ def hbm_cases(gen):
         del cores
 
 
+DOT_RTOL = 1e-5  # of sum|x*y|: the kernels sum f32 products in another order
+
+
+def _dot_inputs(gen, n: int):
+    import torch
+
+    from tpuscratch_torch.ops import reduction as tr
+
+    x = torch.randn((n,), generator=gen, device="cuda")
+    y = torch.randn((n,), generator=gen, device="cuda")
+    x2, y2, _, block = tr.prep(x, y, 512 if n > 10**6 else 8)
+    want = tr.dot_full_plain(x, y)
+    scale = float((x.double() * y.double()).abs().sum())
+    return x, y, x2, y2, block, want, scale
+
+
+def _dot_ok(what: str, got, want, scale: float) -> None:
+    err = abs(float(got) - float(want)) / scale
+    if err > DOT_RTOL:
+        raise AssertionError(f"{what}: relative error {err} > {DOT_RTOL}")
+
+
+def dot_cases(gen):
+    """(case, ms) of the two dot kernels and torch.dot."""
+    import torch
+
+    from tpuscratch_torch.ops import reduction as tr
+
+    for n, label in ((100_000_000, "1e8"), (3000, "3000")):
+        x, y, x2, y2, block, want, scale = _dot_inputs(gen, n)
+        for name, fn in (("full", tr.dot_full_prepped), ("partials", tr.dot_partials_prepped)):
+            _dot_ok(f"dot {name} {label}", fn(x2, y2, block), want, scale)
+            yield f"dot {name} {label} f32", device_ms(lambda: fn(x2, y2, block))
+        yield f"dot torch.dot {label} f32", device_ms(lambda: torch.dot(x, y))
+        del x, y, x2, y2
+
+
+def fill_cases(gen):
+    """(case, ms) of the fill kernel and torch.full."""
+    import importlib
+
+    import torch
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    for shape, label in (((100_000_000,), "1e8"), ((37, 53), "37x53")):
+        if not torch.equal(tf.fill(shape, 0.1), tf.fill_plain(shape, 0.1, device="cuda")):
+            raise AssertionError(f"fill {label} differs from its plain version")
+        yield f"fill {label} f32", device_ms(lambda: tf.fill(shape, 0.1))
+        yield f"fill torch.full {label} f32", device_ms(lambda: torch.full(shape, 0.1, device="cuda"))
+
+
+def dot_fill_sweep(gen):
+    """(case, ms) of dot_full and fill under other plans than the host
+    rules' (this checkout only)."""
+    import importlib
+
+    import torch
+
+    from tpuscratch_torch.ops import reduction as tr
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    for n, label in ((100_000_000, "1e8"), (3000, "3000")):
+        x, y, x2, y2, block, want, scale = _dot_inputs(gen, n)
+        xf, yf = x2.flatten(), y2.flatten()
+        n_sm, _ = tr._full_occupancy(torch.cuda.current_device(), 0, 0, 8, 2)
+        for unroll in (2, 4):
+            per_sm = tr._full_occupancy(torch.cuda.current_device(), 0, 0, 8, unroll)[1]
+            for waves in (1, 2, 3, 4, 6, 8, 16):
+                if waves > per_sm:
+                    continue
+                blocks = tr.dot_full_plan(xf.numel(), 1, 8, n_sm, per_sm, unroll, waves)
+                call = lambda: tr._full_launch(xf, yf, None, "sweep", blocks, unroll)  # noqa: E731
+                _dot_ok(f"sweep dot_full {label} unroll {unroll} waves {waves}", call(), want,
+                        scale)
+                rule = blocks == tr.dot_full_plan(xf.numel(), 1, 8, n_sm, per_sm, unroll) and (
+                    unroll == tr.DOT_FULL_UNROLL)
+                yield (f"sweep dot_full {label} f32 unroll={unroll} waves={waves} "
+                       f"blocks={blocks}{' (rule)' if rule else ''}", device_ms(call))
+        del x, y, x2, y2, xf, yf
+    n_sm = tf._n_sm(torch.cuda.current_device())
+    for shape, label in (((100_000_000,), "1e8"), ((37, 53), "37x53")):
+        want = tf.fill_plain(shape, 0.1, device="cuda")
+        plans = [tf.fill_plan(4 * want.numel(), n_sm, "bulk", waves) for waves in (1, 2)]
+        plans += [tf.fill_plan(4 * want.numel(), n_sm, "registers", waves, unroll, cs)
+                  for waves in (1, 2, 4, 8, 0) for unroll in (1, 4) for cs in (False, True)]
+        for plan in plans:
+            if not torch.equal(tf.fill(shape, 0.1, plan=plan), want):
+                raise AssertionError(f"sweep fill {label} {plan} differs from its plain version")
+            rule = plan == tf.fill_plan(4 * want.numel(), n_sm)
+            yield (f"sweep fill {label} f32 {plan}{' (rule)' if rule else ''}",
+                   device_ms(lambda: tf.fill(shape, 0.1, plan=plan)))
+
+
+GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=None, help="import tpuscratch_torch from this checkout")
     ap.add_argument("--label", default=None)
     ap.add_argument("--sweep", action="store_true",
-                    help="time the paged kernels under other plans (this checkout only)")
+                    help="time the kernels under other plans (this checkout only)")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated case groups: " + ", ".join(GROUPS))
     args = ap.parse_args(argv)
     root = pathlib.Path(args.root or pathlib.Path(__file__).resolve().parents[2]).resolve()
     sys.path[0] = str(root)
@@ -186,7 +291,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"# {args.label or root}: {smi}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = plan_sweep(gen) if args.sweep else itertools.chain(paged_cases(gen), hbm_cases(gen))
+    groups = args.only.split(",")
+    if args.sweep:
+        cases = itertools.chain(plan_sweep(gen) if "paged" in groups else (),
+                                dot_fill_sweep(gen) if {"dot", "fill"} & set(groups) else ())
+    else:
+        cases = itertools.chain.from_iterable(GROUPS[g](gen) for g in groups)
     for case, ms in cases:
         print(json.dumps({"label": args.label or str(root), "case": case, "ms": ms}), flush=True)
     return 0

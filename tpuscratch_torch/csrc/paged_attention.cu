@@ -29,6 +29,11 @@
 //    allow, else 8, 4 or 1: the `vb` route) so that the next chunks load
 //    while this one computes; the host sizes a stage at up to 32 KB of K and
 //    V rows, with as many stages as keep all of a launch's blocks resident;
+//  - a head wider than one tile (D > 512: paged_wide_kernel) streams each
+//    chunk through the ring as 512-column units, its K rows slice by slice
+//    (partial scores summed in shared memory, q read a slice at a time),
+//    then the V rows of the block's tile, so that no row and no q has to
+//    fit shared memory whole and every head width runs;
 //  - no thread waits on the page table or divides when it issues copies: its
 //    token's table index and page offset step from chunk to chunk, and the
 //    table entry loads a chunk ahead of its copies;
@@ -70,7 +75,7 @@ struct PoolStrides {
   long long ks_page, ks_head, vs_page, vs_head;
 };
 
-// One launch's operands and plan; the layout fields (d4 .. q_bytes) are
+// One launch's operands and plan; the layout fields (d4 .. sc_bytes) are
 // derived by the launcher.
 struct PagedParams {
   const void* q;
@@ -89,9 +94,9 @@ struct PagedParams {
   int q_bf16, vb, tt, stages, n_split, split_len, wq, n_dt;
   int tt_pages, tt_off;  // a chunk's tokens as whole pages and a remainder
   int d4;           // 4-column groups of a row
-  int rs;           // ring row stride, bytes (a multiple of 16)
-  int stage_bytes;  // K rows, V rows, K scales, V scales
-  int q_bytes;      // the q rows of a wide head, f32
+  int rs;           // ring row stride, bytes (a multiple of 16): a row, or a wide head's slice
+  int stage_bytes;  // K rows, V rows, K scales, V scales (wide: one unit's rows, both scales)
+  int sc_bytes;     // a wide head's scores of a chunk, (wq, tt) f32, ahead of the ring
   float scale;
 };
 
@@ -229,17 +234,75 @@ __device__ __forceinline__ void load_chunk(const PagedParams& p, unsigned char* 
   }
 }
 
+// ---- the warps' merge ---------------------------------------------------------------
+
+// The end of a split block: the token warps of each query merged in warp
+// order, through shared memory that aliases the ring (every copy landed,
+// every read done), then the block's tile of the output (or, split, its
+// partial m, l and acc). wt, wt_n and wq: the warp's token slot, the token
+// slots and its query in the group.
+template <int NJ>
+__device__ __forceinline__ void merge_warps(const PagedParams& p, unsigned char* ring, float m,
+                                            float l, const float4 (&acc)[NJ], int wt, int wt_n,
+                                            int wq) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  cp_async_wait_all();
+  __syncthreads();
+  constexpr int SLOT = 4 + 4 * 32 * NJ;  // floats: m, l, 2 pad, the tile's acc
+  float* mg = reinterpret_cast<float*>(ring);
+  {
+    float* sp = mg + (wt * p.wq + wq) * SLOT;
+    if (lane == 0) {
+      sp[0] = m;
+      sp[1] = l;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) reinterpret_cast<float4*>(sp + 4)[lane + 32 * j] = acc[j];
+  }
+  __syncthreads();
+  // the block's coordinates again (re-read, not kept live through the loop)
+  int ze;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(ze));
+  const int split_e = ze % p.n_split, dt_e = (ze / p.n_split) % p.n_dt;
+  const int kq0_e = ze / p.n_split / p.n_dt * p.wq;
+  const int kg_e = p.K - kq0_e < p.wq ? p.K - kq0_e : p.wq;
+  const int d_lo = 4 * 32 * NJ * dt_e;
+  const int dtw = p.D - d_lo < 4 * 32 * NJ ? p.D - d_lo : 4 * 32 * NJ;
+  const long long rows = (long long)p.B * p.K * p.H;
+  for (int e = tid; e < kg_e * dtw; e += PA_THREADS) {
+    const int i = e / dtw, d = e - i * dtw;
+    float M = PA_NEG_INF;
+    for (int v = 0; v < wt_n; ++v) M = fmaxf(M, mg[(v * p.wq + i) * SLOT]);
+    float L = 0.0f, O = 0.0f;
+    for (int v = 0; v < wt_n; ++v) {
+      const float* sp = mg + (v * p.wq + i) * SLOT;
+      const float f = expf(sp[0] - M);
+      L += sp[1] * f;
+      O += sp[4 + d] * f;
+    }
+    const long long r = ((long long)blockIdx.y * p.K + kq0_e + i) * p.H + blockIdx.x;
+    if (p.n_split == 1) {
+      store_out(p.out, r * p.D + d_lo + d, L > 0.0f ? O / L : 0.0f, p.q_bf16);
+    } else {
+      const long long pr = (long long)split_e * rows + r;
+      if (dt_e == 0 && d == 0) {
+        p.part_m[pr] = M;
+        p.part_l[pr] = L;
+      }
+      p.part_acc[pr * p.D + d_lo + d] = O;
+    }
+  }
+}
+
 // ---- the split kernel -------------------------------------------------------------
 
-// grid (H, B, groups * n_dt * n_split). NJ: 4-column groups a lane owns of
-// the block's output tile (tile = 128 * NJ columns). WIDE: the head is wider
-// than one tile (D > 512), so q lives in shared memory and the block's
-// scores run over all of D while it accumulates its tile's columns only.
-template <typename T, bool V16, int NJ, bool WIDE>
+// grid (H, B, groups * n_split) for heads up to one tile (D <= 512). NJ:
+// 4-column groups a lane owns of the block's output tile (tile = 128 * NJ
+// columns).
+template <typename T, bool V16, int NJ>
 __global__ void __launch_bounds__(PA_THREADS, PA_MIN_BLOCKS)
 paged_attention_kernel(const PagedParams p) {
   constexpr bool QUANT = !std::is_same<T, float>::value;
-  static_assert(!WIDE || NJ == 4, "a wide head's tile is 512 columns");
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x, b = blockIdx.y;
   int z = blockIdx.z;
@@ -264,8 +327,7 @@ paged_attention_kernel(const PagedParams p) {
   const int dt0 = dt * 32 * NJ;              // the tile's first 4-column group
   const int* row = p.table + (long long)b * p.max_pages;
 
-  float* qs = reinterpret_cast<float*>(smem);
-  unsigned char* ring = smem + p.q_bytes;
+  unsigned char* ring = smem;
 
   // columns [D, 4 * d4) of every ring row are read as zeros
   const int rb = p.D * (int)sizeof(T), rpad = 4 * p.d4 * (int)sizeof(T);
@@ -274,15 +336,8 @@ paged_attention_kernel(const PagedParams p) {
       unsigned char* r = ring + (e / (2 * p.tt)) * p.stage_bytes + (e % (2 * p.tt)) * p.rs;
       for (int o = rb; o < rpad; ++o) r[o] = 0;
     }
-  float4 qv[WIDE ? 1 : NJ];
-  if (WIDE) {
-    for (int e = tid; e < p.wq * 4 * p.d4; e += PA_THREADS) {
-      const int i = e / (4 * p.d4), d = e - i * 4 * p.d4;
-      qs[e] = kq0 + i < p.K && d < p.D
-                  ? load_q(p.q, (((long long)b * p.K + kq0 + i) * p.H + h) * p.D + d, p.q_bf16)
-                  : 0.0f;
-    }
-  } else {
+  float4 qv[NJ];
+  {
     const long long q0 = (((long long)b * p.K + kq) * p.H + h) * p.D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -350,7 +405,6 @@ paged_attention_kernel(const PagedParams p) {
     cur_off = cur_t - cur_idx * p.page;
   }
   int st_in = p.stages - 1, st_c = 0;  // ring stages of the next issue and of chunk c
-  const int njs = WIDE ? (p.d4 + 31) / 32 : NJ;  // 32-group slices of the score
   for (int c = 0; c < nch; ++c) {
     cp_async_wait(p.stages - 2);
     __syncthreads();  // chunk c landed for every thread; chunk c-1's stage is free
@@ -394,18 +448,9 @@ paged_attention_kernel(const PagedParams p) {
         ir[g] = i < n ? i : n - 1;
         const unsigned char* kr = kst + ir[g] * p.rs;
         dot[g] = 0.0f;
-        if (WIDE) {
-          for (int js = 0; js < njs; ++js) {
-            const int c4 = lane + 32 * js;
-            if (c4 < p.d4)
-              dot[g] = dot4(reinterpret_cast<const float4*>(qs)[wq * p.d4 + c4],
-                            load4<T>(kr, c4), dot[g]);
-          }
-        } else {
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            if (kcol[j]) dot[g] = dot4(qv[j], load4<T>(kr, lane + 32 * j), dot[g]);
-        }
+        for (int j = 0; j < NJ; ++j)
+          if (kcol[j]) dot[g] = dot4(qv[j], load4<T>(kr, lane + 32 * j), dot[g]);
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
@@ -443,54 +488,229 @@ paged_attention_kernel(const PagedParams p) {
     }
   }
 
-  // merge the token warps of each query in warp order, through shared
-  // memory that aliases the ring (every copy landed, every read done)
-  cp_async_wait_all();
-  __syncthreads();
-  constexpr int SLOT = 4 + 4 * 32 * NJ;  // floats: m, l, 2 pad, the tile's acc
-  float* mg = reinterpret_cast<float*>(ring);
-  {
-    float* sp = mg + (wt * p.wq + wq) * SLOT;
-    if (lane == 0) {
-      sp[0] = m;
-      sp[1] = l;
+  merge_warps<NJ>(p, ring, m, l, acc, wt, wt_n, wq);
+}
+
+// ---- the wide kernel ---------------------------------------------------------------
+
+constexpr int PA_TILE = 512;  // columns of a wide head's unit: 128 4-column groups, NJ 4
+
+// Unit loads of the wide kernel: 512 columns from col0 of token i's K row
+// (or V row: is_v, with both quantized scales) into its row of one ring
+// stage, as load_chunk splits a token's bytes. Columns [D, 4 * d4) of a
+// slice that ends there are written as zeros.
+template <typename T, bool V16>
+__device__ __forceinline__ void load_slice(const PagedParams& p, unsigned char* stage, int i,
+                                           int sub, int tpt, int pg, int off, int n, int h,
+                                           int col0, bool is_v) {
+  constexpr bool QUANT = !std::is_same<T, float>::value;
+  if (i >= n) return;
+  pg = pg < 0 ? 0 : (pg >= p.n_pages ? p.n_pages - 1 : pg);
+  const long long esize = sizeof(T);
+  const unsigned char* src =
+      is_v ? p.vp + (pg * p.st.v_page + (long long)off * p.st.v_tok + h * p.st.v_head + col0) * esize
+           : p.kp + (pg * p.st.k_page + (long long)off * p.st.k_tok + h * p.st.k_head + col0) * esize;
+  unsigned char* dst = stage + i * p.rs;
+  const int cols = p.D - col0 < PA_TILE ? p.D - col0 : PA_TILE;
+  const int rb = cols * (int)sizeof(T);
+  if (V16) {
+    for (int o = 16 * sub; o < rb; o += 16 * tpt) cp_async16(dst + o, src + o);
+  } else if (p.vb == 8) {
+#pragma unroll 1
+    for (int o = 8 * sub; o < rb; o += 8 * tpt) cp_async8(dst + o, src + o);
+  } else if (p.vb == 4) {
+#pragma unroll 1
+    for (int o = 4 * sub; o < rb; o += 4 * tpt) cp_async4(dst + o, src + o);
+  } else {  // 1-byte elements at no 4-byte alignment: plain loads
+#pragma unroll 1
+    for (int o = sub; o < rb; o += tpt) dst[o] = src[o];
+  }
+  if (sub == 0) {
+    const int rpad = 4 * ((cols + 3) / 4) * (int)sizeof(T);
+    for (int o = rb; o < rpad; ++o) dst[o] = 0;
+    if (QUANT && is_v) {
+      float* ss = reinterpret_cast<float*>(stage + p.tt * p.rs);
+      cp_async4(ss + i, p.ks + pg * p.st.ks_page + h * p.st.ks_head);
+      cp_async4(ss + p.tt + i, p.vs + pg * p.st.vs_page + h * p.st.vs_head);
     }
+  }
+}
+
+// grid (H, B, groups * n_dt * n_split) for heads wider than one tile (D >
+// 512): the block accumulates its tile's 512 columns of the output, and its
+// scores run over all of D. A chunk of tt tokens passes through the ring as
+// n_dt + 1 units: its K rows in n_dt slices of 512 columns, each dotted
+// with the same columns of q (read from global memory a slice at a time)
+// and summed into the chunk's scores in shared memory (a warp owns its
+// tokens' scores in every slice), then the V rows of the block's tile,
+// where the softmax step and P.V run as in paged_attention_kernel. Neither
+// the ring nor the scores grow with D or K, so every width runs.
+template <typename T, bool V16>
+__global__ void __launch_bounds__(PA_THREADS, PA_MIN_BLOCKS)
+paged_wide_kernel(const PagedParams p) {
+  constexpr bool QUANT = !std::is_same<T, float>::value;
+  constexpr int NJ = 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = blockIdx.x, b = blockIdx.y;
+  int z = blockIdx.z;
+  const int split = z % p.n_split;
+  z /= p.n_split;
+  const int dt = z % p.n_dt, grp = z / p.n_dt;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wt_n = PA_WARPS / p.wq;          // warps that split a chunk's tokens
+  const int wq = warp % p.wq, wt = warp / p.wq;
+  const int kq0 = grp * p.wq, kq = kq0 + wq;
+  const int kg = p.K - kq0 < p.wq ? p.K - kq0 : p.wq;
+  const bool active = kq < p.K;
+  const int seq = p.lens[b];
+  const int tcap = p.max_pages * p.page;
+  const int tmax = seq <= 0 ? 0 : (seq > tcap - kq0 - kg + 1 ? tcap : seq + kq0 + kg - 1);
+  const int t_lo = split * p.split_len;
+  const int t_hi = t_lo + p.split_len < tmax ? t_lo + p.split_len : tmax;
+  const int nch = t_hi > t_lo ? (t_hi - t_lo + p.tt - 1) / p.tt : 0;
+  const int dt0 = dt * 32 * NJ;              // the tile's first 4-column group
+  const int* row = p.table + (long long)b * p.max_pages;
+  float* scw = reinterpret_cast<float*>(smem) + wq * p.tt;  // this query's scores of a chunk
+  unsigned char* ring = smem + p.sc_bytes;
+  const long long q0 = (((long long)b * p.K + kq) * p.H + h) * p.D;
+
+  bool vcol[NJ];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) reinterpret_cast<float4*>(sp + 4)[lane + 32 * j] = acc[j];
-  }
-  __syncthreads();
-  // the block's coordinates again (re-read, not kept live through the loop)
-  int ze;
-  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(ze));
-  const int split_e = ze % p.n_split, dt_e = (ze / p.n_split) % p.n_dt;
-  const int kq0_e = ze / p.n_split / p.n_dt * p.wq;
-  const int kg_e = p.K - kq0_e < p.wq ? p.K - kq0_e : p.wq;
-  const int d_lo = 4 * 32 * NJ * dt_e;
-  const int dtw = p.D - d_lo < 4 * 32 * NJ ? p.D - d_lo : 4 * 32 * NJ;
-  const long long rows = (long long)p.B * p.K * p.H;
-  for (int e = tid; e < kg_e * dtw; e += PA_THREADS) {
-    const int i = e / dtw, d = e - i * dtw;
-    float M = PA_NEG_INF;
-    for (int v = 0; v < wt_n; ++v) M = fmaxf(M, mg[(v * p.wq + i) * SLOT]);
-    float L = 0.0f, O = 0.0f;
-    for (int v = 0; v < wt_n; ++v) {
-      const float* sp = mg + (v * p.wq + i) * SLOT;
-      const float f = expf(sp[0] - M);
-      L += sp[1] * f;
-      O += sp[4 + d] * f;
-    }
-    const long long r = ((long long)blockIdx.y * p.K + kq0_e + i) * p.H + blockIdx.x;
-    if (p.n_split == 1) {
-      store_out(p.out, r * p.D + d_lo + d, L > 0.0f ? O / L : 0.0f, p.q_bf16);
-    } else {
-      const long long pr = (long long)split_e * rows + r;
-      if (dt_e == 0 && d == 0) {
-        p.part_m[pr] = M;
-        p.part_l[pr] = L;
+  for (int j = 0; j < NJ; ++j) vcol[j] = dt0 + lane + 32 * j < p.d4;
+  float m = PA_NEG_INF, l = 0.0f;
+  float4 acc[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // the producer: units of chunk in_c, part in_s (n_dt K slices, then V),
+  // token li's table entry loaded when its chunk's first unit is issued
+  const int nu = p.n_dt + 1, nunits = nch * nu;
+  const int tpt = PA_THREADS / p.tt, li = tid >> (__ffs(tpt) - 1), lsub = tid & (tpt - 1);
+  int in_c = 0, in_s = 0;
+  int cur_t = t_lo + li;
+  int cur_idx = cur_t / p.page, cur_off = cur_t - cur_idx * p.page;
+  int pg = cur_t < t_hi ? row[cur_idx] : 0;
+  auto issue = [&](int st) {
+    if (in_c < nch) {
+      const int t0 = t_lo + in_c * p.tt;
+      const bool is_v = in_s == p.n_dt;
+      load_slice<T, V16>(p, ring + st * p.stage_bytes, li, lsub, tpt, pg, cur_off,
+                         t_hi - t0 < p.tt ? t_hi - t0 : p.tt, h,
+                         (is_v ? dt : in_s) * PA_TILE, is_v);
+      if (++in_s == nu) {
+        in_s = 0;
+        ++in_c;
+        cur_t += p.tt;
+        cur_idx += p.tt_pages;
+        cur_off += p.tt_off;
+        if (cur_off >= p.page) {
+          cur_off -= p.page;
+          ++cur_idx;
+        }
+        pg = cur_t < t_hi ? row[cur_idx] : 0;
       }
-      p.part_acc[pr * p.D + d_lo + d] = O;
+    }
+    cp_async_commit();
+  };
+  for (int u = 0; u < p.stages - 1; ++u) issue(u);
+  int st_in = p.stages - 1, st_c = 0;  // ring stages of the next issue and of unit u
+  int c = 0, part = 0;                 // unit u's chunk and part
+  for (int u = 0; u < nunits; ++u) {
+    cp_async_wait(p.stages - 2);
+    __syncthreads();  // unit u landed for every thread; unit u-1's stage is free
+    issue(st_in);
+    st_in = st_in + 1 == p.stages ? 0 : st_in + 1;
+    const unsigned char* st = ring + st_c * p.stage_bytes;
+    st_c = st_c + 1 == p.stages ? 0 : st_c + 1;
+    const int cu = c, pu = part;
+    if (++part == nu) {
+      part = 0;
+      ++c;
+    }
+    if (!active) continue;
+    const int t0 = t_lo + cu * p.tt;
+    const int n = t_hi - t0 < p.tt ? t_hi - t0 : p.tt;
+    if (pu < p.n_dt) {
+      // slice pu: this lane's 4-column groups pu * 128 + lane + 32 j of q
+      float4 qv[NJ];
+      bool kcol[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c4 = 32 * NJ * pu + lane + 32 * j;
+        kcol[j] = c4 < p.d4;
+        float e[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int d = 4 * c4 + v;
+          e[v] = d < p.D ? load_q(p.q, q0 + d, p.q_bf16) : 0.0f;
+        }
+        qv[j] = make_float4(e[0], e[1], e[2], e[3]);
+      }
+      for (int i0 = wt; i0 < n; i0 += wt_n * PA_G) {
+        float dot[PA_G];
+#pragma unroll
+        for (int g = 0; g < PA_G; ++g) {
+          const int i = i0 + g * wt_n;
+          const unsigned char* kr = st + (i < n ? i : n - 1) * p.rs;
+          dot[g] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            if (kcol[j]) dot[g] = dot4(qv[j], load4<T>(kr, lane + 32 * j), dot[g]);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+          for (int g = 0; g < PA_G; ++g) dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
+        if (lane == 0)
+#pragma unroll
+          for (int g = 0; g < PA_G; ++g) {
+            const int i = i0 + g * wt_n;
+            if (i < n) scw[i] = pu == 0 ? dot[g] : scw[i] + dot[g];
+          }
+      }
+      continue;
+    }
+    // the V tile: the softmax step and P.V over this chunk's summed scores
+    __syncwarp();  // lane 0's score sums, visible to the warp
+    const float* kss = reinterpret_cast<const float*>(st + p.tt * p.rs);
+    for (int i0 = wt; i0 < n; i0 += wt_n * PA_G) {
+      float s[PA_G];
+      int ir[PA_G];
+      bool ok[PA_G];
+      float mx = m;
+#pragma unroll
+      for (int g = 0; g < PA_G; ++g) {
+        const int i = i0 + g * wt_n;
+        ok[g] = i < n && t0 + i - kq < seq;
+        ir[g] = i < n ? i : n - 1;
+        const float sc = QUANT ? p.scale * kss[ir[g]] : p.scale;
+        s[g] = ok[g] ? scw[ir[g]] * sc : PA_NEG_INF;
+        mx = fmaxf(mx, s[g]);
+      }
+      const float corr = expf(m - mx);
+      l *= corr;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[j].x *= corr;
+        acc[j].y *= corr;
+        acc[j].z *= corr;
+        acc[j].w *= corr;
+      }
+#pragma unroll
+      for (int g = 0; g < PA_G; ++g) {
+        const float e = expf(s[g] - mx);
+        const float pg_ = ok[g] ? e : 0.0f;
+        l += pg_;
+        const float pv = QUANT ? pg_ * kss[p.tt + ir[g]] : pg_;
+        const unsigned char* vr = st + ir[g] * p.rs;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          if (vcol[j]) axpy4(pv, load4<T>(vr, lane + 32 * j), acc[j]);
+      }
+      m = mx;
     }
   }
+  merge_warps<NJ>(p, ring, m, l, acc, wt, wt_n, wq);
 }
 
 // ---- the combine kernel -----------------------------------------------------------
@@ -526,18 +746,18 @@ paged_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
 
 // ---- launchers --------------------------------------------------------------------
 
-// shared memory of a launch: the wide head's q rows, then the ring (which
+// shared memory of a launch: a wide head's scores, then the ring (which
 // the warp merge reuses)
 static size_t smem_bytes(const PagedParams& p, int nj) {
   const size_t ring = (size_t)p.stages * p.stage_bytes;
   const size_t merge = (size_t)PA_WARPS * (4 + 4 * 32 * nj) * sizeof(float);
-  return (size_t)p.q_bytes + (ring > merge ? ring : merge);
+  return (size_t)p.sc_bytes + (ring > merge ? ring : merge);
 }
 
-template <typename T, bool V16, int NJ, bool WIDE>
-static int launch_split(const PagedParams& p, cudaStream_t stream) {
+template <int NJ>
+static int launch_split(void (*kern)(const PagedParams), const PagedParams& p,
+                        cudaStream_t stream) {
   const size_t smem = smem_bytes(p, NJ);
-  auto kern = paged_attention_kernel<T, V16, NJ, WIDE>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -552,11 +772,11 @@ static int launch_split(const PagedParams& p, cudaStream_t stream) {
 
 template <typename T, bool V16>
 static int launch_width(const PagedParams& p, int nj, int wide, cudaStream_t s) {
-  if (wide) return launch_split<T, V16, 4, true>(p, s);
+  if (wide) return launch_split<4>(paged_wide_kernel<T, V16>, p, s);
   switch (nj) {
-    case 1: return launch_split<T, V16, 1, false>(p, s);
-    case 2: return launch_split<T, V16, 2, false>(p, s);
-    case 4: return launch_split<T, V16, 4, false>(p, s);
+    case 1: return launch_split<1>(paged_attention_kernel<T, V16, 1>, p, s);
+    case 2: return launch_split<2>(paged_attention_kernel<T, V16, 2>, p, s);
+    case 4: return launch_split<4>(paged_attention_kernel<T, V16, 4>, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -629,9 +849,15 @@ extern "C" int ts_paged_attention(
   p.split_len = split_len; p.wq = wq; p.n_dt = n_dt;
   p.tt_pages = tt / page; p.tt_off = tt % page;
   p.d4 = d4;
-  p.rs = (4 * d4 * esize + 15) / 16 * 16;
-  p.stage_bytes = (2 * tt * p.rs + 2 * tt * 4 + 15) / 16 * 16;
-  p.q_bytes = wide ? wq * 4 * d4 * 4 : 0;
+  if (wide) {  // a stage holds one unit: 512 columns of the chunk's K or V rows
+    p.rs = PA_TILE * esize;
+    p.stage_bytes = (tt * p.rs + 2 * tt * 4 + 15) / 16 * 16;
+    p.sc_bytes = (wq * tt * 4 + 15) / 16 * 16;
+  } else {
+    p.rs = (4 * d4 * esize + 15) / 16 * 16;
+    p.stage_bytes = (2 * tt * p.rs + 2 * tt * 4 + 15) / 16 * 16;
+    p.sc_bytes = 0;
+  }
   p.scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t s = (cudaStream_t)stream;
   int err;

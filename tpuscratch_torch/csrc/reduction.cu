@@ -15,11 +15,13 @@
 //   step) writes its partial; the caller sums the partials (as the JAX
 //   package sums them outside its kernel).
 // - dot_full: the reference's own single-kernel design (mpicuda4.cu:157-185):
-//   a grid sized by the SM count walks the vector with a grid-stride loop,
-//   each block writes its partial to a scratch buffer, __threadfence(), and
-//   takes an atomicInc ticket; the block that draws the last ticket sums
-//   the partials in index order and the ticket wraps back to 0 for the next
-//   launch. No float atomicAdd: the result is the same on every run.
+//   G blocks walk the vector with a grid-stride loop, each block writes its
+//   partial to a scratch buffer, __threadfence(), and takes an atomicInc
+//   ticket; the block that draws the last ticket sums the partials and the
+//   ticket wraps back to 0 for the next launch. No float atomicAdd: the
+//   result is the same on every run. The host plans G
+//   (ops/reduction.py: dot_full_plan), a whole number of resident waves at
+//   most, and the loop's depth (UNROLL groups a thread in flight).
 //
 // Inside a block: per-thread fmaf accumulation, then a warp-shuffle tree
 // and the warp sums through shared memory, in a fixed order.
@@ -27,9 +29,14 @@
 // Bound: bytes. The work reads both vectors once, 2 * n * sizeof(T) bytes,
 // against 3 flops an element: for 1e8 float32, 8e8 B = 0.239 ms at
 // 3.35 TB/s against 4.5 us of f32 operations. Loads are 16 bytes a thread
-// (two float4 / one uint4 of bf16 per 8 elements), two such steps in
-// flight per thread, where the pointers are 16-byte aligned and the
-// lengths multiples of 8; otherwise one element at a time.
+// (two float4 / one uint4 of bf16 per 8 elements), U such steps in flight
+// per thread (2 for dot_partials, the plan's for dot_full), where the
+// pointers are 16-byte aligned and the lengths multiples of 8; otherwise
+// one element at a time. What the bound leaves of dot_full is its tail:
+// the last block sums the G partials with all of its threads, each a fixed
+// strided subset in index order, then block_sum's fixed tree (a serial sum
+// by one thread cost ~G dependent L2 loads while every other block had
+// already exited), and a one-block grid writes its sum straight out.
 //
 // Plain C interface (ctypes): every launcher takes raw pointers and the
 // CUDA stream, launches on that stream, allocates nothing and returns
@@ -40,7 +47,7 @@
 #include <cstdint>
 
 constexpr int THREADS = 256;
-constexpr int UNROLL = 2;
+constexpr int PARTIALS_UNROLL = 2;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -75,8 +82,8 @@ struct Load<8> {
 };
 
 // Sum of (x + o) * y over the groups g, g + stride, ... < gend of V
-// elements each.
-template <int V, typename TX, typename TY>
+// elements each, UNROLL groups in flight.
+template <int V, int UNROLL, typename TX, typename TY>
 __device__ __forceinline__ float accumulate(const TX* __restrict__ x,
                                             const TY* __restrict__ y,
                                             long long g, long long gend,
@@ -135,8 +142,8 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
   const long long b = blockIdx.y, c = blockIdx.x;
   const long long begin = c * chunk;
   const long long end = begin + chunk < n ? begin + chunk : n;
-  const float acc = accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x,
-                                  end / V, THREADS, offset_of(off, off_stride, b));
+  const float acc = accumulate<V, PARTIALS_UNROLL>(x + b * n, y + b * n, begin / V + threadIdx.x,
+                                                   end / V, THREADS, offset_of(off, off_stride, b));
   const float s = block_sum(acc);
   if (threadIdx.x == 0) partials[b * gridDim.x + c] = s;
 }
@@ -145,7 +152,7 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
 // dot_full: grid (G, batch); the G blocks of batch b walk its n elements
 // with a grid-stride loop; scratch is (batch, G), tickets (batch,) starts
 // (and ends) at 0.
-template <int V, typename TX, typename TY>
+template <int V, int U, typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 dot_full_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                 const float* __restrict__ off, int off_stride, long long n,
@@ -153,26 +160,31 @@ dot_full_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                 float* __restrict__ out) {
   const long long b = blockIdx.y;
   const unsigned int G = gridDim.x;
-  const float acc = accumulate<V>(x + b * n, y + b * n,
-                                  (long long)blockIdx.x * THREADS + threadIdx.x,
-                                  n / V, (long long)G * THREADS,
-                                  offset_of(off, off_stride, b));
+  const float acc = accumulate<V, U>(x + b * n, y + b * n,
+                                     (long long)blockIdx.x * THREADS + threadIdx.x,
+                                     n / V, (long long)G * THREADS,
+                                     offset_of(off, off_stride, b));
   const float s = block_sum(acc);
+  if (G == 1) {  // the block's sum is the total: no scratch, no ticket
+    if (threadIdx.x == 0) out[b] = s;
+    return;
+  }
   __shared__ bool last;
   if (threadIdx.x == 0) {
     scratch[b * G + blockIdx.x] = s;
     __threadfence();  // the partial is visible device-wide before the ticket
     last = atomicInc(&tickets[b], G - 1) == G - 1;  // G-th ticket wraps to 0
   }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();  // every other block's partial is read after its ticket
-    const float* p = scratch + b * G;
-    float total = 0.f;
-#pragma unroll 8
-    for (unsigned int i = 0; i < G; ++i) total += __ldcg(p + i);  // index order, past L1
-    out[b] = total;
-  }
+  __syncthreads();  // also orders block_sum's shared memory for its reuse below
+  if (!last) return;
+  __threadfence();  // every other block's partial is read after its ticket
+  // thread t sums partials t, t + THREADS, ... in index order, then the
+  // block's fixed tree: the same order on every run
+  const float* p = scratch + b * G;
+  float t = 0.f;
+  for (unsigned int i = threadIdx.x; i < G; i += THREADS) t += __ldcg(p + i);  // past L1
+  const float total = block_sum(t);
+  if (threadIdx.x == 0) out[b] = total;
 }
 
 // ---------------------------------------------------------------------------
@@ -182,9 +194,10 @@ struct Args {
   const float* off;
   int off_stride;
   long long n, chunk, nchunks, batch;
-  int blocks;
+  int blocks, unroll;
   float *partials, *scratch, *out;
   unsigned int* tickets;
+  int* per_sm;
   cudaStream_t stream;
 };
 
@@ -199,16 +212,27 @@ struct Partials {
 
 template <int V, typename TX, typename TY>
 struct Full {
-  static void run(const Args& a) {
-    dot_full_kernel<V, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
-                                 THREADS, 0, a.stream>>>(
+  template <int U>
+  static void launch(const Args& a) {
+    dot_full_kernel<V, U, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
+                                    THREADS, 0, a.stream>>>(
         (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.scratch,
         a.tickets, a.out);
   }
-  static int per_sm() {
-    int k = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, dot_full_kernel<V, TX, TY>, THREADS, 0);
-    return k;
+  static void run(const Args& a) {
+    if (a.unroll == 4) launch<4>(a);
+    else launch<2>(a);
+  }
+};
+
+// the blocks of dot_full an SM holds at full occupancy, into *a.per_sm
+template <int V, typename TX, typename TY>
+struct FullOccupancy {
+  static void run(const Args& a) {
+    if (a.unroll == 4)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_full_kernel<V, 4, TX, TY>, THREADS, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_full_kernel<V, 2, TX, TY>, THREADS, 0);
   }
 };
 
@@ -248,45 +272,31 @@ extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int
   return dispatch<Partials>(dx, dy, vec, a);
 }
 
-// Blocks per batch entry of dot_full: the card's resident capacity
-// (SMs x blocks per SM at full occupancy) shared out over the batch, and
-// no more than the work fills (UNROLL groups of vec elements a thread).
-extern "C" int ts_dot_full_blocks(long long n, long long batch, int dx, int dy, int vec,
-                                  int* blocks) {
-  if (!valid(n, batch, vec) || dx < 0 || dx > 1 || dy < 0 || dy > 1) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
+// The card's SM count and the blocks of dot_full an SM holds at full
+// occupancy, for the host's plan (ops/reduction.py: dot_full_plan).
+extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int unroll, int* sms,
+                                     int* per_sm) {
+  if (unroll != 2 && unroll != 4) return (int)cudaErrorInvalidValue;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  using bf = __nv_bfloat16;
-  int per_sm = 0;
-  const int code = dx * 2 + dy;
-  if (vec == 8) {
-    per_sm = code == 0 ? Full<8, float, float>::per_sm() : code == 1 ? Full<8, float, bf>::per_sm()
-           : code == 2 ? Full<8, bf, float>::per_sm() : Full<8, bf, bf>::per_sm();
-  } else {
-    per_sm = code == 0 ? Full<1, float, float>::per_sm() : code == 1 ? Full<1, float, bf>::per_sm()
-           : code == 2 ? Full<1, bf, float>::per_sm() : Full<1, bf, bf>::per_sm();
-  }
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) per_sm = 1;
-  long long cap = (long long)sms * per_sm / batch;
-  const long long per_block = (long long)THREADS * vec * UNROLL;
-  const long long need = (n + per_block - 1) / per_block;
-  if (cap > need) cap = need;
-  *blocks = (int)(cap < 1 ? 1 : cap);
-  return 0;
+  Args a{};
+  a.unroll = unroll;
+  a.per_sm = per_sm;
+  return dispatch<FullOccupancy>(dx, dy, vec, a);
 }
 
+// `blocks` (G) and `unroll` (2 or 4) come from the host's plan.
 extern "C" int ts_dot_full(const void* x, const void* y, int dx, int dy, int vec,
                            const float* off, int off_stride, long long n, long long batch,
-                           int blocks, float* scratch, unsigned int* tickets, float* out,
-                           void* stream) {
-  if (!valid(n, batch, vec) || blocks < 1) return (int)cudaErrorInvalidValue;
+                           int blocks, int unroll, float* scratch, unsigned int* tickets,
+                           float* out, void* stream) {
+  if (!valid(n, batch, vec) || blocks < 1 || (unroll != 2 && unroll != 4))
+    return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x; a.y = y; a.off = off; a.off_stride = off_stride; a.n = n; a.batch = batch;
-  a.blocks = blocks; a.scratch = scratch; a.tickets = tickets; a.out = out;
+  a.blocks = blocks; a.unroll = unroll; a.scratch = scratch; a.tickets = tickets; a.out = out;
   a.stream = (cudaStream_t)stream;
   return dispatch<Full>(dx, dy, vec, a);
 }

@@ -612,15 +612,22 @@ def paged_load_width(esize: int, D: int, strides, data_ptrs) -> int:
     return esize
 
 
+def _paged_row_bytes(esize: int, D: int, wide: bool) -> int:
+    """A ring row: a whole K or V row padded to 16 bytes, or a wide head's
+    512-column slice of one."""
+    return PAGED_TILE * esize if wide else _ceil(4 * _ceil(D, 4) * esize, 16) * 16
+
+
 def paged_smem(esize: int, D: int, nj: int, wide: bool, wq: int, tt: int, stages: int) -> int:
     """Dynamic shared memory of a launch (the launcher's ``smem_bytes``):
-    a wide head's q rows, then the ring (K rows, V rows, their scales a
-    stage, rows padded to 16 bytes), which the warps' final merge reuses."""
-    d4 = _ceil(D, 4)
-    rs = _ceil(4 * d4 * esize, 16) * 16
-    stage = _ceil(2 * tt * rs + 8 * tt, 16) * 16
+    a wide head's scores of a chunk (``wq`` x ``tt`` f32), then the ring,
+    which the warps' final merge reuses. A narrow stage holds a chunk's K
+    rows, V rows and their scales; a wide one a unit: one 512-column slice
+    of the chunk's K rows or its V tile, and both scales."""
+    rs = _paged_row_bytes(esize, D, wide)
+    stage = _ceil((1 if wide else 2) * tt * rs + 8 * tt, 16) * 16
     merge = PAGED_THREADS // 32 * (4 + 128 * nj) * 4
-    return (wq * 16 * d4 if wide else 0) + max(stages * stage, merge)
+    return (_ceil(4 * wq * tt, 16) * 16 if wide else 0) + max(stages * stage, merge)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -628,10 +635,13 @@ def paged_plan(B: int, K: int, H: int, D: int, page: int, max_pages: int, esize:
                n_sm: int, smem_optin: int) -> PagedPlan:
     """The paged kernel's shape rule. Heads up to 512 columns keep a
     lane's columns in registers (``nj`` 1, 2 or 4 groups of 4 a 32-lane
-    slice), wider ones take output tiles of 512 (q in shared memory). One
+    slice), wider ones take output tiles of 512 and stream a chunk through
+    the ring as 512-column units (``paged_wide_kernel``), so no width is
+    refused. One
     query a block at K = 1, 2 at K = 2, 4 up to K = 4, else 8 (the 8 warps
     split a chunk's tokens 8, 4, 2 or 1 ways and its queries the other way). A
-    chunk holds at most PAGED_STAGE_BYTES of K and V rows and
+    chunk holds at most PAGED_STAGE_BYTES of K and V rows (a wide unit,
+    of K or V slices) and
     PAGED_MAX_TT tokens (a power of two, at most the positions the table
     covers). The positions (``max_pages * page``, the lengths' upper
     bound) are split when the other block dims leave fewer blocks than
@@ -646,10 +656,10 @@ def paged_plan(B: int, K: int, H: int, D: int, page: int, max_pages: int, esize:
     nj = 4 if wide else (1 if d4 <= 32 else 2 if d4 <= 64 else 4)
     n_dt = _ceil(d4, 128) if wide else 1
     wq = 1 if K == 1 else 2 if K == 2 else 4 if K <= 4 else 8
-    rs = _ceil(4 * d4 * esize, 16) * 16
+    unit = (1 if wide else 2) * _paged_row_bytes(esize, D, wide)  # bytes a token a stage
     tcap = max_pages * page
     tt = PAGED_MAX_TT
-    while tt > 1 and (2 * tt * rs > PAGED_STAGE_BYTES or tt >= 2 * tcap):
+    while tt > 1 and (tt * unit > PAGED_STAGE_BYTES or tt >= 2 * tcap):
         tt //= 2
     base = B * H * _ceil(K, wq) * n_dt
     n_split = 1
@@ -669,8 +679,8 @@ def paged_plan(B: int, K: int, H: int, D: int, page: int, max_pages: int, esize:
         elif tt > 1:
             tt //= 2
         else:
-            raise ValueError(f"paged_attention: d_head {D} is too wide for one block's "
-                             f"{smem_optin} B of shared memory")
+            raise ValueError(f"paged_attention: {smem_optin} B of shared memory a block "
+                             "hold no ring")
     return PagedPlan(vb, nj, wide, n_dt, wq, tt, stages, n_split, split_len,
                      paged_smem(esize, D, nj, wide, wq, tt, stages))
 

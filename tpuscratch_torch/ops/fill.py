@@ -13,13 +13,17 @@ The twin of ``tpuscratch.ops.fill``: the reference's ``init_vector``
 Entry points run on the card unless ``device='cpu'`` is passed, which runs
 the plain torch versions (``fill_plain``, ``iota2d_plain``); the card-side
 checks compare the kernels with those. Each wrapper counts its launches.
+``fill``'s grid is a host rule, ``fill_plan``; ``fill_writes`` models which
+bytes its kernel writes under a plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from tpuscratch_torch.ops.common import check_status, counters, library, route, stream_of
@@ -35,7 +39,8 @@ _BITS_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 def _lib() -> ctypes.CDLL:
     lib = library("fill")
     lib.ts_fill.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-                            ctypes.c_int, ctypes.c_void_p]
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.ts_iota2d.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_void_p]
     lib.ts_fill.restype = lib.ts_iota2d.restype = ctypes.c_int
@@ -60,9 +65,78 @@ def fill_plain(shape, value, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return host.to(device).expand(_shape(shape)).contiguous()
 
 
-def fill(shape, value, dtype=torch.float32, device=None) -> torch.Tensor:
+# fill's host rule (csrc/fill.cu): "registers" strides one resident wave
+# of FILL_THREADS-thread blocks over the 16-byte body, FILL_UNROLL stores
+# a thread an iteration; "bulk" gives each FILL_BULK_THREADS-thread block a
+# span of the body, written by bulk copies of a FILL_TILE16-unit tile. The
+# tail under 16 bytes goes byte by byte to block 0's first threads.
+FILL_THREADS = 256
+FILL_UNROLL = 4
+FILL_BULK_THREADS = 128
+FILL_TILE16 = 2048
+FILL_MODES = {"registers": 0, "bulk": 1}
+FILL_MODE = "registers"
+FILL_WAVES = {"registers": 8, "bulk": 2}  # blocks an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class FillPlan:
+    """One fill launch: ``mode``, ``blocks`` and, for "bulk", the 16-byte
+    units a block writes (``span16``; 0 for "registers")."""
+
+    mode: str
+    blocks: int
+    span16: int
+    unroll: int = 4
+    cs: bool = True
+
+
+def fill_plan(nbytes: int, n_sm: int, mode: str = FILL_MODE, waves: int | None = None,
+              unroll: int = FILL_UNROLL, cs: bool = True) -> FillPlan:
+    """``fill``'s grid for ``nbytes``: ``waves`` blocks an SM at most
+    (FILL_WAVES[mode] by default; 0: no cap), no more than the body fills,
+    at least 1."""
+    if mode not in FILL_MODES:
+        raise ValueError(f"fill: unknown mode {mode!r}")
+    n16 = nbytes // 16
+    waves = FILL_WAVES[mode] if waves is None else waves
+    if mode == "registers":
+        need = -(-n16 // (FILL_THREADS * unroll))
+        return FillPlan(mode, max(1, min(n_sm * waves, need) if waves else need), 0, unroll, cs)
+    blocks = max(1, min(n_sm * waves, -(-n16 // FILL_TILE16)))
+    span16 = max(1, -(-n16 // blocks))
+    return FillPlan(mode, -(-n16 // span16) if n16 else 1, span16)
+
+
+def fill_writes(plan: FillPlan, nbytes: int) -> np.ndarray:
+    """How many times the kernel writes each of ``nbytes`` bytes under
+    ``plan``: the index arithmetic of ``csrc/fill.cu``, in numpy."""
+    n16, ntail = nbytes // 16, nbytes % 16
+    count = np.zeros(nbytes, np.int64)
+    body = count[:16 * n16].reshape(n16, 16)
+    if plan.mode == "registers":
+        chunk = plan.unroll * FILL_THREADS
+        for b in range(plan.blocks):      # block b: chunks b, b + blocks, ... of unroll x threads
+            for c in range(b, -(-n16 // chunk), plan.blocks):
+                body[c * chunk:(c + 1) * chunk] += 1
+    else:
+        for b in range(plan.blocks):      # each block's bulk copies over its span
+            q1 = min(n16, (b + 1) * plan.span16)
+            for q in range(b * plan.span16, q1, FILL_TILE16):
+                body[q:min(q1, q + FILL_TILE16)] += 1
+    count[16 * n16:16 * n16 + ntail] += 1  # block 0's threads 0 .. ntail - 1
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def fill(shape, value, dtype=torch.float32, device=None, plan: FillPlan | None = None) -> torch.Tensor:
     """An array of ``shape`` holding ``value`` in ``dtype``, written on the
-    device (no host-to-device copy of the array)."""
+    device (no host-to-device copy of the array). ``plan`` overrides
+    ``fill_plan``'s (as ``bench/kernel_ab.py --sweep`` times them)."""
     out = torch.empty(_shape(shape), dtype=dtype, device=resolve_device(device))
     if not route(out, "fill"):
         return out.copy_(fill_plain(out.shape, value, dtype))
@@ -71,9 +145,12 @@ def fill(shape, value, dtype=torch.float32, device=None) -> torch.Tensor:
     if size not in _BITS_OF_SIZE:
         raise TypeError(f"fill: no bit pattern for {dtype}")
     bits = int(host.view(_BITS_OF_SIZE[size]).item()) & ((1 << (8 * size)) - 1)
+    nbytes = out.numel() * size
+    plan = plan or fill_plan(nbytes, _n_sm(out.device.index))
     with torch.cuda.device(out.device):
         check_status(_lib(), _lib().ts_fill(
-            out.data_ptr(), out.numel() * size, bits, size, stream_of(out)), "fill")
+            out.data_ptr(), nbytes, bits, size, FILL_MODES[plan.mode], plan.blocks, plan.span16,
+            plan.unroll, int(plan.cs), stream_of(out)), "fill")
     fill.launches += 1
     return out
 

@@ -8,8 +8,9 @@ full reduction), f32 accumulation for float32 and bfloat16 operands.
   partials are summed with ``torch.sum`` (outside the kernel, as in the
   JAX package).
 - ``dot_full_prepped``: one launch, one scalar: per-block partials, an
-  atomic ticket, and the last block sums the partials in index order --
-  no float atomics, so the same inputs give the same bits every run.
+  atomic ticket, and the last block sums the partials in a fixed order --
+  no float atomics, so the same inputs give the same bits every run. Its
+  grid is a host rule, ``dot_full_plan``.
 
 Every function takes a batch: ``x``, ``y`` are ``(*batch, n)`` (or, prepped,
 ``(*batch, k*block, 128)``) and the result is ``(*batch)`` -- the stacked
@@ -48,9 +49,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = library("reduction")
     lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _P, _P]
-    lib.ts_dot_full_blocks.argtypes = [_L, _L, _I, _I, _I, ctypes.POINTER(_I)]
-    lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P]
-    for fn in (lib.ts_dot_partials, lib.ts_dot_full_blocks, lib.ts_dot_full):
+    lib.ts_dot_full_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
+    for fn in (lib.ts_dot_partials, lib.ts_dot_full_occupancy, lib.ts_dot_full):
         fn.restype = _I
     return lib
 
@@ -143,13 +144,32 @@ def _partials_launch(x, y, chunk: int, offset, name: str) -> torch.Tensor:
     return out
 
 
+DOT_THREADS = 256    # threads a block (csrc/reduction.cu: THREADS)
+DOT_FULL_UNROLL = 2  # 16-byte groups of each operand a thread keeps in flight (2 or 4)
+DOT_FULL_WAVES = 8   # blocks an SM dot_full's grid aims for, at most what fits
+
+
+def dot_full_plan(n: int, batch: int, vec: int, n_sm: int, per_sm: int,
+                  unroll: int = DOT_FULL_UNROLL, waves: int = DOT_FULL_WAVES) -> int:
+    """Blocks a batch entry of ``dot_full``'s grid: ``waves`` blocks an SM
+    (at most ``per_sm``, what fits at full occupancy) on ``n_sm`` SMs,
+    shared out over the batch, and no more than the work fills (``unroll``
+    groups of ``vec`` elements a thread); at least 1."""
+    per_block = DOT_THREADS * vec * unroll
+    need = -(-n // per_block)
+    cap = n_sm * max(1, min(waves, per_sm)) // batch
+    return max(1, min(cap, need))
+
+
 @functools.lru_cache(maxsize=None)
-def _full_blocks(device_index: int, n: int, batch: int, dx: int, dy: int, vec: int) -> int:
-    blocks = _I(0)
+def _full_occupancy(device_index: int, dx: int, dy: int, vec: int, unroll: int) -> tuple[int, int]:
+    """(SM count, blocks of dot_full an SM holds) on card ``device_index``."""
+    sms, per_sm = _I(0), _I(0)
     with torch.cuda.device(device_index):
-        check_status(_lib(), _lib().ts_dot_full_blocks(n, batch, dx, dy, vec, ctypes.byref(blocks)),
+        check_status(_lib(), _lib().ts_dot_full_occupancy(dx, dy, vec, unroll, ctypes.byref(sms),
+                                                           ctypes.byref(per_sm)),
                      "dot_full_prepped")
-    return blocks.value
+    return sms.value, per_sm.value
 
 
 _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
@@ -166,11 +186,16 @@ def _tickets_for(device: torch.device, stream: int, batch: int) -> torch.Tensor:
     return t
 
 
-def _full_launch(x, y, offset, name: str) -> torch.Tensor:
+def _full_launch(x, y, offset, name: str, blocks: int | None = None,
+                 unroll: int = DOT_FULL_UNROLL) -> torch.Tensor:
+    """One dot_full launch; ``blocks`` is ``dot_full_plan``'s unless given
+    (another plan, as ``bench/kernel_ab.py --sweep`` times them)."""
     batch, n = _operands(x, y, name)
     vec = _vec(x, y, n)
     dx, dy = _CODE[x.dtype], _CODE[y.dtype]
-    blocks = _full_blocks(x.device.index, n, batch, dx, dy, vec)
+    if blocks is None:
+        blocks = dot_full_plan(n, batch, vec, *_full_occupancy(x.device.index, dx, dy, vec, unroll),
+                               unroll=unroll)
     scratch = torch.empty(batch * blocks, dtype=torch.float32, device=x.device)
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     off, stride, keep = _offset_arg(offset, x, name)
@@ -178,7 +203,7 @@ def _full_launch(x, y, offset, name: str) -> torch.Tensor:
     tickets = _tickets_for(x.device, stream.value, batch)
     with torch.cuda.device(x.device):
         check_status(_lib(), _lib().ts_dot_full(
-            x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, batch, blocks,
+            x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, batch, blocks, unroll,
             scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream), name)
     del keep
     dot_full_prepped.launches += 1
