@@ -67,8 +67,9 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
    12's (8 heads, d_head 128, 16-token pages); K = 65 and 128 (several
    query groups), d_head 384 and a bf16 q; d_head 16384 at K = 1 and 8 on
    f32 and int8 pools (512-column units through the ring), two calls
-   bit-equal; each case's load route and split count logged; then their time at config 12's decode shape (32 sequences
-   of 128 cached tokens), warm and L2-cold (8 tables over disjoint pages of
+   bit-equal; each case's load route and split count logged; then their
+   time at config 12's decode shape (32 sequences of 128 cached tokens),
+   warm and L2-cold (8 tables over disjoint pages of
    a 2048-page pool, rotated), and at 4 sequences of 4096 (split over the
    positions, two calls bit-equal, beside the same kernels unsplit), each
    beside its bound, its plain time and SDPA's over the pre-gathered view;

@@ -346,20 +346,18 @@ def test_fill_kernel(card, dtype, shape):
     assert torch.equal(got.cpu(), tf.fill(shape, value, dtype, device="cpu"))
 
 
-@pytest.mark.parametrize("mode", list(tf.FILL_MODES))
-@pytest.mark.parametrize("waves", [1, 8])
+@pytest.mark.parametrize("cap", [None, 1, 132])
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (37, 53)), (torch.int8, (3,)),
                                          (torch.bfloat16, (1000, 1001)),
                                          (torch.int64, (70_001,))])
-def test_fill_kernel_under_every_plan(card, mode, waves, dtype, shape):
-    # both ways to store the body (registers, bulk copies of a tile) at a
-    # grid of one block an SM and of eight
+def test_fill_kernel_on_smaller_grids(card, cap, dtype, shape):
+    # the rule's grid (a block a 256 16-byte units) and grids that stride:
+    # one block, one an SM
     nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
-    plan = tf.fill_plan(nbytes, torch.cuda.get_device_properties(card).multi_processor_count,
-                        mode, waves)
     value = -7 if not dtype.is_floating_point else 0.1
-    assert torch.equal(tf.fill(shape, value, dtype, plan=plan),
-                       tf.fill_plain(shape, value, dtype, card))
+    got = tf._fill_launch(torch.empty(shape, dtype=dtype, device=card), value,
+                          tf.fill_blocks(nbytes, cap))
+    assert torch.equal(got, tf.fill_plain(shape, value, dtype, card))
 
 
 @pytest.mark.parametrize("dtype", FILL_DTYPES)
@@ -411,17 +409,16 @@ def test_dot_partials_kernel_per_chunk(card):
         _dot_close(got[:, c], want[:, c], x[:, chunk], y[:, chunk])
 
 
-@pytest.mark.parametrize("unroll", [2, 4])
-@pytest.mark.parametrize("blocks", [1, 7, 132, 1056])
-def test_dot_full_under_other_plans(card, blocks, unroll):
-    # a grid of one block (no ticket), a few, a wave and eight: the last
-    # block's tail sums 1 to 1056 partials in its fixed order
+@pytest.mark.parametrize("blocks", [1, 7, 132, 528, 792, 1056])
+def test_dot_full_on_other_grids(card, blocks):
+    # a grid of one block (no ticket), a few, and one to eight an SM: the
+    # last block's tail sums 1 to 1056 partials in its fixed order
     x, y = _rand((2, 1 << 20), 14, card), _rand((2, 1 << 20), 15, card)
-    got = tr._full_launch(x, y, 0.5, "probe", blocks, unroll)
+    got = tr._full_launch(x, y, 0.5, "probe", blocks)
     _dot_close(got, tr.dot_full_plain(x, y, 0.5), x, y, 0.5)
-    assert torch.equal(got, tr._full_launch(x, y, 0.5, "probe", blocks, unroll))
+    assert torch.equal(got, tr._full_launch(x, y, 0.5, "probe", blocks))
     ones = torch.ones((2, 1 << 20), device=card)
-    assert torch.equal(tr._full_launch(ones, ones, None, "probe", blocks, unroll),
+    assert torch.equal(tr._full_launch(ones, ones, None, "probe", blocks),
                        torch.full((2,), float(1 << 20), device=card))
 
 

@@ -79,26 +79,22 @@ def test_refusals():
 # ---- fill's grid rule (host side of csrc/fill.cu) -------------------------------
 
 
-@pytest.mark.parametrize("mode", list(tf.FILL_MODES))
-@pytest.mark.parametrize("n_sm", [1, 3, 132])
+@pytest.mark.parametrize("cap", [None, 1, 3, 132])
 @pytest.mark.parametrize("esize,shape", [
     (1, (3,)), (1, (37, 53)), (2, (37, 53)), (4, (37, 53)), (8, (37, 53)), (4, (8, 128)),
     (1, (0,)), (2, (7,)), (8, (1,)), (4, (70_000,)), (1, (16 * 2048 * 3 + 5,)),
 ])
-def test_fill_plan_writes_every_byte_once(mode, n_sm, esize, shape):
+def test_fill_blocks_write_every_byte_once(cap, esize, shape):
     nbytes = esize * int(np.prod(shape))
-    plan = tf.fill_plan(nbytes, n_sm, mode)
-    assert plan.mode == mode and 1 <= plan.blocks <= max(1, n_sm * tf.FILL_WAVES[mode])
-    writes = tf.fill_writes(plan, nbytes)
+    blocks = tf.fill_blocks(nbytes, cap)
+    assert 1 <= blocks <= (cap or blocks)
+    writes = tf.fill_writes(blocks, nbytes)
     assert writes.shape == (nbytes,) and (writes == 1).all()
 
 
-def test_fill_plan_shapes():
-    # 1e8 f32 fills one resident wave; 37x53 needs one block
-    assert tf.fill_plan(400_000_000, 132, "registers").blocks == 132 * tf.FILL_WAVES["registers"]
-    assert tf.fill_plan(4 * 37 * 53, 132, "registers").blocks == 1
-    bulk = tf.fill_plan(400_000_000, 132, "bulk")
-    assert bulk.blocks == 132 * tf.FILL_WAVES["bulk"] and bulk.blocks * bulk.span16 >= 25_000_000
-    assert tf.fill_plan(4 * 37 * 53, 132, "bulk").blocks == 1
-    with pytest.raises(ValueError, match="mode"):
-        tf.fill_plan(64, 132, "atomics")
+def test_fill_blocks_shapes():
+    # a block a 256 16-byte units: 1e8 f32 is 97,657 blocks, 37x53 f32 two
+    assert tf.fill_blocks(400_000_000) == 97_657
+    assert tf.fill_blocks(4 * 37 * 53) == 2
+    assert tf.fill_blocks(3) == 1 and tf.fill_blocks(0) == 1
+    assert tf.fill_blocks(400_000_000, 132 * 8) == 1056

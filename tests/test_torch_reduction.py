@@ -216,26 +216,22 @@ def test_timing_twin():
 # ---- dot_full's grid rule (host side of csrc/reduction.cu) -------------------
 
 
-@pytest.mark.parametrize("unroll", [2, 4])
+@pytest.mark.parametrize("per_sm", [1, 6, 8])
 @pytest.mark.parametrize("n,batch,vec", [
     (0, 1, 8), (1, 1, 1), (3000, 1, 8), (4099, 1, 1), (2048, 8, 8), (1 << 20, 1, 8),
     (100_000_000, 1, 8), (100_000_000, 3, 8), (10_000, 65535, 8), (7, 65535, 1),
 ])
-def test_dot_full_plan_is_bounded_by_the_work_and_the_card(n, batch, vec, unroll):
-    n_sm, per_sm = 132, 8
-    g = tr.dot_full_plan(n, batch, vec, n_sm, per_sm, unroll=unroll)
-    per_block = tr.DOT_THREADS * vec * unroll
+def test_dot_full_plan_is_bounded_by_the_work_and_the_card(n, batch, vec, per_sm):
+    n_sm = 132
+    g = tr.dot_full_plan(n, batch, vec, n_sm, per_sm)
     assert g >= 1
-    assert g <= max(1, -(-n // per_block))                  # no block without work
-    assert g * batch <= max(batch, n_sm * min(tr.DOT_FULL_WAVES, per_sm))  # one resident wave
+    assert g <= max(1, -(-n // (tr.DOT_THREADS * vec * tr.DOT_UNROLL)))  # no block without work
+    assert g * batch <= max(batch, n_sm * per_sm)                        # one resident wave
 
 
 def test_dot_full_plan_shapes():
     # the 3000-vector is one block (its sum written straight out); 1e8 is
     # a whole number of waves on the card
-    assert tr.dot_full_plan(3000, 1, 8, 132, 8) == 1
-    for per_sm in (1, 4, 8, 16):
-        g = tr.dot_full_plan(100_000_000, 1, 8, 132, per_sm)
-        assert g % 132 == 0 and g // 132 == min(tr.DOT_FULL_WAVES, per_sm)
-    for waves in (1, 2, 4):
-        assert tr.dot_full_plan(100_000_000, 1, 8, 132, 8, waves=waves) == 132 * waves
+    assert tr.dot_full_plan(3000, 1, 8, 132, 6) == 1
+    for per_sm in (1, 4, 6, 8, 16):
+        assert tr.dot_full_plan(100_000_000, 1, 8, 132, per_sm) == 132 * per_sm

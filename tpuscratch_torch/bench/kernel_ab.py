@@ -21,9 +21,8 @@ Usage, from the root of a checkout, on a machine with a card:
     python tpuscratch_torch/bench/kernel_ab.py [--root DIR] [--label NAME]
 
 ``--sweep`` times the kernels under other plans than the host rules'
-instead (paged: chunk tokens, ring stages, split count; dot_full: blocks an
-SM and groups in flight a thread; fill: the two ways to store and blocks
-an SM). ``--only paged,hbm,dot,fill`` picks case groups. ``--root``
+instead (paged: chunk tokens, ring stages, split count; dot_full and fill:
+smaller grids). ``--only paged,hbm,dot,fill`` picks case groups. ``--root``
 imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
 kernels build into that checkout's own build directory; the wrappers'
@@ -223,8 +222,9 @@ def fill_cases(gen):
 
 
 def dot_fill_sweep(gen):
-    """(case, ms) of dot_full and fill under other plans than the host
-    rules' (this checkout only)."""
+    """(case, ms) of dot_full and fill on other grids than the host rules'
+    (this checkout only): dot_full on 1 to ``per_sm`` blocks an SM, fill on
+    1 to 8 resident blocks an SM striding over the output."""
     import importlib
 
     import torch
@@ -232,36 +232,29 @@ def dot_fill_sweep(gen):
     from tpuscratch_torch.ops import reduction as tr
 
     tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    n_sm, per_sm = tr._full_occupancy(torch.cuda.current_device(), 0, 0, 8)
     for n, label in ((100_000_000, "1e8"), (3000, "3000")):
         x, y, x2, y2, block, want, scale = _dot_inputs(gen, n)
         xf, yf = x2.flatten(), y2.flatten()
-        n_sm, _ = tr._full_occupancy(torch.cuda.current_device(), 0, 0, 8, 2)
-        for unroll in (2, 4):
-            per_sm = tr._full_occupancy(torch.cuda.current_device(), 0, 0, 8, unroll)[1]
-            for waves in (1, 2, 3, 4, 6, 8, 16):
-                if waves > per_sm:
-                    continue
-                blocks = tr.dot_full_plan(xf.numel(), 1, 8, n_sm, per_sm, unroll, waves)
-                call = lambda: tr._full_launch(xf, yf, None, "sweep", blocks, unroll)  # noqa: E731
-                _dot_ok(f"sweep dot_full {label} unroll {unroll} waves {waves}", call(), want,
-                        scale)
-                rule = blocks == tr.dot_full_plan(xf.numel(), 1, 8, n_sm, per_sm, unroll) and (
-                    unroll == tr.DOT_FULL_UNROLL)
-                yield (f"sweep dot_full {label} f32 unroll={unroll} waves={waves} "
-                       f"blocks={blocks}{' (rule)' if rule else ''}", device_ms(call))
+        rule = tr.dot_full_plan(xf.numel(), 1, 8, n_sm, per_sm)
+        for waves in range(1, per_sm + 1):
+            blocks = tr.dot_full_plan(xf.numel(), 1, 8, n_sm, waves)
+            call = lambda: tr._full_launch(xf, yf, None, "sweep", blocks)  # noqa: E731
+            _dot_ok(f"sweep dot_full {label} waves {waves}", call(), want, scale)
+            yield (f"sweep dot_full {label} f32 waves={waves} blocks={blocks}"
+                   f"{' (rule)' if blocks == rule else ''}", device_ms(call))
         del x, y, x2, y2, xf, yf
-    n_sm = tf._n_sm(torch.cuda.current_device())
     for shape, label in (((100_000_000,), "1e8"), ((37, 53), "37x53")):
         want = tf.fill_plain(shape, 0.1, device="cuda")
-        plans = [tf.fill_plan(4 * want.numel(), n_sm, "bulk", waves) for waves in (1, 2)]
-        plans += [tf.fill_plan(4 * want.numel(), n_sm, "registers", waves, unroll, cs)
-                  for waves in (1, 2, 4, 8, 0) for unroll in (1, 4) for cs in (False, True)]
-        for plan in plans:
-            if not torch.equal(tf.fill(shape, 0.1, plan=plan), want):
-                raise AssertionError(f"sweep fill {label} {plan} differs from its plain version")
-            rule = plan == tf.fill_plan(4 * want.numel(), n_sm)
-            yield (f"sweep fill {label} f32 {plan}{' (rule)' if rule else ''}",
-                   device_ms(lambda: tf.fill(shape, 0.1, plan=plan)))
+        rule = tf.fill_blocks(4 * want.numel())
+        for blocks in sorted({tf.fill_blocks(4 * want.numel(), cap)
+                              for cap in (None, n_sm, 2 * n_sm, 4 * n_sm, 8 * n_sm)}):
+            call = lambda: tf._fill_launch(torch.empty(shape, device="cuda"), 0.1, blocks)  # noqa: E731
+            if not torch.equal(call(), want):
+                raise AssertionError(f"sweep fill {label} on {blocks} blocks differs from its "
+                                     "plain version")
+            yield (f"sweep fill {label} f32 blocks={blocks}{' (rule)' if blocks == rule else ''}",
+                   device_ms(call))
 
 
 GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases}

@@ -12,17 +12,15 @@
 // cudaGetLastError() as an int.
 //
 // Bound: bytes. Both only write their output once (no input), so the
-// least time is out_bytes / 3.35 TB/s: 0.119 ms for 1e8 f32. fill's grid is
-// a host rule (ops/fill.py: fill_plan) with two ways to write its body:
-//  - registers: one resident wave of blocks strides over the output, each
-//    thread FILL_UNROLL 16-byte streaming stores (st.global.cs: the lines
-//    are not kept for reuse) an iteration, 32-bit indices where the 16-byte
-//    count fits them;
-//  - bulk: each block writes the 16-byte pattern into a shared-memory tile
-//    once, and one thread issues bulk asynchronous copies of that tile
-//    (cp.async.bulk shared -> global, one bulk group) over the block's span
-//    of the output, so that no thread stores the bulk of the data.
-// iota2d writes one element a thread (coalesced across the warp).
+// least time is out_bytes / 3.35 TB/s: 0.119 ms for 1e8 f32. fill's grid
+// is a host rule (ops/fill.py: fill_blocks): a block a 256 16-byte units,
+// one streaming store (st.global.cs: the lines are not kept for reuse) a
+// thread, 32-bit indices where the 16-byte count fits them. On the H100
+// that grid wrote 1e8 f32 ~4% faster than one resident wave striding over
+// the output (with 1 or 4 stores a thread an iteration, streaming or not)
+// and than bulk asynchronous copies of a shared-memory tile of the pattern
+// (PERF.md). iota2d writes one element a thread (coalesced across the
+// warp).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,103 +48,46 @@ static int grid_for(long long work, int threads) {
 // fill: write the value's bit pattern into every element. The wrapper casts
 // the value on the host (as jnp.asarray([value], dtype) does) and passes its
 // bytes, so one kernel serves every dtype by element size (1, 2, 4, 8).
-// The body is written as 16-byte stores of the pattern repeated; the tail
-// (fewer than 16 bytes) byte by byte, by the first threads of block 0.
+// The body is written as 16-byte stores of the pattern repeated, unit q by
+// thread q % (blocks * FILL_THREADS); the tail (fewer than 16 bytes) byte
+// by byte, by the first threads of block 0.
 constexpr int FILL_THREADS = 256;
-constexpr int FILL_BULK_THREADS = 128;
-constexpr int FILL_TILE16 = 2048;       // the bulk tile: 2048 x 16 B = 32 KB
 
-__device__ __forceinline__ void fill_tail(unsigned char* __restrict__ tail, int ntail,
-                                          unsigned long long bits, int esize) {
-  // tail starts at a multiple of 16, so b % esize is the byte's place in
-  // its element
+template <typename I>
+__global__ void __launch_bounds__(FILL_THREADS)
+fill_kernel(uint4* __restrict__ out, I n16, uint4 pattern, int ntail,
+            unsigned long long bits, int esize) {
+  const I stride = (I)gridDim.x * FILL_THREADS;
+  for (I q = (I)blockIdx.x * FILL_THREADS + threadIdx.x; q < n16; q += stride)
+    __stcs(out + q, pattern);
+  // the tail starts at a multiple of 16, so b % esize is the byte's place
+  // in its element
+  unsigned char* tail = reinterpret_cast<unsigned char*>(out + n16);
   if (blockIdx.x == 0 && (int)threadIdx.x < ntail)
     tail[threadIdx.x] = (unsigned char)(bits >> (8 * (threadIdx.x % esize)));
 }
 
-template <bool CS>
-__device__ __forceinline__ void store16(uint4* p, uint4 v) {
-  if (CS) __stcs(p, v);
-  else *p = v;
-}
-
-// Block b writes chunks b, b + G, ... of U * FILL_THREADS 16-byte units,
-// thread t units t, t + FILL_THREADS, ... of a chunk.
-template <typename I, int U, bool CS>
-__global__ void __launch_bounds__(FILL_THREADS)
-fill_kernel(uint4* __restrict__ out, I n16, uint4 pattern, int ntail,
-            unsigned long long bits, int esize) {
-  const I step = (I)gridDim.x * (U * FILL_THREADS);
-  for (I q = (I)blockIdx.x * (U * FILL_THREADS) + threadIdx.x; q < n16; q += step) {
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (q + u * FILL_THREADS < n16) store16<CS>(out + q + u * FILL_THREADS, pattern);
-  }
-  fill_tail(reinterpret_cast<unsigned char*>(out + n16), ntail, bits, esize);
-}
-
-__global__ void __launch_bounds__(FILL_BULK_THREADS)
-fill_bulk_kernel(uint4* __restrict__ out, long long n16, long long span16, uint4 pattern,
-                 int ntail, unsigned long long bits, int esize) {
-  __shared__ __align__(128) uint4 tile[FILL_TILE16];
-  const long long q0 = (long long)blockIdx.x * span16;
-  const long long q1 = q0 + span16 < n16 ? q0 + span16 : n16;
-  const long long nq = q1 - q0;  // may be <= 0 for a block past the end
-  const int nt = nq < FILL_TILE16 ? (nq > 0 ? (int)nq : 0) : FILL_TILE16;
-  for (int i = threadIdx.x; i < nt; i += FILL_BULK_THREADS) tile[i] = pattern;
-  // the tile's generic-proxy stores, visible to the bulk copies' async proxy
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0 && nq > 0) {
-    const unsigned src = (unsigned)__cvta_generic_to_shared(tile);
-    for (long long q = q0; q < q1; q += FILL_TILE16) {
-      const unsigned bytes = 16u * (unsigned)(q1 - q < FILL_TILE16 ? q1 - q : FILL_TILE16);
-      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
-                   ::"l"(out + q), "r"(src), "r"(bytes) : "memory");
-    }
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");  // the tile outlives its copies
-  }
-  fill_tail(reinterpret_cast<unsigned char*>(out + n16), ntail, bits, esize);
-}
-
-template <typename I>
-static void launch_registers(int blocks, int unroll, int cs, cudaStream_t s, uint4* o, I n16,
-                             uint4 pattern, int ntail, unsigned long long bits, int esize) {
-  if (unroll == 1 && cs) fill_kernel<I, 1, true><<<blocks, FILL_THREADS, 0, s>>>(o, n16, pattern, ntail, bits, esize);
-  else if (unroll == 1) fill_kernel<I, 1, false><<<blocks, FILL_THREADS, 0, s>>>(o, n16, pattern, ntail, bits, esize);
-  else if (cs) fill_kernel<I, 4, true><<<blocks, FILL_THREADS, 0, s>>>(o, n16, pattern, ntail, bits, esize);
-  else fill_kernel<I, 4, false><<<blocks, FILL_THREADS, 0, s>>>(o, n16, pattern, ntail, bits, esize);
-}
-
-// mode 0 registers (span16 unused; unroll 1 or 4 units a thread a chunk,
-// cs: streaming stores), 1 bulk (block i writes 16-byte units
-// [i * span16, (i + 1) * span16) of the body); blocks and span16 come
-// from the host's plan.
+// `blocks` comes from the host's rule.
 extern "C" int ts_fill(void* out, long long nbytes, unsigned long long bits, int esize,
-                       int mode, int blocks, long long span16, int unroll, int cs,
-                       void* stream) {
+                       int blocks, void* stream) {
   if (nbytes < 0 || (esize != 1 && esize != 2 && esize != 4 && esize != 8) ||
-      nbytes % esize || ((uintptr_t)out & 15) || blocks < 1 || (mode != 0 && mode != 1) ||
-      (unroll != 1 && unroll != 4))
+      nbytes % esize || ((uintptr_t)out & 15) || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const long long n16 = nbytes / 16;
-  if (mode == 1 && (span16 < 1 || span16 * blocks < n16)) return (int)cudaErrorInvalidValue;
   if (nbytes == 0) return 0;
   unsigned char rep[16];
   for (int i = 0; i < 16; ++i) rep[i] = (unsigned char)(bits >> (8 * (i % esize)));
   uint4 pattern;
   memcpy(&pattern, rep, 16);
+  const long long n16 = nbytes / 16;
   const int ntail = (int)(nbytes - 16 * n16);
   cudaStream_t s = (cudaStream_t)stream;
   uint4* o = (uint4*)out;
-  if (mode == 1)
-    fill_bulk_kernel<<<blocks, FILL_BULK_THREADS, 0, s>>>(o, n16, span16, pattern, ntail, bits,
+  if (n16 + 2ll * blocks * FILL_THREADS < (1ll << 32))
+    fill_kernel<unsigned><<<blocks, FILL_THREADS, 0, s>>>(o, (unsigned)n16, pattern, ntail, bits,
                                                          esize);
-  else if (n16 + 2ll * blocks * unroll * FILL_THREADS < (1ll << 32))
-    launch_registers<unsigned>(blocks, unroll, cs, s, o, (unsigned)n16, pattern, ntail, bits, esize);
   else
-    launch_registers<unsigned long long>(blocks, unroll, cs, s, o, n16, pattern, ntail, bits, esize);
+    fill_kernel<unsigned long long><<<blocks, FILL_THREADS, 0, s>>>(o, n16, pattern, ntail, bits,
+                                                                   esize);
   return (int)cudaGetLastError();
 }
 

@@ -583,14 +583,14 @@ paged_wide_kernel(const PagedParams p) {
   for (int j = 0; j < NJ; ++j) acc[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
   // the producer: units of chunk in_c, part in_s (n_dt K slices, then V),
-  // token li's table entry loaded when its chunk's first unit is issued
+  // token li's table entry loaded when its chunk's first unit is fetched
   const int nu = p.n_dt + 1, nunits = nch * nu;
   const int tpt = PA_THREADS / p.tt, li = tid >> (__ffs(tpt) - 1), lsub = tid & (tpt - 1);
   int in_c = 0, in_s = 0;
   int cur_t = t_lo + li;
   int cur_idx = cur_t / p.page, cur_off = cur_t - cur_idx * p.page;
   int pg = cur_t < t_hi ? row[cur_idx] : 0;
-  auto issue = [&](int st) {
+  auto fetch = [&](int st) {
     if (in_c < nch) {
       const int t0 = t_lo + in_c * p.tt;
       const bool is_v = in_s == p.n_dt;
@@ -612,13 +612,13 @@ paged_wide_kernel(const PagedParams p) {
     }
     cp_async_commit();
   };
-  for (int u = 0; u < p.stages - 1; ++u) issue(u);
-  int st_in = p.stages - 1, st_c = 0;  // ring stages of the next issue and of unit u
+  for (int u = 0; u < p.stages - 1; ++u) fetch(u);
+  int st_in = p.stages - 1, st_c = 0;  // ring stages of the next fetch and of unit u
   int c = 0, part = 0;                 // unit u's chunk and part
   for (int u = 0; u < nunits; ++u) {
     cp_async_wait(p.stages - 2);
     __syncthreads();  // unit u landed for every thread; unit u-1's stage is free
-    issue(st_in);
+    fetch(st_in);
     st_in = st_in + 1 == p.stages ? 0 : st_in + 1;
     const unsigned char* st = ring + st_c * p.stage_bytes;
     st_c = st_c + 1 == p.stages ? 0 : st_c + 1;

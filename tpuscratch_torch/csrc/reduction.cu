@@ -20,8 +20,7 @@
 //   ticket; the block that draws the last ticket sums the partials and the
 //   ticket wraps back to 0 for the next launch. No float atomicAdd: the
 //   result is the same on every run. The host plans G
-//   (ops/reduction.py: dot_full_plan), a whole number of resident waves at
-//   most, and the loop's depth (UNROLL groups a thread in flight).
+//   (ops/reduction.py: dot_full_plan): one resident wave at most.
 //
 // Inside a block: per-thread fmaf accumulation, then a warp-shuffle tree
 // and the warp sums through shared memory, in a fixed order.
@@ -29,14 +28,16 @@
 // Bound: bytes. The work reads both vectors once, 2 * n * sizeof(T) bytes,
 // against 3 flops an element: for 1e8 float32, 8e8 B = 0.239 ms at
 // 3.35 TB/s against 4.5 us of f32 operations. Loads are 16 bytes a thread
-// (two float4 / one uint4 of bf16 per 8 elements), U such steps in flight
-// per thread (2 for dot_partials, the plan's for dot_full), where the
-// pointers are 16-byte aligned and the lengths multiples of 8; otherwise
-// one element at a time. What the bound leaves of dot_full is its tail:
-// the last block sums the G partials with all of its threads, each a fixed
-// strided subset in index order, then block_sum's fixed tree (a serial sum
-// by one thread cost ~G dependent L2 loads while every other block had
-// already exited), and a one-block grid writes its sum straight out.
+// (two float4 / one uint4 of bf16 per 8 elements), two such steps in
+// flight per thread, where the pointers are 16-byte aligned and the
+// lengths multiples of 8; otherwise one element at a time. Past the stream,
+// dot_full's time is its tail: the last block sums the G partials with all
+// of its threads, each a fixed strided subset in index order, then
+// block_sum's fixed tree (one thread summing them cost ~G dependent L2
+// loads, ~20 us at 1e8, while every other block had already exited), and
+// a one-block grid writes its sum straight out. On the H100, fewer blocks
+// (2-4 an SM) or four steps in flight a thread measured no faster
+// (PERF.md).
 //
 // Plain C interface (ctypes): every launcher takes raw pointers and the
 // CUDA stream, launches on that stream, allocates nothing and returns
@@ -47,7 +48,7 @@
 #include <cstdint>
 
 constexpr int THREADS = 256;
-constexpr int PARTIALS_UNROLL = 2;
+constexpr int UNROLL = 2;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -82,8 +83,8 @@ struct Load<8> {
 };
 
 // Sum of (x + o) * y over the groups g, g + stride, ... < gend of V
-// elements each, UNROLL groups in flight.
-template <int V, int UNROLL, typename TX, typename TY>
+// elements each.
+template <int V, typename TX, typename TY>
 __device__ __forceinline__ float accumulate(const TX* __restrict__ x,
                                             const TY* __restrict__ y,
                                             long long g, long long gend,
@@ -142,8 +143,8 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
   const long long b = blockIdx.y, c = blockIdx.x;
   const long long begin = c * chunk;
   const long long end = begin + chunk < n ? begin + chunk : n;
-  const float acc = accumulate<V, PARTIALS_UNROLL>(x + b * n, y + b * n, begin / V + threadIdx.x,
-                                                   end / V, THREADS, offset_of(off, off_stride, b));
+  const float acc = accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x,
+                                  end / V, THREADS, offset_of(off, off_stride, b));
   const float s = block_sum(acc);
   if (threadIdx.x == 0) partials[b * gridDim.x + c] = s;
 }
@@ -152,7 +153,7 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
 // dot_full: grid (G, batch); the G blocks of batch b walk its n elements
 // with a grid-stride loop; scratch is (batch, G), tickets (batch,) starts
 // (and ends) at 0.
-template <int V, int U, typename TX, typename TY>
+template <int V, typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 dot_full_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                 const float* __restrict__ off, int off_stride, long long n,
@@ -160,10 +161,10 @@ dot_full_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                 float* __restrict__ out) {
   const long long b = blockIdx.y;
   const unsigned int G = gridDim.x;
-  const float acc = accumulate<V, U>(x + b * n, y + b * n,
-                                     (long long)blockIdx.x * THREADS + threadIdx.x,
-                                     n / V, (long long)G * THREADS,
-                                     offset_of(off, off_stride, b));
+  const float acc = accumulate<V>(x + b * n, y + b * n,
+                                  (long long)blockIdx.x * THREADS + threadIdx.x,
+                                  n / V, (long long)G * THREADS,
+                                  offset_of(off, off_stride, b));
   const float s = block_sum(acc);
   if (G == 1) {  // the block's sum is the total: no scratch, no ticket
     if (threadIdx.x == 0) out[b] = s;
@@ -194,7 +195,7 @@ struct Args {
   const float* off;
   int off_stride;
   long long n, chunk, nchunks, batch;
-  int blocks, unroll;
+  int blocks;
   float *partials, *scratch, *out;
   unsigned int* tickets;
   int* per_sm;
@@ -212,16 +213,11 @@ struct Partials {
 
 template <int V, typename TX, typename TY>
 struct Full {
-  template <int U>
-  static void launch(const Args& a) {
-    dot_full_kernel<V, U, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
-                                    THREADS, 0, a.stream>>>(
+  static void run(const Args& a) {
+    dot_full_kernel<V, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
+                                 THREADS, 0, a.stream>>>(
         (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.scratch,
         a.tickets, a.out);
-  }
-  static void run(const Args& a) {
-    if (a.unroll == 4) launch<4>(a);
-    else launch<2>(a);
   }
 };
 
@@ -229,10 +225,7 @@ struct Full {
 template <int V, typename TX, typename TY>
 struct FullOccupancy {
   static void run(const Args& a) {
-    if (a.unroll == 4)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_full_kernel<V, 4, TX, TY>, THREADS, 0);
-    else
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_full_kernel<V, 2, TX, TY>, THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_full_kernel<V, TX, TY>, THREADS, 0);
   }
 };
 
@@ -274,29 +267,25 @@ extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int
 
 // The card's SM count and the blocks of dot_full an SM holds at full
 // occupancy, for the host's plan (ops/reduction.py: dot_full_plan).
-extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int unroll, int* sms,
-                                     int* per_sm) {
-  if (unroll != 2 && unroll != 4) return (int)cudaErrorInvalidValue;
+extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int* sms, int* per_sm) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   Args a{};
-  a.unroll = unroll;
   a.per_sm = per_sm;
   return dispatch<FullOccupancy>(dx, dy, vec, a);
 }
 
-// `blocks` (G) and `unroll` (2 or 4) come from the host's plan.
+// `blocks` (G) comes from the host's plan.
 extern "C" int ts_dot_full(const void* x, const void* y, int dx, int dy, int vec,
                            const float* off, int off_stride, long long n, long long batch,
-                           int blocks, int unroll, float* scratch, unsigned int* tickets,
-                           float* out, void* stream) {
-  if (!valid(n, batch, vec) || blocks < 1 || (unroll != 2 && unroll != 4))
-    return (int)cudaErrorInvalidValue;
+                           int blocks, float* scratch, unsigned int* tickets, float* out,
+                           void* stream) {
+  if (!valid(n, batch, vec) || blocks < 1) return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x; a.y = y; a.off = off; a.off_stride = off_stride; a.n = n; a.batch = batch;
-  a.blocks = blocks; a.unroll = unroll; a.scratch = scratch; a.tickets = tickets; a.out = out;
+  a.blocks = blocks; a.scratch = scratch; a.tickets = tickets; a.out = out;
   a.stream = (cudaStream_t)stream;
   return dispatch<Full>(dx, dy, vec, a);
 }

@@ -13,14 +13,13 @@ The twin of ``tpuscratch.ops.fill``: the reference's ``init_vector``
 Entry points run on the card unless ``device='cpu'`` is passed, which runs
 the plain torch versions (``fill_plain``, ``iota2d_plain``); the card-side
 checks compare the kernels with those. Each wrapper counts its launches.
-``fill``'s grid is a host rule, ``fill_plan``; ``fill_writes`` models which
-bytes its kernel writes under a plan.
+``fill``'s grid is a host rule, ``fill_blocks``; ``fill_writes`` models which
+bytes its kernel writes on a grid.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import numpy as np
@@ -33,13 +32,13 @@ from tpuscratch_torch.runtime.mesh import resolve_device
 IOTA_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                torch.int32: 3, torch.int64: 4}
 _BITS_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+FILL_THREADS = 256  # threads a block of fill's kernel (csrc/fill.cu), a 16-byte unit each
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("fill")
     lib.ts_fill.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
-                            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.ts_iota2d.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_void_p]
@@ -65,92 +64,51 @@ def fill_plain(shape, value, dtype=torch.float32, device="cpu") -> torch.Tensor:
     return host.to(device).expand(_shape(shape)).contiguous()
 
 
-# fill's host rule (csrc/fill.cu): "registers" strides one resident wave
-# of FILL_THREADS-thread blocks over the 16-byte body, FILL_UNROLL stores
-# a thread an iteration; "bulk" gives each FILL_BULK_THREADS-thread block a
-# span of the body, written by bulk copies of a FILL_TILE16-unit tile. The
-# tail under 16 bytes goes byte by byte to block 0's first threads.
-FILL_THREADS = 256
-FILL_UNROLL = 4
-FILL_BULK_THREADS = 128
-FILL_TILE16 = 2048
-FILL_MODES = {"registers": 0, "bulk": 1}
-FILL_MODE = "registers"
-FILL_WAVES = {"registers": 8, "bulk": 2}  # blocks an SM
+def fill_blocks(nbytes: int, cap: int | None = None) -> int:
+    """``fill``'s grid for ``nbytes``: a block a FILL_THREADS 16-byte units
+    of the body (each thread one store), at most ``cap`` (the blocks then
+    stride over the body), at least 1. The tail under 16 bytes goes byte by
+    byte to block 0's first threads."""
+    blocks = max(1, -(-(nbytes // 16) // FILL_THREADS))
+    return blocks if cap is None else max(1, min(cap, blocks))
 
 
-@dataclasses.dataclass(frozen=True)
-class FillPlan:
-    """One fill launch: ``mode``, ``blocks`` and, for "bulk", the 16-byte
-    units a block writes (``span16``; 0 for "registers")."""
-
-    mode: str
-    blocks: int
-    span16: int
-    unroll: int = 4
-    cs: bool = True
-
-
-def fill_plan(nbytes: int, n_sm: int, mode: str = FILL_MODE, waves: int | None = None,
-              unroll: int = FILL_UNROLL, cs: bool = True) -> FillPlan:
-    """``fill``'s grid for ``nbytes``: ``waves`` blocks an SM at most
-    (FILL_WAVES[mode] by default; 0: no cap), no more than the body fills,
-    at least 1."""
-    if mode not in FILL_MODES:
-        raise ValueError(f"fill: unknown mode {mode!r}")
-    n16 = nbytes // 16
-    waves = FILL_WAVES[mode] if waves is None else waves
-    if mode == "registers":
-        need = -(-n16 // (FILL_THREADS * unroll))
-        return FillPlan(mode, max(1, min(n_sm * waves, need) if waves else need), 0, unroll, cs)
-    blocks = max(1, min(n_sm * waves, -(-n16 // FILL_TILE16)))
-    span16 = max(1, -(-n16 // blocks))
-    return FillPlan(mode, -(-n16 // span16) if n16 else 1, span16)
-
-
-def fill_writes(plan: FillPlan, nbytes: int) -> np.ndarray:
-    """How many times the kernel writes each of ``nbytes`` bytes under
-    ``plan``: the index arithmetic of ``csrc/fill.cu``, in numpy."""
+def fill_writes(blocks: int, nbytes: int) -> np.ndarray:
+    """How many times the kernel writes each of ``nbytes`` bytes on a grid
+    of ``blocks``: the index arithmetic of ``csrc/fill.cu``, in numpy."""
     n16, ntail = nbytes // 16, nbytes % 16
     count = np.zeros(nbytes, np.int64)
     body = count[:16 * n16].reshape(n16, 16)
-    if plan.mode == "registers":
-        chunk = plan.unroll * FILL_THREADS
-        for b in range(plan.blocks):      # block b: chunks b, b + blocks, ... of unroll x threads
-            for c in range(b, -(-n16 // chunk), plan.blocks):
-                body[c * chunk:(c + 1) * chunk] += 1
-    else:
-        for b in range(plan.blocks):      # each block's bulk copies over its span
-            q1 = min(n16, (b + 1) * plan.span16)
-            for q in range(b * plan.span16, q1, FILL_TILE16):
-                body[q:min(q1, q + FILL_TILE16)] += 1
-    count[16 * n16:16 * n16 + ntail] += 1  # block 0's threads 0 .. ntail - 1
+    stride = blocks * FILL_THREADS
+    for t in range(min(stride, n16)):   # thread t: units t, t + stride, ...
+        body[t::stride] += 1
+    count[16 * n16:] += 1               # block 0's threads 0 .. ntail - 1
     return count
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def fill(shape, value, dtype=torch.float32, device=None, plan: FillPlan | None = None) -> torch.Tensor:
+def fill(shape, value, dtype=torch.float32, device=None) -> torch.Tensor:
     """An array of ``shape`` holding ``value`` in ``dtype``, written on the
-    device (no host-to-device copy of the array). ``plan`` overrides
-    ``fill_plan``'s (as ``bench/kernel_ab.py --sweep`` times them)."""
+    device (no host-to-device copy of the array)."""
     out = torch.empty(_shape(shape), dtype=dtype, device=resolve_device(device))
     if not route(out, "fill"):
         return out.copy_(fill_plain(out.shape, value, dtype))
-    host = _host_value(value, dtype)
+    return _fill_launch(out, value)
+
+
+def _fill_launch(out: torch.Tensor, value, blocks: int | None = None) -> torch.Tensor:
+    """One fill launch into the CUDA tensor ``out``; ``blocks`` is
+    ``fill_blocks``'s grid unless given (another grid, as
+    ``bench/kernel_ab.py --sweep`` times them)."""
+    host = _host_value(value, out.dtype)
     size = host.element_size()
     if size not in _BITS_OF_SIZE:
-        raise TypeError(f"fill: no bit pattern for {dtype}")
+        raise TypeError(f"fill: no bit pattern for {out.dtype}")
     bits = int(host.view(_BITS_OF_SIZE[size]).item()) & ((1 << (8 * size)) - 1)
     nbytes = out.numel() * size
-    plan = plan or fill_plan(nbytes, _n_sm(out.device.index))
     with torch.cuda.device(out.device):
         check_status(_lib(), _lib().ts_fill(
-            out.data_ptr(), nbytes, bits, size, FILL_MODES[plan.mode], plan.blocks, plan.span16,
-            plan.unroll, int(plan.cs), stream_of(out)), "fill")
+            out.data_ptr(), nbytes, bits, size, blocks or fill_blocks(nbytes), stream_of(out)),
+            "fill")
     fill.launches += 1
     return out
 

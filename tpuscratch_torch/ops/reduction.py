@@ -49,8 +49,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib() -> ctypes.CDLL:
     lib = library("reduction")
     lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _P, _P]
-    lib.ts_dot_full_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
-    lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _I, _P, _P, _P, _P]
+    lib.ts_dot_full_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P]
     for fn in (lib.ts_dot_partials, lib.ts_dot_full_occupancy, lib.ts_dot_full):
         fn.restype = _I
     return lib
@@ -144,29 +144,25 @@ def _partials_launch(x, y, chunk: int, offset, name: str) -> torch.Tensor:
     return out
 
 
-DOT_THREADS = 256    # threads a block (csrc/reduction.cu: THREADS)
-DOT_FULL_UNROLL = 2  # 16-byte groups of each operand a thread keeps in flight (2 or 4)
-DOT_FULL_WAVES = 8   # blocks an SM dot_full's grid aims for, at most what fits
+DOT_THREADS = 256  # threads a block (csrc/reduction.cu: THREADS)
+DOT_UNROLL = 2     # 16-byte groups of each operand a thread keeps in flight (UNROLL)
 
 
-def dot_full_plan(n: int, batch: int, vec: int, n_sm: int, per_sm: int,
-                  unroll: int = DOT_FULL_UNROLL, waves: int = DOT_FULL_WAVES) -> int:
-    """Blocks a batch entry of ``dot_full``'s grid: ``waves`` blocks an SM
-    (at most ``per_sm``, what fits at full occupancy) on ``n_sm`` SMs,
-    shared out over the batch, and no more than the work fills (``unroll``
-    groups of ``vec`` elements a thread); at least 1."""
-    per_block = DOT_THREADS * vec * unroll
-    need = -(-n // per_block)
-    cap = n_sm * max(1, min(waves, per_sm)) // batch
-    return max(1, min(cap, need))
+def dot_full_plan(n: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
+    """Blocks a batch entry of ``dot_full``'s grid: one resident wave
+    (``per_sm`` blocks on each of ``n_sm`` SMs) shared out over the batch,
+    no more than the work fills (DOT_UNROLL groups of ``vec`` elements a
+    thread), at least 1."""
+    need = -(-n // (DOT_THREADS * vec * DOT_UNROLL))
+    return max(1, min(n_sm * max(1, per_sm) // batch, need))
 
 
 @functools.lru_cache(maxsize=None)
-def _full_occupancy(device_index: int, dx: int, dy: int, vec: int, unroll: int) -> tuple[int, int]:
+def _full_occupancy(device_index: int, dx: int, dy: int, vec: int) -> tuple[int, int]:
     """(SM count, blocks of dot_full an SM holds) on card ``device_index``."""
     sms, per_sm = _I(0), _I(0)
     with torch.cuda.device(device_index):
-        check_status(_lib(), _lib().ts_dot_full_occupancy(dx, dy, vec, unroll, ctypes.byref(sms),
+        check_status(_lib(), _lib().ts_dot_full_occupancy(dx, dy, vec, ctypes.byref(sms),
                                                            ctypes.byref(per_sm)),
                      "dot_full_prepped")
     return sms.value, per_sm.value
@@ -186,16 +182,14 @@ def _tickets_for(device: torch.device, stream: int, batch: int) -> torch.Tensor:
     return t
 
 
-def _full_launch(x, y, offset, name: str, blocks: int | None = None,
-                 unroll: int = DOT_FULL_UNROLL) -> torch.Tensor:
+def _full_launch(x, y, offset, name: str, blocks: int | None = None) -> torch.Tensor:
     """One dot_full launch; ``blocks`` is ``dot_full_plan``'s unless given
-    (another plan, as ``bench/kernel_ab.py --sweep`` times them)."""
+    (another grid, as ``bench/kernel_ab.py --sweep`` times them)."""
     batch, n = _operands(x, y, name)
     vec = _vec(x, y, n)
     dx, dy = _CODE[x.dtype], _CODE[y.dtype]
     if blocks is None:
-        blocks = dot_full_plan(n, batch, vec, *_full_occupancy(x.device.index, dx, dy, vec, unroll),
-                               unroll=unroll)
+        blocks = dot_full_plan(n, batch, vec, *_full_occupancy(x.device.index, dx, dy, vec))
     scratch = torch.empty(batch * blocks, dtype=torch.float32, device=x.device)
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     off, stride, keep = _offset_arg(offset, x, name)
@@ -203,7 +197,7 @@ def _full_launch(x, y, offset, name: str, blocks: int | None = None,
     tickets = _tickets_for(x.device, stream.value, batch)
     with torch.cuda.device(x.device):
         check_status(_lib(), _lib().ts_dot_full(
-            x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, batch, blocks, unroll,
+            x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, batch, blocks,
             scratch.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream), name)
     del keep
     dot_full_prepped.launches += 1
