@@ -539,10 +539,11 @@ def phase5_dot_fill_kernels(gen) -> tuple[dict, list]:
             _dot_check(name, got, plain(method, x, y, block * 128, o), x, y, o, errs,
                        f"1e8 f32 offset {float(o):.3g}")
             acc = got
-    first = tr.dot_full_prepped(x2, y2, block)
-    if not all(torch.equal(tr.dot_full_prepped(x2, y2, block), first) for _ in range(3)):
-        raise AssertionError("dot_full_prepped is not bit-identical across runs")
-    log("  dot_full_prepped           1e8 f32: bit-identical over 4 runs")
+    for fn, name in kernel.values():
+        first = fn(x2, y2, block)
+        if not all(torch.equal(fn(x2, y2, block), first) for _ in range(3)):
+            raise AssertionError(f"{name} is not bit-identical across runs")
+        log(f"  {name:26s} 1e8 f32: bit-identical over 4 runs")
 
     def bit_check(name, got, want, what):
         if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
@@ -2563,6 +2564,7 @@ def phase23_copy_probes() -> tuple[dict, list, dict]:
                 and (("way" in n) == (w.__name__ == "kway_hbm2hbm"))]
         top = max(mine, key=lambda r: r["gbps"])
         kind = "touch" if "touch" in top["name"] else "copy"
+        log(f"  best {w.__name__:14s} {top['name']}: {top['ms']:.4f} ms/step")
         rows.append(dict(name=w.__name__, shape=f"256x512x512 f32 {top['name']}", ms=top["ms"],
                          plain_ms=plain[kind]["ms"],
                          library_ms=results["xla-touch" if kind == "touch" else "copy_"]["ms"],

@@ -409,6 +409,38 @@ def test_dot_partials_kernel_per_chunk(card):
         _dot_close(got[:, c], want[:, c], x[:, chunk], y[:, chunk])
 
 
+@pytest.mark.parametrize("lead,n,block_rows", [((), 100_000_000, 512), ((8,), 2048, 2)])
+def test_dot_partials_prepped_is_deterministic(card, lead, n, block_rows):
+    # one launch a call; the same bits on every run (per-rank offsets on 8 ranks)
+    x, y = _rand(lead + (n,), 16, card), _rand(lead + (n,), 17, card)
+    off = torch.linspace(-1, 1, 8, device=card) if lead else None
+    x2, y2, _, block = tr.prep(x, y, block_rows)
+    tr.reset_launches()
+    first = tr.dot_partials_prepped(x2, y2, block, offset=off)
+    assert tr.launch_counts() == {"dot_partials_prepped": 1, "dot_full_prepped": 0}
+    for _ in range(3):
+        assert torch.equal(tr.dot_partials_prepped(x2, y2, block, offset=off), first)
+    want = tr.dot_partials_plain(x, y, block * 128, off).sum(-1)
+    _dot_close(first, want, x, y, off[:, None] if lead else 0.0)
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 5, 132, "chunks"])
+def test_dot_partials_on_other_grids(card, blocks):
+    # one block walking every chunk, a few, one an SM and a block a chunk:
+    # each chunk's partial is one block's fixed order, so every grid gives
+    # the plan's bits, partials and sums
+    x, y = _rand((2, 1 << 20), 18, card), _rand((2, 1 << 20), 19, card)
+    nchunks = (1 << 20) // 4096
+    g = nchunks if blocks == "chunks" else blocks
+    sums, parts = tr._partials_dot(x, y, 4096, 0.5, "probe", g)
+    want_sums, want_parts = tr._partials_dot(x, y, 4096, 0.5, "probe")
+    assert torch.equal(sums, want_sums) and torch.equal(parts, want_parts)
+    _dot_close(sums, tr.dot_partials_plain(x, y, 4096, 0.5).sum(-1), x, y, 0.5)
+    ones = torch.ones((2, 1 << 20), device=card)
+    assert torch.equal(tr._partials_dot(ones, ones, 4096, None, "probe", g)[0],
+                       torch.full((2,), float(1 << 20), device=card))
+
+
 @pytest.mark.parametrize("blocks", [1, 7, 132, 528, 792, 1056])
 def test_dot_full_on_other_grids(card, blocks):
     # a grid of one block (no ticket), a few, and one to eight an SM: the
@@ -926,7 +958,27 @@ def test_zero_step_card_equals_cpu(card):
     (lambda: tb.hbm2hbm(), tb.copy_plain), (lambda: tb.kway_hbm2hbm(4), tb.copy_plain),
     (lambda: tb.kway_hbm2hbm(8), tb.copy_plain),
     (lambda: tb.lanes_stream(2048, 2, 4), tb.touch_plain),
-    (lambda: tb.lanes_stream(4096, 3, 2, "copy"), tb.copy_plain)])
+    (lambda: tb.lanes_stream(4096, 3, 2, "copy"), tb.copy_plain),
+    # every design switch, other rings, 8 and 15 rings a block (64 compute
+    # threads a ring), the 2-way split
+    (lambda: tb.hbm2hbm(flags=0), tb.copy_plain),
+    (lambda: tb.hbm2hbm(49152, 4, flags=tb.STORE_LAG0), tb.copy_plain),
+    (lambda: tb.hbm2hbm(16400, 2, flags=7), tb.copy_plain),
+    (lambda: tb.kway_hbm2hbm(2), tb.copy_plain),
+    (lambda: tb.kway_hbm2hbm(2, flags=tb.STORE_LAG0), tb.copy_plain),
+    (lambda: tb.manual_stream(16384, 2, "touch", flags=tb.STORE_LAG0), tb.touch_plain),
+    (lambda: tb.manual_stream(8208, 4, "copy", flags=0), tb.copy_plain),
+    (lambda: tb.lanes_stream(4096, 2, 8), tb.touch_plain),
+    (lambda: tb.lanes_stream(2048, 2, 15, flags=7), tb.touch_plain),
+    (lambda: tb.lanes_stream(1024, 4, 15, "copy", flags=0), tb.copy_plain),
+    # chunks drawn from a counter, a ring at a time
+    (lambda: tb.hbm2hbm(flags=tb.DYNAMIC | tb.EVICT_FIRST), tb.copy_plain),
+    (lambda: tb.hbm2hbm(16400, 3, flags=tb.DYNAMIC | tb.STORE_LAG0), tb.copy_plain),
+    (lambda: tb.kway_hbm2hbm(4, flags=tb.DYNAMIC), tb.copy_plain),
+    (lambda: tb.manual_stream(16384, 3, "touch", flags=tb.DYNAMIC), tb.touch_plain),
+    (lambda: tb.lanes_stream(2048, 2, 15, flags=tb.DYNAMIC | tb.INTERLEAVE), tb.touch_plain),
+    # a work-sized grid: more blocks than a wave, a few chunks a ring
+    (lambda: tb._ring(tb.hbm2hbm, 4096, 2, 1, "direct", 0, 1000), tb.copy_plain)])
 @pytest.mark.parametrize("shape", [(8, 37, 12), (tb.NZ, tb.CY, tb.CX)])
 def test_copy_probes(card, make, plain, shape):
     x = _rand(shape, 5, card)
@@ -934,6 +986,19 @@ def test_copy_probes(card, make, plain, shape):
     got = make()(x, c)
     torch.cuda.synchronize()
     assert torch.equal(got, plain(x, c))
+
+
+def test_copy_probe_models_match_the_kernel(card):
+    # the host's shared-memory model is the launcher's; the card gives a
+    # block what the lists were checked against, and holds hbm2hbm's ring
+    lib = tb._lib()
+    for mode, nbuf, chunk, lanes in [("direct", 4, 32768, 1), ("copy", 3, 16384, 1),
+                                     ("touch", 2, 4096, 15), ("touch", 4, 1024, 15)]:
+        assert lib.ts_copy_probe_smem(tb.MODES[mode], nbuf, chunk, lanes) == \
+            tb.probe_smem(mode, nbuf, chunk, lanes)
+    assert tb._optin(card) >= tb.SMEM_OPTIN
+    n_sm, per_sm = tb._occupancy(card, tb.MODES["direct"], tb.HBM2HBM[1], tb.HBM2HBM[0], 1)
+    assert n_sm >= 1 and per_sm >= 1
 
 
 def test_copy_probe_refusals(card):

@@ -48,3 +48,59 @@ def test_race_plumbing_at_a_small_array(monkeypatch):
         monkeypatch.setattr(tb, name, n)
     r = tb.race("copy", tb.copy_plain, steps_lo=2, steps_hi=6, iters=1, device="cpu")
     assert r["name"] == "copy" and set(r) == {"name", "ms", "gbps"}
+
+
+# ---- the host's grid and ring models (csrc/copy_probes.cu) -------------------
+
+
+@pytest.mark.parametrize("K", tb.KWAY)
+@pytest.mark.parametrize("per_sm", [1, 2, 3])
+def test_kway_share_is_one_wave_in_all(K, per_sm):
+    # each of the K slab launches gets at least one block, and the K
+    # launches together at most one resident wave, so they run side by side
+    n_sm = 132
+    chunk = tb.HBM2HBM[0]
+    blocks = [tb.probe_blocks(tb.BYTES // K, chunk, 1, n_sm, per_sm, share=K) for _ in range(K)]
+    assert min(blocks) >= 1
+    assert sum(blocks) <= n_sm * per_sm
+    assert tb.probe_blocks(tb.BYTES, chunk, 1, n_sm, per_sm) == n_sm * per_sm  # one launch: a wave
+
+
+@pytest.mark.parametrize("lanes", range(1, 16))
+@pytest.mark.parametrize("nbytes,chunk", [(tb.BYTES, 32768), (8 * 37 * 12 * 4, 4096),
+                                          (16 * 1000 + 16, 16384), (16, 16)])
+@pytest.mark.parametrize("interleave", [True, False])
+def test_ring_chunks_cover_every_chunk_once(lanes, nbytes, chunk, interleave):
+    nchunks = -(-nbytes // chunk)
+    blocks = tb.probe_blocks(nbytes, chunk, lanes, 132, 1)
+    rings = tb.ring_chunks(nchunks, blocks * lanes, interleave)
+    assert len(rings) == blocks * lanes
+    assert sorted(c for r in rings for c in r) == list(range(nchunks))
+    assert all(list(r) == sorted(r) for r in rings)
+    if interleave:  # every ring but the last block's has a chunk
+        assert all(len(r) for r in rings[:(blocks - 1) * lanes])
+
+
+def test_retuned_probe_lists_fit_the_card():
+    # every ring of the card's lists, with the mbarriers ahead of the
+    # stages, fits the H100's 232,448 B of opt-in shared memory a block
+    assert tb.SMEM_OPTIN == 232_448
+    rings = [("copy" if mode == "copy" else "touch", nbuf, chunk, 1)
+             for chunk, nbuf, mode in tb.MANUAL]
+    rings += [("touch", nbuf, chunk, lanes) for chunk, nbuf, lanes in tb.LANES]
+    rings += [("direct", tb.HBM2HBM[1], tb.HBM2HBM[0], 1)]
+    for mode, nbuf, chunk, lanes in rings:
+        assert tb.probe_smem(mode, nbuf, chunk, lanes) <= tb.SMEM_OPTIN, (mode, nbuf, chunk)
+        assert chunk % 16 == 0 and nbuf in (2, 3, 4) and 1 <= lanes <= 15
+    assert tb.FLAGS & ~(tb.INTERLEAVE | tb.EVICT_FIRST | tb.STORE_LAG0 | tb.DYNAMIC) == 0
+
+
+def test_flag_checks():
+    with pytest.raises(ValueError, match="flags"):
+        tb.hbm2hbm(flags=16)
+    with pytest.raises(ValueError, match="flags"):
+        tb.kway_hbm2hbm(2, flags=32)
+    x, c = to_torch(rand((8, 6, 4), 4)), torch.full((1,), 3.0)
+    for flags in range(16):  # the plain path ignores the design switches
+        assert torch.equal(tb.lanes_stream(4096, 2, 3, flags=flags)(x, c), x * c)
+        assert torch.equal(tb.kway_hbm2hbm(4, flags=flags)(x, c), x)

@@ -235,3 +235,50 @@ def test_dot_full_plan_shapes():
     assert tr.dot_full_plan(3000, 1, 8, 132, 6) == 1
     for per_sm in (1, 4, 6, 8, 16):
         assert tr.dot_full_plan(100_000_000, 1, 8, 132, per_sm) == 132 * per_sm
+
+
+# ---- dot_partials' grid and tail (host side of csrc/reduction.cu) ------------
+
+
+@pytest.mark.parametrize("per_sm", [1, 6, 8])
+@pytest.mark.parametrize("n,chunk,batch", [
+    (100_007_936, 65536, 1),   # prep's 1e8 f32: 1526 chunks
+    (3072, 1024, 1),           # prep's 3000 f32: 3 chunks
+    (3000, 1024, 1), (4099, 1024, 3), (1, 1024, 1), (65536 * 7 + 8, 65536, 2),
+    (2048, 256, 8), (10_000, 1024, 65535),
+])
+def test_dot_partials_plan_covers_every_chunk_once(n, chunk, batch, per_sm):
+    n_sm = 132
+    nchunks = -(-n // chunk)
+    g = tr.dot_partials_plan(n, chunk, batch, 8, n_sm, per_sm)
+    assert 1 <= g <= nchunks                                      # no block without a chunk
+    assert g * batch <= max(batch, n_sm * per_sm)                 # one resident wave
+    schedule = tr.partials_schedule(nchunks, g)
+    assert sorted(c for run in schedule for c in run) == list(range(nchunks))
+    for run in schedule:                                          # each block in index order
+        assert list(run) == sorted(run)
+    # the tail: the last block's threads sum every partial once, each in
+    # index order, whatever the grid
+    tail = tr.tail_order(nchunks)
+    assert len(tail) == tr.DOT_THREADS
+    assert sorted(i for part in tail for i in part) == list(range(nchunks))
+
+
+def test_dot_partials_plan_shapes():
+    # the 3000-vector is one block, which sums its 3 partials itself; 1e8
+    # takes one resident wave; a batch shares the wave
+    assert tr.dot_partials_plan(3072, 1024, 1, 8, 132, 8) == 1
+    for per_sm in (1, 6, 8):
+        assert tr.dot_partials_plan(100_007_936, 65536, 1, 8, 132, per_sm) == 132 * per_sm
+    assert tr.dot_partials_plan(100_007_936, 65536, 1, 8, 132, 16) == 1526  # a block a chunk
+    assert tr.dot_partials_plan(2048, 256, 8, 8, 132, 8) == 1  # (8, 2048) on 8 ranks
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 1024, 3000, 4099])
+def test_dot_partials_sum_is_the_chunked_sum(n):
+    # the plain path the kernel is held to: the partials' total, bit for bit
+    # where every partial is an integer (ones), and the partials' shape
+    x = torch.ones((2, n))
+    parts = tr.dot_partials_plain(x, x, 1024)
+    assert parts.shape == (2, -(-n // 1024))
+    assert torch.equal(tr.dot(x, x, "partials", block_rows=8), torch.full((2,), float(n)))

@@ -3,8 +3,8 @@
 The twin of ``tpuscratch.bench.dma_bound``, whose Pallas probes asked how
 fast the TPU's DMA engines copy 256 MiB. Here the same four probes are
 ``csrc/copy_probes.cu`` kernels (bulk asynchronous copies through a ring of
-shared-memory stages, see the source), each a factory returning ``step(x,
-c) -> y``:
+shared-memory stages, one thread issuing the loads and another the stores,
+see the source), each a factory returning ``step(x, c) -> y``:
 
 - ``manual_stream(chunk, nbuf, mode)``: one ring a block, ``nbuf`` stages of
   ``chunk`` bytes; ``mode`` "copy" moves each chunk through registers,
@@ -12,7 +12,8 @@ c) -> y``:
 - ``hbm2hbm()``: bulk copies in and out of one ring (``HBM2HBM``), no
   thread touches the data;
 - ``kway_hbm2hbm(K)``: ``hbm2hbm`` over K disjoint slabs, each slab its own
-  launch on its own stream (the TPU's K concurrent DMAs, K semaphores);
+  launch on its own stream with a K-th of one resident wave, so that the K
+  launches run side by side (the TPU's K concurrent DMAs, K semaphores);
 - ``lanes_stream(chunk, nbuf, L, mode)``: L independent rings a block;
 
 beside ``xla_touch`` (``x * c``, one torch multiply: the library figure of
@@ -23,7 +24,12 @@ by differencing chains of 50 and 250 steps, each step reading the previous
 one's output, and reports rd+wr GB/s over 2 x 256 MiB; the best probe is the
 card's measured copy rate. A TPU band was a 1 MiB z-plane, past the 227 KB
 a block may hold, so chunks are bytes and the probe lists below are the
-card's own (the JAX lists beside them).
+card's own (the JAX lists beside them). The host plans every grid
+(``probe_blocks``) from the occupancy, asked once a configuration and
+card; ``ring_chunks`` models which chunks each ring moves, ``probe_smem``
+the shared memory a block asks for. Every factory takes ``flags``, the
+kernel's design switches (``FLAGS`` unless given; ``kernel_ab.py --sweep``
+times the others).
 
 ``python -m tpuscratch_torch.bench.dma_bound`` runs every probe on the card.
 """
@@ -44,6 +50,9 @@ from tpuscratch_torch.runtime.mesh import resolve_device
 NZ, CY, CX = 256, 512, 512
 BYTES = NZ * CY * CX * 4
 MODES = {"direct": 0, "copy": 1, "touch": 2}
+#: the kernel's design switches (csrc/copy_probes.cu: Flags)
+INTERLEAVE, EVICT_FIRST, STORE_LAG0, DYNAMIC = 1, 2, 4, 8
+FLAGS = INTERLEAVE | EVICT_FIRST
 #: (chunk bytes, nbuf, mode); the JAX list is (band z-planes, nbuf, mode) in
 #: (8, 2), (8, 3), (16, 2), each copy and touch
 MANUAL = [(16384, 2, "copy"), (16384, 3, "copy"), (32768, 2, "copy"),
@@ -53,6 +62,8 @@ MANUAL = [(16384, 2, "copy"), (16384, 3, "copy"), (32768, 2, "copy"),
 LANES = [(16384, 2, 2), (8192, 2, 4), (4096, 2, 4), (16384, 3, 2)]
 KWAY = (2, 4, 8)
 HBM2HBM = (32768, 4)  # (chunk bytes, nbuf) of the untouched ring
+SMEM_OPTIN = 232_448  # the H100's opt-in shared memory a block
+BAR_BYTES = 3072      # the header ahead of the stages (csrc/copy_probes.cu)
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,8 +71,11 @@ def _lib() -> ctypes.CDLL:
     lib = library("copy_probes")
     lib.ts_copy_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_void_p, ctypes.c_void_p]
+                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]
     lib.ts_copy_probe.restype = ctypes.c_int
+    lib.ts_copy_probe_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.ts_copy_probe_occupancy.restype = ctypes.c_int
     lib.ts_copy_probe_smem.argtypes = [ctypes.c_int] * 4
     lib.ts_copy_probe_smem.restype = ctypes.c_longlong
     return lib
@@ -75,25 +89,75 @@ def touch_plain(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return x * c
 
 
-def _probe(x, out, c, chunk: int, nbuf: int, lanes: int, mode: str, name: str) -> None:
-    """One ``probe_kernel`` launch on the current stream, after the checks the
-    kernel needs: float32, contiguous, 16-byte aligned and a multiple of 16
-    bytes, a stage ring that fits the card's opt-in shared memory."""
+def probe_smem(mode: str, nbuf: int, chunk: int, lanes: int) -> int:
+    """Shared memory of a probe's block: the mbarriers, then each ring's
+    read stages (and, but for "direct", as many write stages)."""
+    return BAR_BYTES + lanes * (1 if mode == "direct" else 2) * nbuf * chunk
+
+
+def probe_blocks(nbytes: int, chunk: int, lanes: int, n_sm: int, per_sm: int,
+                 share: int = 1) -> int:
+    """Blocks of a probe's grid: one resident wave (``per_sm`` blocks on
+    each of ``n_sm`` SMs), its ``share``-th for one of ``share`` launches
+    meant to run side by side, no more than the chunks fill (``lanes``
+    rings a block), at least 1."""
+    rings = -(-(-(-nbytes // chunk)) // lanes)
+    return max(1, min(n_sm * max(1, per_sm) // share, rings))
+
+
+def ring_chunks(nchunks: int, rings: int, interleave: bool = True) -> list[range]:
+    """The chunks each of ``rings`` rings moves, in its order (ring g is
+    block g // lanes, lane g % lanes): chunk i to ring i mod ``rings``, or
+    contiguous runs of about nchunks / rings."""
+    if interleave:
+        return [range(g, nchunks, rings) for g in range(rings)]
+    return [range(nchunks * g // rings, nchunks * (g + 1) // rings) for g in range(rings)]
+
+
+def _plan(x, out, c, chunk: int, nbuf: int, lanes: int, mode: str, name: str, share: int = 1,
+          blocks: int | None = None) -> int:
+    """The grid of a probe over x (or each of its ``share`` equal slabs),
+    ``probe_blocks``' unless given, after the checks the kernel needs:
+    float32, contiguous, 16-byte aligned and a multiple of 16 bytes a slab,
+    a stage ring that fits the card's opt-in shared memory and an SM."""
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"{name}: wants a contiguous float32 tensor")
-    nbytes = x.numel() * 4
+    nbytes = x.numel() * 4 // share
     if nbytes % 16 or x.data_ptr() % 16 or out.data_ptr() % 16 or chunk % 16 or chunk <= 0:
         raise ValueError(f"{name}: bulk copies need 16-byte aligned tensors, a size and a chunk "
                          f"that are multiples of 16 bytes (size {nbytes}, chunk {chunk})")
     if mode == "touch" and (c.dtype != torch.float32 or c.device != x.device):
         raise ValueError(f"{name}: c must be a float32 tensor on {x.device}")
-    lib = _lib()
-    need = lib.ts_copy_probe_smem(MODES[mode], nbuf, chunk, lanes)
+    need = _lib().ts_copy_probe_smem(MODES[mode], nbuf, chunk, lanes)
     if need > _optin(x.device):
         raise ValueError(f"{name}: {lanes} lane(s) of {nbuf} x {chunk} B stages need {need} B of "
                          f"shared memory, the card gives a block {_optin(x.device)}")
-    check_status(lib, lib.ts_copy_probe(x.data_ptr(), out.data_ptr(), nbytes, chunk, nbuf, lanes,
-                                        MODES[mode], c.data_ptr(), stream_of(x)), name)
+    n_sm, per_sm = _occupancy(x.device, MODES[mode], nbuf, chunk, lanes)
+    if per_sm < 1:
+        raise ValueError(f"{name}: {lanes} lane(s) of {nbuf} x {chunk} B stages do not fit an SM")
+    return blocks or probe_blocks(nbytes, chunk, lanes, n_sm, per_sm, share)
+
+
+def _launch(src: int, dst: int, nbytes: int, c, chunk: int, nbuf: int, lanes: int, mode: str,
+            blocks: int, flags: int, device, stream: int, name: str) -> None:
+    """One ``probe_kernel`` launch on ``stream`` (a CUDA stream handle)."""
+    counter = _counter_for(device, stream).data_ptr() if flags & DYNAMIC else None
+    lib = _lib()
+    check_status(lib, lib.ts_copy_probe(src, dst, nbytes, chunk, nbuf, lanes, MODES[mode],
+                                        c.data_ptr(), blocks, flags, counter, stream), name)
+
+
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _counter_for(device: torch.device, stream: int) -> torch.Tensor:
+    """The chunk counter of DYNAMIC rings for one stream of one device: zero
+    between launches (the last draw of each launch wraps it back to 0), and
+    launches on one stream never overlap."""
+    t = _counters.get((device, stream))
+    if t is None:
+        t = _counters[(device, stream)] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,54 +167,80 @@ def _optin(device: torch.device) -> int:
         return smem_optin(_lib(), "copy probes")
 
 
-def _check_args(nbuf: int, lanes: int, mode: str) -> None:
+@functools.lru_cache(maxsize=None)
+def _occupancy(device: torch.device, mode: int, nbuf: int, chunk: int,
+               lanes: int) -> tuple[int, int]:
+    """(SM count, blocks an SM holds) of one probe configuration on one card;
+    the call also sets the kernel's shared-memory limit there."""
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib()
+    with torch.cuda.device(device):
+        check_status(lib, lib.ts_copy_probe_occupancy(mode, nbuf, chunk, lanes, ctypes.byref(sms),
+                                                      ctypes.byref(per_sm)), "copy probes")
+    return sms.value, per_sm.value
+
+
+def _check_args(nbuf: int, lanes: int, mode: str, flags: int) -> None:
     if nbuf not in (2, 3, 4):
         raise ValueError(f"nbuf must be 2, 3 or 4, got {nbuf}")
     if not 1 <= lanes <= 15:
         raise ValueError(f"lanes must be 1..15, got {lanes}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    if flags & ~(INTERLEAVE | EVICT_FIRST | STORE_LAG0 | DYNAMIC):
+        raise ValueError(f"unknown flags {flags:#x}")
 
 
-def _ring(wrapper, chunk: int, nbuf: int, lanes: int, mode: str):
-    """step(x, c) of one ring kernel, counting its launches on ``wrapper``."""
-    _check_args(nbuf, lanes, mode)
+def _ring(wrapper, chunk: int, nbuf: int, lanes: int, mode: str, flags: int | None,
+          blocks: int | None = None):
+    """step(x, c) of one ring kernel, counting its launches on ``wrapper``;
+    ``blocks`` is ``probe_blocks``' unless given (another grid, as
+    ``bench/kernel_ab.py --sweep`` times them)."""
+    flags = FLAGS if flags is None else flags
+    _check_args(nbuf, lanes, mode, flags)
     plain = touch_plain if mode == "touch" else copy_plain
+    name = wrapper.__name__
 
     def step(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        if not route(x, wrapper.__name__):
+        if not route(x, name):
             return plain(x, c)
         out = torch.empty_like(x)
         with torch.cuda.device(x.device):
-            _probe(x, out, c, chunk, nbuf, lanes, mode, wrapper.__name__)
+            grid = _plan(x, out, c, chunk, nbuf, lanes, mode, name, blocks=blocks)
+            _launch(x.data_ptr(), out.data_ptr(), x.numel() * 4, c, chunk, nbuf, lanes, mode,
+                    grid, flags, x.device, stream_of(x).value, name)
         wrapper.launches += 1
         return out
 
     return step
 
 
-def manual_stream(chunk: int, nbuf: int, mode: str):
+def manual_stream(chunk: int, nbuf: int, mode: str, flags: int | None = None):
     """One ring of ``nbuf`` ``chunk``-byte stages a block; "copy" or "touch"."""
     if mode not in ("copy", "touch"):
         raise ValueError(f"mode must be copy or touch, got {mode!r}")
-    return _ring(manual_stream, chunk, nbuf, 1, mode)
+    return _ring(manual_stream, chunk, nbuf, 1, mode, flags)
 
 
-def hbm2hbm():
+def hbm2hbm(chunk: int = HBM2HBM[0], nbuf: int = HBM2HBM[1], flags: int | None = None):
     """Bulk copies in and out of one ring, the data untouched by any thread."""
-    return _ring(hbm2hbm, *HBM2HBM, 1, "direct")
+    return _ring(hbm2hbm, chunk, nbuf, 1, "direct", flags)
 
 
-def lanes_stream(chunk: int, nbuf: int, L: int, mode: str = "touch"):
+def lanes_stream(chunk: int, nbuf: int, L: int, mode: str = "touch", flags: int | None = None):
     """L independent rings a block, each with its own barriers."""
     if mode not in ("copy", "touch"):
         raise ValueError(f"mode must be copy or touch, got {mode!r}")
-    return _ring(lanes_stream, chunk, nbuf, L, mode)
+    return _ring(lanes_stream, chunk, nbuf, L, mode, flags)
 
 
-def kway_hbm2hbm(K: int):
+def kway_hbm2hbm(K: int, chunk: int = HBM2HBM[0], nbuf: int = HBM2HBM[1],
+                 flags: int | None = None):
     """``hbm2hbm`` over K disjoint slabs of the leading dim, one launch a slab
-    on its own stream, joined back to the caller's stream."""
+    on its own stream with a K-th of one resident wave, joined back to the
+    caller's stream."""
+    flags = FLAGS if flags is None else flags
+    _check_args(nbuf, 1, "direct", flags)
 
     def step(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         if not route(x, "kway_hbm2hbm"):
@@ -158,20 +248,20 @@ def kway_hbm2hbm(K: int):
         if x.shape[0] % K:
             raise ValueError(f"kway_hbm2hbm: leading dim {x.shape[0]} not divisible by K={K}")
         out = torch.empty_like(x)
-        slab = x.shape[0] // K
+        slab = x.numel() * 4 // K
         main = torch.cuda.current_stream(x.device)
-        ready = main.record_event()
-        done = []
+        streams, ready, done = _streams(x.device, K)
         with torch.cuda.device(x.device):
-            for i, s in enumerate(_streams(x.device, K)):
+            grid = _plan(x, out, c, chunk, nbuf, 1, "direct", "kway_hbm2hbm", share=K)
+            ready.record(main)
+            for i, s in enumerate(streams):
                 s.wait_event(ready)
-                with torch.cuda.stream(s):
-                    _probe(x[i * slab:(i + 1) * slab], out[i * slab:(i + 1) * slab], c,
-                           *HBM2HBM, 1, "direct", "kway_hbm2hbm")
-                    kway_hbm2hbm.launches += 1
-                    done.append(s.record_event())
-                x.record_stream(s)
-                out.record_stream(s)
+                _launch(x.data_ptr() + i * slab, out.data_ptr() + i * slab, slab, c, chunk, nbuf,
+                        1, "direct", grid, flags, x.device, s.cuda_stream, "kway_hbm2hbm")
+                kway_hbm2hbm.launches += 1
+                done[i].record(s)
+        # the caller's stream waits for every slab, so x and out need no
+        # record_stream: whatever reuses their memory there comes after
         for e in done:
             main.wait_event(e)
         return out
@@ -181,7 +271,10 @@ def kway_hbm2hbm(K: int):
 
 @functools.lru_cache(maxsize=None)
 def _streams(device: torch.device, k: int) -> tuple:
-    return tuple(torch.cuda.Stream(device) for _ in range(k))
+    """K side streams of a device, an event to start them and one each to
+    join them (an event may be recorded again once waited on)."""
+    return (tuple(torch.cuda.Stream(device) for _ in range(k)), torch.cuda.Event(),
+            tuple(torch.cuda.Event() for _ in range(k)))
 
 
 def xla_touch():

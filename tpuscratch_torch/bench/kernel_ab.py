@@ -14,7 +14,10 @@ vectors):
 - ``hbm``: one Jacobi step of 8192^2 stacked on 4x4 and of 1024^2 on 1x1;
 - ``dot``: ``dot_full_prepped``, ``dot_partials_prepped`` and ``torch.dot``
   over two f32 vectors of 1e8 and of 3000 elements;
-- ``fill``: ``fill`` and ``torch.full`` at 1e8 f32 and 37x53 f32.
+- ``fill``: ``fill`` and ``torch.full`` at 1e8 f32 and 37x53 f32;
+- ``probes``: every copy probe of ``bench/dma_bound.py``, ``x * c`` and
+  ``copy_`` at 256x512x512 f32, each held bit-equal to ``clone`` / ``x *
+  c`` first, as the marginal ms a step of ``dma_bound.race``.
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -22,7 +25,10 @@ Usage, from the root of a checkout, on a machine with a card:
 
 ``--sweep`` times the kernels under other plans than the host rules'
 instead (paged: chunk tokens, ring stages, split count; dot_full and fill:
-smaller grids). ``--only paged,hbm,dot,fill`` picks case groups. ``--root``
+smaller grids; dot_partials: a block a chunk against one resident wave;
+the copy probes: each design switch of ``csrc/copy_probes.cu``, other
+rings for ``hbm2hbm``). ``--only paged,hbm,dot,fill,probes`` picks case
+groups. ``--root``
 imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
 kernels build into that checkout's own build directory; the wrappers'
@@ -232,7 +238,8 @@ def dot_fill_sweep(gen):
     from tpuscratch_torch.ops import reduction as tr
 
     tf = importlib.import_module("tpuscratch_torch.ops.fill")
-    n_sm, per_sm = tr._full_occupancy(torch.cuda.current_device(), 0, 0, 8)
+    n_sm, per_sm = tr._occupancy(torch.cuda.current_device(), "full", 0, 0, 8)
+    _, per_sm_p = tr._occupancy(torch.cuda.current_device(), "partials", 0, 0, 8)
     for n, label in ((100_000_000, "1e8"), (3000, "3000")):
         x, y, x2, y2, block, want, scale = _dot_inputs(gen, n)
         xf, yf = x2.flatten(), y2.flatten()
@@ -243,6 +250,29 @@ def dot_fill_sweep(gen):
             _dot_ok(f"sweep dot_full {label} waves {waves}", call(), want, scale)
             yield (f"sweep dot_full {label} f32 waves={waves} blocks={blocks}"
                    f"{' (rule)' if blocks == rule else ''}", device_ms(call))
+        # dot_partials: (a) a block a chunk, (b) one resident wave (or a
+        # part of it) walking the chunks; the same bits on every grid.
+        # variant (PR 12 experiment): the tail's fence acq_rel (0) or sc
+        # (1), or no tail (2, timing only)
+        chunk = block * 128
+        nchunks = -(-xf.numel() // chunk)
+        rule = tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, per_sm_p)
+        first = None
+        for blocks in sorted({nchunks} | {tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, w)
+                                          for w in range(1, per_sm_p + 1)}):
+            for variant in (0, 1, 2):
+                call = lambda: tr._partials_dot(xf, yf, chunk, None, "sweep", blocks,  # noqa: E731
+                                                variant)[0]
+                if variant < 2:
+                    got = call()
+                    _dot_ok(f"sweep dot_partials {label} blocks {blocks}", got, want, scale)
+                    if first is not None and not torch.equal(got, first):
+                        raise AssertionError(f"sweep dot_partials {label}: blocks {blocks} "
+                                             "changed the bits")
+                    first = got
+                grid = "a block a chunk" if blocks == nchunks else f"{blocks / n_sm:g} an SM"
+                yield (f"sweep dot_partials {label} f32 blocks={blocks} ({grid}) "
+                       f"variant={variant}{' (rule)' if blocks == rule else ''}", device_ms(call))
         del x, y, x2, y2, xf, yf
     for shape, label in (((100_000_000,), "1e8"), ((37, 53), "37x53")):
         want = tf.fill_plain(shape, 0.1, device="cuda")
@@ -257,7 +287,83 @@ def dot_fill_sweep(gen):
                    device_ms(call))
 
 
-GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases}
+def _probe_checked(name: str, step, x, c) -> None:
+    import torch
+
+    from tpuscratch_torch.bench import dma_bound as tb
+
+    want = tb.touch_plain(x, c) if "touch" in name else tb.copy_plain(x, c)
+    if not torch.equal(step(x, c), want):
+        raise AssertionError(f"probe {name} differs from clone / x * c")
+
+
+def probe_cases(gen):
+    """(case, ms) of every copy probe, x * c and copy_ at 256x512x512 f32:
+    the marginal ms a step (``dma_bound.race``)."""
+    import torch
+
+    from tpuscratch_torch.bench import dma_bound as tb
+
+    x = torch.randn((tb.NZ, tb.CY, tb.CX), generator=gen, device="cuda")
+    c = torch.full((1,), 1.0 + 2 ** -20, device="cuda")
+    for name, step in tb.probes():
+        _probe_checked(name, step, x, c)
+        yield f"probe {name}", tb.race(name, step)["ms"]
+    del x
+
+
+def probe_sweep(gen):
+    """(case, ms) of the copy probes under every design switch of
+    ``csrc/copy_probes.cu`` (``dma_bound.FLAGS`` is the rule) and of
+    ``hbm2hbm`` on other rings, this checkout only."""
+    import torch
+
+    from tpuscratch_torch.bench import dma_bound as tb
+
+    x = torch.randn((tb.NZ, tb.CY, tb.CX), generator=gen, device="cuda")
+    c = torch.full((1,), 1.0 + 2 ** -20, device="cuda")
+    names = {tb.INTERLEAVE: "interleave", tb.EVICT_FIRST: "evict_first",
+             tb.STORE_LAG0: "lag0", tb.DYNAMIC: "dynamic"}
+
+    def label(flags):
+        on = [n for bit, n in names.items() if flags & bit]
+        return "+".join(on) or "none"
+
+    cases = []
+    for flags in range(16):
+        cases.append((f"hbm2hbm {tb.HBM2HBM[0]}x{tb.HBM2HBM[1]}", tb.hbm2hbm(flags=flags), flags))
+    for chunk, nbuf in ((16384, 4), (24576, 4), (49152, 4), (65536, 3), (32768, 2),
+                        (16384, 3)):
+        for flags in sorted({tb.FLAGS, tb.FLAGS ^ tb.DYNAMIC}):
+            cases.append((f"hbm2hbm {chunk}x{nbuf}", tb.hbm2hbm(chunk, nbuf, flags=flags), flags))
+    # work-sized grids: contiguous runs of a few chunks a ring, the blocks
+    # scheduled in order by the card
+    nchunks = tb.BYTES // tb.HBM2HBM[0]
+    for per_ring in (1, 2, 4, 8):
+        for flags in (0, tb.EVICT_FIRST):
+            cases.append((f"hbm2hbm {tb.HBM2HBM[0]}x{tb.HBM2HBM[1]} {per_ring} chunks a ring",
+                          tb._ring(tb.hbm2hbm, *tb.HBM2HBM, 1, "direct", flags,
+                                   nchunks // per_ring), flags))
+    for k in tb.KWAY:
+        for flags in sorted({tb.FLAGS, tb.FLAGS ^ tb.DYNAMIC, tb.FLAGS & ~tb.INTERLEAVE}):
+            cases.append((f"hbm2hbm-{k}way", tb.kway_hbm2hbm(k, flags=flags), flags))
+    for chunk, nbuf, mode in tb.MANUAL[:1] + tb.MANUAL[3:4]:
+        for flags in range(16):
+            cases.append((f"manual-{mode}-chunk{chunk}-nbuf{nbuf}",
+                          tb.manual_stream(chunk, nbuf, mode, flags=flags), flags))
+    for chunk, nbuf, lanes in ((16384, 2, 2), (8192, 2, 4), (4096, 2, 8), (2048, 2, 15)):
+        for flags in sorted({tb.FLAGS, tb.FLAGS ^ tb.DYNAMIC}):
+            cases.append((f"lanes{lanes}-touch-chunk{chunk}-nbuf{nbuf}",
+                          tb.lanes_stream(chunk, nbuf, lanes, flags=flags), flags))
+    for name, step, flags in cases:
+        _probe_checked(name, step, x, c)
+        mark = " (rule)" if flags == tb.FLAGS else ""
+        yield f"sweep probe {name} {label(flags)}{mark}", tb.race(name, step)["ms"]
+    del x
+
+
+GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases,
+          "probes": probe_cases}
 
 
 def main(argv=None) -> int:
@@ -287,7 +393,8 @@ def main(argv=None) -> int:
     groups = args.only.split(",")
     if args.sweep:
         cases = itertools.chain(plan_sweep(gen) if "paged" in groups else (),
-                                dot_fill_sweep(gen) if {"dot", "fill"} & set(groups) else ())
+                                dot_fill_sweep(gen) if {"dot", "fill"} & set(groups) else (),
+                                probe_sweep(gen) if "probes" in groups else ())
     else:
         cases = itertools.chain.from_iterable(GROUPS[g](gen) for g in groups)
     for case, ms in cases:

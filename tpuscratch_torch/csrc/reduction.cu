@@ -10,16 +10,23 @@
 // entry (stride 1), so a loop-carried offset never syncs the host.
 //
 // The TPU kernels lean on a sequential grid: a running sum in the revisited
-// output block. Blocks run in parallel here, so:
-// - dot_partials: one block per chunk of the vector (the TPU kernel's grid
-//   step) writes its partial; the caller sums the partials (as the JAX
-//   package sums them outside its kernel).
-// - dot_full: the reference's own single-kernel design (mpicuda4.cu:157-185):
-//   G blocks walk the vector with a grid-stride loop, each block writes its
-//   partial to a scratch buffer, __threadfence(), and takes an atomicInc
-//   ticket; the block that draws the last ticket sums the partials and the
-//   ticket wraps back to 0 for the next launch. No float atomicAdd: the
-//   result is the same on every run. The host plans G
+// output block. Blocks run in parallel here, so both kernels end the same
+// way, after the reference's single-kernel design (mpicuda4.cu:157-185):
+// each block writes its partials to global memory, __threadfence(), and
+// takes an atomicInc ticket of its batch entry; the block that draws the
+// last ticket sums that entry's partials with all of its threads (each a
+// fixed strided subset in index order, then block_sum's fixed tree) and the
+// ticket wraps back to 0 for the next launch. No float atomics: the result
+// is the same bits on every run. A one-block grid writes its sum straight
+// out, without a ticket.
+// - dot_partials: the partials are one a chunk of the vector (the TPU
+//   kernel's grid step, block x 128 elements), kept in a (batch, nchunks)
+//   buffer, the TPU kernel's own output. The G blocks of a batch entry walk
+//   the chunks c = blockIdx.x + k*G, each chunk's partial summed by one
+//   block in a fixed order, so the partials, and the total, do not depend
+//   on G. The host plans G (ops/reduction.py: dot_partials_plan).
+// - dot_full: G blocks walk the vector with a grid-stride loop and write
+//   one partial each to a scratch buffer. The host plans G
 //   (ops/reduction.py: dot_full_plan): one resident wave at most.
 //
 // Inside a block: per-thread fmaf accumulation, then a warp-shuffle tree
@@ -31,13 +38,12 @@
 // (two float4 / one uint4 of bf16 per 8 elements), two such steps in
 // flight per thread, where the pointers are 16-byte aligned and the
 // lengths multiples of 8; otherwise one element at a time. Past the stream,
-// dot_full's time is its tail: the last block sums the G partials with all
-// of its threads, each a fixed strided subset in index order, then
-// block_sum's fixed tree (one thread summing them cost ~G dependent L2
-// loads, ~20 us at 1e8, while every other block had already exited), and
-// a one-block grid writes its sum straight out. On the H100, fewer blocks
-// (2-4 an SM) or four steps in flight a thread measured no faster
-// (PERF.md).
+// the time is the tail: one thread summing the partials cost ~G dependent
+// L2 loads (~20 us for dot_full at 1e8) while every other block had
+// already exited, hence all of the last block's threads. dot_partials used
+// to leave the sum of its partials to a second launch (torch.sum), a few
+// us at every size. On the H100, fewer dot_full blocks (2-4 an SM) or four
+// steps in flight a thread measured no faster (PERF.md).
 //
 // Plain C interface (ctypes): every launcher takes raw pointers and the
 // CUDA stream, launches on that stream, allocates nothing and returns
@@ -132,21 +138,71 @@ __device__ __forceinline__ float offset_of(const float* off, int stride, long lo
   return off ? off[b * stride] : 0.f;
 }
 
+// Release and acquire at device scope: a partial is visible to the block
+// that draws the last ticket (fence.acq_rel, not __threadfence's
+// fence.sc: see PERF.md, PR 12).
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// The tail of both kernels: the G blocks of batch entry b have written
+// their partials p[0..np) (every partial of the entry, once); the block
+// that draws the last ticket sums them into out[b]. A one-block grid sums
+// its own partials without a ticket. variant (PR 12 experiment): 0
+// fence.acq_rel, 1 __threadfence, 2 no tail at all (timing only).
+__device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsigned int np,
+                                             unsigned int G, unsigned int* __restrict__ ticket,
+                                             float* __restrict__ out, int variant = 0) {
+  if (variant == 2) return;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    if (G > 1) {
+      if (variant == 1) __threadfence(); else fence_acq_rel_gpu();  // partials before the ticket
+      last = atomicInc(ticket, G - 1) == G - 1;  // G-th ticket wraps to 0
+    } else {
+      last = true;
+    }
+  }
+  __syncthreads();  // also orders block_sum's shared memory for its reuse below
+  if (!last) return;
+  if (variant == 1) __threadfence(); else fence_acq_rel_gpu();  // other blocks' partials after their tickets
+  // thread t sums partials t, t + THREADS, ... in index order, then the
+  // block's fixed tree: the same order on every run and every grid
+  float t = 0.f;
+  for (unsigned int i = threadIdx.x; i < np; i += THREADS) t += __ldcg(p + i);  // past L1
+  const float total = block_sum(t);
+  if (threadIdx.x == 0) *out = total;
+}
+
 // ---------------------------------------------------------------------------
-// dot_partials: grid (nchunks, batch); block c of batch b writes
-// partials[b, c] = the sum over elements [c*chunk, min(n, (c+1)*chunk)).
+// dot_partials: grid (G, batch); block g of batch b writes partials[b, c]
+// = the sum over elements [c*chunk, min(n, (c+1)*chunk)) for c = g, g + G,
+// ... < nchunks, then the tail writes out[b], the sum of the entry's
+// partials; tickets (batch,) starts (and ends) at 0.
 template <int V, typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                     const float* __restrict__ off, int off_stride, long long n,
-                    long long chunk, float* __restrict__ partials) {
-  const long long b = blockIdx.y, c = blockIdx.x;
-  const long long begin = c * chunk;
-  const long long end = begin + chunk < n ? begin + chunk : n;
-  const float acc = accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x,
-                                  end / V, THREADS, offset_of(off, off_stride, b));
-  const float s = block_sum(acc);
-  if (threadIdx.x == 0) partials[b * gridDim.x + c] = s;
+                    long long chunk, long long nchunks, float* __restrict__ partials,
+                    unsigned int* __restrict__ tickets, float* __restrict__ out, int variant) {
+  const long long b = blockIdx.y;
+  const unsigned int G = gridDim.x;
+  const float o = offset_of(off, off_stride, b);
+  float* p = partials + b * nchunks;
+  float s = 0.f;
+  for (long long c = blockIdx.x; c < nchunks; c += G) {
+    const long long begin = c * chunk;
+    const long long end = begin + chunk < n ? begin + chunk : n;
+    s = block_sum(accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
+                                THREADS, o));
+    if (threadIdx.x == 0) p[c] = s;
+    __syncthreads();  // block_sum's shared memory is reused by the next chunk
+  }
+  if (nchunks == 1) {  // the chunk's partial is the total: no ticket
+    if (threadIdx.x == 0) out[b] = s;
+    return;
+  }
+  sum_partials(p, (unsigned int)nchunks, G, tickets + b, out + b, variant);
 }
 
 // ---------------------------------------------------------------------------
@@ -170,22 +226,8 @@ dot_full_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
     if (threadIdx.x == 0) out[b] = s;
     return;
   }
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    scratch[b * G + blockIdx.x] = s;
-    __threadfence();  // the partial is visible device-wide before the ticket
-    last = atomicInc(&tickets[b], G - 1) == G - 1;  // G-th ticket wraps to 0
-  }
-  __syncthreads();  // also orders block_sum's shared memory for its reuse below
-  if (!last) return;
-  __threadfence();  // every other block's partial is read after its ticket
-  // thread t sums partials t, t + THREADS, ... in index order, then the
-  // block's fixed tree: the same order on every run
-  const float* p = scratch + b * G;
-  float t = 0.f;
-  for (unsigned int i = threadIdx.x; i < G; i += THREADS) t += __ldcg(p + i);  // past L1
-  const float total = block_sum(t);
-  if (threadIdx.x == 0) out[b] = total;
+  if (threadIdx.x == 0) scratch[b * G + blockIdx.x] = s;
+  sum_partials(scratch + b * G, G, G, tickets + b, out + b);
 }
 
 // ---------------------------------------------------------------------------
@@ -195,7 +237,7 @@ struct Args {
   const float* off;
   int off_stride;
   long long n, chunk, nchunks, batch;
-  int blocks;
+  int blocks, variant;
   float *partials, *scratch, *out;
   unsigned int* tickets;
   int* per_sm;
@@ -205,9 +247,10 @@ struct Args {
 template <int V, typename TX, typename TY>
 struct Partials {
   static void run(const Args& a) {
-    dot_partials_kernel<V, TX, TY><<<dim3((unsigned)a.nchunks, (unsigned)a.batch),
+    dot_partials_kernel<V, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
                                      THREADS, 0, a.stream>>>(
-        (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.chunk, a.partials);
+        (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.chunk, a.nchunks,
+        a.partials, a.tickets, a.out, a.variant);
   }
 };
 
@@ -221,11 +264,20 @@ struct Full {
   }
 };
 
-// the blocks of dot_full an SM holds at full occupancy, into *a.per_sm
+// the blocks of dot_full / dot_partials an SM holds at full occupancy,
+// into *a.per_sm
 template <int V, typename TX, typename TY>
 struct FullOccupancy {
   static void run(const Args& a) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_full_kernel<V, TX, TY>, THREADS, 0);
+  }
+};
+
+template <int V, typename TX, typename TY>
+struct PartialsOccupancy {
+  static void run(const Args& a) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, TX, TY>,
+                                                  THREADS, 0);
   }
 };
 
@@ -251,30 +303,43 @@ static bool valid(long long n, long long batch, int vec) {
   return n >= 0 && batch >= 1 && batch <= 65535 && (vec == 1 || (vec == 8 && n % 8 == 0));
 }
 
+// `blocks` (G, at most the chunks) comes from the host's plan; partials is
+// (batch, nchunks), tickets (batch,) zero, out (batch,).
 extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int vec,
                                const float* off, int off_stride, long long n,
-                               long long chunk, long long batch, float* partials,
-                               void* stream) {
+                               long long chunk, long long batch, int blocks, float* partials,
+                               unsigned int* tickets, float* out, void* stream, int variant) {
   if (!valid(n, batch, vec) || chunk < 1 || (vec == 8 && chunk % 8)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x; a.y = y; a.off = off; a.off_stride = off_stride; a.n = n; a.chunk = chunk;
   a.nchunks = (n + chunk - 1) / chunk; a.batch = batch; a.partials = partials;
-  a.stream = (cudaStream_t)stream;
+  a.tickets = tickets; a.out = out; a.stream = (cudaStream_t)stream; a.variant = variant;
   if (a.nchunks == 0) return 0;
-  if (a.nchunks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (a.nchunks > INT32_MAX || blocks < 1 || blocks > a.nchunks) return (int)cudaErrorInvalidValue;
+  a.blocks = blocks;
   return dispatch<Partials>(dx, dy, vec, a);
 }
 
-// The card's SM count and the blocks of dot_full an SM holds at full
-// occupancy, for the host's plan (ops/reduction.py: dot_full_plan).
-extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int* sms, int* per_sm) {
+static int occupancy(bool partials, int dx, int dy, int vec, int* sms, int* per_sm) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   Args a{};
   a.per_sm = per_sm;
-  return dispatch<FullOccupancy>(dx, dy, vec, a);
+  return partials ? dispatch<PartialsOccupancy>(dx, dy, vec, a)
+                  : dispatch<FullOccupancy>(dx, dy, vec, a);
+}
+
+// The card's SM count and the blocks of dot_full (dot_partials) an SM holds
+// at full occupancy, for the host's plans (ops/reduction.py: dot_full_plan,
+// dot_partials_plan).
+extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int* sms, int* per_sm) {
+  return occupancy(false, dx, dy, vec, sms, per_sm);
+}
+
+extern "C" int ts_dot_partials_occupancy(int dx, int dy, int vec, int* sms, int* per_sm) {
+  return occupancy(true, dx, dy, vec, sms, per_sm);
 }
 
 // `blocks` (G) comes from the host's plan.

@@ -4,13 +4,16 @@ The twin of ``tpuscratch.ops.reduction``: the reference's CUDA strategies
 (mpicuda2.cu:84-100 two-phase partials, mpicuda4.cu:157-185 single-kernel
 full reduction), f32 accumulation for float32 and bfloat16 operands.
 
-- ``dot_partials_prepped``: one block per chunk writes its partial; the
-  partials are summed with ``torch.sum`` (outside the kernel, as in the
-  JAX package).
+- ``dot_partials_prepped``: one launch: the partials one a chunk (the
+  TPU kernel's output, summed outside its kernel by the JAX package), and
+  the block that draws the last atomic ticket sums them in a fixed order.
+  Its grid is a host rule, ``dot_partials_plan``.
 - ``dot_full_prepped``: one launch, one scalar: per-block partials, an
-  atomic ticket, and the last block sums the partials in a fixed order --
-  no float atomics, so the same inputs give the same bits every run. Its
-  grid is a host rule, ``dot_full_plan``.
+  atomic ticket, and the last block sums the partials in a fixed order.
+  Its grid is a host rule, ``dot_full_plan``.
+
+Neither uses float atomics, so the same inputs give the same bits every
+run.
 
 Every function takes a batch: ``x``, ``y`` are ``(*batch, n)`` (or, prepped,
 ``(*batch, k*block, 128)``) and the result is ``(*batch)`` -- the stacked
@@ -48,10 +51,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("reduction")
-    lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _P, _P]
-    lib.ts_dot_full_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _P, _I]
+    for fn in (lib.ts_dot_full_occupancy, lib.ts_dot_partials_occupancy):
+        fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P]
-    for fn in (lib.ts_dot_partials, lib.ts_dot_full_occupancy, lib.ts_dot_full):
+    for fn in (lib.ts_dot_partials, lib.ts_dot_full_occupancy, lib.ts_dot_partials_occupancy,
+               lib.ts_dot_full):
         fn.restype = _I
     return lib
 
@@ -128,22 +133,6 @@ def _vec(x: torch.Tensor, y: torch.Tensor, n: int, chunk: int = 8) -> int:
     return 8 if aligned and n % 8 == 0 and chunk % 8 == 0 else 1
 
 
-def _partials_launch(x, y, chunk: int, offset, name: str) -> torch.Tensor:
-    batch, n = _operands(x, y, name)
-    nchunks = -(-n // chunk)
-    out = torch.empty(x.shape[:-1] + (nchunks,), dtype=torch.float32, device=x.device)
-    if nchunks == 0:
-        return out
-    off, stride, keep = _offset_arg(offset, x, name)
-    with torch.cuda.device(x.device):
-        check_status(_lib(), _lib().ts_dot_partials(
-            x.data_ptr(), y.data_ptr(), _CODE[x.dtype], _CODE[y.dtype], _vec(x, y, n, chunk),
-            off, stride, n, chunk, batch, out.data_ptr(), stream_of(x)), name)
-    del keep  # the launch is queued; the caching allocator orders any reuse
-    dot_partials_prepped.launches += 1
-    return out
-
-
 DOT_THREADS = 256  # threads a block (csrc/reduction.cu: THREADS)
 DOT_UNROLL = 2     # 16-byte groups of each operand a thread keeps in flight (UNROLL)
 
@@ -157,14 +146,32 @@ def dot_full_plan(n: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
     return max(1, min(n_sm * max(1, per_sm) // batch, need))
 
 
+def dot_partials_plan(n: int, chunk: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
+    """Blocks a batch entry of ``dot_partials``' grid: one resident wave
+    shared out over the batch, no more blocks than chunks, at least 1."""
+    return max(1, min(n_sm * max(1, per_sm) // batch, -(-n // chunk)))
+
+
+def partials_schedule(nchunks: int, blocks: int) -> list[range]:
+    """The chunks each of ``blocks`` blocks of a batch entry sums, in its
+    order (``dot_partials_kernel``'s loop ``c = blockIdx.x + k*G``)."""
+    return [range(g, nchunks, blocks) for g in range(blocks)]
+
+
+def tail_order(nparts: int) -> list[range]:
+    """The partials each thread of the last block sums, in its order,
+    before ``block_sum``'s fixed tree (``sum_partials``)."""
+    return [range(t, nparts, DOT_THREADS) for t in range(DOT_THREADS)]
+
+
 @functools.lru_cache(maxsize=None)
-def _full_occupancy(device_index: int, dx: int, dy: int, vec: int) -> tuple[int, int]:
-    """(SM count, blocks of dot_full an SM holds) on card ``device_index``."""
+def _occupancy(device_index: int, kernel: str, dx: int, dy: int, vec: int) -> tuple[int, int]:
+    """(SM count, blocks of dot_``kernel`` an SM holds) on card ``device_index``."""
     sms, per_sm = _I(0), _I(0)
+    fn = getattr(_lib(), f"ts_dot_{kernel}_occupancy")
     with torch.cuda.device(device_index):
-        check_status(_lib(), _lib().ts_dot_full_occupancy(dx, dy, vec, ctypes.byref(sms),
-                                                           ctypes.byref(per_sm)),
-                     "dot_full_prepped")
+        check_status(_lib(), fn(dx, dy, vec, ctypes.byref(sms), ctypes.byref(per_sm)),
+                     f"dot_{kernel}")
     return sms.value, per_sm.value
 
 
@@ -172,14 +179,48 @@ _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _tickets_for(device: torch.device, stream: int, batch: int) -> torch.Tensor:
-    """The ticket counters of dot_full for one stream of one device: zero
-    between launches (the last block of each launch wraps its counter back
-    to 0), and launches on one stream never overlap."""
+    """The ticket counters of one stream of one device: zero between
+    launches (the last block of each launch wraps its counter back to 0).
+    dot_full and dot_partials share them: launches on one stream never
+    overlap."""
     t = _tickets.get((device, stream))
     if t is None or t.numel() < batch:
         t = torch.zeros(max(batch, 64), dtype=torch.int32, device=device)
         _tickets[(device, stream)] = t
     return t
+
+
+def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None,
+                  variant: int = 0):
+    """One dot_partials launch: ``(sums (*batch), partials (*batch,
+    nchunks))``; ``blocks`` is ``dot_partials_plan``'s unless given
+    (another grid, as ``bench/kernel_ab.py --sweep`` times them)."""
+    batch, n = _operands(x, y, name)
+    nchunks = -(-n // chunk)
+    partials = torch.empty(x.shape[:-1] + (nchunks,), dtype=torch.float32, device=x.device)
+    if nchunks == 0:
+        return torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device), partials
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    vec = _vec(x, y, n, chunk)
+    dx, dy = _CODE[x.dtype], _CODE[y.dtype]
+    if blocks is None:
+        blocks = dot_partials_plan(n, chunk, batch, vec,
+                                   *_occupancy(x.device.index, "partials", dx, dy, vec))
+    off, stride, keep = _offset_arg(offset, x, name)
+    stream = stream_of(x)
+    tickets = _tickets_for(x.device, stream.value, batch)
+    with torch.cuda.device(x.device):
+        check_status(_lib(), _lib().ts_dot_partials(
+            x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, chunk, batch, blocks,
+            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream, variant), name)
+    del keep  # the launch is queued; the caching allocator orders any reuse
+    dot_partials_prepped.launches += 1
+    return out, partials
+
+
+def _partials_launch(x, y, chunk: int, offset, name: str) -> torch.Tensor:
+    """The per-chunk partials of one dot_partials launch, ``(*batch, nchunks)``."""
+    return _partials_dot(x, y, chunk, offset, name)[1]
 
 
 def _full_launch(x, y, offset, name: str, blocks: int | None = None) -> torch.Tensor:
@@ -189,7 +230,7 @@ def _full_launch(x, y, offset, name: str, blocks: int | None = None) -> torch.Te
     vec = _vec(x, y, n)
     dx, dy = _CODE[x.dtype], _CODE[y.dtype]
     if blocks is None:
-        blocks = dot_full_plan(n, batch, vec, *_full_occupancy(x.device.index, dx, dy, vec))
+        blocks = dot_full_plan(n, batch, vec, *_occupancy(x.device.index, "full", dx, dy, vec))
     scratch = torch.empty(batch * blocks, dtype=torch.float32, device=x.device)
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     off, stride, keep = _offset_arg(offset, x, name)
@@ -251,10 +292,8 @@ def dot_partials_prepped(x2: torch.Tensor, y2: torch.Tensor, block: int, offset=
     _check_prepped(x2, y2, block)
     x, y = x2.flatten(-2), y2.flatten(-2)
     if route(x2, "dot_partials_prepped"):
-        partials = _partials_launch(x, y, block * LANES, offset, "dot_partials_prepped")
-    else:
-        partials = dot_partials_plain(x, y, block * LANES, offset)
-    return partials.sum(-1)
+        return _partials_dot(x, y, block * LANES, offset, "dot_partials_prepped")[0]
+    return dot_partials_plain(x, y, block * LANES, offset).sum(-1)
 
 
 def dot_full_prepped(x2: torch.Tensor, y2: torch.Tensor, block: int, offset=None) -> torch.Tensor:
@@ -268,12 +307,12 @@ def dot_full_prepped(x2: torch.Tensor, y2: torch.Tensor, block: int, offset=None
 def dot_partials(x: torch.Tensor, y: torch.Tensor, block_rows: int = 512, offset=None) -> torch.Tensor:
     """Two-phase reduction: per-chunk partials, then one sum (parity:
     partial_dot_product_kernel + the host accumulate, mpicuda2.cu:277-279,
-    the finish on the device)."""
+    the finish on the device, in the same launch)."""
     if x.shape != y.shape:
         raise ValueError(f"shape mismatch {tuple(x.shape)} vs {tuple(y.shape)}")
     chunk = _chunk(x.shape[-1], block_rows)
     if route(x, "dot_partials"):
-        return _partials_launch(x, y, chunk, offset, "dot_partials").sum(-1)
+        return _partials_dot(x, y, chunk, offset, "dot_partials")[0]
     return dot_partials_plain(x, y, chunk, offset).sum(-1)
 
 
