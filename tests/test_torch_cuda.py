@@ -960,23 +960,18 @@ def test_zero_step_card_equals_cpu(card):
     (lambda: tb.lanes_stream(2048, 2, 4), tb.touch_plain),
     (lambda: tb.lanes_stream(4096, 3, 2, "copy"), tb.copy_plain),
     # every design switch, other rings, 8 and 15 rings a block (64 compute
-    # threads a ring), the 2-way split
+    # threads a ring), the 2-way split, ragged chunks
     (lambda: tb.hbm2hbm(flags=0), tb.copy_plain),
-    (lambda: tb.hbm2hbm(49152, 4, flags=tb.STORE_LAG0), tb.copy_plain),
-    (lambda: tb.hbm2hbm(16400, 2, flags=7), tb.copy_plain),
+    (lambda: tb.hbm2hbm(49152, 4, flags=tb.DYNAMIC), tb.copy_plain),
+    (lambda: tb.hbm2hbm(16400, 2, flags=tb.EVICT_FIRST), tb.copy_plain),
+    (lambda: tb.hbm2hbm(16400, 3, flags=tb.DYNAMIC | tb.EVICT_FIRST), tb.copy_plain),
     (lambda: tb.kway_hbm2hbm(2), tb.copy_plain),
-    (lambda: tb.kway_hbm2hbm(2, flags=tb.STORE_LAG0), tb.copy_plain),
-    (lambda: tb.manual_stream(16384, 2, "touch", flags=tb.STORE_LAG0), tb.touch_plain),
-    (lambda: tb.manual_stream(8208, 4, "copy", flags=0), tb.copy_plain),
+    (lambda: tb.kway_hbm2hbm(2, flags=0), tb.copy_plain),
+    (lambda: tb.manual_stream(16384, 2, "touch", flags=0), tb.touch_plain),
+    (lambda: tb.manual_stream(8208, 4, "copy", flags=tb.EVICT_FIRST), tb.copy_plain),
     (lambda: tb.lanes_stream(4096, 2, 8), tb.touch_plain),
-    (lambda: tb.lanes_stream(2048, 2, 15, flags=7), tb.touch_plain),
-    (lambda: tb.lanes_stream(1024, 4, 15, "copy", flags=0), tb.copy_plain),
-    # chunks drawn from a counter, a ring at a time
-    (lambda: tb.hbm2hbm(flags=tb.DYNAMIC | tb.EVICT_FIRST), tb.copy_plain),
-    (lambda: tb.hbm2hbm(16400, 3, flags=tb.DYNAMIC | tb.STORE_LAG0), tb.copy_plain),
-    (lambda: tb.kway_hbm2hbm(4, flags=tb.DYNAMIC), tb.copy_plain),
-    (lambda: tb.manual_stream(16384, 3, "touch", flags=tb.DYNAMIC), tb.touch_plain),
-    (lambda: tb.lanes_stream(2048, 2, 15, flags=tb.DYNAMIC | tb.INTERLEAVE), tb.touch_plain),
+    (lambda: tb.lanes_stream(2048, 2, 15, flags=0), tb.touch_plain),
+    (lambda: tb.lanes_stream(1024, 4, 15, "copy"), tb.copy_plain),
     # a work-sized grid: more blocks than a wave, a few chunks a ring
     (lambda: tb._ring(tb.hbm2hbm, 4096, 2, 1, "direct", 0, 1000), tb.copy_plain)])
 @pytest.mark.parametrize("shape", [(8, 37, 12), (tb.NZ, tb.CY, tb.CX)])

@@ -69,16 +69,20 @@ def test_kway_share_is_one_wave_in_all(K, per_sm):
 @pytest.mark.parametrize("lanes", range(1, 16))
 @pytest.mark.parametrize("nbytes,chunk", [(tb.BYTES, 32768), (8 * 37 * 12 * 4, 4096),
                                           (16 * 1000 + 16, 16384), (16, 16)])
-@pytest.mark.parametrize("interleave", [True, False])
-def test_ring_chunks_cover_every_chunk_once(lanes, nbytes, chunk, interleave):
+def test_ring_chunks_cover_every_chunk_once(lanes, nbytes, chunk):
+    # static rings and rings drawing from the counter, every chunk once, each
+    # ring in index order; the counter is back at 0 after the launch
     nchunks = -(-nbytes // chunk)
-    blocks = tb.probe_blocks(nbytes, chunk, lanes, 132, 1)
-    rings = tb.ring_chunks(nchunks, blocks * lanes, interleave)
-    assert len(rings) == blocks * lanes
-    assert sorted(c for r in rings for c in r) == list(range(nchunks))
-    assert all(list(r) == sorted(r) for r in rings)
-    if interleave:  # every ring but the last block's has a chunk
-        assert all(len(r) for r in rings[:(blocks - 1) * lanes])
+    rings = tb.probe_blocks(nbytes, chunk, lanes, 132, 1) * lanes
+    static = tb.ring_chunks(nchunks, rings)
+    assert len(static) == rings
+    assert sorted(c for r in static for c in r) == list(range(nchunks))
+    assert all(len(r) for r in static[:rings - lanes])  # every ring but the last block's
+    for seed in range(3):
+        drawn, counter = tb.drawn_chunks(nchunks, rings, seed)
+        assert counter == 0
+        assert sorted(c for r in drawn for c in r) == list(range(nchunks))
+        assert all(r == sorted(r) for r in drawn)
 
 
 def test_retuned_probe_lists_fit_the_card():
@@ -92,15 +96,15 @@ def test_retuned_probe_lists_fit_the_card():
     for mode, nbuf, chunk, lanes in rings:
         assert tb.probe_smem(mode, nbuf, chunk, lanes) <= tb.SMEM_OPTIN, (mode, nbuf, chunk)
         assert chunk % 16 == 0 and nbuf in (2, 3, 4) and 1 <= lanes <= 15
-    assert tb.FLAGS & ~(tb.INTERLEAVE | tb.EVICT_FIRST | tb.STORE_LAG0 | tb.DYNAMIC) == 0
+    assert tb.FLAGS & ~(tb.DYNAMIC | tb.EVICT_FIRST) == 0
 
 
 def test_flag_checks():
     with pytest.raises(ValueError, match="flags"):
-        tb.hbm2hbm(flags=16)
+        tb.hbm2hbm(flags=4)
     with pytest.raises(ValueError, match="flags"):
-        tb.kway_hbm2hbm(2, flags=32)
+        tb.kway_hbm2hbm(2, flags=8)
     x, c = to_torch(rand((8, 6, 4), 4)), torch.full((1,), 3.0)
-    for flags in range(16):  # the plain path ignores the design switches
+    for flags in range(4):  # the plain path ignores the design switches
         assert torch.equal(tb.lanes_stream(4096, 2, 3, flags=flags)(x, c), x * c)
         assert torch.equal(tb.kway_hbm2hbm(4, flags=flags)(x, c), x)

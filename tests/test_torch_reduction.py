@@ -252,7 +252,7 @@ def test_dot_partials_plan_covers_every_chunk_once(n, chunk, batch, per_sm):
     nchunks = -(-n // chunk)
     g = tr.dot_partials_plan(n, chunk, batch, 8, n_sm, per_sm)
     assert 1 <= g <= nchunks                                      # no block without a chunk
-    assert g * batch <= max(batch, n_sm * per_sm)                 # one resident wave
+    assert g * batch <= max(batch, n_sm * min(per_sm, tr.PARTIALS_PER_SM))  # a part of a wave
     schedule = tr.partials_schedule(nchunks, g)
     assert sorted(c for run in schedule for c in run) == list(range(nchunks))
     for run in schedule:                                          # each block in index order
@@ -265,13 +265,14 @@ def test_dot_partials_plan_covers_every_chunk_once(n, chunk, batch, per_sm):
 
 
 def test_dot_partials_plan_shapes():
-    # the 3000-vector is one block, which sums its 3 partials itself; 1e8
-    # takes one resident wave; a batch shares the wave
-    assert tr.dot_partials_plan(3072, 1024, 1, 8, 132, 8) == 1
+    # the 3000-vector is a block a chunk; 1e8 takes PARTIALS_PER_SM blocks
+    # an SM (fewer if fewer fit); a batch shares them
+    assert tr.dot_partials_plan(3072, 1024, 1, 8, 132, 8) == 3
     for per_sm in (1, 6, 8):
-        assert tr.dot_partials_plan(100_007_936, 65536, 1, 8, 132, per_sm) == 132 * per_sm
-    assert tr.dot_partials_plan(100_007_936, 65536, 1, 8, 132, 16) == 1526  # a block a chunk
-    assert tr.dot_partials_plan(2048, 256, 8, 8, 132, 8) == 1  # (8, 2048) on 8 ranks
+        assert tr.dot_partials_plan(100_007_936, 65536, 1, 8, 132, per_sm) == \
+            132 * min(per_sm, tr.PARTIALS_PER_SM)
+    assert tr.dot_partials_plan(2048, 256, 8, 8, 132, 8) == 8  # (8, 2048) on 8 ranks
+    assert tr.dot_partials_plan(10, 1024, 65535, 8, 132, 8) == 1
 
 
 @pytest.mark.parametrize("n", [0, 1, 1000, 1024, 3000, 4099])

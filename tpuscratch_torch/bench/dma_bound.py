@@ -27,7 +27,8 @@ a block may hold, so chunks are bytes and the probe lists below are the
 card's own (the JAX lists beside them). The host plans every grid
 (``probe_blocks``) from the occupancy, asked once a configuration and
 card; ``ring_chunks`` models which chunks each ring moves, ``probe_smem``
-the shared memory a block asks for. Every factory takes ``flags``, the
+the shared memory a block asks for (``drawn_chunks`` with DYNAMIC). Every
+factory takes ``flags``, the
 kernel's design switches (``FLAGS`` unless given; ``kernel_ab.py --sweep``
 times the others).
 
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import random
 import sys
 
 import torch
@@ -50,9 +52,10 @@ from tpuscratch_torch.runtime.mesh import resolve_device
 NZ, CY, CX = 256, 512, 512
 BYTES = NZ * CY * CX * 4
 MODES = {"direct": 0, "copy": 1, "touch": 2}
-#: the kernel's design switches (csrc/copy_probes.cu: Flags)
-INTERLEAVE, EVICT_FIRST, STORE_LAG0, DYNAMIC = 1, 2, 4, 8
-FLAGS = INTERLEAVE | EVICT_FIRST
+#: the kernel's design switches (csrc/copy_probes.cu: Flags): chunks drawn
+#: from a counter, else dealt out in turn; an L2 evict_first policy
+DYNAMIC, EVICT_FIRST = 1, 2
+FLAGS = DYNAMIC | EVICT_FIRST
 #: (chunk bytes, nbuf, mode); the JAX list is (band z-planes, nbuf, mode) in
 #: (8, 2), (8, 3), (16, 2), each copy and touch
 MANUAL = [(16384, 2, "copy"), (16384, 3, "copy"), (32768, 2, "copy"),
@@ -105,13 +108,30 @@ def probe_blocks(nbytes: int, chunk: int, lanes: int, n_sm: int, per_sm: int,
     return max(1, min(n_sm * max(1, per_sm) // share, rings))
 
 
-def ring_chunks(nchunks: int, rings: int, interleave: bool = True) -> list[range]:
-    """The chunks each of ``rings`` rings moves, in its order (ring g is
-    block g // lanes, lane g % lanes): chunk i to ring i mod ``rings``, or
-    contiguous runs of about nchunks / rings."""
-    if interleave:
-        return [range(g, nchunks, rings) for g in range(rings)]
-    return [range(nchunks * g // rings, nchunks * (g + 1) // rings) for g in range(rings)]
+def ring_chunks(nchunks: int, rings: int) -> list[range]:
+    """The chunks each of ``rings`` static rings moves, in its order (ring
+    g is block g // lanes, lane g % lanes): chunk i to ring i mod
+    ``rings``."""
+    return [range(g, nchunks, rings) for g in range(rings)]
+
+
+def drawn_chunks(nchunks: int, rings: int, seed: int) -> tuple[list[list[int]], int]:
+    """The chunks each of ``rings`` DYNAMIC rings draws, the rings reaching
+    the counter in an order made from ``seed``, and the counter's value
+    after the launch: a draw takes the counter's value and adds 1, wrapping
+    to 0 from ``nchunks + rings - 1`` (atomicInc), and a ring stops at its
+    first value past the chunks."""
+    rng = random.Random(seed)
+    out: list[list[int]] = [[] for _ in range(rings)]
+    live, counter, limit = list(range(rings)), 0, nchunks + rings - 1
+    while live:
+        g = rng.choice(live)
+        c, counter = counter, 0 if counter >= limit else counter + 1
+        if c >= nchunks:
+            live.remove(g)
+        else:
+            out[g].append(c)
+    return out, counter
 
 
 def _plan(x, out, c, chunk: int, nbuf: int, lanes: int, mode: str, name: str, share: int = 1,
@@ -187,7 +207,7 @@ def _check_args(nbuf: int, lanes: int, mode: str, flags: int) -> None:
         raise ValueError(f"lanes must be 1..15, got {lanes}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    if flags & ~(INTERLEAVE | EVICT_FIRST | STORE_LAG0 | DYNAMIC):
+    if flags & ~(DYNAMIC | EVICT_FIRST):
         raise ValueError(f"unknown flags {flags:#x}")
 
 

@@ -252,18 +252,18 @@ def dot_fill_sweep(gen):
                    f"{' (rule)' if blocks == rule else ''}", device_ms(call))
         # dot_partials: (a) a block a chunk, (b) one resident wave (or a
         # part of it) walking the chunks; the same bits on every grid.
-        # variant (PR 12 experiment): the tail's fence acq_rel (0) or sc
-        # (1), or no tail (2, timing only)
+        # variant (PR 12 experiment): + 2 no tail (timing only), + 4 four
+        # groups of each operand in flight a thread (two without)
         chunk = block * 128
         nchunks = -(-xf.numel() // chunk)
         rule = tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, per_sm_p)
         first = None
         for blocks in sorted({nchunks} | {tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, w)
                                           for w in range(1, per_sm_p + 1)}):
-            for variant in (0, 1, 2):
+            for variant in (0, 2, 4, 6):
                 call = lambda: tr._partials_dot(xf, yf, chunk, None, "sweep", blocks,  # noqa: E731
                                                 variant)[0]
-                if variant < 2:
+                if not variant & 2:
                     got = call()
                     _dot_ok(f"sweep dot_partials {label} blocks {blocks}", got, want, scale)
                     if first is not None and not torch.equal(got, first):
@@ -322,37 +322,32 @@ def probe_sweep(gen):
 
     x = torch.randn((tb.NZ, tb.CY, tb.CX), generator=gen, device="cuda")
     c = torch.full((1,), 1.0 + 2 ** -20, device="cuda")
-    names = {tb.INTERLEAVE: "interleave", tb.EVICT_FIRST: "evict_first",
-             tb.STORE_LAG0: "lag0", tb.DYNAMIC: "dynamic"}
+    names = {tb.DYNAMIC: "dynamic", tb.EVICT_FIRST: "evict_first"}
 
     def label(flags):
         on = [n for bit, n in names.items() if flags & bit]
-        return "+".join(on) or "none"
+        return "+".join(on) or "static"
 
     cases = []
-    for flags in range(16):
-        cases.append((f"hbm2hbm {tb.HBM2HBM[0]}x{tb.HBM2HBM[1]}", tb.hbm2hbm(flags=flags), flags))
-    for chunk, nbuf in ((16384, 4), (24576, 4), (49152, 4), (65536, 3), (32768, 2),
-                        (16384, 3)):
-        for flags in sorted({tb.FLAGS, tb.FLAGS ^ tb.DYNAMIC}):
+    for chunk, nbuf in (tb.HBM2HBM, (16384, 4), (24576, 4), (49152, 4), (65536, 3),
+                        (32768, 2), (16384, 3)):
+        for flags in range(4):
             cases.append((f"hbm2hbm {chunk}x{nbuf}", tb.hbm2hbm(chunk, nbuf, flags=flags), flags))
-    # work-sized grids: contiguous runs of a few chunks a ring, the blocks
-    # scheduled in order by the card
+    # work-sized grids: a few chunks a static ring, more blocks than a wave
     nchunks = tb.BYTES // tb.HBM2HBM[0]
-    for per_ring in (1, 2, 4, 8):
-        for flags in (0, tb.EVICT_FIRST):
-            cases.append((f"hbm2hbm {tb.HBM2HBM[0]}x{tb.HBM2HBM[1]} {per_ring} chunks a ring",
-                          tb._ring(tb.hbm2hbm, *tb.HBM2HBM, 1, "direct", flags,
-                                   nchunks // per_ring), flags))
+    for per_ring in (2, 4):
+        cases.append((f"hbm2hbm {tb.HBM2HBM[0]}x{tb.HBM2HBM[1]} {per_ring} chunks a ring",
+                      tb._ring(tb.hbm2hbm, *tb.HBM2HBM, 1, "direct", tb.EVICT_FIRST,
+                               nchunks // per_ring), tb.EVICT_FIRST))
     for k in tb.KWAY:
-        for flags in sorted({tb.FLAGS, tb.FLAGS ^ tb.DYNAMIC, tb.FLAGS & ~tb.INTERLEAVE}):
+        for flags in range(4):
             cases.append((f"hbm2hbm-{k}way", tb.kway_hbm2hbm(k, flags=flags), flags))
-    for chunk, nbuf, mode in tb.MANUAL[:1] + tb.MANUAL[3:4]:
-        for flags in range(16):
+    for chunk, nbuf, mode in tb.MANUAL:
+        for flags in range(4):
             cases.append((f"manual-{mode}-chunk{chunk}-nbuf{nbuf}",
                           tb.manual_stream(chunk, nbuf, mode, flags=flags), flags))
-    for chunk, nbuf, lanes in ((16384, 2, 2), (8192, 2, 4), (4096, 2, 8), (2048, 2, 15)):
-        for flags in sorted({tb.FLAGS, tb.FLAGS ^ tb.DYNAMIC}):
+    for chunk, nbuf, lanes in tb.LANES + [(4096, 2, 8), (2048, 2, 15)]:
+        for flags in range(4):
             cases.append((f"lanes{lanes}-touch-chunk{chunk}-nbuf{nbuf}",
                           tb.lanes_stream(chunk, nbuf, lanes, flags=flags), flags))
     for name, step, flags in cases:

@@ -22,22 +22,27 @@
 // compute threads (64 past 7 rings, so 15 rings fit 1024 threads). Every
 // stage has a "full" mbarrier (its load landed) and an "empty" one (its
 // data has been read); COPY/TOUCH rings add the write stage's pair:
-//   loader:  wait empty[s] (first round passes), load chunk k into s;
-//   DIRECT storer: wait full[s], store chunk k from s, and once that store
-//            (or, with lag 1, the store before it) has read shared memory
-//            (cp.async.bulk.wait_group.read), arrive on its stage's empty;
+//   loader:  wait empty[s] (first round passes), pick chunk k, note its
+//            index in the stage (-1: the ring's end), load it into s;
+//   DIRECT storer: wait full[s], store the chunk from s, and once the
+//            store before it has read shared memory
+//            (cp.async.bulk.wait_group.read 1), arrive on that one's empty;
 //   compute: wait full[s] and wempty[s], copy / multiply into write stage
 //            s, fence the async proxy, arrive on empty[s] and wfull[s];
 //   COPY/TOUCH storer: as DIRECT's, on wfull / wempty.
 // So a load waits only for its own stage, never for the store of another.
-// The chunks of the array go to the rings in turn (flag INTERLEAVE: chunk i
-// to ring i mod R, the R rings of the grid walking the array side by side)
-// or in contiguous runs of about nchunks / R. Flag EVICT_FIRST puts an L2
-// evict_first policy on every bulk copy: the array passes L2 once. Flag
-// STORE_LAG0 frees a stage as soon as its own store has read it, against
-// one store later. The grid is the host's (bench/dma_bound.py:
-// probe_blocks): at most one resident wave, or its K-th for each of
-// kway_hbm2hbm's K slab launches, so that they run side by side.
+// Which chunk: flag DYNAMIC draws the next chunk of the array from a
+// counter in global memory (atomicInc: every ring draws until it fails
+// once, and the last draw wraps the counter back to 0), so the rings walk
+// the array together, as the block scheduler walks a grid sized to the
+// work, and end within a chunk of each other; without it ring g of R
+// takes chunks g, g + R, ... Flag EVICT_FIRST puts an L2 evict_first
+// policy on every bulk copy: the array passes L2 once. The grid is the
+// host's (bench/dma_bound.py: probe_blocks): one resident wave, or its
+// K-th for each of kway_hbm2hbm's K slab launches, so that they run side
+// by side. On the H100 the static rings stayed ~4% behind copy_ whatever
+// their stages, chunk and store lag; the counter closed the gap (PERF.md,
+// PR 12).
 // The TPU bands are 1 MiB z-planes, past the 227 KB a block may hold, so a
 // chunk is a byte count (a multiple of 16, the bulk copies' quantum) and
 // the probe list is the card's own (bench/dma_bound.py).
@@ -61,7 +66,7 @@ using hop::bar_wait;  // traps after 10 s: a lost arrival does not hang the card
 using hop::smem_u32;
 
 enum Mode { DIRECT = 0, COPY = 1, TOUCH = 2 };
-enum Flags { INTERLEAVE = 1, EVICT_FIRST = 2, STORE_LAG0 = 4, DYNAMIC = 8 };
+enum Flags { DYNAMIC = 1, EVICT_FIRST = 2 };
 
 constexpr int MAX_LANES = 15;     // one loader and one storer thread a ring in warps 0, 1
 constexpr int BAR_BYTES = 3072;   // the header (below): 15 x 4 x (4 + 2) x 8 B at most
@@ -169,16 +174,6 @@ probe_kernel(const char* __restrict__ src, char* __restrict__ dst, long long nby
   if (role == 0) {  // loader: picks every chunk of the ring, in order
     const long long rings = (long long)gridDim.x * lanes;
     const long long g = (long long)blockIdx.x * lanes + lane;
-    long long first, step, n;  // chunks first + k * step, k < n
-    if (flags & INTERLEAVE) {
-      first = g;
-      step = rings;
-      n = g < nchunks ? (nchunks - 1 - g) / rings + 1 : 0;
-    } else {
-      first = nchunks * g / rings;
-      step = 1;
-      n = nchunks * (g + 1) / rings - first;
-    }
     const uint64_t policy = hint ? evict_first_policy() : 0;
     for (long long k = 0;; ++k) {
       const int s = (int)(k % NBUF);
@@ -188,8 +183,8 @@ probe_kernel(const char* __restrict__ src, char* __restrict__ dst, long long nby
         // until it fails once, and the last draw wraps the counter to 0
         c = atomicInc(counter, (unsigned int)(nchunks + rings - 1));
         if (c >= nchunks) c = -1;
-      } else {
-        c = k < n ? first + k * step : -1;
+      } else {  // chunk g + k * rings
+        c = g + k * rings < nchunks ? g + k * rings : -1;
       }
       ridx[s] = c;
       if (c < 0) {
@@ -212,10 +207,7 @@ probe_kernel(const char* __restrict__ src, char* __restrict__ dst, long long nby
       const long long c = idx[s];
       if (c < 0) break;
       bulk_store(dst + c * chunk, from + (long long)s * chunk, bytes_of(c), hint, policy);
-      if (flags & STORE_LAG0) {
-        wait_stores_read<0>();  // this store has read its stage
-        bar_arrive(&freed[s]);
-      } else if (k >= 1) {
+      if (k >= 1) {
         wait_stores_read<1>();  // the store before it has read its stage
         bar_arrive(&freed[(int)((k - 1) % NBUF)]);
       }
@@ -282,9 +274,9 @@ static Kernel kernel_of(int mode, int nbuf) {
 }
 
 // mode: 0 direct, 1 copy, 2 touch (x * c, c a device pointer); nbuf 2..4;
-// lanes 1..15; blocks from the host's plan; flags INTERLEAVE | EVICT_FIRST
-// | STORE_LAG0 | DYNAMIC; counter: one zero word, with DYNAMIC (the
-// launch leaves it zero), else unused.
+// lanes 1..15; blocks from the host's plan; flags DYNAMIC | EVICT_FIRST;
+// counter: one zero word, with DYNAMIC (the launch leaves it zero), else
+// unused.
 extern "C" int ts_copy_probe(const void* src, void* dst, long long nbytes, int chunk, int nbuf,
                              int lanes, int mode, const void* cptr, int blocks, int flags,
                              void* counter, void* stream) {
@@ -292,7 +284,7 @@ extern "C" int ts_copy_probe(const void* src, void* dst, long long nbytes, int c
   const Kernel kernel = kernel_of(mode, nbuf);
   if (kernel == nullptr || (mode == TOUCH && c == nullptr) || nbytes < 0 || nbytes % 16 ||
       chunk <= 0 || chunk % 16 || lanes < 1 || lanes > MAX_LANES || blocks < 1 ||
-      ((uintptr_t)src & 15) || ((uintptr_t)dst & 15) || (flags & ~15) ||
+      ((uintptr_t)src & 15) || ((uintptr_t)dst & 15) || (flags & ~3) ||
       ((flags & DYNAMIC) && (counter == nullptr ||
                              nbytes / chunk + 1 + (long long)blocks * lanes > 0xffffffffll)))
     return (int)cudaErrorInvalidValue;

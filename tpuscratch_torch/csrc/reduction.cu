@@ -89,22 +89,22 @@ struct Load<8> {
 };
 
 // Sum of (x + o) * y over the groups g, g + stride, ... < gend of V
-// elements each.
-template <int V, typename TX, typename TY>
+// elements each, U groups of each operand in flight.
+template <int V, int U = UNROLL, typename TX, typename TY>
 __device__ __forceinline__ float accumulate(const TX* __restrict__ x,
                                             const TY* __restrict__ y,
                                             long long g, long long gend,
                                             long long stride, float o) {
   float acc = 0.f;
-  for (; g + (UNROLL - 1) * stride < gend; g += UNROLL * stride) {
-    float xv[UNROLL][V], yv[UNROLL][V];
+  for (; g + (U - 1) * stride < gend; g += U * stride) {
+    float xv[U][V], yv[U][V];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
+    for (int u = 0; u < U; ++u) {
       Load<V>::run(x + (g + u * stride) * V, xv[u]);
       Load<V>::run(y + (g + u * stride) * V, yv[u]);
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
+    for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int k = 0; k < V; ++k) acc = fmaf(__fadd_rn(xv[u][k], o), yv[u][k], acc);
   }
@@ -166,10 +166,17 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
   __syncthreads();  // also orders block_sum's shared memory for its reuse below
   if (!last) return;
   if (variant == 1) __threadfence(); else fence_acq_rel_gpu();  // other blocks' partials after their tickets
-  // thread t sums partials t, t + THREADS, ... in index order, then the
-  // block's fixed tree: the same order on every run and every grid
+  // thread t sums partials t, t + THREADS, ... in index order (eight loads
+  // in flight, past L1), then the block's fixed tree: the same order on
+  // every run and every grid
   float t = 0.f;
-  for (unsigned int i = threadIdx.x; i < np; i += THREADS) t += __ldcg(p + i);  // past L1
+  for (unsigned int i = threadIdx.x; i < np; i += 8 * THREADS) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = i + k * THREADS < np ? __ldcg(p + i + k * THREADS) : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += v[k];
+  }
   const float total = block_sum(t);
   if (threadIdx.x == 0) *out = total;
 }
@@ -179,7 +186,7 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
 // = the sum over elements [c*chunk, min(n, (c+1)*chunk)) for c = g, g + G,
 // ... < nchunks, then the tail writes out[b], the sum of the entry's
 // partials; tickets (batch,) starts (and ends) at 0.
-template <int V, typename TX, typename TY>
+template <int V, int U, typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                     const float* __restrict__ off, int off_stride, long long n,
@@ -193,8 +200,8 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
   for (long long c = blockIdx.x; c < nchunks; c += G) {
     const long long begin = c * chunk;
     const long long end = begin + chunk < n ? begin + chunk : n;
-    s = block_sum(accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
-                                THREADS, o));
+    s = block_sum(accumulate<V, U>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
+                                   THREADS, o));
     if (threadIdx.x == 0) p[c] = s;
     __syncthreads();  // block_sum's shared memory is reused by the next chunk
   }
@@ -202,7 +209,7 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
     if (threadIdx.x == 0) out[b] = s;
     return;
   }
-  sum_partials(p, (unsigned int)nchunks, G, tickets + b, out + b, variant);
+  sum_partials(p, (unsigned int)nchunks, G, tickets + b, out + b, variant & 3);
 }
 
 // ---------------------------------------------------------------------------
@@ -247,8 +254,9 @@ struct Args {
 template <int V, typename TX, typename TY>
 struct Partials {
   static void run(const Args& a) {
-    dot_partials_kernel<V, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
-                                     THREADS, 0, a.stream>>>(
+    auto kernel = a.variant & 4 ? dot_partials_kernel<V, 4, TX, TY>
+                                : dot_partials_kernel<V, 2, TX, TY>;  // (PR 12 experiment)
+    kernel<<<dim3((unsigned)a.blocks, (unsigned)a.batch), THREADS, 0, a.stream>>>(
         (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.chunk, a.nchunks,
         a.partials, a.tickets, a.out, a.variant);
   }
@@ -276,7 +284,7 @@ struct FullOccupancy {
 template <int V, typename TX, typename TY>
 struct PartialsOccupancy {
   static void run(const Args& a) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, TX, TY>,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, 2, TX, TY>,
                                                   THREADS, 0);
   }
 };

@@ -146,10 +146,15 @@ def dot_full_plan(n: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
     return max(1, min(n_sm * max(1, per_sm) // batch, need))
 
 
+PARTIALS_PER_SM = 2  # dot_partials' blocks an SM at most (PERF.md, PR 12)
+
+
 def dot_partials_plan(n: int, chunk: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
-    """Blocks a batch entry of ``dot_partials``' grid: one resident wave
-    shared out over the batch, no more blocks than chunks, at least 1."""
-    return max(1, min(n_sm * max(1, per_sm) // batch, -(-n // chunk)))
+    """Blocks a batch entry of ``dot_partials``' grid: a wave of at most
+    PARTIALS_PER_SM blocks an SM (``per_sm`` if fewer fit) shared out over
+    the batch, no more blocks than chunks, at least 1."""
+    wave = n_sm * max(1, min(per_sm, PARTIALS_PER_SM))
+    return max(1, min(wave // batch, -(-n // chunk)))
 
 
 def partials_schedule(nchunks: int, blocks: int) -> list[range]:
