@@ -972,6 +972,8 @@ def test_zero_step_card_equals_cpu(card):
     (lambda: tb.lanes_stream(4096, 2, 8), tb.touch_plain),
     (lambda: tb.lanes_stream(2048, 2, 15, flags=0), tb.touch_plain),
     (lambda: tb.lanes_stream(1024, 4, 15, "copy"), tb.copy_plain),
+    (lambda: tb.hbm2hbm(flags=tb.DYNAMIC | tb.PDL), tb.copy_plain),
+    (lambda: tb.manual_stream(16384, 2, "touch", flags=7), tb.touch_plain),
     # a work-sized grid: more blocks than a wave, a few chunks a ring
     (lambda: tb._ring(tb.hbm2hbm, 4096, 2, 1, "direct", 0, 1000), tb.copy_plain)])
 @pytest.mark.parametrize("shape", [(8, 37, 12), (tb.NZ, tb.CY, tb.CX)])
@@ -981,6 +983,23 @@ def test_copy_probes(card, make, plain, shape):
     got = make()(x, c)
     torch.cuda.synchronize()
     assert torch.equal(got, plain(x, c))
+
+
+@pytest.mark.parametrize("flags", [tb.FLAGS, tb.DYNAMIC | tb.PDL, tb.PDL])
+def test_copy_probe_chains(card, flags):
+    # each step reads the one before: with a programmatic dependent launch
+    # the next kernel starts early and must wait for the last one's writes
+    x = _rand((tb.NZ, tb.CY, tb.CX), 6, card)
+    c = torch.full((1,), 1.0 + 2 ** -20, device=card)
+    steps = [(tb.hbm2hbm(flags=flags), tb.copy_plain),
+             (tb.manual_stream(16384, 2, "touch", flags=flags), tb.touch_plain),
+             (tb.kway_hbm2hbm(2, flags=flags), tb.copy_plain),
+             (tb.lanes_stream(8192, 2, 4, flags=flags), tb.touch_plain)] * 2
+    got, want = x, x
+    for step, plain in steps:
+        got, want = step(got, c), plain(want, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_copy_probe_models_match_the_kernel(card):

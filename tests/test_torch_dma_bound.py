@@ -96,15 +96,15 @@ def test_retuned_probe_lists_fit_the_card():
     for mode, nbuf, chunk, lanes in rings:
         assert tb.probe_smem(mode, nbuf, chunk, lanes) <= tb.SMEM_OPTIN, (mode, nbuf, chunk)
         assert chunk % 16 == 0 and nbuf in (2, 3, 4) and 1 <= lanes <= 15
-    assert tb.FLAGS & ~(tb.DYNAMIC | tb.EVICT_FIRST) == 0
+    assert tb.FLAGS & ~(tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL) == 0
 
 
 def test_flag_checks():
     with pytest.raises(ValueError, match="flags"):
-        tb.hbm2hbm(flags=4)
+        tb.hbm2hbm(flags=8)
     with pytest.raises(ValueError, match="flags"):
-        tb.kway_hbm2hbm(2, flags=8)
+        tb.kway_hbm2hbm(2, flags=16)
     x, c = to_torch(rand((8, 6, 4), 4)), torch.full((1,), 3.0)
-    for flags in range(4):  # the plain path ignores the design switches
+    for flags in range(8):  # the plain path ignores the design switches
         assert torch.equal(tb.lanes_stream(4096, 2, 3, flags=flags)(x, c), x * c)
         assert torch.equal(tb.kway_hbm2hbm(4, flags=flags)(x, c), x)

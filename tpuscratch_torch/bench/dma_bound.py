@@ -53,8 +53,9 @@ NZ, CY, CX = 256, 512, 512
 BYTES = NZ * CY * CX * 4
 MODES = {"direct": 0, "copy": 1, "touch": 2}
 #: the kernel's design switches (csrc/copy_probes.cu: Flags): chunks drawn
-#: from a counter, else dealt out in turn; an L2 evict_first policy
-DYNAMIC, EVICT_FIRST = 1, 2
+#: from a counter, else dealt out in turn; an L2 evict_first policy; a
+#: programmatic dependent launch
+DYNAMIC, EVICT_FIRST, PDL = 1, 2, 4
 FLAGS = DYNAMIC | EVICT_FIRST
 #: (chunk bytes, nbuf, mode); the JAX list is (band z-planes, nbuf, mode) in
 #: (8, 2), (8, 3), (16, 2), each copy and touch
@@ -207,7 +208,7 @@ def _check_args(nbuf: int, lanes: int, mode: str, flags: int) -> None:
         raise ValueError(f"lanes must be 1..15, got {lanes}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    if flags & ~(DYNAMIC | EVICT_FIRST):
+    if flags & ~(DYNAMIC | EVICT_FIRST | PDL):
         raise ValueError(f"unknown flags {flags:#x}")
 
 

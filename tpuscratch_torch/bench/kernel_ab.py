@@ -50,7 +50,7 @@ H, D, PAGE = 8, 128, 16
 COLD_POOL, COLD_TABLES = 2048, 8
 
 
-def device_ms(fn, n: int = 40) -> float:
+def device_ms(fn, n: int = 200) -> float:
     """Device time of one ``fn()``: CUDA events around ``n`` calls queued
     behind a sleep kernel (the host's launch cost hidden)."""
     import torch
@@ -250,29 +250,22 @@ def dot_fill_sweep(gen):
             _dot_ok(f"sweep dot_full {label} waves {waves}", call(), want, scale)
             yield (f"sweep dot_full {label} f32 waves={waves} blocks={blocks}"
                    f"{' (rule)' if blocks == rule else ''}", device_ms(call))
-        # dot_partials: (a) a block a chunk, (b) one resident wave (or a
-        # part of it) walking the chunks; the same bits on every grid.
-        # variant (PR 12 experiment): + 2 no tail (timing only), + 4 four
-        # groups of each operand in flight a thread (two without)
+        # dot_partials: (a) a block a chunk, (b) 1 to per_sm blocks an SM
+        # walking the chunks; the same bits on every grid
         chunk = block * 128
         nchunks = -(-xf.numel() // chunk)
         rule = tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, per_sm_p)
         first = None
-        for blocks in sorted({nchunks} | {tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, w)
-                                          for w in range(1, per_sm_p + 1)}):
-            for variant in (0, 2, 4, 6):
-                call = lambda: tr._partials_dot(xf, yf, chunk, None, "sweep", blocks,  # noqa: E731
-                                                variant)[0]
-                if not variant & 2:
-                    got = call()
-                    _dot_ok(f"sweep dot_partials {label} blocks {blocks}", got, want, scale)
-                    if first is not None and not torch.equal(got, first):
-                        raise AssertionError(f"sweep dot_partials {label}: blocks {blocks} "
-                                             "changed the bits")
-                    first = got
-                grid = "a block a chunk" if blocks == nchunks else f"{blocks / n_sm:g} an SM"
-                yield (f"sweep dot_partials {label} f32 blocks={blocks} ({grid}) "
-                       f"variant={variant}{' (rule)' if blocks == rule else ''}", device_ms(call))
+        for blocks in sorted({nchunks} | {min(n_sm * w, nchunks) for w in range(1, per_sm_p + 1)}):
+            call = lambda: tr._partials_dot(xf, yf, chunk, None, "sweep", blocks)[0]  # noqa: E731
+            got = call()
+            _dot_ok(f"sweep dot_partials {label} blocks {blocks}", got, want, scale)
+            if first is not None and not torch.equal(got, first):
+                raise AssertionError(f"sweep dot_partials {label}: blocks {blocks} changed the bits")
+            first = got
+            grid = "a block a chunk" if blocks == nchunks else f"{blocks // n_sm} an SM"
+            yield (f"sweep dot_partials {label} f32 blocks={blocks} ({grid})"
+                   f"{' (rule)' if blocks == rule else ''}", device_ms(call))
         del x, y, x2, y2, xf, yf
     for shape, label in (((100_000_000,), "1e8"), ((37, 53), "37x53")):
         want = tf.fill_plain(shape, 0.1, device="cuda")
@@ -322,16 +315,15 @@ def probe_sweep(gen):
 
     x = torch.randn((tb.NZ, tb.CY, tb.CX), generator=gen, device="cuda")
     c = torch.full((1,), 1.0 + 2 ** -20, device="cuda")
-    names = {tb.DYNAMIC: "dynamic", tb.EVICT_FIRST: "evict_first"}
+    names = {tb.DYNAMIC: "dynamic", tb.EVICT_FIRST: "evict_first", tb.PDL: "pdl"}
 
     def label(flags):
         on = [n for bit, n in names.items() if flags & bit]
         return "+".join(on) or "static"
 
     cases = []
-    for chunk, nbuf in (tb.HBM2HBM, (16384, 4), (24576, 4), (49152, 4), (65536, 3),
-                        (32768, 2), (16384, 3)):
-        for flags in range(4):
+    for chunk, nbuf in (tb.HBM2HBM, (16384, 4), (24576, 4), (16384, 3)):
+        for flags in range(8):
             cases.append((f"hbm2hbm {chunk}x{nbuf}", tb.hbm2hbm(chunk, nbuf, flags=flags), flags))
     # work-sized grids: a few chunks a static ring, more blocks than a wave
     nchunks = tb.BYTES // tb.HBM2HBM[0]
@@ -340,14 +332,14 @@ def probe_sweep(gen):
                       tb._ring(tb.hbm2hbm, *tb.HBM2HBM, 1, "direct", tb.EVICT_FIRST,
                                nchunks // per_ring), tb.EVICT_FIRST))
     for k in tb.KWAY:
-        for flags in range(4):
+        for flags in (0, tb.DYNAMIC | tb.EVICT_FIRST, tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL):
             cases.append((f"hbm2hbm-{k}way", tb.kway_hbm2hbm(k, flags=flags), flags))
     for chunk, nbuf, mode in tb.MANUAL:
-        for flags in range(4):
+        for flags in (0, tb.DYNAMIC | tb.EVICT_FIRST, tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL):
             cases.append((f"manual-{mode}-chunk{chunk}-nbuf{nbuf}",
                           tb.manual_stream(chunk, nbuf, mode, flags=flags), flags))
     for chunk, nbuf, lanes in tb.LANES + [(4096, 2, 8), (2048, 2, 15)]:
-        for flags in range(4):
+        for flags in (0, tb.DYNAMIC | tb.EVICT_FIRST, tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL):
             cases.append((f"lanes{lanes}-touch-chunk{chunk}-nbuf{nbuf}",
                           tb.lanes_stream(chunk, nbuf, lanes, flags=flags), flags))
     for name, step, flags in cases:

@@ -66,7 +66,7 @@ using hop::bar_wait;  // traps after 10 s: a lost arrival does not hang the card
 using hop::smem_u32;
 
 enum Mode { DIRECT = 0, COPY = 1, TOUCH = 2 };
-enum Flags { DYNAMIC = 1, EVICT_FIRST = 2 };
+enum Flags { DYNAMIC = 1, EVICT_FIRST = 2, PDL = 4 };
 
 constexpr int MAX_LANES = 15;     // one loader and one storer thread a ring in warps 0, 1
 constexpr int BAR_BYTES = 3072;   // the header (below): 15 x 4 x (4 + 2) x 8 B at most
@@ -149,6 +149,11 @@ probe_kernel(const char* __restrict__ src, char* __restrict__ dst, long long nby
   }
   hop::bar_init_fence();
   __syncthreads();
+  // launched with PDL (programmatic dependent launch), the next launch on
+  // the stream may start its set-up now, and this one waits here for the
+  // launch before it to finish and flush; otherwise both are no-ops
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 
   // role 0 loader, 1 storer (thread l of warp 0 / 1 drives ring l), 2 compute
   const int role = threadIdx.x < ROLE_THREADS ? threadIdx.x / 32 : 2;
@@ -274,7 +279,8 @@ static Kernel kernel_of(int mode, int nbuf) {
 }
 
 // mode: 0 direct, 1 copy, 2 touch (x * c, c a device pointer); nbuf 2..4;
-// lanes 1..15; blocks from the host's plan; flags DYNAMIC | EVICT_FIRST;
+// lanes 1..15; blocks from the host's plan; flags DYNAMIC | EVICT_FIRST |
+// PDL;
 // counter: one zero word, with DYNAMIC (the launch leaves it zero), else
 // unused.
 extern "C" int ts_copy_probe(const void* src, void* dst, long long nbytes, int chunk, int nbuf,
@@ -284,15 +290,24 @@ extern "C" int ts_copy_probe(const void* src, void* dst, long long nbytes, int c
   const Kernel kernel = kernel_of(mode, nbuf);
   if (kernel == nullptr || (mode == TOUCH && c == nullptr) || nbytes < 0 || nbytes % 16 ||
       chunk <= 0 || chunk % 16 || lanes < 1 || lanes > MAX_LANES || blocks < 1 ||
-      ((uintptr_t)src & 15) || ((uintptr_t)dst & 15) || (flags & ~3) ||
+      ((uintptr_t)src & 15) || ((uintptr_t)dst & 15) || (flags & ~7) ||
       ((flags & DYNAMIC) && (counter == nullptr ||
                              nbytes / chunk + 1 + (long long)blocks * lanes > 0xffffffffll)))
     return (int)cudaErrorInvalidValue;
   if (nbytes == 0) return 0;
-  kernel<<<(unsigned)blocks, block_threads(mode, lanes), smem_bytes(mode, nbuf, chunk, lanes),
-           (cudaStream_t)stream>>>((const char*)src, (char*)dst, nbytes, chunk, lanes, flags, c,
-                                   (unsigned int*)counter);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(block_threads(mode, lanes));
+  cfg.dynamicSmemBytes = smem_bytes(mode, nbuf, chunk, lanes);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = flags & PDL ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, (const char*)src, (char*)dst, nbytes, chunk,
+                                     lanes, flags, c, (unsigned int*)counter);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // The card's SM count and the blocks of a probe an SM holds, after setting

@@ -89,22 +89,22 @@ struct Load<8> {
 };
 
 // Sum of (x + o) * y over the groups g, g + stride, ... < gend of V
-// elements each, U groups of each operand in flight.
-template <int V, int U = UNROLL, typename TX, typename TY>
+// elements each.
+template <int V, typename TX, typename TY>
 __device__ __forceinline__ float accumulate(const TX* __restrict__ x,
                                             const TY* __restrict__ y,
                                             long long g, long long gend,
                                             long long stride, float o) {
   float acc = 0.f;
-  for (; g + (U - 1) * stride < gend; g += U * stride) {
-    float xv[U][V], yv[U][V];
+  for (; g + (UNROLL - 1) * stride < gend; g += UNROLL * stride) {
+    float xv[UNROLL][V], yv[UNROLL][V];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < UNROLL; ++u) {
       Load<V>::run(x + (g + u * stride) * V, xv[u]);
       Load<V>::run(y + (g + u * stride) * V, yv[u]);
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u)
+    for (int u = 0; u < UNROLL; ++u)
 #pragma unroll
       for (int k = 0; k < V; ++k) acc = fmaf(__fadd_rn(xv[u][k], o), yv[u][k], acc);
   }
@@ -139,8 +139,7 @@ __device__ __forceinline__ float offset_of(const float* off, int stride, long lo
 }
 
 // Release and acquire at device scope: a partial is visible to the block
-// that draws the last ticket (fence.acq_rel, not __threadfence's
-// fence.sc: see PERF.md, PR 12).
+// that draws the last ticket (__threadfence's fence.sc measured the same).
 __device__ __forceinline__ void fence_acq_rel_gpu() {
   asm volatile("fence.acq_rel.gpu;" ::: "memory");
 }
@@ -148,16 +147,14 @@ __device__ __forceinline__ void fence_acq_rel_gpu() {
 // The tail of both kernels: the G blocks of batch entry b have written
 // their partials p[0..np) (every partial of the entry, once); the block
 // that draws the last ticket sums them into out[b]. A one-block grid sums
-// its own partials without a ticket. variant (PR 12 experiment): 0
-// fence.acq_rel, 1 __threadfence, 2 no tail at all (timing only).
+// its own partials without a ticket.
 __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsigned int np,
                                              unsigned int G, unsigned int* __restrict__ ticket,
-                                             float* __restrict__ out, int variant = 0) {
-  if (variant == 2) return;
+                                             float* __restrict__ out) {
   __shared__ bool last;
   if (threadIdx.x == 0) {
     if (G > 1) {
-      if (variant == 1) __threadfence(); else fence_acq_rel_gpu();  // partials before the ticket
+      fence_acq_rel_gpu();  // the partials are visible device-wide before the ticket
       last = atomicInc(ticket, G - 1) == G - 1;  // G-th ticket wraps to 0
     } else {
       last = true;
@@ -165,7 +162,7 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
   }
   __syncthreads();  // also orders block_sum's shared memory for its reuse below
   if (!last) return;
-  if (variant == 1) __threadfence(); else fence_acq_rel_gpu();  // other blocks' partials after their tickets
+  fence_acq_rel_gpu();  // every other block's partials are read after its ticket
   // thread t sums partials t, t + THREADS, ... in index order (eight loads
   // in flight, past L1), then the block's fixed tree: the same order on
   // every run and every grid
@@ -186,12 +183,12 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
 // = the sum over elements [c*chunk, min(n, (c+1)*chunk)) for c = g, g + G,
 // ... < nchunks, then the tail writes out[b], the sum of the entry's
 // partials; tickets (batch,) starts (and ends) at 0.
-template <int V, int U, typename TX, typename TY>
+template <int V, typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                     const float* __restrict__ off, int off_stride, long long n,
                     long long chunk, long long nchunks, float* __restrict__ partials,
-                    unsigned int* __restrict__ tickets, float* __restrict__ out, int variant) {
+                    unsigned int* __restrict__ tickets, float* __restrict__ out) {
   const long long b = blockIdx.y;
   const unsigned int G = gridDim.x;
   const float o = offset_of(off, off_stride, b);
@@ -200,8 +197,8 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
   for (long long c = blockIdx.x; c < nchunks; c += G) {
     const long long begin = c * chunk;
     const long long end = begin + chunk < n ? begin + chunk : n;
-    s = block_sum(accumulate<V, U>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
-                                   THREADS, o));
+    s = block_sum(accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
+                                THREADS, o));
     if (threadIdx.x == 0) p[c] = s;
     __syncthreads();  // block_sum's shared memory is reused by the next chunk
   }
@@ -209,7 +206,7 @@ dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
     if (threadIdx.x == 0) out[b] = s;
     return;
   }
-  sum_partials(p, (unsigned int)nchunks, G, tickets + b, out + b, variant & 3);
+  sum_partials(p, (unsigned int)nchunks, G, tickets + b, out + b);
 }
 
 // ---------------------------------------------------------------------------
@@ -244,7 +241,7 @@ struct Args {
   const float* off;
   int off_stride;
   long long n, chunk, nchunks, batch;
-  int blocks, variant;
+  int blocks;
   float *partials, *scratch, *out;
   unsigned int* tickets;
   int* per_sm;
@@ -254,11 +251,10 @@ struct Args {
 template <int V, typename TX, typename TY>
 struct Partials {
   static void run(const Args& a) {
-    auto kernel = a.variant & 4 ? dot_partials_kernel<V, 4, TX, TY>
-                                : dot_partials_kernel<V, 2, TX, TY>;  // (PR 12 experiment)
-    kernel<<<dim3((unsigned)a.blocks, (unsigned)a.batch), THREADS, 0, a.stream>>>(
+    dot_partials_kernel<V, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
+                                     THREADS, 0, a.stream>>>(
         (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.chunk, a.nchunks,
-        a.partials, a.tickets, a.out, a.variant);
+        a.partials, a.tickets, a.out);
   }
 };
 
@@ -284,7 +280,7 @@ struct FullOccupancy {
 template <int V, typename TX, typename TY>
 struct PartialsOccupancy {
   static void run(const Args& a) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, 2, TX, TY>,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, TX, TY>,
                                                   THREADS, 0);
   }
 };
@@ -316,12 +312,12 @@ static bool valid(long long n, long long batch, int vec) {
 extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int vec,
                                const float* off, int off_stride, long long n,
                                long long chunk, long long batch, int blocks, float* partials,
-                               unsigned int* tickets, float* out, void* stream, int variant) {
+                               unsigned int* tickets, float* out, void* stream) {
   if (!valid(n, batch, vec) || chunk < 1 || (vec == 8 && chunk % 8)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x; a.y = y; a.off = off; a.off_stride = off_stride; a.n = n; a.chunk = chunk;
   a.nchunks = (n + chunk - 1) / chunk; a.batch = batch; a.partials = partials;
-  a.tickets = tickets; a.out = out; a.stream = (cudaStream_t)stream; a.variant = variant;
+  a.tickets = tickets; a.out = out; a.stream = (cudaStream_t)stream;
   if (a.nchunks == 0) return 0;
   if (a.nchunks > INT32_MAX || blocks < 1 || blocks > a.nchunks) return (int)cudaErrorInvalidValue;
   a.blocks = blocks;

@@ -51,7 +51,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("reduction")
-    lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _P, _I]
+    lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _P]
     for fn in (lib.ts_dot_full_occupancy, lib.ts_dot_partials_occupancy):
         fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P]
@@ -195,8 +195,7 @@ def _tickets_for(device: torch.device, stream: int, batch: int) -> torch.Tensor:
     return t
 
 
-def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None,
-                  variant: int = 0):
+def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None):
     """One dot_partials launch: ``(sums (*batch), partials (*batch,
     nchunks))``; ``blocks`` is ``dot_partials_plan``'s unless given
     (another grid, as ``bench/kernel_ab.py --sweep`` times them)."""
@@ -217,7 +216,7 @@ def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None
     with torch.cuda.device(x.device):
         check_status(_lib(), _lib().ts_dot_partials(
             x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, chunk, batch, blocks,
-            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream, variant), name)
+            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream), name)
     del keep  # the launch is queued; the caching allocator orders any reuse
     dot_partials_prepped.launches += 1
     return out, partials
