@@ -68,7 +68,8 @@ def test_kway_share_is_one_wave_in_all(K, per_sm):
 
 @pytest.mark.parametrize("lanes", range(1, 16))
 @pytest.mark.parametrize("nbytes,chunk", [(tb.BYTES, 32768), (8 * 37 * 12 * 4, 4096),
-                                          (16 * 1000 + 16, 16384), (16, 16)])
+                                          (16 * 1000 + 16, 16384), (16, 16),
+                                          (16 * 100_003, 2048)])
 def test_ring_chunks_cover_every_chunk_once(lanes, nbytes, chunk):
     # static rings and rings drawing from the counter, every chunk once, each
     # ring in index order; the counter is back at 0 after the launch
@@ -79,7 +80,7 @@ def test_ring_chunks_cover_every_chunk_once(lanes, nbytes, chunk):
     assert sorted(c for r in static for c in r) == list(range(nchunks))
     assert all(len(r) for r in static[:rings - lanes])  # every ring but the last block's
     for seed in range(3):
-        drawn, counter = tb.drawn_chunks(nchunks, rings, seed)
+        drawn, counter = tb.drawn_chunks(nchunks, rings, chunk, seed)
         assert counter == 0
         assert sorted(c for r in drawn for c in r) == list(range(nchunks))
         assert all(r == sorted(r) for r in drawn)

@@ -56,7 +56,7 @@ MODES = {"direct": 0, "copy": 1, "touch": 2}
 #: from a counter, else dealt out in turn; an L2 evict_first policy; a
 #: programmatic dependent launch
 DYNAMIC, EVICT_FIRST, PDL = 1, 2, 4
-FLAGS = DYNAMIC | EVICT_FIRST
+FLAGS = DYNAMIC | EVICT_FIRST | PDL
 #: (chunk bytes, nbuf, mode); the JAX list is (band z-planes, nbuf, mode) in
 #: (8, 2), (8, 3), (16, 2), each copy and touch
 MANUAL = [(16384, 2, "copy"), (16384, 3, "copy"), (32768, 2, "copy"),
@@ -68,6 +68,7 @@ KWAY = (2, 4, 8)
 HBM2HBM = (32768, 4)  # (chunk bytes, nbuf) of the untouched ring
 SMEM_OPTIN = 232_448  # the H100's opt-in shared memory a block
 BAR_BYTES = 3072      # the header ahead of the stages (csrc/copy_probes.cu)
+DRAW_BYTES = 32768    # the chunks a DYNAMIC ring draws at a time, in bytes (at least one)
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,22 +117,25 @@ def ring_chunks(nchunks: int, rings: int) -> list[range]:
     return [range(g, nchunks, rings) for g in range(rings)]
 
 
-def drawn_chunks(nchunks: int, rings: int, seed: int) -> tuple[list[list[int]], int]:
-    """The chunks each of ``rings`` DYNAMIC rings draws, the rings reaching
+def drawn_chunks(nchunks: int, rings: int, chunk: int, seed: int) -> tuple[list[list[int]], int]:
+    """The chunks each of ``rings`` DYNAMIC rings moves, the rings reaching
     the counter in an order made from ``seed``, and the counter's value
-    after the launch: a draw takes the counter's value and adds 1, wrapping
-    to 0 from ``nchunks + rings - 1`` (atomicInc), and a ring stops at its
-    first value past the chunks."""
+    after the launch. A draw is ``per`` chunks (DRAW_BYTES' worth, at least
+    one): it takes the counter's value d and adds 1, wrapping to 0 from
+    ``draws + rings - 1`` (atomicInc), and gives chunks d*per to
+    (d+1)*per; a ring stops at its first d past the draws."""
     rng = random.Random(seed)
+    per = max(1, DRAW_BYTES // chunk)
+    draws = -(-nchunks // per)
     out: list[list[int]] = [[] for _ in range(rings)]
-    live, counter, limit = list(range(rings)), 0, nchunks + rings - 1
+    live, counter, limit = list(range(rings)), 0, draws + rings - 1
     while live:
         g = rng.choice(live)
-        c, counter = counter, 0 if counter >= limit else counter + 1
-        if c >= nchunks:
+        d, counter = counter, 0 if counter >= limit else counter + 1
+        if d >= draws:
             live.remove(g)
         else:
-            out[g].append(c)
+            out[g].extend(range(d * per, min((d + 1) * per, nchunks)))
     return out, counter
 
 

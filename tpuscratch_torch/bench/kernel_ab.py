@@ -332,14 +332,14 @@ def probe_sweep(gen):
                       tb._ring(tb.hbm2hbm, *tb.HBM2HBM, 1, "direct", tb.EVICT_FIRST,
                                nchunks // per_ring), tb.EVICT_FIRST))
     for k in tb.KWAY:
-        for flags in (0, tb.DYNAMIC | tb.EVICT_FIRST, tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL):
+        for flags in (0, tb.FLAGS & ~tb.PDL, tb.FLAGS):
             cases.append((f"hbm2hbm-{k}way", tb.kway_hbm2hbm(k, flags=flags), flags))
     for chunk, nbuf, mode in tb.MANUAL:
-        for flags in (0, tb.DYNAMIC | tb.EVICT_FIRST, tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL):
+        for flags in (0, tb.FLAGS & ~tb.PDL, tb.FLAGS):
             cases.append((f"manual-{mode}-chunk{chunk}-nbuf{nbuf}",
                           tb.manual_stream(chunk, nbuf, mode, flags=flags), flags))
     for chunk, nbuf, lanes in tb.LANES + [(4096, 2, 8), (2048, 2, 15)]:
-        for flags in (0, tb.DYNAMIC | tb.EVICT_FIRST, tb.DYNAMIC | tb.EVICT_FIRST | tb.PDL):
+        for flags in (0, tb.FLAGS & ~tb.PDL, tb.FLAGS):
             cases.append((f"lanes{lanes}-touch-chunk{chunk}-nbuf{nbuf}",
                           tb.lanes_stream(chunk, nbuf, lanes, flags=flags), flags))
     for name, step, flags in cases:

@@ -31,12 +31,12 @@
 //            s, fence the async proxy, arrive on empty[s] and wfull[s];
 //   COPY/TOUCH storer: as DIRECT's, on wfull / wempty.
 // So a load waits only for its own stage, never for the store of another.
-// Which chunk: flag DYNAMIC draws the next chunk of the array from a
-// counter in global memory (atomicInc: every ring draws until it fails
-// once, and the last draw wraps the counter back to 0), so the rings walk
-// the array together, as the block scheduler walks a grid sized to the
-// work, and end within a chunk of each other; without it ring g of R
-// takes chunks g, g + R, ... Flag EVICT_FIRST puts an L2 evict_first
+// Which chunk: flag DYNAMIC draws the next chunks of the array from a
+// counter in global memory, DRAW_BYTES' worth at a time (atomicInc: every
+// ring draws until it fails once, and the last draw wraps the counter back
+// to 0), so the rings walk the array together, as the block scheduler
+// walks a grid sized to the work, and end within a draw of each other;
+// without it ring g of R takes chunks g, g + R, ... Flag EVICT_FIRST puts an L2 evict_first
 // policy on every bulk copy: the array passes L2 once. The grid is the
 // host's (bench/dma_bound.py: probe_blocks): one resident wave, or its
 // K-th for each of kway_hbm2hbm's K slab launches, so that they run side
@@ -71,6 +71,7 @@ enum Flags { DYNAMIC = 1, EVICT_FIRST = 2, PDL = 4 };
 constexpr int MAX_LANES = 15;     // one loader and one storer thread a ring in warps 0, 1
 constexpr int BAR_BYTES = 3072;   // the header (below): 15 x 4 x (4 + 2) x 8 B at most
 constexpr int ROLE_THREADS = 64;  // warp 0 loads, warp 1 stores
+constexpr int DRAW_BYTES = 32768; // a DYNAMIC draw takes this many bytes of chunks, at least one
 
 __host__ __device__ constexpr int compute_threads(int lanes) { return lanes <= 7 ? 128 : 64; }
 
@@ -179,15 +180,22 @@ probe_kernel(const char* __restrict__ src, char* __restrict__ dst, long long nby
   if (role == 0) {  // loader: picks every chunk of the ring, in order
     const long long rings = (long long)gridDim.x * lanes;
     const long long g = (long long)blockIdx.x * lanes + lane;
+    const long long per = DRAW_BYTES > chunk ? DRAW_BYTES / chunk : 1;  // chunks a draw
+    const long long draws = (nchunks + per - 1) / per;
+    long long next = 0, last = 0;  // the chunks of this ring's draw not yet loaded
     const uint64_t policy = hint ? evict_first_policy() : 0;
     for (long long k = 0;; ++k) {
       const int s = (int)(k % NBUF);
       bar_wait(&empty[s], (uint32_t)(((k / NBUF) & 1) ^ 1));
       long long c;
-      if (flags & DYNAMIC) {  // the next chunk of the array: every ring draws
+      if (flags & DYNAMIC) {  // the next draw of the array: every ring draws
         // until it fails once, and the last draw wraps the counter to 0
-        c = atomicInc(counter, (unsigned int)(nchunks + rings - 1));
-        if (c >= nchunks) c = -1;
+        if (next == last) {
+          const long long d = atomicInc(counter, (unsigned int)(draws + rings - 1));
+          next = d < draws ? d * per : nchunks;
+          last = next + per < nchunks ? next + per : nchunks;
+        }
+        c = next < last ? next++ : -1;
       } else {  // chunk g + k * rings
         c = g + k * rings < nchunks ? g + k * rings : -1;
       }

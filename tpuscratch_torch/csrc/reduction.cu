@@ -182,25 +182,46 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
 // dot_partials: grid (G, batch); block g of batch b writes partials[b, c]
 // = the sum over elements [c*chunk, min(n, (c+1)*chunk)) for c = g, g + G,
 // ... < nchunks, then the tail writes out[b], the sum of the entry's
-// partials; tickets (batch,) starts (and ends) at 0.
+// partials; tickets (batch,) starts (and ends) at 0. A chunk's partial is
+// block_sum's: each warp's shuffle tree, then the fixed tree over the 8
+// warp sums, but the warps do not wait for each other at a chunk's end:
+// each keeps its warp sums of up to KMAX chunks in shared memory and
+// streams on, and the block meets once per KMAX chunks to finish them.
+constexpr int KMAX = 32;
+
 template <int V, typename TX, typename TY>
 __global__ void __launch_bounds__(THREADS)
 dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                     const float* __restrict__ off, int off_stride, long long n,
                     long long chunk, long long nchunks, float* __restrict__ partials,
                     unsigned int* __restrict__ tickets, float* __restrict__ out) {
+  static_assert(THREADS == 256, "the tree below is block_sum's over 8 warps");
+  __shared__ float ws[KMAX][THREADS / 32];
   const long long b = blockIdx.y;
   const unsigned int G = gridDim.x;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const float o = offset_of(off, off_stride, b);
   float* p = partials + b * nchunks;
   float s = 0.f;
-  for (long long c = blockIdx.x; c < nchunks; c += G) {
-    const long long begin = c * chunk;
-    const long long end = begin + chunk < n ? begin + chunk : n;
-    s = block_sum(accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
-                                THREADS, o));
-    if (threadIdx.x == 0) p[c] = s;
-    __syncthreads();  // block_sum's shared memory is reused by the next chunk
+  for (long long c0 = blockIdx.x; c0 < nchunks; c0 += (long long)KMAX * G) {
+    int k = 0;
+    for (long long c = c0; c < nchunks && k < KMAX; c += G, ++k) {
+      const long long begin = c * chunk;
+      const long long end = begin + chunk < n ? begin + chunk : n;
+      float v = accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
+                              THREADS, o);
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+      if (lane == 0) ws[k][wid] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < k) {  // block_sum's second stage, term for term
+      const float* w = ws[threadIdx.x];
+      s = ((w[0] + w[4]) + (w[2] + w[6])) + ((w[1] + w[5]) + (w[3] + w[7]));
+      p[c0 + (long long)threadIdx.x * G] = s;
+      fence_acq_rel_gpu();  // visible device-wide before the block's ticket
+    }
+    __syncthreads();  // ws is reused by the next KMAX chunks
   }
   if (nchunks == 1) {  // the chunk's partial is the total: no ticket
     if (threadIdx.x == 0) out[b] = s;
