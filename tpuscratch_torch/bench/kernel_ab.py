@@ -251,21 +251,27 @@ def dot_fill_sweep(gen):
             yield (f"sweep dot_full {label} f32 waves={waves} blocks={blocks}"
                    f"{' (rule)' if blocks == rule else ''}", device_ms(call))
         # dot_partials: (a) a block a chunk, (b) 1 to per_sm blocks an SM
-        # walking the chunks; the same bits on every grid
+        # walking the chunks; the same bits on every grid of a block size.
+        # (PR 12 experiment: blocks of 256, 512 or 1024 threads)
         chunk = block * 128
         nchunks = -(-xf.numel() // chunk)
         rule = tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, per_sm_p)
-        first = None
-        for blocks in sorted({nchunks} | {min(n_sm * w, nchunks) for w in range(1, per_sm_p + 1)}):
-            call = lambda: tr._partials_dot(xf, yf, chunk, None, "sweep", blocks)[0]  # noqa: E731
-            got = call()
-            _dot_ok(f"sweep dot_partials {label} blocks {blocks}", got, want, scale)
-            if first is not None and not torch.equal(got, first):
-                raise AssertionError(f"sweep dot_partials {label}: blocks {blocks} changed the bits")
-            first = got
-            grid = "a block a chunk" if blocks == nchunks else f"{blocks // n_sm} an SM"
-            yield (f"sweep dot_partials {label} f32 blocks={blocks} ({grid})"
-                   f"{' (rule)' if blocks == rule else ''}", device_ms(call))
+        for threads in (256, 512, 1024):
+            _, per_t = tr._occupancy(torch.cuda.current_device(), "partials", 0, 0, 8, threads)
+            first = None
+            for blocks in sorted({nchunks} | {min(n_sm * w, nchunks) for w in range(1, per_t + 1)}):
+                call = lambda: tr._partials_dot(xf, yf, chunk, None, "sweep", blocks,  # noqa: E731
+                                                threads)[0]
+                got = call()
+                _dot_ok(f"sweep dot_partials {label} blocks {blocks}", got, want, scale)
+                if first is not None and not torch.equal(got, first):
+                    raise AssertionError(f"sweep dot_partials {label}: blocks {blocks} changed "
+                                         "the bits")
+                first = got
+                grid = "a block a chunk" if blocks == nchunks else f"{blocks // n_sm} an SM"
+                mark = " (rule)" if blocks == rule and threads == 256 else ""
+                yield (f"sweep dot_partials {label} f32 threads={threads} blocks={blocks} "
+                       f"({grid}){mark}", device_ms(call))
         del x, y, x2, y2, xf, yf
     for shape, label in (((100_000_000,), "1e8"), ((37, 53), "37x53")):
         want = tf.fill_plain(shape, 0.1, device="cuda")

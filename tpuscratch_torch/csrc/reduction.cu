@@ -118,16 +118,18 @@ __device__ __forceinline__ float accumulate(const TX* __restrict__ x,
   return acc;
 }
 
-// The block's sum, valid in thread 0; a fixed order, so deterministic.
+// The block's sum over NT threads, valid in thread 0; a fixed order, so
+// deterministic.
+template <int NT = THREADS>
 __device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[THREADS / 32];
+  __shared__ float warp_sums[NT / 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   if (lane == 0) warp_sums[wid] = v;
   __syncthreads();
   if (wid == 0) {
-    v = lane < THREADS / 32 ? warp_sums[lane] : 0.f;
+    v = lane < NT / 32 ? warp_sums[lane] : 0.f;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
@@ -148,6 +150,7 @@ __device__ __forceinline__ void fence_acq_rel_gpu() {
 // their partials p[0..np) (every partial of the entry, once); the block
 // that draws the last ticket sums them into out[b]. A one-block grid sums
 // its own partials without a ticket.
+template <int NT = THREADS>
 __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsigned int np,
                                              unsigned int G, unsigned int* __restrict__ ticket,
                                              float* __restrict__ out) {
@@ -163,18 +166,18 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
   __syncthreads();  // also orders block_sum's shared memory for its reuse below
   if (!last) return;
   fence_acq_rel_gpu();  // every other block's partials are read after its ticket
-  // thread t sums partials t, t + THREADS, ... in index order (eight loads
-  // in flight, past L1), then the block's fixed tree: the same order on
-  // every run and every grid
+  // thread t sums partials t, t + NT, ... in index order (eight loads in
+  // flight, past L1), then the block's fixed tree: the same order on every
+  // run and every grid
   float t = 0.f;
-  for (unsigned int i = threadIdx.x; i < np; i += 8 * THREADS) {
+  for (unsigned int i = threadIdx.x; i < np; i += 8 * NT) {
     float v[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = i + k * THREADS < np ? __ldcg(p + i + k * THREADS) : 0.f;
+    for (int k = 0; k < 8; ++k) v[k] = i + k * NT < np ? __ldcg(p + i + k * NT) : 0.f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) t += v[k];
   }
-  const float total = block_sum(t);
+  const float total = block_sum<NT>(t);
   if (threadIdx.x == 0) *out = total;
 }
 
@@ -182,52 +185,31 @@ __device__ __forceinline__ void sum_partials(const float* __restrict__ p, unsign
 // dot_partials: grid (G, batch); block g of batch b writes partials[b, c]
 // = the sum over elements [c*chunk, min(n, (c+1)*chunk)) for c = g, g + G,
 // ... < nchunks, then the tail writes out[b], the sum of the entry's
-// partials; tickets (batch,) starts (and ends) at 0. A chunk's partial is
-// block_sum's: each warp's shuffle tree, then the fixed tree over the 8
-// warp sums, but the warps do not wait for each other at a chunk's end:
-// each keeps its warp sums of up to KMAX chunks in shared memory and
-// streams on, and the block meets once per KMAX chunks to finish them.
-constexpr int KMAX = 32;
-
-template <int V, typename TX, typename TY>
-__global__ void __launch_bounds__(THREADS)
+// partials; tickets (batch,) starts (and ends) at 0.
+template <int V, int NT, typename TX, typename TY>
+__global__ void __launch_bounds__(NT)
 dot_partials_kernel(const TX* __restrict__ x, const TY* __restrict__ y,
                     const float* __restrict__ off, int off_stride, long long n,
                     long long chunk, long long nchunks, float* __restrict__ partials,
                     unsigned int* __restrict__ tickets, float* __restrict__ out) {
-  static_assert(THREADS == 256, "the tree below is block_sum's over 8 warps");
-  __shared__ float ws[KMAX][THREADS / 32];
   const long long b = blockIdx.y;
   const unsigned int G = gridDim.x;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const float o = offset_of(off, off_stride, b);
   float* p = partials + b * nchunks;
   float s = 0.f;
-  for (long long c0 = blockIdx.x; c0 < nchunks; c0 += (long long)KMAX * G) {
-    int k = 0;
-    for (long long c = c0; c < nchunks && k < KMAX; c += G, ++k) {
-      const long long begin = c * chunk;
-      const long long end = begin + chunk < n ? begin + chunk : n;
-      float v = accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
-                              THREADS, o);
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-      if (lane == 0) ws[k][wid] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < k) {  // block_sum's second stage, term for term
-      const float* w = ws[threadIdx.x];
-      s = ((w[0] + w[4]) + (w[2] + w[6])) + ((w[1] + w[5]) + (w[3] + w[7]));
-      p[c0 + (long long)threadIdx.x * G] = s;
-      fence_acq_rel_gpu();  // visible device-wide before the block's ticket
-    }
-    __syncthreads();  // ws is reused by the next KMAX chunks
+  for (long long c = blockIdx.x; c < nchunks; c += G) {
+    const long long begin = c * chunk;
+    const long long end = begin + chunk < n ? begin + chunk : n;
+    s = block_sum<NT>(accumulate<V>(x + b * n, y + b * n, begin / V + threadIdx.x, end / V,
+                                    NT, o));
+    if (threadIdx.x == 0) p[c] = s;
+    __syncthreads();  // block_sum's shared memory is reused by the next chunk
   }
   if (nchunks == 1) {  // the chunk's partial is the total: no ticket
     if (threadIdx.x == 0) out[b] = s;
     return;
   }
-  sum_partials(p, (unsigned int)nchunks, G, tickets + b, out + b);
+  sum_partials<NT>(p, (unsigned int)nchunks, G, tickets + b, out + b);
 }
 
 // ---------------------------------------------------------------------------
@@ -262,7 +244,7 @@ struct Args {
   const float* off;
   int off_stride;
   long long n, chunk, nchunks, batch;
-  int blocks;
+  int blocks, threads;
   float *partials, *scratch, *out;
   unsigned int* tickets;
   int* per_sm;
@@ -271,11 +253,17 @@ struct Args {
 
 template <int V, typename TX, typename TY>
 struct Partials {
-  static void run(const Args& a) {
-    dot_partials_kernel<V, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch),
-                                     THREADS, 0, a.stream>>>(
+  template <int NT>
+  static void launch(const Args& a) {
+    dot_partials_kernel<V, NT, TX, TY><<<dim3((unsigned)a.blocks, (unsigned)a.batch), NT, 0,
+                                         a.stream>>>(
         (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.chunk, a.nchunks,
         a.partials, a.tickets, a.out);
+  }
+  static void run(const Args& a) {  // (PR 12 experiment: 256, 512 or 1024 threads)
+    if (a.threads == 1024) launch<1024>(a);
+    else if (a.threads == 512) launch<512>(a);
+    else launch<THREADS>(a);
   }
 };
 
@@ -301,8 +289,16 @@ struct FullOccupancy {
 template <int V, typename TX, typename TY>
 struct PartialsOccupancy {
   static void run(const Args& a) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, TX, TY>,
-                                                  THREADS, 0);
+    if (a.threads == 1024)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, 1024, TX, TY>,
+                                                    1024, 0);
+    else if (a.threads == 512)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, 512, TX, TY>,
+                                                    512, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm,
+                                                    dot_partials_kernel<V, THREADS, TX, TY>,
+                                                    THREADS, 0);
   }
 };
 
@@ -333,25 +329,27 @@ static bool valid(long long n, long long batch, int vec) {
 extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int vec,
                                const float* off, int off_stride, long long n,
                                long long chunk, long long batch, int blocks, float* partials,
-                               unsigned int* tickets, float* out, void* stream) {
+                               unsigned int* tickets, float* out, int threads, void* stream) {
   if (!valid(n, batch, vec) || chunk < 1 || (vec == 8 && chunk % 8)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.x = x; a.y = y; a.off = off; a.off_stride = off_stride; a.n = n; a.chunk = chunk;
   a.nchunks = (n + chunk - 1) / chunk; a.batch = batch; a.partials = partials;
-  a.tickets = tickets; a.out = out; a.stream = (cudaStream_t)stream;
+  a.tickets = tickets; a.out = out; a.threads = threads; a.stream = (cudaStream_t)stream;
   if (a.nchunks == 0) return 0;
   if (a.nchunks > INT32_MAX || blocks < 1 || blocks > a.nchunks) return (int)cudaErrorInvalidValue;
   a.blocks = blocks;
   return dispatch<Partials>(dx, dy, vec, a);
 }
 
-static int occupancy(bool partials, int dx, int dy, int vec, int* sms, int* per_sm) {
+static int occupancy(bool partials, int dx, int dy, int vec, int* sms, int* per_sm,
+                     int threads = THREADS) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   Args a{};
   a.per_sm = per_sm;
+  a.threads = threads;
   return partials ? dispatch<PartialsOccupancy>(dx, dy, vec, a)
                   : dispatch<FullOccupancy>(dx, dy, vec, a);
 }
@@ -363,8 +361,9 @@ extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int* sms, int* per
   return occupancy(false, dx, dy, vec, sms, per_sm);
 }
 
-extern "C" int ts_dot_partials_occupancy(int dx, int dy, int vec, int* sms, int* per_sm) {
-  return occupancy(true, dx, dy, vec, sms, per_sm);
+extern "C" int ts_dot_partials_occupancy(int dx, int dy, int vec, int* sms, int* per_sm,
+                                         int threads) {
+  return occupancy(true, dx, dy, vec, sms, per_sm, threads);
 }
 
 // `blocks` (G) comes from the host's plan.

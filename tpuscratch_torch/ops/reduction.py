@@ -51,9 +51,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("reduction")
-    lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _P]
-    for fn in (lib.ts_dot_full_occupancy, lib.ts_dot_partials_occupancy):
-        fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.ts_dot_partials.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _L, _I, _P, _P, _P, _I,
+                                    _P]
+    lib.ts_dot_full_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.ts_dot_partials_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                              _I]
     lib.ts_dot_full.argtypes = [_P, _P, _I, _I, _I, _P, _I, _L, _L, _I, _P, _P, _P, _P]
     for fn in (lib.ts_dot_partials, lib.ts_dot_full_occupancy, lib.ts_dot_partials_occupancy,
                lib.ts_dot_full):
@@ -170,13 +172,18 @@ def tail_order(nparts: int) -> list[range]:
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(device_index: int, kernel: str, dx: int, dy: int, vec: int) -> tuple[int, int]:
+def _occupancy(device_index: int, kernel: str, dx: int, dy: int, vec: int,
+               threads: int = DOT_THREADS) -> tuple[int, int]:
     """(SM count, blocks of dot_``kernel`` an SM holds) on card ``device_index``."""
     sms, per_sm = _I(0), _I(0)
-    fn = getattr(_lib(), f"ts_dot_{kernel}_occupancy")
+    lib = _lib()
     with torch.cuda.device(device_index):
-        check_status(_lib(), fn(dx, dy, vec, ctypes.byref(sms), ctypes.byref(per_sm)),
-                     f"dot_{kernel}")
+        if kernel == "full":
+            err = lib.ts_dot_full_occupancy(dx, dy, vec, ctypes.byref(sms), ctypes.byref(per_sm))
+        else:
+            err = lib.ts_dot_partials_occupancy(dx, dy, vec, ctypes.byref(sms),
+                                                ctypes.byref(per_sm), threads)
+        check_status(lib, err, f"dot_{kernel}")
     return sms.value, per_sm.value
 
 
@@ -195,7 +202,8 @@ def _tickets_for(device: torch.device, stream: int, batch: int) -> torch.Tensor:
     return t
 
 
-def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None):
+def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None,
+                  threads: int = DOT_THREADS):
     """One dot_partials launch: ``(sums (*batch), partials (*batch,
     nchunks))``; ``blocks`` is ``dot_partials_plan``'s unless given
     (another grid, as ``bench/kernel_ab.py --sweep`` times them)."""
@@ -216,7 +224,7 @@ def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None
     with torch.cuda.device(x.device):
         check_status(_lib(), _lib().ts_dot_partials(
             x.data_ptr(), y.data_ptr(), dx, dy, vec, off, stride, n, chunk, batch, blocks,
-            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), stream), name)
+            partials.data_ptr(), tickets.data_ptr(), out.data_ptr(), threads, stream), name)
     del keep  # the launch is queued; the caching allocator orders any reuse
     dot_partials_prepped.launches += 1
     return out, partials
