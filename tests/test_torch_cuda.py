@@ -424,20 +424,21 @@ def test_dot_partials_prepped_is_deterministic(card, lead, n, block_rows):
     _dot_close(first, want, x, y, off[:, None] if lead else 0.0)
 
 
+@pytest.mark.parametrize("chunk", [4096, 16384])  # blocks of 256 and of 512 threads
 @pytest.mark.parametrize("blocks", [1, 2, 5, 132, "chunks"])
-def test_dot_partials_on_other_grids(card, blocks):
-    # one block walking every chunk, a few, one an SM and a block a chunk:
-    # each chunk's partial is one block's fixed order, so every grid gives
-    # the plan's bits, partials and sums
+def test_dot_partials_on_other_grids(card, blocks, chunk):
+    # one block walking every chunk, a few, one an SM and the rule's block
+    # a chunk: each chunk's partial is one block's fixed order, so every
+    # grid gives the rule's bits, partials and sums
     x, y = _rand((2, 1 << 20), 18, card), _rand((2, 1 << 20), 19, card)
-    nchunks = (1 << 20) // 4096
+    nchunks = (1 << 20) // chunk
     g = nchunks if blocks == "chunks" else blocks
-    sums, parts = tr._partials_dot(x, y, 4096, 0.5, "probe", g)
-    want_sums, want_parts = tr._partials_dot(x, y, 4096, 0.5, "probe")
+    sums, parts = tr._partials_dot(x, y, chunk, 0.5, "probe", g)
+    want_sums, want_parts = tr._partials_dot(x, y, chunk, 0.5, "probe")
     assert torch.equal(sums, want_sums) and torch.equal(parts, want_parts)
-    _dot_close(sums, tr.dot_partials_plain(x, y, 4096, 0.5).sum(-1), x, y, 0.5)
+    _dot_close(sums, tr.dot_partials_plain(x, y, chunk, 0.5).sum(-1), x, y, 0.5)
     ones = torch.ones((2, 1 << 20), device=card)
-    assert torch.equal(tr._partials_dot(ones, ones, 4096, None, "probe", g)[0],
+    assert torch.equal(tr._partials_dot(ones, ones, chunk, None, "probe", g)[0],
                        torch.full((2,), float(1 << 20), device=card))
 
 

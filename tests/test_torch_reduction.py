@@ -240,39 +240,37 @@ def test_dot_full_plan_shapes():
 # ---- dot_partials' grid and tail (host side of csrc/reduction.cu) ------------
 
 
-@pytest.mark.parametrize("per_sm", [1, 6, 8])
+@pytest.mark.parametrize("grid", ["chunks", 1, 3, 132, 264, 1056])
 @pytest.mark.parametrize("n,chunk,batch", [
     (100_007_936, 65536, 1),   # prep's 1e8 f32: 1526 chunks
     (3072, 1024, 1),           # prep's 3000 f32: 3 chunks
     (3000, 1024, 1), (4099, 1024, 3), (1, 1024, 1), (65536 * 7 + 8, 65536, 2),
     (2048, 256, 8), (10_000, 1024, 65535),
 ])
-def test_dot_partials_plan_covers_every_chunk_once(n, chunk, batch, per_sm):
-    n_sm = 132
+def test_dot_partials_grid_covers_every_chunk_once(n, chunk, batch, grid):
+    # the rule's grid (a block a chunk) and the walking grids the sweep
+    # times: each batch entry's blocks sum every chunk once, each block in
+    # index order; the last block's threads then sum every partial once
     nchunks = -(-n // chunk)
-    g = tr.dot_partials_plan(n, chunk, batch, 8, n_sm, per_sm)
-    assert 1 <= g <= nchunks                                      # no block without a chunk
-    assert g * batch <= max(batch, n_sm * min(per_sm, tr.PARTIALS_PER_SM))  # a part of a wave
-    schedule = tr.partials_schedule(nchunks, g)
+    blocks = nchunks if grid == "chunks" else min(grid, nchunks)
+    schedule = tr.partials_schedule(nchunks, blocks)
+    assert len(schedule) == blocks and all(len(run) for run in schedule)
     assert sorted(c for run in schedule for c in run) == list(range(nchunks))
-    for run in schedule:                                          # each block in index order
-        assert list(run) == sorted(run)
-    # the tail: the last block's threads sum every partial once, each in
-    # index order, whatever the grid
-    tail = tr.tail_order(nchunks)
-    assert len(tail) == tr.DOT_THREADS
+    assert all(list(run) == sorted(run) for run in schedule)
+    threads = tr.dot_partials_threads(chunk, 8)
+    tail = tr.tail_order(nchunks, threads)
+    assert len(tail) == threads
     assert sorted(i for part in tail for i in part) == list(range(nchunks))
 
 
-def test_dot_partials_plan_shapes():
-    # the 3000-vector is a block a chunk; 1e8 takes PARTIALS_PER_SM blocks
-    # an SM (fewer if fewer fit); a batch shares them
-    assert tr.dot_partials_plan(3072, 1024, 1, 8, 132, 8) == 3
-    for per_sm in (1, 6, 8):
-        assert tr.dot_partials_plan(100_007_936, 65536, 1, 8, 132, per_sm) == \
-            132 * min(per_sm, tr.PARTIALS_PER_SM)
-    assert tr.dot_partials_plan(2048, 256, 8, 8, 132, 8) == 8  # (8, 2048) on 8 ranks
-    assert tr.dot_partials_plan(10, 1024, 65535, 8, 132, 8) == 1
+def test_dot_partials_threads():
+    # 512 threads where a chunk gives each a full step, else 256: 1e8's
+    # chunks of 65536 take 512, 3000's of 1024 and (8, 2048)'s of 256 take 256
+    assert tr.dot_partials_threads(65536, 8) == tr.PARTIALS_WIDE == 512
+    assert tr.dot_partials_threads(8192, 8) == 512
+    assert tr.dot_partials_threads(8184, 8) == tr.DOT_THREADS == 256
+    assert tr.dot_partials_threads(1024, 8) == tr.dot_partials_threads(256, 8) == 256
+    assert tr.dot_partials_threads(1024, 1) == 512  # element loads: 2 a thread a step
 
 
 @pytest.mark.parametrize("n", [0, 1, 1000, 1024, 3000, 4099])

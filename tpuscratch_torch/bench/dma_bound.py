@@ -26,9 +26,9 @@ card's measured copy rate. A TPU band was a 1 MiB z-plane, past the 227 KB
 a block may hold, so chunks are bytes and the probe lists below are the
 card's own (the JAX lists beside them). The host plans every grid
 (``probe_blocks``) from the occupancy, asked once a configuration and
-card; ``ring_chunks`` models which chunks each ring moves, ``probe_smem``
-the shared memory a block asks for (``drawn_chunks`` with DYNAMIC). Every
-factory takes ``flags``, the
+card; ``ring_chunks`` and ``drawn_chunks`` model which chunks each ring
+moves (dealt out, or drawn from the counter with DYNAMIC), ``probe_smem``
+the shared memory a block asks for. Every factory takes ``flags``, the
 kernel's design switches (``FLAGS`` unless given; ``kernel_ab.py --sweep``
 times the others).
 

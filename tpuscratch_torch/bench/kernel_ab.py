@@ -239,7 +239,6 @@ def dot_fill_sweep(gen):
 
     tf = importlib.import_module("tpuscratch_torch.ops.fill")
     n_sm, per_sm = tr._occupancy(torch.cuda.current_device(), "full", 0, 0, 8)
-    _, per_sm_p = tr._occupancy(torch.cuda.current_device(), "partials", 0, 0, 8)
     for n, label in ((100_000_000, "1e8"), (3000, "3000")):
         x, y, x2, y2, block, want, scale = _dot_inputs(gen, n)
         xf, yf = x2.flatten(), y2.flatten()
@@ -251,12 +250,12 @@ def dot_fill_sweep(gen):
             yield (f"sweep dot_full {label} f32 waves={waves} blocks={blocks}"
                    f"{' (rule)' if blocks == rule else ''}", device_ms(call))
         # dot_partials: (a) a block a chunk, (b) 1 to per_sm blocks an SM
-        # walking the chunks; the same bits on every grid of a block size.
-        # (PR 12 experiment: blocks of 256, 512 or 1024 threads)
+        # walking the chunks, blocks of 256 and 512 threads; the same bits
+        # on every grid of a block size
         chunk = block * 128
         nchunks = -(-xf.numel() // chunk)
-        rule = tr.dot_partials_plan(xf.numel(), chunk, 1, 8, n_sm, per_sm_p)
-        for threads in (256, 512, 1024):
+        rule = tr.dot_partials_threads(chunk, 8)
+        for threads in (tr.DOT_THREADS, tr.PARTIALS_WIDE):
             _, per_t = tr._occupancy(torch.cuda.current_device(), "partials", 0, 0, 8, threads)
             first = None
             for blocks in sorted({nchunks} | {min(n_sm * w, nchunks) for w in range(1, per_t + 1)}):
@@ -269,7 +268,7 @@ def dot_fill_sweep(gen):
                                          "the bits")
                 first = got
                 grid = "a block a chunk" if blocks == nchunks else f"{blocks // n_sm} an SM"
-                mark = " (rule)" if blocks == rule and threads == 256 else ""
+                mark = " (rule)" if blocks == nchunks and threads == rule else ""
                 yield (f"sweep dot_partials {label} f32 threads={threads} blocks={blocks} "
                        f"({grid}){mark}", device_ms(call))
         del x, y, x2, y2, xf, yf

@@ -12,8 +12,8 @@
 // The TPU kernels lean on a sequential grid: a running sum in the revisited
 // output block. Blocks run in parallel here, so both kernels end the same
 // way, after the reference's single-kernel design (mpicuda4.cu:157-185):
-// each block writes its partials to global memory, __threadfence(), and
-// takes an atomicInc ticket of its batch entry; the block that draws the
+// each block writes its partials to global memory, fences them at device
+// scope and takes an atomicInc ticket of its batch entry; the block that draws the
 // last ticket sums that entry's partials with all of its threads (each a
 // fixed strided subset in index order, then block_sum's fixed tree) and the
 // ticket wraps back to 0 for the next launch. No float atomics: the result
@@ -21,10 +21,15 @@
 // out, without a ticket.
 // - dot_partials: the partials are one a chunk of the vector (the TPU
 //   kernel's grid step, block x 128 elements), kept in a (batch, nchunks)
-//   buffer, the TPU kernel's own output. The G blocks of a batch entry walk
-//   the chunks c = blockIdx.x + k*G, each chunk's partial summed by one
-//   block in a fixed order, so the partials, and the total, do not depend
-//   on G. The host plans G (ops/reduction.py: dot_partials_plan).
+//   buffer, the TPU kernel's own output. A block sums a chunk (a grid of G
+//   < nchunks blocks walks the chunks c = blockIdx.x + k*G, for the A/B),
+//   each chunk's partial in a fixed order, so the partials, and the total,
+//   do not depend on the grid. The block is 512 threads where a chunk
+//   fills them (ops/reduction.py: dot_partials_threads), else 256. On the
+//   H100 at 1e8 f32 (1526 chunks of 65536), 256-thread blocks a chunk ran
+//   6-8 to an SM and lost 15% to torch.dot; 512-thread blocks, 2 to an SM,
+//   beat it, as did fewer 256-thread blocks walking the chunks by less
+//   (PERF.md, PR 12).
 // - dot_full: G blocks walk the vector with a grid-stride loop and write
 //   one partial each to a scratch buffer. The host plans G
 //   (ops/reduction.py: dot_full_plan): one resident wave at most.
@@ -54,6 +59,7 @@
 #include <cstdint>
 
 constexpr int THREADS = 256;
+constexpr int PARTIALS_WIDE = 512;  // dot_partials' block for chunks that fill it
 constexpr int UNROLL = 2;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -260,9 +266,8 @@ struct Partials {
         (const TX*)a.x, (const TY*)a.y, a.off, a.off_stride, a.n, a.chunk, a.nchunks,
         a.partials, a.tickets, a.out);
   }
-  static void run(const Args& a) {  // (PR 12 experiment: 256, 512 or 1024 threads)
-    if (a.threads == 1024) launch<1024>(a);
-    else if (a.threads == 512) launch<512>(a);
+  static void run(const Args& a) {
+    if (a.threads == PARTIALS_WIDE) launch<PARTIALS_WIDE>(a);
     else launch<THREADS>(a);
   }
 };
@@ -289,12 +294,9 @@ struct FullOccupancy {
 template <int V, typename TX, typename TY>
 struct PartialsOccupancy {
   static void run(const Args& a) {
-    if (a.threads == 1024)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, 1024, TX, TY>,
-                                                    1024, 0);
-    else if (a.threads == 512)
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, dot_partials_kernel<V, 512, TX, TY>,
-                                                    512, 0);
+    if (a.threads == PARTIALS_WIDE)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          a.per_sm, dot_partials_kernel<V, PARTIALS_WIDE, TX, TY>, PARTIALS_WIDE, 0);
     else
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm,
                                                     dot_partials_kernel<V, THREADS, TX, TY>,
@@ -324,8 +326,9 @@ static bool valid(long long n, long long batch, int vec) {
   return n >= 0 && batch >= 1 && batch <= 65535 && (vec == 1 || (vec == 8 && n % 8 == 0));
 }
 
-// `blocks` (G, at most the chunks) comes from the host's plan; partials is
-// (batch, nchunks), tickets (batch,) zero, out (batch,).
+// blocks: G, at most the chunks (the rule: a block a chunk); threads: 256
+// or PARTIALS_WIDE; partials is (batch, nchunks), tickets (batch,) zero,
+// out (batch,).
 extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int vec,
                                const float* off, int off_stride, long long n,
                                long long chunk, long long batch, int blocks, float* partials,
@@ -336,7 +339,9 @@ extern "C" int ts_dot_partials(const void* x, const void* y, int dx, int dy, int
   a.nchunks = (n + chunk - 1) / chunk; a.batch = batch; a.partials = partials;
   a.tickets = tickets; a.out = out; a.threads = threads; a.stream = (cudaStream_t)stream;
   if (a.nchunks == 0) return 0;
-  if (a.nchunks > INT32_MAX || blocks < 1 || blocks > a.nchunks) return (int)cudaErrorInvalidValue;
+  if (a.nchunks > INT32_MAX || blocks < 1 || blocks > a.nchunks ||
+      (threads != THREADS && threads != PARTIALS_WIDE))
+    return (int)cudaErrorInvalidValue;
   a.blocks = blocks;
   return dispatch<Partials>(dx, dy, vec, a);
 }
@@ -354,9 +359,10 @@ static int occupancy(bool partials, int dx, int dy, int vec, int* sms, int* per_
                   : dispatch<FullOccupancy>(dx, dy, vec, a);
 }
 
-// The card's SM count and the blocks of dot_full (dot_partials) an SM holds
-// at full occupancy, for the host's plans (ops/reduction.py: dot_full_plan,
-// dot_partials_plan).
+// The card's SM count and the blocks of dot_full (of dot_partials, of
+// `threads` threads) an SM holds at full occupancy: for dot_full's plan
+// (ops/reduction.py: dot_full_plan) and the grids kernel_ab.py --sweep
+// times.
 extern "C" int ts_dot_full_occupancy(int dx, int dy, int vec, int* sms, int* per_sm) {
   return occupancy(false, dx, dy, vec, sms, per_sm);
 }

@@ -7,7 +7,7 @@ full reduction), f32 accumulation for float32 and bfloat16 operands.
 - ``dot_partials_prepped``: one launch: the partials one a chunk (the
   TPU kernel's output, summed outside its kernel by the JAX package), and
   the block that draws the last atomic ticket sums them in a fixed order.
-  Its grid is a host rule, ``dot_partials_plan``.
+  A block a chunk, its size a host rule, ``dot_partials_threads``.
 - ``dot_full_prepped``: one launch, one scalar: per-block partials, an
   atomic ticket, and the last block sums the partials in a fixed order.
   Its grid is a host rule, ``dot_full_plan``.
@@ -148,27 +148,27 @@ def dot_full_plan(n: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
     return max(1, min(n_sm * max(1, per_sm) // batch, need))
 
 
-PARTIALS_PER_SM = 2  # dot_partials' blocks an SM at most (PERF.md, PR 12)
+PARTIALS_WIDE = 512  # dot_partials' block where a chunk fills it (csrc/reduction.cu)
 
 
-def dot_partials_plan(n: int, chunk: int, batch: int, vec: int, n_sm: int, per_sm: int) -> int:
-    """Blocks a batch entry of ``dot_partials``' grid: a wave of at most
-    PARTIALS_PER_SM blocks an SM (``per_sm`` if fewer fit) shared out over
-    the batch, no more blocks than chunks, at least 1."""
-    wave = n_sm * max(1, min(per_sm, PARTIALS_PER_SM))
-    return max(1, min(wave // batch, -(-n // chunk)))
+def dot_partials_threads(chunk: int, vec: int) -> int:
+    """Threads of a ``dot_partials`` block (a block a chunk): PARTIALS_WIDE
+    where the chunk gives each of them a full step (DOT_UNROLL groups of
+    ``vec`` elements), else DOT_THREADS."""
+    return PARTIALS_WIDE if chunk >= PARTIALS_WIDE * vec * DOT_UNROLL else DOT_THREADS
 
 
 def partials_schedule(nchunks: int, blocks: int) -> list[range]:
     """The chunks each of ``blocks`` blocks of a batch entry sums, in its
-    order (``dot_partials_kernel``'s loop ``c = blockIdx.x + k*G``)."""
+    order (``dot_partials_kernel``'s loop ``c = blockIdx.x + k*G``; the
+    rule's grid is a block a chunk)."""
     return [range(g, nchunks, blocks) for g in range(blocks)]
 
 
-def tail_order(nparts: int) -> list[range]:
+def tail_order(nparts: int, threads: int = DOT_THREADS) -> list[range]:
     """The partials each thread of the last block sums, in its order,
     before ``block_sum``'s fixed tree (``sum_partials``)."""
-    return [range(t, nparts, DOT_THREADS) for t in range(DOT_THREADS)]
+    return [range(t, nparts, threads) for t in range(threads)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,10 +203,11 @@ def _tickets_for(device: torch.device, stream: int, batch: int) -> torch.Tensor:
 
 
 def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None,
-                  threads: int = DOT_THREADS):
+                  threads: int | None = None):
     """One dot_partials launch: ``(sums (*batch), partials (*batch,
-    nchunks))``; ``blocks`` is ``dot_partials_plan``'s unless given
-    (another grid, as ``bench/kernel_ab.py --sweep`` times them)."""
+    nchunks))``; a block a chunk of ``dot_partials_threads`` threads unless
+    ``blocks`` or ``threads`` are given (other grids, as
+    ``bench/kernel_ab.py --sweep`` times them)."""
     batch, n = _operands(x, y, name)
     nchunks = -(-n // chunk)
     partials = torch.empty(x.shape[:-1] + (nchunks,), dtype=torch.float32, device=x.device)
@@ -215,9 +216,8 @@ def _partials_dot(x, y, chunk: int, offset, name: str, blocks: int | None = None
     out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     vec = _vec(x, y, n, chunk)
     dx, dy = _CODE[x.dtype], _CODE[y.dtype]
-    if blocks is None:
-        blocks = dot_partials_plan(n, chunk, batch, vec,
-                                   *_occupancy(x.device.index, "partials", dx, dy, vec))
+    blocks = blocks or nchunks
+    threads = threads or dot_partials_threads(chunk, vec)
     off, stride, keep = _offset_arg(offset, x, name)
     stream = stream_of(x)
     tickets = _tickets_for(x.device, stream.value, batch)
