@@ -164,9 +164,9 @@ def _plan(x, out, c, chunk: int, nbuf: int, lanes: int, mode: str, name: str, sh
 
 
 def _launch(src: int, dst: int, nbytes: int, c, chunk: int, nbuf: int, lanes: int, mode: str,
-            blocks: int, flags: int, device, stream: int, name: str) -> None:
-    """One ``probe_kernel`` launch on ``stream`` (a CUDA stream handle)."""
-    counter = _counter_for(device, stream).data_ptr() if flags & DYNAMIC else None
+            blocks: int, flags: int, counter: int | None, stream: int, name: str) -> None:
+    """One ``probe_kernel`` launch on ``stream`` (a CUDA stream handle);
+    ``counter`` points at the stream's chunk counter (DYNAMIC), else None."""
     lib = _lib()
     check_status(lib, lib.ts_copy_probe(src, dst, nbytes, chunk, nbuf, lanes, MODES[mode],
                                         c.data_ptr(), blocks, flags, counter, stream), name)
@@ -175,14 +175,17 @@ def _launch(src: int, dst: int, nbytes: int, c, chunk: int, nbuf: int, lanes: in
 _counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _counter_for(device: torch.device, stream: int) -> torch.Tensor:
-    """The chunk counter of DYNAMIC rings for one stream of one device: zero
-    between launches (the last draw of each launch wraps it back to 0), and
-    launches on one stream never overlap."""
+def _counter_for(device: torch.device, stream: int, flags: int) -> int | None:
+    """The chunk counter of DYNAMIC rings for one stream of one device (None
+    without DYNAMIC): zero between launches (the last draw of each launch
+    wraps it back to 0), and launches on one stream never overlap. It is
+    zeroed on the current stream, which the launch must follow."""
+    if not flags & DYNAMIC:
+        return None
     t = _counters.get((device, stream))
     if t is None:
         t = _counters[(device, stream)] = torch.zeros(1, dtype=torch.int32, device=device)
-    return t
+    return t.data_ptr()
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,8 +235,9 @@ def _ring(wrapper, chunk: int, nbuf: int, lanes: int, mode: str, flags: int | No
         out = torch.empty_like(x)
         with torch.cuda.device(x.device):
             grid = _plan(x, out, c, chunk, nbuf, lanes, mode, name, blocks=blocks)
+            stream = stream_of(x).value
             _launch(x.data_ptr(), out.data_ptr(), x.numel() * 4, c, chunk, nbuf, lanes, mode,
-                    grid, flags, x.device, stream_of(x).value, name)
+                    grid, flags, _counter_for(x.device, stream, flags), stream, name)
         wrapper.launches += 1
         return out
 
@@ -278,11 +282,12 @@ def kway_hbm2hbm(K: int, chunk: int = HBM2HBM[0], nbuf: int = HBM2HBM[1],
         streams, ready, done = _streams(x.device, K)
         with torch.cuda.device(x.device):
             grid = _plan(x, out, c, chunk, nbuf, 1, "direct", "kway_hbm2hbm", share=K)
-            ready.record(main)
+            counters = [_counter_for(x.device, s.cuda_stream, flags) for s in streams]
+            ready.record(main)  # after the counters' first zeroing on main
             for i, s in enumerate(streams):
                 s.wait_event(ready)
                 _launch(x.data_ptr() + i * slab, out.data_ptr() + i * slab, slab, c, chunk, nbuf,
-                        1, "direct", grid, flags, x.device, s.cuda_stream, "kway_hbm2hbm")
+                        1, "direct", grid, flags, counters[i], s.cuda_stream, "kway_hbm2hbm")
                 kway_hbm2hbm.launches += 1
                 done[i].record(s)
         # the caller's stream waits for every slab, so x and out need no
