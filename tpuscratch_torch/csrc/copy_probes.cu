@@ -40,9 +40,8 @@
 // policy on every bulk copy: the array passes L2 once. The grid is the
 // host's (bench/dma_bound.py: probe_blocks): one resident wave, or its
 // K-th for each of kway_hbm2hbm's K slab launches, so that they run side
-// by side. On the H100 the static rings stayed ~4% behind copy_ whatever
-// their stages, chunk and store lag; the counter closed the gap (PERF.md,
-// PR 12).
+// by side. On the H100 the static rings stayed ~5% behind copy_ whatever
+// their stages, chunk and store lag; the counter closed the gap (PERF.md).
 // The TPU bands are 1 MiB z-planes, past the 227 KB a block may hold, so a
 // chunk is a byte count (a multiple of 16, the bulk copies' quantum) and
 // the probe list is the card's own (bench/dma_bound.py).

@@ -28,8 +28,8 @@
 //   fills them (ops/reduction.py: dot_partials_threads), else 256. On the
 //   H100 at 1e8 f32 (1526 chunks of 65536), 256-thread blocks a chunk ran
 //   6-8 to an SM and lost 15% to torch.dot; 512-thread blocks, 2 to an SM,
-//   beat it, as did fewer 256-thread blocks walking the chunks by less
-//   (PERF.md, PR 12).
+//   beat it, and so, by less, did 2-3 blocks of 256 an SM walking the
+//   chunks (PERF.md).
 // - dot_full: G blocks walk the vector with a grid-stride loop and write
 //   one partial each to a scratch buffer. The host plans G
 //   (ops/reduction.py: dot_full_plan): one resident wave at most.
