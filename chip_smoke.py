@@ -176,6 +176,9 @@ LIBRARY_ATOL = 1e-3
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+# The stencil kernels round every product and sum on its own (never an
+# FMA), so each operation is one f32 instruction: half the FMA rate.
+F32_SEPARATE_OPS_PER_S = F32_FLOP_PER_S / 2
 STEPS = 64                  # multiple of every ladder depth (16, 32)
 SEED = 0
 JACOBI = (0.25, 0.25, 0.25, 0.25, 0.0)
@@ -230,9 +233,9 @@ def device_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int, ops_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -382,7 +385,7 @@ def phase2_kernels(gen) -> tuple[dict, list]:
             lay = TileLayout(n, n, k, k)
             tile = randn(lay.padded_shape, gen)
             pyramid = sum((n + 2 * k - 2 * j) ** 2 for j in range(1, k + 1))
-            b, by = bound((tile.numel() + n * n) * 4, 9 * pyramid)
+            b, by = bound((tile.numel() + n * n) * 4, 9 * pyramid, F32_SEPARATE_OPS_PER_S)
             lib_call = lambda: conv(tile[None, None], deep_weight[k])[0, 0]  # noqa: E731
             err = max_err(lib_call(), sk.deep_trapezoid_plain(tile, lay, k))
             log(f"  library conv2d {2 * k + 1}^2 vs deep_trapezoid_plain {n}^2 k={k}: "
@@ -397,7 +400,7 @@ def phase2_kernels(gen) -> tuple[dict, list]:
             del tile
     for n, steps in ((1024, 1000), (2560, 1000)):
         core = randn((n, n), gen)
-        b, by = bound(2 * n * n * 4, 4 * n * n * steps)
+        b, by = bound(2 * n * n * 4, 4 * n * n * steps, F32_SEPARATE_OPS_PER_S)
         rows.append(dict(
             name="resident_periodic_pallas", shape=f"{n}^2, {steps} steps",
             ms=device_ms(lambda: sk.resident_periodic_pallas(core, steps), n=3),
@@ -775,12 +778,14 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
                 f"(atol {LIBRARY_ATOL:g})")
             if err > LIBRARY_ATOL:
                 raise AssertionError(f"conv2d yardstick of {what} {label}: {err} > {LIBRARY_ATOL}")
-        b, by = bound(2 * cells * 4, 9 * cells * ring_steps)
+        b, by = bound(2 * cells * 4, 9 * cells * ring_steps, F32_SEPARATE_OPS_PER_S)
         rows.append(dict(name="dma_ring", shape=f"{label}, {ring_steps} steps",
                          ms=device_ms(lambda: hd.dma_ring(cores, ring_steps, JACOBI), n=3),
                          plain_ms=device_ms(
                              lambda: hd.dma_ring_plain(cores, ring_steps, JACOBI), n=1),
                          library_ms=None, bound_ms=b, bound_by=by))
+        log(f"  dma_ring {label}: the {hd.dma_ring.route} regime, "
+            f"{hd.dma_ring_plan(cores, ring_steps)}")
         b, by = bound(2 * cells * 4, 7 * cells * deep_k)
         rows.append(dict(name="dma_deep", shape=f"{label}, k={deep_k}",
                          ms=device_ms(lambda: hd.dma_deep(cores, deep_k, JACOBI, deep_k), n=5),
@@ -803,6 +808,11 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
 NEW_IMPLS = ("stream:16", "dma", "dma-deep:8", "dma-hbm")
 
 
+def _launch_deltas(before: dict, after: dict) -> dict:
+    """The launches each wrapper made between two readings of its count."""
+    return {n: after[n] - before[n] for n in after}
+
+
 def phase9_stream_dma_path() -> dict:
     """``distributed_stencil`` with every new impl at 1024^2 on 1x1 and
     8192^2 on 4x4, each held against ``xla``; launch counts zeroed just
@@ -818,8 +828,14 @@ def phase9_stream_dma_path() -> dict:
     ss.reset_launches()
     hd.reset_launches()
     outs = {}
+
+    def launches():
+        return {n: c for n, c in {**ss.launch_counts(), **hd.launch_counts()}.items()
+                if not n.startswith("seven_point")}  # the 3D kernels are phase 12's
+
     for dims, world in cases:
         mesh = make_mesh_2d(dims)
+        before = launches()
         for impl in ("xla",) + NEW_IMPLS:
             for coeffs in (JACOBI,) + ((NINE,) if dims == (1, 1) else ()):
                 t0 = time.perf_counter()
@@ -827,8 +843,9 @@ def phase9_stream_dma_path() -> dict:
                     world, STEPS, mesh=mesh, impl=impl, coeffs=coeffs)
                 log(f"  {impl:12s} {world.shape[0]}^2 x{STEPS} on {dims[0]}x{dims[1]} "
                     f"{len(coeffs)}pt: {time.perf_counter() - t0:.3f} s wall")
-    counts = {n: c for n, c in {**ss.launch_counts(), **hd.launch_counts()}.items()
-              if not n.startswith("seven_point")}  # the 3D kernels are phase 12's
+        log(f"  launches at {world.shape[0]}^2 on {dims[0]}x{dims[1]}: "
+            f"{_launch_deltas(before, launches())}")
+    counts = launches()
     log(f"  launches on the stream/dma path: {counts}")
     for (dims, impl, npt), out in outs.items():
         if impl == "xla":
@@ -1121,6 +1138,10 @@ def phase12_path3d(worlds, oracle) -> dict:
     sk.reset_launches()
     ss.reset_launches()
 
+    def launches():
+        return {n: c for n, c in {**sk.launch_counts(), **ss.launch_counts()}.items()
+                if n.startswith("seven_point")}
+
     def run(dims, world, steps, impl, **kw):
         t0 = time.perf_counter()
         out = distributed_stencil3d(world, steps, make_mesh(dims, ("z", "row", "col"), DEVICE),
@@ -1149,7 +1170,11 @@ def phase12_path3d(worlds, oracle) -> dict:
     # compact on one rank, at config 9's shape, to the oracle.
     for dims in ((2, 2, 2), (1, 1, 1)):
         world = worlds[dims]
+        before = launches()
         outs = {impl: run(dims, world, STEPS, impl) for impl in IMPLS3D}
+        tile = "x".join(str(n // d) for n, d in zip(world.shape, dims))
+        log(f"  launches on {'x'.join(map(str, dims))} ({tile} a rank): "
+            f"{_launch_deltas(before, launches())}")
         ref = outs["compact"]
         if dims == (1, 1, 1):
             err = float(np.abs(ref.astype(np.float64) - oracle.result()).max())
@@ -1169,16 +1194,19 @@ def phase12_path3d(worlds, oracle) -> dict:
         del outs
     world = worlds[(1, 1, 1)]
     open_x = (True, True, False)  # y self-wraps, x is open: a gx strip and its flags
+    before = launches()
     ref = run((1, 1, 1), world, 8, "compact", periodic=open_x)
     for impl in ("padded", "compact-asm", "stream:4", "stream:3"):
         hold(f"{impl} open x", run((1, 1, 1), world, 8, impl, periodic=open_x), ref, exact=True)
+    log(f"  launches on 1x1x1 open x: {_launch_deltas(before, launches())}")
     # 27 points: the stream sums the weight cube in (dz, dy, dx) order,
     # compact in OFFSETS26 order
+    before = launches()
     ref = run((1, 1, 1), world, 4, "compact", coeffs=C27)
     hold("padded 27pt", run((1, 1, 1), world, 4, "padded", coeffs=C27), ref, exact=True)
     hold("stream:2 27pt", run((1, 1, 1), world, 4, "stream:2", coeffs=C27), ref, exact=False)
-    counts = {n: c for n, c in {**sk.launch_counts(), **ss.launch_counts()}.items()
-              if n.startswith("seven_point")}
+    log(f"  launches on 1x1x1 27 points: {_launch_deltas(before, launches())}")
+    counts = launches()
     log(f"  launches on the 3D path: {counts}")
     missing = [name for name, k in counts.items() if k < 1]
     if missing:

@@ -131,6 +131,59 @@ def test_dma_ring(card, coeffs, dims):
     assert torch.equal(th.dma_ring(cores, 7, coeffs), th.dma_ring_plain(cores, 7, coeffs))
 
 
+def _ring_device_plan(cores, steps, optin=None, cap=None, fold=None):
+    """The ring kernel's host rule on this card, with another opt-in size,
+    cap on blocks an SM or fold where given."""
+    sms = torch.cuda.get_device_properties(cores.device).multi_processor_count
+    vec = th.ring_vec(cores.shape[-1], cores.data_ptr())
+    dev = cores.device.index or 0
+    per_sm = lambda smem: min(cap or 99, th._ring_per_sm(dev, vec, smem))  # noqa: E731
+    return th.ring_plan(*cores.shape, steps,
+                        th.smem_optin(th._lib(), "dma_ring") if optin is None else optin,
+                        sms, per_sm, fold=fold)
+
+
+@pytest.mark.parametrize("optin", ["card", 0])
+@pytest.mark.parametrize("steps", [1, 7, 64, 65])
+@pytest.mark.parametrize("core", [(3, 3), (37, 53), (2048, 2048)])
+@pytest.mark.parametrize("dims", [(1, 1), (2, 3)])
+def test_dma_ring_regimes(card, dims, core, steps, optin):
+    # the rule at the card's opt-in size keeps every torus here resident
+    # but 2 x 3 cores of 2048^2 (101 MB), and streams with none; folds of
+    # 1, 7 and 8 steps, a short last round at 65; cores of 3 cells (a
+    # window wraps the torus many times), W not a multiple of 4 (scalar
+    # loads) and 2048 (16-byte rows)
+    cores = _rand(dims + core, 25, card)
+    plan = _ring_device_plan(cores, steps, optin=None if optin == "card" else 0)
+    resident = optin == "card" and steps > th.RING_F and dims + core != (2, 3, 2048, 2048)
+    assert plan.regime == ("resident" if resident else "stream")
+    assert plan.fold == min(steps, th.RING_F)
+    for coeffs in (tk.JACOBI, GENERAL):
+        got = th._ring_launch(cores, steps, coeffs, plan)
+        assert torch.equal(got, th.dma_ring_plain(cores, steps, coeffs))
+
+
+@pytest.mark.parametrize("fold", [1, 3, 4])
+@pytest.mark.parametrize("cap", [1, 3])
+def test_dma_ring_other_plans(card, fold, cap):
+    # other folds and grids than the rule's, in both regimes: the same bits
+    cores = _rand((2, 3, 37, 53), 26, card)
+    for optin, regime in ((None, "resident"), (0, "stream")):
+        plan = _ring_device_plan(cores, 19, optin=optin, cap=cap, fold=fold)
+        assert plan.regime == regime and plan.fold == fold
+        assert torch.equal(th._ring_launch(cores, 19, GENERAL, plan),
+                           th.dma_ring_plain(cores, 19, GENERAL))
+
+
+def test_dma_ring_wrapper_takes_the_rule(card):
+    th.reset_launches()
+    for core, regime in (((1024, 1024), "resident"), ((37, 53), "resident")):
+        cores = _rand((1, 1) + core, 27, card)
+        assert torch.equal(th.dma_ring(cores, 64, GENERAL), th.dma_ring_plain(cores, 64, GENERAL))
+        assert th.dma_ring.route == regime
+    assert th.launch_counts()["dma_ring"] == 2
+
+
 @pytest.mark.parametrize("depth,steps,coeffs", [(1, 3, C9), (3, 7, C9), (8, 19, tk.JACOBI),
                                                 (3, 5, GENERAL)])
 def test_dma_deep(card, depth, steps, coeffs):
@@ -283,6 +336,45 @@ def test_stream3d_27_point_and_rhs(card, k):
                                                           rhs_coeff=0.37, **kw))
     got = ts.seven_point_streamed_pallas(*a, shape, C27, k, open_flags=flags)
     assert torch.equal(got, ts.seven_point_streamed_plain(*a, C27, k, flags))
+
+
+def _stream3d_plan_on_card(shape, nb, k, nt):
+    """The z-march plans a pass of depth k takes on this card."""
+    j = min(k, ts.STREAM3D_MAX_J)
+    go = k - j
+    out = tuple(n + 2 * go for n in shape)
+    return out, ts.stream3d_plan(out, nb, j, nt, *ts._stream3d_device(0, nt, j))
+
+
+@pytest.mark.parametrize("case", ["ghosts", "open", "rhs", "27pt", "chained"])
+def test_stream3d_z_march_tiles(card, case):
+    # stacked ranks, a core whose depth is no multiple of the z chunk and
+    # whose rows and columns are no multiple of the tile, with open flags,
+    # the rhs term, 27 points, or a pass deeper than one launch
+    lead, shape = (2, 1, 2), (47, 37, 70)
+    k = {"chained": 10, "27pt": 3}.get(case, 4)
+    ghost = case in ("ghosts", "open", "chained")
+    a, kw, flags = _stream3d_inputs(lead, shape, k, ghost, ghost, card, rhs=case == "rhs")
+    if case != "open":
+        flags = torch.zeros_like(flags) if case != "ghosts" else flags
+    coeffs = C27 if case == "27pt" else GENERAL7
+    out, plan = _stream3d_plan_on_card(shape, 4, k, len(coeffs))
+    assert out[1] % plan.ty and out[2] % plan.tx, plan
+    assert case == "chained" or out[0] % plan.zc, plan
+    rc = 0.37 if case == "rhs" else 0.0
+    got = ts.seven_point_streamed_pallas(*a, shape, coeffs, k, open_flags=flags, rhs_coeff=rc,
+                                         **kw)
+    assert torch.equal(got, ts.seven_point_streamed_plain(*a, coeffs, k, flags, rhs_coeff=rc,
+                                                          **kw))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_stream3d_config9_shape(card, k):
+    # config 9's tile, the shape the 3D path times
+    shape = (256, 512, 512)
+    a, kw, flags = _stream3d_inputs((), shape, k, False, False, card)
+    got = ts.seven_point_streamed_pallas(*a, shape, JACOBI7, k, open_flags=flags)
+    assert torch.equal(got, ts.seven_point_streamed_plain(*a, JACOBI7, k, flags))
 
 
 @pytest.mark.parametrize("impl", ["compact", "compact-pallas", "compact-strips", "compact-asm",

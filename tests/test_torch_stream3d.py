@@ -206,15 +206,20 @@ class TestKernelTwin:
                                            shape, JACOBI7, k)
 
     def test_tile_rule(self):
+        def _tile(plan):
+            return plan.ty, plan.tx
+
         optin = 232448  # what an H100 block may opt in to
-        assert ts.stream3d_tile(optin, 4) == (8, 16, 64)
-        assert ts.stream3d_tile(optin, 1) == (8, 16, 64)
-        assert ts.stream3d_tile(optin, 6) == (8, 16, 32)
-        assert ts.stream3d_tile(optin, 10) == (2, 4, 32)
-        assert ts.stream3d_tile(optin, 11) is None
-        for j in range(1, 11):
-            tz, ty, tx = ts.stream3d_tile(optin, j)
-            assert 2 * (tz + 2 * j) * (ty + 2 * j) * (tx + 2 * j) * 4 <= optin
+        # the tile is the z-march's window less its j-cell apron
+        assert _tile(ts.stream3d_plan((256, 512, 512), 1, 4, 7, 132, 2)) == (16, 56)
+        assert _tile(ts.stream3d_plan((256, 512, 512), 1, 1, 7, 132, 2)) == (22, 62)
+        assert _tile(ts.stream3d_plan((256, 512, 512), 1, 6, 7, 132, 2)) == (12, 20)
+        # 10 and 11 substeps run as chains: one launch seats at most 8
+        assert ts.stream3d_depth(optin, 7) == ts.stream3d_depth(optin, 27) == 8
+        assert ts.stream3d_depth(ts.stream3d_smem(7, 1) - 1, 7) == 0
+        for nt in (7, 27):
+            for j in range(1, 9):
+                assert ts.stream3d_smem(nt, j) <= optin
 
 
 def _run_both(dims, impl, world, steps, periodic=True, coeffs=JACOBI7):

@@ -1,5 +1,6 @@
-"""Device times of the paged-attention, ``dma_hbm_step``, dot and fill
-kernels through their wrappers, for an A/B of two checkouts on one card.
+"""Device times of the paged-attention, ``dma_hbm_step``, dot, fill, copy
+probe, ``dma_ring`` and streamed 3D kernels through their wrappers, for an
+A/B of two checkouts on one card.
 
 Cases (config 12's attention geometry: 8 heads, d_head 128, 16-token
 pages, one query a sequence; config 4's and 10's stencil steps; config 2's
@@ -17,7 +18,14 @@ vectors):
 - ``fill``: ``fill`` and ``torch.full`` at 1e8 f32 and 37x53 f32;
 - ``probes``: every copy probe of ``bench/dma_bound.py``, ``x * c`` and
   ``copy_`` at 256x512x512 f32, each held bit-equal to ``clone`` / ``x *
-  c`` first, as the marginal ms a step of ``dma_bound.race``.
+  c`` first, as the marginal ms a step of ``dma_bound.race``;
+- ``ring``: ``dma_ring``, 64 Jacobi steps of 8192^2 stacked on 4x4 and of
+  1024^2 on 1x1 (config 4's and 10's runs), each held bit-equal to its
+  plain version first;
+- ``stream3d``: ``seven_point_streamed_pallas``, a z-slab Jacobi pass of
+  k = 4 and of k = 2 on 256x512x512 (config 9's tile) and of k = 4 on
+  2x2x2 stacked 256^3 ranks (phase 12's other world), each held bit-equal
+  to its plain version first.
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -27,7 +35,9 @@ Usage, from the root of a checkout, on a machine with a card:
 instead (paged: chunk tokens, ring stages, split count; dot_full and fill:
 smaller grids; dot_partials: a block a chunk against one resident wave;
 the copy probes: each design switch of ``csrc/copy_probes.cu``, other
-rings for ``hbm2hbm``). ``--only paged,hbm,dot,fill,probes`` picks case
+rings for ``hbm2hbm``; the ring: every fold, both regimes, 1 to 3 blocks
+an SM; stream3d: 1 to 4 blocks an SM in the chunk rule, and other z
+chunks). ``--only paged,hbm,dot,fill,probes,ring,stream3d`` picks case
 groups. ``--root``
 imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
@@ -42,6 +52,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -354,8 +365,119 @@ def probe_sweep(gen):
     del x
 
 
+JACOBI = (0.25, 0.25, 0.25, 0.25, 0.0)
+JACOBI7 = (1 / 6,) * 6 + (0.0,)
+RING_SHAPES = (((4, 4), 2048, 10), ((1, 1), 1024, 50))  # stacked mesh, core edge, timed runs
+RING_STEPS = 64
+
+
+def ring_cases(gen):
+    """(case, ms) of the DMA ring kernel, 64 steps."""
+    import torch
+
+    from tpuscratch_torch.ops import halo_dma as hd
+
+    for lead, n, runs in RING_SHAPES:
+        cores = torch.randn(lead + (n, n), generator=gen, device="cuda")
+        if not torch.equal(hd.dma_ring(cores, RING_STEPS, JACOBI),
+                           hd.dma_ring_plain(cores, RING_STEPS, JACOBI)):
+            raise AssertionError(f"dma_ring {lead} {n}^2 differs from its plain version")
+        yield (f"ring {lead[0] * n}^2 on {lead[0]}x{lead[1]} {RING_STEPS} steps",
+               device_ms(lambda: hd.dma_ring(cores, RING_STEPS, JACOBI), n=runs))
+        del cores
+
+
+def ring_sweep(gen):
+    """(case, ms) of the ring kernel under every fold, both regimes and 1
+    to 3 blocks an SM (this checkout only)."""
+    import torch
+
+    from tpuscratch_torch.ops import halo_dma as hd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    optin = hd.smem_optin(hd._lib(), "dma_ring")
+    for lead, n, runs in RING_SHAPES:
+        cores = torch.randn(lead + (n, n), generator=gen, device="cuda")
+        want = hd.dma_ring_plain(cores, RING_STEPS, JACOBI)
+        vec = hd.ring_vec(n, cores.data_ptr())
+        rule = hd.dma_ring_plan(cores, RING_STEPS)
+        for fold in range(1, hd.RING_F + 1):
+            for cap in (1, 2, 3):
+                for room in (optin, 0):
+                    plan = hd.ring_plan(*cores.shape, RING_STEPS, room, sms,
+                                        lambda smem: min(cap, hd._ring_per_sm(0, vec, smem)),
+                                        fold=fold)
+                    call = lambda: hd._ring_launch(cores, RING_STEPS, JACOBI, plan)  # noqa: E731
+                    if not torch.equal(call(), want):
+                        raise AssertionError(f"sweep ring {plan} differs from its plain version")
+                    mark = " (rule)" if plan == rule else ""
+                    yield (f"sweep ring {lead[0] * n}^2 {plan.regime} fold={fold} "
+                           f"blocks={plan.blocks}{mark}", device_ms(call, n=runs))
+        del cores, want
+
+
+def _stream3d_operands(gen, lead, shape, k):
+    import torch
+
+    cy, cx = shape[1:]
+    a = [torch.randn(lead + s, generator=gen, device="cuda")
+         for s in (shape, (k, cy, cx), (k, cy, cx))]
+    return a, torch.zeros(lead + (6,), dtype=torch.int32, device="cuda")
+
+
+STREAM3D_SHAPES = (((), (256, 512, 512), 4), ((), (256, 512, 512), 2),
+                   ((2, 2, 2), (256, 256, 256), 4))
+
+
+def stream3d_cases(gen):
+    """(case, ms) of the streamed 3D kernel, one z-slab Jacobi pass."""
+    import torch
+
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    for lead, shape, k in STREAM3D_SHAPES:
+        a, flags = _stream3d_operands(gen, lead, shape, k)
+        call = lambda: ss.seven_point_streamed_pallas(*a, shape, JACOBI7, k,  # noqa: E731
+                                                      open_flags=flags)
+        if not torch.equal(call(), ss.seven_point_streamed_plain(*a, JACOBI7, k, flags)):
+            raise AssertionError(f"stream3d {lead} {shape} k={k} differs from its plain version")
+        label = "x".join(map(str, shape)) + (f" on {'x'.join(map(str, lead))}" if lead else "")
+        yield f"stream3d {label} k={k}", device_ms(call, n=20)
+        del a
+
+
+def stream3d_sweep(gen):
+    """(case, ms) of the streamed 3D kernel under the chunk rule at 1 to 4
+    blocks an SM and at other z chunks (this checkout only)."""
+    import dataclasses
+
+    import torch
+
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = ss._weights3d(JACOBI7)
+    for lead, shape, k in STREAM3D_SHAPES:
+        a, flags = _stream3d_operands(gen, lead, shape, k)
+        want = ss.seven_point_streamed_plain(*a, JACOBI7, k, flags)
+        nb = math.prod(lead)
+        rule = ss._card_plan3d(0)(shape, nb, k, 7)
+        plans = {ss.stream3d_plan(shape, nb, k, 7, sms, per) for per in (1, 2, 3, 4)}
+        plans |= {dataclasses.replace(rule, zc=zc) for zc in (16, 32, 64, 128, 256)
+                  if zc <= shape[0]}
+        for plan in sorted(plans, key=lambda p: p.zc):
+            call = lambda: ss._launch3d(*a, None, None, None, None, flags, w, k, 0.0,  # noqa: E731
+                                        plan_of=lambda *_: plan)[0]
+            if not torch.equal(call(), want):
+                raise AssertionError(f"sweep stream3d {plan} differs from its plain version")
+            mark = " (rule)" if plan == rule else ""
+            label = "x".join(map(str, shape)) + (f" on {'x'.join(map(str, lead))}" if lead else "")
+            yield f"sweep stream3d {label} k={k} zc={plan.zc}{mark}", device_ms(call, n=20)
+        del a, want
+
+
 GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases,
-          "probes": probe_cases}
+          "probes": probe_cases, "ring": ring_cases, "stream3d": stream3d_cases}
 
 
 def main(argv=None) -> int:
@@ -386,7 +508,9 @@ def main(argv=None) -> int:
     if args.sweep:
         cases = itertools.chain(plan_sweep(gen) if "paged" in groups else (),
                                 dot_fill_sweep(gen) if {"dot", "fill"} & set(groups) else (),
-                                probe_sweep(gen) if "probes" in groups else ())
+                                probe_sweep(gen) if "probes" in groups else (),
+                                ring_sweep(gen) if "ring" in groups else (),
+                                stream3d_sweep(gen) if "stream3d" in groups else ())
     else:
         cases = itertools.chain.from_iterable(GROUPS[g](gen) for g in groups)
     for case, ms in cases:

@@ -38,39 +38,6 @@ struct Torus {
   int R, C, H, W;  // mesh dims, core dims
 };
 
-// Flat index of the cell (i, j) of rank (r, c), for i in [-1, H] and j in
-// [-1, W]: one step past a core's edge lands in the neighbouring rank.
-__device__ __forceinline__ size_t torus_at(const Torus& g, int r, int c, int i,
-                                           int j) {
-  if (i < 0) {
-    i += g.H;
-    r = r == 0 ? g.R - 1 : r - 1;
-  } else if (i >= g.H) {
-    i -= g.H;
-    r = r == g.R - 1 ? 0 : r + 1;
-  }
-  if (j < 0) {
-    j += g.W;
-    c = c == 0 ? g.C - 1 : c - 1;
-  } else if (j >= g.W) {
-    j -= g.W;
-    c = c == g.C - 1 ? 0 : c + 1;
-  }
-  return ((size_t)(r * g.C + c) * g.H + i) * g.W + j;
-}
-
-// One step of cell (i, j) of rank (r, c), read from `src`.
-__device__ __forceinline__ float torus_step(const Torus& g, const Taps& t,
-                                            const float* src, int r, int c,
-                                            int i, int j) {
-  float v = __fmul_rn(t.c[0], src[torus_at(g, r, c, i + t.dy[0], j + t.dx[0])]);
-#pragma unroll
-  for (int u = 1; u < 9; ++u)
-    if (u < t.n)
-      v = __fadd_rn(v, __fmul_rn(t.c[u], src[torus_at(g, r, c, i + t.dy[u], j + t.dx[u])]));
-  return v;
-}
-
 static bool torus_ok(int R, int C, int H, int W) {
   return R >= 1 && C >= 1 && H >= 1 && W >= 1 &&
          (long long)R * C * H * W <= (long long)INT_MAX;
@@ -78,63 +45,282 @@ static bool torus_ok(int R, int C, int H, int W) {
 
 // ---------------------------------------------------------------------------
 // dma_ring: `steps` 5-point steps of the whole torus in ONE cooperative
-// launch. A persistent grid (as many blocks as can be resident at once:
-// occupancy x SMs) walks every rank's cells with a grid-stride loop,
-// reading the previous state (edge cells read the neighbour rank's core)
-// and writing the next into the other ping-pong buffer, with grid.sync()
-// between steps. Step 0 reads `in`; the state after step s (1-based) is in
-// buf[(s - 1) % 2].
-// Bound: bytes per step. A step must read the torus and write it,
-// 8 bytes a cell (at 8192^2 f32, 0.537 GB: 0.160 ms at 3.35 TB/s); grids
-// that fit the 50 MB L2 twice pay L2 traffic instead, plus one barrier.
-constexpr int RING_THREADS = 512;
+// launch, folded: `fold` steps between two grid barriers.
+// Bound: operations. A step is 9 separately rounded operations a cell
+// (33.5 T/s on this card: a product and a sum one f32 instruction each);
+// the bytes are 8 a cell a round of `fold` steps, from device memory where
+// the torus passes the 50 MB L2 (at 8192^2 f32, 0.160 ms a round at
+// 3.35 TB/s) and from L2 below it.
+// Design: a 2D march along the torus rows, one warp at a time.
+//  - The torus is cut into strips of RING_OUT columns; a warp's window is
+//    RING_WIN = RING_OUT + 2 * RING_F columns of one strip, 4 adjacent
+//    columns a lane (one 16-byte load or store a row where W % 4 == 0).
+//    The strips' rows, strip after strip, are split evenly over the warps
+//    of the persistent grid; a warp marches its rows, each with a `fold`-row
+//    apron above and below, the same rows every round.
+//  - Substep level s keeps the last three rows it computed in registers
+//    and computes row t - s from level s - 1's rows at march step t, so
+//    all `fold` levels advance one row a step with no barrier and no
+//    shared memory: the north and south taps are registers, west and east
+//    the lane's own columns or one shuffle each from the lanes beside it.
+//    The step loop is unrolled by 3 so the rows rotate by name.
+//  - Level `fold` is the round's result. A round reads the other buffer,
+//    a trapezoid of `fold` steps (on a torus its values are the per-step
+//    values), so the steps cost ceil(steps / fold) grid barriers and the
+//    torus crosses device memory once a round instead of once a step.
+//  - The wrap is resolved once a loaded row (an incremental rank and row)
+//    and once a warp for its columns; a row is loaded RING_AHEAD steps
+//    before its use, into a ring of registers; no division runs in the
+//    march loop.
+//  - Folds of at most RING_F = 4: the register window of 6- and 8-step
+//    folds spilled, at 168 registers (3 blocks an SM) and at 255 alike,
+//    which made them slower than 4-step folds (PERF.md).
+//  - Resident regime (`resident`): where every warp's rows fit its block's
+//    shared memory, a warp keeps its output cells there from round to
+//    round; only the cells within RING_F of its rows' ends or its strip's
+//    sides pass through device memory, which is all a neighbour's apron
+//    reads. The last round writes every cell. The host rule
+//    (ops.halo_dma.ring_plan) picks the regime, the fold and the grid.
+//    (A torus small enough to stay resident also stays in the 50 MB L2,
+//    and at 1024^2 the two regimes read within 1%.)
+// Terms: n, s, w, e, c in that order, zero coefficients included, every
+// product and sum rounded on its own (the plain version's order).
+constexpr int RING_WARPS = 4;
+constexpr int RING_THREADS = 32 * RING_WARPS;
+constexpr int RING_F = 4;                           // a window's side apron: the deepest fold
+constexpr int RING_WIN = 128;                       // window columns, 4 a lane
+constexpr int RING_OUT = RING_WIN - 2 * RING_F;     // output columns a strip
+constexpr int RING_AHEAD = 3;                       // rows in flight into registers
 
-__global__ void __launch_bounds__(RING_THREADS)
-dma_ring_kernel(const float* __restrict__ in, float* buf0, float* buf1, Torus g,
-                int steps, Taps taps) {
-  cg::grid_group grid = cg::this_grid();
-  const int n = g.R * g.C * g.H * g.W;  // <= INT_MAX (the launcher checks)
-  const int stride = gridDim.x * blockDim.x;
-  const float* src = in;
-  for (int st = 0; st < steps; ++st) {
-    float* dst = (st & 1) ? buf1 : buf0;
-    for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < n; q += stride) {
-      const int row = q / g.W, j = q - row * g.W;  // row of the stacked cores
-      const int b = row / g.H, i = row - b * g.H;
-      const int r = b / g.C, c = b - r * g.C;
-      dst[q] = torus_step(g, taps, src, r, c, i, j);
+struct RingArgs {
+  const float* in;
+  float* buf0;
+  float* buf1;
+  Torus g;
+  int steps, fold, resident, rows_max;
+  float cn, cs, cw, ce, cc;
+};
+
+// An incremental torus row: rank row `r`, row `i`, and the element offset
+// of its first cell in rank column 0.
+struct RowAt {
+  int r, i, base;
+  __device__ __forceinline__ void at(const Torus& g, int y) {
+    const int TH = g.R * g.H;
+    y %= TH;
+    if (y < 0) y += TH;
+    r = y / g.H;
+    i = y - r * g.H;
+    base = (r * g.C * g.H + i) * g.W;
+  }
+  __device__ __forceinline__ void next(const Torus& g) {
+    if (++i == g.H) {
+      i = 0;
+      if (++r == g.R) r = 0;
     }
-    grid.sync();  // every block's writes of step st are visible to step st+1
-    src = dst;
+    base = (r * g.C * g.H + i) * g.W;
+  }
+};
+
+template <int FOLD, int VEC>
+__device__ __forceinline__ void ring_march(const RingArgs& a, const float* __restrict__ src,
+                                           float* __restrict__ dst, int strip, int ys, int n,
+                                           float4* tile, bool from_smem, bool to_smem) {
+  const Torus& g = a.g;
+  const int lane = threadIdx.x & 31;
+  const int TW = g.C * g.W;
+  // the lane's 4 window columns: torus column x = xw + j, source offset cb[j]
+  const int xw = strip * RING_OUT - RING_F + 4 * lane;
+  int cb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int x = (xw + j) % TW;
+    if (x < 0) x += TW;
+    const int c = x / g.W;
+    cb[j] = c * g.H * g.W + (x - c * g.W);
+  }
+  // output lanes: window columns [RING_F, RING_WIN - RING_F) inside the torus
+  const int xe = min(strip * RING_OUT + RING_OUT, TW);  // the strip's end
+  bool ok[4];
+  bool own = lane >= RING_F / 4 && lane < (RING_WIN - RING_F) / 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ok[j] = own && xw + j < xe;
+  own = own && xw < xe;  // VEC == 4: the lane's columns are in or out together
+  // cells a neighbour's window reads: within RING_F of the strip's sides
+  // or, where the last strip is short, the first window's width of the
+  // torus, which its right apron wraps onto
+  const bool side = xw < strip * RING_OUT + RING_F || xw + 3 >= xe - RING_F ||
+                    (TW % RING_OUT != 0 && xw < RING_WIN);
+
+  const int T = n + 2 * FOLD;
+  // window row y is loaded into pf[y % 3] RING_AHEAD steps before level 0
+  // takes it (rows the warp keeps in shared memory are read there instead)
+  RowAt in_row, out_row;
+  in_row.at(g, ys - FOLD);
+  out_row.at(g, ys);
+  float pf[RING_AHEAD][4];
+  auto fetch = [&](float* v, int y) {
+    if (y < T && !(from_smem && own && y >= FOLD && y < n + FOLD)) {
+      if (VEC == 4) {
+        const float4 u = __ldcg(reinterpret_cast<const float4*>(src + in_row.base + cb[0]));
+        v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __ldcg(src + in_row.base + cb[j]);
+      }
+    }
+    in_row.next(g);
+  };
+#pragma unroll
+  for (int y = 0; y < RING_AHEAD; ++y) fetch(pf[y], y);
+  float lv[FOLD][3][4];  // lv[l][y % 3]: level l's row y (window rows)
+#pragma unroll 1
+  for (int t0 = 0; t0 < T; t0 += 3) {
+#pragma unroll
+    for (int ph = 0; ph < 3; ++ph) {
+      const int t = t0 + ph;
+      if (t >= T) break;
+      // level 0: window row t
+      float* l0 = lv[0][ph];
+      if (from_smem && own && t >= FOLD && t < n + FOLD) {
+        const float4 v = tile[(t - FOLD) * 32 + lane];
+        l0[0] = v.x; l0[1] = v.y; l0[2] = v.z; l0[3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) l0[j] = pf[ph][j];
+      }
+      fetch(pf[ph], t + RING_AHEAD);
+      // levels 1..FOLD: level s computes window row t - s
+#pragma unroll
+      for (int s = 1; s <= FOLD; ++s) {
+        if (t < 2 * s) break;  // level s starts at row s
+        const float* N = lv[s - 1][((ph - s - 1) % 3 + 6) % 3];
+        const float* C = lv[s - 1][((ph - s) % 3 + 6) % 3];
+        const float* S = lv[s - 1][((ph - s + 1) % 3 + 6) % 3];
+        const float west = __shfl_up_sync(0xffffffffu, C[3], 1);
+        const float east = __shfl_down_sync(0xffffffffu, C[0], 1);
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v = __fmul_rn(a.cn, N[j]);
+          v = __fadd_rn(v, __fmul_rn(a.cs, S[j]));
+          v = __fadd_rn(v, __fmul_rn(a.cw, j == 0 ? west : C[j - 1]));
+          v = __fadd_rn(v, __fmul_rn(a.ce, j == 3 ? east : C[j + 1]));
+          o[j] = __fadd_rn(v, __fmul_rn(a.cc, C[j]));
+        }
+        if (s < FOLD) {
+          float* d = lv[s][((ph - s) % 3 + 6) % 3];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d[j] = o[j];
+          continue;
+        }
+        // level FOLD: output row lr of the warp's rows
+        const int lr = t - 2 * FOLD;
+        if (to_smem && own) tile[lr * 32 + lane] = make_float4(o[0], o[1], o[2], o[3]);
+        if (!to_smem || side || lr < RING_F || lr >= n - RING_F) {
+          if (VEC == 4) {
+            if (own)
+              *reinterpret_cast<float4*>(dst + out_row.base + cb[0]) =
+                  make_float4(o[0], o[1], o[2], o[3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (ok[j]) dst[out_row.base + cb[j]] = o[j];
+          }
+        }
+        out_row.next(g);
+      }
+    }
   }
 }
 
+template <int VEC>
+__global__ void __launch_bounds__(RING_THREADS, 3)
+dma_ring_kernel(const RingArgs a) {
+  extern __shared__ float4 ring_smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x >> 5;
+  const Torus& g = a.g;
+  const int TH = g.R * g.H, TW = g.C * g.W;
+  const long long L = (long long)((TW + RING_OUT - 1) / RING_OUT) * TH;  // strip rows
+  const long long nw = (long long)gridDim.x * RING_WARPS;
+  const long long gw = (long long)blockIdx.x * RING_WARPS + warp;
+  const long long lo = gw * L / nw, hi = (gw + 1) * L / nw;
+  float4* const tile = ring_smem + (size_t)warp * a.rows_max * 32;
+  const int rounds = (a.steps + a.fold - 1) / a.fold;
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int f = min(a.fold, a.steps - rd * a.fold);
+    const float* src = rd == 0 ? a.in : ((rd - 1) & 1 ? a.buf1 : a.buf0);
+    float* dst = rd & 1 ? a.buf1 : a.buf0;
+    const bool from_smem = a.resident && rd > 0;
+    const bool to_smem = a.resident && rd + 1 < rounds;
+    int trow = 0;
+    for (long long pos = lo; pos < hi;) {
+      const int strip = (int)(pos / TH), ys = (int)(pos - (long long)strip * TH);
+      const int n = (int)min(hi - pos, (long long)(TH - ys));
+      float4* t = tile + trow * 32;
+      switch (f) {
+        case 1: ring_march<1, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
+        case 2: ring_march<2, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
+        case 3: ring_march<3, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
+        default: ring_march<4, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
+      }
+      pos += n;
+      trow += n;
+    }
+    grid.sync();  // every warp's round rd is in dst (and its tile) before round rd + 1
+  }
+}
+
+// The blocks of the ring kernel an SM holds at once with `smem` bytes of
+// shared memory a block.
+extern "C" int ts_dma_ring_occupancy(int vec, int smem, int* per_sm) {
+  const void* k = vec == 4 ? (const void*)dma_ring_kernel<4> : (const void*)dma_ring_kernel<1>;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, RING_THREADS, smem);
+  return (int)e;
+}
+
+// taps: ring_taps order (n, s, w, e, c); vec: 4 (16-byte rows: W % 4 == 0
+// and the three buffers 16-byte aligned) or 1; fold 1..RING_F steps a
+// round; blocks and rows_max (rows a warp) from ops.halo_dma.ring_plan,
+// shared memory rows_max rows of a warp's tile in the resident regime.
 extern "C" int ts_dma_ring(const float* in, float* buf0, float* buf1, int R,
                            int C, int H, int W, int steps, int ntaps,
-                           const float* c, const int* dy, const int* dx,
+                           const float* c, const int* dy, const int* dx, int vec,
+                           int fold, int resident, int blocks, int rows_max,
                            void* stream) {
-  Taps taps;
-  if (!torus_ok(R, C, H, W) || steps < 1 || !make_taps(&taps, ntaps, c, dy, dx))
+  static const int kdy[5] = {-1, 1, 0, 0, 0};
+  static const int kdx[5] = {0, 0, -1, 1, 0};
+  if (!torus_ok(R, C, H, W) || steps < 1 || ntaps != 5 || fold < 1 || fold > RING_F ||
+      blocks < 1 || rows_max < 0 || (vec != 1 && vec != 4))
     return (int)cudaErrorInvalidValue;
+  for (int u = 0; u < 5; ++u)
+    if (dy[u] != kdy[u] || dx[u] != kdx[u]) return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (W % 4 != 0 || (uintptr_t)in % 16 != 0 || (uintptr_t)buf0 % 16 != 0 ||
+                   (uintptr_t)buf1 % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  const long long strips = ((long long)C * W + RING_OUT - 1) / RING_OUT;
+  const long long L = strips * R * H;
+  if (L > INT_MAX || (long long)rows_max * blocks * RING_WARPS < L)
+    return (int)cudaErrorInvalidValue;  // a warp's rows must fit its rows_max
+  const int smem = resident ? RING_WARPS * rows_max * 32 * (int)sizeof(float4) : 0;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dma_ring_kernel,
-                                                      RING_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
-  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long need = ((long long)R * C * H * W + RING_THREADS - 1) / RING_THREADS;
-  const long long cap = (long long)per_sm * sms;
-  const int blocks = (int)(need < cap ? need : cap);
-  Torus g{R, C, H, W};
-  void* args[] = {(void*)&in, (void*)&buf0, (void*)&buf1, (void*)&g,
-                  (void*)&steps, (void*)&taps};
-  e = cudaLaunchCooperativeKernel((void*)dma_ring_kernel, dim3(blocks),
-                                  dim3(RING_THREADS), args, 0,
+  e = (cudaError_t)ts_dma_ring_occupancy(vec, smem, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || (long long)per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  RingArgs a{in, buf0, buf1, Torus{R, C, H, W}, steps, fold, resident, rows_max,
+             c[0], c[1], c[2], c[3], c[4]};
+  void* args[] = {(void*)&a};
+  const void* k = vec == 4 ? (const void*)dma_ring_kernel<4> : (const void*)dma_ring_kernel<1>;
+  e = cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(RING_THREADS), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

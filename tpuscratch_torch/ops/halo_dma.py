@@ -14,7 +14,8 @@ periodic, so the cores tile one torus and each kernel reads the
 neighbouring rank's core where the TPU kernel waited for a strip. The
 kernel wrappers work on the stacked cores ``(rows, cols, H, W)``:
 
-- ``dma_ring``: ``steps`` 5-point steps in one cooperative launch;
+- ``dma_ring``: ``steps`` 5-point steps in one cooperative launch, folded
+  into rounds of up to 4 steps between grid barriers (``ring_plan``);
 - ``dma_deep``: one launch per round of ``depth`` substeps (5 or 9
   points), a shared-memory trapezoid over the neighbours' k-deep edges;
 - ``dma_hbm_step``: one step per launch, 5 or 9 points, over register
@@ -28,6 +29,7 @@ runs its plain torch version, the same steps on the assembled torus with
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -148,7 +150,9 @@ def dma_hbm_step_plain(cores: torch.Tensor, coeffs9) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = library("halo_dma")
     taps = [_I, _P, _P, _P]
-    lib.ts_dma_ring.argtypes = [_P, _P, _P] + [_I] * 5 + taps + [_P]
+    lib.ts_dma_ring.argtypes = [_P, _P, _P] + [_I] * 5 + taps + [_I] * 5 + [_P]
+    lib.ts_dma_ring_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ts_dma_ring_occupancy.restype = _I
     lib.ts_dma_deep.argtypes = [_P, _P] + [_I] * 6 + taps + [_P]
     lib.ts_dma_hbm_step.argtypes = [_P, _P] + [_I] * 4 + taps + [_I, _P]
     for fn in (lib.ts_dma_ring, lib.ts_dma_deep, lib.ts_dma_hbm_step):
@@ -161,25 +165,126 @@ def _check_cores(cores: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: want stacked cores (rows, cols, H, W), got {tuple(cores.shape)}")
 
 
-def dma_ring(cores: torch.Tensor, steps: int, coeffs: Coeffs = JACOBI) -> torch.Tensor:
-    """``steps`` periodic 5-point steps of the torus the stacked cores
-    tile, in ONE cooperative launch (two ping-pong buffers, a grid-wide
-    barrier per step). Returns fresh cores."""
-    _check_cores(cores, "dma_ring")
-    if steps < 1:
-        raise ValueError(f"steps must be >= 1, got {steps}")
-    taps = ring_taps(coeffs)
-    if not route(cores, "dma_ring"):
-        return dma_ring_plain(cores, steps, coeffs)
-    check_cuda(cores, "dma_ring", 4)
+#: ``dma_ring_kernel`` (``csrc/halo_dma.cu``): warps a block (RING_WARPS),
+#: the deepest fold and a strip window's side apron (RING_F), the window's
+#: columns (RING_WIN) and the output columns of a strip (RING_OUT)
+RING_WARPS, RING_F, RING_WIN = 4, 4, 128
+RING_OUT = RING_WIN - 2 * RING_F
+#: bytes of a warp's resident tile row: 32 lanes of 4 f32 columns
+RING_TILE_ROW = 32 * 16
+#: an SM's shared memory (228 KB on Hopper) and what each block reserves of
+#: it, for the occupancy model of the CPU tests
+SM_SMEM, BLOCK_RESERVED = 233_472, 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """One ``dma_ring_kernel`` launch: ``regime`` "resident" (every warp's
+    output cells stay in shared memory between rounds, ``smem`` bytes a
+    block) or "stream" (each round reads and writes the whole torus),
+    ``fold`` steps between grid barriers in ``rounds`` rounds, ``blocks``
+    persistent blocks whose warps march at most ``rows_max`` strip rows."""
+
+    regime: str
+    fold: int
+    rounds: int
+    blocks: int
+    rows_max: int
+    smem: int
+
+
+def ring_rows(R: int, C: int, H: int, W: int) -> int:
+    """The strip rows the ring kernel's warps share: the torus's (R*H)
+    rows in each of its ceil(C*W / RING_OUT) column strips."""
+    return -(-(C * W) // RING_OUT) * R * H
+
+
+def ring_occupancy_model(smem: int, cap: int = 3) -> int:
+    """Blocks of the ring kernel an H100 SM holds with ``smem`` bytes of
+    shared memory a block: at most ``cap`` (its registers: the launch
+    bounds' 3), and as many as the SM's shared memory takes."""
+    return min(cap, SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def ring_plan(R: int, C: int, H: int, W: int, steps: int, optin: int, n_sm: int,
+              per_sm=ring_occupancy_model, fold: int | None = None) -> RingPlan:
+    """The ring kernel's host rule. ``fold`` steps a round (the deepest,
+    RING_F, unless given); resident where the rounds are more than one and
+    every warp's rows fit its block's share of ``optin`` bytes of shared
+    memory at the most blocks an SM (``per_sm(smem)``, the card's
+    occupancy) for which they do, else streamed on the most blocks the SMs
+    hold; never more blocks than give each warp a row."""
+    fold = min(RING_F, steps) if fold is None else fold
+    if not 1 <= fold <= RING_F:
+        raise ValueError(f"the ring kernel folds 1 to {RING_F} steps a round, got {fold}")
+    rounds = -(-steps // fold)
+    L = ring_rows(R, C, H, W)
+    most = -(-L // RING_WARPS)
+    if rounds > 1:
+        for per in range(per_sm(0), 0, -1):
+            blocks = min(n_sm * per, most)
+            rows = -(-L // (blocks * RING_WARPS))
+            smem = RING_WARPS * rows * RING_TILE_ROW
+            if smem <= optin and per_sm(smem) * n_sm >= blocks:
+                return RingPlan("resident", fold, rounds, blocks, rows, smem)
+    blocks = min(n_sm * per_sm(0), most)
+    return RingPlan("stream", fold, rounds, blocks, -(-L // (blocks * RING_WARPS)), 0)
+
+
+def ring_vec(W: int, *data_ptrs: int) -> int:
+    """The ring kernel's load width: 4 columns as one 16-byte vector where
+    every row starts 16-byte aligned (``W % 4 == 0`` and the buffers
+    16-byte aligned), else 4 scalar loads."""
+    return 4 if W % 4 == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_per_sm(device: int, vec: int, smem: int) -> int:
+    lib = _lib()
+    per_sm = _I(0)
+    with torch.cuda.device(device):
+        check_status(lib, lib.ts_dma_ring_occupancy(vec, smem, ctypes.byref(per_sm)), "dma_ring")
+    return per_sm.value
+
+
+def _ring_launch(cores: torch.Tensor, steps: int, coeffs, plan: RingPlan) -> torch.Tensor:
+    """``steps`` steps of ``cores`` on the card under ``plan``; returns the
+    buffer the last round wrote."""
     bufs = (torch.empty_like(cores), torch.empty_like(cores))
+    vec = ring_vec(cores.shape[-1], cores.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr())
     with torch.cuda.device(cores.device):
         check_status(_lib(), _lib().ts_dma_ring(
             cores.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), *cores.shape,
-            steps, *taps_args(taps), stream_of(cores),
+            steps, *taps_args(ring_taps(coeffs)), vec, plan.fold,
+            int(plan.regime == "resident"), plan.blocks, plan.rows_max, stream_of(cores),
         ), "dma_ring")
     dma_ring.launches += 1
-    return bufs[(steps - 1) % 2]
+    dma_ring.route = plan.regime
+    return bufs[(plan.rounds - 1) % 2]
+
+
+def dma_ring_plan(cores: torch.Tensor, steps: int) -> RingPlan:
+    """:func:`ring_plan` for stacked CUDA ``cores`` on their card."""
+    dev = cores.device.index if cores.device.index is not None else torch.cuda.current_device()
+    vec = ring_vec(cores.shape[-1], cores.data_ptr())
+    return ring_plan(*cores.shape, steps, smem_optin(_lib(), "dma_ring"),
+                     torch.cuda.get_device_properties(dev).multi_processor_count,
+                     lambda smem: _ring_per_sm(dev, vec, smem))
+
+
+def dma_ring(cores: torch.Tensor, steps: int, coeffs: Coeffs = JACOBI) -> torch.Tensor:
+    """``steps`` periodic 5-point steps of the torus the stacked cores
+    tile, in ONE cooperative launch: rounds of up to RING_F steps between
+    grid barriers, resident in shared memory where the torus fits
+    (:func:`ring_plan`; ``route`` names the regime taken). Returns fresh
+    cores."""
+    _check_cores(cores, "dma_ring")
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    if not route(cores, "dma_ring"):
+        return dma_ring_plain(cores, steps, coeffs)
+    check_cuda(cores, "dma_ring", 4)
+    return _ring_launch(cores, steps, coeffs, dma_ring_plan(cores, steps))
 
 
 def dma_deep(cores: torch.Tensor, steps: int, coeffs9, depth: int) -> torch.Tensor:

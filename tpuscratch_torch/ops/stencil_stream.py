@@ -28,6 +28,7 @@ the kernel's order of operations.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -234,9 +235,71 @@ def nine_point_streamed_2d(
 # ---------------------------------------------------------------------------
 # the 3D kernel (csrc/stencil_stream3d.cu)
 
-#: Output tiles (tz, ty, tx) of one ``stream3d_kernel`` block, by preference.
-STREAM3D_TILES = ((8, 16, 64), (8, 8, 64), (8, 16, 32), (8, 8, 32), (4, 8, 32), (4, 4, 32),
-                  (2, 4, 32))
+#: Substeps one ``stream3d_kernel`` launch runs at most; a deeper pass is
+#: chained through dense scratch volumes (``csrc/stencil_stream3d.cu``:
+#: S3_MAX_J), as are the kernel's warps a block (S3_WARPS) and input planes
+#: in flight (S3_AHEAD).
+STREAM3D_MAX_J, STREAM3D_WARPS, STREAM3D_AHEAD = 8, 8, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Stream3dPlan:
+    """One ``stream3d_kernel`` launch: ``j`` substeps over (ty, tx)
+    column tiles of ``zc`` output planes, ``blocks`` blocks of ``smem``
+    bytes of shared memory."""
+
+    j: int
+    ty: int
+    tx: int
+    zc: int
+    blocks: int
+    smem: int
+
+
+def stream3d_window(j: int) -> tuple[int, int]:
+    """The (rows, columns) window of a launch of ``j`` substeps: 3 rows a
+    warp of 8, and 2 columns a lane up to 4 substeps, 1 beyond."""
+    return 3 * STREAM3D_WARPS, 64 if j <= 4 else 32
+
+
+def stream3d_smem(nt: int, j: int) -> int:
+    """Shared memory of a launch of ``j`` substeps of ``nt`` (7 or 27)
+    points: the input ring and a ring of planes for each level below j
+    (3 planes at 7 points, where the z taps ride in registers; 4 at 27),
+    padded by a row and two cells at each end."""
+    ring = 3 if nt == 7 else 4
+    rows, cols = stream3d_window(j)
+    pad = cols + 2  # a row and two cells before and after the planes
+    return (((STREAM3D_AHEAD + ring - 1) + ring * (j - 1)) * rows * cols + 2 * pad) * 4
+
+
+def stream3d_depth(optin: int, nt: int) -> int:
+    """The most substeps one launch runs within ``optin`` bytes of shared
+    memory a block (0: none fits)."""
+    return max((j for j in range(1, STREAM3D_MAX_J + 1) if stream3d_smem(nt, j) <= optin),
+               default=0)
+
+
+def stream3d_plan(out_shape, nb: int, j: int, nt: int, n_sm: int, per_sm: int) -> Stream3dPlan:
+    """The launch of ``j`` substeps writing ``nb`` volumes of ``out_shape``
+    (OZ, OY, OX): the tile is the window less its apron, and the z chunk
+    the one whose blocks, ``per_sm`` an SM on ``n_sm`` SMs, take the
+    fewest waves times march steps a block (a chunk's zc planes plus its
+    2j-plane apron)."""
+    OZ, OY, OX = out_shape
+    rows, cols = stream3d_window(j)
+    ty, tx = rows - 2 * j, cols - 2 * j
+    tiles = nb * -(-OY // ty) * -(-OX // tx)
+    slots = n_sm * per_sm
+    best = None
+    for chunks in range(1, OZ + 1):
+        zc = -(-OZ // chunks)
+        blocks = tiles * -(-OZ // zc)
+        cost = -(-blocks // slots) * (zc + 2 * j)
+        if best is None or cost < best[0]:
+            best = (cost, zc, blocks)
+    _, zc, blocks = best
+    return Stream3dPlan(j, ty, tx, zc, blocks, stream3d_smem(nt, j))
 
 
 def weight_cube(coeffs27, offsets26) -> tuple:
@@ -255,8 +318,8 @@ def stream_band(cz: int, cy: int, cx: int, depth: int, itemsize: int,
                 ghost_x: bool = False) -> int:
     """The TPU kernel's z band: the largest divisor of ``cz`` whose VMEM
     footprint fits the budget, with >= 2 bands of >= ``depth`` planes. The
-    CUDA kernel tiles the core in 3D blocks and takes no band; this is the
-    JAX package's pure sizing rule, kept for callers that size a band."""
+    CUDA kernel marches (y, x) column tiles down z chunks and takes no
+    band; this is the JAX package's pure sizing rule, kept for callers that size a band."""
     plane = cy * cx * itemsize
     k = depth
 
@@ -392,31 +455,51 @@ def _lib3d() -> ctypes.CDLL:
     lib = library("stencil_stream3d")
     lib.ts_stream3d.argtypes = [_P] * 9 + [_I, _P, ctypes.c_float, _I, _P, _P]
     lib.ts_stream3d.restype = _I
+    lib.ts_stream3d_occupancy.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 4
+    lib.ts_stream3d_occupancy.restype = _I
     return lib
 
 
-def stream3d_tile(optin: int, substeps: int) -> tuple[int, int, int] | None:
-    """The first of ``STREAM3D_TILES`` whose two windows with a
-    ``substeps``-cell apron fit ``optin`` bytes of shared memory, or None."""
-    j = substeps
-    for tz, ty, tx in STREAM3D_TILES:
-        if 2 * (tz + 2 * j) * (ty + 2 * j) * (tx + 2 * j) * 4 <= optin:
-            return tz, ty, tx
-    return None
+@functools.lru_cache(maxsize=None)
+def _stream3d_device(device: int, nt: int, j: int) -> tuple[int, int]:
+    """(SMs, blocks an SM) of a launch of ``j`` substeps on the card, after
+    checking the kernel's window and shared memory against
+    :func:`stream3d_window` and :func:`stream3d_smem`."""
+    lib = _lib3d()
+    vals = [_I(0) for _ in range(4)]
+    with torch.cuda.device(device):
+        check_status(lib, lib.ts_stream3d_occupancy(nt, j, *(ctypes.byref(v) for v in vals)),
+                     "seven_point_streamed_pallas")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm, smem, rows, cols = (v.value for v in vals)
+    if (rows, cols) != stream3d_window(j) or smem != stream3d_smem(nt, j) or per_sm < 1:
+        raise RuntimeError(f"stream3d_kernel<{nt}, {j}>: window {rows}x{cols}, {smem} B, "
+                           f"{per_sm} an SM, against the host rule's {stream3d_window(j)}, "
+                           f"{stream3d_smem(nt, j)} B")
+    return sms, per_sm
+
+
+def _card_plan3d(device: int):
+    """The host rule on ``device``'s SMs and occupancy."""
+    return lambda shape, nb, j, nt: stream3d_plan(shape, nb, j, nt,
+                                                  *_stream3d_device(device, nt, j))
 
 
 def _launch3d(core, a_mz, a_pz, gy, gx, gc, rhs, flags, w, k,
-              rhs_coeff) -> tuple[torch.Tensor, int]:
-    """The pass on the card, as one launch or, past what a block's shared
-    memory seats, a chain of launches over dense scratch volumes. Returns
-    the new cores and the number of launches."""
+              rhs_coeff, plan_of=None) -> tuple[torch.Tensor, int]:
+    """The pass on the card, as one launch or, past what a launch seats, a
+    chain of launches over dense scratch volumes. Returns the new cores
+    and the number of launches. ``plan_of(out_shape, nb, j, nt)`` replaces
+    the host rule on the card's SMs and occupancy (for sweeps)."""
     name = "seven_point_streamed_pallas"
     for t in (core, a_mz, a_pz, gy, gx, gc, rhs):
         if t is not None:
             check_cuda(t, name, 3)
     lib = _lib3d()
-    optin = smem_optin(lib, name)
-    most = max(j for j in range(1, k + 1) if j == 1 or stream3d_tile(optin, j))
+    nt = len(w)
+    most = stream3d_depth(smem_optin(lib, name), nt)
+    if most < 1:
+        raise ValueError(f"{name}: shared memory seats no launch of one substep")
     cz, cy, cx = core.shape[-3:]
     lead = tuple(core.shape[:-3])
     nb = core.numel() // (cz * cy * cx)
@@ -424,21 +507,17 @@ def _launch3d(core, a_mz, a_pz, gy, gx, gc, rhs, flags, w, k,
     src, gi, done, launches = core, -1, 0, 0
     while done < k:
         j = min(most, k - done)
-        tile = stream3d_tile(optin, j)
-        if tile is None:
-            raise ValueError(f"{name}: shared memory ({optin} B) seats no window of one substep")
         go = k - done - j
-        out = torch.empty(lead + (cz + 2 * go, cy + 2 * go, cx + 2 * go),
-                          dtype=core.dtype, device=core.device)
-        columns = (tile[1] + 2 * j - 2) * (tile[2] + 2 * j - 2)
-        threads = min(1024, -(-columns // 32) * 32)
+        shape = (cz + 2 * go, cy + 2 * go, cx + 2 * go)
+        plan = (plan_of or _card_plan3d(core.device.index or 0))(shape, nb, j, nt)
+        out = torch.empty(lead + shape, dtype=core.dtype, device=core.device)
         ints = (cz, cy, cx, k, done, j, gi, int(gy is not None), int(gx is not None),
-                *tile, threads)
+                plan.ty, plan.tx, plan.zc)
         with torch.cuda.device(core.device):
             check_status(lib, lib.ts_stream3d(
                 src.data_ptr(), ptr(a_mz), ptr(a_pz), ptr(gy), ptr(gx), ptr(gc), ptr(rhs),
                 flags.data_ptr(), out.data_ptr(), nb, (ctypes.c_int * len(ints))(*ints),
-                float(rhs_coeff), len(w), (ctypes.c_float * len(w))(*w), stream_of(core),
+                float(rhs_coeff), nt, (ctypes.c_float * nt)(*w), stream_of(core),
             ), name)
         src, gi, done, launches = out, go, done + j, launches + 1
     return src, launches
@@ -476,15 +555,15 @@ def seven_point_streamed_pallas(
 
     ``band``, ``nbuf``, ``budget_bytes``, ``carry_tail`` and ``ysplit27``
     shaped the TPU kernel's VMEM pipeline and are accepted for its
-    signature: the CUDA kernel tiles the core in 3D blocks, so the TPU's
+    signature: the CUDA kernel marches column tiles down z, so the TPU's
     refusals of a band that does not divide ``cz`` into >= 2 bands of >=
     ``depth`` planes, and of ``carry_tail`` without such a band, are gone.
     Kept: ``depth >= 1``, the slab and strip shapes, ``depth <= cz``,
     ``depth <= cy``/``cx`` on a ghosted axis, ``cy, cx >= 3``, ``gc``
     exactly with both ``gy`` and ``gx``, and 27 points and ``rhs`` only in
-    z-slab mode. A pass deeper than one block's shared memory seats (10
-    substeps on an H100) runs as a chain of launches over scratch copies
-    of the extended volume.
+    z-slab mode. A pass deeper than one launch runs (``STREAM3D_MAX_J``, 8
+    substeps) runs as a chain of launches over scratch copies of the
+    extended volume.
     """
     cz, cy, cx = core_shape
     k = depth
