@@ -6,8 +6,8 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 
 1. card and toolchain: the card's name and power limit, nvcc, torch,
    whether ``import triton`` works, and the kernels' build, with no spill
-   store in a tensor-core flash, paged-attention or ``dma_hbm_step``
-   instantiation;
+   store in a tensor-core flash, paged-attention, ``dma_hbm_step``,
+   ``dma_ring`` or ``stream3d`` instantiation beyond ``SPILL_ALLOWED``;
 2. every kernel against its plain torch version on the card, at a ragged
    small shape, at the 1024^2 headline shape and at the 8192^2 world
    (``resident`` at the largest grid its L2 rule admits, and its refusal
@@ -272,19 +272,36 @@ def phase1_card() -> dict:
     # kernels that hold their working set in registers, where a spill is a
     # design fault, not a slowdown: the tensor-core flash kernels (bf16
     # wgmma and split TF32: accumulators), the paged-attention kernels (q,
-    # the accumulator and a warp's tokens) and the stencil step (its
-    # register window of rows)
+    # the accumulator and a warp's tokens), the stencil step (its register
+    # window of rows), the DMA ring (its levels' rows) and the z-march (its
+    # levels' planes)
     for lib, what, pick, want in (
             ("flash_attention", "tensor-core flash", lambda f: "wgmma" in f or "tf32" in f, 24),
             ("paged_attention", "paged-attention", lambda f: "paged_" in f, PAGED_INSTANTIATIONS),
-            ("halo_dma", "dma_hbm_step", lambda f: "dma_hbm_step" in f, 4)):
+            ("halo_dma", "dma_hbm_step", lambda f: "dma_hbm_step" in f, 4),
+            ("halo_dma", "dma_ring", lambda f: "dma_ring_kernel" in f, 2),
+            ("stencil_stream3d", "stream3d", lambda f: "stream3d_kernel" in f, 16)):
         spills = _spill_stores(build_log(lib), pick)
         log(f"  ptxas: {len(spills)} {what} kernels, spill stores "
             f"{sorted(set(spills.values()))} bytes")
-        if len(spills) != want or any(spills.values()):
+        over = {f: b for f, b in spills.items() if b > _spill_allowed(f)}
+        if len(spills) != want or over:
             raise AssertionError(f"a {what} kernel spills or is missing "
-                                 f"(want {want}): {spills}")
+                                 f"(want {want}): {over or spills}")
     return {"nvcc": nvcc}
+
+
+#: spill-store bytes two instantiations may take, by mangled-name part: the
+#: 16-byte-row DMA ring (dma_ring_kernel<4>) and the 7-point z-march of 4
+#: substeps (stream3d_kernel<7, 4>). Each variant of them measured without
+#: that spill, or with less, was slower on the H100 (PERF.md: the ring
+#: 4.17 against 3.93 ms at 8192^2); every other kernel checked above may
+#: spill nothing.
+SPILL_ALLOWED = {"dma_ring_kernelILi4E": 16, "stream3d_kernelILi7ELi4E": 8}
+
+
+def _spill_allowed(fn: str) -> int:
+    return next((b for part, b in SPILL_ALLOWED.items() if part in fn), 0)
 
 
 def _spill_stores(log_text: str, pick) -> dict:
@@ -784,7 +801,7 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
                          plain_ms=device_ms(
                              lambda: hd.dma_ring_plain(cores, ring_steps, JACOBI), n=1),
                          library_ms=None, bound_ms=b, bound_by=by))
-        log(f"  dma_ring {label}: the {hd.dma_ring.route} regime, "
+        log(f"  dma_ring {label}: {hd.dma_ring.route} loads, "
             f"{hd.dma_ring_plan(cores, ring_steps)}")
         b, by = bound(2 * cells * 4, 7 * cells * deep_k)
         rows.append(dict(name="dma_deep", shape=f"{label}, k={deep_k}",

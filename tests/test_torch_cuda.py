@@ -131,32 +131,25 @@ def test_dma_ring(card, coeffs, dims):
     assert torch.equal(th.dma_ring(cores, 7, coeffs), th.dma_ring_plain(cores, 7, coeffs))
 
 
-def _ring_device_plan(cores, steps, optin=None, cap=None, fold=None):
-    """The ring kernel's host rule on this card, with another opt-in size,
-    cap on blocks an SM or fold where given."""
+def _ring_device_plan(cores, steps, cap=None, fold=None):
+    """The ring kernel's host rule on this card, with a cap on blocks an SM
+    or another fold where given."""
     sms = torch.cuda.get_device_properties(cores.device).multi_processor_count
     vec = th.ring_vec(cores.shape[-1], cores.data_ptr())
-    dev = cores.device.index or 0
-    per_sm = lambda smem: min(cap or 99, th._ring_per_sm(dev, vec, smem))  # noqa: E731
-    return th.ring_plan(*cores.shape, steps,
-                        th.smem_optin(th._lib(), "dma_ring") if optin is None else optin,
-                        sms, per_sm, fold=fold)
+    per_sm = th._ring_per_sm(cores.device.index or 0, vec)
+    return th.ring_plan(*cores.shape, steps, sms, min(cap or per_sm, per_sm), fold=fold)
 
 
-@pytest.mark.parametrize("optin", ["card", 0])
 @pytest.mark.parametrize("steps", [1, 7, 64, 65])
 @pytest.mark.parametrize("core", [(3, 3), (37, 53), (2048, 2048)])
 @pytest.mark.parametrize("dims", [(1, 1), (2, 3)])
-def test_dma_ring_regimes(card, dims, core, steps, optin):
-    # the rule at the card's opt-in size keeps every torus here resident
-    # but 2 x 3 cores of 2048^2 (101 MB), and streams with none; folds of
-    # 1, 7 and 8 steps, a short last round at 65; cores of 3 cells (a
-    # window wraps the torus many times), W not a multiple of 4 (scalar
-    # loads) and 2048 (16-byte rows)
+def test_dma_ring_plans(card, dims, core, steps):
+    # folds of at most 4: steps 1 is one round of one step, 7 a round of 4
+    # and one of 3, 64 sixteen rounds of 4, 65 ends in a round of one step;
+    # cores of 3 cells (a window wraps the torus many times), W not a
+    # multiple of 4 (scalar loads) and 2048 (16-byte rows)
     cores = _rand(dims + core, 25, card)
-    plan = _ring_device_plan(cores, steps, optin=None if optin == "card" else 0)
-    resident = optin == "card" and steps > th.RING_F and dims + core != (2, 3, 2048, 2048)
-    assert plan.regime == ("resident" if resident else "stream")
+    plan = _ring_device_plan(cores, steps)
     assert plan.fold == min(steps, th.RING_F)
     for coeffs in (tk.JACOBI, GENERAL):
         got = th._ring_launch(cores, steps, coeffs, plan)
@@ -166,21 +159,20 @@ def test_dma_ring_regimes(card, dims, core, steps, optin):
 @pytest.mark.parametrize("fold", [1, 3, 4])
 @pytest.mark.parametrize("cap", [1, 3])
 def test_dma_ring_other_plans(card, fold, cap):
-    # other folds and grids than the rule's, in both regimes: the same bits
+    # other folds and grids than the rule's: the same bits
     cores = _rand((2, 3, 37, 53), 26, card)
-    for optin, regime in ((None, "resident"), (0, "stream")):
-        plan = _ring_device_plan(cores, 19, optin=optin, cap=cap, fold=fold)
-        assert plan.regime == regime and plan.fold == fold
-        assert torch.equal(th._ring_launch(cores, 19, GENERAL, plan),
-                           th.dma_ring_plain(cores, 19, GENERAL))
+    plan = _ring_device_plan(cores, 19, cap=cap, fold=fold)
+    assert plan.fold == fold
+    assert torch.equal(th._ring_launch(cores, 19, GENERAL, plan),
+                       th.dma_ring_plain(cores, 19, GENERAL))
 
 
 def test_dma_ring_wrapper_takes_the_rule(card):
     th.reset_launches()
-    for core, regime in (((1024, 1024), "resident"), ((37, 53), "resident")):
+    for core, width in (((1024, 1024), "vec4"), ((37, 53), "scalar")):
         cores = _rand((1, 1) + core, 27, card)
         assert torch.equal(th.dma_ring(cores, 64, GENERAL), th.dma_ring_plain(cores, 64, GENERAL))
-        assert th.dma_ring.route == regime
+        assert th.dma_ring.route == width
     assert th.launch_counts()["dma_ring"] == 2
 
 

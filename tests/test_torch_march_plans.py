@@ -1,7 +1,7 @@
 """The host rules of the z-march 3D kernel (``ops.stencil_stream``) and of
 the folded DMA ring kernel (``ops.halo_dma``), as pure functions at an
-H100's 132 SMs and 232,448 B of opt-in shared memory a block: the regime,
-the fold, the tiles and chunks they choose, and that every plan fits."""
+H100's 132 SMs and 232,448 B of opt-in shared memory a block: the fold,
+the grid, the tiles and chunks they choose, and that every plan fits."""
 
 import pytest
 
@@ -16,7 +16,7 @@ SMS, OPTIN = 132, 232448
 def test_stream3d_plan_fits(nt, j):
     smem = ts.stream3d_smem(nt, j)
     assert smem <= OPTIN
-    assert 2 * (smem + 1024) <= th.SM_SMEM  # the launch bounds' two blocks an SM
+    assert 2 * (smem + 1024) <= 233_472  # two blocks fit an SM's 228 KB
     rows, cols = ts.stream3d_window(j)
     plan = ts.stream3d_plan((256, 512, 512), 1, j, nt, SMS, 2)
     assert (plan.ty, plan.tx) == (rows - 2 * j, cols - 2 * j) and plan.ty > 0 and plan.tx > 0
@@ -47,58 +47,53 @@ def test_stream3d_plan_minimises_waves_times_steps():
     assert all(cost(plan.zc) <= cost(zc) for zc in range(1, out[0] + 1))
 
 
-@pytest.mark.parametrize("shape,steps,regime,fold,rounds,blocks,rows", [
-    ((4, 4, 2048, 2048), 64, "stream", 4, 16, 396, 357),   # config 4: 268 MB a buffer
-    ((1, 1, 1024, 1024), 64, "resident", 4, 16, 396, 6),   # config 10: 4 MB
-    ((1, 1, 1024, 1024), 65, "resident", 4, 17, 396, 6),   # a last round of one step
-    ((1, 1, 1024, 1024), 4, "stream", 4, 1, 396, 6),       # one round: nothing to keep
-    ((2, 3, 2048, 2048), 64, "stream", 4, 16, 396, 135),
-    ((1, 1, 2048, 2048), 64, "resident", 4, 16, 396, 24),
-    ((2, 3, 37, 53), 64, "resident", 4, 16, 37, 1),        # a warp a row at most
-    ((1, 1, 3, 3), 1, "stream", 1, 1, 1, 1),
+@pytest.mark.parametrize("shape,steps,fold,rounds,blocks", [
+    ((4, 4, 2048, 2048), 64, 4, 16, 396),   # config 4: 268 MB a buffer
+    ((1, 1, 1024, 1024), 64, 4, 16, 396),   # config 10: 4 MB
+    ((1, 1, 1024, 1024), 65, 4, 17, 396),   # a last round of one step
+    ((1, 1, 1024, 1024), 4, 4, 1, 396),     # one round
+    ((2, 3, 2048, 2048), 64, 4, 16, 396),
+    ((1, 1, 2048, 2048), 7, 4, 2, 396),     # a last round of three steps
+    ((2, 3, 37, 53), 64, 4, 16, 37),        # 148 strip rows: a warp a row at most
+    ((1, 1, 3, 3), 1, 1, 1, 1),
 ])
-def test_ring_plan(shape, steps, regime, fold, rounds, blocks, rows):
-    plan = th.ring_plan(*shape, steps, OPTIN, SMS)
-    assert (plan.regime, plan.fold, plan.rounds, plan.blocks, plan.rows_max) == (
-        regime, fold, rounds, blocks, rows)
+def test_ring_plan(shape, steps, fold, rounds, blocks):
+    plan = th.ring_plan(*shape, steps, SMS)
+    assert (plan.fold, plan.rounds, plan.blocks) == (fold, rounds, blocks)
 
 
 @pytest.mark.parametrize("shape", [(4, 4, 2048, 2048), (1, 1, 1024, 1024), (2, 3, 37, 53),
                                    (1, 1, 3, 3), (1, 1, 2560, 2560), (1, 2, 20, 116)])
 @pytest.mark.parametrize("steps", [1, 7, 8, 9, 64, 65])
-@pytest.mark.parametrize("optin", [OPTIN, 48 * 1024, 0])
-def test_ring_plan_fits(shape, steps, optin):
-    plan = th.ring_plan(*shape, steps, optin, SMS)
+@pytest.mark.parametrize("per_sm", [1, 2, 3])
+def test_ring_plan_fits(shape, steps, per_sm):
+    plan = th.ring_plan(*shape, steps, SMS, per_sm)
     L = th.ring_rows(*shape)
-    assert plan.rows_max * plan.blocks * th.RING_WARPS >= L  # every strip row has a warp
-    assert plan.blocks <= SMS * th.ring_occupancy_model(plan.smem)  # one cooperative wave
+    warps = plan.blocks * th.RING_WARPS
+    assert plan.blocks <= SMS * per_sm  # one cooperative wave
+    assert warps - th.RING_WARPS < L  # no block without a strip row
+    # the kernel's even split of the strip rows over the warps covers each once
+    spans = [(w * L // warps, (w + 1) * L // warps) for w in range(warps)]
+    assert spans[0][0] == 0 and spans[-1][1] == L
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
     assert plan.rounds == -(-steps // plan.fold) and 1 <= plan.fold <= th.RING_F
-    assert plan.smem <= optin
-    if plan.regime == "resident":
-        assert plan.rounds > 1 and plan.smem == th.RING_WARPS * plan.rows_max * th.RING_TILE_ROW
-    else:
-        assert plan.smem == 0
+    assert plan.fold == min(steps, th.RING_F)
 
 
-def test_ring_plan_regime_follows_the_opt_in_size():
-    # 1024^2 needs 12 KB a block at 3 blocks an SM, and fewer blocks need
-    # more each: below 12 KB the rule streams
-    assert th.ring_plan(1, 1, 1024, 1024, 64, 12288, SMS).regime == "resident"
-    small = th.ring_plan(1, 1, 1024, 1024, 64, 12287, SMS)
-    assert small.regime == "stream" and small.blocks == 396
-    # where three blocks' tiles pass an SM's shared memory, fewer blocks
-    assert th.ring_plan(1, 1, 2688, 2560, 64, OPTIN, SMS).blocks == 264
-    # at most ~30 MB of strips stays resident on 132 SMs
-    assert th.ring_plan(1, 1, 2560, 2560, 64, OPTIN, SMS).regime == "resident"
-    assert th.ring_plan(1, 1, 4096, 4096, 64, OPTIN, SMS).regime == "stream"
+def test_ring_plan_grid_follows_the_card():
+    # as many blocks as the SMs hold, unless the torus has fewer strip rows
+    assert th.ring_plan(4, 4, 2048, 2048, 64, SMS, 2).blocks == 264
+    assert th.ring_plan(4, 4, 2048, 2048, 64, 1, 1).blocks == 1
+    assert th.ring_plan(1, 1, 1024, 1024, 64, 114).blocks == 342
+    assert th.ring_plan(1, 1, 40, 120, 64, SMS).blocks == 10  # 40 rows of one strip
 
 
 @pytest.mark.parametrize("fold", [1, 2, 4])
 def test_ring_plan_takes_a_fold(fold):
-    plan = th.ring_plan(4, 4, 2048, 2048, 65, OPTIN, SMS, fold=fold)
+    plan = th.ring_plan(4, 4, 2048, 2048, 65, SMS, fold=fold)
     assert plan.fold == fold and plan.rounds == -(-65 // fold)
     with pytest.raises(ValueError):
-        th.ring_plan(4, 4, 2048, 2048, 65, OPTIN, SMS, fold=th.RING_F + 1)
+        th.ring_plan(4, 4, 2048, 2048, 65, SMS, fold=th.RING_F + 1)
 
 
 def test_ring_vec():

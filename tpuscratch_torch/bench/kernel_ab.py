@@ -23,7 +23,7 @@ vectors):
   1024^2 on 1x1 (config 4's and 10's runs), each held bit-equal to its
   plain version first;
 - ``stream3d``: ``seven_point_streamed_pallas``, a z-slab Jacobi pass of
-  k = 4 and of k = 2 on 256x512x512 (config 9's tile) and of k = 4 on
+  k = 4, 3 and 2 on 256x512x512 (config 9's tile) and of k = 4 on
   2x2x2 stacked 256^3 ranks (phase 12's other world), each held bit-equal
   to its plain version first.
 
@@ -35,11 +35,10 @@ Usage, from the root of a checkout, on a machine with a card:
 instead (paged: chunk tokens, ring stages, split count; dot_full and fill:
 smaller grids; dot_partials: a block a chunk against one resident wave;
 the copy probes: each design switch of ``csrc/copy_probes.cu``, other
-rings for ``hbm2hbm``; the ring: every fold, both regimes, 1 to 3 blocks
-an SM; stream3d: 1 to 4 blocks an SM in the chunk rule, and other z
-chunks). ``--only paged,hbm,dot,fill,probes,ring,stream3d`` picks case
-groups. ``--root``
-imports ``tpuscratch_torch`` from another checkout (for example
+rings for ``hbm2hbm``; the ring: every fold, 1 to 3 blocks an SM;
+stream3d: the z chunks of 1 to 8 and 16 chunks a rank).
+``--only paged,hbm,dot,fill,probes,ring,stream3d`` picks case groups.
+``--root`` imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
 kernels build into that checkout's own build directory; the wrappers'
 signatures are the same on both sides. Prints the card's name and power
@@ -388,31 +387,26 @@ def ring_cases(gen):
 
 
 def ring_sweep(gen):
-    """(case, ms) of the ring kernel under every fold, both regimes and 1
-    to 3 blocks an SM (this checkout only)."""
+    """(case, ms) of the ring kernel under every fold and 1 to 3 blocks an
+    SM (this checkout only)."""
     import torch
 
     from tpuscratch_torch.ops import halo_dma as hd
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    optin = hd.smem_optin(hd._lib(), "dma_ring")
     for lead, n, runs in RING_SHAPES:
         cores = torch.randn(lead + (n, n), generator=gen, device="cuda")
         want = hd.dma_ring_plain(cores, RING_STEPS, JACOBI)
-        vec = hd.ring_vec(n, cores.data_ptr())
         rule = hd.dma_ring_plan(cores, RING_STEPS)
         for fold in range(1, hd.RING_F + 1):
-            for cap in (1, 2, 3):
-                for room in (optin, 0):
-                    plan = hd.ring_plan(*cores.shape, RING_STEPS, room, sms,
-                                        lambda smem: min(cap, hd._ring_per_sm(0, vec, smem)),
-                                        fold=fold)
-                    call = lambda: hd._ring_launch(cores, RING_STEPS, JACOBI, plan)  # noqa: E731
-                    if not torch.equal(call(), want):
-                        raise AssertionError(f"sweep ring {plan} differs from its plain version")
-                    mark = " (rule)" if plan == rule else ""
-                    yield (f"sweep ring {lead[0] * n}^2 {plan.regime} fold={fold} "
-                           f"blocks={plan.blocks}{mark}", device_ms(call, n=runs))
+            for per_sm in (1, 2, 3):
+                plan = hd.ring_plan(*cores.shape, RING_STEPS, sms, per_sm, fold=fold)
+                call = lambda: hd._ring_launch(cores, RING_STEPS, JACOBI, plan)  # noqa: E731
+                if not torch.equal(call(), want):
+                    raise AssertionError(f"sweep ring {plan} differs from its plain version")
+                mark = " (rule)" if plan == rule else ""
+                yield (f"sweep ring {lead[0] * n}^2 fold={fold} blocks={plan.blocks}{mark}",
+                       device_ms(call, n=runs))
         del cores, want
 
 
@@ -425,8 +419,8 @@ def _stream3d_operands(gen, lead, shape, k):
     return a, torch.zeros(lead + (6,), dtype=torch.int32, device="cuda")
 
 
-STREAM3D_SHAPES = (((), (256, 512, 512), 4), ((), (256, 512, 512), 2),
-                   ((2, 2, 2), (256, 256, 256), 4))
+STREAM3D_SHAPES = (((), (256, 512, 512), 4), ((), (256, 512, 512), 3),
+                   ((), (256, 512, 512), 2), ((2, 2, 2), (256, 256, 256), 4))
 
 
 def stream3d_cases(gen):
@@ -447,24 +441,22 @@ def stream3d_cases(gen):
 
 
 def stream3d_sweep(gen):
-    """(case, ms) of the streamed 3D kernel under the chunk rule at 1 to 4
-    blocks an SM and at other z chunks (this checkout only)."""
+    """(case, ms) of the streamed 3D kernel at the z chunks of 1 to 8 and
+    16 chunks a rank, the rule's among them (this checkout only)."""
     import dataclasses
 
     import torch
 
     from tpuscratch_torch.ops import stencil_stream as ss
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     w = ss._weights3d(JACOBI7)
     for lead, shape, k in STREAM3D_SHAPES:
         a, flags = _stream3d_operands(gen, lead, shape, k)
         want = ss.seven_point_streamed_plain(*a, JACOBI7, k, flags)
         nb = math.prod(lead)
         rule = ss._card_plan3d(0)(shape, nb, k, 7)
-        plans = {ss.stream3d_plan(shape, nb, k, 7, sms, per) for per in (1, 2, 3, 4)}
-        plans |= {dataclasses.replace(rule, zc=zc) for zc in (16, 32, 64, 128, 256)
-                  if zc <= shape[0]}
+        plans = {rule} | {dataclasses.replace(rule, zc=-(-shape[0] // chunks))
+                          for chunks in (1, 2, 3, 4, 5, 6, 7, 8, 16)}
         for plan in sorted(plans, key=lambda p: p.zc):
             call = lambda: ss._launch3d(*a, None, None, None, None, flags, w, k, 0.0,  # noqa: E731
                                         plan_of=lambda *_: plan)[0]

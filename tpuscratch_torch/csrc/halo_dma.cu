@@ -75,14 +75,11 @@ static bool torus_ok(int R, int C, int H, int W) {
 //  - Folds of at most RING_F = 4: the register window of 6- and 8-step
 //    folds spilled, at 168 registers (3 blocks an SM) and at 255 alike,
 //    which made them slower than 4-step folds (PERF.md).
-//  - Resident regime (`resident`): where every warp's rows fit its block's
-//    shared memory, a warp keeps its output cells there from round to
-//    round; only the cells within RING_F of its rows' ends or its strip's
-//    sides pass through device memory, which is all a neighbour's apron
-//    reads. The last round writes every cell. The host rule
-//    (ops.halo_dma.ring_plan) picks the regime, the fold and the grid.
-//    (A torus small enough to stay resident also stays in the 50 MB L2,
-//    and at 1024^2 the two regimes read within 1%.)
+//  - Every round reads and writes the whole torus: a torus small enough to
+//    keep in shared memory between rounds also stays in the 50 MB L2, and
+//    at 1024^2 a regime that kept each warp's cells in shared memory read
+//    within 1% of this one (PERF.md), so it was taken out.
+// The host rule (ops.halo_dma.ring_plan) picks the fold and the grid.
 // Terms: n, s, w, e, c in that order, zero coefficients included, every
 // product and sum rounded on its own (the plain version's order).
 constexpr int RING_WARPS = 4;
@@ -97,35 +94,35 @@ struct RingArgs {
   float* buf0;
   float* buf1;
   Torus g;
-  int steps, fold, resident, rows_max;
+  int steps, fold;
   float cn, cs, cw, ce, cc;
 };
 
-// An incremental torus row: rank row `r`, row `i`, and the element offset
-// of its first cell in rank column 0.
+// An incremental torus row: its row `i` in its rank, and the element
+// offset of its first cell in rank column 0.
 struct RowAt {
-  int r, i, base;
+  int i, base;
   __device__ __forceinline__ void at(const Torus& g, int y) {
     const int TH = g.R * g.H;
     y %= TH;
     if (y < 0) y += TH;
-    r = y / g.H;
+    const int r = y / g.H;
     i = y - r * g.H;
     base = (r * g.C * g.H + i) * g.W;
   }
   __device__ __forceinline__ void next(const Torus& g) {
-    if (++i == g.H) {
+    base += g.W;
+    if (++i == g.H) {  // the next rank row's first row, or the torus's
       i = 0;
-      if (++r == g.R) r = 0;
+      base += (g.C - 1) * g.H * g.W;
+      if (base == g.R * g.C * g.H * g.W) base = 0;
     }
-    base = (r * g.C * g.H + i) * g.W;
   }
 };
 
 template <int FOLD, int VEC>
 __device__ __forceinline__ void ring_march(const RingArgs& a, const float* __restrict__ src,
-                                           float* __restrict__ dst, int strip, int ys, int n,
-                                           float4* tile, bool from_smem, bool to_smem) {
+                                           float* __restrict__ dst, int strip, int ys, int n) {
   const Torus& g = a.g;
   const int lane = threadIdx.x & 31;
   const int TW = g.C * g.W;
@@ -146,21 +143,16 @@ __device__ __forceinline__ void ring_march(const RingArgs& a, const float* __res
 #pragma unroll
   for (int j = 0; j < 4; ++j) ok[j] = own && xw + j < xe;
   own = own && xw < xe;  // VEC == 4: the lane's columns are in or out together
-  // cells a neighbour's window reads: within RING_F of the strip's sides
-  // or, where the last strip is short, the first window's width of the
-  // torus, which its right apron wraps onto
-  const bool side = xw < strip * RING_OUT + RING_F || xw + 3 >= xe - RING_F ||
-                    (TW % RING_OUT != 0 && xw < RING_WIN);
 
   const int T = n + 2 * FOLD;
   // window row y is loaded into pf[y % 3] RING_AHEAD steps before level 0
-  // takes it (rows the warp keeps in shared memory are read there instead)
+  // takes it
   RowAt in_row, out_row;
   in_row.at(g, ys - FOLD);
   out_row.at(g, ys);
   float pf[RING_AHEAD][4];
   auto fetch = [&](float* v, int y) {
-    if (y < T && !(from_smem && own && y >= FOLD && y < n + FOLD)) {
+    if (y < T) {
       if (VEC == 4) {
         const float4 u = __ldcg(reinterpret_cast<const float4*>(src + in_row.base + cb[0]));
         v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
@@ -182,13 +174,8 @@ __device__ __forceinline__ void ring_march(const RingArgs& a, const float* __res
       if (t >= T) break;
       // level 0: window row t
       float* l0 = lv[0][ph];
-      if (from_smem && own && t >= FOLD && t < n + FOLD) {
-        const float4 v = tile[(t - FOLD) * 32 + lane];
-        l0[0] = v.x; l0[1] = v.y; l0[2] = v.z; l0[3] = v.w;
-      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) l0[j] = pf[ph][j];
-      }
+      for (int j = 0; j < 4; ++j) l0[j] = pf[ph][j];
       fetch(pf[ph], t + RING_AHEAD);
       // levels 1..FOLD: level s computes window row t - s
 #pragma unroll
@@ -214,19 +201,15 @@ __device__ __forceinline__ void ring_march(const RingArgs& a, const float* __res
           for (int j = 0; j < 4; ++j) d[j] = o[j];
           continue;
         }
-        // level FOLD: output row lr of the warp's rows
-        const int lr = t - 2 * FOLD;
-        if (to_smem && own) tile[lr * 32 + lane] = make_float4(o[0], o[1], o[2], o[3]);
-        if (!to_smem || side || lr < RING_F || lr >= n - RING_F) {
-          if (VEC == 4) {
-            if (own)
-              *reinterpret_cast<float4*>(dst + out_row.base + cb[0]) =
-                  make_float4(o[0], o[1], o[2], o[3]);
-          } else {
+        // level FOLD: the round's value of the warp's next output row
+        if (VEC == 4) {
+          if (own)
+            *reinterpret_cast<float4*>(dst + out_row.base + cb[0]) =
+                make_float4(o[0], o[1], o[2], o[3]);
+        } else {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (ok[j]) dst[out_row.base + cb[j]] = o[j];
-          }
+          for (int j = 0; j < 4; ++j)
+            if (ok[j]) dst[out_row.base + cb[j]] = o[j];
         }
         out_row.next(g);
       }
@@ -234,10 +217,13 @@ __device__ __forceinline__ void ring_march(const RingArgs& a, const float* __res
   }
 }
 
+// Three blocks an SM (168 registers a thread) with 16-byte rows; two with
+// scalar loads, whose four column offsets spilled at 168. chip_smoke.py's
+// build phase holds <1> to no spill and <4> to at most 16 bytes: the
+// variants of <4> measured without that spill were slower (PERF.md).
 template <int VEC>
-__global__ void __launch_bounds__(RING_THREADS, 3)
+__global__ void __launch_bounds__(RING_THREADS, VEC == 4 ? 3 : 2)
 dma_ring_kernel(const RingArgs a) {
-  extern __shared__ float4 ring_smem[];
   cg::grid_group grid = cg::this_grid();
   const int warp = threadIdx.x >> 5;
   const Torus& g = a.g;
@@ -246,66 +232,51 @@ dma_ring_kernel(const RingArgs a) {
   const long long nw = (long long)gridDim.x * RING_WARPS;
   const long long gw = (long long)blockIdx.x * RING_WARPS + warp;
   const long long lo = gw * L / nw, hi = (gw + 1) * L / nw;
-  float4* const tile = ring_smem + (size_t)warp * a.rows_max * 32;
   const int rounds = (a.steps + a.fold - 1) / a.fold;
   for (int rd = 0; rd < rounds; ++rd) {
     const int f = min(a.fold, a.steps - rd * a.fold);
     const float* src = rd == 0 ? a.in : ((rd - 1) & 1 ? a.buf1 : a.buf0);
     float* dst = rd & 1 ? a.buf1 : a.buf0;
-    const bool from_smem = a.resident && rd > 0;
-    const bool to_smem = a.resident && rd + 1 < rounds;
-    int trow = 0;
     for (long long pos = lo; pos < hi;) {
       const int strip = (int)(pos / TH), ys = (int)(pos - (long long)strip * TH);
       const int n = (int)min(hi - pos, (long long)(TH - ys));
-      float4* t = tile + trow * 32;
       switch (f) {
-        case 1: ring_march<1, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
-        case 2: ring_march<2, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
-        case 3: ring_march<3, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
-        default: ring_march<4, VEC>(a, src, dst, strip, ys, n, t, from_smem, to_smem); break;
+        case 1: ring_march<1, VEC>(a, src, dst, strip, ys, n); break;
+        case 2: ring_march<2, VEC>(a, src, dst, strip, ys, n); break;
+        case 3: ring_march<3, VEC>(a, src, dst, strip, ys, n); break;
+        default: ring_march<4, VEC>(a, src, dst, strip, ys, n); break;
       }
       pos += n;
-      trow += n;
     }
-    grid.sync();  // every warp's round rd is in dst (and its tile) before round rd + 1
+    grid.sync();  // every warp's round rd is in dst before round rd + 1
   }
 }
 
-// The blocks of the ring kernel an SM holds at once with `smem` bytes of
-// shared memory a block.
-extern "C" int ts_dma_ring_occupancy(int vec, int smem, int* per_sm) {
+// The blocks of the ring kernel an SM holds at once.
+extern "C" int ts_dma_ring_occupancy(int vec, int* per_sm) {
   const void* k = vec == 4 ? (const void*)dma_ring_kernel<4> : (const void*)dma_ring_kernel<1>;
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, RING_THREADS, smem);
-  return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, RING_THREADS, 0);
 }
 
 // taps: ring_taps order (n, s, w, e, c); vec: 4 (16-byte rows: W % 4 == 0
 // and the three buffers 16-byte aligned) or 1; fold 1..RING_F steps a
-// round; blocks and rows_max (rows a warp) from ops.halo_dma.ring_plan,
-// shared memory rows_max rows of a warp's tile in the resident regime.
+// round; blocks from ops.halo_dma.ring_plan, at most one cooperative wave.
 extern "C" int ts_dma_ring(const float* in, float* buf0, float* buf1, int R,
                            int C, int H, int W, int steps, int ntaps,
                            const float* c, const int* dy, const int* dx, int vec,
-                           int fold, int resident, int blocks, int rows_max,
-                           void* stream) {
+                           int fold, int blocks, void* stream) {
   static const int kdy[5] = {-1, 1, 0, 0, 0};
   static const int kdx[5] = {0, 0, -1, 1, 0};
   if (!torus_ok(R, C, H, W) || steps < 1 || ntaps != 5 || fold < 1 || fold > RING_F ||
-      blocks < 1 || rows_max < 0 || (vec != 1 && vec != 4))
+      blocks < 1 || (vec != 1 && vec != 4))
     return (int)cudaErrorInvalidValue;
   for (int u = 0; u < 5; ++u)
     if (dy[u] != kdy[u] || dx[u] != kdx[u]) return (int)cudaErrorInvalidValue;
   if (vec == 4 && (W % 4 != 0 || (uintptr_t)in % 16 != 0 || (uintptr_t)buf0 % 16 != 0 ||
                    (uintptr_t)buf1 % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
-  const long long strips = ((long long)C * W + RING_OUT - 1) / RING_OUT;
-  const long long L = strips * R * H;
-  if (L > INT_MAX || (long long)rows_max * blocks * RING_WARPS < L)
-    return (int)cudaErrorInvalidValue;  // a warp's rows must fit its rows_max
-  const int smem = resident ? RING_WARPS * rows_max * 32 * (int)sizeof(float4) : 0;
+  if (((long long)C * W + RING_OUT - 1) / RING_OUT * R * H > INT_MAX)
+    return (int)cudaErrorInvalidValue;  // the strip rows index as int
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -313,14 +284,13 @@ extern "C" int ts_dma_ring(const float* in, float* buf0, float* buf1, int R,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
-  e = (cudaError_t)ts_dma_ring_occupancy(vec, smem, &per_sm);
+  e = (cudaError_t)ts_dma_ring_occupancy(vec, &per_sm);
   if (e != cudaSuccess) return (int)e;
   if (!coop || (long long)per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-  RingArgs a{in, buf0, buf1, Torus{R, C, H, W}, steps, fold, resident, rows_max,
-             c[0], c[1], c[2], c[3], c[4]};
+  RingArgs a{in, buf0, buf1, Torus{R, C, H, W}, steps, fold, c[0], c[1], c[2], c[3], c[4]};
   void* args[] = {(void*)&a};
   const void* k = vec == 4 ? (const void*)dma_ring_kernel<4> : (const void*)dma_ring_kernel<1>;
-  e = cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(RING_THREADS), args, smem,
+  e = cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(RING_THREADS), args, 0,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -167,8 +167,13 @@ __device__ __forceinline__ void s3_row(float* v, const float* row) {
   }
 }
 
+// Two blocks an SM (128 registers a thread), but one for the 7-point
+// kernels of 7 and 8 substeps, whose register planes of 7 or 8 levels
+// spilled at 128. chip_smoke.py's build phase holds every instantiation
+// to no spill but <7, 4>, which may spill 8 bytes: every variant of it
+// measured without that spill, or with less, was slower (PERF.md).
 template <int NT, int J>
-__global__ void __launch_bounds__(S3_THREADS, 2)
+__global__ void __launch_bounds__(S3_THREADS, NT == 7 && J >= 7 ? 1 : 2)
 stream3d_kernel(const Stream3 p) {
   using Wn = S3Win<J>;
   constexpr int CY = Wn::CY, CX = Wn::CX, RY = Wn::RY, RX = Wn::RX, NP = Wn::NP;
@@ -210,9 +215,12 @@ stream3d_kernel(const Stream3 p) {
   // of the core / slabs / dense volume, of gx, gy or gc, or nowhere: a
   // zero) and at what offset in that plane; where it is written at level
   // j; whether an open end zeroes it; where its rhs term is.
+  // (from: 3 bits a cell; czero and oin a bit a cell; the cell's output
+  // offset is obase + r * OX + c, its rhs offset rrow[r] + rcol[c])
   enum { FROM_NONE, FROM_P, FROM_GX, FROM_GY, FROM_GC };
-  int from[NP], off[NP], oout[NP], roff[NP];
-  unsigned czero = 0;
+  int off[NP], rrow[CY], rcol[CX];
+  unsigned from = 0, czero = 0, oin = 0;
+  const int obase = (by * ty + warp * CY - J) * OX + bx * tx + lane * CX - J;
 #pragma unroll
   for (int r = 0; r < CY; ++r) {
     const int ly = warp * CY + r, y = y0 + ly;
@@ -255,13 +263,14 @@ stream3d_kernel(const Stream3 p) {
         ck = 2;
         ci = x >= cx ? x - cx : x + K2;
       }
-      from[i] = rk == 0 || ck == 0 ? FROM_NONE
-                : rk == 1       ? (ck == 1 ? FROM_P : FROM_GX)
-                                : (ck == 1 ? FROM_GY : FROM_GC);
+      from |= (unsigned)(rk == 0 || ck == 0 ? FROM_NONE
+                         : rk == 1       ? (ck == 1 ? FROM_P : FROM_GX)
+                                         : (ck == 1 ? FROM_GY : FROM_GC)) << 3 * i;
       off[i] = (ck == 1 ? ri * (dense ? DX : cx) : ri * K2) + ci;
-      oout[i] = ly >= J && ly < RY - J && oy < OY && lx >= J && lx < RX - J && ox < OX
-                    ? oy * OX + ox : -1;
-      roff[i] = yw * cx + xw;
+      if (ly >= J && ly < RY - J && oy < OY && lx >= J && lx < RX - J && ox < OX)
+        oin |= 1u << i;
+      rrow[r] = yw * cx;
+      rcol[c] = xw;
       if (yz || (open_xm && x < 0) || (open_xp && x >= cx)) czero |= 1u << i;
     }
   }
@@ -290,10 +299,11 @@ stream3d_kernel(const Stream3 p) {
 #pragma unroll
       for (int c = 0; c < CX; ++c) {
         const int i = r * CX + c;
-        const float* src = from[i] == FROM_NONE ? nullptr
-                           : simple || from[i] == FROM_P ? Pb
-                           : from[i] == FROM_GX ? gxb
-                           : from[i] == FROM_GY ? gyb : gcb;
+        const unsigned fi = from >> 3 * i & 7;
+        const float* src = fi == FROM_NONE ? nullptr
+                           : simple || fi == FROM_P ? Pb
+                           : fi == FROM_GX ? gxb
+                           : fi == FROM_GY ? gyb : gcb;
         const bool fill = src != nullptr;
         // a zero cell reads nothing: the address only has to be a global one
         cp_async4(dst + r * RX + c,
@@ -315,7 +325,8 @@ stream3d_kernel(const Stream3 p) {
     if (rhs && z >= -K && z < cz + K) {
       const float* rz = rhs + (size_t)(z + K) * cy * cx;
 #pragma unroll
-      for (int i = 0; i < NP; ++i) v[i] = __fadd_rn(v[i], __fmul_rn(p.rhs_coeff, rz[roff[i]]));
+      for (int i = 0; i < NP; ++i)
+        v[i] = __fadd_rn(v[i], __fmul_rn(p.rhs_coeff, rz[rrow[i / CX] + rcol[i % CX]]));
     }
     if (p.done + s < K) {  // ghosts are still in play after this substep
       if ((open_zm && z < 0) || (open_zp && z >= cz)) {
@@ -329,8 +340,10 @@ stream3d_kernel(const Stream3 p) {
     }
     if (s == J) {
 #pragma unroll
-      for (int i = 0; i < NP; ++i)
-        if (oout[i] >= 0) oz[oout[i]] = v[i];  // level j: the tile's cells
+      for (int r = 0; r < CY; ++r)
+#pragma unroll
+        for (int c = 0; c < CX; ++c)  // level j: the tile's cells
+          if (oin >> (r * CX + c) & 1) oz[obase + r * OX + c] = v[r * CX + c];
       return;
     }
     // what other threads read of level s: every cell at 27 points, the

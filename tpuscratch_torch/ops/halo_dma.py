@@ -150,8 +150,8 @@ def dma_hbm_step_plain(cores: torch.Tensor, coeffs9) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = library("halo_dma")
     taps = [_I, _P, _P, _P]
-    lib.ts_dma_ring.argtypes = [_P, _P, _P] + [_I] * 5 + taps + [_I] * 5 + [_P]
-    lib.ts_dma_ring_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.ts_dma_ring.argtypes = [_P, _P, _P] + [_I] * 5 + taps + [_I] * 3 + [_P]
+    lib.ts_dma_ring_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
     lib.ts_dma_ring_occupancy.restype = _I
     lib.ts_dma_deep.argtypes = [_P, _P] + [_I] * 6 + taps + [_P]
     lib.ts_dma_hbm_step.argtypes = [_P, _P] + [_I] * 4 + taps + [_I, _P]
@@ -170,27 +170,19 @@ def _check_cores(cores: torch.Tensor, name: str) -> None:
 #: columns (RING_WIN) and the output columns of a strip (RING_OUT)
 RING_WARPS, RING_F, RING_WIN = 4, 4, 128
 RING_OUT = RING_WIN - 2 * RING_F
-#: bytes of a warp's resident tile row: 32 lanes of 4 f32 columns
-RING_TILE_ROW = 32 * 16
-#: an SM's shared memory (228 KB on Hopper) and what each block reserves of
-#: it, for the occupancy model of the CPU tests
-SM_SMEM, BLOCK_RESERVED = 233_472, 1024
+#: blocks of the ring kernel an H100 SM holds with 16-byte rows: its launch
+#: bounds' 3 (2 with scalar loads)
+RING_PER_SM = 3
 
 
 @dataclasses.dataclass(frozen=True)
 class RingPlan:
-    """One ``dma_ring_kernel`` launch: ``regime`` "resident" (every warp's
-    output cells stay in shared memory between rounds, ``smem`` bytes a
-    block) or "stream" (each round reads and writes the whole torus),
-    ``fold`` steps between grid barriers in ``rounds`` rounds, ``blocks``
-    persistent blocks whose warps march at most ``rows_max`` strip rows."""
+    """One ``dma_ring_kernel`` launch: ``fold`` steps between grid barriers
+    in ``rounds`` rounds, on ``blocks`` persistent blocks."""
 
-    regime: str
     fold: int
     rounds: int
     blocks: int
-    rows_max: int
-    smem: int
 
 
 def ring_rows(R: int, C: int, H: int, W: int) -> int:
@@ -199,36 +191,17 @@ def ring_rows(R: int, C: int, H: int, W: int) -> int:
     return -(-(C * W) // RING_OUT) * R * H
 
 
-def ring_occupancy_model(smem: int, cap: int = 3) -> int:
-    """Blocks of the ring kernel an H100 SM holds with ``smem`` bytes of
-    shared memory a block: at most ``cap`` (its registers: the launch
-    bounds' 3), and as many as the SM's shared memory takes."""
-    return min(cap, SM_SMEM // (smem + BLOCK_RESERVED))
-
-
-def ring_plan(R: int, C: int, H: int, W: int, steps: int, optin: int, n_sm: int,
-              per_sm=ring_occupancy_model, fold: int | None = None) -> RingPlan:
-    """The ring kernel's host rule. ``fold`` steps a round (the deepest,
-    RING_F, unless given); resident where the rounds are more than one and
-    every warp's rows fit its block's share of ``optin`` bytes of shared
-    memory at the most blocks an SM (``per_sm(smem)``, the card's
-    occupancy) for which they do, else streamed on the most blocks the SMs
-    hold; never more blocks than give each warp a row."""
+def ring_plan(R: int, C: int, H: int, W: int, steps: int, n_sm: int,
+              per_sm: int = RING_PER_SM, fold: int | None = None) -> RingPlan:
+    """The ring kernel's host rule: ``fold`` steps a round (the deepest,
+    RING_F, unless given) on as many blocks as ``n_sm`` SMs hold at
+    ``per_sm`` each (one cooperative wave), never more than give each warp
+    a strip row."""
     fold = min(RING_F, steps) if fold is None else fold
     if not 1 <= fold <= RING_F:
         raise ValueError(f"the ring kernel folds 1 to {RING_F} steps a round, got {fold}")
-    rounds = -(-steps // fold)
-    L = ring_rows(R, C, H, W)
-    most = -(-L // RING_WARPS)
-    if rounds > 1:
-        for per in range(per_sm(0), 0, -1):
-            blocks = min(n_sm * per, most)
-            rows = -(-L // (blocks * RING_WARPS))
-            smem = RING_WARPS * rows * RING_TILE_ROW
-            if smem <= optin and per_sm(smem) * n_sm >= blocks:
-                return RingPlan("resident", fold, rounds, blocks, rows, smem)
-    blocks = min(n_sm * per_sm(0), most)
-    return RingPlan("stream", fold, rounds, blocks, -(-L // (blocks * RING_WARPS)), 0)
+    most = -(-ring_rows(R, C, H, W) // RING_WARPS)
+    return RingPlan(fold, -(-steps // fold), min(n_sm * per_sm, most))
 
 
 def ring_vec(W: int, *data_ptrs: int) -> int:
@@ -239,11 +212,11 @@ def ring_vec(W: int, *data_ptrs: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _ring_per_sm(device: int, vec: int, smem: int) -> int:
+def _ring_per_sm(device: int, vec: int) -> int:
     lib = _lib()
     per_sm = _I(0)
     with torch.cuda.device(device):
-        check_status(lib, lib.ts_dma_ring_occupancy(vec, smem, ctypes.byref(per_sm)), "dma_ring")
+        check_status(lib, lib.ts_dma_ring_occupancy(vec, ctypes.byref(per_sm)), "dma_ring")
     return per_sm.value
 
 
@@ -255,11 +228,11 @@ def _ring_launch(cores: torch.Tensor, steps: int, coeffs, plan: RingPlan) -> tor
     with torch.cuda.device(cores.device):
         check_status(_lib(), _lib().ts_dma_ring(
             cores.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), *cores.shape,
-            steps, *taps_args(ring_taps(coeffs)), vec, plan.fold,
-            int(plan.regime == "resident"), plan.blocks, plan.rows_max, stream_of(cores),
+            steps, *taps_args(ring_taps(coeffs)), vec, plan.fold, plan.blocks,
+            stream_of(cores),
         ), "dma_ring")
     dma_ring.launches += 1
-    dma_ring.route = plan.regime
+    dma_ring.route = "vec4" if vec == 4 else "scalar"
     return bufs[(plan.rounds - 1) % 2]
 
 
@@ -267,17 +240,16 @@ def dma_ring_plan(cores: torch.Tensor, steps: int) -> RingPlan:
     """:func:`ring_plan` for stacked CUDA ``cores`` on their card."""
     dev = cores.device.index if cores.device.index is not None else torch.cuda.current_device()
     vec = ring_vec(cores.shape[-1], cores.data_ptr())
-    return ring_plan(*cores.shape, steps, smem_optin(_lib(), "dma_ring"),
+    return ring_plan(*cores.shape, steps,
                      torch.cuda.get_device_properties(dev).multi_processor_count,
-                     lambda smem: _ring_per_sm(dev, vec, smem))
+                     _ring_per_sm(dev, vec))
 
 
 def dma_ring(cores: torch.Tensor, steps: int, coeffs: Coeffs = JACOBI) -> torch.Tensor:
     """``steps`` periodic 5-point steps of the torus the stacked cores
     tile, in ONE cooperative launch: rounds of up to RING_F steps between
-    grid barriers, resident in shared memory where the torus fits
-    (:func:`ring_plan`; ``route`` names the regime taken). Returns fresh
-    cores."""
+    grid barriers (:func:`ring_plan`; ``route`` names the load width
+    taken, ``"vec4"`` or ``"scalar"``). Returns fresh cores."""
     _check_cores(cores, "dma_ring")
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
@@ -469,4 +441,4 @@ def run_stencil_dma(
 #: Every kernel wrapper, in the order of the TPU kernel table.
 WRAPPERS = (dma_ring, dma_deep, dma_hbm_step)
 reset_launches, launch_counts = counters(WRAPPERS)
-dma_hbm_step.route = None
+dma_ring.route = dma_hbm_step.route = None
