@@ -7,7 +7,8 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 1. card and toolchain: the card's name and power limit, nvcc, torch,
    whether ``import triton`` works, and the kernels' build, with no spill
    store in a tensor-core flash, paged-attention, ``dma_hbm_step``,
-   ``dma_ring`` or ``stream3d`` instantiation beyond ``SPILL_ALLOWED``;
+   ``dma_ring``, ``dma_deep``, ``stream2d`` or ``stream3d`` instantiation
+   beyond ``SPILL_ALLOWED``;
 2. every kernel against its plain torch version on the card, at a ragged
    small shape, at the 1024^2 headline shape and at the 8192^2 world
    (``resident`` at the largest grid its L2 rule admits, and its refusal
@@ -242,6 +243,10 @@ def bound(nbytes: int, flops: int, ops_per_s: float = F32_FLOP_PER_S) -> tuple[f
 # the paged kernel's instantiations: 3 pool dtypes x (16-byte or narrower
 # loads) x (nj 1, 2, 4 or a wide head), and the combine kernel
 PAGED_INSTANTIATIONS = 3 * 2 * 4 + 1
+# the row march's instantiations: 1 or 4 levels a stage x 4 tap masks (3
+# of their own and the runtime mask), in the depth-k DMA kernel and, with
+# and without the open ends' zeroing, in the streamed 2D kernel
+MARCH_INSTANTIATIONS = 2 * 4
 
 
 def phase1_card() -> dict:
@@ -273,13 +278,17 @@ def phase1_card() -> dict:
     # design fault, not a slowdown: the tensor-core flash kernels (bf16
     # wgmma and split TF32: accumulators), the paged-attention kernels (q,
     # the accumulator and a warp's tokens), the stencil step (its register
-    # window of rows), the DMA ring (its levels' rows) and the z-march (its
-    # levels' planes)
+    # window of rows), the DMA ring (its levels' rows), the row march of
+    # the depth-k DMA and streamed 2D kernels (a stage's levels' rows) and
+    # the z-march (its levels' planes)
     for lib, what, pick, want in (
             ("flash_attention", "tensor-core flash", lambda f: "wgmma" in f or "tf32" in f, 24),
             ("paged_attention", "paged-attention", lambda f: "paged_" in f, PAGED_INSTANTIATIONS),
             ("halo_dma", "dma_hbm_step", lambda f: "dma_hbm_step" in f, 4),
             ("halo_dma", "dma_ring", lambda f: "dma_ring_kernel" in f, 2),
+            ("halo_dma", "dma_deep", lambda f: "dma_deep_kernel" in f, MARCH_INSTANTIATIONS),
+            ("stencil_stream2d", "stream2d", lambda f: "stream2d_kernel" in f,
+             2 * MARCH_INSTANTIATIONS),
             ("stencil_stream3d", "stream3d", lambda f: "stream3d_kernel" in f, 16)):
         spills = _spill_stores(build_log(lib), pick)
         log(f"  ptxas: {len(spills)} {what} kernels, spill stores "
@@ -687,10 +696,13 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
     rows = []
 
     def check(name, got, want, what):
+        # the row march's kernels round as their plain versions: bit-equal
         err = max_err(got, want)
-        log(f"  {name:26s} {what:40s} max_abs_err {err:.3e} (atol {KERNEL_ATOL:g})")
-        if err > KERNEL_ATOL:
-            raise AssertionError(f"{name} {what}: {err} > {KERNEL_ATOL}")
+        exact = name in ("nine_point_streamed_2d", "dma_deep")
+        log(f"  {name:26s} {what:40s} max_abs_err {err:.3e} "
+            f"({'bit-equal' if exact else f'atol {KERNEL_ATOL:g}'})")
+        if (not torch.equal(got, want)) if exact else err > KERNEL_ATOL:
+            raise AssertionError(f"{name} {what}: {err} > {0.0 if exact else KERNEL_ATOL}")
         errs[name] = max(errs[name], err)
 
     def stream_inputs(lead, H, W, k, ghost, open_):
@@ -737,9 +749,11 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
         label = f"{lead[0] * n}^2 on {lead[0]}x{lead[1]}"
         cells = lead[0] * lead[1] * n * n
         ghost = lead != (1, 1)
+        # periodic, as the path runs it: no open flags, the kernel without
+        # the open ends' zeroing
         core, top, bot, gl, gr, flags = stream_inputs(lead, n, n, stream_k, ghost, False)
         stream = lambda: ss.nine_point_streamed_2d(  # noqa: E731
-            core, top, bot, (n, n), JACOBI, stream_k, open_flags=flags, gl=gl, gr=gr)
+            core, top, bot, (n, n), JACOBI, stream_k, gl=gl, gr=gr)
         stream_plain = lambda: ss.nine_point_streamed_2d_plain(  # noqa: E731
             core, top, bot, JACOBI, stream_k, flags, gl, gr)
         check("nine_point_streamed_2d", stream(), stream_plain(),
@@ -763,11 +777,26 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
         if err > LIBRARY_ATOL:
             raise AssertionError(f"conv2d yardstick of the stream {label}: {err} > {LIBRARY_ATOL}")
         slab = top.numel() + bot.numel() + (gl.numel() + gr.numel() if ghost else 0)
-        b, by = bound((2 * cells + slab) * 4, 7 * cells * stream_k)
+        # Jacobi: 4 products and 3 sums a cell a substep, each rounded on its own
+        b, by = bound((2 * cells + slab) * 4, 7 * cells * stream_k, F32_SEPARATE_OPS_PER_S)
         rows.append(dict(name="nine_point_streamed_2d", shape=f"{label}, k={stream_k}",
                          ms=device_ms(stream, n=5), plain_ms=device_ms(stream_plain, n=1),
                          library_ms=device_ms(s_lib, n=2), bound_ms=b, bound_by=by))
         del core, top, bot, gl, gr, ext
+        if ghost:  # config 4's stream:32 pass
+            k32 = 2 * stream_k
+            core, top, bot, gl, gr, flags = stream_inputs(lead, n, n, k32, ghost, False)
+            stream = lambda: ss.nine_point_streamed_2d(  # noqa: E731
+                core, top, bot, (n, n), JACOBI, k32, gl=gl, gr=gr)
+            stream_plain = lambda: ss.nine_point_streamed_2d_plain(  # noqa: E731
+                core, top, bot, JACOBI, k32, flags, gl, gr)
+            check("nine_point_streamed_2d", stream(), stream_plain(), f"{label} k={k32} ghost")
+            slab = top.numel() + bot.numel() + gl.numel() + gr.numel()
+            b, by = bound((2 * cells + slab) * 4, 7 * cells * k32, F32_SEPARATE_OPS_PER_S)
+            rows.append(dict(name="nine_point_streamed_2d", shape=f"{label}, k={k32}",
+                             ms=device_ms(stream, n=5), plain_ms=device_ms(stream_plain, n=1),
+                             library_ms=None, bound_ms=b, bound_by=by))
+            del core, top, bot, gl, gr
 
         cores = randn(lead + (n, n), gen)
         check("dma_ring", hd.dma_ring(cores, 16, JACOBI), hd.dma_ring_plain(cores, 16, JACOBI),
@@ -803,12 +832,23 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
                          library_ms=None, bound_ms=b, bound_by=by))
         log(f"  dma_ring {label}: {hd.dma_ring.route} loads, "
             f"{hd.dma_ring_plan(cores, ring_steps)}")
-        b, by = bound(2 * cells * 4, 7 * cells * deep_k)
+        b, by = bound(2 * cells * 4, 7 * cells * deep_k, F32_SEPARATE_OPS_PER_S)
         rows.append(dict(name="dma_deep", shape=f"{label}, k={deep_k}",
                          ms=device_ms(lambda: hd.dma_deep(cores, deep_k, JACOBI, deep_k), n=5),
                          plain_ms=device_ms(
                              lambda: hd.dma_deep_plain(cores, deep_k, JACOBI, deep_k), n=1),
                          library_ms=device_ms(d_lib, n=2), bound_ms=b, bound_by=by))
+        if not ghost:  # the 9-point dma path's depth-1 rounds (8 taps, 15 operations)
+            check("dma_deep", hd.dma_deep(cores, 1, NINE, 1), hd.dma_deep_plain(cores, 1, NINE, 1),
+                  f"{label} k=1 9pt")
+            w_nine = torch.tensor([[0.0625, 0.125, 0.0625], [0.125, 0.0, 0.125],
+                                   [0.0625, 0.125, 0.0625]], device="cuda").reshape(1, 1, 3, 3)
+            n_lib = lambda: conv(torus[1], w_nine)  # noqa: E731
+            b, by = bound(2 * cells * 4, 15 * cells, F32_SEPARATE_OPS_PER_S)
+            rows.append(dict(name="dma_deep", shape=f"{label}, k=1 9pt",
+                             ms=device_ms(lambda: hd.dma_deep(cores, 1, NINE, 1)),
+                             plain_ms=device_ms(lambda: hd.dma_deep_plain(cores, 1, NINE, 1), n=3),
+                             library_ms=device_ms(n_lib, n=5), bound_ms=b, bound_by=by))
         b, by = bound(2 * cells * 4, 9 * cells)
         rows.append(dict(name="dma_hbm_step", shape=f"{label}, 1 step",
                          ms=device_ms(lambda: hd.dma_hbm_step(cores, JACOBI)),

@@ -32,6 +32,7 @@ from tpuscratch_torch.bench.pingpong import pinned_staging_roundtrip, verify_ech
 from tpuscratch_torch.comm import P, run_spmd
 from tpuscratch_torch.halo.driver import distributed_stencil
 from tpuscratch_torch.ops import attention as ta
+from tpuscratch_torch.ops import common as tc
 from tpuscratch_torch.ops import halo_dma as th
 from tpuscratch_torch.ops import stencil_stream as ts
 from tpuscratch_torch.halo.layout import TileLayout
@@ -182,6 +183,127 @@ def test_dma_deep(card, depth, steps, coeffs):
     cores = _rand((2, 3, 37, 53), 21, card)
     assert torch.equal(th.dma_deep(cores, steps, coeffs, depth),
                        th.dma_deep_plain(cores, steps, coeffs, depth))
+
+
+# the row march of stream2d_kernel and dma_deep_kernel, across its edges:
+# every tap mask (Jacobi, 5 points with a centre, 8 without one, all 9 and
+# a set under the runtime mask), W not a multiple of 4 (4-byte columns) and
+# below one strip, k above W, cores of 3 cells, k = 32 and deeper passes
+# chained through dense grids (k = 33, 81), and plans other than the rule's
+SPARSE = (0.1, 0.0, 0.2, 0.3, 0.05, 0.0, 0.0, 0.0, 0.2)
+NINE = (0.125,) * 4 + (0.0625,) * 4 + (0.0,)
+MARCH_COEFFS = [tk.JACOBI, GENERAL, NINE, C9, SPARSE]
+
+
+def _stream2d_operands(lead, H, W, k, ghost, flags, card, seed):
+    core, top, bot = (_rand(lead + s, seed + i, card) for i, s in
+                      enumerate(((H, W), (k, W), (k, W))))
+    gl = _rand(lead + (H + 2 * k, k), seed + 3, card) if ghost else None
+    gr = _rand(lead + (H + 2 * k, k), seed + 4, card) if ghost else None
+    if flags is None:
+        flags = np.random.default_rng(seed + 5).integers(0, 2, lead + (4,))
+    return core, top, bot, gl, gr, torch.as_tensor(np.asarray(flags)).int().to(card)
+
+
+@pytest.mark.parametrize("coeffs", MARCH_COEFFS)
+@pytest.mark.parametrize("lead,hw,k,ghost", [
+    ((1, 1), (37, 53), 16, False),    # W not a multiple of 4, below one strip
+    ((2, 2), (64, 9), 9, True),       # ghost columns as wide as the core
+    ((1,), (40, 9), 16, False),       # k > W: the window wraps x many times
+    ((2, 2), (3, 3), 3, True),        # cores of 3 cells
+    ((1, 1), (3, 3), 3, False),
+    ((1, 1), (100, 600), 32, False),  # k = 32 over three strips, 16-byte groups
+    ((2, 1), (90, 300), 33, True),    # chained: 32 + 1
+    ((1, 1), (90, 100), 81, False),   # chained: 32 + 32 + 17
+    ((2, 3), (81, 100), 81, True),
+])
+def test_stream2d_march_edges(card, lead, hw, k, ghost, coeffs):
+    H, W = hw
+    core, top, bot, gl, gr, flags = _stream2d_operands(lead, H, W, k, ghost, None, card, 30)
+    got = ts.nine_point_streamed_2d(core, top, bot, hw, coeffs, k, open_flags=flags, gl=gl, gr=gr)
+    assert torch.equal(got, ts.nine_point_streamed_2d_plain(core, top, bot, coeffs, k, flags,
+                                                            gl, gr))
+
+
+@pytest.mark.parametrize("k", [3, 8, 40])
+def test_stream2d_open_ends_of_a_mesh(card, k):
+    # a 3x3 mesh whose edge ranks are open on their outer sides and whose
+    # interior rank is not: strips and chunks at an open end and inside
+    flags = [[[r == 0, r == 2, c == 0, c == 2] for c in range(3)] for r in range(3)]
+    core, top, bot, gl, gr, f = _stream2d_operands((3, 3), 70, 300, k, True, flags, card, 40)
+    for coeffs in (tk.JACOBI, C9):
+        got = ts.nine_point_streamed_2d(core, top, bot, (70, 300), coeffs, k, open_flags=f,
+                                        gl=gl, gr=gr)
+        assert torch.equal(got, ts.nine_point_streamed_2d_plain(core, top, bot, coeffs, k, f,
+                                                                gl, gr))
+
+
+@pytest.mark.parametrize("open_", [True, False])
+@pytest.mark.parametrize("levels", [1, 4])
+@pytest.mark.parametrize("width,rows", [(None, None), (4, 1), (64, 7), (None, 1000)])
+def test_stream2d_other_plans(card, levels, width, rows, open_):
+    # other levels a stage, strips (as narrow as 4 columns, below k) and
+    # chunks than the rule's, in the kernel with the open ends' zeroing
+    # (random open flags) and without it (none): the same bits
+    k, lead, H, W = 5, (2, 2), 37, 120
+    flags = None if open_ else np.zeros(lead + (4,), np.int32)
+    core, top, bot, gl, gr, flags = _stream2d_operands(lead, H, W, k, True, flags, card, 50)
+    plan = tc.march_plan(4, H, W, k, 132, 4, levels=levels, width=width,
+                         rows=min(rows, H) if rows else None)
+    for coeffs in (GENERAL, C9):
+        got = ts._launch(core, top, bot, gl, gr, flags, coeffs, k, plans=[plan], open_=open_)
+        assert torch.equal(got, ts.nine_point_streamed_2d_plain(core, top, bot, coeffs, k, flags,
+                                                                gl, gr))
+
+
+@pytest.mark.parametrize("coeffs", MARCH_COEFFS)
+@pytest.mark.parametrize("dims,core,steps,depth", [
+    ((1, 1), (3, 3), 7, 3),           # cores of 3 cells: the window wraps the torus
+    ((2, 3), (37, 53), 19, 8),        # W not a multiple of 4
+    ((2, 3), (37, 53), 5, 1),         # depth 1, the 9-point dma path's rounds
+    ((2, 2), (64, 128), 17, 16),      # 16-byte groups across rank edges
+    ((1, 1), (64, 300), 64, 32),
+    ((2, 2), (40, 9), 33, 33),        # a round chained: 32 + 1
+    ((1, 1), (90, 100), 81, 81),      # 32 + 32 + 17
+])
+def test_dma_deep_march_edges(card, dims, core, steps, depth, coeffs):
+    cores = _rand(dims + core, 31, card)
+    assert torch.equal(th.dma_deep(cores, steps, coeffs, depth),
+                       th.dma_deep_plain(cores, steps, coeffs, depth))
+
+
+@pytest.mark.parametrize("levels", [1, 4])
+@pytest.mark.parametrize("width,rows", [(None, None), (4, 1), (64, 7), (None, 1000)])
+def test_dma_deep_other_plans(card, levels, width, rows):
+    cores = _rand((2, 3, 37, 52), 32, card)
+    for coeffs in (GENERAL, NINE):
+        plan = tc.march_plan(1, 2 * 37, 3 * 52, 5, 132, 4, levels=levels, width=width,
+                             rows=min(rows, 74) if rows else None)
+        assert torch.equal(th._deep_launch(cores, coeffs, plan),
+                           th.dma_deep_plain(cores, 5, coeffs, 5))
+
+
+@pytest.mark.parametrize("flags,open_", [(None, False), ([0, 0, 0, 0], False),
+                                         ([0, 1, 0, 0], True), ("card", True)])
+def test_stream2d_takes_the_open_variant_where_flags_may_be_set(card, flags, open_):
+    if flags == "card":
+        flags = torch.zeros(4, dtype=torch.int32, device=card)
+    assert ts.may_open(flags) == open_
+    per_rank = [[list(flags) if isinstance(flags, list) else [0] * 4]]
+    core, top, bot, gl, gr, f = _stream2d_operands((1, 1), 40, 64, 6, True, per_rank, card, 70)
+    got = ts.nine_point_streamed_2d(core, top, bot, (40, 64), C9, 6, open_flags=flags, gl=gl, gr=gr)
+    assert torch.equal(got, ts.nine_point_streamed_2d_plain(core, top, bot, C9, 6, f, gl, gr))
+
+
+def test_march_wrappers_count_one_launch_a_pass(card):
+    ts.reset_launches()
+    th.reset_launches()
+    core, top, bot, gl, gr, flags = _stream2d_operands((1, 1), 64, 64, 32, False, None, card, 60)
+    ts.nine_point_streamed_2d(core, top, bot, (64, 64), tk.JACOBI, 32, open_flags=flags)
+    th.dma_deep(_rand((1, 1, 64, 64), 61, card), 64, NINE, 32)
+    th.dma_deep(_rand((1, 1, 64, 64), 62, card), 3, C9, 1)
+    assert ts.launch_counts()["nine_point_streamed_2d"] == 1
+    assert th.launch_counts()["dma_deep"] == 2 + 3
 
 
 @pytest.mark.parametrize("coeffs", [tk.JACOBI, GENERAL, C9])

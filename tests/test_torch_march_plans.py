@@ -1,10 +1,13 @@
-"""The host rules of the z-march 3D kernel (``ops.stencil_stream``) and of
-the folded DMA ring kernel (``ops.halo_dma``), as pure functions at an
-H100's 132 SMs and 232,448 B of opt-in shared memory a block: the fold,
-the grid, the tiles and chunks they choose, and that every plan fits."""
+"""The host rules of the z-march 3D kernel (``ops.stencil_stream``), of
+the folded DMA ring kernel (``ops.halo_dma``) and of the row march of the
+streamed and depth-k 2D kernels (``ops.common.march_plan``), as pure
+functions at an H100's 132 SMs and 232,448 B of opt-in shared memory a
+block: the fold, the grid, the tiles, strips and chunks they choose, and
+that every plan fits."""
 
 import pytest
 
+from tpuscratch_torch.ops import common as tc
 from tpuscratch_torch.ops import halo_dma as th
 from tpuscratch_torch.ops import stencil_stream as ts
 
@@ -100,3 +103,124 @@ def test_ring_vec():
     assert th.ring_vec(2048, 0, 256) == 4
     assert th.ring_vec(53, 0) == 1
     assert th.ring_vec(2048, 8) == 1
+
+
+# ---------------------------------------------------------------------------
+# the row march (stream2d_kernel, dma_deep_kernel)
+
+SM_REGS = 65536  # 32-bit registers an SM
+MARCH_SHAPES = [(16, 2048, 2048), (1, 1024, 1024), (1, 8192, 8192), (6, 37, 53), (1, 3, 3),
+                (4, 40, 9), (1, 74, 106), (1, 200_000, 300)]
+
+
+@pytest.mark.parametrize("nb,out_h,out_w", MARCH_SHAPES)
+@pytest.mark.parametrize("depth", [1, 2, 3, 8, 16, 17, 32])
+@pytest.mark.parametrize("per_sm", [1, 4, 32])
+def test_march_plan_fits_and_covers(nb, out_h, out_w, depth, per_sm):
+    plan = tc.march_plan(nb, out_h, out_w, depth, SMS, per_sm)
+    assert plan.levels == tc.march_levels(depth) and plan.warps == -(-depth // plan.levels)
+    assert 1 <= plan.warps <= tc.MARCH_WARPS
+    # a block's registers and shared memory fit an SM, and the shared memory
+    # needs no opt-in
+    assert (plan.warps + 1) * 32 * tc.MARCH_REGS <= SM_REGS  # the stages and the I/O warp
+    assert plan.smem == tc.march_smem(plan.warps) == (
+        tc.MARCH_WIN + (tc.MARCH_RING + tc.MARCH_HAND * (plan.warps - 1) + 2) * tc.MARCH_WIN) * 4
+    assert tc.MARCH_RING >= tc.MARCH_AHEAD + 2  # the rows in flight and the two before
+    assert plan.smem <= 48 * 1024 <= OPTIN
+    # the window holds the strip and its apron; the apron covers the depth
+    # in whole 16-byte groups
+    assert plan.apron >= depth and plan.apron % 4 == 0
+    assert plan.width % 4 == 0 and plan.width + 2 * plan.apron == tc.MARCH_WIN
+    # strips and chunks cover the output once, in at most 65,535 chunks
+    assert (plan.strips - 1) * plan.width < out_w <= plan.strips * plan.width
+    assert (plan.chunks - 1) * plan.rows < out_h <= plan.chunks * plan.rows
+    assert plan.chunks <= 65535
+
+
+@pytest.mark.parametrize("nb,out_h,out_w,depth,per_sm,rows,strips", [
+    (16, 2048, 2048, 16, 3, 293, 10),  # config 4's stream:16 pass, 4x4 stacked ranks
+    (16, 2048, 2048, 32, 1, 683, 11),  # its stream:32 pass
+    (1, 1024, 1024, 16, 3, 13, 5),     # the 1x1 world at 1024^2
+    (1, 8192, 8192, 8, 5, 222, 35),    # dma-deep:8 on the 8192^2 torus
+    (1, 1024, 1024, 8, 5, 8, 5),       # dma-deep:8 on the 1024^2 torus
+    (1, 1024, 1024, 1, 18, 8, 5),      # the 9-point dma path's depth-1 rounds
+])
+def test_march_plan_chunks(nb, out_h, out_w, depth, per_sm, rows, strips):
+    plan = tc.march_plan(nb, out_h, out_w, depth, SMS, per_sm)
+    assert (plan.rows, plan.strips) == (rows, strips)
+
+
+@pytest.mark.parametrize("nb,out_h,out_w,depth,per_sm", [
+    (16, 2048, 2048, 16, 4), (1, 1024, 1024, 16, 4), (1, 1024, 1024, 1, 32), (6, 37, 53, 3, 16)])
+def test_march_plan_minimises_its_cost(nb, out_h, out_w, depth, per_sm):
+    plan = tc.march_plan(nb, out_h, out_w, depth, SMS, per_sm)
+
+    def cost(rows):
+        return tc.march_cost(nb, out_h, plan.strips, depth, plan.levels, rows, SMS, per_sm)
+
+    # the cheapest chunk of at least MARCH_MIN_ROWS rows, the tallest on a tie
+    low = min(out_h, tc.MARCH_MIN_ROWS)
+    assert plan.rows >= low
+    assert all(cost(plan.rows) <= cost(rows) for rows in range(low, out_h + 1))
+    assert all(cost(plan.rows) < cost(rows) for rows in range(plan.rows + 1, out_h + 1))
+
+
+def test_march_plan_grid_follows_the_card():
+    # more SMs, shorter chunks and more blocks; on one SM the stacked
+    # 8192^2 world takes a chunk a strip
+    chunks = [tc.march_plan(1, 1024, 1024, 16, n_sm, 4).chunks for n_sm in (1, 66, 132, 264)]
+    assert chunks == sorted(chunks) and chunks[0] < chunks[-1]
+    assert tc.march_plan(16, 2048, 2048, 16, 1, 4).chunks == 1
+
+
+@pytest.mark.parametrize("levels", tc.MARCH_LEVELS)
+def test_march_plan_takes_a_plan(levels):
+    plan = tc.march_plan(2, 100, 300, min(5, tc.march_depth(levels)), SMS, 4, levels=levels,
+                         width=64, rows=7)
+    assert (plan.levels, plan.width, plan.rows, plan.strips, plan.chunks) == (
+        levels, 64, 7, 5, 15)
+    with pytest.raises(ValueError):
+        tc.march_plan(2, 100, 300, tc.march_depth(levels) + 1, SMS, 4, levels=levels)
+    with pytest.raises(ValueError):
+        tc.march_plan(2, 100, 300, 3, SMS, 4, levels=levels, width=6)
+    with pytest.raises(ValueError):
+        tc.march_plan(2, 100, 300, 3, SMS, 4, levels=3)
+
+
+@pytest.mark.parametrize("depth,launches", [
+    (1, [1]), (16, [16]), (32, [32]), (33, [32, 1]), (81, [32, 32, 17])])
+def test_stream2d_plans_chain_deep_passes(depth, launches):
+    plans = ts.stream2d_plans(4, 40, 53, depth, SMS, lambda levels, warps: 4)
+    assert [p.depth for p in plans] == launches
+    # every launch but the last writes the dense grid of the rings still to go
+    done = 0
+    for p in plans:
+        go = depth - done - p.depth
+        assert (p.chunks - 1) * p.rows < 40 + 2 * go <= p.chunks * p.rows
+        assert (p.strips - 1) * p.width < 53 + 2 * go <= p.strips * p.width
+        done += p.depth
+
+
+@pytest.mark.parametrize("steps,depth,rounds", [
+    (19, 8, [8, 8, 3]), (7, 1, [1] * 7), (5, 3, [3, 2]), (81, 81, [32, 32, 17]),
+    (64, 32, [32, 32]), (70, 40, [32, 8, 30])])
+def test_deep_rounds(steps, depth, rounds):
+    assert th.deep_rounds(steps, depth) == rounds
+
+
+JACOBI5 = (0.25, 0.25, 0.25, 0.25, 0.0)
+ODD5 = (0.3, 0.15, 0.2, 0.25, 0.1)
+C9 = (0.15, 0.15, 0.1, 0.1, 0.05, 0.05, 0.08, 0.07, 0.25)
+NINE = (0.125,) * 4 + (0.0625,) * 4 + (0.0,)
+SPARSE = (0.1, 0.0, 0.2, 0.3, 0.05, 0.0, 0.0, 0.0, 0.2)  # no instantiation of its own
+
+
+@pytest.mark.parametrize("coeffs,mask", [
+    (JACOBI5, 0x0AA), (ODD5, 0), (NINE, 0x1EF), (C9, 0x1FF), (SPARSE, 0)])
+def test_march_masks(coeffs, mask):
+    # both kernels see the same tap positions; only their sum orders differ
+    assert tc.march_mask(ts.stream_c9(coeffs)) == mask
+    assert tc.march_mask(th.deep_c9(coeffs)) == mask
+    assert ts.stream_c9(coeffs) == th.deep_c9(coeffs)
+    assert tc.tap_mask(th.deep_c9(ODD5)) == 0b010111010  # n, w, c, e, s
+    assert tc.tap_mask(th.deep_c9(SPARSE)) == 0b000111011  # nw, n, w, c, e

@@ -1,6 +1,6 @@
 """Device times of the paged-attention, ``dma_hbm_step``, dot, fill, copy
-probe, ``dma_ring`` and streamed 3D kernels through their wrappers, for an
-A/B of two checkouts on one card.
+probe, ``dma_ring``, streamed 3D, streamed 2D and depth-k DMA kernels
+through their wrappers, for an A/B of two checkouts on one card.
 
 Cases (config 12's attention geometry: 8 heads, d_head 128, 16-token
 pages, one query a sequence; config 4's and 10's stencil steps; config 2's
@@ -25,7 +25,13 @@ vectors):
 - ``stream3d``: ``seven_point_streamed_pallas``, a z-slab Jacobi pass of
   k = 4, 3 and 2 on 256x512x512 (config 9's tile) and of k = 4 on
   2x2x2 stacked 256^3 ranks (phase 12's other world), each held bit-equal
-  to its plain version first.
+  to its plain version first;
+- ``stream2d``: ``nine_point_streamed_2d``, config 4's Jacobi passes of
+  k = 16 and 32 at 8192^2 stacked on 4x4 (ghost columns) and a k = 16
+  pass of the 1024^2 world (wrap), each held bit-equal first;
+- ``deep``: ``dma_deep``, one Jacobi round of k = 8 at 8192^2 on 4x4 and
+  at 1024^2, and the 9-point ``dma`` path's depth-1 round at 1024^2, each
+  held bit-equal first.
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -36,8 +42,11 @@ instead (paged: chunk tokens, ring stages, split count; dot_full and fill:
 smaller grids; dot_partials: a block a chunk against one resident wave;
 the copy probes: each design switch of ``csrc/copy_probes.cu``, other
 rings for ``hbm2hbm``; the ring: every fold, 1 to 3 blocks an SM;
-stream3d: the z chunks of 1 to 8 and 16 chunks a rank).
-``--only paged,hbm,dot,fill,probes,ring,stream3d`` picks case groups.
+stream3d: the z chunks of 1 to 8 and 16 chunks a rank; stream2d and
+deep: other levels a stage, half-width strips and other row chunks than
+``march_plan``'s).
+``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep`` picks
+case groups.
 ``--root`` imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
 kernels build into that checkout's own build directory; the wrappers'
@@ -468,8 +477,156 @@ def stream3d_sweep(gen):
         del a, want
 
 
+NINE = (0.125,) * 4 + (0.0625,) * 4 + (0.0,)
+# stacked mesh, core edge, depth, ghost columns (a distributed x axis)
+STREAM2D_SHAPES = (((4, 4), 2048, 16, True), ((4, 4), 2048, 32, True), ((1, 1), 1024, 16, False))
+# stacked mesh, core edge, depth, coefficients
+DEEP_SHAPES = (((4, 4), 2048, 8, JACOBI), ((1, 1), 1024, 8, JACOBI), ((1, 1), 1024, 1, NINE))
+
+
+def _label2d(lead, n) -> str:
+    return f"{lead[0] * n}^2 on {lead[0]}x{lead[1]}"
+
+
+def _stream2d_operands(gen, lead, n, k, ghost):
+    import torch
+
+    core = torch.randn(lead + (n, n), generator=gen, device="cuda")
+    top, bot = (torch.randn(lead + (k, n), generator=gen, device="cuda") for _ in range(2))
+    gl, gr = ((torch.randn(lead + (n + 2 * k, k), generator=gen, device="cuda")
+               for _ in range(2)) if ghost else (None, None))
+    flags = torch.zeros(lead + (4,), dtype=torch.int32, device="cuda")
+    return core, top, bot, gl, gr, flags
+
+
+def stream2d_cases(gen):
+    """(case, ms) of the streamed 2D kernel, one Jacobi pass: config 4's
+    stream:16 and stream:32 passes (8192^2 on 4x4, ghost columns) and a
+    stream:16 pass of the 1024^2 world (wrap)."""
+    import torch
+
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    for lead, n, k, ghost in STREAM2D_SHAPES:
+        core, top, bot, gl, gr, flags = _stream2d_operands(gen, lead, n, k, ghost)
+        call = lambda: ss.nine_point_streamed_2d(core, top, bot, (n, n), JACOBI, k,  # noqa: E731
+                                                 gl=gl, gr=gr)  # periodic, as config 4's
+        if not torch.equal(call(), ss.nine_point_streamed_2d_plain(core, top, bot, JACOBI, k,
+                                                                   flags, gl, gr)):
+            raise AssertionError(f"stream2d {lead} {n}^2 k={k} differs from its plain version")
+        yield f"stream2d {_label2d(lead, n)} k={k}", device_ms(call, n=20)
+        del core, top, bot, gl, gr
+
+
+def deep_cases(gen):
+    """(case, ms) of the depth-k DMA kernel, one round: k = 8 at 8192^2 on
+    4x4 and at 1024^2 (config 4's and 10's dma-deep:8), and the 9-point
+    dma path's depth-1 round at 1024^2."""
+    import torch
+
+    from tpuscratch_torch.ops import halo_dma as hd
+
+    for lead, n, k, coeffs in DEEP_SHAPES:
+        cores = torch.randn(lead + (n, n), generator=gen, device="cuda")
+        call = lambda: hd.dma_deep(cores, k, coeffs, k)  # noqa: E731
+        if not torch.equal(call(), hd.dma_deep_plain(cores, k, coeffs, k)):
+            raise AssertionError(f"dma_deep {lead} {n}^2 k={k} differs from its plain version")
+        yield (f"deep {_label2d(lead, n)} k={k} {len(coeffs)}pt",
+               device_ms(call, n=20 if n > 1024 else 200))
+        del cores
+
+
+def _march_variants(rule, per_sm_of, plan_of):
+    """The plans a sweep times beside the rule's: other levels a stage,
+    half-width strips, and chunks of a quarter to four times the rule's."""
+    from tpuscratch_torch.ops import common as tc
+
+    plans = {rule}
+    for levels in tc.MARCH_LEVELS:
+        if rule.depth <= tc.march_depth(levels):
+            plans.add(plan_of(levels=levels, per_sm=per_sm_of(levels)))
+    plans.add(plan_of(width=rule.width // 8 * 4))
+    for f in (0.25, 0.5, 2, 4):
+        plans.add(plan_of(rows=max(1, round(rule.rows * f))))
+    return sorted(plans, key=lambda p: (p.levels, p.width, p.rows))
+
+
+def stream2d_sweep(gen):
+    """(case, ms) of the streamed 2D kernel under the plans of
+    ``_march_variants`` (this checkout only), each bit-checked."""
+    import torch
+
+    from tpuscratch_torch.ops import common as tc
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for lead, n, k, ghost in STREAM2D_SHAPES:
+        core, top, bot, gl, gr, flags = _stream2d_operands(gen, lead, n, k, ghost)
+        want = ss.nine_point_streamed_2d_plain(core, top, bot, JACOBI, k, flags, gl, gr)
+        nb = math.prod(lead)
+        mask = tc.march_mask(ss.stream_c9(JACOBI))
+
+        def per_sm_of(levels):
+            return ss._stream2d_per_sm(0, levels, mask, -(-k // levels), False)
+
+        rule = ss.stream2d_plans(nb, n, n, k, sms,
+                                 lambda lv, w: ss._stream2d_per_sm(0, lv, mask, w, False))[0]
+
+        def plan_of(levels=rule.levels, per_sm=None, width=None, rows=None):
+            return tc.march_plan(nb, n, n, k, sms, per_sm or per_sm_of(levels), levels=levels,
+                                 width=width, rows=rows and min(rows, n))
+
+        for plan in _march_variants(rule, per_sm_of, plan_of):
+            call = lambda: ss._launch(core, top, bot, gl, gr, flags, JACOBI, k,  # noqa: E731
+                                      plans=[plan], open_=False)
+            if not torch.equal(call(), want):
+                raise AssertionError(f"sweep stream2d {plan} differs from its plain version")
+            mark = " (rule)" if plan == rule else ""
+            yield (f"sweep stream2d {_label2d(lead, n)} k={k} levels={plan.levels} "
+                   f"width={plan.width} rows={plan.rows} blocks={nb * plan.strips * plan.chunks}"
+                   f"{mark}", device_ms(call, n=20))
+        del core, top, bot, gl, gr, want
+
+
+def deep_sweep(gen):
+    """(case, ms) of the depth-k DMA kernel under the plans of
+    ``_march_variants`` (this checkout only), each bit-checked."""
+    import torch
+
+    from tpuscratch_torch.ops import common as tc
+    from tpuscratch_torch.ops import halo_dma as hd
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for lead, n, k, coeffs in DEEP_SHAPES:
+        cores = torch.randn(lead + (n, n), generator=gen, device="cuda")
+        want = hd.dma_deep_plain(cores, k, coeffs, k)
+        mask = tc.march_mask(hd.deep_c9(coeffs))
+
+        def per_sm_of(levels):
+            return hd._deep_per_sm(0, levels, mask, -(-k // levels))
+
+        rule = hd.deep_plan(tuple(cores.shape), k, sms,
+                            lambda lv, w: hd._deep_per_sm(0, lv, mask, w))
+
+        def plan_of(levels=rule.levels, per_sm=None, width=None, rows=None):
+            return tc.march_plan(1, lead[0] * n, lead[1] * n, k, sms,
+                                 per_sm or per_sm_of(levels), levels=levels, width=width,
+                                 rows=rows and min(rows, lead[0] * n))
+
+        for plan in _march_variants(rule, per_sm_of, plan_of):
+            call = lambda: hd._deep_launch(cores, coeffs, plan)  # noqa: E731
+            if not torch.equal(call(), want):
+                raise AssertionError(f"sweep deep {plan} differs from its plain version")
+            mark = " (rule)" if plan == rule else ""
+            yield (f"sweep deep {_label2d(lead, n)} k={k} {len(coeffs)}pt levels={plan.levels} "
+                   f"width={plan.width} rows={plan.rows} blocks={plan.strips * plan.chunks}"
+                   f"{mark}", device_ms(call, n=20 if n > 1024 else 200))
+        del cores, want
+
+
 GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases,
-          "probes": probe_cases, "ring": ring_cases, "stream3d": stream3d_cases}
+          "probes": probe_cases, "ring": ring_cases, "stream3d": stream3d_cases,
+          "stream2d": stream2d_cases, "deep": deep_cases}
 
 
 def main(argv=None) -> int:
@@ -502,7 +659,9 @@ def main(argv=None) -> int:
                                 dot_fill_sweep(gen) if {"dot", "fill"} & set(groups) else (),
                                 probe_sweep(gen) if "probes" in groups else (),
                                 ring_sweep(gen) if "ring" in groups else (),
-                                stream3d_sweep(gen) if "stream3d" in groups else ())
+                                stream3d_sweep(gen) if "stream3d" in groups else (),
+                                stream2d_sweep(gen) if "stream2d" in groups else (),
+                                deep_sweep(gen) if "deep" in groups else ())
     else:
         cases = itertools.chain.from_iterable(GROUPS[g](gen) for g in groups)
     for case, ms in cases:

@@ -15,9 +15,13 @@
 // rank's core in the same device memory (periodic wrap over (R, C)); there
 // is no separate exchange and nothing to overlap it with.
 //
-// Terms come as Taps (stencil_taps.cuh) in each TPU kernel's order:
-//   ring:  n, s, w, e, c (halo_dma.py:114-161), zero coefficients included
-//   deep:  n, s, w, e, nw, ne, sw, se, c, zero coefficients skipped (:83-111)
+// Terms, in each TPU kernel's order:
+//   ring:  n, s, w, e, c (halo_dma.py:114-161), zero coefficients included;
+//          the launcher checks the tap list (n, c, dy, dx) and takes the
+//          coefficients
+//   deep:  n, s, w, e, nw, ne, sw, se, c, zero coefficients skipped
+//          (:83-111); the launcher takes the coefficients by tap position
+//          and the set of nonzero ones as a template mask (stencil_taps.cuh)
 //   hbm:   n, s, w, e, c, then nw, ne, sw, se when any diagonal is nonzero
 //          (:830-840); the hbm kernel checks that order and takes only the
 //          coefficients, with the tap count (5 or 9) a template parameter
@@ -298,57 +302,155 @@ extern "C" int ts_dma_ring(const float* in, float* buf0, float* buf1, int R,
 
 // ---------------------------------------------------------------------------
 // dma_deep: one round of `k` substeps (one "k-deep exchange") of every
-// rank. A block owns a T x T tile of one rank's core and loads its
-// (T + 2k)^2 window straight from the torus: the k-deep ghost zone,
-// corner blocks included, is the neighbour ranks' cores. The k substeps
-// run as a shrinking trapezoid in shared memory (stencil_taps.cuh) and the
-// tile is written once. The wrapper launches one round per k substeps,
-// the last one shallower when steps % k != 0 (halo_dma.py:341-342).
-// Bound: bytes. A round must read the torus and write it once, 8 bytes a
-// cell per k substeps; the price is the window ring's redundant substeps
-// (1.3x at T = 64, k = 8) and the 9-point taps at 2 operations each.
-constexpr int DEEP_THREADS = 512;
+// rank. The k-deep ghost zone of a rank, corner blocks included, is its
+// neighbour ranks' cores, so a round is k substeps of the torus the cores
+// tile, and the kernel runs them over the torus as one grid. The wrapper
+// launches one round per k substeps, the last one shallower when
+// steps % k != 0 (halo_dma.py:341-342), and a round deeper than a launch
+// holds (8 L substeps, 32) as launches of at most 32: on a torus the
+// trapezoid's values are the per-step values, so the bits are the same.
+// Bound: bytes at k = 8 (a round reads the torus and writes it once, 8
+// bytes a cell: 0.1603 ms at 8192^2; the 7 separately rounded operations
+// a cell a substep of Jacobi at 33.5 T/s take 0.1122), operations from
+// k = 12 on.
+// Design: the row march of stencil_taps.cuh, which keeps the redundant
+// work of the substeps on one axis and every tap in registers. A block
+// owns a strip of the torus's columns (the 256-column window less its
+// apron) and a chunk of its rows, across rank edges; the levels are cut
+// into stages of 4 levels a warp in registers (1 at depth 1), one barrier
+// a row, one I/O warp doing every copy; the redundant work lies on the
+// window's x apron (256 / 240 at k = 8) and the chunk's k rows at each
+// end. Taps are a template mask (Jacobi, 8 and 9 points; any other set a
+// runtime mask). The wrap is resolved once a lane for its columns (their
+// ranks and offsets) and once a row (an incremental rank and row, RowAt):
+// no tap, cell or loaded row divides. 16-byte groups where W % 4 == 0 and
+// the buffers are 16-byte aligned; otherwise 4-byte columns whose offsets
+// a table in shared memory holds. The host rule (ops.common.march_plan)
+// picks L, the strip and the chunk.
 
-__global__ void __launch_bounds__(DEEP_THREADS)
-dma_deep_kernel(const float* __restrict__ src, float* __restrict__ dst, Torus g,
-                int k, int T, Taps taps) {
-  extern __shared__ float smem[];
-  const int R = T + 2 * k;
-  const int b = blockIdx.z, r = b / g.C, c = b % g.C;
-  const int TH = g.R * g.H, TW = g.C * g.W;  // the torus
-  const int y0 = r * g.H + blockIdx.y * T - k, x0 = c * g.W + blockIdx.x * T - k;
-  for (int q = threadIdx.x; q < R * R; q += blockDim.x) {
-    const int y = ((y0 + q / R) % TH + TH) % TH, x = ((x0 + q % R) % TW + TW) % TW;
-    const int rr = y / g.H, cc = x / g.W;
-    smem[q] = src[((size_t)(rr * g.C + cc) * g.H + (y - rr * g.H)) * g.W + (x - cc * g.W)];
+struct Deep {
+  const float* src;
+  float* dst;
+  Torus g;
+  int j;             // substeps of the launch
+  int rows;          // torus rows a chunk
+  int width, apron;  // torus columns a strip; the window's apron (j rounded up to 4)
+  int vec;           // 16-byte groups
+  unsigned rmask;    // the taps of a runtime-mask launch
+  float c[9];        // coefficient of tap position p = 3 (dy + 1) + dx + 1
+};
+
+template <int L, int MASK>
+__global__ void __launch_bounds__((march::MAX_WARPS + 1) * 32)
+dma_deep_kernel(const Deep p) {
+  using namespace march;
+  const int lane = threadIdx.x & 31;
+  const Torus& g = p.g;
+  const int TH = g.R * g.H, TW = g.C * g.W;
+  const int oy0 = blockIdx.y * p.rows;  // the chunk's first row
+  const int T = min(p.rows, TH - oy0) + 2 * p.j;
+  const int xs = blockIdx.x * p.width, xe = min(xs + p.width, TW);  // the strip
+  const int xw0 = xs - p.apron;         // window column 0
+  // the lane's 8 columns: their offsets from a row's rank-column-0 start
+  // (16-byte groups: the offsets of the two groups; 4-byte columns: all 8,
+  // in the column table); which of them are the strip's
+  int cb0 = 0, cb4 = 0;
+  unsigned ocols = 0;
+#pragma unroll
+  for (int i = 0; i < CX; ++i) {
+    const int w = lane * CX + i;
+    int x = (xw0 + w) % TW;
+    if (x < 0) x += TW;
+    const int c = x / g.W;
+    const int cb = c * g.H * g.W + (x - c * g.W);
+    if (i == 0) cb0 = cb;
+    if (i == 4) cb4 = cb;
+    if (!p.vec) col_table()[w] = cb;
+    if (w >= p.apron && xw0 + w < xe) ocols |= 1u << i;
   }
-  __syncthreads();
-  const float* res = trapezoid(smem, smem + R * R, R, k, taps,
-                               [](int, int, float v) { return v; });
-  float* o = dst + (size_t)b * g.H * g.W;
-  for (int q = threadIdx.x; q < T * T; q += blockDim.x) {
-    const int y = q / T, x = q % T;
-    const int oi = blockIdx.y * T + y, oj = blockIdx.x * T + x;
-    if (oi < g.H && oj < g.W) o[(size_t)oi * g.W + oj] = res[(k + y) * R + k + x];
-  }
+  __syncthreads();  // the column table
+  RowAt in_row, out_row;
+  in_row.at(g, oy0 - p.j);
+  out_row.at(g, oy0);
+  auto load = [&](int, float* slot) {  // rows come in order: in_row is row r
+    if (p.vec) {
+      cp16(group(slot, 0, lane), p.src + in_row.base + cb0);
+      cp16(group(slot, 1, lane), p.src + in_row.base + cb4);
+    } else {
+      int cols[CX];
+      take_cols(cols, lane);
+#pragma unroll
+      for (int i = 0; i < CX; ++i)
+        cp4(group(slot, i / 4, lane) + i % 4, p.src + in_row.base + cols[i], true);
+    }
+    in_row.next(g);
+  };
+  auto zero = [](int, float(&)[CX]) {};
+  auto store = [&](int, const float(&o)[CX]) {  // rows go out in order: out_row
+    float* row = p.dst + out_row.base;
+    if (p.vec) {
+      if (ocols & 15)
+        *reinterpret_cast<float4*>(row + cb0) = make_float4(o[0], o[1], o[2], o[3]);
+      if (ocols >> 4 & 15)
+        *reinterpret_cast<float4*>(row + cb4) = make_float4(o[4], o[5], o[6], o[7]);
+    } else {
+      int cols[CX];
+      take_cols(cols, lane);
+#pragma unroll
+      for (int i = 0; i < CX; ++i)
+        if (ocols >> i & 1) row[cols[i]] = o[i];
+    }
+    out_row.next(g);
+  };
+  run<L, ORDER_NSWE, MASK, false>(load, zero, store, p.c, p.rmask, T, p.j, 0, p.j);
 }
 
-extern "C" int ts_dma_deep(const float* src, float* dst, int R, int C, int H,
-                           int W, int k, int tile, int ntaps, const float* c,
-                           const int* dy, const int* dx, void* stream) {
-  Taps taps;
-  if (!torus_ok(R, C, H, W) || R * C > 65535 || k < 1 || tile < 1 ||
-      !make_taps(&taps, ntaps, c, dy, dx))
-    return (int)cudaErrorInvalidValue;
-  const int Rw = tile + 2 * k;
-  const size_t smem = 2ull * Rw * Rw * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      dma_deep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + tile - 1) / tile, (H + tile - 1) / tile, R * C);
-  dma_deep_kernel<<<grid, DEEP_THREADS, smem, (cudaStream_t)stream>>>(
-      src, dst, Torus{R, C, H, W}, k, tile, taps);
+template <int L, int MASK>
+static int launch_deep(const Deep& p, dim3 grid, int warps, cudaStream_t s) {
+  dma_deep_kernel<L, MASK>
+      <<<grid, march::block_threads(warps), march::smem_bytes(warps), s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int L, int MASK>
+static int occupancy_deep(int warps, int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, dma_deep_kernel<L, MASK>, march::block_threads(warps),
+      march::smem_bytes(warps));
+}
+
+// The blocks of a launch of L levels a stage (1 or 4), tap mask `mask`
+// (march::MASK_* or 0) and `warps` stages an SM holds at once.
+extern "C" int ts_dma_deep_occupancy(int L, int mask, int warps, int* per_sm) {
+  if (warps < 1 || warps > march::MAX_WARPS) return (int)cudaErrorInvalidValue;
+  MARCH_DISPATCH(L, mask, occupancy_deep, warps, per_sm);
+}
+
+// One launch of j substeps of the torus, src -> dst (not in place).
+// c9: the coefficients by tap position; L, mask, rows, width: the plan of
+// ops.common.march_plan; vec: 16-byte groups (W % 4 == 0 and both bases
+// 16-byte aligned) or 4-byte columns.
+extern "C" int ts_dma_deep(const float* src, float* dst, int R, int C, int H, int W, int j,
+                           int L, int mask, int rows, int width, int vec, const float* c9,
+                           void* stream) {
+  if (!torus_ok(R, C, H, W) || j < 1 || L < 1 || (j + L - 1) / L > march::MAX_WARPS ||
+      rows < 1 || width < 4 || width % 4 != 0 || src == nullptr || dst == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Deep p{};
+  p.src = src; p.dst = dst; p.g = Torus{R, C, H, W};
+  p.j = j; p.rows = rows; p.width = width; p.apron = (j + 3) / 4 * 4; p.vec = vec;
+  for (int i = 0; i < 9; ++i) p.c[i] = c9[i];
+  p.rmask = march::tap_mask(p.c);
+  if (width + 2 * p.apron > march::WIN || (mask != 0 && (unsigned)mask != p.rmask))
+    return (int)cudaErrorInvalidValue;
+  if (vec && (W % 4 != 0 || (uintptr_t)src % 16 != 0 || (uintptr_t)dst % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  const long long TH = (long long)R * H, TW = (long long)C * W;
+  const long long strips = (TW + width - 1) / width, chunks = (TH + rows - 1) / rows;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  const int warps = (j + L - 1) / L;
+  MARCH_DISPATCH(L, mask, launch_deep, p, dim3((unsigned)strips, (unsigned)chunks), warps,
+                 (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,74 +1,20 @@
-// Shared pieces of the streamed and DMA-halo 2D stencil kernels
-// (stencil_stream2d.cu, halo_dma.cu).
+// Shared pieces of the 2D and 3D stencil kernels: the C entry points every
+// library of them exports, and the row march of the streamed and DMA-halo
+// 2D kernels (stencil_stream2d.cu, halo_dma.cu).
 //
 // A 3x3 stencil is a list of taps in the order its reference sums them:
-//   v = c[0]*a(dy[0], dx[0]) + c[1]*a(dy[1], dx[1]) + ...
+//   v = c[p0]*a(p0) + c[p1]*a(p1) + ...
 // left to right, every product and sum rounded on its own (__fmul_rn /
 // __fadd_rn are never contracted into FMAs), so a kernel agrees bit for
-// bit with its plain torch version. The host leaves out the taps its
-// reference skips (the TPU kernels skip zero coefficients statically), so
-// one kernel serves every term order of the family.
+// bit with its plain torch version. The taps a kernel sums are the
+// nonzero coefficients (the TPU kernels skip zero coefficients
+// statically); the set is a compile-time mask for the sets the paths use
+// and a runtime mask for any other.
 
 #pragma once
 
 #include <cuda_runtime.h>
-
-struct Taps {
-  int n;        // 1..9 taps in use
-  float c[9];   // coefficient of tap i
-  int dy[9];    // row offset of tap i, in -1..1
-  int dx[9];    // column offset of tap i, in -1..1
-};
-
-// The tap sum at p of a row-major buffer with row stride `stride`.
-__device__ __forceinline__ float tap_sum(const Taps& t, const float* a, int p,
-                                         int stride) {
-  float v = __fmul_rn(t.c[0], a[p + t.dy[0] * stride + t.dx[0]]);
-#pragma unroll
-  for (int i = 1; i < 9; ++i)
-    if (i < t.n)
-      v = __fadd_rn(v, __fmul_rn(t.c[i], a[p + t.dy[i] * stride + t.dx[i]]));
-  return v;
-}
-
-// The shared-memory trapezoid (temporal blocking, as deep_trapezoid_kernel
-// of stencil2d.cu): a block's R x R input window is in `a`; `k` substeps
-// each shrink the valid region by one cell a side, ping-ponging `a` and
-// `b` between __syncthreads. After every substep but the last,
-// fix(y, x, v) may replace the value at window cell (y, x) (open-boundary
-// zeroing). Returns the buffer whose [k, R - k)^2 holds the final values.
-template <class Fix>
-__device__ float* trapezoid(float* a, float* b, int R, int k, const Taps& taps,
-                            Fix fix) {
-  for (int st = 1; st <= k; ++st) {
-    const int n = R - 2 * st;  // substep st is valid on [st, R - st)^2
-    for (int q = threadIdx.x; q < n * n; q += blockDim.x) {
-      const int y = q / n + st, x = q % n + st;
-      const float v = tap_sum(taps, a, y * R + x, R);
-      b[y * R + x] = st < k ? fix(y, x, v) : v;
-    }
-    __syncthreads();
-    float* t = a;
-    a = b;
-    b = t;
-  }
-  return a;
-}
-
-// Taps from the launcher's host arrays; false if they are not a 3x3 list.
-inline bool make_taps(Taps* t, int n, const float* c, const int* dy,
-                      const int* dx) {
-  if (n < 1 || n > 9) return false;
-  *t = Taps{};
-  t->n = n;
-  for (int i = 0; i < n; ++i) {
-    if (dy[i] < -1 || dy[i] > 1 || dx[i] < -1 || dx[i] > 1) return false;
-    t->c[i] = c[i];
-    t->dy[i] = dy[i];
-    t->dx[i] = dx[i];
-  }
-  return true;
-}
+#include <cstdint>
 
 // The C entry points every library of these kernels exports.
 extern "C" const char* ts_error_string(int e) {
@@ -82,3 +28,299 @@ extern "C" int ts_smem_optin(int* bytes) {
     e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return (int)e;
 }
+
+// ---------------------------------------------------------------------------
+// The row march: j substeps of a 3x3 stencil over a block's window of
+// march::WIN columns and T rows, marching down the rows.
+//
+//  - A lane owns march::CX = 8 adjacent window columns; a warp's row is
+//    the whole window. West and east neighbours of a lane's end columns
+//    come from the lanes beside it by one shuffle each; the window's two
+//    edge columns read garbage, so a level is valid one column further in
+//    on each side than the level below it, and the output strip is the
+//    window less an apron of j columns a side (rounded up to 4, so that a
+//    lane's columns stay 16-byte groups).
+//  - The substep levels are cut into stages of L levels (4; 1 for a single
+//    substep), one warp a stage. A warp takes the rows of its input level
+//    from shared memory and keeps the last three rows of each of its
+//    levels but the last in registers, indexed by the march step that
+//    made them (t % 3, the step loop unrolled by 3, so rows rotate by
+//    name): at step t its local level l computes row rho - l from level
+//    l - 1's rows made at steps t - 2, t - 1 and t, where rho = t - D is
+//    the newest row of its input level. North and south taps are
+//    registers, west and east the lane's own columns or the shuffled
+//    neighbours.
+//  - One I/O warp beside the stages copies the window's rows into a
+//    shared-memory ring by cp.async, march::AHEAD - 1 rows ahead, and
+//    waits for the rows the next step reads before the step's barrier; it
+//    also writes the output rows, one step after the last stage puts them
+//    in shared memory. The stages never touch device memory, and no
+//    stage waits on a copy. Stage g hands its last level's rows to stage
+//    g + 1 through a four-row ring in shared memory; stage g + 1 takes a
+//    row one step after it is made, so D grows by L + 1 a stage, and one
+//    __syncthreads a step orders every hand-over.
+//  - The last stage's level j is the output row. A level skips the rows
+//    outside its valid range [s, T - s) (a test a warp a step); no cell
+//    tests anything, and no division runs in the march. Open ends are
+//    zeroed only in the kernels of passes that may have one (a template
+//    parameter of the march).
+// Shared rows are stored as two 16-byte groups a lane, group-major (the
+// lane's group q at (q * 32 + lane) * 4), so a warp's 16-byte reads and
+// writes are free of bank conflicts. Before the rows, a table of WIN ints
+// holds each window column's source for the blocks that load column by
+// column.
+namespace march {
+
+constexpr int CX = 8;           // adjacent columns a lane
+constexpr int WIN = 32 * CX;    // window columns a strip
+constexpr int MAX_WARPS = 8;    // stages a block at most: 8 * L substeps a launch
+constexpr int AHEAD = 6;        // input rows in flight, the one being read included
+constexpr int RING = 8;         // the input ring's rows: AHEAD and the two rows before
+constexpr int HAND = 4;         // a hand-over ring's rows
+constexpr unsigned FULL = 0xffffffffu;
+
+extern __shared__ __align__(16) float march_smem[];
+
+// Tap positions p = 3 * (dy + 1) + (dx + 1): 0 nw, 1 n, 2 ne, 3 w, 4 c,
+// 5 e, 6 sw, 7 s, 8 se. Orders in which a reference sums them:
+enum { ORDER_GRID = 0,   // the weight grid row by row (stencil_stream2d.cu)
+       ORDER_NSWE = 1 }; // n, s, w, e, nw, ne, sw, se, c (halo_dma.cu)
+
+// Tap sets with an instantiation of their own: the paths' Jacobi and
+// 9-point sets; 0: any other set, summed under a runtime mask. (An
+// instantiation of n, w, c, e, s spilled 8 bytes in the streamed kernel
+// of 4 levels a stage, so that set takes the runtime mask.)
+constexpr int MASK_JACOBI = 0x0AA;  // n, w, e, s
+constexpr int MASK_EIGHT = 0x1EF;   // all but the centre
+constexpr int MASK_NINE = 0x1FF;
+constexpr int MASK_DIAG = 0x145;    // nw, ne, sw, se
+
+template <int ORD>
+__host__ __device__ constexpr int tap_pos(int i) {
+  return ORD == ORDER_GRID ? i
+         : i == 0 ? 1 : i == 1 ? 7 : i == 2 ? 3 : i == 3 ? 5
+         : i == 4 ? 0 : i == 5 ? 2 : i == 6 ? 6 : i == 7 ? 8 : 4;
+}
+
+// The 9-bit mask of the nonzero coefficients c[p].
+inline unsigned tap_mask(const float* c) {
+  unsigned m = 0;
+  for (int p = 0; p < 9; ++p)
+    if (c[p] != 0.0f) m |= 1u << p;
+  return m;
+}
+
+// Shared memory of a block of `warps` stages: the column table, the input
+// ring, a hand-over ring a stage boundary and the two output rows.
+inline size_t smem_bytes(int warps) {
+  return (size_t)(WIN + (RING + HAND * (warps - 1) + 2) * WIN) * sizeof(float);
+}
+
+// Threads of a block of `warps` stages: a warp a stage and the I/O warp.
+inline int block_threads(int warps) { return (warps + 1) * 32; }
+
+// The column table: one int a window column (the kernel's encoding).
+__device__ __forceinline__ int* col_table() { return reinterpret_cast<int*>(march_smem); }
+
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// 4 bytes, or a zero where `fill` is false (src need only be a global address)
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(fill ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The lane's slot of group q (0 or 1) in a shared row
+__device__ __forceinline__ float* group(float* row, int q, int lane) {
+  return row + (q * 32 + lane) * 4;
+}
+
+// The lane's 8 columns of a shared row
+__device__ __forceinline__ void take_row(float (&r)[CX], float* row, int lane) {
+  const float4 a = *reinterpret_cast<const float4*>(group(row, 0, lane));
+  const float4 b = *reinterpret_cast<const float4*>(group(row, 1, lane));
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+}
+
+// The lane's 8 columns of a window column table
+__device__ __forceinline__ void take_cols(int (&r)[CX], int lane) {
+  const int4 a = *reinterpret_cast<const int4*>(col_table() + lane * CX);
+  const int4 b = *reinterpret_cast<const int4*>(col_table() + lane * CX + 4);
+  r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w;
+  r[4] = b.x; r[5] = b.y; r[6] = b.z; r[7] = b.w;
+}
+
+// The 8 sums of a level row from the rows N, C, S of the level below, in
+// the order ORD, over the taps of MASK (or of `rmask` where MASK is 0);
+// the neighbours beside the lane's columns by shuffles.
+template <int ORD, int MASK>
+__device__ __forceinline__ void tap_row(float (&o)[CX], const float (&N)[CX],
+                                        const float (&C)[CX], const float (&S)[CX],
+                                        const float (&c)[9], unsigned rmask) {
+  constexpr bool DIAG = MASK == 0 || (MASK & MASK_DIAG) != 0;
+  float side[3][2];  // [row][west, east]
+  side[1][0] = __shfl_up_sync(FULL, C[CX - 1], 1);
+  side[1][1] = __shfl_down_sync(FULL, C[0], 1);
+  if (DIAG) {
+    side[0][0] = __shfl_up_sync(FULL, N[CX - 1], 1);
+    side[0][1] = __shfl_down_sync(FULL, N[0], 1);
+    side[2][0] = __shfl_up_sync(FULL, S[CX - 1], 1);
+    side[2][1] = __shfl_down_sync(FULL, S[0], 1);
+  }
+#pragma unroll
+  for (int x = 0; x < CX; ++x) {
+    float v = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int p = tap_pos<ORD>(i);
+      if (MASK != 0 ? !((MASK >> p) & 1) : !((rmask >> p) & 1)) continue;
+      const int r = p / 3, xx = x + p % 3 - 1, xi = xx < 0 ? 0 : xx >= CX ? CX - 1 : xx;
+      const float a = xx < 0 ? side[r][0] : xx >= CX ? side[r][1]
+                      : r == 0 ? N[xi] : r == 1 ? C[xi] : S[xi];
+      const float term = __fmul_rn(c[p], a);
+      v = first ? term : __fadd_rn(v, term);
+      first = false;
+    }
+    o[x] = v;
+  }
+}
+
+// The march of one block: its compute warps (the stages) and, after them,
+// one I/O warp. `load(r, slot)` copies window row r (in order, r = 0, 1,
+// ...) into the lane's groups of the shared row `slot` by cp.async;
+// `store(q, o)` writes level j's row q (in order, q = j, j + 1, ...);
+// both run in the I/O warp only. `zero(q, o)` applies the open ends to
+// level row q of a substep that is not the pass's last (ZERO: the pass
+// may have open ends). `done` and `K`: substeps of the pass before this
+// launch and in all.
+template <int L, int ORD, int MASK, bool ZERO, class Load, class Zero, class Store>
+__device__ __forceinline__ void run(Load&& load, Zero&& zero, Store&& store, const float (&c)[9],
+                                    unsigned rmask, int T, int j, int done, int K) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int NS = (blockDim.x >> 5) - 1;       // compute warps; warp NS is the I/O warp
+  float* const ring = march_smem + WIN;       // RING input rows, row r in slot r % RING
+  float* const hand = ring + RING * WIN;      // HAND rows a stage boundary, by step
+  float* const outr = hand + HAND * (NS - 1) * WIN;  // 2 output rows, by step
+  const int steps = T + NS - 1;
+  // the last stage: its level j's row at step t is t - qlag
+  const int qlag = (NS - 1) * (L + 1) + (j - (NS - 1) * L);
+  if (warp == NS) {
+    // The I/O warp: row t + AHEAD - 1 goes in flight at step t, and rows up
+    // to t + 1 have landed before the step's barrier (so a compute warp
+    // reads only rows that are in); the row level j made at step t - 1
+    // goes out at step t, after the barrier that made it visible.
+    auto put = [&](int t) {
+      const int q = t - qlag;
+      if (q >= j && q < T - j) {
+        float o[CX];
+        take_row(o, outr + (t & 1) * WIN, lane);
+        store(q, o);
+      }
+    };
+#pragma unroll
+    for (int r = 0; r < AHEAD - 1; ++r) {
+      if (r < T) load(r, ring + r * WIN);
+      cp_commit();
+    }
+    cp_wait<AHEAD - 2>();
+    __syncthreads();
+#pragma unroll 1
+    for (int t = 0; t < steps; ++t) {
+      if (t + AHEAD - 1 < T) load(t + AHEAD - 1, ring + ((t + AHEAD - 1) & (RING - 1)) * WIN);
+      cp_commit();
+      cp_wait<AHEAD - 2>();
+      if (t >= 1) put(t - 1);
+      __syncthreads();
+    }
+    __syncthreads();
+    put(steps - 1);
+    cp_wait<0>();
+    return;
+  }
+  const int s0 = warp * L;                    // the warp's input level
+  const int D = warp * (L + 1);               // its newest row at step t is t - D
+  const int lj = min(L, j - s0);              // the warp's levels
+  // the input level's rows: the input ring (row r in slot r % RING) or the
+  // hand-over ring of the stage before (the row made at step u in slot u % HAND)
+  float* const in = warp == 0 ? ring : hand + (warp - 1) * HAND * WIN;
+  const int wrap = warp == 0 ? RING - 1 : HAND - 1;
+  const int back = warp == 0 ? 2 : 3;         // the slot of row rho - 2 at step t: t - back
+  // rows[l - 1]: local level l, for l < L (level L goes out)
+  float rows[L > 1 ? L - 1 : 1][3][CX];
+  __syncthreads();
+#pragma unroll 1
+  for (int t0 = 0; t0 < steps; t0 += 3) {
+#pragma unroll
+    for (int ph = 0; ph < 3; ++ph) {
+      const int t = t0 + ph;
+      if (t >= steps) break;
+      const int rho = t - D;
+      // local level l computes row rho - l, in range while l <= lmax
+      const int lmax = rho < T - s0 ? min(lj, (rho - s0) >> 1) : 0;
+#pragma unroll
+      for (int l = 1; l <= L; ++l) {
+        if (l > lmax) break;  // so are the levels above it this step
+        const int s = s0 + l, q = rho - l;
+        float o[CX];
+        if (l == 1) {
+          float N[CX], C[CX], S[CX];
+          take_row(N, in + ((t - back) & wrap) * WIN, lane);
+          take_row(C, in + ((t - back + 1) & wrap) * WIN, lane);
+          take_row(S, in + ((t - back + 2) & wrap) * WIN, lane);
+          tap_row<ORD, MASK>(o, N, C, S, c, rmask);
+        } else {
+          const int lp = l >= 2 ? l - 2 : 0;
+          tap_row<ORD, MASK>(o, rows[lp][(ph + 1) % 3], rows[lp][(ph + 2) % 3], rows[lp][ph],
+                             c, rmask);
+        }
+        if (ZERO && done + s < K) zero(q, o);
+        if (s < j && l < L) {
+#pragma unroll
+          for (int x = 0; x < CX; ++x) rows[l - 1][ph][x] = o[x];
+        } else {  // to the next stage, or level j's row to the I/O warp
+          float* h = s == j ? outr + (t & 1) * WIN : hand + (warp * HAND + (t & (HAND - 1))) * WIN;
+          *reinterpret_cast<float4*>(group(h, 0, lane)) = make_float4(o[0], o[1], o[2], o[3]);
+          *reinterpret_cast<float4*>(group(h, 1, lane)) = make_float4(o[4], o[5], o[6], o[7]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+}
+
+// Dispatch on (levels a stage: 1 or 4, tap mask) to FN<L, MASK>(args...).
+#define MARCH_DISPATCH(L, MASK, FN, ...)                                        \
+  do {                                                                          \
+    const int l_ = (L), m_ = (MASK);                                            \
+    if (l_ != 1 && l_ != 4) return (int)cudaErrorInvalidValue;                  \
+    switch (m_) {                                                               \
+      case march::MASK_JACOBI:                                                  \
+        return l_ == 1 ? FN<1, march::MASK_JACOBI>(__VA_ARGS__)                 \
+                       : FN<4, march::MASK_JACOBI>(__VA_ARGS__);                \
+      case march::MASK_EIGHT:                                                   \
+        return l_ == 1 ? FN<1, march::MASK_EIGHT>(__VA_ARGS__)                  \
+                       : FN<4, march::MASK_EIGHT>(__VA_ARGS__);                 \
+      case march::MASK_NINE:                                                    \
+        return l_ == 1 ? FN<1, march::MASK_NINE>(__VA_ARGS__)                   \
+                       : FN<4, march::MASK_NINE>(__VA_ARGS__);                  \
+      case 0:                                                                   \
+        return l_ == 1 ? FN<1, 0>(__VA_ARGS__) : FN<4, 0>(__VA_ARGS__);         \
+    }                                                                           \
+    return (int)cudaErrorInvalidValue;                                          \
+  } while (0)
+
+}  // namespace march

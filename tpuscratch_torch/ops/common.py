@@ -13,6 +13,8 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -164,17 +166,148 @@ def smem_optin(lib: ctypes.CDLL, name: str) -> int:
     return optin.value
 
 
-def trapezoid_tile(optin: int, depth: int, name: str) -> int:
-    """Output tile edge of a shared-memory trapezoid of ``depth`` substeps:
-    the largest of 64, 32, 16 or 8 whose two (tile + 2*depth)^2 f32
-    windows fit ``optin`` bytes. Raises when none does."""
-    for tile in (64, 32, 16, 8):
-        if 2 * (tile + 2 * depth) ** 2 * 4 <= optin:
-            return tile
-    raise ValueError(
-        f"{name}: depth {depth} is too deep for one block's shared memory "
-        f"({optin} B holds no (8 + 2*{depth})^2 window pair)"
-    )
+#: The row march of ``csrc/stencil_taps.cuh`` (``stream2d_kernel``,
+#: ``dma_deep_kernel``): columns a lane (``march::CX``), window columns a
+#: strip (``march::WIN``), stages a block at most (``march::MAX_WARPS``),
+#: input rows in flight (``march::AHEAD``), rows of the input ring and of a
+#: hand-over ring (``march::RING``, ``march::HAND``) and the levels a
+#: stage may hold.
+MARCH_CX, MARCH_WARPS, MARCH_AHEAD, MARCH_RING, MARCH_HAND = 8, 8, 6, 8, 4
+MARCH_WIN = 32 * MARCH_CX
+MARCH_LEVELS = (1, 4)
+#: Registers a thread of the march may take at most: its launch bounds
+#: state only the block's threads, 32 a stage and the I/O warp's 32, at most
+#: 288, which leave a thread 224.
+MARCH_REGS = 224
+#: Tap positions p = 3 (dy + 1) + (dx + 1) with an instantiation of their
+#: own (``march::MASK_*``: Jacobi, 8 points without the centre, all 9);
+#: any other set runs under a runtime mask (template mask 0).
+MARCH_MASKS = (0x0AA, 0x1EF, 0x1FF)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarchPlan:
+    """One launch of the row march: ``depth`` substeps in stages of
+    ``levels`` levels, ``warps`` stages a block (and an I/O warp); a block
+    owns a strip of ``width`` output columns (the window less an
+    ``apron`` a side) and a chunk of ``rows`` output rows; ``strips *
+    chunks`` blocks a grid, of ``smem`` bytes of shared memory each."""
+
+    depth: int
+    levels: int
+    warps: int
+    apron: int
+    width: int
+    rows: int
+    strips: int
+    chunks: int
+    smem: int
+
+
+def march_levels(depth: int) -> int:
+    """Levels a stage for a launch of ``depth`` substeps: 1 for one, else
+    4 (the most a warp holds in registers without spilling; the stage's
+    last levels idle where ``depth`` is not a multiple of 4). Four a stage
+    read faster than two on the H100 at the paths' depths 8 and 16
+    (PERF.md, PR 14)."""
+    return 1 if depth == 1 else 4
+
+
+def march_depth(levels: int = 4) -> int:
+    """The most substeps one launch runs at ``levels`` levels a stage;
+    a deeper pass is chained."""
+    return MARCH_WARPS * levels
+
+
+#: The march's time model: warps an SM must hold to issue every cycle
+#: (its 4 schedulers with 4 warps each to hide latencies); the least time
+#: a step takes, in level rows (a row in flight arrives no faster); and a
+#: wave's start (its blocks' first rows), in level rows.
+MARCH_SAT_WARPS, MARCH_STEP_FLOOR, MARCH_WAVE_START = 16, 4, 16
+#: The shortest chunk the rule takes where the output has more rows: below
+#: it a block's start outweighs its rows (measured on the H100, PERF.md).
+MARCH_MIN_ROWS = 8
+
+
+def march_cost(nb: int, out_h: int, strips: int, depth: int, levels: int, rows: int,
+               n_sm: int, per_sm: int) -> float:
+    """The march's time model, in level rows of one warp. An SM runs its
+    share of the blocks in waves of ``per_sm``; a wave takes its blocks'
+    work (a level of a block computes its chunk's rows plus the apron
+    rows it still needs) over the 4 schedulers at an issue rate that
+    grows with the warps resident (full at ``MARCH_SAT_WARPS``), or the
+    march of one block (a step costs a stage's levels, at least
+    ``MARCH_STEP_FLOOR``), whichever is longer, after its start."""
+    warps = -(-depth // levels)
+    per = -(-nb * strips * -(-out_h // rows) // n_sm)
+    work = depth * (rows + depth)
+    path = (rows + 2 * depth + warps - 1) * max(levels, MARCH_STEP_FLOOR)
+    cost = 0.0
+    while per > 0:
+        b = min(per, per_sm)
+        cost += max(b * work / (4 * min(1.0, b * warps / MARCH_SAT_WARPS)), path)
+        cost += MARCH_WAVE_START
+        per -= b
+    return cost
+
+
+@functools.lru_cache(maxsize=None)
+def march_plan(nb: int, out_h: int, out_w: int, depth: int, n_sm: int, per_sm: int,
+               levels: int | None = None, width: int | None = None,
+               rows: int | None = None) -> MarchPlan:
+    """The host rule of the row march: ``depth`` substeps writing ``nb``
+    grids of ``out_h`` x ``out_w`` on ``n_sm`` SMs that hold ``per_sm``
+    blocks each. The strip is the widest the window leaves (unless
+    ``width`` is given), the levels a stage :func:`march_levels`' (unless
+    ``levels`` is), and the chunk the one :func:`march_cost` finds
+    cheapest, the taller on a tie, of at least ``MARCH_MIN_ROWS`` rows
+    (unless ``rows`` is given); at most 65,535 chunks, the grid's limit."""
+    levels = march_levels(depth) if levels is None else levels
+    if levels not in MARCH_LEVELS:
+        raise ValueError(f"the march holds 1 or 4 levels a stage, got {levels}")
+    if not 1 <= depth <= march_depth(levels):
+        raise ValueError(f"a launch of {levels} levels a stage runs 1 to "
+                         f"{march_depth(levels)} substeps, got {depth}")
+    apron = -(-depth // 4) * 4
+    most = MARCH_WIN - 2 * apron
+    width = most if width is None else width
+    if not (4 <= width <= most and width % 4 == 0):
+        raise ValueError(f"strip width {width}: want a multiple of 4 in [4, {most}]")
+    strips = -(-out_w // width)
+    low = -(-out_h // 65535)
+    if rows is None:
+        rows = min(range(out_h, min(out_h, max(low, MARCH_MIN_ROWS)) - 1, -1),
+                   key=lambda c: march_cost(nb, out_h, strips, depth, levels, c, n_sm, per_sm))
+    if not low <= rows <= max(out_h, low):
+        raise ValueError(f"chunk of {rows} rows: want [{low}, {out_h}]")
+    warps = -(-depth // levels)
+    return MarchPlan(depth, levels, warps, apron, width, rows, strips, -(-out_h // rows),
+                     march_smem(warps))
+
+
+def march_smem(warps: int) -> int:
+    """Shared memory of a block of ``warps`` stages (``march::smem_bytes``):
+    the column table, the input ring, a hand-over ring a boundary and the
+    two output rows."""
+    return (MARCH_WIN + (MARCH_RING + MARCH_HAND * (warps - 1) + 2) * MARCH_WIN) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """The SMs of CUDA device ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tap_mask(c9) -> int:
+    """The 9-bit mask of the nonzero coefficients (by tap position)."""
+    return sum(1 << p for p, v in enumerate(c9) if v != 0.0)
+
+
+def march_mask(c9) -> int:
+    """The template mask a launch takes: its tap set where that has an
+    instantiation (``MARCH_MASKS``), else 0 (a runtime mask)."""
+    m = tap_mask(c9)
+    return m if m in MARCH_MASKS else 0
 
 
 def counters(wrappers):

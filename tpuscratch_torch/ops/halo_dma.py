@@ -17,7 +17,7 @@ kernel wrappers work on the stacked cores ``(rows, cols, H, W)``:
 - ``dma_ring``: ``steps`` 5-point steps in one cooperative launch, folded
   into rounds of up to 4 steps between grid barriers (``ring_plan``);
 - ``dma_deep``: one launch per round of ``depth`` substeps (5 or 9
-  points), a shared-memory trapezoid over the neighbours' k-deep edges;
+  points), a row march over the torus whose plan ``march_plan`` picks;
 - ``dma_hbm_step``: one step per launch, 5 or 9 points, over register
   tiles whose width and load width ``hbm_step_plan`` picks.
 
@@ -37,15 +37,19 @@ import torch
 from tpuscratch_torch.halo.exchange import HaloSpec, halo_exchange
 from tpuscratch_torch.halo.stencil import rebuild
 from tpuscratch_torch.ops.common import (
+    MarchPlan,
     check_cuda,
     check_status,
     counters,
     library,
+    march_depth,
+    march_levels,
+    march_mask,
+    march_plan,
     route,
-    smem_optin,
+    sm_count,
     stream_of,
     taps_args,
-    trapezoid_tile,
 )
 
 Coeffs = tuple[float, float, float, float, float]
@@ -153,7 +157,9 @@ def _lib() -> ctypes.CDLL:
     lib.ts_dma_ring.argtypes = [_P, _P, _P] + [_I] * 5 + taps + [_I] * 3 + [_P]
     lib.ts_dma_ring_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
     lib.ts_dma_ring_occupancy.restype = _I
-    lib.ts_dma_deep.argtypes = [_P, _P] + [_I] * 6 + taps + [_P]
+    lib.ts_dma_deep.argtypes = [_P, _P] + [_I] * 10 + [_P, _P]
+    lib.ts_dma_deep_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.ts_dma_deep_occupancy.restype = _I
     lib.ts_dma_hbm_step.argtypes = [_P, _P] + [_I] * 4 + taps + [_I, _P]
     for fn in (lib.ts_dma_ring, lib.ts_dma_deep, lib.ts_dma_hbm_step):
         fn.restype = _I
@@ -259,31 +265,108 @@ def dma_ring(cores: torch.Tensor, steps: int, coeffs: Coeffs = JACOBI) -> torch.
     return _ring_launch(cores, steps, coeffs, dma_ring_plan(cores, steps))
 
 
+def deep_c9(coeffs9) -> tuple[float, ...]:
+    """The depth-k kernel's coefficients by tap position p = 3 (dy + 1) +
+    (dx + 1) (it sums them in ``_OFFS9`` order, zeros skipped)."""
+    c9 = [0.0] * 9
+    for (dy, dx), c in zip(_OFFS9, as_nine(coeffs9)):
+        c9[3 * (dy + 1) + dx + 1] = c
+    return tuple(c9)
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_per_sm(device: int, levels: int, mask: int, warps: int) -> int:
+    lib = _lib()
+    per_sm = _I(0)
+    with torch.cuda.device(device):
+        check_status(lib, lib.ts_dma_deep_occupancy(levels, mask, warps, ctypes.byref(per_sm)),
+                     "dma_deep")
+    return per_sm.value
+
+
+def deep_rounds(steps: int, depth: int) -> list[int]:
+    """The substeps of each ``dma_deep`` launch: rounds of ``depth``, the
+    last one shallower when ``steps % depth`` is nonzero, and a round
+    deeper than a launch runs (``march_depth()``) cut into launches of at
+    most that many (on a torus the bits are the same)."""
+    out, left = [], steps
+    while left:
+        k = min(depth, left)
+        left -= k
+        while k:
+            out.append(min(k, march_depth()))
+            k -= out[-1]
+    return out
+
+
+def deep_plan(cores_shape, j: int, n_sm: int, per_sm_of) -> MarchPlan:
+    """:func:`march_plan` of a launch of ``j`` substeps over the torus the
+    stacked ``(R, C, H, W)`` cores tile, as one grid; ``per_sm_of(levels,
+    warps)`` gives the blocks an SM holds."""
+    R, C, H, W = cores_shape
+    levels = march_levels(j)
+    return march_plan(1, R * H, C * W, j, n_sm, per_sm_of(levels, -(-j // levels)))
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_taps(coeffs9: tuple) -> tuple:
+    """``(c9 as a ctypes float array, template mask)`` of a coefficient set."""
+    c9 = deep_c9(coeffs9)
+    return (ctypes.c_float * 9)(*c9), march_mask(c9)
+
+
+def _deep_call(src: torch.Tensor, dst: torch.Tensor, taps: tuple, plan: MarchPlan,
+               stream) -> None:
+    """One launch of ``plan.depth`` substeps of the torus, ``src`` into
+    ``dst``, on the current device."""
+    c9_arg, mask = taps
+    W = src.shape[-1]
+    vec = W % 4 == 0 and src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0
+    check_status(_lib(), _lib().ts_dma_deep(
+        src.data_ptr(), dst.data_ptr(), *src.shape, plan.depth, plan.levels, mask, plan.rows,
+        plan.width, int(vec), c9_arg, stream,
+    ), "dma_deep")
+    dma_deep.launches += 1
+
+
+def _deep_launch(src: torch.Tensor, coeffs9, plan: MarchPlan) -> torch.Tensor:
+    """One launch of ``plan.depth`` substeps of the torus, into a fresh
+    buffer."""
+    dst = torch.empty_like(src)
+    with torch.cuda.device(src.device):
+        _deep_call(src, dst, _deep_taps(as_nine(coeffs9)), plan, stream_of(src))
+    return dst
+
+
 def dma_deep(cores: torch.Tensor, steps: int, coeffs9, depth: int) -> torch.Tensor:
     """``steps`` periodic 5/9-point steps, ``depth`` substeps per launch
     (one round: the k-deep ghost zone read from the neighbour ranks' cores,
-    the substeps run as a trapezoid in shared memory); the last round is
-    shallower when ``steps % depth`` is nonzero. Returns fresh cores."""
+    the substeps run as a row march over the torus, ``csrc/halo_dma.cu``);
+    the last round is shallower when ``steps % depth`` is nonzero, and a
+    round deeper than a launch runs is chained (:func:`deep_rounds`).
+    Returns fresh cores (rounds alternate between two buffers)."""
     _check_cores(cores, "dma_deep")
     if steps < 1 or depth < 1:
         raise ValueError(f"steps and depth must be >= 1, got {steps}, {depth}")
-    taps = deep_taps(coeffs9)
     if not route(cores, "dma_deep"):
         return dma_deep_plain(cores, steps, coeffs9, depth)
     check_cuda(cores, "dma_deep", 4)
-    optin = smem_optin(_lib(), "dma_deep")
-    args = taps_args(taps)
-    src, left = cores, steps
-    while left:
-        k = min(depth, left)
-        dst = torch.empty_like(cores)
-        with torch.cuda.device(cores.device):
-            check_status(_lib(), _lib().ts_dma_deep(
-                src.data_ptr(), dst.data_ptr(), *cores.shape, k,
-                trapezoid_tile(optin, k, "dma_deep"), *args, stream_of(cores),
-            ), "dma_deep")
-        dma_deep.launches += 1
-        src, left = dst, left - k
+    dev = cores.device.index if cores.device.index is not None else torch.cuda.current_device()
+    taps = _deep_taps(as_nine(coeffs9))
+    shape, mask = tuple(cores.shape), taps[1]
+    plans: dict[int, MarchPlan] = {}
+    rounds = deep_rounds(steps, depth)
+    bufs = [torch.empty_like(cores) for _ in range(min(2, len(rounds)))]
+    src = cores
+    with torch.cuda.device(cores.device):
+        stream = stream_of(cores)
+        for r, j in enumerate(rounds):
+            plan = plans.get(j)
+            if plan is None:
+                plan = plans[j] = deep_plan(shape, j, sm_count(dev),
+                                            lambda lv, w: _deep_per_sm(dev, lv, mask, w))
+            _deep_call(src, bufs[r % 2], taps, plan, stream)
+            src = bufs[r % 2]
     return src
 
 

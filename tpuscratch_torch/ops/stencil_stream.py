@@ -34,15 +34,19 @@ import functools
 import torch
 
 from tpuscratch_torch.ops.common import (
+    MarchPlan,
     check_cuda,
     check_status,
     counters,
     library,
+    march_depth,
+    march_levels,
+    march_mask,
+    march_plan,
     route,
+    sm_count,
     smem_optin,
     stream_of,
-    taps_args,
-    trapezoid_tile,
 )
 
 #: The JAX package's default VMEM budget, accepted for its signature.
@@ -68,9 +72,9 @@ def stream2d_band(H: int, W: int, depth: int, itemsize: int,
                   budget_bytes: int, ghost_x: bool = False) -> int:
     """The TPU kernel's row band: the largest 8-multiple divisor of ``H``
     whose VMEM footprint fits the budget, with >= 2 bands of >= ``depth``
-    rows. The CUDA kernel tiles the core in 2D blocks whatever its size
-    and takes no band; this is the JAX package's pure sizing rule, kept
-    for callers that size a band."""
+    rows. The CUDA kernel marches strips and chunks of rows of any size
+    (``ops.common.march_plan``) and takes no band; this is the JAX
+    package's pure sizing rule, kept for callers that size a band."""
     k = depth
 
     def cost(b):
@@ -146,28 +150,104 @@ def nine_point_streamed_2d_plain(core, a_top, a_bot, coeffs, depth, open_flags,
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("stencil_stream2d")
-    lib.ts_stream2d.argtypes = [_P] * 7 + [_I] * 7 + [_P, _P, _P, _P]
+    lib.ts_stream2d.argtypes = [_P] * 7 + [_I, _P, _P, _P]
     lib.ts_stream2d.restype = _I
+    lib.ts_stream2d_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.ts_stream2d_occupancy.restype = _I
     return lib
 
 
-def _launch(core, a_top, a_bot, gl, gr, flags, coeffs, k) -> torch.Tensor:
+def stream_c9(coeffs) -> tuple[float, ...]:
+    """The weight grid by tap position p = 3 (dy + 1) + (dx + 1), as the
+    kernel takes it."""
+    return tuple(w for row in weight_grid(coeffs) for w in row)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_taps(coeffs: tuple) -> tuple:
+    """``(c9 as a ctypes float array, template mask)`` of a coefficient set."""
+    c9 = stream_c9(coeffs)
+    return (ctypes.c_float * 9)(*c9), march_mask(c9)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream2d_per_sm(device: int, levels: int, mask: int, warps: int, open_: bool) -> int:
+    lib = _lib()
+    per_sm = _I(0)
+    with torch.cuda.device(device):
+        check_status(lib, lib.ts_stream2d_occupancy(levels, mask, warps, int(open_),
+                                                     ctypes.byref(per_sm)),
+                     "nine_point_streamed_2d")
+    return per_sm.value
+
+
+def may_open(open_flags) -> bool:
+    """Whether a pass's ranks may have an open end, as far as the host can
+    tell without reading the card: None has none, flags held on the host
+    are read, flags on the card may have one. The kernel that zeroes open
+    ends runs only then (``csrc/stencil_stream2d.cu``)."""
+    if open_flags is None:
+        return False
+    if isinstance(open_flags, torch.Tensor) and open_flags.device.type != "cpu":
+        return True
+    return bool(torch.as_tensor(open_flags).any())
+
+
+def stream2d_plans(nb: int, H: int, W: int, depth: int, n_sm: int, per_sm_of) -> list[MarchPlan]:
+    """The launches of a pass of ``depth`` substeps over ``nb`` (H, W)
+    cores: one of at most ``march_depth()`` substeps each, every launch
+    but the last writing the dense grid its successor reads, ``depth -
+    done - j`` rings beyond the core. ``per_sm_of(levels, warps)`` gives
+    the blocks an SM holds."""
+    plans, done = [], 0
+    while done < depth:
+        j = min(depth - done, march_depth())
+        go = depth - done - j
+        levels = march_levels(j)
+        plans.append(march_plan(nb, H + 2 * go, W + 2 * go, j, n_sm,
+                                per_sm_of(levels, -(-j // levels))))
+        done += j
+    return plans
+
+
+def _launch(core, a_top, a_bot, gl, gr, flags, coeffs, k, plans=None,
+            open_: bool = True) -> torch.Tensor:
+    """The pass on the card: the launches of ``plans`` (the host rule's,
+    :func:`stream2d_plans`, unless given), each counted; ``open_``: the
+    ranks may have open ends (:func:`may_open`)."""
     name = "nine_point_streamed_2d"
     for t in (core, a_top, a_bot) + ((gl, gr) if gl is not None else ()):
         check_cuda(t, name, 2)
     H, W = core.shape[-2:]
-    out = torch.empty_like(core)
+    lead = tuple(core.shape[:-2])
     nb = core.numel() // (H * W)
-    tile = trapezoid_tile(smem_optin(_lib(), name), k, name)
+    c9_arg, mask = _stream_taps(tuple(float(c) for c in coeffs))
+    dev = core.device.index if core.device.index is not None else torch.cuda.current_device()
+    if plans is None:
+        plans = stream2d_plans(nb, H, W, k, sm_count(dev),
+                               lambda lv, w: _stream2d_per_sm(dev, lv, mask, w, open_))
     ghost = gl is not None
-    with torch.cuda.device(core.device):
-        check_status(_lib(), _lib().ts_stream2d(
-            core.data_ptr(), a_top.data_ptr(), a_bot.data_ptr(),
-            gl.data_ptr() if ghost else None, gr.data_ptr() if ghost else None,
-            flags.data_ptr(), out.data_ptr(), nb, H, W, k, int(ghost), tile,
-            *taps_args(stream_taps(coeffs)), stream_of(core),
-        ), name)
-    return out
+    src, gi, done = core, -1, 0
+    for plan in plans:
+        j = plan.depth
+        go = k - done - j
+        out = torch.empty_like(core) if go == 0 else core.new_empty(
+            lead + (H + 2 * go, W + 2 * go))
+        # 16-byte groups: rows of whole groups from 16-byte aligned bases
+        ins = (src, a_top, a_bot) if gi < 0 else (src,)
+        vin = (W if gi < 0 else W + 2 * gi) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ins)
+        vout = (W + 2 * go) % 4 == 0 and out.data_ptr() % 16 == 0
+        ints = (ctypes.c_int * 14)(H, W, k, done, j, int(ghost), gi, plan.levels, mask,
+                                   plan.rows, plan.width, int(vin), int(vout), int(open_))
+        with torch.cuda.device(core.device):
+            check_status(_lib(), _lib().ts_stream2d(
+                src.data_ptr(), a_top.data_ptr(), a_bot.data_ptr(),
+                gl.data_ptr() if ghost else None, gr.data_ptr() if ghost else None,
+                flags.data_ptr(), out.data_ptr(), nb, ints, c9_arg, stream_of(core),
+            ), name)
+        nine_point_streamed_2d.launches += 1
+        src, gi, done = out, go, done + j
+    return src
 
 
 def nine_point_streamed_2d(
@@ -184,15 +264,17 @@ def nine_point_streamed_2d(
     gr: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``depth`` 5/9-point Jacobi substeps of ``(…, H, W)`` cores in ONE
-    launch (see the module docstring for the modes).
+    launch (see the module docstring for the modes); a pass deeper than
+    ``march_depth()`` (32) substeps is chained through dense grids, a
+    launch each 32.
 
     ``a_top``/``a_bot``: ``(…, depth, W)`` ghost-row slabs. ``band`` and
     ``budget_bytes`` size the TPU kernel's VMEM row bands and are accepted
-    for its signature: the CUDA kernel tiles the core in 2D blocks, so the
-    TPU's refusals of ``H % 8``, of bands that are not 8-multiple divisors
-    and of VMEM budgets are gone. Kept: ``depth >= 1``, ``depth <= H``
-    (the slabs are the neighbours' last ``depth`` rows), ``W >= 3`` and,
-    in ghost mode, ``depth <= W``.
+    for its signature: the CUDA kernel marches strips and chunks of rows
+    of any size, so the TPU's refusals of ``H % 8``, of bands that are not
+    8-multiple divisors and of VMEM budgets are gone. Kept: ``depth >=
+    1``, ``depth <= H`` (the slabs are the neighbours' last ``depth``
+    rows), ``W >= 3`` and, in ghost mode, ``depth <= W``.
     """
     H, W = core_shape
     k = depth
@@ -226,9 +308,7 @@ def nine_point_streamed_2d(
     flags = _flags(open_flags, lead, core.device)
     if route(core, "nine_point_streamed_2d"):
         contig = [t.contiguous() if t is not None else None for t in (core, a_top, a_bot, gl, gr)]
-        out = _launch(*contig, flags, coeffs, k)
-        nine_point_streamed_2d.launches += 1
-        return out
+        return _launch(*contig, flags, coeffs, k, open_=may_open(open_flags))
     return nine_point_streamed_2d_plain(core, a_top, a_bot, coeffs, k, flags, gl, gr)
 
 
