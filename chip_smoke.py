@@ -243,10 +243,10 @@ def bound(nbytes: int, flops: int, ops_per_s: float = F32_FLOP_PER_S) -> tuple[f
 # the paged kernel's instantiations: 3 pool dtypes x (16-byte or narrower
 # loads) x (nj 1, 2, 4 or a wide head), and the combine kernel
 PAGED_INSTANTIATIONS = 3 * 2 * 4 + 1
-# the row march's instantiations: 1 or 4 levels a stage x 4 tap masks (3
+# the row march's instantiations: 1 or 4 levels a stage x 3 tap masks (2
 # of their own and the runtime mask), in the depth-k DMA kernel and, with
 # and without the open ends' zeroing, in the streamed 2D kernel
-MARCH_INSTANTIATIONS = 2 * 4
+MARCH_INSTANTIATIONS = 2 * 3
 
 
 def phase1_card() -> dict:
@@ -791,12 +791,22 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
             stream_plain = lambda: ss.nine_point_streamed_2d_plain(  # noqa: E731
                 core, top, bot, JACOBI, k32, flags, gl, gr)
             check("nine_point_streamed_2d", stream(), stream_plain(), f"{label} k={k32} ghost")
+            ext = torch.cat([gl, torch.cat([top, core, bot], dim=-2), gr], dim=-1)
+            ext = ext.reshape(-1, 1, n + 2 * k32, n + 2 * k32).contiguous()
+            w_stream = _kfold(k32, JACOBI)
+            s_lib = lambda: conv(ext, w_stream)  # noqa: E731
+            err = max_err(s_lib().reshape(core.shape), stream_plain())
+            log(f"  library conv2d {2 * k32 + 1}^2 vs stream plain {label} k={k32}: max_abs_err "
+                f"{err:.3e} (atol {LIBRARY_ATOL:g})")
+            if err > LIBRARY_ATOL:
+                raise AssertionError(f"conv2d yardstick of the stream {label} k={k32}: "
+                                     f"{err} > {LIBRARY_ATOL}")
             slab = top.numel() + bot.numel() + gl.numel() + gr.numel()
             b, by = bound((2 * cells + slab) * 4, 7 * cells * k32, F32_SEPARATE_OPS_PER_S)
             rows.append(dict(name="nine_point_streamed_2d", shape=f"{label}, k={k32}",
                              ms=device_ms(stream, n=5), plain_ms=device_ms(stream_plain, n=1),
-                             library_ms=None, bound_ms=b, bound_by=by))
-            del core, top, bot, gl, gr
+                             library_ms=device_ms(s_lib, n=2), bound_ms=b, bound_by=by))
+            del core, top, bot, gl, gr, ext
 
         cores = randn(lead + (n, n), gen)
         check("dma_ring", hd.dma_ring(cores, 16, JACOBI), hd.dma_ring_plain(cores, 16, JACOBI),
@@ -812,12 +822,15 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
         world = cores.permute(0, 2, 1, 3).reshape(lead[0] * n, lead[1] * n)
         torus = {k: torch.nn.functional.pad(world[None, None], (k, k, k, k), mode="circular")
                  for k in (1, deep_k)}
-        w_deep, w_one = _kfold(deep_k, JACOBI), _kfold(1, JACOBI)
+        w_deep, w_one, w_nine = _kfold(deep_k, JACOBI), _kfold(1, JACOBI), _kfold(1, NINE)
         d_lib = lambda: conv(torus[deep_k], w_deep)  # noqa: E731
         h_lib = lambda: conv(torus[1], w_one)  # noqa: E731
-        for lib_call, want, what in (
-                (d_lib, hd.dma_deep_plain(cores, deep_k, JACOBI, deep_k), "deep"),
-                (h_lib, hd.dma_hbm_step_plain(cores, JACOBI), "hbm step")):
+        n_lib = lambda: conv(torus[1], w_nine)  # noqa: E731
+        yardsticks = [(d_lib, hd.dma_deep_plain(cores, deep_k, JACOBI, deep_k), "deep"),
+                      (h_lib, hd.dma_hbm_step_plain(cores, JACOBI), "hbm step")]
+        if not ghost:  # the 9-point dma path's depth-1 rounds
+            yardsticks.append((n_lib, hd.dma_deep_plain(cores, 1, NINE, 1), "deep k=1 9pt"))
+        for lib_call, want, what in yardsticks:
             got = lib_call()[0, 0].reshape(lead[0], n, lead[1], n).permute(0, 2, 1, 3)
             err = max_err(got, want)
             log(f"  library conv2d vs {what} plain {label}: max_abs_err {err:.3e} "
@@ -841,9 +854,6 @@ def phase8_stream_dma_kernels(gen) -> tuple[dict, list]:
         if not ghost:  # the 9-point dma path's depth-1 rounds (8 taps, 15 operations)
             check("dma_deep", hd.dma_deep(cores, 1, NINE, 1), hd.dma_deep_plain(cores, 1, NINE, 1),
                   f"{label} k=1 9pt")
-            w_nine = torch.tensor([[0.0625, 0.125, 0.0625], [0.125, 0.0, 0.125],
-                                   [0.0625, 0.125, 0.0625]], device="cuda").reshape(1, 1, 3, 3)
-            n_lib = lambda: conv(torus[1], w_nine)  # noqa: E731
             b, by = bound(2 * cells * 4, 15 * cells, F32_SEPARATE_OPS_PER_S)
             rows.append(dict(name="dma_deep", shape=f"{label}, k=1 9pt",
                              ms=device_ms(lambda: hd.dma_deep(cores, 1, NINE, 1)),

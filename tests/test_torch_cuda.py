@@ -186,8 +186,8 @@ def test_dma_deep(card, depth, steps, coeffs):
 
 
 # the row march of stream2d_kernel and dma_deep_kernel, across its edges:
-# every tap mask (Jacobi, 5 points with a centre, 8 without one, all 9 and
-# a set under the runtime mask), W not a multiple of 4 (4-byte columns) and
+# both template tap masks (Jacobi, 8 points without the centre) and sets
+# under the runtime mask (5 points with a centre, all 9, a sparse set), W not a multiple of 4 (4-byte columns) and
 # below one strip, k above W, cores of 3 cells, k = 32 and deeper passes
 # chained through dense grids (k = 33, 81), and plans other than the rule's
 SPARSE = (0.1, 0.0, 0.2, 0.3, 0.05, 0.0, 0.0, 0.0, 0.2)

@@ -137,13 +137,14 @@ def test_march_plan_fits_and_covers(nb, out_h, out_w, depth, per_sm):
     assert plan.chunks <= 65535
 
 
+# the paths' shapes at the blocks an SM the H100 holds of each kernel
 @pytest.mark.parametrize("nb,out_h,out_w,depth,per_sm,rows,strips", [
-    (16, 2048, 2048, 16, 3, 293, 10),  # config 4's stream:16 pass, 4x4 stacked ranks
-    (16, 2048, 2048, 32, 1, 683, 11),  # its stream:32 pass
+    (16, 2048, 2048, 16, 3, 171, 10),  # config 4's stream:16 pass, 4x4 stacked ranks
+    (16, 2048, 2048, 32, 1, 410, 11),  # its stream:32 pass
     (1, 1024, 1024, 16, 3, 13, 5),     # the 1x1 world at 1024^2
-    (1, 8192, 8192, 8, 5, 222, 35),    # dma-deep:8 on the 8192^2 torus
-    (1, 1024, 1024, 8, 5, 8, 5),       # dma-deep:8 on the 1024^2 torus
-    (1, 1024, 1024, 1, 18, 8, 5),      # the 9-point dma path's depth-1 rounds
+    (1, 8192, 8192, 8, 4, 547, 35),    # dma-deep:8 on the 8192^2 torus
+    (1, 1024, 1024, 8, 4, 10, 5),      # dma-deep:8 on the 1024^2 torus
+    (1, 1024, 1024, 1, 18, 13, 5),     # the 9-point dma path's depth-1 rounds
 ])
 def test_march_plan_chunks(nb, out_h, out_w, depth, per_sm, rows, strips):
     plan = tc.march_plan(nb, out_h, out_w, depth, SMS, per_sm)
@@ -158,11 +159,26 @@ def test_march_plan_minimises_its_cost(nb, out_h, out_w, depth, per_sm):
     def cost(rows):
         return tc.march_cost(nb, out_h, plan.strips, depth, plan.levels, rows, SMS, per_sm)
 
-    # the cheapest chunk of at least MARCH_MIN_ROWS rows, the tallest on a tie
-    low = min(out_h, tc.MARCH_MIN_ROWS)
-    assert plan.rows >= low
-    assert all(cost(plan.rows) <= cost(rows) for rows in range(low, out_h + 1))
-    assert all(cost(plan.rows) < cost(rows) for rows in range(plan.rows + 1, out_h + 1))
+    # the cheapest of the even chunks, the tallest on a tie
+    even = tc.march_chunks(out_h)
+    assert plan.rows in even
+    assert all(cost(plan.rows) <= cost(rows) for rows in even)
+    assert all(cost(plan.rows) < cost(rows) for rows in even if rows > plan.rows)
+
+
+@pytest.mark.parametrize("out_h", [1, 2, 3, 37, 1024, 2048])
+def test_march_chunks_are_even(out_h):
+    heights = tc.march_chunks(out_h)
+    assert heights == sorted(set(heights), reverse=True)
+    assert heights[0] == out_h and heights[-1] == 1
+    for rows in heights:
+        # c chunks of at most `rows` rows: the last one is the only shorter
+        # one, and no shorter height gives as few chunks
+        c = -(-out_h // rows)
+        assert 0 < out_h - (c - 1) * rows <= rows
+        assert rows == 1 or -(-out_h // (rows - 1)) > c
+    # every number of chunks has its height
+    assert {-(-out_h // rows) for rows in heights} == {-(-out_h // r) for r in range(1, out_h + 1)}
 
 
 def test_march_plan_grid_follows_the_card():
@@ -212,11 +228,11 @@ JACOBI5 = (0.25, 0.25, 0.25, 0.25, 0.0)
 ODD5 = (0.3, 0.15, 0.2, 0.25, 0.1)
 C9 = (0.15, 0.15, 0.1, 0.1, 0.05, 0.05, 0.08, 0.07, 0.25)
 NINE = (0.125,) * 4 + (0.0625,) * 4 + (0.0,)
-SPARSE = (0.1, 0.0, 0.2, 0.3, 0.05, 0.0, 0.0, 0.0, 0.2)  # no instantiation of its own
+SPARSE = (0.1, 0.0, 0.2, 0.3, 0.05, 0.0, 0.0, 0.0, 0.2)
 
 
 @pytest.mark.parametrize("coeffs,mask", [
-    (JACOBI5, 0x0AA), (ODD5, 0), (NINE, 0x1EF), (C9, 0x1FF), (SPARSE, 0)])
+    (JACOBI5, 0x0AA), (ODD5, 0), (NINE, 0x1EF), (C9, 0), (SPARSE, 0)])
 def test_march_masks(coeffs, mask):
     # both kernels see the same tap positions; only their sum orders differ
     assert tc.march_mask(ts.stream_c9(coeffs)) == mask

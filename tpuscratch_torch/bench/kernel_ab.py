@@ -536,9 +536,11 @@ def deep_cases(gen):
         del cores
 
 
-def _march_variants(rule, per_sm_of, plan_of):
+def _march_variants(rule, out_h, per_sm_of, plan_of):
     """The plans a sweep times beside the rule's: other levels a stage,
-    half-width strips, and chunks of a quarter to four times the rule's."""
+    half-width strips, chunks of a quarter to four times the rule's in
+    steps of a factor of sqrt(2), and the even chunks of one and two more
+    and fewer chunks than the rule's (of ``out_h`` rows)."""
     from tpuscratch_torch.ops import common as tc
 
     plans = {rule}
@@ -546,8 +548,12 @@ def _march_variants(rule, per_sm_of, plan_of):
         if rule.depth <= tc.march_depth(levels):
             plans.add(plan_of(levels=levels, per_sm=per_sm_of(levels)))
     plans.add(plan_of(width=rule.width // 8 * 4))
-    for f in (0.25, 0.5, 2, 4):
-        plans.add(plan_of(rows=max(1, round(rule.rows * f))))
+    for i in range(-4, 5):
+        plans.add(plan_of(rows=max(1, round(rule.rows * 2 ** (i / 2)))))
+    even = tc.march_chunks(out_h)
+    at = even.index(rule.rows) if rule.rows in even else None
+    for i in () if at is None else range(max(0, at - 2), min(len(even), at + 3)):
+        plans.add(plan_of(rows=even[i]))
     return sorted(plans, key=lambda p: (p.levels, p.width, p.rows))
 
 
@@ -576,15 +582,15 @@ def stream2d_sweep(gen):
             return tc.march_plan(nb, n, n, k, sms, per_sm or per_sm_of(levels), levels=levels,
                                  width=width, rows=rows and min(rows, n))
 
-        for plan in _march_variants(rule, per_sm_of, plan_of):
+        for plan in _march_variants(rule, n, per_sm_of, plan_of):
             call = lambda: ss._launch(core, top, bot, gl, gr, flags, JACOBI, k,  # noqa: E731
                                       plans=[plan], open_=False)
             if not torch.equal(call(), want):
                 raise AssertionError(f"sweep stream2d {plan} differs from its plain version")
             mark = " (rule)" if plan == rule else ""
             yield (f"sweep stream2d {_label2d(lead, n)} k={k} levels={plan.levels} "
-                   f"width={plan.width} rows={plan.rows} blocks={nb * plan.strips * plan.chunks}"
-                   f"{mark}", device_ms(call, n=20))
+                   f"width={plan.width} rows={plan.rows} blocks={nb * plan.strips * plan.chunks} "
+                   f"per_sm={per_sm_of(plan.levels)}{mark}", device_ms(call, n=20))
         del core, top, bot, gl, gr, want
 
 
@@ -613,14 +619,15 @@ def deep_sweep(gen):
                                  per_sm or per_sm_of(levels), levels=levels, width=width,
                                  rows=rows and min(rows, lead[0] * n))
 
-        for plan in _march_variants(rule, per_sm_of, plan_of):
+        for plan in _march_variants(rule, lead[0] * n, per_sm_of, plan_of):
             call = lambda: hd._deep_launch(cores, coeffs, plan)  # noqa: E731
             if not torch.equal(call(), want):
                 raise AssertionError(f"sweep deep {plan} differs from its plain version")
             mark = " (rule)" if plan == rule else ""
             yield (f"sweep deep {_label2d(lead, n)} k={k} {len(coeffs)}pt levels={plan.levels} "
-                   f"width={plan.width} rows={plan.rows} blocks={plan.strips * plan.chunks}"
-                   f"{mark}", device_ms(call, n=20 if n > 1024 else 200))
+                   f"width={plan.width} rows={plan.rows} blocks={plan.strips * plan.chunks} "
+                   f"per_sm={per_sm_of(plan.levels)}{mark}",
+                   device_ms(call, n=20 if n > 1024 else 200))
         del cores, want
 
 

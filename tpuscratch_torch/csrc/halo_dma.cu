@@ -320,10 +320,10 @@ extern "C" int ts_dma_ring(const float* in, float* buf0, float* buf1, int R,
 // into stages of 4 levels a warp in registers (1 at depth 1), one barrier
 // a row, one I/O warp doing every copy; the redundant work lies on the
 // window's x apron (256 / 240 at k = 8) and the chunk's k rows at each
-// end. Taps are a template mask (Jacobi, 8 and 9 points; any other set a
-// runtime mask). The wrap is resolved once a lane for its columns (their
-// ranks and offsets) and once a row (an incremental rank and row, RowAt):
-// no tap, cell or loaded row divides. 16-byte groups where W % 4 == 0 and
+// end. Taps are a template mask (the paths' Jacobi and 8 points; any
+// other set a runtime mask). The wrap is resolved once a lane for its
+// columns (their ranks and offsets) and once a row (an incremental rank
+// and row, RowAt): no tap, cell or loaded row divides. 16-byte groups where W % 4 == 0 and
 // the buffers are 16-byte aligned; otherwise 4-byte columns whose offsets
 // a table in shared memory holds. The host rule (ops.common.march_plan)
 // picks L, the strip and the chunk.

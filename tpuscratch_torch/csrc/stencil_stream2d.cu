@@ -38,10 +38,10 @@
 // memory, one barrier a row, and one I/O warp doing every copy from and to
 // device memory. The redundant work of the pyramid lies on the window's x
 // apron (256 / (256 - 2K), at K = 16: 1.14) and on the chunk's K rows at
-// each end. Taps are a template mask (Jacobi, 8 and 9 points; any other
-// set a runtime mask). A block whose window lies inside the rows' main
-// source loads each row as two 16-byte groups a lane (W % 4 == 0 and
-// aligned bases); any other block resolves once where each window column
+// each end. Taps are a template mask (the paths' Jacobi and 8 points;
+// any other set a runtime mask). A block whose window lies inside the
+// rows' main source loads each row as two 16-byte groups a lane (W % 4 ==
+// 0 and aligned bases); any other block resolves once where each window column
 // comes from (the core, a slab, gl, gr, a wrapped column, or nowhere) into
 // a table in shared memory and loads 4 bytes a column; a row's source is
 // resolved once a row, and no division runs in the march. Open ends are a

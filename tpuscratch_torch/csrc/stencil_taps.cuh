@@ -92,7 +92,6 @@ enum { ORDER_GRID = 0,   // the weight grid row by row (stencil_stream2d.cu)
 // of 4 levels a stage, so that set takes the runtime mask.)
 constexpr int MASK_JACOBI = 0x0AA;  // n, w, e, s
 constexpr int MASK_EIGHT = 0x1EF;   // all but the centre
-constexpr int MASK_NINE = 0x1FF;
 constexpr int MASK_DIAG = 0x145;    // nw, ne, sw, se
 
 template <int ORD>
@@ -314,9 +313,6 @@ __device__ __forceinline__ void run(Load&& load, Zero&& zero, Store&& store, con
       case march::MASK_EIGHT:                                                   \
         return l_ == 1 ? FN<1, march::MASK_EIGHT>(__VA_ARGS__)                  \
                        : FN<4, march::MASK_EIGHT>(__VA_ARGS__);                 \
-      case march::MASK_NINE:                                                    \
-        return l_ == 1 ? FN<1, march::MASK_NINE>(__VA_ARGS__)                   \
-                       : FN<4, march::MASK_NINE>(__VA_ARGS__);                  \
       case 0:                                                                   \
         return l_ == 1 ? FN<1, 0>(__VA_ARGS__) : FN<4, 0>(__VA_ARGS__);         \
     }                                                                           \

@@ -180,9 +180,9 @@ MARCH_LEVELS = (1, 4)
 #: 288, which leave a thread 224.
 MARCH_REGS = 224
 #: Tap positions p = 3 (dy + 1) + (dx + 1) with an instantiation of their
-#: own (``march::MASK_*``: Jacobi, 8 points without the centre, all 9);
-#: any other set runs under a runtime mask (template mask 0).
-MARCH_MASKS = (0x0AA, 0x1EF, 0x1FF)
+#: own (``march::MASK_*``: the paths' Jacobi and 8 points without the
+#: centre); any other set runs under a runtime mask (template mask 0).
+MARCH_MASKS = (0x0AA, 0x1EF)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,36 +219,43 @@ def march_depth(levels: int = 4) -> int:
     return MARCH_WARPS * levels
 
 
-#: The march's time model: warps an SM must hold to issue every cycle
-#: (its 4 schedulers with 4 warps each to hide latencies); the least time
-#: a step takes, in level rows (a row in flight arrives no faster); and a
-#: wave's start (its blocks' first rows), in level rows.
-MARCH_SAT_WARPS, MARCH_STEP_FLOOR, MARCH_WAVE_START = 16, 4, 16
-#: The shortest chunk the rule takes where the output has more rows: below
-#: it a block's start outweighs its rows (measured on the H100, PERF.md).
-MARCH_MIN_ROWS = 8
+#: The march's time model, fitted to the H100's chunk sweeps of the paths'
+#: shapes (PERF.md, PR 14): warps an SM must hold to issue every cycle (its
+#: 4 schedulers with 3 warps each); the tail of a grid of more than one
+#: wave of resident blocks, in marches of one block (such blocks start and
+#: end staggered, and the last ones end with their SM part idle); and the
+#: time of a row read or written, in level rows (an SM's share of the
+#: memory rate).
+MARCH_SAT_WARPS, MARCH_TAIL, MARCH_ROW_IO = 12, 1.5, 0.5
 
 
 def march_cost(nb: int, out_h: int, strips: int, depth: int, levels: int, rows: int,
                n_sm: int, per_sm: int) -> float:
-    """The march's time model, in level rows of one warp. An SM runs its
-    share of the blocks in waves of ``per_sm``; a wave takes its blocks'
-    work (a level of a block computes its chunk's rows plus the apron
-    rows it still needs) over the 4 schedulers at an issue rate that
-    grows with the warps resident (full at ``MARCH_SAT_WARPS``), or the
-    march of one block (a step costs a stage's levels, at least
-    ``MARCH_STEP_FLOOR``), whichever is longer, after its start."""
+    """The march's time model, in level rows of one warp. A grid of at most
+    one wave of resident blocks (``per_sm`` an SM) runs the blocks of its
+    fullest SM at once; a larger grid streams through the SMs, each taking
+    an even share, and ends in a tail. An SM's time is the longest of its
+    blocks' work (a level of a block computes its chunk's rows plus the
+    apron rows it still needs) over its 4 schedulers at an issue rate that
+    grows with the warps resident (full at ``MARCH_SAT_WARPS``), the rows
+    its blocks read (the chunk and its apron rows) and write, and the
+    march of one block (a step costs a stage's levels)."""
     warps = -(-depth // levels)
-    per = -(-nb * strips * -(-out_h // rows) // n_sm)
-    work = depth * (rows + depth)
-    path = (rows + 2 * depth + warps - 1) * max(levels, MARCH_STEP_FLOOR)
-    cost = 0.0
-    while per > 0:
-        b = min(per, per_sm)
-        cost += max(b * work / (4 * min(1.0, b * warps / MARCH_SAT_WARPS)), path)
-        cost += MARCH_WAVE_START
-        per -= b
-    return cost
+    blocks = nb * strips * -(-out_h // rows)
+    stream = blocks > n_sm * per_sm
+    per = blocks / n_sm if stream else -(-blocks // n_sm)
+    issue = 4 * min(1.0, min(per, per_sm) * warps / MARCH_SAT_WARPS)
+    path = (rows + 2 * depth + warps - 1) * levels
+    cost = max(per * depth * (rows + depth) / issue,
+               blocks / n_sm * 2 * (rows + depth) * MARCH_ROW_IO, path)
+    return cost + MARCH_TAIL * path if stream else cost
+
+
+def march_chunks(out_h: int) -> list[int]:
+    """The chunk heights that cut ``out_h`` rows into even chunks (all but
+    the last of one height, the last at most as tall), tallest first, each
+    the shortest height of its number of chunks."""
+    return sorted({-(-out_h // c) for c in range(1, out_h + 1)}, reverse=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,9 +266,9 @@ def march_plan(nb: int, out_h: int, out_w: int, depth: int, n_sm: int, per_sm: i
     grids of ``out_h`` x ``out_w`` on ``n_sm`` SMs that hold ``per_sm``
     blocks each. The strip is the widest the window leaves (unless
     ``width`` is given), the levels a stage :func:`march_levels`' (unless
-    ``levels`` is), and the chunk the one :func:`march_cost` finds
-    cheapest, the taller on a tie, of at least ``MARCH_MIN_ROWS`` rows
-    (unless ``rows`` is given); at most 65,535 chunks, the grid's limit."""
+    ``levels`` is), and the chunk of :func:`march_chunks` that
+    :func:`march_cost` finds cheapest, the taller on a tie (unless ``rows``
+    is given); at most 65,535 chunks, the grid's limit."""
     levels = march_levels(depth) if levels is None else levels
     if levels not in MARCH_LEVELS:
         raise ValueError(f"the march holds 1 or 4 levels a stage, got {levels}")
@@ -276,7 +283,7 @@ def march_plan(nb: int, out_h: int, out_w: int, depth: int, n_sm: int, per_sm: i
     strips = -(-out_w // width)
     low = -(-out_h // 65535)
     if rows is None:
-        rows = min(range(out_h, min(out_h, max(low, MARCH_MIN_ROWS)) - 1, -1),
+        rows = min((c for c in march_chunks(out_h) if c >= low),
                    key=lambda c: march_cost(nb, out_h, strips, depth, levels, c, n_sm, per_sm))
     if not low <= rows <= max(out_h, low):
         raise ValueError(f"chunk of {rows} rows: want [{low}, {out_h}]")
