@@ -209,7 +209,7 @@ def march_levels(depth: int) -> int:
     4 (the most a warp holds in registers without spilling; the stage's
     last levels idle where ``depth`` is not a multiple of 4). Four a stage
     read faster than two on the H100 at the paths' depths 8 and 16
-    (PERF.md, PR 14)."""
+    (PERF.md, rows 8 and 10b)."""
     return 1 if depth == 1 else 4
 
 
@@ -220,12 +220,12 @@ def march_depth(levels: int = 4) -> int:
 
 
 #: The march's time model, fitted to the H100's chunk sweeps of the paths'
-#: shapes (PERF.md, PR 14): warps an SM must hold to issue every cycle (its
-#: 4 schedulers with 3 warps each); the tail of a grid of more than one
-#: wave of resident blocks, in marches of one block (such blocks start and
-#: end staggered, and the last ones end with their SM part idle); and the
-#: time of a row read or written, in level rows (an SM's share of the
-#: memory rate).
+#: shapes (PERF.md, rows 8 and 10b): warps an SM must hold to issue every
+#: cycle (its 4 schedulers with 3 warps each); the tail of a grid of more
+#: than one wave of resident blocks, in marches of one block (such blocks
+#: start and end staggered, and the last ones end with their SM part
+#: idle); and the time of a row read or written, in level rows (an SM's
+#: share of the memory rate).
 MARCH_SAT_WARPS, MARCH_TAIL, MARCH_ROW_IO = 12, 1.5, 0.5
 
 
