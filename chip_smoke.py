@@ -7,12 +7,14 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 1. card and toolchain: the card's name and power limit, nvcc, torch,
    whether ``import triton`` works, and the kernels' build, with no spill
    store in a tensor-core flash, paged-attention, ``dma_hbm_step``,
-   ``dma_ring``, ``dma_deep``, ``stream2d`` or ``stream3d`` instantiation
-   beyond ``SPILL_ALLOWED``;
+   ``dma_ring``, ``dma_deep``, ``stream2d``, ``stream3d``,
+   ``deep_trapezoid`` or ``resident_periodic`` instantiation beyond
+   ``SPILL_ALLOWED``;
 2. every kernel against its plain torch version on the card, at a ragged
    small shape, at the 1024^2 headline shape and at the 8192^2 world
    (``resident`` at the largest grid its L2 rule admits, and its refusal
-   past that), plus each kernel's time beside its bound;
+   past that; at 64 steps and at 17, a remainder of its fold), plus each
+   kernel's time beside its bound;
 3. the main path: ``distributed_stencil`` on a 1x1 mesh at 1024^2 for every
    impl of ``bench.py``'s ladder plus ``pallas`` and ``blocked``, each held
    against the ``xla`` impl, which is held against a float64 numpy oracle;
@@ -245,8 +247,13 @@ def bound(nbytes: int, flops: int, ops_per_s: float = F32_FLOP_PER_S) -> tuple[f
 PAGED_INSTANTIATIONS = 3 * 2 * 4 + 1
 # the row march's instantiations: 1 or 4 levels a stage x 3 tap masks (2
 # of their own and the runtime mask), in the depth-k DMA kernel and, with
-# and without the open ends' zeroing, in the streamed 2D kernel
+# and without the open ends' zeroing, in the streamed 2D kernel; the deep
+# trapezoid's 5-point sets take 2 (Jacobi's and the runtime mask)
 MARCH_INSTANTIATIONS = 2 * 3
+TRAPEZOID_INSTANTIATIONS = 2 * 2
+# the resident kernel's: 2 load widths x 3 sums (symmetric Jacobi, n s w e
+# without and with the centre)
+RESIDENT_INSTANTIATIONS = 2 * 3
 
 
 def phase1_card() -> dict:
@@ -278,9 +285,10 @@ def phase1_card() -> dict:
     # design fault, not a slowdown: the tensor-core flash kernels (bf16
     # wgmma and split TF32: accumulators), the paged-attention kernels (q,
     # the accumulator and a warp's tokens), the stencil step (its register
-    # window of rows), the DMA ring (its levels' rows), the row march of
-    # the depth-k DMA and streamed 2D kernels (a stage's levels' rows) and
-    # the z-march (its levels' planes)
+    # window of rows), the DMA ring and the resident kernel (their levels'
+    # rows), the row march of the depth-k DMA, streamed 2D and deep
+    # trapezoid kernels (a stage's levels' rows) and the z-march (its
+    # levels' planes)
     for lib, what, pick, want in (
             ("flash_attention", "tensor-core flash", lambda f: "wgmma" in f or "tf32" in f, 24),
             ("paged_attention", "paged-attention", lambda f: "paged_" in f, PAGED_INSTANTIATIONS),
@@ -289,7 +297,11 @@ def phase1_card() -> dict:
             ("halo_dma", "dma_deep", lambda f: "dma_deep_kernel" in f, MARCH_INSTANTIATIONS),
             ("stencil_stream2d", "stream2d", lambda f: "stream2d_kernel" in f,
              2 * MARCH_INSTANTIATIONS),
-            ("stencil_stream3d", "stream3d", lambda f: "stream3d_kernel" in f, 16)):
+            ("stencil_stream3d", "stream3d", lambda f: "stream3d_kernel" in f, 16),
+            ("stencil2d", "deep_trapezoid", lambda f: "deep_trapezoid_kernel" in f,
+             TRAPEZOID_INSTANTIATIONS),
+            ("stencil2d", "resident_periodic", lambda f: "resident_periodic_kernel" in f,
+             RESIDENT_INSTANTIATIONS)):
         spills = _spill_stores(build_log(lib), pick)
         log(f"  ptxas: {len(spills)} {what} kernels, spill stores "
             f"{sorted(set(spills.values()))} bytes")
@@ -370,13 +382,16 @@ def phase2_kernels(gen) -> tuple[dict, list]:
               f"{lead}+{h}x{w} k={k} sub={sub}")
         del tile, got
     # resident: ragged (symmetric and general coefficients), 1024^2, and the
-    # largest grid the L2 rule admits (2560^2: both buffers = 50 MiB)
-    for (h, w), coeffs in [((37, 53), sk.JACOBI), ((37, 53), odd), ((1024, 1024), sk.JACOBI),
-                           ((2560, 2560), sk.JACOBI)]:
+    # largest grid the L2 rule admits (2560^2: both buffers = 50 MiB), at
+    # 64 steps (16 rounds of 4) and 17 (a last round of one step)
+    for (h, w), coeffs, steps in [
+            ((37, 53), sk.JACOBI, STEPS), ((37, 53), odd, STEPS), ((37, 53), odd, 17),
+            ((1024, 1024), sk.JACOBI, STEPS), ((1024, 1024), sk.JACOBI, 17),
+            ((2560, 2560), sk.JACOBI, STEPS)]:
         core = randn((h, w), gen)
-        got = sk.resident_periodic_pallas(core, STEPS, coeffs)
-        check("resident_periodic_pallas", got, sk.resident_periodic_plain(core, STEPS, coeffs),
-              f"{h}x{w} steps={STEPS}{' sym' if coeffs == sk.JACOBI else ' general'}")
+        got = sk.resident_periodic_pallas(core, steps, coeffs)
+        check("resident_periodic_pallas", got, sk.resident_periodic_plain(core, steps, coeffs),
+              f"{h}x{w} steps={steps}{' sym' if coeffs == sk.JACOBI else ' general'}")
     for shape in ((2560, 2561), (8192, 8192)):
         try:
             sk.resident_periodic_pallas(torch.empty(shape, device="cuda"), 1)
@@ -410,8 +425,12 @@ def phase2_kernels(gen) -> tuple[dict, list]:
         for k in (16, 32):
             lay = TileLayout(n, n, k, k)
             tile = randn(lay.padded_shape, gen)
+            # the pyramid's cells, 2 taps - 1 operations each (Jacobi's 4
+            # nonzero taps: 7; the 9 of all five terms logged beside it)
             pyramid = sum((n + 2 * k - 2 * j) ** 2 for j in range(1, k + 1))
-            b, by = bound((tile.numel() + n * n) * 4, 9 * pyramid, F32_SEPARATE_OPS_PER_S)
+            b, by = bound((tile.numel() + n * n) * 4, 7 * pyramid, F32_SEPARATE_OPS_PER_S)
+            log(f"  bound deep_trapezoid_pallas {n}^2 k={k}: {b:.5f} ms by {by} "
+                f"(9 operations a cell: {9 * pyramid / F32_SEPARATE_OPS_PER_S * 1e3:.5f} ms)")
             lib_call = lambda: conv(tile[None, None], deep_weight[k])[0, 0]  # noqa: E731
             err = max_err(lib_call(), sk.deep_trapezoid_plain(tile, lay, k))
             log(f"  library conv2d {2 * k + 1}^2 vs deep_trapezoid_plain {n}^2 k={k}: "

@@ -93,6 +93,80 @@ def test_resident(card, coeffs, shape, steps):
                        tk.resident_periodic_plain(core, steps, coeffs))
 
 
+# the deep trapezoid's row march: one step past a launch (33: 32 + 1) with
+# 4-byte and 16-byte rows, substeps below the halo with an odd crop (the
+# window's start not a multiple of 4, or 16-byte rows), tiles narrower
+# than the window, batches
+@pytest.mark.parametrize("lead,lay,sub", [
+    ((), (37, 53, 33, 33), 33), ((2,), (40, 62, 33, 33), 33),
+    ((), (37, 53, 7, 7), 4), ((2, 2), (19, 23, 9, 9), 6), ((2,), (64, 128, 8, 8), 5),
+    ((3,), (300, 520, 16, 16), 16),
+])
+def test_deep_trapezoid_march_edges(card, lead, lay, sub):
+    lay = TileLayout(*lay)
+    tile = _rand(lead + lay.padded_shape, 7, card)
+    for coeffs in (tk.JACOBI, GENERAL):
+        assert torch.equal(tk.deep_trapezoid_pallas(tile, lay, sub, coeffs),
+                           tk.deep_trapezoid_plain(tile, lay, sub, coeffs))
+
+
+@pytest.mark.parametrize("levels", [1, 4])
+@pytest.mark.parametrize("width,rows", [(None, None), (4, 1), (64, 7), (None, 1000)])
+def test_deep_trapezoid_other_plans(card, levels, width, rows):
+    # other levels a stage, strips and chunks than the rule's: the same bits
+    lay, k = TileLayout(37, 52, 5, 5), 5
+    tile = _rand((2, 3) + lay.padded_shape, 8, card)
+    plan = tc.march_plan(6, 37, 52, k, 132, 4, levels=levels, width=width,
+                         rows=min(rows, 37) if rows else None)
+    for coeffs in (tk.JACOBI, GENERAL):
+        out = torch.empty((2, 3, 37, 52), device=card)
+        tk._trapezoid_call(tile, out, k, coeffs, plan)
+        assert torch.equal(out, tk.deep_trapezoid_plain(tile, lay, k, coeffs))
+
+
+# the resident kernel's folded rounds: fewer steps than a fold (1, 3), a
+# remainder (5 = 4 + 1), each of its three sums (symmetric Jacobi, n s w e
+# without a centre, with one), 4-byte (W % 4 != 0) and 16-byte rows
+NO_CENTRE = (0.3, 0.15, 0.2, 0.25, 0.0)
+
+
+@pytest.mark.parametrize("coeffs", [tk.JACOBI, NO_CENTRE, GENERAL])
+@pytest.mark.parametrize("shape", [(37, 53), (64, 128), (3, 3)])
+@pytest.mark.parametrize("steps", [1, 3, 5])
+def test_resident_folds(card, coeffs, shape, steps):
+    core = _rand(shape, 9, card)
+    assert torch.equal(tk.resident_periodic_pallas(core, steps, coeffs),
+                       tk.resident_periodic_plain(core, steps, coeffs))
+
+
+@pytest.mark.parametrize("fold", [1, 2, 3, 4])
+@pytest.mark.parametrize("per_sm", [1, 3])
+def test_resident_other_plans(card, fold, per_sm):
+    # other folds and grids than the rule's: the same bits
+    core = _rand((130, 244), 10, card)
+    plan = tk.resident_plan(130, 244, 19, 132, per_sm, fold=fold)
+    for coeffs in (tk.JACOBI, GENERAL):
+        assert torch.equal(tk._resident_launch(core, 19, coeffs, lambda _: plan),
+                           tk.resident_periodic_plain(core, 19, coeffs))
+
+
+@pytest.mark.parametrize("impl,halo", [("deep-pallas", 16), ("deep-pallas", 32), ("resident", 1)])
+def test_headline_impls_card_equals_cpu_at_1024(card, impl, halo):
+    world = np.random.default_rng(11).standard_normal((1024, 1024)).astype(np.float32)
+    on_card = distributed_stencil(world, 64, halo=(halo, halo), impl=impl)
+    on_cpu = distributed_stencil(world, 64, halo=(halo, halo), impl=impl, device="cpu")
+    np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def test_deep_trapezoid_counts_a_launch_a_link(card):
+    tk.reset_launches()
+    lay = TileLayout(80, 72, 70, 70)
+    tile = _rand(lay.padded_shape, 12, card)
+    tk.deep_trapezoid_pallas(tile, lay, 70)
+    tk.deep_trapezoid_pallas(tile, lay, 32)
+    assert tk.launch_counts()["deep_trapezoid_pallas"] == 3 + 1  # 32 + 32 + 6, then 32
+
+
 @pytest.mark.parametrize("impl,halo", [("xla", 1), ("pallas", 1), ("blocked", 1),
                                        ("overlap", 1), ("deep", 4), ("deep-pallas", 4),
                                        ("resident", 1), ("stream:4", 1), ("dma", 1),
@@ -136,9 +210,9 @@ def _ring_device_plan(cores, steps, cap=None, fold=None):
     """The ring kernel's host rule on this card, with a cap on blocks an SM
     or another fold where given."""
     sms = torch.cuda.get_device_properties(cores.device).multi_processor_count
-    vec = th.ring_vec(cores.shape[-1], cores.data_ptr())
+    vec = tc.ring_vec(cores.shape[-1], cores.data_ptr())
     per_sm = th._ring_per_sm(cores.device.index or 0, vec)
-    return th.ring_plan(*cores.shape, steps, sms, min(cap or per_sm, per_sm), fold=fold)
+    return tc.ring_plan(*cores.shape, steps, sms, min(cap or per_sm, per_sm), fold=fold)
 
 
 @pytest.mark.parametrize("steps", [1, 7, 64, 65])
@@ -151,7 +225,7 @@ def test_dma_ring_plans(card, dims, core, steps):
     # multiple of 4 (scalar loads) and 2048 (16-byte rows)
     cores = _rand(dims + core, 25, card)
     plan = _ring_device_plan(cores, steps)
-    assert plan.fold == min(steps, th.RING_F)
+    assert plan.fold == min(steps, tc.RING_F)
     for coeffs in (tk.JACOBI, GENERAL):
         got = th._ring_launch(cores, steps, coeffs, plan)
         assert torch.equal(got, th.dma_ring_plain(cores, steps, coeffs))

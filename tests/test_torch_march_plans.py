@@ -1,14 +1,16 @@
 """The host rules of the z-march 3D kernel (``ops.stencil_stream``), of
-the folded DMA ring kernel (``ops.halo_dma``) and of the row march of the
-streamed and depth-k 2D kernels (``ops.common.march_plan``), as pure
-functions at an H100's 132 SMs and 232,448 B of opt-in shared memory a
-block: the fold, the grid, the tiles, strips and chunks they choose, and
-that every plan fits."""
+the folded ring of the DMA ring and resident kernels (``ops.common
+.ring_plan``) and of the row march of the streamed, depth-k and
+deep-trapezoid 2D kernels (``ops.common.march_plan``), as pure functions
+at an H100's 132 SMs and 232,448 B of opt-in shared memory a block: the
+fold, the grid, the tiles, strips and chunks they choose, and that every
+plan fits."""
 
 import pytest
 
 from tpuscratch_torch.ops import common as tc
 from tpuscratch_torch.ops import halo_dma as th
+from tpuscratch_torch.ops import stencil_kernel as tk
 from tpuscratch_torch.ops import stencil_stream as ts
 
 SMS, OPTIN = 132, 232448
@@ -61,7 +63,7 @@ def test_stream3d_plan_minimises_waves_times_steps():
     ((1, 1, 3, 3), 1, 1, 1, 1),
 ])
 def test_ring_plan(shape, steps, fold, rounds, blocks):
-    plan = th.ring_plan(*shape, steps, SMS)
+    plan = tc.ring_plan(*shape, steps, SMS)
     assert (plan.fold, plan.rounds, plan.blocks) == (fold, rounds, blocks)
 
 
@@ -70,39 +72,39 @@ def test_ring_plan(shape, steps, fold, rounds, blocks):
 @pytest.mark.parametrize("steps", [1, 7, 8, 9, 64, 65])
 @pytest.mark.parametrize("per_sm", [1, 2, 3])
 def test_ring_plan_fits(shape, steps, per_sm):
-    plan = th.ring_plan(*shape, steps, SMS, per_sm)
-    L = th.ring_rows(*shape)
-    warps = plan.blocks * th.RING_WARPS
+    plan = tc.ring_plan(*shape, steps, SMS, per_sm)
+    L = tc.ring_rows(*shape)
+    warps = plan.blocks * tc.RING_WARPS
     assert plan.blocks <= SMS * per_sm  # one cooperative wave
-    assert warps - th.RING_WARPS < L  # no block without a strip row
+    assert warps - tc.RING_WARPS < L  # no block without a strip row
     # the kernel's even split of the strip rows over the warps covers each once
     spans = [(w * L // warps, (w + 1) * L // warps) for w in range(warps)]
     assert spans[0][0] == 0 and spans[-1][1] == L
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-    assert plan.rounds == -(-steps // plan.fold) and 1 <= plan.fold <= th.RING_F
-    assert plan.fold == min(steps, th.RING_F)
+    assert plan.rounds == -(-steps // plan.fold) and 1 <= plan.fold <= tc.RING_F
+    assert plan.fold == min(steps, tc.RING_F)
 
 
 def test_ring_plan_grid_follows_the_card():
     # as many blocks as the SMs hold, unless the torus has fewer strip rows
-    assert th.ring_plan(4, 4, 2048, 2048, 64, SMS, 2).blocks == 264
-    assert th.ring_plan(4, 4, 2048, 2048, 64, 1, 1).blocks == 1
-    assert th.ring_plan(1, 1, 1024, 1024, 64, 114).blocks == 342
-    assert th.ring_plan(1, 1, 40, 120, 64, SMS).blocks == 10  # 40 rows of one strip
+    assert tc.ring_plan(4, 4, 2048, 2048, 64, SMS, 2).blocks == 264
+    assert tc.ring_plan(4, 4, 2048, 2048, 64, 1, 1).blocks == 1
+    assert tc.ring_plan(1, 1, 1024, 1024, 64, 114).blocks == 342
+    assert tc.ring_plan(1, 1, 40, 120, 64, SMS).blocks == 10  # 40 rows of one strip
 
 
 @pytest.mark.parametrize("fold", [1, 2, 4])
 def test_ring_plan_takes_a_fold(fold):
-    plan = th.ring_plan(4, 4, 2048, 2048, 65, SMS, fold=fold)
+    plan = tc.ring_plan(4, 4, 2048, 2048, 65, SMS, fold=fold)
     assert plan.fold == fold and plan.rounds == -(-65 // fold)
     with pytest.raises(ValueError):
-        th.ring_plan(4, 4, 2048, 2048, 65, SMS, fold=th.RING_F + 1)
+        tc.ring_plan(4, 4, 2048, 2048, 65, SMS, fold=tc.RING_F + 1)
 
 
 def test_ring_vec():
-    assert th.ring_vec(2048, 0, 256) == 4
-    assert th.ring_vec(53, 0) == 1
-    assert th.ring_vec(2048, 8) == 1
+    assert tc.ring_vec(2048, 0, 256) == 4
+    assert tc.ring_vec(53, 0) == 1
+    assert tc.ring_vec(2048, 8) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +208,7 @@ def test_march_plan_takes_a_plan(levels):
 @pytest.mark.parametrize("depth,launches", [
     (1, [1]), (16, [16]), (32, [32]), (33, [32, 1]), (81, [32, 32, 17])])
 def test_stream2d_plans_chain_deep_passes(depth, launches):
-    plans = ts.stream2d_plans(4, 40, 53, depth, SMS, lambda levels, warps: 4)
+    plans = tc.march_chain(4, 40, 53, depth, SMS, lambda levels, warps: 4)
     assert [p.depth for p in plans] == launches
     # every launch but the last writes the dense grid of the rings still to go
     done = 0
@@ -240,3 +242,79 @@ def test_march_masks(coeffs, mask):
     assert ts.stream_c9(coeffs) == th.deep_c9(coeffs)
     assert tc.tap_mask(th.deep_c9(ODD5)) == 0b010111010  # n, w, c, e, s
     assert tc.tap_mask(th.deep_c9(SPARSE)) == 0b000111011  # nw, n, w, c, e
+
+
+# ---------------------------------------------------------------------------
+# the resident kernel (the folded ring over one grid) and the deep
+# trapezoid (the row march over a padded tile)
+
+
+@pytest.mark.parametrize("hw", [(37, 53), (1024, 1024), (2560, 2560)])
+@pytest.mark.parametrize("steps", [1, 17, 64, 1000])
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4])
+def test_resident_plan(hw, steps, per_sm):
+    plan = tk.resident_plan(*hw, steps, SMS, per_sm)
+    assert plan == tc.ring_plan(1, 1, *hw, steps, SMS, per_sm)
+    # folds of at most 4, enough rounds for every step and no round idle
+    assert plan.fold == min(steps, tc.RING_F)
+    assert plan.rounds * plan.fold >= steps > (plan.rounds - 1) * plan.fold
+    # one cooperative wave, and every warp a strip row
+    L = tc.ring_rows(1, 1, *hw)
+    assert 1 <= plan.blocks <= SMS * per_sm
+    assert plan.blocks * tc.RING_WARPS <= L
+
+
+@pytest.mark.parametrize("hw,steps,fold,rounds,blocks", [
+    ((1024, 1024), 1000, 4, 250, 396),  # the headline's resident:8 run at 3 blocks an SM
+    ((2560, 2560), 1000, 4, 250, 396),  # the largest grid the L2 rule admits
+    ((1024, 1024), 17, 4, 5, 396),      # a last round of one step
+    ((1024, 1024), 64, 4, 16, 396),
+    ((37, 53), 17, 4, 5, 9),            # 37 strip rows: 9 warps of 4 rows and one of 5
+    ((37, 53), 1, 1, 1, 9),
+    ((3, 3), 3, 3, 1, 1),               # fewer strip rows than a block's warps
+])
+def test_resident_plan_picks(hw, steps, fold, rounds, blocks):
+    plan = tk.resident_plan(*hw, steps, SMS)
+    assert (plan.fold, plan.rounds, plan.blocks) == (fold, rounds, blocks)
+
+
+@pytest.mark.parametrize("coeffs,comb", [
+    ((0.25,) * 4 + (0.0,), tk.SYM), ((0.3, 0.15, 0.2, 0.25, 0.0), tk.NSWE),
+    ((0.3, 0.15, 0.2, 0.25, 0.1), tk.NSWEC), ((0.25,) * 5, tk.NSWEC)])
+def test_resident_comb(coeffs, comb):
+    assert tk.resident_comb(coeffs) == comb
+
+
+@pytest.mark.parametrize("substeps,launches", [
+    (1, [1]), (16, [16]), (32, [32]), (33, [32, 1]), (64, [32, 32]), (70, [32, 32, 6])])
+def test_trapezoid_chain(substeps, launches):
+    # the deep trapezoid's launches: at most 32 substeps each, every one
+    # but the last writing the core and the rings still to go
+    chain = tc.march_chain(2, 150, 130, substeps, SMS, lambda levels, warps: 3)
+    assert [p.depth for p in chain] == launches and sum(launches) == substeps
+    assert all(1 <= p.depth <= tc.march_depth() for p in chain)
+    left = substeps
+    for p in chain:
+        left -= p.depth
+        assert (p.chunks - 1) * p.rows < 150 + 2 * left <= p.chunks * p.rows
+
+
+@pytest.mark.parametrize("nb", [1, 8])
+@pytest.mark.parametrize("n,k", [(1024, 16), (1024, 32), (8192, 16), (8192, 32)])
+@pytest.mark.parametrize("per_sm", [1, 3, 4])
+def test_trapezoid_plan_fits(nb, n, k, per_sm):
+    plan, = tc.march_chain(nb, n, n, k, SMS, lambda levels, warps: per_sm)
+    assert plan == tc.march_plan(nb, n, n, k, SMS, per_sm)
+    assert (plan.levels, plan.warps) == (4, k // 4)
+    assert plan.apron == k and plan.width == tc.MARCH_WIN - 2 * k
+    assert (plan.strips - 1) * plan.width < n <= plan.strips * plan.width
+    assert (plan.chunks - 1) * plan.rows < n <= plan.chunks * plan.rows
+    assert plan.chunks <= 65535 and plan.smem <= 48 * 1024
+
+
+def test_trapezoid_c9():
+    # the 5 coefficients by tap position: n 1, w 3, c 4, e 5, s 7
+    assert tk.trapezoid_c9((0.1, 0.2, 0.3, 0.4, 0.5)) == (0.0, 0.1, 0.0, 0.3, 0.5, 0.4, 0.0,
+                                                          0.2, 0.0)
+    assert tc.march_mask(tk.trapezoid_c9((0.25,) * 4 + (0.0,))) == 0x0AA
+    assert tc.march_mask(tk.trapezoid_c9((0.3, 0.15, 0.2, 0.25, 0.1))) == 0

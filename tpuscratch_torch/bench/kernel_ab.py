@@ -1,6 +1,7 @@
 """Device times of the paged-attention, ``dma_hbm_step``, dot, fill, copy
-probe, ``dma_ring``, streamed 3D, streamed 2D and depth-k DMA kernels
-through their wrappers, for an A/B of two checkouts on one card.
+probe, ``dma_ring``, streamed 3D, streamed 2D, depth-k DMA, deep-trapezoid
+and resident kernels through their wrappers, for an A/B of two checkouts
+on one card.
 
 Cases (config 12's attention geometry: 8 heads, d_head 128, 16-token
 pages, one query a sequence; config 4's and 10's stencil steps; config 2's
@@ -31,7 +32,13 @@ vectors):
   pass of the 1024^2 world (wrap), each held bit-equal first;
 - ``deep``: ``dma_deep``, one Jacobi round of k = 8 at 8192^2 on 4x4 and
   at 1024^2, and the 9-point ``dma`` path's depth-1 round at 1024^2, each
-  held bit-equal first.
+  held bit-equal first;
+- ``trapezoid``: ``deep_trapezoid_pallas``, a Jacobi pyramid of k = 16 and
+  32 over the 1024^2 and 8192^2 cores (the headline ladder's
+  ``deep-pallas:16`` and ``:32``), each held bit-equal first;
+- ``resident``: ``resident_periodic_pallas``, 1000 Jacobi steps of 1024^2
+  (the headline's ``resident:8``) and of 2560^2 (the largest grid its L2
+  rule admits), each held bit-equal first.
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -42,11 +49,11 @@ instead (paged: chunk tokens, ring stages, split count; dot_full and fill:
 smaller grids; dot_partials: a block a chunk against one resident wave;
 the copy probes: each design switch of ``csrc/copy_probes.cu``, other
 rings for ``hbm2hbm``; the ring: every fold, 1 to 3 blocks an SM;
-stream3d: the z chunks of 1 to 8 and 16 chunks a rank; stream2d and
-deep: other levels a stage, half-width strips and other row chunks than
-``march_plan``'s).
-``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep`` picks
-case groups.
+stream3d: the z chunks of 1 to 8 and 16 chunks a rank; stream2d, deep
+and trapezoid: other levels a stage, half-width strips and other row
+chunks than ``march_plan``'s; resident: every fold, 1 to 3 blocks an SM).
+``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep,trapezoid,resident``
+picks case groups.
 ``--root`` imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
 kernels build into that checkout's own build directory; the wrappers'
@@ -400,6 +407,7 @@ def ring_sweep(gen):
     SM (this checkout only)."""
     import torch
 
+    from tpuscratch_torch.ops import common as tc
     from tpuscratch_torch.ops import halo_dma as hd
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -407,9 +415,9 @@ def ring_sweep(gen):
         cores = torch.randn(lead + (n, n), generator=gen, device="cuda")
         want = hd.dma_ring_plain(cores, RING_STEPS, JACOBI)
         rule = hd.dma_ring_plan(cores, RING_STEPS)
-        for fold in range(1, hd.RING_F + 1):
+        for fold in range(1, tc.RING_F + 1):
             for per_sm in (1, 2, 3):
-                plan = hd.ring_plan(*cores.shape, RING_STEPS, sms, per_sm, fold=fold)
+                plan = tc.ring_plan(*cores.shape, RING_STEPS, sms, per_sm, fold=fold)
                 call = lambda: hd._ring_launch(cores, RING_STEPS, JACOBI, plan)  # noqa: E731
                 if not torch.equal(call(), want):
                     raise AssertionError(f"sweep ring {plan} differs from its plain version")
@@ -575,8 +583,8 @@ def stream2d_sweep(gen):
         def per_sm_of(levels):
             return ss._stream2d_per_sm(0, levels, mask, -(-k // levels), False)
 
-        rule = ss.stream2d_plans(nb, n, n, k, sms,
-                                 lambda lv, w: ss._stream2d_per_sm(0, lv, mask, w, False))[0]
+        rule = tc.march_chain(nb, n, n, k, sms,
+                              lambda lv, w: ss._stream2d_per_sm(0, lv, mask, w, False))[0]
 
         def plan_of(levels=rule.levels, per_sm=None, width=None, rows=None):
             return tc.march_plan(nb, n, n, k, sms, per_sm or per_sm_of(levels), levels=levels,
@@ -631,9 +639,121 @@ def deep_sweep(gen):
         del cores, want
 
 
+# core edge, depth
+TRAPEZOID_SHAPES = ((1024, 16), (1024, 32), (8192, 16), (8192, 32))
+# grid edge, steps, timed runs
+RESIDENT_SHAPES = ((1024, 1000, 20), (2560, 1000, 5))
+
+
+def _trapezoid_operands(gen, n, k):
+    import torch
+
+    from tpuscratch_torch.halo.layout import TileLayout
+
+    lay = TileLayout(n, n, k, k)
+    return lay, torch.randn(lay.padded_shape, generator=gen, device="cuda")
+
+
+def trapezoid_cases(gen):
+    """(case, ms) of the deep-trapezoid kernel, one Jacobi pyramid of k
+    substeps over the 1024^2 and 8192^2 cores."""
+    import torch
+
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    for n, k in TRAPEZOID_SHAPES:
+        lay, tile = _trapezoid_operands(gen, n, k)
+        call = lambda: sk.deep_trapezoid_pallas(tile, lay, k)  # noqa: E731
+        if not torch.equal(call(), sk.deep_trapezoid_plain(tile, lay, k)):
+            raise AssertionError(f"deep_trapezoid {n}^2 k={k} differs from its plain version")
+        yield f"trapezoid {n}^2 k={k}", device_ms(call, n=20 if n > 1024 else 200)
+        del tile
+
+
+def resident_cases(gen):
+    """(case, ms) of the resident kernel, 1000 Jacobi steps in one launch."""
+    import torch
+
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    for n, steps, runs in RESIDENT_SHAPES:
+        core = torch.randn((n, n), generator=gen, device="cuda")
+        call = lambda: sk.resident_periodic_pallas(core, steps)  # noqa: E731
+        if not torch.equal(call(), sk.resident_periodic_plain(core, steps)):
+            raise AssertionError(f"resident {n}^2 differs from its plain version")
+        yield f"resident {n}^2 {steps} steps", device_ms(call, n=runs)
+        del core
+
+
+def trapezoid_sweep(gen):
+    """(case, ms) of the deep-trapezoid kernel under the plans of
+    ``_march_variants`` (this checkout only), each bit-checked."""
+    import torch
+
+    from tpuscratch_torch.ops import common as tc
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mask = tc.march_mask(sk.trapezoid_c9(JACOBI))
+    for n, k in TRAPEZOID_SHAPES:
+        lay, tile = _trapezoid_operands(gen, n, k)
+        want = sk.deep_trapezoid_plain(tile, lay, k)
+
+        def per_sm_of(levels):
+            return sk._trapezoid_per_sm(0, levels, mask, -(-k // levels))
+
+        rule, = tc.march_chain(1, n, n, k, sms, lambda lv, w: sk._trapezoid_per_sm(0, lv, mask, w))
+
+        def plan_of(levels=rule.levels, per_sm=None, width=None, rows=None):
+            return tc.march_plan(1, n, n, k, sms, per_sm or per_sm_of(levels), levels=levels,
+                                 width=width, rows=rows and min(rows, n))
+
+        for plan in _march_variants(rule, n, per_sm_of, plan_of):
+            def call():
+                out = torch.empty((n, n), device="cuda")
+                sk._trapezoid_call(tile, out, k, JACOBI, plan)
+                return out
+
+            if not torch.equal(call(), want):
+                raise AssertionError(f"sweep trapezoid {plan} differs from its plain version")
+            mark = " (rule)" if plan == rule else ""
+            yield (f"sweep trapezoid {n}^2 k={k} levels={plan.levels} width={plan.width} "
+                   f"rows={plan.rows} blocks={plan.strips * plan.chunks} "
+                   f"per_sm={per_sm_of(plan.levels)}{mark}",
+                   device_ms(call, n=20 if n > 1024 else 200))
+        del tile, want
+
+
+def resident_sweep(gen):
+    """(case, ms) of the resident kernel under every fold and 1 to its most
+    blocks an SM (this checkout only)."""
+    import torch
+
+    from tpuscratch_torch.ops import common as tc
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, steps, runs in RESIDENT_SHAPES:
+        core = torch.randn((n, n), generator=gen, device="cuda")
+        want = sk.resident_periodic_plain(core, steps)
+        most = sk._resident_per_sm(0, tc.ring_vec(n, core.data_ptr()), sk.resident_comb(JACOBI))
+        rule = sk.resident_plan(n, n, steps, sms, most)
+        for fold in range(1, tc.RING_F + 1):
+            for per_sm in range(1, most + 1):
+                plan = sk.resident_plan(n, n, steps, sms, per_sm, fold=fold)
+                call = lambda: sk._resident_launch(core, steps, JACOBI, lambda _: plan)  # noqa: E731
+                if not torch.equal(call(), want):
+                    raise AssertionError(f"sweep resident {plan} differs from its plain version")
+                mark = " (rule)" if plan == rule else ""
+                yield (f"sweep resident {n}^2 fold={fold} blocks={plan.blocks}{mark}",
+                       device_ms(call, n=runs))
+        del core, want
+
+
 GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases,
           "probes": probe_cases, "ring": ring_cases, "stream3d": stream3d_cases,
-          "stream2d": stream2d_cases, "deep": deep_cases}
+          "stream2d": stream2d_cases, "deep": deep_cases, "trapezoid": trapezoid_cases,
+          "resident": resident_cases}
 
 
 def main(argv=None) -> int:
@@ -668,7 +788,9 @@ def main(argv=None) -> int:
                                 ring_sweep(gen) if "ring" in groups else (),
                                 stream3d_sweep(gen) if "stream3d" in groups else (),
                                 stream2d_sweep(gen) if "stream2d" in groups else (),
-                                deep_sweep(gen) if "deep" in groups else ())
+                                deep_sweep(gen) if "deep" in groups else (),
+                                trapezoid_sweep(gen) if "trapezoid" in groups else (),
+                                resident_sweep(gen) if "resident" in groups else ())
     else:
         cases = itertools.chain.from_iterable(GROUPS[g](gen) for g in groups)
     for case, ms in cases:

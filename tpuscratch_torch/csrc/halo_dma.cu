@@ -30,17 +30,10 @@
 // place into the other of two ping-pong buffers.
 
 #include <cuda_runtime.h>
-#include <cooperative_groups.h>
 #include <climits>
 #include <cstdint>
 
 #include "stencil_taps.cuh"
-
-namespace cg = cooperative_groups;
-
-struct Torus {
-  int R, C, H, W;  // mesh dims, core dims
-};
 
 static bool torus_ok(int R, int C, int H, int W) {
   return R >= 1 && C >= 1 && H >= 1 && W >= 1 &&
@@ -55,248 +48,55 @@ static bool torus_ok(int R, int C, int H, int W) {
 // the bytes are 8 a cell a round of `fold` steps, from device memory where
 // the torus passes the 50 MB L2 (at 8192^2 f32, 0.160 ms a round at
 // 3.35 TB/s) and from L2 below it.
-// Design: a 2D march along the torus rows, one warp at a time.
-//  - The torus is cut into strips of RING_OUT columns; a warp's window is
-//    RING_WIN = RING_OUT + 2 * RING_F columns of one strip, 4 adjacent
-//    columns a lane (one 16-byte load or store a row where W % 4 == 0).
-//    The strips' rows, strip after strip, are split evenly over the warps
-//    of the persistent grid; a warp marches its rows, each with a `fold`-row
-//    apron above and below, the same rows every round.
-//  - Substep level s keeps the last three rows it computed in registers
-//    and computes row t - s from level s - 1's rows at march step t, so
-//    all `fold` levels advance one row a step with no barrier and no
-//    shared memory: the north and south taps are registers, west and east
-//    the lane's own columns or one shuffle each from the lanes beside it.
-//    The step loop is unrolled by 3 so the rows rotate by name.
-//  - Level `fold` is the round's result. A round reads the other buffer,
-//    a trapezoid of `fold` steps (on a torus its values are the per-step
-//    values), so the steps cost ceil(steps / fold) grid barriers and the
-//    torus crosses device memory once a round instead of once a step.
-//  - The wrap is resolved once a loaded row (an incremental rank and row)
-//    and once a warp for its columns; a row is loaded RING_AHEAD steps
-//    before its use, into a ring of registers; no division runs in the
-//    march loop.
-//  - Folds of at most RING_F = 4: the register window of 6- and 8-step
-//    folds spilled, at 168 registers (3 blocks an SM) and at 255 alike,
-//    which made them slower than 4-step folds (PERF.md).
-//  - Every round reads and writes the whole torus: a torus small enough to
-//    keep in shared memory between rounds also stays in the 50 MB L2, and
-//    at 1024^2 a regime that kept each warp's cells in shared memory read
-//    within 1% of this one (PERF.md), so it was taken out.
-// The host rule (ops.halo_dma.ring_plan) picks the fold and the grid.
+// Design: the folded ring of stencil_taps.cuh (namespace ring), a warp
+// marching a 120-column strip's rows with its levels in registers, with
+// the DMA ring's sum (ring::NSWEC). Every round reads and writes the whole
+// torus: a torus small enough to keep in shared memory between rounds also
+// stays in the 50 MB L2, and at 1024^2 a regime that kept each warp's cells
+// in shared memory read within 1% of this one (PERF.md), so it was taken
+// out. The host rule (ops.common.ring_plan) picks the fold and the grid.
 // Terms: n, s, w, e, c in that order, zero coefficients included, every
 // product and sum rounded on its own (the plain version's order).
-constexpr int RING_WARPS = 4;
-constexpr int RING_THREADS = 32 * RING_WARPS;
-constexpr int RING_F = 4;                           // a window's side apron: the deepest fold
-constexpr int RING_WIN = 128;                       // window columns, 4 a lane
-constexpr int RING_OUT = RING_WIN - 2 * RING_F;     // output columns a strip
-constexpr int RING_AHEAD = 3;                       // rows in flight into registers
-
-struct RingArgs {
-  const float* in;
-  float* buf0;
-  float* buf1;
-  Torus g;
-  int steps, fold;
-  float cn, cs, cw, ce, cc;
-};
-
-// An incremental torus row: its row `i` in its rank, and the element
-// offset of its first cell in rank column 0.
-struct RowAt {
-  int i, base;
-  __device__ __forceinline__ void at(const Torus& g, int y) {
-    const int TH = g.R * g.H;
-    y %= TH;
-    if (y < 0) y += TH;
-    const int r = y / g.H;
-    i = y - r * g.H;
-    base = (r * g.C * g.H + i) * g.W;
-  }
-  __device__ __forceinline__ void next(const Torus& g) {
-    base += g.W;
-    if (++i == g.H) {  // the next rank row's first row, or the torus's
-      i = 0;
-      base += (g.C - 1) * g.H * g.W;
-      if (base == g.R * g.C * g.H * g.W) base = 0;
-    }
-  }
-};
-
-template <int FOLD, int VEC>
-__device__ __forceinline__ void ring_march(const RingArgs& a, const float* __restrict__ src,
-                                           float* __restrict__ dst, int strip, int ys, int n) {
-  const Torus& g = a.g;
-  const int lane = threadIdx.x & 31;
-  const int TW = g.C * g.W;
-  // the lane's 4 window columns: torus column x = xw + j, source offset cb[j]
-  const int xw = strip * RING_OUT - RING_F + 4 * lane;
-  int cb[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    int x = (xw + j) % TW;
-    if (x < 0) x += TW;
-    const int c = x / g.W;
-    cb[j] = c * g.H * g.W + (x - c * g.W);
-  }
-  // output lanes: window columns [RING_F, RING_WIN - RING_F) inside the torus
-  const int xe = min(strip * RING_OUT + RING_OUT, TW);  // the strip's end
-  bool ok[4];
-  bool own = lane >= RING_F / 4 && lane < (RING_WIN - RING_F) / 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ok[j] = own && xw + j < xe;
-  own = own && xw < xe;  // VEC == 4: the lane's columns are in or out together
-
-  const int T = n + 2 * FOLD;
-  // window row y is loaded into pf[y % 3] RING_AHEAD steps before level 0
-  // takes it
-  RowAt in_row, out_row;
-  in_row.at(g, ys - FOLD);
-  out_row.at(g, ys);
-  float pf[RING_AHEAD][4];
-  auto fetch = [&](float* v, int y) {
-    if (y < T) {
-      if (VEC == 4) {
-        const float4 u = __ldcg(reinterpret_cast<const float4*>(src + in_row.base + cb[0]));
-        v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = __ldcg(src + in_row.base + cb[j]);
-      }
-    }
-    in_row.next(g);
-  };
-#pragma unroll
-  for (int y = 0; y < RING_AHEAD; ++y) fetch(pf[y], y);
-  float lv[FOLD][3][4];  // lv[l][y % 3]: level l's row y (window rows)
-#pragma unroll 1
-  for (int t0 = 0; t0 < T; t0 += 3) {
-#pragma unroll
-    for (int ph = 0; ph < 3; ++ph) {
-      const int t = t0 + ph;
-      if (t >= T) break;
-      // level 0: window row t
-      float* l0 = lv[0][ph];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) l0[j] = pf[ph][j];
-      fetch(pf[ph], t + RING_AHEAD);
-      // levels 1..FOLD: level s computes window row t - s
-#pragma unroll
-      for (int s = 1; s <= FOLD; ++s) {
-        if (t < 2 * s) break;  // level s starts at row s
-        const float* N = lv[s - 1][((ph - s - 1) % 3 + 6) % 3];
-        const float* C = lv[s - 1][((ph - s) % 3 + 6) % 3];
-        const float* S = lv[s - 1][((ph - s + 1) % 3 + 6) % 3];
-        const float west = __shfl_up_sync(0xffffffffu, C[3], 1);
-        const float east = __shfl_down_sync(0xffffffffu, C[0], 1);
-        float o[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = __fmul_rn(a.cn, N[j]);
-          v = __fadd_rn(v, __fmul_rn(a.cs, S[j]));
-          v = __fadd_rn(v, __fmul_rn(a.cw, j == 0 ? west : C[j - 1]));
-          v = __fadd_rn(v, __fmul_rn(a.ce, j == 3 ? east : C[j + 1]));
-          o[j] = __fadd_rn(v, __fmul_rn(a.cc, C[j]));
-        }
-        if (s < FOLD) {
-          float* d = lv[s][((ph - s) % 3 + 6) % 3];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) d[j] = o[j];
-          continue;
-        }
-        // level FOLD: the round's value of the warp's next output row
-        if (VEC == 4) {
-          if (own)
-            *reinterpret_cast<float4*>(dst + out_row.base + cb[0]) =
-                make_float4(o[0], o[1], o[2], o[3]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (ok[j]) dst[out_row.base + cb[j]] = o[j];
-        }
-        out_row.next(g);
-      }
-    }
-  }
-}
 
 // Three blocks an SM (168 registers a thread) with 16-byte rows; two with
 // scalar loads, whose four column offsets spilled at 168. chip_smoke.py's
 // build phase holds <1> to no spill and <4> to at most 16 bytes: the
 // variants of <4> measured without that spill were slower (PERF.md).
 template <int VEC>
-__global__ void __launch_bounds__(RING_THREADS, VEC == 4 ? 3 : 2)
-dma_ring_kernel(const RingArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  const int warp = threadIdx.x >> 5;
-  const Torus& g = a.g;
-  const int TH = g.R * g.H, TW = g.C * g.W;
-  const long long L = (long long)((TW + RING_OUT - 1) / RING_OUT) * TH;  // strip rows
-  const long long nw = (long long)gridDim.x * RING_WARPS;
-  const long long gw = (long long)blockIdx.x * RING_WARPS + warp;
-  const long long lo = gw * L / nw, hi = (gw + 1) * L / nw;
-  const int rounds = (a.steps + a.fold - 1) / a.fold;
-  for (int rd = 0; rd < rounds; ++rd) {
-    const int f = min(a.fold, a.steps - rd * a.fold);
-    const float* src = rd == 0 ? a.in : ((rd - 1) & 1 ? a.buf1 : a.buf0);
-    float* dst = rd & 1 ? a.buf1 : a.buf0;
-    for (long long pos = lo; pos < hi;) {
-      const int strip = (int)(pos / TH), ys = (int)(pos - (long long)strip * TH);
-      const int n = (int)min(hi - pos, (long long)(TH - ys));
-      switch (f) {
-        case 1: ring_march<1, VEC>(a, src, dst, strip, ys, n); break;
-        case 2: ring_march<2, VEC>(a, src, dst, strip, ys, n); break;
-        case 3: ring_march<3, VEC>(a, src, dst, strip, ys, n); break;
-        default: ring_march<4, VEC>(a, src, dst, strip, ys, n); break;
-      }
-      pos += n;
-    }
-    grid.sync();  // every warp's round rd is in dst before round rd + 1
-  }
+__global__ void __launch_bounds__(ring::THREADS, VEC == 4 ? 3 : 2)
+dma_ring_kernel(const ring::Args a) {
+  ring::rounds<VEC, ring::NSWEC>(a);
 }
 
 // The blocks of the ring kernel an SM holds at once.
 extern "C" int ts_dma_ring_occupancy(int vec, int* per_sm) {
   const void* k = vec == 4 ? (const void*)dma_ring_kernel<4> : (const void*)dma_ring_kernel<1>;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, RING_THREADS, 0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, ring::THREADS, 0);
 }
 
 // taps: ring_taps order (n, s, w, e, c); vec: 4 (16-byte rows: W % 4 == 0
-// and the three buffers 16-byte aligned) or 1; fold 1..RING_F steps a
-// round; blocks from ops.halo_dma.ring_plan, at most one cooperative wave.
+// and the three buffers 16-byte aligned) or 1; fold 1..ring::F steps a
+// round; blocks from ops.common.ring_plan, at most one cooperative wave.
 extern "C" int ts_dma_ring(const float* in, float* buf0, float* buf1, int R,
                            int C, int H, int W, int steps, int ntaps,
                            const float* c, const int* dy, const int* dx, int vec,
                            int fold, int blocks, void* stream) {
   static const int kdy[5] = {-1, 1, 0, 0, 0};
   static const int kdx[5] = {0, 0, -1, 1, 0};
-  if (!torus_ok(R, C, H, W) || steps < 1 || ntaps != 5 || fold < 1 || fold > RING_F ||
-      blocks < 1 || (vec != 1 && vec != 4))
-    return (int)cudaErrorInvalidValue;
+  if (!torus_ok(R, C, H, W) || ntaps != 5) return (int)cudaErrorInvalidValue;
   for (int u = 0; u < 5; ++u)
     if (dy[u] != kdy[u] || dx[u] != kdx[u]) return (int)cudaErrorInvalidValue;
-  if (vec == 4 && (W % 4 != 0 || (uintptr_t)in % 16 != 0 || (uintptr_t)buf0 % 16 != 0 ||
-                   (uintptr_t)buf1 % 16 != 0))
-    return (int)cudaErrorMisalignedAddress;
-  if (((long long)C * W + RING_OUT - 1) / RING_OUT * R * H > INT_MAX)
-    return (int)cudaErrorInvalidValue;  // the strip rows index as int
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return (int)e;
-  e = (cudaError_t)ts_dma_ring_occupancy(vec, &per_sm);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop || (long long)per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-  RingArgs a{in, buf0, buf1, Torus{R, C, H, W}, steps, fold, c[0], c[1], c[2], c[3], c[4]};
+  int per_sm = 0;
+  int e = ts_dma_ring_occupancy(vec, &per_sm);
+  if (e != cudaSuccess) return e;
+  const ring::Args a{in, buf0, buf1, Torus{R, C, H, W}, steps, fold, c[0], c[1], c[2], c[3], c[4]};
+  e = ring::check_launch(a, vec, blocks, per_sm);
+  if (e != cudaSuccess) return e;
   void* args[] = {(void*)&a};
   const void* k = vec == 4 ? (const void*)dma_ring_kernel<4> : (const void*)dma_ring_kernel<1>;
-  e = cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(RING_THREADS), args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  e = (int)cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(ring::THREADS), args, 0,
+                                       (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
   return (int)cudaGetLastError();
 }
 

@@ -13,17 +13,18 @@
 // Arithmetic: every product and sum is rounded on its own, in the
 // reference's left-to-right order (__fmul_rn / __fadd_rn are never
 // contracted into FMAs), so a kernel agrees bit for bit with its plain
-// torch version, which rounds each operation as well.
+// torch version, which rounds each operation as well (deep_trapezoid skips
+// zero coefficients: see there).
 //
-// No kernel writes the buffer it reads within one step: five_point and
-// deep_trapezoid write a fresh core, resident_periodic ping-pongs between
-// two scratch buffers and never writes its input.
+// No kernel writes the buffer it reads: five_point and deep_trapezoid
+// write a fresh grid, resident_periodic ping-pongs between two scratch
+// buffers a round and never writes its input.
 
 #include <cuda_runtime.h>
-#include <cooperative_groups.h>
 #include <climits>
+#include <cstdint>
 
-namespace cg = cooperative_groups;
+#include "stencil_taps.cuh"
 
 struct Coeffs {
   float n, s, w, e, c;
@@ -84,168 +85,248 @@ extern "C" int ts_five_point(const float* in, float* out, int nb, int ph,
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// deep_trapezoid: `steps` valid-region 5-point steps (the shrink_step
-// pyramid) of nb inputs (nb, ih, iw); output (i, j) is the pyramid's value
-// at input (i + off, j + off), for an (oh, ow) output, off >= steps.
-// Temporal blocking in shared memory: a block owns a T x T output tile,
-// loads its (T + 2*steps)^2 input window once, runs the `steps` shrinking
-// substeps ping-ponging two shared buffers between __syncthreads, and
-// writes its output tile once. Cells of a ragged window that lie past the
-// input are loaded as 0; they only feed outputs that are not stored.
-// Bound: bytes. Per `steps` substeps it must read the input and write the
-// output once, (ih*iw + oh*ow)*4 bytes: at 1024^2 with k=16, 8.7 MB, 2.6 us
-// at 3.35 TB/s (instead of ~k passes for the torch pyramid). The price is
-// redundant work on the window's ring: sum_j (T+2*steps-2j)^2 cell updates
-// per T^2 outputs, about 2.25x at T=64, k=32. Shared memory holds
-// 2*(T+2*steps)^2 floats: 128 KB at T=64, k=32, above the 48 KB static
-// limit, so the launcher raises the kernel's dynamic shared-memory cap.
-constexpr int DT_THREADS = 512;
 
-__global__ void __launch_bounds__(DT_THREADS)
-deep_trapezoid_kernel(const float* __restrict__ in, float* __restrict__ out,
-                      int ih, int iw, int oh, int ow, int off, int steps,
-                      int T, Coeffs k) {
-  extern __shared__ float smem[];
-  const int R = T + 2 * steps;
-  float* a = smem;
-  float* nxt = smem + R * R;
-  const size_t b = blockIdx.z;
-  const float* t = in + b * (size_t)ih * iw;
-  float* o = out + b * (size_t)oh * ow;
-  const int i0 = blockIdx.y * T, j0 = blockIdx.x * T;
-  const int gy0 = i0 + off - steps, gx0 = j0 + off - steps;  // >= 0
-  for (int q = threadIdx.x; q < R * R; q += blockDim.x) {
-    const int ly = q / R, lx = q - ly * R;
-    const int gy = gy0 + ly, gx = gx0 + lx;
-    a[q] = (gy < ih && gx < iw) ? t[(size_t)gy * iw + gx] : 0.f;
+// ---------------------------------------------------------------------------
+// deep_trapezoid: `j` valid-region 5-point steps (the shrink_step pyramid)
+// of nb dense inputs (nb, ih, iw); output (i, x) is the pyramid's value at
+// input (i + off, x + off), for an (oh, ow) output, off >= j.
+// Bound: operations. A substep is 2 * taps - 1 separately rounded f32
+// operations a cell of the pyramid (7 for Jacobi), at 33.5 T/s on this
+// card (a product and a sum are one instruction each: half the FMA rate);
+// the bytes (the input read once, the output written once) are less: at
+// 1024^2 with k = 16, 0.00361 ms of operations against 0.00258 of bytes.
+// Design: the row march of stencil_taps.cuh, which keeps the pyramid's
+// redundant work on one axis and every tap in registers. A block owns a
+// strip of output columns (the 256-column window less its apron of j
+// columns rounded up to 4) and a chunk of output rows of one input, and
+// marches down the chunk's window rows; its substep levels are cut into
+// stages of 4 levels a warp (1 at depth 1), each stage's levels in
+// registers, the stages handing rows over through shared memory, one
+// barrier a row, and one I/O warp doing every copy from and to device
+// memory. The redundant work lies on the window's x apron (256 / 224 at
+// k = 16) and on the chunk's j rows at each end. Input rows are always
+// inside the input (off >= j and oh + off + j <= ih); window columns past
+// either side of it are loaded as zeros and feed only outputs that are
+// not stored. Rows go as two 16-byte groups a lane where iw % 4 == 0,
+// off % 4 == 0 and the base is 16-byte aligned (a group is then wholly in
+// or out of the input), else as 4-byte columns; no division runs in the
+// march. Taps are a template mask for Jacobi and a runtime mask for any
+// other set. A pass deeper than one launch holds (8 stages of 4 levels,
+// 32 substeps) is chained by the wrapper: each launch writes the dense
+// grid of the rings still to go, and the next one reads it. The host rule
+// (ops.common.march_plan) picks the levels, the strip and the chunk.
+// Terms: n, s, w, e, c (shrink_step's order, march::ORDER_NSWE), zero
+// coefficients skipped. Against the plain version, which adds 0.0 * a for
+// a zero coefficient, that can change only the sign of a zero result (a
+// sum of -0 and +0 is +0) and the NaN that an infinite input would spread
+// through a zero coefficient; torch.equal counts -0 and +0 equal.
+
+struct Trap {
+  const float* in;   // (nb, ih, iw)
+  float* out;        // (nb, oh, ow)
+  int ih, iw, oh, ow;
+  int off;           // output (i, x) is the pyramid at input (i + off, x + off)
+  int j;             // substeps of the launch
+  int rows;          // output rows a chunk
+  int width, apron;  // output columns a strip; the window's apron (j rounded up to 4)
+  int vin, vout;     // 16-byte loads / stores
+  unsigned rmask;    // the taps of a runtime-mask launch
+  float c[9];        // coefficient of tap position p = 3 (dy + 1) + dx + 1
+};
+
+template <int L, int MASK>
+__global__ void __launch_bounds__((march::MAX_WARPS + 1) * 32)
+deep_trapezoid_kernel(const Trap p) {
+  using namespace march;
+  const int lane = threadIdx.x & 31;
+  const long long b = blockIdx.z;
+  const int cy0 = blockIdx.y * p.rows;        // the chunk's first output row
+  const int T = min(p.rows, p.oh - cy0) + 2 * p.j;
+  const int xs = blockIdx.x * p.width;        // the strip's first output column
+  const int yw0 = cy0 + p.off - p.j;          // the input row of window row 0 (>= 0)
+  const int x0 = xs + p.off - p.apron + lane * CX;  // the input column of the lane's first
+  // which of the lane's 8 columns lie in the input, and which are outputs
+  // of the strip (rows are addressed from the launch's base pointers each
+  // time, which keeps no 64-bit pointer of the block live through the march)
+  unsigned icols = 0, ocols = 0;
+#pragma unroll
+  for (int i = 0; i < CX; ++i) {
+    const int w = lane * CX + i;
+    if (x0 + i >= 0 && x0 + i < p.iw) icols |= 1u << i;
+    if (w >= p.apron && w < p.apron + p.width && xs + w - p.apron < p.ow) ocols |= 1u << i;
   }
-  __syncthreads();
-  for (int st = 1; st <= steps; ++st) {
-    const int n = R - 2 * st;  // substep st is valid on [st, R - st)^2
-    for (int q = threadIdx.x; q < n * n; q += blockDim.x) {
-      const int y = q / n, x = q - y * n;
-      const int p = (st + y) * R + st + x;
-      nxt[p] = five(k, a[p - R], a[p + R], a[p - 1], a[p + 1], a[p]);
+  auto load = [&](int r, float* slot) {
+    const long long rb = (b * p.ih + yw0 + r) * p.iw + x0;
+    if (p.vin) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool in = icols >> (4 * q) & 1;
+        cp16(group(slot, q, lane), in ? p.in + (rb + 4 * q) : p.in, in);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < CX; ++i) {
+        const bool in = icols >> i & 1;
+        cp4(group(slot, i / 4, lane) + i % 4, in ? p.in + (rb + i) : p.in, in);
+      }
     }
-    __syncthreads();
-    float* tmp = a;
-    a = nxt;
-    nxt = tmp;
-  }
-  for (int q = threadIdx.x; q < T * T; q += blockDim.x) {
-    const int y = q / T, x = q - y * T;
-    const int oi = i0 + y, oj = j0 + x;
-    if (oi < oh && oj < ow) o[(size_t)oi * ow + oj] = a[(steps + y) * R + steps + x];
-  }
+  };
+  auto zero = [](int, float(&)[CX]) {};
+  auto store = [&](int q, const float(&o)[CX]) {
+    const long long rb = (b * p.oh + cy0 + q - p.j) * p.ow + xs - p.apron + lane * CX;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (p.vout && (ocols >> 4 * g & 15) == 15) {
+        *reinterpret_cast<float4*>(p.out + (rb + 4 * g)) =
+            make_float4(o[4 * g], o[4 * g + 1], o[4 * g + 2], o[4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (ocols >> (4 * g + e) & 1) p.out[rb + 4 * g + e] = o[4 * g + e];
+      }
+    }
+  };
+  run<L, ORDER_NSWE, MASK, false>(load, zero, store, p.c, p.rmask, T, p.j, 0, p.j);
 }
 
-extern "C" int ts_deep_trapezoid(const float* in, float* out, int nb, int ih,
-                                 int iw, int oh, int ow, int off, int steps,
-                                 int tile, float cn, float cs, float cw,
-                                 float ce, float cc, void* stream) {
-  if (nb < 1 || nb > 65535 || tile < 1 || steps < 1 || off < steps ||
-      oh + off + steps > ih || ow + off + steps > iw)
-    return (int)cudaErrorInvalidValue;
-  const int R = tile + 2 * steps;
-  const size_t smem = 2ull * R * R * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      deep_trapezoid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((ow + tile - 1) / tile, (oh + tile - 1) / tile, nb);
-  deep_trapezoid_kernel<<<grid, DT_THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, ih, iw, oh, ow, off, steps, tile, Coeffs{cn, cs, cw, ce, cc});
+template <int L, int MASK>
+static int launch_trap(const Trap& p, dim3 grid, int warps, cudaStream_t s) {
+  deep_trapezoid_kernel<L, MASK>
+      <<<grid, march::block_threads(warps), march::smem_bytes(warps), s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int L, int MASK>
+static int occupancy_trap(int warps, int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, deep_trapezoid_kernel<L, MASK>, march::block_threads(warps),
+      march::smem_bytes(warps));
+}
+
+// Dispatch on (levels a stage: 1 or 4, tap mask: Jacobi's or 0, a runtime
+// mask) to FN<L, MASK>(args...): a 5-point set has no other instantiation.
+#define TRAP_DISPATCH(L, MASK, FN, ...)                                           \
+  do {                                                                            \
+    const int l_ = (L), m_ = (MASK);                                              \
+    if ((l_ != 1 && l_ != 4) || (m_ != march::MASK_JACOBI && m_ != 0))            \
+      return (int)cudaErrorInvalidValue;                                          \
+    if (m_ == march::MASK_JACOBI)                                                 \
+      return l_ == 1 ? FN<1, march::MASK_JACOBI>(__VA_ARGS__)                     \
+                     : FN<4, march::MASK_JACOBI>(__VA_ARGS__);                    \
+    return l_ == 1 ? FN<1, 0>(__VA_ARGS__) : FN<4, 0>(__VA_ARGS__);               \
+  } while (0)
+
+// The blocks of a launch of L levels a stage (1 or 4), tap mask `mask`
+// (march::MASK_JACOBI or 0) and `warps` stages an SM holds at once.
+extern "C" int ts_deep_trapezoid_occupancy(int L, int mask, int warps, int* per_sm) {
+  if (warps < 1 || warps > march::MAX_WARPS) return (int)cudaErrorInvalidValue;
+  TRAP_DISPATCH(L, mask, occupancy_trap, warps, per_sm);
+}
+
+// One launch of j substeps, (nb, ih, iw) -> (nb, oh, ow) at offset off.
+// L, mask, rows, width: the plan of ops.common.march_plan; vin: 16-byte
+// loads (iw % 4 == 0, off % 4 == 0, a 16-byte aligned base); vout: 16-byte
+// stores (ow % 4 == 0, an aligned base); the coefficients in n, s, w, e, c
+// order.
+extern "C" int ts_deep_trapezoid(const float* in, float* out, int nb, int ih, int iw, int oh,
+                                 int ow, int off, int j, int L, int mask, int rows, int width,
+                                 int vin, int vout, float cn, float cs, float cw, float ce,
+                                 float cc, void* stream) {
+  Trap p{};
+  p.in = in; p.out = out; p.ih = ih; p.iw = iw; p.oh = oh; p.ow = ow;
+  p.off = off; p.j = j; p.rows = rows; p.width = width; p.apron = (j + 3) / 4 * 4;
+  p.vin = vin; p.vout = vout;
+  p.c[1] = cn; p.c[7] = cs; p.c[3] = cw; p.c[5] = ce; p.c[4] = cc;
+  p.rmask = march::tap_mask(p.c);
+  const int warps = (j + L - 1) / (L > 0 ? L : 1);
+  if (nb < 1 || nb > 65535 || j < 1 || L < 1 || warps > march::MAX_WARPS || off < j ||
+      oh < 1 || ow < 1 || (long long)oh + off + j > ih || (long long)ow + off + j > iw ||
+      rows < 1 || width < 4 || width % 4 != 0 || width + 2 * p.apron > march::WIN ||
+      (mask != 0 && (unsigned)mask != p.rmask) || in == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (vin && (iw % 4 != 0 || off % 4 != 0 || (uintptr_t)in % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  if (vout && (ow % 4 != 0 || (uintptr_t)out % 16 != 0)) return (int)cudaErrorMisalignedAddress;
+  const long long strips = (ow + width - 1) / width, chunks = (oh + rows - 1) / rows;
+  if (chunks > 65535) return (int)cudaErrorInvalidValue;
+  TRAP_DISPATCH(L, mask, launch_trap, p, dim3((unsigned)strips, (unsigned)chunks, (unsigned)nb),
+                warps, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
 // resident_periodic: `steps` periodic 5-point steps of an (H, W) grid in ONE
-// cooperative launch. A persistent grid (as many blocks as can be resident
-// at once) walks the grid with a grid-stride loop, reading the previous
-// state with modular (torus) indexing and writing the next into the other
-// of two ping-pong buffers, with grid.sync() between steps. Step 0 reads
-// `in`; the state after step s (1-based) is in buf[(s - 1) % 2].
-// Symmetric Jacobi (n = s = w = e, c = 0) uses the reference's
-// cn*((N + S) + (W + E)) form and order.
-// Bound: bytes. The run must read the grid once and write it once; the
-// steps in between stay in the 50 MB L2 while both buffers fit there
-// (1024^2 f32: 8 MB), which is the rule the wrapper's refusal enforces.
-// Per step the kernel pays L2 traffic plus one grid-wide barrier.
-constexpr int RP_THREADS = 512;
+// cooperative launch.
+// Bound: operations. A step is 4 separately rounded operations a cell in
+// the symmetric form (0.1252 ms for 1000 steps at 1024^2 at 33.5 T/s); the
+// bytes, the grid read once and written once, are far less, as the steps
+// in between stay in the 50 MB L2 while both buffers fit there, which is
+// the rule the wrapper's refusal enforces.
+// Design: the folded ring of stencil_taps.cuh (namespace ring) over the
+// one-rank torus (R = C = 1): a warp marches a 120-column strip's rows with
+// its levels in registers, north and south taps from registers, west and
+// east from one shuffle each, the wrap resolved once a row and once a
+// warp, 16-byte rows where W % 4 == 0; `fold` steps (at most 4) between
+// grid barriers, so a run costs ceil(steps / fold) barriers, and round rd
+// writes buf[rd % 2]. On a torus a round's values are the per-step values,
+// so folding moves no bit. The host rule (ops.common.ring_plan, as for the
+// DMA ring) picks the fold and the grid.
+// Terms, the reference's: symmetric Jacobi (n = s = w = e, c = 0) as
+// cn*((N + S) + (W + E)) (ring::SYM); otherwise n, s, w, e (ring::NSWE),
+// then c where it is not 0 (ring::NSWEC); every product and sum rounded on
+// its own.
+// Three blocks an SM (168 registers a thread) with 16-byte rows, two with
+// scalar loads, as the DMA ring; the 16-byte-row sum with a centre term,
+// which is the DMA ring's <4> and spilled 16 bytes at 168 as it does, runs
+// at two (no path runs it: the headline's Jacobi takes ring::SYM).
+template <int VEC, int COMB>
+__global__ void __launch_bounds__(ring::THREADS, VEC == 4 && COMB != ring::NSWEC ? 3 : 2)
+resident_periodic_kernel(const ring::Args a) {
+  ring::rounds<VEC, COMB>(a);
+}
 
-__global__ void __launch_bounds__(RP_THREADS)
-resident_periodic_kernel(const float* __restrict__ in, float* buf0,
-                         float* buf1, int H, int W, int steps, int sym,
-                         Coeffs k) {
-  cg::grid_group grid = cg::this_grid();
-  const int n = H * W;
-  const int stride = gridDim.x * blockDim.x;
-  const float* src = in;
-  for (int st = 0; st < steps; ++st) {
-    float* dst = (st & 1) ? buf1 : buf0;
-    for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < n; q += stride) {
-      const int i = q / W, j = q - i * W;
-      const int up = (i == 0 ? H - 1 : i - 1), dn = (i == H - 1 ? 0 : i + 1);
-      const int lf = (j == 0 ? W - 1 : j - 1), rt = (j == W - 1 ? 0 : j + 1);
-      const float vn = src[up * W + j], vs = src[dn * W + j];
-      const float vw = src[i * W + lf], ve = src[i * W + rt];
-      float v;
-      if (sym) {
-        v = __fmul_rn(k.n, __fadd_rn(__fadd_rn(vn, vs), __fadd_rn(vw, ve)));
-      } else {
-        v = __fmul_rn(k.n, vn);
-        v = __fadd_rn(v, __fmul_rn(k.s, vs));
-        v = __fadd_rn(v, __fmul_rn(k.w, vw));
-        v = __fadd_rn(v, __fmul_rn(k.e, ve));
-        if (k.c != 0.f) v = __fadd_rn(v, __fmul_rn(k.c, src[q]));
-      }
-      dst[q] = v;
-    }
-    grid.sync();  // every block's writes of step st are visible to step st+1
-    src = dst;
+// The instantiation of load width `vec` (4 or 1) and sum `comb` (ring::*).
+static const void* resident_kernel(int vec, int comb) {
+  switch (comb) {
+    case ring::SYM:
+      return vec == 4 ? (const void*)resident_periodic_kernel<4, ring::SYM>
+                      : (const void*)resident_periodic_kernel<1, ring::SYM>;
+    case ring::NSWE:
+      return vec == 4 ? (const void*)resident_periodic_kernel<4, ring::NSWE>
+                      : (const void*)resident_periodic_kernel<1, ring::NSWE>;
+    case ring::NSWEC:
+      return vec == 4 ? (const void*)resident_periodic_kernel<4, ring::NSWEC>
+                      : (const void*)resident_periodic_kernel<1, ring::NSWEC>;
   }
+  return nullptr;
 }
 
-extern "C" int ts_resident_periodic(const float* in, float* buf0, float* buf1,
-                                    int H, int W, int steps, int sym,
-                                    float cn, float cs, float cw, float ce,
-                                    float cc, void* stream) {
-  if (H < 1 || W < 1 || steps < 1 || (long long)H * W > INT_MAX)
+// The blocks of the resident kernel of load width `vec` and sum `comb` an
+// SM holds at once.
+extern "C" int ts_resident_occupancy(int vec, int comb, int* per_sm) {
+  const void* k = resident_kernel(vec, comb);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, k, ring::THREADS, 0);
+}
+
+// comb: ring::SYM, NSWE or NSWEC; vec: 4 (16-byte rows: W % 4 == 0 and the
+// three buffers 16-byte aligned) or 1; fold 1..ring::F steps a round;
+// blocks from ops.common.ring_plan, at most one cooperative wave. The
+// state after the last round is in buf[(rounds - 1) % 2].
+extern "C" int ts_resident_periodic(const float* in, float* buf0, float* buf1, int H, int W,
+                                    int steps, int comb, float cn, float cs, float cw, float ce,
+                                    float cc, int vec, int fold, int blocks, void* stream) {
+  const void* k = resident_kernel(vec, comb);
+  if (H < 1 || W < 1 || (long long)H * W > INT_MAX || k == nullptr)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, resident_periodic_kernel, RP_THREADS, 0);
-  if (e != cudaSuccess) return (int)e;
-  if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long need = ((long long)H * W + RP_THREADS - 1) / RP_THREADS;
-  const long long cap = (long long)per_sm * sms;
-  const int blocks = (int)(need < cap ? need : cap);
-  Coeffs k{cn, cs, cw, ce, cc};
-  void* args[] = {(void*)&in, (void*)&buf0, (void*)&buf1, (void*)&H,
-                  (void*)&W,  (void*)&steps, (void*)&sym,  (void*)&k};
-  e = cudaLaunchCooperativeKernel((void*)resident_periodic_kernel,
-                                  dim3(blocks), dim3(RP_THREADS), args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  int e = ts_resident_occupancy(vec, comb, &per_sm);
+  if (e != cudaSuccess) return e;
+  const ring::Args a{in, buf0, buf1, Torus{1, 1, H, W}, steps, fold, cn, cs, cw, ce, cc};
+  e = ring::check_launch(a, vec, blocks, per_sm);
+  if (e != cudaSuccess) return e;
+  void* args[] = {(void*)&a};
+  e = (int)cudaLaunchCooperativeKernel(k, dim3(blocks), dim3(ring::THREADS), args, 0,
+                                       (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-extern "C" const char* ts_error_string(int e) {
-  return cudaGetErrorString((cudaError_t)e);
-}
-
-extern "C" int ts_smem_optin(int* bytes) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (int)e;
 }

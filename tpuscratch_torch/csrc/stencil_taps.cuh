@@ -1,6 +1,8 @@
 // Shared pieces of the 2D and 3D stencil kernels: the C entry points every
-// library of them exports, and the row march of the streamed and DMA-halo
-// 2D kernels (stencil_stream2d.cu, halo_dma.cu).
+// library of them exports, the row march of the streamed, DMA-halo and
+// deep-trapezoid 2D kernels (stencil_stream2d.cu, halo_dma.cu,
+// stencil2d.cu), and the folded ring of the DMA ring and resident kernels
+// (halo_dma.cu, stencil2d.cu).
 //
 // A 3x3 stencil is a list of taps in the order its reference sums them:
 //   v = c[p0]*a(p0) + c[p1]*a(p1) + ...
@@ -14,6 +16,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cstdint>
 
 // The C entry points every library of these kernels exports.
@@ -124,6 +127,13 @@ __device__ __forceinline__ int* col_table() { return reinterpret_cast<int*>(marc
 __device__ __forceinline__ void cp16(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// 16 bytes, or zeros where `fill` is false (src need only be a global address)
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(fill ? 16 : 0));
 }
 
 // 4 bytes, or a zero where `fill` is false (src need only be a global address)
@@ -320,3 +330,246 @@ __device__ __forceinline__ void run(Load&& load, Zero&& zero, Store&& store, con
   } while (0)
 
 }  // namespace march
+
+// ---------------------------------------------------------------------------
+// A torus of R x C ranks' (H, W) cores, stacked rank by rank: the grid of
+// (R*H, C*W) cells they tile (one rank for a single grid).
+struct Torus {
+  int R, C, H, W;  // mesh dims, core dims
+};
+
+// An incremental torus row: its row `i` in its rank, and the element
+// offset of its first cell in rank column 0.
+struct RowAt {
+  int i, base;
+  __device__ __forceinline__ void at(const Torus& g, int y) {
+    const int TH = g.R * g.H;
+    y %= TH;
+    if (y < 0) y += TH;
+    const int r = y / g.H;
+    i = y - r * g.H;
+    base = (r * g.C * g.H + i) * g.W;
+  }
+  __device__ __forceinline__ void next(const Torus& g) {
+    base += g.W;
+    if (++i == g.H) {  // the next rank row's first row, or the torus's
+      i = 0;
+      base += (g.C - 1) * g.H * g.W;
+      if (base == g.R * g.C * g.H * g.W) base = 0;
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The folded ring: `steps` 5-point steps of a whole torus in ONE
+// cooperative launch, `fold` steps between two grid barriers
+// (dma_ring_kernel, resident_periodic_kernel).
+//  - The torus is cut into strips of ring::OUT columns; a warp's window is
+//    ring::WIN = OUT + 2 * F columns of one strip, 4 adjacent columns a lane
+//    (one 16-byte load or store a row where W % 4 == 0). The strips' rows,
+//    strip after strip, are split evenly over the warps of the persistent
+//    grid; a warp marches its rows, each with a `fold`-row apron above and
+//    below, the same rows every round.
+//  - Substep level s keeps the last three rows it computed in registers
+//    and computes row t - s from level s - 1's rows at march step t, so
+//    all `fold` levels advance one row a step with no barrier and no
+//    shared memory: the north and south taps are registers, west and east
+//    the lane's own columns or one shuffle each from the lanes beside it.
+//    The step loop is unrolled by 3 so the rows rotate by name.
+//  - Level `fold` is the round's result. A round reads the other buffer,
+//    a trapezoid of `fold` steps (on a torus its values are the per-step
+//    values), so the steps cost ceil(steps / fold) grid barriers and the
+//    torus crosses memory once a round instead of once a step.
+//  - The wrap is resolved once a loaded row (an incremental rank and row)
+//    and once a warp for its columns; a row is loaded ring::AHEAD steps
+//    before its use, into a ring of registers; no division runs in the
+//    march loop.
+//  - Folds of at most F = 4: the register window of 6- and 8-step folds
+//    spilled, at 168 registers (3 blocks an SM) and at 255 alike, which
+//    made them slower than 4-step folds (PERF.md).
+// A cell's sum is a template parameter, each the order of a reference:
+//   NSWEC: n, s, w, e, c, zero coefficients included (the DMA ring);
+//   NSWE:  n, s, w, e (the resident kernel without a centre term);
+//   SYM:   cn * ((n + s) + (w + e)) (the resident kernel's symmetric Jacobi);
+// every product and sum rounded on its own. The host rule
+// (ops.common.ring_plan) picks the fold and the grid.
+namespace ring {
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int F = 4;                  // a window's side apron: the deepest fold
+constexpr int WIN = 128;              // window columns, 4 a lane
+constexpr int OUT = WIN - 2 * F;      // output columns a strip
+constexpr int AHEAD = 3;              // rows in flight into registers
+
+enum { NSWEC = 0, NSWE = 1, SYM = 2 };
+
+struct Args {
+  const float* in;
+  float* buf0;
+  float* buf1;
+  Torus g;
+  int steps, fold;
+  float cn, cs, cw, ce, cc;
+};
+
+template <int COMB>
+__device__ __forceinline__ float combine(const Args& a, float n, float s, float w, float e,
+                                         float c) {
+  if (COMB == SYM) return __fmul_rn(a.cn, __fadd_rn(__fadd_rn(n, s), __fadd_rn(w, e)));
+  float v = __fmul_rn(a.cn, n);
+  v = __fadd_rn(v, __fmul_rn(a.cs, s));
+  v = __fadd_rn(v, __fmul_rn(a.cw, w));
+  v = __fadd_rn(v, __fmul_rn(a.ce, e));
+  return COMB == NSWE ? v : __fadd_rn(v, __fmul_rn(a.cc, c));
+}
+
+template <int FOLD, int VEC, int COMB>
+__device__ __forceinline__ void march(const Args& a, const float* __restrict__ src,
+                                      float* __restrict__ dst, int strip, int ys, int n) {
+  const Torus& g = a.g;
+  const int lane = threadIdx.x & 31;
+  const int TW = g.C * g.W;
+  // the lane's 4 window columns: torus column x = xw + j, source offset cb[j]
+  const int xw = strip * OUT - F + 4 * lane;
+  int cb[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int x = (xw + j) % TW;
+    if (x < 0) x += TW;
+    const int c = x / g.W;
+    cb[j] = c * g.H * g.W + (x - c * g.W);
+  }
+  // output lanes: window columns [F, WIN - F) inside the torus
+  const int xe = min(strip * OUT + OUT, TW);  // the strip's end
+  bool ok[4];
+  bool own = lane >= F / 4 && lane < (WIN - F) / 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ok[j] = own && xw + j < xe;
+  own = own && xw < xe;  // VEC == 4: the lane's columns are in or out together
+
+  const int T = n + 2 * FOLD;
+  // window row y is loaded into pf[y % 3] AHEAD steps before level 0 takes it
+  RowAt in_row, out_row;
+  in_row.at(g, ys - FOLD);
+  out_row.at(g, ys);
+  float pf[AHEAD][4];
+  auto fetch = [&](float* v, int y) {
+    if (y < T) {
+      if (VEC == 4) {
+        const float4 u = __ldcg(reinterpret_cast<const float4*>(src + in_row.base + cb[0]));
+        v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __ldcg(src + in_row.base + cb[j]);
+      }
+    }
+    in_row.next(g);
+  };
+#pragma unroll
+  for (int y = 0; y < AHEAD; ++y) fetch(pf[y], y);
+  float lv[FOLD][3][4];  // lv[l][y % 3]: level l's row y (window rows)
+#pragma unroll 1
+  for (int t0 = 0; t0 < T; t0 += 3) {
+#pragma unroll
+    for (int ph = 0; ph < 3; ++ph) {
+      const int t = t0 + ph;
+      if (t >= T) break;
+      // level 0: window row t
+      float* l0 = lv[0][ph];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) l0[j] = pf[ph][j];
+      fetch(pf[ph], t + AHEAD);
+      // levels 1..FOLD: level s computes window row t - s
+#pragma unroll
+      for (int s = 1; s <= FOLD; ++s) {
+        if (t < 2 * s) break;  // level s starts at row s
+        const float* N = lv[s - 1][((ph - s - 1) % 3 + 6) % 3];
+        const float* C = lv[s - 1][((ph - s) % 3 + 6) % 3];
+        const float* S = lv[s - 1][((ph - s + 1) % 3 + 6) % 3];
+        const float west = __shfl_up_sync(0xffffffffu, C[3], 1);
+        const float east = __shfl_down_sync(0xffffffffu, C[0], 1);
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          o[j] = combine<COMB>(a, N[j], S[j], j == 0 ? west : C[j - 1], j == 3 ? east : C[j + 1],
+                               C[j]);
+        if (s < FOLD) {
+          float* d = lv[s][((ph - s) % 3 + 6) % 3];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d[j] = o[j];
+          continue;
+        }
+        // level FOLD: the round's value of the warp's next output row
+        if (VEC == 4) {
+          if (own)
+            *reinterpret_cast<float4*>(dst + out_row.base + cb[0]) =
+                make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (ok[j]) dst[out_row.base + cb[j]] = o[j];
+        }
+        out_row.next(g);
+      }
+    }
+  }
+}
+
+// The body of a ring kernel: every round of `fold` steps (the last one
+// shallower where `fold` does not divide `steps`), each a march of the
+// warp's strip rows, then a grid barrier. Round rd reads `in` (rd = 0) or
+// the buffer round rd - 1 wrote and writes buf[rd % 2].
+template <int VEC, int COMB>
+__device__ __forceinline__ void rounds(const Args& a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int warp = threadIdx.x >> 5;
+  const Torus& g = a.g;
+  const int TH = g.R * g.H, TW = g.C * g.W;
+  const long long L = (long long)((TW + OUT - 1) / OUT) * TH;  // strip rows
+  const long long nw = (long long)gridDim.x * WARPS;
+  const long long gw = (long long)blockIdx.x * WARPS + warp;
+  const long long lo = gw * L / nw, hi = (gw + 1) * L / nw;
+  const int nr = (a.steps + a.fold - 1) / a.fold;
+  for (int rd = 0; rd < nr; ++rd) {
+    const int f = min(a.fold, a.steps - rd * a.fold);
+    const float* src = rd == 0 ? a.in : ((rd - 1) & 1 ? a.buf1 : a.buf0);
+    float* dst = rd & 1 ? a.buf1 : a.buf0;
+    for (long long pos = lo; pos < hi;) {
+      const int strip = (int)(pos / TH), ys = (int)(pos - (long long)strip * TH);
+      const int n = (int)min(hi - pos, (long long)(TH - ys));
+      switch (f) {
+        case 1: march<1, VEC, COMB>(a, src, dst, strip, ys, n); break;
+        case 2: march<2, VEC, COMB>(a, src, dst, strip, ys, n); break;
+        case 3: march<3, VEC, COMB>(a, src, dst, strip, ys, n); break;
+        default: march<4, VEC, COMB>(a, src, dst, strip, ys, n); break;
+      }
+      pos += n;
+    }
+    grid.sync();  // every warp's round rd is in dst before round rd + 1
+  }
+}
+
+// The checks every ring launcher makes: one of the two load widths (vec 4:
+// W % 4 == 0 and the three buffers 16-byte aligned), a fold of 1 to F
+// steps, strip rows that index as int, and a grid of at most one
+// cooperative wave of `per_sm` blocks an SM.
+inline int check_launch(const Args& a, int vec, int blocks, int per_sm) {
+  const Torus& g = a.g;
+  if (a.steps < 1 || a.fold < 1 || a.fold > F || blocks < 1 || (vec != 1 && vec != 4))
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (g.W % 4 != 0 || (uintptr_t)a.in % 16 != 0 || (uintptr_t)a.buf0 % 16 != 0 ||
+                   (uintptr_t)a.buf1 % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
+  if (((long long)g.C * g.W + OUT - 1) / OUT * g.R * g.H > INT32_MAX)
+    return (int)cudaErrorInvalidValue;  // the strip rows index as int
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || (long long)per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return (int)cudaSuccess;
+}
+
+}  // namespace ring

@@ -358,8 +358,8 @@ def run_stencil_deep(tile: torch.Tensor, spec: HaloSpec, steps: int, coeffs=JACO
 
     ``impl='xla'`` runs the substep pyramid as torch ops (about one memory
     pass per substep); ``impl='pallas'`` runs the whole pyramid in one
-    launch of the shared-memory kernel ``deep_trapezoid_pallas`` (one read
-    + one write per ``depth`` substeps).
+    launch of the row-march kernel ``deep_trapezoid_pallas`` (one read +
+    one write per ``depth`` substeps, a launch per 32 past that).
     """
     lay = spec.layout
     k = lay.halo_y if depth is None else depth

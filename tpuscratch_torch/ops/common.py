@@ -167,11 +167,11 @@ def smem_optin(lib: ctypes.CDLL, name: str) -> int:
 
 
 #: The row march of ``csrc/stencil_taps.cuh`` (``stream2d_kernel``,
-#: ``dma_deep_kernel``): columns a lane (``march::CX``), window columns a
-#: strip (``march::WIN``), stages a block at most (``march::MAX_WARPS``),
-#: input rows in flight (``march::AHEAD``), rows of the input ring and of a
-#: hand-over ring (``march::RING``, ``march::HAND``) and the levels a
-#: stage may hold.
+#: ``dma_deep_kernel``, ``deep_trapezoid_kernel``): columns a lane
+#: (``march::CX``), window columns a strip (``march::WIN``), stages a block
+#: at most (``march::MAX_WARPS``), input rows in flight (``march::AHEAD``),
+#: rows of the input ring and of a hand-over ring (``march::RING``,
+#: ``march::HAND``) and the levels a stage may hold.
 MARCH_CX, MARCH_WARPS, MARCH_AHEAD, MARCH_RING, MARCH_HAND = 8, 8, 6, 8, 4
 MARCH_WIN = 32 * MARCH_CX
 MARCH_LEVELS = (1, 4)
@@ -292,11 +292,78 @@ def march_plan(nb: int, out_h: int, out_w: int, depth: int, n_sm: int, per_sm: i
                      march_smem(warps))
 
 
+def march_chain(nb: int, H: int, W: int, depth: int, n_sm: int, per_sm_of) -> list[MarchPlan]:
+    """The launches of a row march of ``depth`` substeps over ``nb`` (H, W)
+    grids (the streamed 2D pass, the deep trapezoid): one of at most
+    ``march_depth()`` substeps each, every launch but the last writing the
+    dense grid its successor reads, ``depth - done - j`` rings beyond the
+    (H, W) grid. ``per_sm_of(levels, warps)`` gives the blocks an SM holds
+    of a launch's instantiation."""
+    plans, done = [], 0
+    while done < depth:
+        j = min(depth - done, march_depth())
+        go = depth - done - j
+        levels = march_levels(j)
+        plans.append(march_plan(nb, H + 2 * go, W + 2 * go, j, n_sm,
+                                per_sm_of(levels, -(-j // levels))))
+        done += j
+    return plans
+
+
 def march_smem(warps: int) -> int:
     """Shared memory of a block of ``warps`` stages (``march::smem_bytes``):
     the column table, the input ring, a hand-over ring a boundary and the
     two output rows."""
     return (MARCH_WIN + (MARCH_RING + MARCH_HAND * (warps - 1) + 2) * MARCH_WIN) * 4
+
+
+#: The folded ring of ``csrc/stencil_taps.cuh`` (namespace ``ring``:
+#: ``dma_ring_kernel``, ``resident_periodic_kernel``): warps a block
+#: (``WARPS``), the deepest fold and a strip window's side apron (``F``),
+#: the window's columns (``WIN``) and the output columns of a strip
+#: (``OUT``)
+RING_WARPS, RING_F, RING_WIN = 4, 4, 128
+RING_OUT = RING_WIN - 2 * RING_F
+#: blocks of a ring kernel an H100 SM holds with 16-byte rows: its launch
+#: bounds' 3 (2 with scalar loads)
+RING_PER_SM = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    """One launch of a ring kernel: ``fold`` steps between grid barriers
+    in ``rounds`` rounds, on ``blocks`` persistent blocks."""
+
+    fold: int
+    rounds: int
+    blocks: int
+
+
+def ring_rows(R: int, C: int, H: int, W: int) -> int:
+    """The strip rows a ring kernel's warps share: the torus's (R*H) rows
+    in each of its ceil(C*W / RING_OUT) column strips."""
+    return -(-(C * W) // RING_OUT) * R * H
+
+
+def ring_plan(R: int, C: int, H: int, W: int, steps: int, n_sm: int,
+              per_sm: int = RING_PER_SM, fold: int | None = None) -> RingPlan:
+    """The ring kernels' host rule over the torus of ``R`` x ``C`` ranks'
+    ``H`` x ``W`` cores (1 x 1 for one grid): ``fold`` steps a round (the
+    deepest, RING_F, unless given) on as many blocks as ``n_sm`` SMs hold
+    at ``per_sm`` each (one cooperative wave), and never more warps than
+    strip rows, so that every warp has one (a block at least)."""
+    fold = min(RING_F, steps) if fold is None else fold
+    if not 1 <= fold <= RING_F:
+        raise ValueError(f"a ring kernel folds 1 to {RING_F} steps a round, got {fold}")
+    most = max(1, ring_rows(R, C, H, W) // RING_WARPS)
+    return RingPlan(fold, -(-steps // fold), min(n_sm * per_sm, most))
+
+
+def ring_vec(W: int, *data_ptrs: int) -> int:
+    """A ring kernel's load width: 4 columns as one 16-byte vector where
+    every row starts 16-byte aligned (``W % 4 == 0`` and the buffers
+    16-byte aligned), else 4 scalar loads."""
+    return 4 if W % 4 == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,8 @@ neighbouring rank's core where the TPU kernel waited for a strip. The
 kernel wrappers work on the stacked cores ``(rows, cols, H, W)``:
 
 - ``dma_ring``: ``steps`` 5-point steps in one cooperative launch, folded
-  into rounds of up to 4 steps between grid barriers (``ring_plan``);
+  into rounds of up to 4 steps between grid barriers (``ring_plan`` of
+  ``ops.common``, which the resident kernel shares);
 - ``dma_deep``: one launch per round of ``depth`` substeps (5 or 9
   points), a row march over the torus whose plan ``march_plan`` picks;
 - ``dma_hbm_step``: one step per launch, 5 or 9 points, over register
@@ -29,7 +30,6 @@ runs its plain torch version, the same steps on the assembled torus with
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -38,6 +38,7 @@ from tpuscratch_torch.halo.exchange import HaloSpec, halo_exchange
 from tpuscratch_torch.halo.stencil import rebuild
 from tpuscratch_torch.ops.common import (
     MarchPlan,
+    RingPlan,
     check_cuda,
     check_status,
     counters,
@@ -46,6 +47,8 @@ from tpuscratch_torch.ops.common import (
     march_levels,
     march_mask,
     march_plan,
+    ring_plan,
+    ring_vec,
     route,
     sm_count,
     stream_of,
@@ -169,52 +172,6 @@ def _lib() -> ctypes.CDLL:
 def _check_cores(cores: torch.Tensor, name: str) -> None:
     if cores.ndim != 4:
         raise ValueError(f"{name}: want stacked cores (rows, cols, H, W), got {tuple(cores.shape)}")
-
-
-#: ``dma_ring_kernel`` (``csrc/halo_dma.cu``): warps a block (RING_WARPS),
-#: the deepest fold and a strip window's side apron (RING_F), the window's
-#: columns (RING_WIN) and the output columns of a strip (RING_OUT)
-RING_WARPS, RING_F, RING_WIN = 4, 4, 128
-RING_OUT = RING_WIN - 2 * RING_F
-#: blocks of the ring kernel an H100 SM holds with 16-byte rows: its launch
-#: bounds' 3 (2 with scalar loads)
-RING_PER_SM = 3
-
-
-@dataclasses.dataclass(frozen=True)
-class RingPlan:
-    """One ``dma_ring_kernel`` launch: ``fold`` steps between grid barriers
-    in ``rounds`` rounds, on ``blocks`` persistent blocks."""
-
-    fold: int
-    rounds: int
-    blocks: int
-
-
-def ring_rows(R: int, C: int, H: int, W: int) -> int:
-    """The strip rows the ring kernel's warps share: the torus's (R*H)
-    rows in each of its ceil(C*W / RING_OUT) column strips."""
-    return -(-(C * W) // RING_OUT) * R * H
-
-
-def ring_plan(R: int, C: int, H: int, W: int, steps: int, n_sm: int,
-              per_sm: int = RING_PER_SM, fold: int | None = None) -> RingPlan:
-    """The ring kernel's host rule: ``fold`` steps a round (the deepest,
-    RING_F, unless given) on as many blocks as ``n_sm`` SMs hold at
-    ``per_sm`` each (one cooperative wave), never more than give each warp
-    a strip row."""
-    fold = min(RING_F, steps) if fold is None else fold
-    if not 1 <= fold <= RING_F:
-        raise ValueError(f"the ring kernel folds 1 to {RING_F} steps a round, got {fold}")
-    most = -(-ring_rows(R, C, H, W) // RING_WARPS)
-    return RingPlan(fold, -(-steps // fold), min(n_sm * per_sm, most))
-
-
-def ring_vec(W: int, *data_ptrs: int) -> int:
-    """The ring kernel's load width: 4 columns as one 16-byte vector where
-    every row starts 16-byte aligned (``W % 4 == 0`` and the buffers
-    16-byte aligned), else 4 scalar loads."""
-    return 4 if W % 4 == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,9 +8,11 @@ stacked ``(rows, cols, ph, pw)`` tensor (any leading dims are a batch):
 - ``five_point_pallas`` / ``five_point_blocked``: one 5-point step; the
   kernel writes a fresh core and ``rebuild`` re-wraps the halo.
 - ``deep_trapezoid_pallas``: ``substeps`` shrinking steps in one launch
-  (temporal blocking in shared memory).
+  of the row march (``csrc/stencil_taps.cuh``; a chain of launches past
+  32 substeps).
 - ``resident_periodic_pallas``: ``steps`` periodic steps in one
-  cooperative launch.
+  cooperative launch, folded into rounds of up to 4 steps between grid
+  barriers (the ring of ``csrc/stencil_taps.cuh``).
 - ``seven_point_banded_pallas`` / ``seven_point_strips_pallas`` /
   ``seven_point_assembled_pallas``: one 3D 7-point step of every rank's
   core from a padded tile, from a z-padded core and four y/x strips, or
@@ -32,16 +34,26 @@ import torch
 
 from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.halo.stencil import JACOBI, _new_values, rebuild, shrink_step
-from tpuscratch_torch.ops.common import check_cuda, check_status, library, smem_optin, stream_of
+from tpuscratch_torch.ops.common import (
+    RING_PER_SM,
+    MarchPlan,
+    RingPlan,
+    check_cuda,
+    check_status,
+    library,
+    march_chain,
+    march_mask,
+    ring_plan,
+    ring_vec,
+    sm_count,
+    stream_of,
+)
 
 Coeffs = tuple[float, float, float, float, float]
 
 #: The H100's L2 as the card reports it (50 MiB). ``resident`` keeps both
 #: ping-pong buffers of the grid within it.
 L2_BYTES = 50 << 20
-
-#: Output tile edge of one ``deep_trapezoid`` block.
-TRAPEZOID_TILE = 64
 
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -52,9 +64,12 @@ _P = ctypes.c_void_p
 def _lib() -> ctypes.CDLL:
     lib = library("stencil2d")
     lib.ts_five_point.argtypes = [_P, _P] + [_I] * 7 + [_F] * 5 + [_P]
-    lib.ts_deep_trapezoid.argtypes = [_P, _P] + [_I] * 8 + [_F] * 5 + [_P]
-    lib.ts_resident_periodic.argtypes = [_P, _P, _P] + [_I] * 4 + [_F] * 5 + [_P]
-    for fn in (lib.ts_five_point, lib.ts_deep_trapezoid, lib.ts_resident_periodic):
+    lib.ts_deep_trapezoid.argtypes = [_P, _P] + [_I] * 13 + [_F] * 5 + [_P]
+    lib.ts_deep_trapezoid_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.ts_resident_periodic.argtypes = [_P, _P, _P] + [_I] * 4 + [_F] * 5 + [_I] * 3 + [_P]
+    lib.ts_resident_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    for fn in (lib.ts_five_point, lib.ts_deep_trapezoid, lib.ts_deep_trapezoid_occupancy,
+               lib.ts_resident_periodic, lib.ts_resident_occupancy):
         fn.restype = _I
     lib.ts_error_string.argtypes = [_I]
     lib.ts_error_string.restype = ctypes.c_char_p
@@ -164,29 +179,39 @@ def deep_trapezoid_plain(tile: torch.Tensor, layout: TileLayout, substeps: int, 
     return a[..., crop:-crop, crop:-crop] if crop else a
 
 
+def trapezoid_c9(coeffs) -> tuple[float, ...]:
+    """The 5-point coefficients (n, s, w, e, c) by tap position p = 3 (dy +
+    1) + (dx + 1), as the row march takes them."""
+    cn, cs, cw, ce, cc = _coeff_args(coeffs)
+    return (0.0, cn, 0.0, cw, cc, ce, 0.0, cs, 0.0)
+
+
 @functools.lru_cache(maxsize=None)
-def _max_substeps(tile_edge: int) -> int:
-    """Most substeps one ``deep_trapezoid`` launch can hold in the card's
-    opt-in shared memory: 2 * (tile_edge + 2s)^2 floats."""
-    optin = smem_optin(_lib(), "deep_trapezoid_pallas")
-    s = 0
-    while 2 * (tile_edge + 2 * (s + 1)) ** 2 * 4 <= optin:
-        s += 1
-    if s < 1:
-        raise RuntimeError(f"shared memory {optin} B holds no trapezoid")
-    return s
+def _trapezoid_per_sm(device: int, levels: int, mask: int, warps: int) -> int:
+    lib = _lib()
+    per_sm = _I(0)
+    with torch.cuda.device(device):
+        _check(lib.ts_deep_trapezoid_occupancy(levels, mask, warps, ctypes.byref(per_sm)),
+               "deep_trapezoid_pallas")
+    return per_sm.value
 
 
-def _trapezoid_launch(x, oh, ow, off, steps, coeffs, name) -> torch.Tensor:
+def _trapezoid_call(x: torch.Tensor, out: torch.Tensor, off: int, coeffs,
+                    plan: MarchPlan) -> None:
+    """One launch of ``plan.depth`` substeps of the batch ``x`` (``(..., ih,
+    iw)``) into ``out`` (``(..., oh, ow)``): output (i, c) is the pyramid's
+    value at input (i + off, c + off)."""
     ih, iw = x.shape[-2:]
-    out = torch.empty(x.shape[:-2] + (oh, ow), dtype=x.dtype, device=x.device)
-    nb = x.numel() // (ih * iw)
-    with torch.cuda.device(x.device):
-        _check(_lib().ts_deep_trapezoid(
-            x.data_ptr(), out.data_ptr(), nb, ih, iw, oh, ow, off, steps,
-            TRAPEZOID_TILE, *_coeff_args(coeffs), stream_of(x),
-        ), name)
-    return out
+    oh, ow = out.shape[-2:]
+    c5 = _coeff_args(coeffs)
+    vin = iw % 4 == 0 and off % 4 == 0 and x.data_ptr() % 16 == 0
+    vout = ow % 4 == 0 and out.data_ptr() % 16 == 0
+    _check(_lib().ts_deep_trapezoid(
+        x.data_ptr(), out.data_ptr(), x.numel() // (ih * iw), ih, iw, oh, ow, off, plan.depth,
+        plan.levels, march_mask(trapezoid_c9(c5)), plan.rows, plan.width, int(vin), int(vout),
+        *c5, stream_of(x),
+    ), "deep_trapezoid_pallas")
+    deep_trapezoid_pallas.launches += 1
 
 
 def deep_trapezoid_pallas(
@@ -196,16 +221,17 @@ def deep_trapezoid_pallas(
     coeffs: Coeffs = JACOBI,
     budget_bytes: int = 2 << 20,
 ) -> torch.Tensor:
-    """``substeps`` Jacobi steps of the padded tile(s) in one launch: each
-    block reads its window once, runs the shrinking valid-region pyramid
-    in shared memory and writes its core tile once.
+    """``substeps`` Jacobi steps of the padded tile(s) in one launch of the
+    row march (``csrc/stencil2d.cu``): each block reads its window's rows
+    once, runs the shrinking valid-region pyramid with its levels in
+    registers and writes its strip of the core once.
 
     Requires halo_y == halo_x >= substeps (the caller's exchange must have
     filled a halo at least ``substeps`` deep). ``budget_bytes`` is the TPU
-    kernel's VMEM band budget, accepted for its signature; the CUDA kernel
-    sizes its blocks from the card's shared memory. Pyramids deeper than
-    one block's shared memory holds (more than ~50 substeps) run as
-    several launches, each a shallower trapezoid of the previous output.
+    kernel's VMEM band budget, accepted for its signature; the plan comes
+    from ``march_plan``. Pyramids deeper than one launch runs (32
+    substeps) are chained (:func:`march_chain`): each launch writes the
+    dense grid of the core and the rings still to go, which the next reads.
     """
     k = layout.halo_y
     if layout.halo_y != layout.halo_x:
@@ -217,18 +243,20 @@ def deep_trapezoid_pallas(
     if not _route(tile, "deep_trapezoid_pallas"):
         return deep_trapezoid_plain(tile, layout, substeps, coeffs)
     check_cuda(tile, "deep_trapezoid_pallas", 2)
-    most = _max_substeps(TRAPEZOID_TILE)
-    x, left, g = tile, substeps, k  # the core sits at offset g of x
-    while left > most:
-        ih, iw = x.shape[-2:]
-        x = _trapezoid_launch(x, ih - 2 * most, iw - 2 * most, most, most,
-                              coeffs, "deep_trapezoid_pallas")
-        deep_trapezoid_pallas.launches += 1
-        left, g = left - most, g - most
-    out = _trapezoid_launch(x, layout.core_h, layout.core_w, g, left, coeffs,
-                            "deep_trapezoid_pallas")
-    deep_trapezoid_pallas.launches += 1
-    return out
+    dev = tile.device.index if tile.device.index is not None else torch.cuda.current_device()
+    mask = march_mask(trapezoid_c9(coeffs))
+    nb = tile.numel() // (tile.shape[-2] * tile.shape[-1])
+    h, w = layout.core_h, layout.core_w
+    x, g, left = tile, k, substeps  # the core sits at offset g of x; left substeps to go
+    with torch.cuda.device(tile.device):
+        for plan in march_chain(nb, h, w, substeps, sm_count(dev),
+                                lambda lv, wp: _trapezoid_per_sm(dev, lv, mask, wp)):
+            left -= plan.depth  # the rings the launch's output keeps around the core
+            out = torch.empty(tile.shape[:-2] + (h + 2 * left, w + 2 * left), dtype=tile.dtype,
+                              device=tile.device)
+            _trapezoid_call(x, out, g - left, coeffs, plan)
+            x, g = out, left
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -260,6 +288,56 @@ def resident_periodic_plain(core: torch.Tensor, steps: int, coeffs: Coeffs = JAC
     return a.clone() if a is core else a
 
 
+#: The resident kernel's sums (``ring::NSWEC``, ``NSWE``, ``SYM`` of
+#: ``csrc/stencil_taps.cuh``): n, s, w, e, c; n, s, w, e; cn*((n+s)+(w+e))
+NSWEC, NSWE, SYM = 0, 1, 2
+
+
+def resident_comb(coeffs) -> int:
+    """The sum the resident kernel takes for ``coeffs``: the reference's
+    symmetric form for symmetric Jacobi, else n, s, w, e with the centre
+    term only where it is not 0 (``_resident_step``)."""
+    cn, cs, cw, ce, cc = _coeff_args(coeffs)
+    if cn == cs == cw == ce and cc == 0.0:
+        return SYM
+    return NSWEC if cc else NSWE
+
+
+def resident_plan(H: int, W: int, steps: int, n_sm: int, per_sm: int = RING_PER_SM,
+                  fold: int | None = None) -> RingPlan:
+    """The resident kernel's host rule: the ring kernels' (``ring_plan``)
+    over the one-rank torus of the (H, W) grid."""
+    return ring_plan(1, 1, H, W, steps, n_sm, per_sm, fold)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_per_sm(device: int, vec: int, comb: int) -> int:
+    lib = _lib()
+    per_sm = _I(0)
+    with torch.cuda.device(device):
+        _check(lib.ts_resident_occupancy(vec, comb, ctypes.byref(per_sm)),
+               "resident_periodic_pallas")
+    return per_sm.value
+
+
+def _resident_launch(core: torch.Tensor, steps: int, coeffs, plan_of) -> torch.Tensor:
+    """``steps`` steps of ``core`` on the card under the plan
+    ``plan_of(per_sm)`` gives; returns the buffer the last round wrote."""
+    bufs = (torch.empty_like(core), torch.empty_like(core))
+    H, W = core.shape
+    vec = ring_vec(W, core.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr())
+    comb = resident_comb(coeffs)
+    dev = core.device.index if core.device.index is not None else torch.cuda.current_device()
+    plan = plan_of(_resident_per_sm(dev, vec, comb))
+    with torch.cuda.device(core.device):
+        _check(_lib().ts_resident_periodic(
+            core.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), H, W, steps, comb,
+            *_coeff_args(coeffs), vec, plan.fold, plan.blocks, stream_of(core),
+        ), "resident_periodic_pallas")
+    resident_periodic_pallas.launches += 1
+    return bufs[(plan.rounds - 1) % 2]
+
+
 def resident_periodic_pallas(
     core: torch.Tensor,
     steps: int,
@@ -270,9 +348,10 @@ def resident_periodic_pallas(
     """``steps`` periodic Jacobi steps in ONE cooperative kernel launch.
 
     The grid is read once and the final state written once; the steps in
-    between ping-pong two grid-sized buffers that stay in the card's L2,
-    with a grid-wide barrier per step. Capacity rule, the refusal sized for
-    this design: both buffers must fit the L2, ``2 * grid bytes <=
+    between run in rounds of up to 4 steps (:func:`resident_plan`), a grid
+    barrier between rounds, the rounds ping-ponging two grid-sized buffers
+    that stay in the card's L2. Capacity rule, the refusal sized for this
+    design: both buffers must fit the L2, ``2 * grid bytes <=
     l2_limit_bytes`` (50 MiB: a 2560^2 f32 grid at most); larger grids
     raise ``ValueError`` and belong on the deep trapezoid path. ``unroll``
     is the TPU kernel's loop unroll, accepted for its signature.
@@ -297,17 +376,9 @@ def resident_periodic_pallas(
     check_cuda(core, "resident_periodic_pallas", 2)
     if steps == 0:
         return core.clone()
-    cn, cs, cw, ce, cc = _coeff_args(coeffs)
-    sym = int(cn == cs == cw == ce and cc == 0.0)
-    bufs = (torch.empty_like(core), torch.empty_like(core))
-    H, W = core.shape
-    with torch.cuda.device(core.device):
-        _check(_lib().ts_resident_periodic(
-            core.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), H, W,
-            steps, sym, cn, cs, cw, ce, cc, stream_of(core),
-        ), "resident_periodic_pallas")
-    resident_periodic_pallas.launches += 1
-    return bufs[(steps - 1) % 2]
+    dev = core.device.index if core.device.index is not None else torch.cuda.current_device()
+    return _resident_launch(core, steps, coeffs,
+                            lambda per_sm: resident_plan(*core.shape, steps, sm_count(dev), per_sm))
 
 
 # ---------------------------------------------------------------------------

@@ -34,15 +34,12 @@ import functools
 import torch
 
 from tpuscratch_torch.ops.common import (
-    MarchPlan,
     check_cuda,
     check_status,
     counters,
     library,
-    march_depth,
-    march_levels,
+    march_chain,
     march_mask,
-    march_plan,
     route,
     sm_count,
     smem_optin,
@@ -193,27 +190,10 @@ def may_open(open_flags) -> bool:
     return bool(torch.as_tensor(open_flags).any())
 
 
-def stream2d_plans(nb: int, H: int, W: int, depth: int, n_sm: int, per_sm_of) -> list[MarchPlan]:
-    """The launches of a pass of ``depth`` substeps over ``nb`` (H, W)
-    cores: one of at most ``march_depth()`` substeps each, every launch
-    but the last writing the dense grid its successor reads, ``depth -
-    done - j`` rings beyond the core. ``per_sm_of(levels, warps)`` gives
-    the blocks an SM holds."""
-    plans, done = [], 0
-    while done < depth:
-        j = min(depth - done, march_depth())
-        go = depth - done - j
-        levels = march_levels(j)
-        plans.append(march_plan(nb, H + 2 * go, W + 2 * go, j, n_sm,
-                                per_sm_of(levels, -(-j // levels))))
-        done += j
-    return plans
-
-
 def _launch(core, a_top, a_bot, gl, gr, flags, coeffs, k, plans=None,
             open_: bool = True) -> torch.Tensor:
     """The pass on the card: the launches of ``plans`` (the host rule's,
-    :func:`stream2d_plans`, unless given), each counted; ``open_``: the
+    :func:`march_chain`, unless given), each counted; ``open_``: the
     ranks may have open ends (:func:`may_open`)."""
     name = "nine_point_streamed_2d"
     for t in (core, a_top, a_bot) + ((gl, gr) if gl is not None else ()):
@@ -224,8 +204,8 @@ def _launch(core, a_top, a_bot, gl, gr, flags, coeffs, k, plans=None,
     c9_arg, mask = _stream_taps(tuple(float(c) for c in coeffs))
     dev = core.device.index if core.device.index is not None else torch.cuda.current_device()
     if plans is None:
-        plans = stream2d_plans(nb, H, W, k, sm_count(dev),
-                               lambda lv, w: _stream2d_per_sm(dev, lv, mask, w, open_))
+        plans = march_chain(nb, H, W, k, sm_count(dev),
+                            lambda lv, w: _stream2d_per_sm(dev, lv, mask, w, open_))
     ghost = gl is not None
     src, gi, done = core, -1, 0
     for plan in plans:
