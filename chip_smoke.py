@@ -7,14 +7,17 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 1. card and toolchain: the card's name and power limit, nvcc, torch,
    whether ``import triton`` works, and the kernels' build, with no spill
    store in a tensor-core flash, paged-attention, ``dma_hbm_step``,
-   ``dma_ring``, ``dma_deep``, ``stream2d``, ``stream3d``,
+   ``dma_ring``, ``dma_deep``, ``stream2d``, ``stream3d``, ``five_point``,
    ``deep_trapezoid`` or ``resident_periodic`` instantiation beyond
    ``SPILL_ALLOWED``;
 2. every kernel against its plain torch version on the card, at a ragged
    small shape, at the 1024^2 headline shape and at the 8192^2 world
-   (``resident`` at the largest grid its L2 rule admits, and its refusal
-   past that; at 64 steps and at 17, a remainder of its fold), plus each
-   kernel's time beside its bound;
+   (``five_point`` also at halo (2, 3), an odd pitch, a batch and a base
+   off 16-byte alignment, bit for bit, its input unchanged; the deep
+   trapezoid bit for bit on a tile holding an inf and -0.0 cells, where a
+   dropped zero term would show; ``resident`` at the largest grid its L2
+   rule admits, and its refusal past that; at 64 steps and at 17, a
+   remainder of its fold), plus each kernel's time beside its bound;
 3. the main path: ``distributed_stencil`` on a 1x1 mesh at 1024^2 for every
    impl of ``bench.py``'s ladder plus ``pallas`` and ``blocked``, each held
    against the ``xla`` impl, which is held against a float64 numpy oracle;
@@ -24,7 +27,8 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 5. the dot-product and fill kernels against their plain versions: a
    ragged 3000-vector, bf16 operands, an 8-rank stacked batch, 1e8 f32
    with a loop-carried offset, ``fill`` at 1e8 f32 and at 37x53 in every
-   dtype, ``iota2d`` at 37x53 and 8192^2 (bit-equal); each kernel's time
+   dtype, ``iota2d`` in every dtype at 37x53, 8192^2 and shapes whose
+   width and size are not multiples of 4 (bit-equal); each kernel's time
    beside its bound and its one-call library time;
 6. the dot path: BASELINE config 2 (``bench.record.config2_dot``) at 1e8
    f32 on a 1-rank mesh -- call latency, the race of ``full`` /
@@ -248,9 +252,11 @@ PAGED_INSTANTIATIONS = 3 * 2 * 4 + 1
 # the row march's instantiations: 1 or 4 levels a stage x 3 tap masks (2
 # of their own and the runtime mask), in the depth-k DMA kernel and, with
 # and without the open ends' zeroing, in the streamed 2D kernel; the deep
-# trapezoid's 5-point sets take 2 (Jacobi's and the runtime mask)
+# trapezoid's: 1 or 4 levels a stage, of its one tap set (all five taps)
 MARCH_INSTANTIATIONS = 2 * 3
-TRAPEZOID_INSTANTIATIONS = 2 * 2
+TRAPEZOID_INSTANTIATIONS = 2
+# the one-step kernel's: 3 load widths x 2 index widths
+FIVE_INSTANTIATIONS = 3 * 2
 # the resident kernel's: 2 load widths x 3 sums (symmetric Jacobi, n s w e
 # without and with the centre)
 RESIDENT_INSTANTIATIONS = 2 * 3
@@ -284,8 +290,8 @@ def phase1_card() -> dict:
     # kernels that hold their working set in registers, where a spill is a
     # design fault, not a slowdown: the tensor-core flash kernels (bf16
     # wgmma and split TF32: accumulators), the paged-attention kernels (q,
-    # the accumulator and a warp's tokens), the stencil step (its register
-    # window of rows), the DMA ring and the resident kernel (their levels'
+    # the accumulator and a warp's tokens), the stencil steps (their register
+    # windows of rows), the DMA ring and the resident kernel (their levels'
     # rows), the row march of the depth-k DMA, streamed 2D and deep
     # trapezoid kernels (a stage's levels' rows) and the z-march (its
     # levels' planes)
@@ -298,6 +304,7 @@ def phase1_card() -> dict:
             ("stencil_stream2d", "stream2d", lambda f: "stream2d_kernel" in f,
              2 * MARCH_INSTANTIATIONS),
             ("stencil_stream3d", "stream3d", lambda f: "stream3d_kernel" in f, 16),
+            ("stencil2d", "five_point", lambda f: "five_point_kernel" in f, FIVE_INSTANTIATIONS),
             ("stencil2d", "deep_trapezoid", lambda f: "deep_trapezoid_kernel" in f,
              TRAPEZOID_INSTANTIATIONS),
             ("stencil2d", "resident_periodic", lambda f: "resident_periodic_kernel" in f,
@@ -339,6 +346,38 @@ def _spill_stores(log_text: str, pick) -> dict:
     return spills
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality of two tensors of one dtype: -0 and +0 differ, and a
+    NaN matches a NaN of any payload (NaN positions compared)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        if not torch.equal(nan, torch.isnan(b)):
+            return False
+        a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+# A 5-point set with a zero side coefficient (s), for the deep trapezoid's
+# zero terms beside Jacobi's zero centre
+ZERO_SIDE = (0.25, 0.0, 0.25, 0.25, 0.25)
+
+
+def signed_zero_tile(shape, gen) -> torch.Tensor:
+    """Unit-normal data holding one inf and a 16 x 16 checkerboard of 1.0
+    and -0.0: a step that drops a zero term gets an inf where the reference
+    gets NaN (0 x inf), and -0.0 where it gets +0.0 (a sum of -0.0 terms
+    plus +0.0)."""
+    tile = randn(shape, gen)
+    i = torch.arange(16, device=tile.device)
+    board = torch.where((i[:, None] + i[None, :]) % 2 == 0, 1.0, -0.0)
+    tile[..., 20:36, 20:36] = board
+    tile[..., 44, 47] = float("inf")
+    return tile
+
+
 def phase2_kernels(gen) -> tuple[dict, list]:
     """Each kernel against its plain version; returns the per-kernel worst
     error and the timing rows."""
@@ -356,17 +395,40 @@ def phase2_kernels(gen) -> tuple[dict, list]:
             raise AssertionError(f"{name} {what}: {err} > {KERNEL_ATOL}")
         errs[name] = max(errs[name], err)
 
+    def bits(name, got, want, what):
+        if not same_bits(got, want):
+            raise AssertionError(f"{name} {what}: not bit-equal to its plain version")
+        log(f"  {name:26s} {what:34s} bit-equal")
+
     odd = (0.3, 0.15, 0.2, 0.25, 0.1)
-    # five_point, both wrappers: ragged single tile, a stacked 2x4 batch,
-    # the 1024^2 headline tile and the 8192^2 world
-    for lead, (h, w), coeffs in [((), (37, 53), odd), ((2, 4), (19, 23), sk.JACOBI),
-                                 ((), (1024, 1024), sk.JACOBI), ((), (8192, 8192), sk.JACOBI)]:
-        lay = TileLayout(h, w, 1, 1)
-        tile = randn(lead + lay.padded_shape, gen)
+    # five_point, both wrappers, bit for bit against the plain core and
+    # rebuild, the input unchanged: ragged single tiles (halo (2, 3): an odd
+    # pitch), stacked 2x4 batches, a base 4 bytes past 16-byte alignment, the
+    # 1024^2 headline tile and the 8192^2 world
+    for lead, (h, w), halo, coeffs, off in [
+            ((), (37, 53), (1, 1), odd, 0), ((2, 4), (19, 23), (1, 1), sk.JACOBI, 0),
+            ((), (37, 53), (2, 3), odd, 0), ((2, 4), (19, 24), (2, 3), odd, 0),
+            ((), (64, 62), (1, 1), odd, 1), ((), (1024, 1024), (1, 1), sk.JACOBI, 0),
+            ((), (8192, 8192), (1, 1), sk.JACOBI, 0)]:
+        lay = TileLayout(h, w, *halo)
+        shape = lead + lay.padded_shape
+        tile = randn((math.prod(shape) + off,), gen)[off:].view(shape)
+        before = tile.clone()
         want = rebuild(tile, sk.five_point_plain(tile, lay, coeffs), lay)
+        vec = sk.five_plan(lay.padded_shape[1], tile.data_ptr())
         for fn in (sk.five_point_pallas, sk.five_point_blocked):
-            check(fn.__name__, fn(tile, lay, coeffs), want, f"{lead}+{h}x{w}")
-        del tile, want
+            bits(fn.__name__, fn(tile, lay, coeffs), want,
+                 f"{lead}+{h}x{w} halo {halo} vec {vec}")
+        if not same_bits(tile, before):
+            raise AssertionError(f"five_point {lead}+{h}x{w}: the kernel wrote its input")
+        del tile, want, before
+    # the deep trapezoid adds every term, zero ones too (shrink_step's sum):
+    # an inf and -0.0 cells, under Jacobi (centre 0) and a zero side
+    for coeffs in (sk.JACOBI, ZERO_SIDE):
+        lay = TileLayout(64, 64, 4, 4)
+        tile = signed_zero_tile(lay.padded_shape, gen)
+        bits("deep_trapezoid_pallas", sk.deep_trapezoid_pallas(tile, lay, 4, coeffs),
+             sk.deep_trapezoid_plain(tile, lay, 4, coeffs), f"64x64 k=4 inf, -0.0 {coeffs}")
     # deep_trapezoid: ragged + partial substeps, stacked batch, a pyramid
     # deeper than one launch holds, the ladder's k=16/32 at 1024^2 and 8192^2
     for lead, (h, w), k, sub, coeffs in [
@@ -414,23 +476,26 @@ def phase2_kernels(gen) -> tuple[dict, list]:
     for n in (1024, 8192):
         lay = TileLayout(n, n, 1, 1)
         tile = randn(lay.padded_shape, gen)
-        b, by = bound((tile.numel() + n * n) * 4, 9 * n * n)
-        ms = device_ms(lambda: sk._five_point_core(tile, lay, sk.JACOBI, "time"))
-        plain = device_ms(lambda: sk.five_point_plain(tile, lay))
+        # the padded tile read once and a fresh one written, 9 operations
+        # (5 products, 4 sums) a core cell
+        b, by = bound(2 * tile.numel() * 4, 9 * n * n, F32_SEPARATE_OPS_PER_S)
+        plain = device_ms(lambda: rebuild(tile, sk.five_point_plain(tile, lay), lay))
         lib = device_ms(lambda: conv(tile[None, None], weight))
-        for name in ("five_point_pallas", "five_point_blocked"):
-            rows.append(dict(name=name, shape=f"{n + 2}^2 -> {n}^2", ms=ms, plain_ms=plain,
+        lib_rebuild = device_ms(lambda: rebuild(tile, conv(tile[None, None], weight)[0, 0], lay))
+        log(f"  library conv2d {n}^2: {lib:.5f} ms, with rebuild {lib_rebuild:.5f} ms")
+        for fn in (sk.five_point_pallas, sk.five_point_blocked):
+            rows.append(dict(name=fn.__name__, shape=f"{n + 2}^2 -> {n + 2}^2",
+                             ms=device_ms(lambda: fn(tile, lay)), plain_ms=plain,
                              library_ms=lib, bound_ms=b, bound_by=by))
         del tile
         for k in (16, 32):
             lay = TileLayout(n, n, k, k)
             tile = randn(lay.padded_shape, gen)
-            # the pyramid's cells, 2 taps - 1 operations each (Jacobi's 4
-            # nonzero taps: 7; the 9 of all five terms logged beside it)
+            # the pyramid's cells, 9 operations each (all five terms: 5
+            # products, 4 sums)
             pyramid = sum((n + 2 * k - 2 * j) ** 2 for j in range(1, k + 1))
-            b, by = bound((tile.numel() + n * n) * 4, 7 * pyramid, F32_SEPARATE_OPS_PER_S)
-            log(f"  bound deep_trapezoid_pallas {n}^2 k={k}: {b:.5f} ms by {by} "
-                f"(9 operations a cell: {9 * pyramid / F32_SEPARATE_OPS_PER_S * 1e3:.5f} ms)")
+            b, by = bound((tile.numel() + n * n) * 4, 9 * pyramid, F32_SEPARATE_OPS_PER_S)
+            log(f"  bound deep_trapezoid_pallas {n}^2 k={k}: {b:.5f} ms by {by}")
             lib_call = lambda: conv(tile[None, None], deep_weight[k])[0, 0]  # noqa: E731
             err = max_err(lib_call(), sk.deep_trapezoid_plain(tile, lay, k))
             log(f"  library conv2d {2 * k + 1}^2 vs deep_trapezoid_plain {n}^2 k={k}: "
@@ -594,7 +659,7 @@ def phase5_dot_fill_kernels(gen) -> tuple[dict, list]:
         log(f"  {name:26s} 1e8 f32: bit-identical over 4 runs")
 
     def bit_check(name, got, want, what):
-        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        if not same_bits(got, want):
             raise AssertionError(f"{name} {what}: not bit-equal to its plain version")
         log(f"  {name:26s} {what:34s} bit-equal")
 
@@ -602,11 +667,12 @@ def phase5_dot_fill_kernels(gen) -> tuple[dict, list]:
         value = 0.1 if dtype.is_floating_point else -7
         bit_check("fill", tf.fill((37, 53), value, dtype), tf.fill_plain((37, 53), value, dtype, "cuda"),
                   f"37x53 {str(dtype)[6:]}")
-        bit_check("iota2d", tf.iota2d((37, 53), dtype), tf.iota2d_plain((37, 53), dtype, "cuda"),
-                  f"37x53 {str(dtype)[6:]}")
+        # widths and sizes off a multiple of 4 (units across row ends, a
+        # tail), and f32 values past 2^24; (300, 70001) overflows f16 to inf
+        for shape in ((37, 53), (8192, 8192), (1, 1), (3, 3), (7, 1), (5, 257), (300, 70001)):
+            bit_check("iota2d", tf.iota2d(shape, dtype), tf.iota2d_plain(shape, dtype, "cuda"),
+                      f"{shape[0]}x{shape[1]} {str(dtype)[6:]}")
     bit_check("fill", tf.fill((n,), 1.0), tf.fill_plain((n,), 1.0, device="cuda"), "1e8 f32")
-    bit_check("iota2d", tf.iota2d((8192, 8192)), tf.iota2d_plain((8192, 8192), device="cuda"),
-              "8192^2 f32")
 
     # times beside bounds: the main shapes (1e8, 8192^2) and a small one each
     for n, block_rows in ((100_000_000, 512), (3000, 8)):

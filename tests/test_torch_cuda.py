@@ -65,13 +65,72 @@ def _rand(shape, seed, device):
     return torch.from_numpy(a).to(device)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bits: -0.0 and +0.0 differ, a NaN equals a NaN of
+    the same payload (both sides run on the card: CUDA's canonical NaN)."""
+    return t.view(torch.int32)
+
+
+# halos (1, 1), (2, 3) (an odd pitch: single columns) and (4, 4), stacked
+# batches, and bases 4 and 8 bytes past 16-byte alignment (views into a
+# larger buffer): the fresh padded tile bit-equal to the plain core and
+# rebuild, the input unchanged
 @pytest.mark.parametrize("fn", [tk.five_point_pallas, tk.five_point_blocked])
-@pytest.mark.parametrize("lead,lay", [((), (37, 53, 1, 1)), ((2, 3), (19, 23, 2, 3))])
-def test_five_point(card, fn, lead, lay):
+@pytest.mark.parametrize("lead,lay,off", [
+    ((), (37, 53, 1, 1), 0), ((2, 3), (19, 23, 2, 3), 0), ((), (64, 62, 4, 4), 0),
+    ((2, 4), (19, 24, 1, 1), 0), ((), (64, 62, 1, 1), 1), ((), (64, 62, 1, 1), 2),
+    ((2, 4), (30, 40, 2, 3), 1), ((), (1, 1, 1, 1), 0),
+])
+@pytest.mark.parametrize("coeffs", [GENERAL, tk.JACOBI])
+def test_five_point(card, fn, lead, lay, off, coeffs):
     lay = TileLayout(*lay)
-    tile = _rand(lead + lay.padded_shape, 1, card)
+    shape = lead + lay.padded_shape
+    tile = _rand((math.prod(shape) + off,), 1, card)[off:].view(shape)
+    before = tile.clone()
+    want = rebuild(tile, tk.five_point_plain(tile, lay, coeffs), lay)
+    got = fn(tile, lay, coeffs)
+    assert got.data_ptr() != tile.data_ptr()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(tile), _bits(before))
+
+
+@pytest.mark.parametrize("vec", [4, 2, 1])
+def test_five_point_other_plans(card, vec):
+    # every load width: the same bits
+    lay = TileLayout(45, 60, 2, 2)  # pw 64: 16-byte rows
+    tile = _rand((3,) + lay.padded_shape, 14, card)
     want = rebuild(tile, tk.five_point_plain(tile, lay, GENERAL), lay)
-    assert torch.equal(fn(tile, lay, GENERAL), want)
+    got = tk._five_point_launch(tile, lay, GENERAL, "test", vec)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+ZERO_SIDE = (0.25, 0.0, 0.25, 0.25, 0.25)
+
+
+def _signed_zero_tile(shape, seed, device):
+    """Unit-normal data holding one inf and a 16 x 16 checkerboard of 1.0
+    and -0.0: a step that drops a zero term gets an inf where the reference
+    gets NaN (0 x inf), and -0.0 where it gets +0.0."""
+    tile = _rand(shape, seed, device)
+    i = torch.arange(16, device=device)
+    tile[..., 20:36, 20:36] = torch.where((i[:, None] + i[None, :]) % 2 == 0, 1.0, -0.0)
+    tile[..., 44, 47] = float("inf")
+    return tile
+
+
+@pytest.mark.parametrize("coeffs", [tk.JACOBI, ZERO_SIDE])
+def test_deep_trapezoid_adds_zero_terms(card, coeffs):
+    # shrink_step adds every term, a zero coefficient's product included:
+    # the kernel must too (bits compared: torch.equal counts -0.0 and +0.0
+    # equal, and a NaN unequal to itself)
+    lay = TileLayout(64, 64, 4, 4)
+    tile = _signed_zero_tile(lay.padded_shape, 15, card)
+    want = tk.deep_trapezoid_plain(tile, lay, 4, coeffs)
+    assert bool(torch.isnan(want).any())
+    assert torch.equal(_bits(tk.deep_trapezoid_pallas(tile, lay, 4, coeffs)), _bits(want))
+    for five in (tk.five_point_pallas, tk.five_point_blocked):
+        want = rebuild(tile, tk.five_point_plain(tile, lay, coeffs), lay)
+        assert torch.equal(_bits(five(tile, lay, coeffs)), _bits(want))
 
 
 @pytest.mark.parametrize("lead,lay,sub", [
@@ -430,13 +489,17 @@ def test_explicit_cuda_device(card):
 
 
 def test_counts_launches(card):
+    # one launch a call, also for the one-step wrappers, which run no
+    # rebuild on the card
     tk.reset_launches()
     lay = TileLayout(16, 16, 2, 2)
-    tile = torch.zeros(lay.padded_shape, device=card)
+    tile = torch.zeros((2, 3) + lay.padded_shape, device=card)
     tk.five_point_pallas(tile, lay)
-    tk.deep_trapezoid_pallas(tile, lay, 2)
+    tk.five_point_blocked(tile, lay, band=5)
+    tk.five_point_blocked(tile[0, 0], lay)
+    tk.deep_trapezoid_pallas(tile[0, 0], lay, 2)
     tk.resident_periodic_pallas(torch.zeros(16, 16, device=card), 3)
-    assert tk.launch_counts() == {"five_point_pallas": 1, "five_point_blocked": 0,
+    assert tk.launch_counts() == {"five_point_pallas": 1, "five_point_blocked": 2,
                                   "deep_trapezoid_pallas": 1, "resident_periodic_pallas": 1,
                                   "seven_point_banded_pallas": 0, "seven_point_strips_pallas": 0,
                                   "seven_point_assembled_pallas": 0}
@@ -449,6 +512,16 @@ def test_refusals(card):
     wide = torch.zeros(lay.padded_shape[0], 2 * lay.padded_shape[1], device=card)
     with pytest.raises(ValueError, match="contiguous"):
         tk.five_point_pallas(wide[:, ::2], lay)
+    # a plan the pitch or the alignment does not allow: the launcher refuses
+    # it, it never reads past a row or misaligned
+    tile = torch.zeros(lay.padded_shape, device=card)  # pw 10
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tk._five_point_launch(tile, lay, tk.JACOBI, "test", 4)
+    off = torch.zeros(tile.numel() + 1, device=card)[1:].view(lay.padded_shape)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        tk._five_point_launch(off, lay, tk.JACOBI, "test", 2)
+    with pytest.raises(TypeError, match="iota2d"):
+        tf.iota2d((3, 4), torch.float64, device=card)
 
 
 # ---------------------------------------------------------------------------
@@ -641,14 +714,26 @@ def test_fill_kernel_on_smaller_grids(card, cap, dtype, shape):
 
 
 @pytest.mark.parametrize("dtype", FILL_DTYPES)
-@pytest.mark.parametrize("shape", [(37, 53), (8, 128), (5, 257), (300, 70000)])
+@pytest.mark.parametrize("shape", [(37, 53), (8, 128), (5, 257), (300, 70000),
+                                   (1, 1), (3, 3), (7, 1), (1, 13), (2, 6), (300, 70001)])
 def test_iota2d_kernel(card, dtype, shape):
     # exact, with inf and NaN in the same places (w = 70000 overflows
-    # float16 to inf, and row 0 is 0 * inf)
+    # float16 to inf, and row 0 is 0 * inf); widths and sizes off a multiple
+    # of 4 walk a 16-byte unit across row ends and leave a tail
     got = tf.iota2d(shape, dtype)
     exact = dict(rtol=0, atol=0, equal_nan=True)
     torch.testing.assert_close(got, tf.iota2d_plain(shape, dtype, card), **exact)
     torch.testing.assert_close(got.cpu(), tf.iota2d(shape, dtype, device="cpu"), **exact)
+
+
+@pytest.mark.parametrize("cap", [1, 3, 132])
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (37, 53)), (torch.bfloat16, (5, 257)),
+                                         (torch.int64, (300, 71)), (torch.float16, (7, 1))])
+def test_iota2d_on_smaller_grids(card, cap, dtype, shape):
+    # grids that stride over the units: the same elements
+    nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
+    got = tf._iota_launch(torch.empty(shape, dtype=dtype, device=card), tf.fill_blocks(nbytes, cap))
+    torch.testing.assert_close(got, tf.iota2d_plain(shape, dtype, card), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("method", ["full", "partials"])

@@ -98,3 +98,19 @@ def test_fill_blocks_shapes():
     assert tf.fill_blocks(4 * 37 * 53) == 2
     assert tf.fill_blocks(3) == 1 and tf.fill_blocks(0) == 1
     assert tf.fill_blocks(400_000_000, 132 * 8) == 1056
+
+
+# ---- iota2d's grid (the same rule) and its walk across row ends -------------
+
+
+@pytest.mark.parametrize("cap", [None, 1, 3])
+@pytest.mark.parametrize("esize", [2, 4, 8])
+@pytest.mark.parametrize("shape", [
+    (37, 53), (8, 128), (5, 257), (1, 1), (3, 3), (7, 1), (1, 13), (2, 6), (300, 71),
+])
+def test_iota_writes_every_element_once(cap, esize, shape):
+    # units across row ends (w % 4 != 0, w < a unit's elements) and tails
+    # (h * w % 4 != 0) included
+    blocks = tf.fill_blocks(esize * int(np.prod(shape)), cap)
+    writes = tf.iota_writes(blocks, *shape, esize)
+    assert writes.shape == shape and (writes == 1).all()

@@ -166,3 +166,52 @@ class TestWrapperRouting:
             "deep_trapezoid_pallas", "resident_periodic_pallas",
             "seven_point_banded_pallas", "seven_point_strips_pallas",
             "seven_point_assembled_pallas"]  # the four 2D kernels, then the 3D ones
+
+
+# ---------------------------------------------------------------------------
+# zero terms: the reference adds every one of the five terms, a zero
+# coefficient's product included (0 x inf is NaN; a sum of -0.0 terms plus
+# +0.0 is +0.0), and the port's plain versions, which the CUDA kernels are
+# held to bit for bit on the card, do the same. Bits compared; NaN by
+# position (the two frameworks' NaN payloads may differ). The products by
+# 0.25 are exact, so XLA:CPU's FMA contraction moves no bit.
+
+ZERO_SIDE = (0.25, 0.0, 0.25, 0.25, 0.25)
+
+
+def _signed_zero_tile(shape, seed: int) -> np.ndarray:
+    """Unit-normal data holding one inf and a 16 x 16 checkerboard of 1.0
+    and -0.0 (as chip_smoke.py's ``signed_zero_tile``)."""
+    tile = rand(shape, seed)
+    i = np.arange(16)
+    tile[..., 20:36, 20:36] = np.where((i[:, None] + i[None, :]) % 2 == 0, 1.0, -0.0)
+    tile[..., 44, 47] = np.inf
+    return tile
+
+
+def _same_bits(got: np.ndarray, want: np.ndarray) -> None:
+    assert got.shape == want.shape and got.dtype == want.dtype == np.float32
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(np.where(nan, 0, got).view(np.uint32),
+                                  np.where(nan, 0, want).view(np.uint32))
+
+
+@pytest.mark.parametrize("kernel", ["five_point", "deep_trapezoid"])
+@pytest.mark.parametrize("coeffs", [JACOBI, ZERO_SIDE])
+def test_zero_terms_bit_equal(kernel, coeffs):
+    lay = (64, 64, 4, 4)
+    tile = _signed_zero_tile(TileLayout(*lay).padded_shape, 13)
+    if kernel == "five_point":
+        want = jk.five_point_pallas(jnp.asarray(tile), JLayout(*lay), coeffs)
+        got = rebuild(to_torch(tile), tk.five_point_plain(to_torch(tile), TileLayout(*lay), coeffs),
+                      TileLayout(*lay))
+    else:
+        want = jk.deep_trapezoid_pallas(jnp.asarray(tile), JLayout(*lay), 4, coeffs)
+        got = tk.deep_trapezoid_plain(to_torch(tile), TileLayout(*lay), 4, coeffs)
+    want = np.asarray(want)
+    # the tile makes the zero terms show: 0 x inf, and under Jacobi +0.0
+    # sums of -0.0 neighbours and a zero centre term
+    assert np.isnan(want).any()
+    assert coeffs != JACOBI or ((want == 0) & ~np.signbit(want)).any()
+    _same_bits(got.numpy(), want)

@@ -6,6 +6,8 @@ at an H100's 132 SMs and 232,448 B of opt-in shared memory a block: the
 fold, the grid, the tiles, strips and chunks they choose, and that every
 plan fits."""
 
+import pathlib
+
 import pytest
 
 from tpuscratch_torch.ops import common as tc
@@ -313,8 +315,45 @@ def test_trapezoid_plan_fits(nb, n, k, per_sm):
 
 
 def test_trapezoid_c9():
-    # the 5 coefficients by tap position: n 1, w 3, c 4, e 5, s 7
-    assert tk.trapezoid_c9((0.1, 0.2, 0.3, 0.4, 0.5)) == (0.0, 0.1, 0.0, 0.3, 0.5, 0.4, 0.0,
-                                                          0.2, 0.0)
-    assert tc.march_mask(tk.trapezoid_c9((0.25,) * 4 + (0.0,))) == 0x0AA
-    assert tc.march_mask(tk.trapezoid_c9((0.3, 0.15, 0.2, 0.25, 0.1))) == 0
+    # the 5 coefficients by tap position: n 1, w 3, c 4, e 5, s 7, the
+    # positions of the trapezoid's tap set, zero coefficients included
+    c9 = tk.trapezoid_c9((0.1, 0.2, 0.3, 0.4, 0.5))
+    assert c9 == (0.0, 0.1, 0.0, 0.3, 0.5, 0.4, 0.0, 0.2, 0.0)
+    assert tc.tap_mask(c9) == tk.TRAPEZOID_TAPS
+
+
+# the deep trapezoid sums all five taps whatever the coefficients
+# (shrink_step adds every term), unlike the streamed and DMA kernels,
+# whose references skip zero weights: the kernel's one tap set, the
+# TRAP_TAPS the march runs under, is all five, and holds every tap the
+# coefficients place
+@pytest.mark.parametrize("coeffs", [JACOBI5, ODD5, (0.25, 0.0, 0.25, 0.25, 0.25), (0.0,) * 5])
+def test_trapezoid_taps_are_all_five(coeffs):
+    assert tk.TRAPEZOID_TAPS == 0b010111010  # n, w, c, e, s
+    src = (pathlib.Path(tk.__file__).parents[1] / "csrc" / "stencil2d.cu").read_text()
+    assert "constexpr int TRAP_TAPS = 0x0BA;" in src
+    assert "run<L, ORDER_NSWE, TRAP_TAPS, false>" in src
+    assert tc.tap_mask(tk.trapezoid_c9(coeffs)) & ~tk.TRAPEZOID_TAPS == 0
+    with pytest.raises(ValueError, match="5-point"):
+        tk.trapezoid_c9(coeffs + (0.0,))
+
+
+# ---------------------------------------------------------------------------
+# the one-step 2D kernel (five_point_kernel): the load width a pitch and
+# the buffers' alignment allow
+
+
+@pytest.mark.parametrize("pw,ptrs,vec", [
+    (1026, (0, 1 << 20), 2),    # the headline's 1024 + 2 halo: rows 8-byte aligned
+    (1028, (0, 1 << 20), 4),    # 16-byte rows
+    (1027, (0, 1 << 20), 1),    # an odd pitch: single columns
+    (8194, (256, 512), 2),      # the 8192^2 world
+    (1028, (4, 1 << 20), 1),    # a base 4 bytes off
+    (1028, (8, 1 << 20), 2),    # a base 8 bytes off
+    (1028, (0, 24), 2),         # the output's base decides as well
+    (59, (0, 0), 1),            # halo (2, 3) around 53 columns
+])
+def test_five_plan(pw, ptrs, vec):
+    assert tk.five_plan(pw, *ptrs) == vec
+    # a group is a whole number of columns of every row, aligned to its size
+    assert pw % vec == 0 and all(p % (4 * vec) == 0 for p in ptrs)

@@ -1,7 +1,7 @@
 """Device times of the paged-attention, ``dma_hbm_step``, dot, fill, copy
-probe, ``dma_ring``, streamed 3D, streamed 2D, depth-k DMA, deep-trapezoid
-and resident kernels through their wrappers, for an A/B of two checkouts
-on one card.
+probe, ``dma_ring``, streamed 3D, streamed 2D, depth-k DMA, deep-trapezoid,
+resident, one-step 2D and iota2d kernels through their wrappers, for an
+A/B of two checkouts on one card.
 
 Cases (config 12's attention geometry: 8 heads, d_head 128, 16-token
 pages, one query a sequence; config 4's and 10's stencil steps; config 2's
@@ -38,7 +38,13 @@ vectors):
   ``deep-pallas:16`` and ``:32``), each held bit-equal first;
 - ``resident``: ``resident_periodic_pallas``, 1000 Jacobi steps of 1024^2
   (the headline's ``resident:8``) and of 2560^2 (the largest grid its L2
-  rule admits), each held bit-equal first.
+  rule admits), each held bit-equal first;
+- ``five``: ``five_point_pallas``, one Jacobi step of the 1026^2 and 8194^2
+  padded tiles (the per-step ``pallas`` impl's), the whole call (kernel and
+  whatever the wrapper runs after it), held bit-equal to the plain core and
+  ``rebuild`` first, beside ``conv2d`` and ``conv2d`` with ``rebuild``;
+- ``iota``: ``iota2d`` at 37x53 and 8192^2 f32 and 8192^2 bf16, held
+  bit-equal first, beside ``torch.arange(h * w).view(h, w)``.
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -51,8 +57,9 @@ the copy probes: each design switch of ``csrc/copy_probes.cu``, other
 rings for ``hbm2hbm``; the ring: every fold, 1 to 3 blocks an SM;
 stream3d: the z chunks of 1 to 8 and 16 chunks a rank; stream2d, deep
 and trapezoid: other levels a stage, half-width strips and other row
-chunks than ``march_plan``'s; resident: every fold, 1 to 3 blocks an SM).
-``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep,trapezoid,resident``
+chunks than ``march_plan``'s; resident: every fold, 1 to 3 blocks an SM;
+five: every load width the pitch allows; iota: smaller grids).
+``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep,trapezoid,resident,five,iota``
 picks case groups.
 ``--root`` imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
@@ -694,15 +701,14 @@ def trapezoid_sweep(gen):
     from tpuscratch_torch.ops import stencil_kernel as sk
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mask = tc.march_mask(sk.trapezoid_c9(JACOBI))
     for n, k in TRAPEZOID_SHAPES:
         lay, tile = _trapezoid_operands(gen, n, k)
         want = sk.deep_trapezoid_plain(tile, lay, k)
 
         def per_sm_of(levels):
-            return sk._trapezoid_per_sm(0, levels, mask, -(-k // levels))
+            return sk._trapezoid_per_sm(0, levels, -(-k // levels))
 
-        rule, = tc.march_chain(1, n, n, k, sms, lambda lv, w: sk._trapezoid_per_sm(0, lv, mask, w))
+        rule, = tc.march_chain(1, n, n, k, sms, lambda lv, w: sk._trapezoid_per_sm(0, lv, w))
 
         def plan_of(levels=rule.levels, per_sm=None, width=None, rows=None):
             return tc.march_plan(1, n, n, k, sms, per_sm or per_sm_of(levels), levels=levels,
@@ -750,10 +756,121 @@ def resident_sweep(gen):
         del core, want
 
 
+FIVE_SHAPES = ((1024, 1), (8192, 1))  # core edge, halo
+FIVE_SWEEP = FIVE_SHAPES + ((8192, (1, 2)),)  # and a pitch of 8196: 16-byte rows
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ints), b.view(ints))
+
+
+def _five_operands(gen, n, halo):
+    import torch
+
+    from tpuscratch_torch.halo.layout import TileLayout
+    from tpuscratch_torch.halo.stencil import rebuild
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    lay = TileLayout(n, n, *((halo, halo) if isinstance(halo, int) else halo))
+    tile = torch.randn(lay.padded_shape, generator=gen, device="cuda")
+    return lay, tile, rebuild(tile, sk.five_point_plain(tile, lay), lay)
+
+
+def five_cases(gen):
+    """(case, ms) of one Jacobi step of the per-step path: the whole
+    ``five_point_pallas`` call, and conv2d alone and with rebuild."""
+    import torch
+
+    from tpuscratch_torch.halo.stencil import rebuild
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    torch.backends.cudnn.allow_tf32 = False
+    weight = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25], [0.0, 0.25, 0.0]],
+                          device="cuda").reshape(1, 1, 3, 3)
+    conv = torch.nn.functional.conv2d
+    for n, halo in FIVE_SHAPES:
+        lay, tile, want = _five_operands(gen, n, halo)
+        call = lambda: sk.five_point_pallas(tile, lay)  # noqa: E731
+        if not _bits_equal(call(), want):
+            raise AssertionError(f"five_point_pallas {n}^2 differs from its plain version")
+        runs = 20 if n > 1024 else 200
+        yield f"five {n + 2}^2", device_ms(call, n=runs)
+        yield f"five conv2d {n}^2", device_ms(lambda: conv(tile[None, None], weight), n=runs)
+        yield (f"five conv2d+rebuild {n}^2",
+               device_ms(lambda: rebuild(tile, conv(tile[None, None], weight)[0, 0], lay), n=runs))
+        del tile, want
+
+
+def five_sweep(gen):
+    """(case, ms) of the one-step kernel at every load width the pitch and
+    alignment allow (this checkout only), each held bit-equal first."""
+    import torch
+
+    from tpuscratch_torch.ops import stencil_kernel as sk
+
+    for n, halo in FIVE_SWEEP:
+        lay, tile, want = _five_operands(gen, n, halo)
+        ph, pw = lay.padded_shape
+        rule = sk.five_plan(pw, tile.data_ptr())
+        for vec in (v for v in (4, 2, 1) if v <= rule):
+            call = lambda: sk._five_point_launch(tile, lay, JACOBI, "sweep", vec)  # noqa: E731
+            if not _bits_equal(call(), want):
+                raise AssertionError(f"sweep five vec={vec} differs from its plain version")
+            mark = " (rule)" if vec == rule else ""
+            yield f"sweep five {ph}x{pw} vec={vec}{mark}", device_ms(call, n=20 if n > 1024 else 200)
+        del tile, want
+
+
+IOTA_SHAPES = (((37, 53), "float32"), ((8192, 8192), "float32"), ((8192, 8192), "bfloat16"))
+
+
+def iota_cases(gen):
+    """(case, ms) of iota2d and torch.arange(h * w).view(h, w)."""
+    import importlib
+
+    import torch
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    for (h, w), name in IOTA_SHAPES:
+        dtype = getattr(torch, name)
+        if not _bits_equal(tf.iota2d((h, w), dtype), tf.iota2d_plain((h, w), dtype, "cuda")):
+            raise AssertionError(f"iota2d {h}x{w} {name} differs from its plain version")
+        yield f"iota {h}x{w} {name}", device_ms(lambda: tf.iota2d((h, w), dtype))
+        yield (f"iota torch.arange {h}x{w} {name}",
+               device_ms(lambda: torch.arange(h * w, dtype=dtype, device="cuda").view(h, w)))
+
+
+def iota_sweep(gen):
+    """(case, ms) of iota2d on smaller grids than the rule's, 1 to 8
+    resident blocks an SM striding over the output (this checkout only)."""
+    import importlib
+
+    import torch
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for (h, w), name in IOTA_SHAPES:
+        dtype = getattr(torch, name)
+        want = tf.iota2d_plain((h, w), dtype, "cuda")
+        nbytes = want.numel() * want.element_size()
+        rule = tf.fill_blocks(nbytes)
+        for blocks in sorted({tf.fill_blocks(nbytes, cap)
+                              for cap in (None, n_sm, 2 * n_sm, 4 * n_sm, 8 * n_sm)}):
+            call = lambda: tf._iota_launch(torch.empty((h, w), dtype=dtype, device="cuda"),  # noqa: E731
+                                           blocks)
+            if not _bits_equal(call(), want):
+                raise AssertionError(f"sweep iota {h}x{w} on {blocks} blocks differs")
+            yield (f"sweep iota {h}x{w} {name} blocks={blocks}{' (rule)' if blocks == rule else ''}",
+                   device_ms(call))
+
+
 GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases,
           "probes": probe_cases, "ring": ring_cases, "stream3d": stream3d_cases,
           "stream2d": stream2d_cases, "deep": deep_cases, "trapezoid": trapezoid_cases,
-          "resident": resident_cases}
+          "resident": resident_cases, "five": five_cases, "iota": iota_cases}
 
 
 def main(argv=None) -> int:
@@ -790,7 +907,9 @@ def main(argv=None) -> int:
                                 stream2d_sweep(gen) if "stream2d" in groups else (),
                                 deep_sweep(gen) if "deep" in groups else (),
                                 trapezoid_sweep(gen) if "trapezoid" in groups else (),
-                                resident_sweep(gen) if "resident" in groups else ())
+                                resident_sweep(gen) if "resident" in groups else (),
+                                five_sweep(gen) if "five" in groups else (),
+                                iota_sweep(gen) if "iota" in groups else ())
     else:
         cases = itertools.chain.from_iterable(GROUPS[g](gen) for g in groups)
     for case, ms in cases:

@@ -12,37 +12,23 @@
 // cudaGetLastError() as an int.
 //
 // Bound: bytes. Both only write their output once (no input), so the
-// least time is out_bytes / 3.35 TB/s: 0.119 ms for 1e8 f32. fill's grid
-// is a host rule (ops/fill.py: fill_blocks): a block a 256 16-byte units,
-// one streaming store (st.global.cs: the lines are not kept for reuse) a
-// thread, 32-bit indices where the 16-byte count fits them. On the H100
-// that grid wrote 1e8 f32 ~4% faster than one resident wave striding over
-// the output (with 1 or 4 stores a thread an iteration, streaming or not)
-// and than bulk asynchronous copies of a shared-memory tile of the pattern
-// (PERF.md). iota2d writes one element a thread (coalesced across the
-// warp).
+// least time is out_bytes / 3.35 TB/s: 0.119 ms for 1e8 f32. Both take one
+// grid, a host rule (ops/fill.py: fill_blocks): a block a 256 16-byte
+// units, one streaming store (st.global.cs: the lines are not kept for
+// reuse) a thread, 32-bit indices where the 16-byte count fits them, the
+// tail under 16 bytes written by block 0's first threads. On the H100 that
+// grid wrote 1e8 f32 ~4% faster than one resident wave striding over the
+// output (with 1 or 4 stores a thread an iteration, streaming or not) and
+// than bulk asynchronous copies of a shared-memory tile of the pattern
+// (PERF.md). iota2d's thread finds its unit's first row and column with
+// one division and walks across a row end inside the unit (ops/fill.py:
+// iota_writes models which elements each thread writes).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cstdint>
 #include <cstring>
-
-// The SM count of the current card, read once a card.
-static int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-  return cached[dev] > 0 ? cached[dev] : 132;
-}
-
-static int grid_for(long long work, int threads) {
-  long long want = (work + threads - 1) / threads;
-  long long cap = (long long)sm_count() * 8;
-  if (want < 1) want = 1;
-  return (int)(want < cap ? want : cap);
-}
 
 // ---------------------------------------------------------------------------
 // fill: write the value's bit pattern into every element. The wrapper casts
@@ -106,6 +92,7 @@ struct Arith;
 
 template <>
 struct Arith<float> {
+  static __device__ float cvt(unsigned v) { return __uint2float_rn(v); }
   static __device__ float cvt(long long v) { return __ll2float_rn(v); }
   static __device__ float op(float r, float w, float c) {
     return __fadd_rn(__fmul_rn(r, w), c);
@@ -114,8 +101,9 @@ struct Arith<float> {
 
 template <>
 struct Arith<__nv_bfloat16> {
-  static __device__ __nv_bfloat16 cvt(long long v) {
-    return __float2bfloat16_rn(__ll2float_rn(v));
+  template <typename V>
+  static __device__ __nv_bfloat16 cvt(V v) {
+    return __float2bfloat16_rn(Arith<float>::cvt(v));
   }
   static __device__ __nv_bfloat16 op(__nv_bfloat16 r, __nv_bfloat16 w,
                                      __nv_bfloat16 c) {
@@ -128,8 +116,9 @@ struct Arith<__nv_bfloat16> {
 
 template <>
 struct Arith<__half> {
-  static __device__ __half cvt(long long v) {
-    return __float2half_rn(__ll2float_rn(v));
+  template <typename V>
+  static __device__ __half cvt(V v) {
+    return __float2half_rn(Arith<float>::cvt(v));
   }
   static __device__ __half op(__half r, __half w, __half c) {
     __half p = __float2half_rn(__fmul_rn(__half2float(r), __half2float(w)));
@@ -139,7 +128,8 @@ struct Arith<__half> {
 
 template <>
 struct Arith<int32_t> {
-  static __device__ int32_t cvt(long long v) { return (int32_t)v; }
+  template <typename V>
+  static __device__ int32_t cvt(V v) { return (int32_t)v; }
   static __device__ int32_t op(int32_t r, int32_t w, int32_t c) {
     return (int32_t)((uint32_t)r * (uint32_t)w + (uint32_t)c);  // wraps
   }
@@ -147,51 +137,79 @@ struct Arith<int32_t> {
 
 template <>
 struct Arith<int64_t> {
-  static __device__ int64_t cvt(long long v) { return (int64_t)v; }
+  template <typename V>
+  static __device__ int64_t cvt(V v) { return (int64_t)v; }
   static __device__ int64_t op(int64_t r, int64_t w, int64_t c) {
     return (int64_t)((uint64_t)r * (uint64_t)w + (uint64_t)c);
   }
 };
 
+// iota2d: unit q (16 bytes: E = 16 / sizeof(T) elements from element
+// q * E) by thread q % (blocks * IOTA_THREADS), as fill's body; the tail
+// (fewer than E elements) element by element, by the first threads of
+// block 0. An integer I (unsigned or long long) converts to T through
+// Arith<float>::cvt, which rounds it to nearest whatever its type, so
+// both index widths give the same bits.
 constexpr int IOTA_THREADS = 256;
 
-// A 2D grid: rows stride over blockIdx.y, columns over the x threads, so no
-// thread divides to find its cell.
-template <typename T>
+template <typename T, typename I>
 __global__ void __launch_bounds__(IOTA_THREADS)
-iota2d_kernel(T* __restrict__ out, long long h, long long w) {
+iota2d_kernel(uint4* __restrict__ out, I n16, I w, int ntail) {
+  constexpr int E = 16 / sizeof(T);
   const T tw = Arith<T>::cvt(w);
-  const long long cstride = (long long)gridDim.x * blockDim.x;
-  for (long long r = blockIdx.y; r < h; r += gridDim.y) {
-    const T tr = Arith<T>::cvt(r);
-    T* row = out + r * w;
-    for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < w;
-         c += cstride)
-      row[c] = Arith<T>::op(tr, tw, Arith<T>::cvt(c));
+  const I stride = (I)gridDim.x * IOTA_THREADS;
+  for (I q = (I)blockIdx.x * IOTA_THREADS + threadIdx.x; q < n16; q += stride) {
+    I r = q * E / w;  // the one division: the unit's first row and column
+    I c = q * E - r * w;
+    T tr = Arith<T>::cvt(r);
+    alignas(16) T e[E];
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      e[k] = Arith<T>::op(tr, tw, Arith<T>::cvt(c));
+      if (++c == w) {  // across a row end
+        c = 0;
+        tr = Arith<T>::cvt(++r);
+      }
+    }
+    __stcs(out + q, *reinterpret_cast<const uint4*>(e));
+  }
+  if (blockIdx.x == 0 && (int)threadIdx.x < ntail) {
+    const I i = n16 * E + threadIdx.x, r = i / w;
+    reinterpret_cast<T*>(out + n16)[threadIdx.x] =
+        Arith<T>::op(Arith<T>::cvt(r), tw, Arith<T>::cvt(i - r * w));
   }
 }
 
-// dtype codes: 0 f32, 1 bf16, 2 f16, 3 int32, 4 int64
-extern "C" int ts_iota2d(void* out, long long h, long long w, int dtype,
-                         void* stream) {
-  if (h < 0 || w < 0) return (int)cudaErrorInvalidValue;
-  if (h * w == 0) return 0;
-  const int gx = grid_for(w, IOTA_THREADS) < 64 ? grid_for(w, IOTA_THREADS) : 64;
-  long long gy = grid_for(h * w, IOTA_THREADS) / gx;
-  if (gy < 1) gy = 1;
-  if (gy > h) gy = h;
-  if (gy > 65535) gy = 65535;
-  const dim3 g(gx, (unsigned)gy);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtype) {
-    case 0: iota2d_kernel<float><<<g, IOTA_THREADS, 0, s>>>((float*)out, h, w); break;
-    case 1: iota2d_kernel<__nv_bfloat16><<<g, IOTA_THREADS, 0, s>>>((__nv_bfloat16*)out, h, w); break;
-    case 2: iota2d_kernel<__half><<<g, IOTA_THREADS, 0, s>>>((__half*)out, h, w); break;
-    case 3: iota2d_kernel<int32_t><<<g, IOTA_THREADS, 0, s>>>((int32_t*)out, h, w); break;
-    case 4: iota2d_kernel<int64_t><<<g, IOTA_THREADS, 0, s>>>((int64_t*)out, h, w); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <typename T>
+static int launch_iota(void* out, long long h, long long w, int blocks, cudaStream_t s) {
+  constexpr long long E = 16 / sizeof(T);
+  const long long n = h * w, n16 = n / E;
+  const int ntail = (int)(n - n16 * E);
+  uint4* o = (uint4*)out;
+  // 32-bit indices while every element, and the stride past the last unit, has one
+  if (n + 2ll * blocks * IOTA_THREADS * E < (1ll << 32))
+    iota2d_kernel<T, unsigned><<<blocks, IOTA_THREADS, 0, s>>>(o, (unsigned)n16, (unsigned)w,
+                                                                ntail);
+  else
+    iota2d_kernel<T, long long><<<blocks, IOTA_THREADS, 0, s>>>(o, n16, w, ntail);
   return (int)cudaGetLastError();
+}
+
+// dtype codes: 0 f32, 1 bf16, 2 f16, 3 int32, 4 int64; `blocks` comes from
+// the host's rule (fill_blocks of the output's bytes); `out` 16-byte aligned.
+extern "C" int ts_iota2d(void* out, long long h, long long w, int dtype, int blocks,
+                         void* stream) {
+  if (h < 0 || w < 0 || blocks < 1 || ((uintptr_t)out & 15)) return (int)cudaErrorInvalidValue;
+  if (h * w == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return launch_iota<float>(out, h, w, blocks, s);
+    case 1: return launch_iota<__nv_bfloat16>(out, h, w, blocks, s);
+    case 2: return launch_iota<__half>(out, h, w, blocks, s);
+    case 3: return launch_iota<int32_t>(out, h, w, blocks, s);
+    case 4: return launch_iota<int64_t>(out, h, w, blocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* ts_error_string(int e) {

@@ -13,11 +13,13 @@
 // Arithmetic: every product and sum is rounded on its own, in the
 // reference's left-to-right order (__fmul_rn / __fadd_rn are never
 // contracted into FMAs), so a kernel agrees bit for bit with its plain
-// torch version, which rounds each operation as well (deep_trapezoid skips
-// zero coefficients: see there).
+// torch version, which rounds each operation as well. five_point and
+// deep_trapezoid add all five terms, n, s, w, e, c, a zero coefficient's
+// product included, as the reference's _tile_kernel and shrink_step do.
 //
-// No kernel writes the buffer it reads: five_point and deep_trapezoid
-// write a fresh grid, resident_periodic ping-pongs between two scratch
+// No kernel writes the buffer it reads: five_point writes a fresh padded
+// tile (the new core inside the input's halo ring), deep_trapezoid a
+// fresh grid, and resident_periodic ping-pongs between two scratch
 // buffers a round and never writes its input.
 
 #include <cuda_runtime.h>
@@ -40,49 +42,155 @@ __device__ __forceinline__ float five(const Coeffs& k, float vn, float vs,
 }
 
 // ---------------------------------------------------------------------------
-// five_point: one 5-point step of nb padded tiles (nb, ph, pw) -> new cores
-// (nb, h, w). One thread per core cell; a block stages its (BY+2) x (BX+2)
-// input window (the 1-cell apron included) in shared memory, so each input
-// cell is read from device memory about once.
-// Bound: bytes. One step must read the padded tile and write the core,
-// (ph*pw + h*w)*4 bytes; at the headline 1024^2 core that is 8.4 MB, 2.5 us
-// at 3.35 TB/s. The 5 flops per cell are far below the f32 rate.
-constexpr int FP_BX = 32;
-constexpr int FP_BY = 8;
+// five_point: one 5-point step of nb padded tiles (nb, ph, pw) into a fresh
+// (nb, ph, pw): the core's new values inside the input's halo ring, which
+// is copied. That is the whole of what five_point_pallas returns, so the
+// wrapper runs no rebuild after the launch.
+// Bound: bytes. The step reads the padded tile and writes one, 8 bytes a
+// padded cell: at the headline's 1026^2 tile 8.4 MB, 2.5 us at 3.35 TB/s,
+// at 8194^2 0.1603 ms; the 9 operations a core cell are far below the f32
+// rate.
+// Design (dma_hbm_step's register tiles over the padded tile):
+//  - a block of FP_WARPS warps owns 32 * VEC columns and FP_WARPS * FP_RY
+//    rows of one tile; a lane owns VEC adjacent columns and FP_RY rows down
+//    them, held with the row above and the row below as a register window
+//    of FP_RY + 2 rows, each row loaded once, VEC columns as one 16-byte
+//    (VEC 4) or 8-byte (VEC 2) load where every row of the tile starts
+//    aligned to it (the host rule five_plan: pw % VEC == 0 and both bases
+//    aligned; the headline's pw = 1026 takes 8-byte groups);
+//  - west and east neighbours come from the adjacent lanes by shuffles;
+//    only a warp's edge lanes load one more cell a row;
+//  - a window row outside the tile is zeros and feeds only halo cells; a
+//    cell of the halo ring stores its input value, a core cell the sum;
+//  - no division anywhere, 32-bit indices where the batch's elements fit
+//    them (I = int).
+// 2 rows a lane and 4 warps a block were the best of the H100's sweep over
+// 2, 4, 8 rows and 1 to 8 warps at 1026^2 and 8194^2 (PERF.md, row 1).
+constexpr int FP_RY = 2;
+constexpr int FP_WARPS = 4;
 
-__global__ void __launch_bounds__(FP_BX * FP_BY)
-five_point_kernel(const float* __restrict__ in, float* __restrict__ out,
-                  int ph, int pw, int h, int w, int hy, int hx, Coeffs k) {
-  __shared__ float s[FP_BY + 2][FP_BX + 2];
-  const size_t b = blockIdx.z;
-  const float* t = in + b * (size_t)ph * pw;
-  float* o = out + b * (size_t)h * w;
-  const int i0 = blockIdx.y * FP_BY, j0 = blockIdx.x * FP_BX;
-  const int tid = threadIdx.y * FP_BX + threadIdx.x;
-  for (int q = tid; q < (FP_BY + 2) * (FP_BX + 2); q += FP_BX * FP_BY) {
-    const int ly = q / (FP_BX + 2), lx = q - ly * (FP_BX + 2);
-    const int gy = i0 + hy - 1 + ly, gx = j0 + hx - 1 + lx;  // >= 0: halo >= 1
-    s[ly][lx] = (gy < ph && gx < pw) ? t[(size_t)gy * pw + gx] : 0.f;
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<4> {
+  static __device__ __forceinline__ void load(float* d, const float* s) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(s));
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
   }
-  __syncthreads();
-  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
-  if (i < h && j < w) {
-    const int ly = threadIdx.y + 1, lx = threadIdx.x + 1;
-    o[(size_t)i * w + j] = five(k, s[ly - 1][lx], s[ly + 1][lx], s[ly][lx - 1],
-                                s[ly][lx + 1], s[ly][lx]);
+  static __device__ __forceinline__ void store(float* d, const float* s) {
+    *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+  }
+};
+template <>
+struct Vec<2> {
+  static __device__ __forceinline__ void load(float* d, const float* s) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(s));
+    d[0] = v.x; d[1] = v.y;
+  }
+  static __device__ __forceinline__ void store(float* d, const float* s) {
+    *reinterpret_cast<float2*>(d) = make_float2(s[0], s[1]);
+  }
+};
+template <>
+struct Vec<1> {
+  static __device__ __forceinline__ void load(float* d, const float* s) { d[0] = __ldg(s); }
+  static __device__ __forceinline__ void store(float* d, const float* s) { d[0] = s[0]; }
+};
+
+template <int VEC, typename I>
+__global__ void __launch_bounds__(32 * FP_WARPS)
+five_point_kernel(const float* __restrict__ in, float* __restrict__ out, int ph, int pw,
+                  int hy, int hx, int h, int w, Coeffs k) {
+  const int lane = threadIdx.x;
+  const int x0 = (blockIdx.x * 32 + lane) * VEC;
+  const int y0 = (blockIdx.y * FP_WARPS + threadIdx.y) * FP_RY;
+  if (y0 >= ph) return;  // a whole warp: no shuffle partner is lost
+  const I base = (I)blockIdx.z * ph * pw + x0;  // the lane's first column of row 0
+  const bool in_tile = x0 < pw;                 // pw % VEC == 0: a group is all in or out
+  float win[FP_RY + 2][VEC + 2];
+#pragma unroll
+  for (int u = 0; u < FP_RY + 2; ++u) {
+    const int y = y0 - 1 + u;
+    if (y < 0 || y >= ph) {  // warp-uniform
+#pragma unroll
+      for (int x = 0; x < VEC + 2; ++x) win[u][x] = 0.0f;
+      continue;
+    }
+    const float* rp = in + (base + (I)y * pw);
+    if (in_tile) {
+      Vec<VEC>::load(win[u] + 1, rp);
+    } else {
+#pragma unroll
+      for (int x = 1; x <= VEC; ++x) win[u][x] = 0.0f;
+    }
+    const float west = __shfl_up_sync(0xffffffffu, win[u][VEC], 1);
+    const float east = __shfl_down_sync(0xffffffffu, win[u][1], 1);
+    win[u][0] = lane > 0 ? west : (in_tile && x0 > 0 ? rp[-1] : 0.0f);
+    win[u][VEC + 1] = lane < 31 ? east : (x0 + VEC < pw ? rp[VEC] : 0.0f);
+  }
+  if (!in_tile) return;
+#pragma unroll
+  for (int u = 0; u < FP_RY; ++u) {
+    const int y = y0 + u;
+    if (y >= ph) break;
+    float o[VEC];
+    const bool core_row = y >= hy && y < hy + h;
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) {
+      const int col = x0 + x;
+      o[x] = core_row && col >= hx && col < hx + w
+                 ? five(k, win[u][x + 1], win[u + 2][x + 1], win[u + 1][x], win[u + 1][x + 2],
+                        win[u + 1][x + 1])
+                 : win[u + 1][x + 1];
+    }
+    Vec<VEC>::store(out + (base + (I)y * pw), o);
   }
 }
 
-extern "C" int ts_five_point(const float* in, float* out, int nb, int ph,
-                             int pw, int h, int w, int hy, int hx, float cn,
-                             float cs, float cw, float ce, float cc,
-                             void* stream) {
-  if (nb < 1 || nb > 65535 || hy < 1 || hx < 1) return (int)cudaErrorInvalidValue;
-  const dim3 block(FP_BX, FP_BY);
-  const dim3 grid((w + FP_BX - 1) / FP_BX, (h + FP_BY - 1) / FP_BY, nb);
-  five_point_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      in, out, ph, pw, h, w, hy, hx, Coeffs{cn, cs, cw, ce, cc});
+template <int VEC, typename I>
+static int launch_five(const float* in, float* out, int nb, int ph, int pw, int hy, int hx,
+                       int h, int w, const Coeffs& k, cudaStream_t s) {
+  const dim3 block(32, FP_WARPS);
+  constexpr int rows = FP_WARPS * FP_RY;
+  const dim3 grid((pw + 32 * VEC - 1) / (32 * VEC), (ph + rows - 1) / rows, nb);
+  five_point_kernel<VEC, I><<<grid, block, 0, s>>>(in, out, ph, pw, hy, hx, h, w, k);
   return (int)cudaGetLastError();
+}
+
+template <typename I>
+static int launch_five_vec(int vec, const float* in, float* out, int nb, int ph, int pw, int hy,
+                           int hx, int h, int w, const Coeffs& k, cudaStream_t s) {
+  switch (vec) {
+    case 4: return launch_five<4, I>(in, out, nb, ph, pw, hy, hx, h, w, k, s);
+    case 2: return launch_five<2, I>(in, out, nb, ph, pw, hy, hx, h, w, k, s);
+    case 1: return launch_five<1, I>(in, out, nb, ph, pw, hy, hx, h, w, k, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// One step of nb padded tiles (nb, ph, pw) of core (h, w) and halo (hy,
+// hx) into the fresh (nb, ph, pw) at `out`; vec (4, 2 or 1 columns a
+// load): ops.stencil_kernel.five_plan's. The coefficients in n, s, w, e, c
+// order.
+extern "C" int ts_five_point(const float* in, float* out, int nb, int ph, int pw, int h, int w,
+                             int hy, int hx, float cn, float cs, float cw, float ce, float cc,
+                             int vec, void* stream) {
+  if (nb < 1 || nb > 65535 || hy < 1 || hx < 1 || h < 1 || w < 1 ||
+      (long long)h + 2ll * hy != ph || (long long)w + 2ll * hx != pw || in == nullptr ||
+      out == nullptr || in == out)
+    return (int)cudaErrorInvalidValue;
+  if ((vec != 1 && vec != 2 && vec != 4) || pw % vec != 0) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)in % (4 * vec) != 0 || (uintptr_t)out % (4 * vec) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  if ((ph + (long long)FP_WARPS * FP_RY - 1) / (FP_WARPS * FP_RY) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Coeffs k{cn, cs, cw, ce, cc};
+  const cudaStream_t s = (cudaStream_t)stream;
+  // 32-bit indices while every element of the batch, and one group past
+  // its end, has one
+  if ((long long)nb * ph * pw + 32ll * vec < INT_MAX)
+    return launch_five_vec<int>(vec, in, out, nb, ph, pw, hy, hx, h, w, k, s);
+  return launch_five_vec<long long>(vec, in, out, nb, ph, pw, hy, hx, h, w, k, s);
 }
 
 
@@ -90,11 +198,11 @@ extern "C" int ts_five_point(const float* in, float* out, int nb, int ph,
 // deep_trapezoid: `j` valid-region 5-point steps (the shrink_step pyramid)
 // of nb dense inputs (nb, ih, iw); output (i, x) is the pyramid's value at
 // input (i + off, x + off), for an (oh, ow) output, off >= j.
-// Bound: operations. A substep is 2 * taps - 1 separately rounded f32
-// operations a cell of the pyramid (7 for Jacobi), at 33.5 T/s on this
-// card (a product and a sum are one instruction each: half the FMA rate);
-// the bytes (the input read once, the output written once) are less: at
-// 1024^2 with k = 16, 0.00361 ms of operations against 0.00258 of bytes.
+// Bound: operations. A substep is 9 separately rounded f32 operations a
+// cell of the pyramid (5 products, 4 sums), at 33.5 T/s on this card (a
+// product and a sum are one instruction each: half the FMA rate); the
+// bytes (the input read once, the output written once) are less: at
+// 1024^2 with k = 16, 0.00464 ms of operations against 0.00258 of bytes.
 // Design: the row march of stencil_taps.cuh, which keeps the pyramid's
 // redundant work on one axis and every tap in registers. A block owns a
 // strip of output columns (the 256-column window less its apron of j
@@ -110,16 +218,19 @@ extern "C" int ts_five_point(const float* in, float* out, int nb, int ph,
 // not stored. Rows go as two 16-byte groups a lane where iw % 4 == 0,
 // off % 4 == 0 and the base is 16-byte aligned (a group is then wholly in
 // or out of the input), else as 4-byte columns; no division runs in the
-// march. Taps are a template mask for Jacobi and a runtime mask for any
-// other set. A pass deeper than one launch holds (8 stages of 4 levels,
+// march. The taps are TRAP_TAPS's five for every coefficient set, as a
+// template mask (the same set as a runtime mask read 4 to 6 times slower on
+// the H100, PERF.md). A pass deeper than one launch holds (8 stages of 4 levels,
 // 32 substeps) is chained by the wrapper: each launch writes the dense
 // grid of the rings still to go, and the next one reads it. The host rule
 // (ops.common.march_plan) picks the levels, the strip and the chunk.
-// Terms: n, s, w, e, c (shrink_step's order, march::ORDER_NSWE), zero
-// coefficients skipped. Against the plain version, which adds 0.0 * a for
-// a zero coefficient, that can change only the sign of a zero result (a
-// sum of -0 and +0 is +0) and the NaN that an infinite input would spread
-// through a zero coefficient; torch.equal counts -0 and +0 equal.
+// Terms: n, s, w, e, c in shrink_step's order (march::ORDER_NSWE), all
+// five whatever the coefficients (TRAP_TAPS): the reference adds 0.0 * a
+// for a zero coefficient, which makes the sign of a zero sum and turns an
+// infinite input into NaN, and the kernel does the same.
+
+// The trapezoid's tap set: n, w, c, e, s
+constexpr int TRAP_TAPS = 0x0BA;
 
 struct Trap {
   const float* in;   // (nb, ih, iw)
@@ -130,11 +241,10 @@ struct Trap {
   int rows;          // output rows a chunk
   int width, apron;  // output columns a strip; the window's apron (j rounded up to 4)
   int vin, vout;     // 16-byte loads / stores
-  unsigned rmask;    // the taps of a runtime-mask launch
   float c[9];        // coefficient of tap position p = 3 (dy + 1) + dx + 1
 };
 
-template <int L, int MASK>
+template <int L>
 __global__ void __launch_bounds__((march::MAX_WARPS + 1) * 32)
 deep_trapezoid_kernel(const Trap p) {
   using namespace march;
@@ -186,50 +296,45 @@ deep_trapezoid_kernel(const Trap p) {
       }
     }
   };
-  run<L, ORDER_NSWE, MASK, false>(load, zero, store, p.c, p.rmask, T, p.j, 0, p.j);
+  run<L, ORDER_NSWE, TRAP_TAPS, false>(load, zero, store, p.c, 0u, T, p.j, 0, p.j);
 }
 
-template <int L, int MASK>
+template <int L>
 static int launch_trap(const Trap& p, dim3 grid, int warps, cudaStream_t s) {
-  deep_trapezoid_kernel<L, MASK>
+  deep_trapezoid_kernel<L>
       <<<grid, march::block_threads(warps), march::smem_bytes(warps), s>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int L, int MASK>
+template <int L>
 static int occupancy_trap(int warps, int* per_sm) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, deep_trapezoid_kernel<L, MASK>, march::block_threads(warps),
+      per_sm, deep_trapezoid_kernel<L>, march::block_threads(warps),
       march::smem_bytes(warps));
 }
 
-// Dispatch on (levels a stage: 1 or 4, tap mask: Jacobi's or 0, a runtime
-// mask) to FN<L, MASK>(args...): a 5-point set has no other instantiation.
-#define TRAP_DISPATCH(L, MASK, FN, ...)                                           \
-  do {                                                                            \
-    const int l_ = (L), m_ = (MASK);                                              \
-    if ((l_ != 1 && l_ != 4) || (m_ != march::MASK_JACOBI && m_ != 0))            \
-      return (int)cudaErrorInvalidValue;                                          \
-    if (m_ == march::MASK_JACOBI)                                                 \
-      return l_ == 1 ? FN<1, march::MASK_JACOBI>(__VA_ARGS__)                     \
-                     : FN<4, march::MASK_JACOBI>(__VA_ARGS__);                    \
-    return l_ == 1 ? FN<1, 0>(__VA_ARGS__) : FN<4, 0>(__VA_ARGS__);               \
+// Dispatch on the levels a stage (1 or 4) to FN<L>(args...).
+#define TRAP_DISPATCH(L, FN, ...)                                  \
+  do {                                                             \
+    const int l_ = (L);                                            \
+    if (l_ != 1 && l_ != 4) return (int)cudaErrorInvalidValue;     \
+    return l_ == 1 ? FN<1>(__VA_ARGS__) : FN<4>(__VA_ARGS__);      \
   } while (0)
 
-// The blocks of a launch of L levels a stage (1 or 4), tap mask `mask`
-// (march::MASK_JACOBI or 0) and `warps` stages an SM holds at once.
-extern "C" int ts_deep_trapezoid_occupancy(int L, int mask, int warps, int* per_sm) {
+// The blocks of a launch of L levels a stage (1 or 4) and `warps` stages
+// an SM holds at once.
+extern "C" int ts_deep_trapezoid_occupancy(int L, int warps, int* per_sm) {
   if (warps < 1 || warps > march::MAX_WARPS) return (int)cudaErrorInvalidValue;
-  TRAP_DISPATCH(L, mask, occupancy_trap, warps, per_sm);
+  TRAP_DISPATCH(L, occupancy_trap, warps, per_sm);
 }
 
 // One launch of j substeps, (nb, ih, iw) -> (nb, oh, ow) at offset off.
-// L, mask, rows, width: the plan of ops.common.march_plan; vin: 16-byte
+// L, rows, width: the plan of ops.common.march_plan; vin: 16-byte
 // loads (iw % 4 == 0, off % 4 == 0, a 16-byte aligned base); vout: 16-byte
 // stores (ow % 4 == 0, an aligned base); the coefficients in n, s, w, e, c
 // order.
 extern "C" int ts_deep_trapezoid(const float* in, float* out, int nb, int ih, int iw, int oh,
-                                 int ow, int off, int j, int L, int mask, int rows, int width,
+                                 int ow, int off, int j, int L, int rows, int width,
                                  int vin, int vout, float cn, float cs, float cw, float ce,
                                  float cc, void* stream) {
   Trap p{};
@@ -237,19 +342,18 @@ extern "C" int ts_deep_trapezoid(const float* in, float* out, int nb, int ih, in
   p.off = off; p.j = j; p.rows = rows; p.width = width; p.apron = (j + 3) / 4 * 4;
   p.vin = vin; p.vout = vout;
   p.c[1] = cn; p.c[7] = cs; p.c[3] = cw; p.c[5] = ce; p.c[4] = cc;
-  p.rmask = march::tap_mask(p.c);
   const int warps = (j + L - 1) / (L > 0 ? L : 1);
   if (nb < 1 || nb > 65535 || j < 1 || L < 1 || warps > march::MAX_WARPS || off < j ||
       oh < 1 || ow < 1 || (long long)oh + off + j > ih || (long long)ow + off + j > iw ||
       rows < 1 || width < 4 || width % 4 != 0 || width + 2 * p.apron > march::WIN ||
-      (mask != 0 && (unsigned)mask != p.rmask) || in == nullptr || out == nullptr)
+      in == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
   if (vin && (iw % 4 != 0 || off % 4 != 0 || (uintptr_t)in % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
   if (vout && (ow % 4 != 0 || (uintptr_t)out % 16 != 0)) return (int)cudaErrorMisalignedAddress;
   const long long strips = (ow + width - 1) / width, chunks = (oh + rows - 1) / rows;
   if (chunks > 65535) return (int)cudaErrorInvalidValue;
-  TRAP_DISPATCH(L, mask, launch_trap, p, dim3((unsigned)strips, (unsigned)chunks, (unsigned)nb),
+  TRAP_DISPATCH(L, launch_trap, p, dim3((unsigned)strips, (unsigned)chunks, (unsigned)nb),
                 warps, (cudaStream_t)stream);
 }
 

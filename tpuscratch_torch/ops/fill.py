@@ -13,8 +13,9 @@ The twin of ``tpuscratch.ops.fill``: the reference's ``init_vector``
 Entry points run on the card unless ``device='cpu'`` is passed, which runs
 the plain torch versions (``fill_plain``, ``iota2d_plain``); the card-side
 checks compare the kernels with those. Each wrapper counts its launches.
-``fill``'s grid is a host rule, ``fill_blocks``; ``fill_writes`` models which
-bytes its kernel writes on a grid.
+Both kernels take one grid, a host rule: ``fill_blocks`` (a block a 256
+16-byte units of the output); ``fill_writes`` and ``iota_writes`` model
+which bytes and which elements their kernels write on a grid.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def _lib() -> ctypes.CDLL:
     lib.ts_fill.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong,
                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.ts_iota2d.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_void_p]
+                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.ts_fill.restype = lib.ts_iota2d.restype = ctypes.c_int
     return lib
 
@@ -65,10 +66,11 @@ def fill_plain(shape, value, dtype=torch.float32, device="cpu") -> torch.Tensor:
 
 
 def fill_blocks(nbytes: int, cap: int | None = None) -> int:
-    """``fill``'s grid for ``nbytes``: a block a FILL_THREADS 16-byte units
-    of the body (each thread one store), at most ``cap`` (the blocks then
-    stride over the body), at least 1. The tail under 16 bytes goes byte by
-    byte to block 0's first threads."""
+    """The grid of ``fill`` and ``iota2d`` for an output of ``nbytes``: a
+    block a FILL_THREADS 16-byte units of the body (each thread one store),
+    at most ``cap`` (the blocks then stride over the body), at least 1. The
+    tail under 16 bytes goes to block 0's first threads, byte by byte
+    (``fill``) or element by element (``iota2d``)."""
     blocks = max(1, -(-(nbytes // 16) // FILL_THREADS))
     return blocks if cap is None else max(1, min(cap, blocks))
 
@@ -83,6 +85,32 @@ def fill_writes(blocks: int, nbytes: int) -> np.ndarray:
     for t in range(min(stride, n16)):   # thread t: units t, t + stride, ...
         body[t::stride] += 1
     count[16 * n16:] += 1               # block 0's threads 0 .. ntail - 1
+    return count
+
+
+def iota_writes(blocks: int, h: int, w: int, esize: int) -> np.ndarray:
+    """How many times ``iota2d``'s kernel writes each element of an (h, w)
+    output of ``esize``-byte elements on a grid of ``blocks``: the index
+    arithmetic of ``csrc/fill.cu`` in numpy. Thread t takes the 16-byte
+    units t, t + stride, ...; a unit finds its first row and column by one
+    division and walks ``16 // esize`` elements, across a row end where it
+    meets one; block 0's first threads write the tail element by element.
+    A write lands at the (r, c) the walk holds, and is counted there."""
+    per = 16 // esize
+    n = h * w
+    n16, ntail = n // per, n % per
+    count = np.zeros((h, w), np.int64)
+    stride = blocks * FILL_THREADS
+    for t in range(min(stride, n16)):
+        q = np.arange(t, n16, stride)
+        r, c = q * per // w, q * per % w
+        for _ in range(per):
+            np.add.at(count, (r, c), 1)
+            c = c + 1
+            wrap = c == w
+            r, c = np.where(wrap, r + 1, r), np.where(wrap, 0, c)
+    i = n16 * per + np.arange(ntail)
+    np.add.at(count, (i // w, i % w), 1)
     return count
 
 
@@ -132,9 +160,18 @@ def iota2d(shape, dtype=torch.float32, device=None) -> torch.Tensor:
         return out.copy_(iota2d_plain(shape, dtype))
     if dtype not in IOTA_DTYPES:
         raise TypeError(f"iota2d: the CUDA kernel takes {list(IOTA_DTYPES)}, got {dtype}")
+    return _iota_launch(out)
+
+
+def _iota_launch(out: torch.Tensor, blocks: int | None = None) -> torch.Tensor:
+    """One iota2d launch into the CUDA tensor ``out``; ``blocks`` is
+    ``fill_blocks``'s grid unless given (another grid, as
+    ``bench/kernel_ab.py --sweep`` times them)."""
+    h, w = out.shape
+    blocks = blocks or fill_blocks(out.numel() * out.element_size())
     with torch.cuda.device(out.device):
         check_status(_lib(), _lib().ts_iota2d(
-            out.data_ptr(), shape[0], shape[1], IOTA_DTYPES[dtype], stream_of(out)), "iota2d")
+            out.data_ptr(), h, w, IOTA_DTYPES[out.dtype], blocks, stream_of(out)), "iota2d")
     iota2d.launches += 1
     return out
 

@@ -5,8 +5,10 @@ Each public wrapper keeps the name and contract of its Pallas twin in
 ``tpuscratch.ops.stencil_kernel`` and works on a padded tile or on the
 stacked ``(rows, cols, ph, pw)`` tensor (any leading dims are a batch):
 
-- ``five_point_pallas`` / ``five_point_blocked``: one 5-point step; the
-  kernel writes a fresh core and ``rebuild`` re-wraps the halo.
+- ``five_point_pallas`` / ``five_point_blocked``: one 5-point step in one
+  launch that writes the fresh padded tile (the new core inside the
+  input's halo ring), on the plan ``five_plan`` picks; on the CPU the
+  plain core and ``rebuild``.
 - ``deep_trapezoid_pallas``: ``substeps`` shrinking steps in one launch
   of the row march (``csrc/stencil_taps.cuh``; a chain of launches past
   32 substeps).
@@ -42,7 +44,6 @@ from tpuscratch_torch.ops.common import (
     check_status,
     library,
     march_chain,
-    march_mask,
     ring_plan,
     ring_vec,
     sm_count,
@@ -63,9 +64,9 @@ _P = ctypes.c_void_p
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = library("stencil2d")
-    lib.ts_five_point.argtypes = [_P, _P] + [_I] * 7 + [_F] * 5 + [_P]
-    lib.ts_deep_trapezoid.argtypes = [_P, _P] + [_I] * 13 + [_F] * 5 + [_P]
-    lib.ts_deep_trapezoid_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.ts_five_point.argtypes = [_P, _P] + [_I] * 7 + [_F] * 5 + [_I, _P]
+    lib.ts_deep_trapezoid.argtypes = [_P, _P] + [_I] * 12 + [_F] * 5 + [_P]
+    lib.ts_deep_trapezoid_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.ts_resident_periodic.argtypes = [_P, _P, _P] + [_I] * 4 + [_F] * 5 + [_I] * 3 + [_P]
     lib.ts_resident_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
     for fn in (lib.ts_five_point, lib.ts_deep_trapezoid, lib.ts_deep_trapezoid_occupancy,
@@ -115,31 +116,46 @@ def _check_five(tile: torch.Tensor, layout: TileLayout) -> None:
         raise ValueError(f"tile {tuple(tile.shape)} != padded {layout.padded_shape}")
 
 
-def _five_point_core(tile: torch.Tensor, layout: TileLayout, coeffs: Coeffs, name: str) -> torch.Tensor:
-    """Launch ``five_point_kernel`` over every tile of the batch."""
+def five_plan(pw: int, *data_ptrs: int) -> int:
+    """The one-step kernel's host rule for padded rows of ``pw`` columns:
+    the columns a lane loads and stores as one group a row. 4 (16 bytes)
+    where every row of the tiles starts 16-byte aligned (``pw % 4 == 0``
+    and every buffer 16-byte aligned), else 2 (8 bytes) where rows start
+    8-byte aligned (any even pitch, such as the headline's 1026), else 1."""
+    for vec in (4, 2):
+        if pw % vec == 0 and all(ptr % (4 * vec) == 0 for ptr in data_ptrs):
+            return vec
+    return 1
+
+
+def _five_point_launch(tile: torch.Tensor, layout: TileLayout, coeffs: Coeffs, name: str,
+                       vec: int | None = None) -> torch.Tensor:
+    """One launch of ``five_point_kernel`` over every tile of the batch:
+    a fresh padded tile, ``vec`` columns a group (``five_plan``'s unless
+    given)."""
     check_cuda(tile, name, 2)
     ph, pw = layout.padded_shape
-    h, w = layout.core_h, layout.core_w
-    out = torch.empty(tile.shape[:-2] + (h, w), dtype=tile.dtype, device=tile.device)
-    nb = tile.numel() // (ph * pw)
+    out = torch.empty_like(tile)
+    vec = vec or five_plan(pw, tile.data_ptr(), out.data_ptr())
     with torch.cuda.device(tile.device):
         _check(_lib().ts_five_point(
-            tile.data_ptr(), out.data_ptr(), nb, ph, pw, h, w,
-            layout.halo_y, layout.halo_x, *_coeff_args(coeffs), stream_of(tile),
+            tile.data_ptr(), out.data_ptr(), tile.numel() // (ph * pw), ph, pw,
+            layout.core_h, layout.core_w, layout.halo_y, layout.halo_x, *_coeff_args(coeffs),
+            vec, stream_of(tile),
         ), name)
     return out
 
 
 def five_point_pallas(tile: torch.Tensor, layout: TileLayout, coeffs: Coeffs = JACOBI) -> torch.Tensor:
-    """One Jacobi step of the padded tile(s). The kernel emits ONLY the new
-    core (a fresh buffer); ``rebuild`` re-wraps the halo border."""
+    """One Jacobi step of the padded tile(s). On the card one launch writes
+    the whole fresh tile, the new core inside the input's halo ring (never
+    the input); on the CPU the plain core is re-wrapped by ``rebuild``."""
     _check_five(tile, layout)
-    if _route(tile, "five_point_pallas"):
-        core = _five_point_core(tile, layout, coeffs, "five_point_pallas")
-        five_point_pallas.launches += 1
-    else:
-        core = five_point_plain(tile, layout, coeffs)
-    return rebuild(tile, core, layout)
+    if not _route(tile, "five_point_pallas"):
+        return rebuild(tile, five_point_plain(tile, layout, coeffs), layout)
+    out = _five_point_launch(tile, layout, coeffs, "five_point_pallas")
+    five_point_pallas.launches += 1
+    return out
 
 
 def five_point_blocked(
@@ -152,17 +168,17 @@ def five_point_blocked(
 
     ``band`` is the row-band height of the TPU kernel, which needed
     ``core_h % band == 0`` for its overlapping VMEM blocks. The CUDA kernel
-    tiles the core into 2D thread blocks whatever its size, so ``band`` is
-    only validated and that refusal is gone."""
+    (the same launch as ``five_point_pallas``'s) cuts the padded tile into
+    register tiles whatever its size, so ``band`` is only validated and
+    that refusal is gone."""
     _check_five(tile, layout)
     if band < 1:
         raise ValueError(f"band must be >= 1, got {band}")
-    if _route(tile, "five_point_blocked"):
-        core = _five_point_core(tile, layout, coeffs, "five_point_blocked")
-        five_point_blocked.launches += 1
-    else:
-        core = five_point_plain(tile, layout, coeffs)
-    return rebuild(tile, core, layout)
+    if not _route(tile, "five_point_blocked"):
+        return rebuild(tile, five_point_plain(tile, layout, coeffs), layout)
+    out = _five_point_launch(tile, layout, coeffs, "five_point_blocked")
+    five_point_blocked.launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -186,12 +202,21 @@ def trapezoid_c9(coeffs) -> tuple[float, ...]:
     return (0.0, cn, 0.0, cw, cc, ce, 0.0, cs, 0.0)
 
 
+#: The taps the deep trapezoid sums whatever the coefficients (``TRAP_TAPS``
+#: of ``csrc/stencil2d.cu``, by tap position): all five, n, w, c, e, s,
+#: because the reference's ``shrink_step`` adds every term (0.0 * a
+#: included, which makes the sign of a zero sum and turns an infinite input
+#: into NaN). Not ``march_mask``, which drops zero coefficients, as the
+#: streamed and DMA kernels' references do.
+TRAPEZOID_TAPS = 0x0BA
+
+
 @functools.lru_cache(maxsize=None)
-def _trapezoid_per_sm(device: int, levels: int, mask: int, warps: int) -> int:
+def _trapezoid_per_sm(device: int, levels: int, warps: int) -> int:
     lib = _lib()
     per_sm = _I(0)
     with torch.cuda.device(device):
-        _check(lib.ts_deep_trapezoid_occupancy(levels, mask, warps, ctypes.byref(per_sm)),
+        _check(lib.ts_deep_trapezoid_occupancy(levels, warps, ctypes.byref(per_sm)),
                "deep_trapezoid_pallas")
     return per_sm.value
 
@@ -208,8 +233,7 @@ def _trapezoid_call(x: torch.Tensor, out: torch.Tensor, off: int, coeffs,
     vout = ow % 4 == 0 and out.data_ptr() % 16 == 0
     _check(_lib().ts_deep_trapezoid(
         x.data_ptr(), out.data_ptr(), x.numel() // (ih * iw), ih, iw, oh, ow, off, plan.depth,
-        plan.levels, march_mask(trapezoid_c9(c5)), plan.rows, plan.width, int(vin), int(vout),
-        *c5, stream_of(x),
+        plan.levels, plan.rows, plan.width, int(vin), int(vout), *c5, stream_of(x),
     ), "deep_trapezoid_pallas")
     deep_trapezoid_pallas.launches += 1
 
@@ -244,13 +268,12 @@ def deep_trapezoid_pallas(
         return deep_trapezoid_plain(tile, layout, substeps, coeffs)
     check_cuda(tile, "deep_trapezoid_pallas", 2)
     dev = tile.device.index if tile.device.index is not None else torch.cuda.current_device()
-    mask = march_mask(trapezoid_c9(coeffs))
     nb = tile.numel() // (tile.shape[-2] * tile.shape[-1])
     h, w = layout.core_h, layout.core_w
     x, g, left = tile, k, substeps  # the core sits at offset g of x; left substeps to go
     with torch.cuda.device(tile.device):
         for plan in march_chain(nb, h, w, substeps, sm_count(dev),
-                                lambda lv, wp: _trapezoid_per_sm(dev, lv, mask, wp)):
+                                lambda lv, wp: _trapezoid_per_sm(dev, lv, wp)):
             left -= plan.depth  # the rings the launch's output keeps around the core
             out = torch.empty(tile.shape[:-2] + (h + 2 * left, w + 2 * left), dtype=tile.dtype,
                               device=tile.device)
