@@ -136,6 +136,26 @@ kernels from ``tpuscratch_torch/csrc/`` with nvcc for sm_90a and runs:
 24. one ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
+Phases 25 and 26 run after 23, before 24's lines:
+
+25. the pipelined training path at config 11's model: ``train_step_pp`` on a
+   1x1x1 ("dp", "sp", "stage") mesh at n_micro 1 against ``train_step``, at
+   n_micro 4 with the plain ring and with the flash kernels, 1x1x2 against
+   1x1x1 at n_micro 2 (then, logged, which of a block's ops round
+   otherwise with two stages in a call than with one); ``train_step_plan``
+   on pp2 x dp2 stacked: ZeRO
+   overlap against serial (bit-identical), ZeRO against the stacked Adam
+   step and a planted fault (alpha x 0.9) outside ZERO_TOL; the flash and
+   fused Adam launches of every run counted (zeroed just before, read just
+   after) and held to the schedule's; the flash kernels at the tick's shape
+   and the fused Adam kernel at the plan's (pp, dp)-split shards against
+   their plain versions; ``ssm_block`` on 4 stacked sequence ranks against
+   the local scan at T 65,536, d_model 1024, d_state 128, with the
+   cross-shard carry dropped as a planted fault;
+26. config 11's pp row and config 14 (the plan's ZeRO step at pp x dp in
+   {1, 2}^2, serial against overlap) through ``bench.record`` with steps and
+   repeats cut, and the bubble bench at M = 4, 8 and 32 on 4 stacked stages.
+
 Any failure raises and exits non-zero; without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -2354,7 +2374,7 @@ def phase19_configs6_11() -> list:
 
     out: list = []
     config6_flash_attention(out, device=DEVICE)
-    config11_train(out, device=DEVICE)
+    config11_train(out, device=DEVICE, pp_row=False)   # phase 26 runs the pp row, cut
     for r in out:
         if not math.isfinite(r["value"]) or r["value"] <= 0:
             raise AssertionError(f"config {r['config']} {r['metric']}: {r['value']}")
@@ -2753,6 +2773,349 @@ def phase23_copy_probes() -> tuple[dict, list, dict]:
     return err, rows, counts
 
 
+# Phases 25-26: the pipelined training path at config 11's model (d_model
+# 1024, 8 heads, 4 experts, d_ff 4096, 4 layers, f32, the flash kernels;
+# batch 8 a dp rank of seq 2048). Each stage's layers run through the same
+# kernels as phase 18's step, so a degenerate schedule (one stage, one
+# microbatch) and an extra stage (1x1x2 against 1x1x1) are expected to
+# agree with their reference bit for bit; they are held to TRAIN_TOL's f32
+# loss limit and ZERO_TOL's params limit, and whether the bits agree is
+# logged. The plain ring against the flash kernels at n_micro 4 is held as
+# phase 18 holds them (TRAIN_TOL); the plan's ZeRO step against its
+# stacked Adam step to ZERO_TOL, with phase 21's planted fault outside it.
+PP_STEPS = 2
+# The SSM block on 4 stacked sequence ranks against the local scan at T
+# 65,536: the same recurrence in other groupings (a 14-level scan a shard
+# and a 4-way carry against one 16-level scan), so f32 roundings of the
+# O(10) states; held relative to max|want|. Dropping the cross-shard carry
+# (each shard scanned from zero) must read far over it.
+SSM_SHAPE = dict(T=65536, d_model=1024, d_state=128, ranks=4)
+SSM_TOL = 1e-5
+
+
+def _counted(fn):
+    """``fn()`` with the flash and fused-Adam launch counts zeroed just before
+    and read just after: (result, {wrapper: launches})."""
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+
+    torch.cuda.synchronize()
+    ta.reset_launches()
+    tadam.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ta.launch_counts().items() if k in ("_flash_fwd_call",
+                                                                    "_flash_bwd_call")}
+    counts["fused_adam_flat"] = tadam.launch_counts()["fused_adam_flat"]
+    return out, counts
+
+
+def _sgd_steps(step, params, x, y, n):
+    losses = []
+    for _ in range(n):
+        params, loss = step(params, x, y)
+        losses.append(float(loss))
+    return params, losses
+
+
+def _same(la, lb, pa, pb) -> bool:
+    from tpuscratch_torch.models.transformer import _leaves
+
+    return la == lb and all(torch.equal(a, b) for a, b in zip(_leaves(pa), _leaves(pb)))
+
+
+def _held(what: str, la, lb, pa, pb, bits_expected: bool = True) -> None:
+    """Losses within TRAIN_TOL's f32 limit, params within ZERO_TOL's; logs
+    whether the two runs agree bit for bit."""
+    dl = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    dp = _param_err(pa, pb)
+    log(f"  {what}: losses {la} against {lb}, {dl:.3e} apart (limit {TRAIN_TOL['float32'][0]:g}),"
+        f" params {dp:.3e} (limit {ZERO_TOL[1]:g})"
+        + (f"; bit-identical {_same(la, lb, pa, pb)}" if bits_expected else ""))
+    if dl > TRAIN_TOL["float32"][0] or dp > ZERO_TOL[1]:
+        raise AssertionError(f"{what}: losses {dl:.3e}, params {dp:.3e} over the limits")
+
+
+def _stage_batching_bits(gen) -> dict:
+    """Whether a block's GEMMs round the same with two stages in the stage
+    dim as with one (what 1x1x2 against 1x1x1 changes): stage 0's output and
+    gradients of the projection ``x @ w`` and of the experts' first einsum
+    at a 1x1x2 tick's shapes, from one call over both stages and from a call
+    over stage 0 alone. Returns {op: (out, dx, dw) bit-equal}."""
+    from tpuscratch_torch.ops import attention as ta
+
+    def flash(a, b):  # q = a, k = v = b, causal, per-entry offsets (the dense wrappers)
+        qo = torch.zeros(a.shape[:-3], dtype=torch.int32, device=a.device)
+        return ta.flash_attention(a, b, b, causal=True, q_offset=qo, kv_offset=qo)
+
+    shapes = {"projection x @ w": ((4, 2048, 1024), (1024, 1024), (4, 2048, 1024),
+                                   lambda a, b: a @ b[..., None, :, :]),
+              "gate logits": ((8192, 1024), (1024, 4), (8192, 4), lambda a, b: a @ b),
+              "expert einsum in": ((4, 4096, 1024), (4, 1024, 4096), (4, 4096, 4096),
+                                   lambda a, b: torch.einsum("...ecd,...edf->...ecf", a, b)),
+              "expert einsum out": ((4, 4096, 4096), (4, 4096, 1024), (4, 4096, 1024),
+                                    lambda a, b: torch.einsum("...ecf,...efd->...ecd", a, b)),
+              "rms norm": ((4, 2048, 1024), (1024,), (4, 2048, 1024),
+                           lambda a, b: a * torch.rsqrt(torch.mean(torch.square(a), dim=-1,
+                                                                   keepdim=True) + 1e-6)
+                           * b[..., None, None, :]),
+              "mean over a rank's (B, S, d)": (
+                  (4, 2048, 1024), (1,), (),
+                  lambda a, b: torch.mean(torch.square(a - b[..., None, None]), dim=(-3, -2, -1))),
+              "flash fwd + bwd": ((4, 2048, 8, 128), (4, 2048, 8, 128), (4, 2048, 8, 128), flash)}
+    out = {}
+    for name, (xs, ws, gs, f) in shapes.items():
+        x, w, g = (randn((1, 1, 2) + s, gen) for s in (xs, ws, gs))
+
+        def run(n):
+            a = x[:, :, :n].clone().requires_grad_()
+            b = (w[:, :, :n] * 0.03).requires_grad_()
+            y = f(a, b)
+            y.backward(g[:, :, :n])
+            return y[:, :, 0], a.grad[:, :, 0], b.grad[:, :, 0]
+
+        out[name] = tuple(torch.equal(p, q) for p, q in zip(run(2), run(1)))
+        del x, w, g
+    return out
+
+
+def _pp_kernel_checks(gen, lead) -> dict:
+    """The flash wrappers at a pipelined tick's attention shape (``lead`` =
+    the mesh dims and the microbatch) and the fused Adam kernel at the plan's
+    flat-shard layout, each against its plain version: (wrapper -> max abs
+    error)."""
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+
+    S, H, D = 2048, 8, 128
+    q, k, v, do = (randn(lead + (S, H, D), gen) for _ in range(4))
+    qo = torch.zeros(lead, dtype=torch.int32, device=DEVICE)
+    errs = {}
+    got = ta._flash_fwd_call(q, k, v, qo, qo, True, return_state=True)
+    want = ta._flash_fwd_plain(q, k, v, qo, qo, True, True)
+    share = 0.0
+    for g, w in zip(got, want):
+        err, sh, _ = _flash_errs(g, w, torch.float32, "fwd")
+        errs["_flash_fwd_call"] = max(errs.get("_flash_fwd_call", 0.0), err)
+        share = max(share, sh)
+    o, lse = ta._normalize(*want, torch.float32)
+    delta = ta._delta(do, o)
+    for g, w in zip(ta._flash_bwd_call(q, k, v, do, lse, delta, qo, qo, True,
+                                       out_dtype=torch.float32),
+                    ta._flash_bwd_plain(q, k, v, do, lse, delta, qo, qo, True, torch.float32)):
+        err, sh, _ = _flash_errs(g, w, torch.float32, "bwd")
+        errs["_flash_bwd_call"] = max(errs.get("_flash_bwd_call", 0.0), err)
+        share = max(share, sh)
+    log(f"  flash at the tick shape lead={lead} S={S} H={H} D={D} causal, per-entry offsets: "
+        f"fwd {errs['_flash_fwd_call']:.3e}, bwd {errs['_flash_bwd_call']:.3e}, worst share of "
+        f"FLASH_TOL {share:.3f}")
+    if share > 1.0:
+        raise AssertionError("the flash kernels disagree at the pipelined tick shape")
+    del q, k, v, do, got, want, o, lse, delta
+    # the plan's flat moments: a (|pp| * flat,) vector split P((pp, dp)) on the
+    # (dp, sp, pp) = (2, 1, 2) mesh, two strides that the kernel's rows cannot
+    # walk as one, so the wrapper copies them (donate=False, as the step does)
+    shard = 4_200_448
+    mu = randn((2 * 2 * shard,), gen)
+    nu = randn((2 * 2 * shard,), gen).abs()
+    view = lambda t: t.reshape(2, 2, shard).permute(1, 0, 2).unsqueeze(1)  # noqa: E731
+    w, g = randn((2, 1, 2, shard), gen), randn((2, 1, 2, shard), gen)
+    alpha = torch.tensor([[[1e-3, 2e-3]], [[3e-3, 4e-3]]], device=DEVICE)
+    got = tadam.fused_adam_flat(w, g, view(mu), view(nu), alpha, donate=False)
+    want = tadam.fused_adam_plain(w, g, view(mu), view(nu), alpha)
+    errs["fused_adam_flat"] = _bit_err(got, want)
+    log(f"  fused_adam_flat at the plan's (pp, dp)-split shards (2, 1, 2, {shard:,}): "
+        f"bit-equal {errs['fused_adam_flat'] == 0.0}")
+    if errs["fused_adam_flat"] != 0.0:
+        raise AssertionError("fused Adam differs from its plain version at the plan's layout")
+    return errs
+
+
+def phase25_pipelined_path(gen) -> tuple[dict, dict]:
+    """The pipelined training path at config 11's model (module comment):
+    ``train_step_pp`` on 1x1x1 at n_micro 1 against ``train_step``; n_micro 4
+    on 1x1x1 with the plain ring and with the flash kernels; 1x1x2 against
+    1x1x1 at n_micro 2; ``train_step_plan`` on stacked pp2 x dp2 (batch 8 a
+    dp rank, n_micro 2): ZeRO overlap against serial (bit-identical), ZeRO
+    against the stacked Adam step (ZERO_TOL) and the planted fault (alpha x
+    0.9) outside it; every run's flash and fused-Adam launches counted (the
+    counts zeroed just before each run, read just after) and held to the
+    schedule's; the kernels against their plain versions at the tick's
+    shapes; then ``ssm_block`` on 4 stacked sequence ranks against the local
+    path. Returns (the pipelined path's launches, max abs errors)."""
+    import dataclasses
+
+    from tpuscratch_torch.bench.train_bench import default_train_setup, train_data
+    from tpuscratch_torch.comm import P, run_spmd
+    from tpuscratch_torch.models import ssm as tm
+    from tpuscratch_torch.models import zero as tz
+    from tpuscratch_torch.models.transformer import (init_adam_state, init_params,
+                                                     stack_layers, train_step, train_step_pp,
+                                                     unstack_layers)
+    from tpuscratch_torch.parallel.plan import ShardingPlan
+    from tpuscratch_torch.runtime.mesh import make_mesh, make_mesh_1d
+
+    base, batch, seq, _ = default_train_setup(on_card=True)
+    L = base.n_layers
+    axes = ("dp", "sp", "stage")
+    x, y = train_data(0, batch, seq, base.d_model, DEVICE)
+    params = init_params(0, base, DEVICE)
+    stacked = stack_layers(params)
+    total = {"_flash_fwd_call": 0, "_flash_bwd_call": 0, "fused_adam_flat": 0}
+
+    def expect(what, counts, fwd, adam=0):
+        log(f"  {what} launches: {counts} (want flash {fwd} each way, fused Adam {adam})")
+        if (counts["_flash_fwd_call"], counts["_flash_bwd_call"],
+                counts["fused_adam_flat"]) != (fwd, fwd, adam):
+            raise AssertionError(f"{what}: launches {counts}")
+        for k in total:
+            total[k] += counts[k]
+
+    # 1x1x1 at n_micro 1 against the plain dp x sp step
+    ref_p, ref_l = _sgd_steps(train_step(make_mesh((1, 1), ("dp", "sp"), DEVICE), base, lr=1e-3),
+                              params, x, y, PP_STEPS)
+    mesh1 = make_mesh((1, 1, 1), axes, DEVICE)
+    t0 = time.perf_counter()
+    (pp_p, pp_l), c = _counted(lambda: _sgd_steps(train_step_pp(mesh1, base, lr=1e-3, n_micro=1),
+                                                  stacked, x, y, PP_STEPS))
+    log(f"  train_step_pp 1x1x1 n_micro 1: {PP_STEPS} steps in {time.perf_counter() - t0:.3f} s")
+    expect("1x1x1 n_micro 1", c, L * PP_STEPS)
+    _held("1x1x1 n_micro 1 against train_step", pp_l, ref_l, unstack_layers(pp_p), ref_p)
+    del ref_p, pp_p
+
+    # n_micro 4 on 1x1x1: the plain ring against the flash kernels
+    runs = {}
+    for impl in ("xla", "pallas"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        t0 = time.perf_counter()
+        runs[impl], c = _counted(lambda: _sgd_steps(train_step_pp(mesh1, cfg, lr=1e-3, n_micro=4),
+                                                    stacked, x, y, PP_STEPS))
+        log(f"  train_step_pp 1x1x1 n_micro 4 attn_impl={impl}: {PP_STEPS} steps in "
+            f"{time.perf_counter() - t0:.3f} s")
+        if impl == "pallas":
+            expect("1x1x1 n_micro 4", c, 4 * L * PP_STEPS)
+    _held("n_micro 4 flash against the plain ring", runs["pallas"][1], runs["xla"][1],
+          runs["pallas"][0], runs["xla"][0], bits_expected=False)
+    del runs
+
+    # one stage against two at n_micro 2
+    one = _sgd_steps(train_step_pp(mesh1, base, lr=1e-3, n_micro=2), stacked, x, y, PP_STEPS)
+    t0 = time.perf_counter()
+    two, c = _counted(lambda: _sgd_steps(train_step_pp(make_mesh((1, 1, 2), axes, DEVICE), base,
+                                                       lr=1e-3, n_micro=2),
+                                         stacked, x, y, PP_STEPS))
+    log(f"  train_step_pp 1x1x2 n_micro 2: {PP_STEPS} steps in {time.perf_counter() - t0:.3f} s")
+    expect("1x1x2 n_micro 2", c, 3 * (L // 2) * PP_STEPS)
+    _held("1x1x2 against 1x1x1 at n_micro 2", two[1], one[1], two[0], one[0])
+    del one, two, x, y, params
+    log("  stage batching, (out, dx, dw) bit-equal with two stages in a call and with one: "
+        + "; ".join(f"{k} {v}" for k, v in _stage_batching_bits(gen).items()))
+    torch.cuda.empty_cache()
+
+    # the plan's step on stacked pp2 x dp2
+    dp, pp = 2, 2
+    pmesh = make_mesh((dp, 1, pp), ("dp", "sp", "pp"), DEVICE)
+    serial = ShardingPlan(pmesh, pp="pp", n_micro=2, overlap=False)
+    overlap = ShardingPlan(pmesh, pp="pp", n_micro=2)
+    px, py = train_data(0, dp * batch, seq, base.d_model, DEVICE)
+    ticks = 2 + pp - 1
+
+    def plan_run(plan, zero=True):
+        opt = tz.init_plan_zero_state(stacked, plan) if zero else init_adam_state(stacked)
+        t0 = time.perf_counter()
+        out = _run_steps(tz.train_step_plan(plan, base, zero=zero), stacked, opt, px, py,
+                         PP_STEPS)
+        log(f"  train_step_plan pp2 x dp2 zero={zero} overlap_blocks={plan.overlap_blocks}: "
+            f"{PP_STEPS} steps in {time.perf_counter() - t0:.3f} s, losses {out[2]}")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    (sp_, so, sl), c = _counted(lambda: plan_run(serial))
+    expect("plan serial", c, ticks * (L // pp) * PP_STEPS, PP_STEPS)
+    (op_, oo, ol), c = _counted(lambda: plan_run(overlap))
+    expect("plan overlap", c, ticks * (L // pp) * PP_STEPS, overlap.prefetch_blocks * PP_STEPS)
+    same = _same(ol, sl, op_, sp_) and torch.equal(oo["mu_flat"], so["mu_flat"]) and \
+        torch.equal(oo["nu_flat"], so["nu_flat"])
+    log(f"  plan overlap against serial: bit-identical {same}; peak device memory "
+        f"{torch.cuda.max_memory_allocated():,} B")
+    if not same:
+        raise AssertionError("the plan's overlap schedule is not bit-identical to the serial one")
+    del op_, oo, so
+    (rp, _, rl), c = _counted(lambda: plan_run(serial, zero=False))
+    expect("plan zero=False", c, ticks * (L // pp) * PP_STEPS)
+    dl = max(abs(a - b) / abs(b) for a, b in zip(sl, rl))
+    dpar = _param_err(sp_, rp)
+    log(f"  plan ZeRO against the stacked Adam step: losses {dl:.3e} (limit {ZERO_TOL[0]:g}), "
+        f"params {dpar:.3e} (limit {ZERO_TOL[1]:g}); bit-identical {_same(sl, rl, sp_, rp)}")
+    if dl > ZERO_TOL[0] or dpar > ZERO_TOL[1]:
+        raise AssertionError(f"plan ZeRO differs from the stacked Adam step: {dl:.3e}, {dpar:.3e}")
+    real = tz.fused_adam_tree
+    tz.fused_adam_tree = lambda p, g, m, v, alpha, *a, **k: real(p, g, m, v, alpha * 0.9, *a, **k)
+    try:
+        bp, _, bl = plan_run(serial)
+    finally:
+        tz.fused_adam_tree = real
+    bdl, bdp = abs(bl[1] - rl[1]) / abs(rl[1]), _param_err(bp, rp)
+    log(f"  plan planted fault (alpha x 0.9): second loss {bdl:.3e}, params {bdp:.3e} apart")
+    if bdl <= ZERO_TOL[0] or bdp <= ZERO_TOL[1]:
+        raise AssertionError("the planted fault passes a ZeRO limit")
+    del sp_, rp, bp, px, py, stacked
+    torch.cuda.empty_cache()
+    errs = _pp_kernel_checks(gen, (dp, 1, pp, batch // 2))
+    torch.cuda.empty_cache()
+
+    # the SSM block: 4 stacked sequence ranks against the local scan
+    sh = SSM_SHAPE
+    sparams = tm.init_params(0, tm.SSMConfig(d_model=sh["d_model"], d_state=sh["d_state"]),
+                             DEVICE)
+    sx = randn((sh["T"], sh["d_model"]), gen)
+    smesh = make_mesh_1d("seq", sh["ranks"], DEVICE)
+    sharded = run_spmd(smesh, lambda p, xx: tm.ssm_block(p, xx, "seq"), (P(), P("seq")),
+                       P("seq"))
+    want = tm.ssm_block(sparams, sx, None)
+    got = sharded(sparams, sx)
+    scale = float(want.abs().max())
+    err = max_err(got, want) / scale
+    ms = {"sharded": device_ms(lambda: sharded(sparams, sx), 5),
+          "local": device_ms(lambda: tm.ssm_block(sparams, sx, None), 5)}
+    cut = run_spmd(smesh, lambda p, xx: tm.ssm_block(p, xx, None), (P(), P("seq")), P("seq"))
+    fault = max_err(cut(sparams, sx), want) / scale
+    log(f"  ssm_block T={sh['T']} d_model={sh['d_model']} d_state={sh['d_state']} on "
+        f"{sh['ranks']} stacked ranks against the local scan: {err:.3e} of max|want| "
+        f"{scale:.3f} (limit {SSM_TOL:g}); the carry dropped reads {fault:.3e}; device ms "
+        f"sharded {ms['sharded']:.3f}, local {ms['local']:.3f}")
+    if not err <= SSM_TOL or fault <= SSM_TOL:
+        raise AssertionError(f"ssm_block sharded {err:.3e}, carry dropped {fault:.3e}")
+    return total, errs
+
+
+def phase26_configs11pp_14() -> list:
+    """Config 11's pp row and config 14 through ``bench.record`` (steps and
+    repeats cut, each cut in the row's ``reduced``), then the bubble bench at
+    M = 4, 8 and 32 on 4 stacked stages."""
+    from tpuscratch_torch.bench.pipeline_bench import bench_pipeline_bubble
+    from tpuscratch_torch.bench.record import config11_pp_row, config14_plan_overlap
+
+    out: list = []
+    config11_pp_row(out, iters=1, steps=PP_STEPS, device=DEVICE)
+    torch.cuda.empty_cache()
+    config14_plan_overlap(out, iters=1, steps=PP_STEPS, device=DEVICE)
+    torch.cuda.empty_cache()
+    for r in out:
+        log(f"  config {r['config']} {r['metric']}: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()
+            if k not in ("config", "metric", "platform")))
+        keys = [k for k in r if k.startswith("tokens_per_s")] + ["value"]
+        if not all(math.isfinite(r[k]) and r[k] > 0 for k in keys):
+            raise AssertionError(f"config {r['config']} {r['metric']}: {r}")
+    for M in (4, 8, 32):
+        b = bench_pipeline_bubble(n_micro=M, device=DEVICE)
+        log(f"  {b.summary()}")
+        if not (b.proxy and math.isfinite(b.measured_bubble) and b.wall_s > 0):
+            raise AssertionError(f"bubble bench M={M}: {b}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2820,6 +3183,14 @@ def main() -> int:
     phase22_config13()
     log("== phase 23: the copy probes (256x512x512 f32) and the measured copy rate")
     errs8, rows8, counts8 = phase23_copy_probes()
+    torch.cuda.empty_cache()
+    log("== phase 25: pipelined training path (train_step_pp, train_step_plan pp2 x dp2, "
+        "config 11's model) and the SSM block")
+    counts9, errs9 = phase25_pipelined_path(gen)
+    torch.cuda.empty_cache()
+    log("== phase 26: config 11's pp row, config 14 (plan overlap, pp x dp in {1, 2}^2) and the "
+        "bubble bench")
+    phase26_configs11pp_14()
 
     from tpuscratch_torch.bench import dma_bound as tb
     from tpuscratch_torch.ops import adam as tadam
@@ -2881,12 +3252,22 @@ def main() -> int:
     errs.update(errs7)
     errs.update(errs8)
     rows += rows2 + rows3 + rows4 + rows5 + rows6 + rows7 + rows8
+    # the pipelined path (phase 25) launches the flash and fused Adam kernels too:
+    # their launches are the sum over the paths that drive them, listed by path
+    by_path = {name: {"phase 18" if "flash" in name else "phase 21": counts[name],
+                      "phase 25": counts9[name]} for name in counts9}
+    for name, n in counts9.items():
+        if n == 0:
+            raise AssertionError(f"the pipelined path never launched {name}")
+        counts[name] += n
+        errs[name] = max(errs[name], errs9[name])
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
         kernels.append({
             "name": name, "route": "cuda", "source": f"tpuscratch_torch/csrc/{src}.cu",
             "replaces": tpu, "launches": counts[name], "max_abs_err": errs[name],
+            **({"launches_by_path": by_path[name]} if name in by_path else {}),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["shape"],
             **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),

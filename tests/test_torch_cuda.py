@@ -11,7 +11,8 @@ for bit — also against the plain path run on the CPU. The dot kernels
 sum in another order than their plain versions (tolerance below); fill
 and iota2d are bit-equal. The fused Adam kernel (``adam.cu``) and the
 copy probes (``copy_probes.cu``) round every operation as their plain
-versions do: bit-equal, also for the ZeRO step that runs the kernel.
+versions do: bit-equal, also for the ZeRO step that runs the kernel, and
+the pipelined plan step's overlap schedule is bit-equal to its serial one.
 
 Imports no JAX, so it runs on a card host without it:
 
@@ -1316,6 +1317,42 @@ def test_zero_step_card_equals_cpu(card):
     assert abs(lc - lg) <= 1e-5 * abs(lc)
     for a, b in zip(pc, pg):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("zero", [True, False])
+def test_plan_step_card_equals_cpu_and_overlap_is_bitwise(card, zero):
+    # the pipelined plan step (pp2 x dp2, n_micro 2, flash ring) on the card:
+    # against the CPU as the ZeRO step is held above, overlap against serial
+    # bit for bit, and its launches: 3 ticks x 1 layer a stage a step, fused
+    # Adam once a step serial and once a block (4) with overlap
+    from tpuscratch_torch.models import transformer as tt
+    from tpuscratch_torch.models import zero as tz
+    from tpuscratch_torch.parallel.plan import ShardingPlan
+
+    cfg = tt.TransformerConfig(d_model=16, n_heads=2, n_experts=2, d_ff=32, n_layers=2,
+                               attn_impl="pallas")
+    x, y = (_rand((4, 16, 16), s, "cpu") for s in (3, 4))
+    out = {}
+    for dev, overlap in (("cpu", False), (card, False), (card, True)):
+        plan = ShardingPlan(make_mesh((2, 1, 2), ("dp", "sp", "pp"), device=dev), pp="pp",
+                            n_micro=2, overlap=overlap)
+        p = tt.stack_layers(tt.init_params(0, cfg, dev))
+        o = tz.init_plan_zero_state(p, plan) if zero else tt.init_adam_state(p)
+        step = tz.train_step_plan(plan, cfg, lr=0.01, zero=zero)
+        ta.reset_launches()
+        tadam.reset_launches()
+        for _ in range(2):
+            p, o, loss = step(p, o, x.to(dev), y.to(dev))
+        out[(str(dev), overlap)] = (float(loss), [t.cpu() for t in tt._leaves(p)],
+                                    ta.launch_counts()["_flash_fwd_call"],
+                                    tadam.launch_counts()["fused_adam_flat"])
+    (lc, pc, _, _), (ls, ps, fs, as_), (lo, po, fo, ao) = out.values()
+    assert abs(lc - ls) <= 1e-5 * abs(lc)
+    for a, b in zip(pc, ps):
+        assert float((a - b).abs().max()) <= 1e-4
+    assert ls == lo and all(torch.equal(a, b) for a, b in zip(ps, po))
+    assert (fs, fo) == (6, 6)
+    assert (as_, ao) == ((2, 8) if zero else (0, 0))
 
 
 @pytest.mark.parametrize("make,plain", [

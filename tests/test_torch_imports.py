@@ -61,7 +61,10 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.parallel.ulysses", "tpuscratch_torch.bench.train_bench",
                 "tpuscratch_torch.bench.attention_bench", "tpuscratch_torch.bench.attn_bwd_bench",
                 "tpuscratch_torch.ops.adam", "tpuscratch_torch.models.zero",
-                "tpuscratch_torch.bench.adam_bench", "tpuscratch_torch.bench.dma_bound"):
+                "tpuscratch_torch.bench.adam_bench", "tpuscratch_torch.bench.dma_bound",
+                "tpuscratch_torch.parallel.plan", "tpuscratch_torch.parallel.pipeline",
+                "tpuscratch_torch.parallel.ssm", "tpuscratch_torch.models.ssm",
+                "tpuscratch_torch.bench.train_ablation", "tpuscratch_torch.bench.pipeline_bench"):
         assert mod in got["modules"]
 
 

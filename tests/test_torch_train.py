@@ -180,8 +180,12 @@ def test_bench_train_on_the_cpu():
     for opt in ("sgd", "adam"):
         r = bench_train(mesh, tc, iters=1, optimizer=opt, fence="block")
         assert r.items == 2 * 2 * 16 * 2 and r.items_per_s > 0
-    # the ZeRO step runs since it was ported; plans still wait for A13d
+    # the ZeRO step and the plan-composed (pipelined) step run since they were ported
     r = bench_train(mesh, tc, iters=1, zero=True, optimizer="adam", fence="block")
     assert r.items == 2 * 2 * 16 * 2 and r.items_per_s > 0
-    with pytest.raises(NotImplementedError, match="A13d"):
-        bench_train(mesh, tc, iters=1, optimizer="adam", plan=object())
+    from tpuscratch_torch.parallel.plan import ShardingPlan
+
+    plan = ShardingPlan(make_mesh((1, 1, 1), ("dp", "sp", "pp"), device="cpu"), pp="pp",
+                        n_micro=2)
+    r = bench_train(cfg=tc, iters=1, optimizer="adam", fence="block", plan=plan)
+    assert r.items == 2 * 8 * 2 and r.items_per_s > 0 and "adam-pp1-M2-ov4" in r.name

@@ -376,8 +376,14 @@ def test_levers_not_ported_raise():
     for kw in ({"guard": (1.0, 2.0)}, {"counter": object()}):
         with pytest.raises(NotImplementedError, match="A10"):
             tz.train_step_zero(mesh, tc, **kw)
-    with pytest.raises(NotImplementedError, match="A13d"):
-        train_throughput_program(mesh, tc, 1, optimizer="adam", zero=True, plan=object())
+    # the plan-composed step runs since it was ported; its levers raise as well
+    from tpuscratch_torch.parallel.plan import ShardingPlan
+
+    plan = ShardingPlan(make_mesh((1, 1, 1), ("dp", "sp", "pp"), device="cpu"), pp="pp",
+                        n_micro=2)
+    for kw in ({"guard": (1.0, 2.0)}, {"counter": object()}):
+        with pytest.raises(NotImplementedError, match="A10"):
+            tz.train_step_plan(plan, tc, **kw)
 
 
 def test_config13_emits_the_jax_rows_keys():

@@ -1,14 +1,16 @@
-"""BASELINE configs 2, 3, 4, 6, 9, 10, 11, 12 and 13 on the card.
+"""BASELINE configs 2, 3, 4, 6, 9, 10, 11, 12, 13 and 14 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,9,10,11,12,13]``
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,9,10,11,12,13,14]``
 prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
 2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 9 the 3D
 7-point stencil at 256x512x512, 10 the DMA-halo stencil at 1024^2, 11 the
 composed train step (the 4-layer MoE transformer at d_model 1024, batch 8,
-seq 2048), 12 serving decode (the same model behind the
-continuous-batching engine), 13 replicated against ZeRO-sharded training of
-that model at dp 1, 2 and 4 stacked on the card, and the accumulation sweep.
+seq 2048) and its pipelined step on a 1x1x1 mesh, 12 serving decode (the
+same model behind the continuous-batching engine), 13 replicated against
+ZeRO-sharded training of that model at dp 1, 2 and 4 stacked on the card,
+and the accumulation sweep, 14 the plan-composed ZeRO step at pp x dp in
+{1, 2}^2, serial against the overlap schedule.
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught: a failing method, impl or re-measure fails the run.
 """
@@ -192,14 +194,14 @@ def config6_flash_attention(out: list, iters: int = 3, device=None) -> list:
     return results
 
 
-def config11_train(out: list, iters: int = 3, device=None) -> list:
+def config11_train(out: list, iters: int = 3, device=None, pp_row: bool = True) -> list:
     """Composed-training throughput: tokens/s of the full dp x sp train
     step (ring attention through the flash kernels, expert MoE, gradients,
     SGD), f32 and bf16, on a 1x1 mesh, with the FLOP estimate; the card
     takes the JAX package's TPU shapes (the 4-layer model at d_model 1024,
-    batch 8, seq 2048, 20 steps), the CPU its CPU shapes. A failing dtype
-    fails the config. The pipelined row waits for ROADMAP A13d. Returns the
-    two results."""
+    batch 8, seq 2048, 20 steps), the CPU its CPU shapes. Then, with
+    ``pp_row``, the pipelined row (:func:`config11_pp_row`). A failing row
+    fails the config. Returns the results."""
     from tpuscratch_torch.bench.train_bench import (
         bench_train,
         default_train_setup,
@@ -223,7 +225,35 @@ def config11_train(out: list, iters: int = 3, device=None) -> list:
               p50_s=r.p50, flops_per_token=fpt, model_tflops=r.items_per_s * fpt / 1e12,
               detail=r.name)
         results.append(r)
+    if pp_row:
+        results.append(config11_pp_row(out, iters=iters, device=dev))
     return results
+
+
+def config11_pp_row(out: list, iters: int = 3, steps: int | None = None, device=None):
+    """Config 11's pipelined row, ``train_pp_tokens_per_s``: tokens/s of the
+    3-axis step (``train_step_pp``, SGD) at config 11's model on the
+    degenerate 1x1x1 ("dp", "sp", "stage") mesh with ``n_micro`` 4 (2 on the
+    CPU): the schedule's overhead against the plain step. ``reduced`` lists
+    any cut of the JAX row's steps (20 on the card) or repeats (3). Returns
+    the result."""
+    from tpuscratch_torch.bench.train_ablation import pp_row_bench
+    from tpuscratch_torch.bench.train_bench import default_train_setup
+    from tpuscratch_torch.runtime.mesh import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    base, batch, seq, full_steps = default_train_setup(on_card)
+    steps = full_steps if steps is None else steps
+    r = pp_row_bench(base, batch=batch, seq=seq, steps=steps, n_micro=4 if on_card else 2,
+                     iters=iters, fence="readback" if on_card else "block", device=dev)
+    print(f"# {r.summary()} -> {r.items_per_s:.3e} tok/s", file=sys.stderr)
+    reduced = [f"{name} {got} (JAX row: {want})" for name, got, want in
+               (("steps", steps, full_steps), ("iters", iters, 3)) if got != want]
+    _emit(out, make_mesh((1, 1, 1), ("dp", "sp", "stage"), dev), config=11,
+          metric="train_pp_tokens_per_s", value=r.items_per_s, p50_s=r.p50, detail=r.name,
+          reduced=reduced)
+    return r
 
 
 def _median_of(runs, key):
@@ -410,14 +440,119 @@ def config13_zero_train(out: list, iters: int = 3, steps: int | None = None,
     return {"rows": rows, "sweep": sweep}
 
 
+def config14_plan_overlap(out: list, iters: int = 2, steps: int | None = None, device=None,
+                          cfg=None, seq: int | None = None,
+                          batch_per_dp: int | None = None) -> list:
+    """The overlap ablation of the plan-composed ZeRO step: tokens/s and
+    step time of ``bench_train(plan=...)`` at pp x dp in {1, 2}^2 (ranks
+    stacked on the one device; ``n_micro`` 2 with two stages, else 1),
+    serial (one flat reduce-scatter -> update -> all-gather) against the
+    overlap schedule (``prefetch_blocks`` block chains), each beside one
+    step's wire bytes and reduce-scatter / all-gather calls, counted per
+    collective call with the JAX package's ledger formulas
+    (``comm.count_wire_bytes``: the all-reduce, reduce-scatter and
+    all-gather legs; the JAX row reads every collective off the compiled
+    program). The two schedules must move the same bytes, or the config
+    fails. ``achieved_flops_per_s_*`` reckons FLOPs as
+    ``train_flops_per_token`` times tokens/s; with ``TPUSCRATCH_PEAK_FLOPS``
+    set (the card's peak, FLOP/s) each row also carries
+    ``achieved_fraction_*``. On the stacked mesh the chains run in order on
+    one stream, so ``overlap_speedup`` measures the cost of the
+    decomposition, not an overlap. The card takes the JAX package's TPU
+    shapes (config 11's model, batch 8 a dp rank, seq 2048, 10 steps), the
+    CPU its CPU shapes; ``cfg``, ``seq`` and ``batch_per_dp`` replace them.
+    ``reduced`` lists every cut or replacement. Nothing is caught: a failing
+    point fails the config. Returns the rows."""
+    import os
+
+    from tpuscratch_torch.bench.train_bench import (bench_train, default_train_setup,
+                                                    train_flops_per_token)
+    from tpuscratch_torch.models.transformer import (TransformerConfig, init_params,
+                                                     stack_layers)
+    from tpuscratch_torch.models.zero import (init_plan_zero_state, init_zero_adam_state,
+                                              train_step_plan, train_step_zero)
+    from tpuscratch_torch.parallel.plan import ShardingPlan
+    from tpuscratch_torch.runtime.mesh import resolve_device
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        jcfg, jbatch, jseq, _ = default_train_setup(True)
+        full_steps = 10
+    else:
+        jcfg = TransformerConfig(d_model=512, n_heads=4, n_experts=2, d_ff=1024, n_layers=2,
+                                 capacity_factor=2.0)
+        jseq, jbatch, full_steps = 64, 4, 3
+    cfg = jcfg if cfg is None else cfg
+    seq = jseq if seq is None else seq
+    batch_per_dp = jbatch if batch_per_dp is None else batch_per_dp
+    steps = full_steps if steps is None else steps
+    def model(c):
+        return f"d_model {c.d_model} d_ff {c.d_ff} L{c.n_layers} e{c.n_experts} {c.attn_impl}"
+
+    reduced = [f"{name} {got} (JAX row: {want})" for name, got, want in
+               (("steps", steps, full_steps), ("iters", iters, 2),
+                ("model", model(cfg), model(jcfg)), ("seq", seq, jseq),
+                ("batch a dp rank", batch_per_dp, jbatch)) if got != want]
+    peak = float(os.environ.get("TPUSCRATCH_PEAK_FLOPS", "0"))
+    fpt = train_flops_per_token(cfg, seq)
+    fence = "readback" if on_card else "block"
+    rows = []
+    for pp in (1, 2):
+        for dpn in (1, 2):
+            mesh = make_mesh((dpn, 1, pp), ("dp", "sp", "pp"), dev)
+            n_micro = 2 if pp > 1 else 1
+            batch = dpn * batch_per_dp
+            params = init_params(0, cfg, dev)
+            x = torch.zeros(batch, seq, cfg.d_model, device=dev)
+            row = {"pp": pp, "n_micro": n_micro}
+            for ov in (False, True):
+                tag = "overlap" if ov else "serial"
+                plan = ShardingPlan(mesh, pp="pp", n_micro=n_micro, overlap=ov)
+                if plan.pipelined:
+                    st = stack_layers(params)
+                    wb = _sync_bytes(train_step_plan(plan, cfg), st, init_plan_zero_state(st, plan),
+                                     x, x)
+                    del st
+                else:
+                    wb = _sync_bytes(train_step_zero(mesh, cfg, overlap_blocks=plan.overlap_blocks),
+                                     params, init_zero_adam_state(params, dpn), x, x)
+                row[f"wire_bytes_{tag}"] = wb.total
+                row[f"rs_ops_{tag}"] = wb.ops.get("reduce_scatter", 0)
+                row[f"ag_ops_{tag}"] = wb.ops.get("all_gather", 0)
+                r = bench_train(plan=plan, cfg=cfg, batch=batch, seq=seq, steps=steps,
+                                iters=iters, fence=fence, optimizer="adam", zero=True)
+                print(f"# {r.summary()} -> {r.items_per_s:.3e} tok/s", file=sys.stderr)
+                row[f"tokens_per_s_{tag}"] = r.items_per_s
+                row[f"step_s_{tag}"] = r.p50 / steps
+                row[f"achieved_flops_per_s_{tag}"] = fpt * r.items_per_s
+                if peak > 0:
+                    row[f"achieved_fraction_{tag}"] = fpt * r.items_per_s / peak
+            del params, x
+            if row["wire_bytes_overlap"] != row["wire_bytes_serial"]:
+                raise AssertionError(f"config 14 pp={pp} dp={dpn}: wire bytes diverged "
+                                     f"{row['wire_bytes_serial']} -> {row['wire_bytes_overlap']}")
+            row["overlap_speedup"] = row["tokens_per_s_overlap"] / row["tokens_per_s_serial"]
+            rows.append(_emit(
+                out, mesh, config=14, metric=f"plan_overlap_pp{pp}_dp{dpn}_tokens_per_s",
+                value=row["tokens_per_s_overlap"],
+                detail=(f"overlap {row['overlap_speedup']:.2f}x serial; wire bytes EQUAL "
+                        f"({row['rs_ops_serial']}+{row['ag_ops_serial']} -> "
+                        f"{row['rs_ops_overlap']}+{row['ag_ops_overlap']} RS+AG calls); "
+                        f"achieved FLOP/s = train_flops_per_token {fpt:.4g} x tokens/s"),
+                **row, reduced=reduced))
+    return rows
+
+
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
            6: config6_flash_attention, 9: config9_stencil3d, 10: config10_dma_halo,
-           11: config11_train, 12: config12_decode, 13: config13_zero_train}
+           11: config11_train, 12: config12_decode, 13: config13_zero_train,
+           14: config14_plan_overlap}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,6,9,10,11,12,13",
+    ap.add_argument("--configs", default="2,3,4,6,9,10,11,12,13,14",
                     help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []

@@ -7,8 +7,10 @@ update) end to end. There, ``steps`` steps are one compiled scan; here
 they are an eager loop, each step reading the previous one's parameters,
 the whole loop fenced. ``optimizer`` "sgd" or "adam"; ``zero=True`` the
 ZeRO step (``models.zero``, Adam with dp-sharded moments through the fused
-kernel), ``accum_steps=k`` its deferred-sync accumulation; ``plan`` waits
-for ROADMAP A13d.
+kernel), ``accum_steps=k`` its deferred-sync accumulation; ``plan`` (a
+``parallel.plan.ShardingPlan``) the plan-composed step: a pipelined plan
+trains the stacked layers with Adam through ``models.zero.train_step_plan``,
+another threads the plan's overlap blocks into the ZeRO step.
 
 FLOP accounting (reported beside tokens/s): active parameters a token =
 4 d^2 (attention projections) + capacity_factor * 2 d d_ff (the routed
@@ -30,10 +32,16 @@ from tpuscratch_torch.models.transformer import (
     TransformerConfig,
     init_adam_state,
     init_params,
+    stack_layers,
     train_step,
     train_step_adam,
 )
-from tpuscratch_torch.models.zero import init_zero_adam_state, train_step_zero
+from tpuscratch_torch.models.zero import (
+    init_plan_zero_state,
+    init_zero_adam_state,
+    train_step_plan,
+    train_step_zero,
+)
 from tpuscratch_torch.runtime.mesh import StackedMesh, make_mesh
 
 
@@ -53,19 +61,38 @@ def train_throughput_program(mesh: StackedMesh, cfg: TransformerConfig, steps: i
     fresh moments inside the program and carries them through;
     ``zero=True`` (Adam only) runs the ZeRO step with fresh dp-sharded
     moments, and ``accum_steps=k`` (ZeRO only) shapes x and y as ``(k,
-    batch, seq, d)`` and syncs once a step."""
+    batch, seq, d)`` and syncs once a step.
+
+    ``plan`` (over ``mesh``) selects the plan-composed program: a pipelined
+    plan runs ``train_step_plan`` (Adam, ZeRO moments with ``zero``) on the
+    ``stack_layers`` layout, with fresh moments; another threads
+    ``plan.overlap_blocks`` into the ZeRO step."""
     if optimizer not in ("sgd", "adam"):
         raise ValueError(f"optimizer must be sgd|adam, got {optimizer!r}")
     if zero and optimizer != "adam":
         raise ValueError("zero=True requires optimizer='adam'")
     if accum_steps > 1 and not zero:
         raise ValueError("accum_steps > 1 is the ZeRO deferred-sync path")
-    if plan is not None:
-        raise NotImplementedError("plan-composed steps are not ported to tpuscratch_torch yet "
-                                  "(ROADMAP A13d)")
-    if zero:
-        step = train_step_zero(mesh, cfg, lr=lr, accum_steps=accum_steps)
-        n_dp = mesh.shape[mesh.axis_names.index("dp")]
+    overlap_blocks = plan.overlap_blocks if plan is not None else 0
+    if plan is not None and plan.pipelined:
+        if accum_steps != 1:
+            raise ValueError("a pipelined plan already microbatches through n_micro; "
+                             "accum_steps must be 1")
+        if optimizer != "adam":
+            raise ValueError("a pipelined plan trains with adam")
+        step = train_step_plan(plan, cfg, lr=lr, zero=zero)
+
+        def run(params, x, y):
+            opt = init_plan_zero_state(params, plan) if zero else init_adam_state(params)
+            loss = None
+            for _ in range(steps):
+                params, opt, loss = step(params, opt, x, y)
+            return params, loss
+    elif zero:
+        dp, sp = (plan.dp, plan.sp) if plan is not None else ("dp", "sp")
+        step = train_step_zero(mesh, cfg, lr=lr, dp=dp, sp=sp, accum_steps=accum_steps,
+                               overlap_blocks=overlap_blocks)
+        n_dp = mesh.shape[mesh.axis_names.index(dp)]
 
         def run(params, x, y):
             opt = init_zero_adam_state(params, n_dp)
@@ -123,8 +150,11 @@ def bench_train(mesh: Optional[StackedMesh] = None, cfg: Optional[TransformerCon
                 plan=None, device=None) -> BenchResult:
     """tokens/s of the composed train step; items = tokens processed. The
     mesh defaults to 1x1 on ``device`` (the card unless the caller asks for
-    the CPU). The first run is the correctness gate: its loss must be
-    finite."""
+    the CPU); ``plan`` brings its own mesh, and a pipelined plan stacks the
+    layers and streams ``plan.n_micro`` microbatches a step. The first run
+    is the correctness gate: its loss must be finite."""
+    if plan is not None:
+        mesh = plan.mesh
     if mesh is None:
         mesh = make_mesh((1, 1), ("dp", "sp"), device)
     on_card = mesh.device.type == "cuda"
@@ -139,12 +169,19 @@ def bench_train(mesh: Optional[StackedMesh] = None, cfg: Optional[TransformerCon
                                     accum_steps=accum_steps, plan=plan)
     x, y = train_data(seed, batch, seq, cfg.d_model, mesh.device, accum_steps)
     params = init_params(seed, cfg, mesh.device)
+    pipelined = plan is not None and plan.pipelined
+    if pipelined:
+        params = stack_layers(params)
     _, loss = prog(params, x, y)
     if not bool(torch.isfinite(loss)):
         raise AssertionError(f"train step produced loss {float(loss)}")
     mesh_tag = "x".join(str(s) for s in mesh.shape)
     opt_tag = (f"{'zero-' if zero else ''}{optimizer}"
                + (f"-accum{accum_steps}" if accum_steps > 1 else ""))
+    if plan is not None:
+        ov = plan.overlap_blocks
+        opt_tag += ((f"-pp{plan.pp_size}-M{plan.n_micro}" if pipelined else "")
+                    + (f"-ov{ov}" if ov else "-serial"))
     return time_device(
         prog, params, x, y, iters=iters, warmup=1, fence=fence,
         name=(f"train d{cfg.d_model} ff{cfg.d_ff} L{cfg.n_layers} e{cfg.n_experts} "

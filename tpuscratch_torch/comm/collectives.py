@@ -46,6 +46,8 @@ class WireBytes:
     all_reduce: float = 0.0
     reduce_scatter: float = 0.0
     all_gather: float = 0.0
+    #: calls by leg (the JAX ledger's ``counts()`` of a compiled program)
+    ops: dict = dataclasses.field(default_factory=dict)
 
     @property
     def grad(self) -> float:
@@ -93,6 +95,7 @@ def _tally(leg: str, x: torch.Tensor, n: int) -> None:
         wire = float((n - 1) * payload)
     for wb in _counting:
         setattr(wb, leg, getattr(wb, leg) + wire)
+        wb.ops[leg] = wb.ops.get(leg, 0) + 1
 
 
 class _Front:

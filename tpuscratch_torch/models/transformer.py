@@ -1,10 +1,10 @@
 """The mini MoE transformer: configuration, parameters, forward and training.
 
-The twin of ``tpuscratch.models.transformer`` (its pipeline steps wait for
-ROADMAP A13d; the ZeRO step is ``models.zero``). ``init_params`` makes the same numpy draws,
-so a seed gives the same arrays as the JAX package; ``params_from_numpy``
-and ``adam_state_from_numpy`` carry trees made elsewhere (the JAX
-package's, as numpy arrays) onto a device.
+The twin of ``tpuscratch.models.transformer`` (the ZeRO steps are
+``models.zero``). ``init_params`` makes the same numpy draws, so a seed
+gives the same arrays as the JAX package; ``params_from_numpy`` and
+``adam_state_from_numpy`` carry trees made elsewhere (the JAX package's, as
+numpy arrays) onto a device.
 
 One training step over a 2D stacked mesh ("dp", "sp"): batch split over
 "dp", sequence over "sp"; attention is ring attention over "sp" (dense
@@ -16,6 +16,11 @@ loss with torch's autograd (the collectives are differentiable torch
 ops), then ``_grad_reduce`` totals each leaf's per-copy gradients into the
 logical one. A step returns new parameters (and optimizer state); nothing
 is updated in place.
+
+The pipelined steps (``train_step_pp``, ``train_step_pp_adam``) add a third
+axis, "stage": the layers are stacked (``stack_layers``) and split over it,
+and the local batch streams through the GPipe schedule
+(``parallel.pipeline.gpipe_scan``) in ``n_micro`` microbatches.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from tpuscratch_torch.comm.collectives import allreduce_sum
 from tpuscratch_torch.comm.spmd import P, axis_size, current_mesh, run_spmd
 from tpuscratch_torch.parallel.expert import expert_parallel_ffn
+from tpuscratch_torch.parallel.pipeline import gpipe_scan
 from tpuscratch_torch.parallel.ring_attention import ring_attention
 from tpuscratch_torch.parallel.ulysses import ulysses_attention
 from tpuscratch_torch.runtime.mesh import StackedMesh, resolve_device
@@ -295,15 +301,21 @@ def _loss(params, x, y, cfg: TransformerConfig, sp: str, dp: str) -> torch.Tenso
     return _pmean(mse + cfg.aux_coef * aux.float(), (dp, sp))
 
 
-def _value_and_grad(params, x, y, cfg: TransformerConfig, sp: str, dp: str):
-    """(loss ``(*mesh)``, per-copy gradients): every rank seeds its own copy
-    of the loss with 1, as each JAX rank does under shard_map, and autograd
-    routes the cross-rank terms back through the collectives."""
+def _value_and_grad_of(loss_fn, params, x, y):
+    """(loss ``(*mesh)``, per-copy gradients) of ``loss_fn(params, x, y)``:
+    every rank seeds its own copy of the loss with 1, as each JAX rank does
+    under shard_map, and autograd routes the cross-rank terms back through
+    the collectives."""
     leaves = [w.detach().requires_grad_() for w in _leaves(params)]
     with torch.enable_grad():
-        loss = _loss(_unflatten(params, leaves), x, y, cfg, sp, dp)
+        loss = loss_fn(_unflatten(params, leaves), x, y)
         grads = torch.autograd.grad(loss.sum(), leaves)
     return loss.detach(), _unflatten(params, grads)
+
+
+def _value_and_grad(params, x, y, cfg: TransformerConfig, sp: str, dp: str):
+    """:func:`_value_and_grad_of` of the dp x sp loss."""
+    return _value_and_grad_of(lambda p, xs, ys: _loss(p, xs, ys, cfg, sp, dp), params, x, y)
 
 
 def _grad_reduce(grads, dp: str, sp: str):
@@ -465,3 +477,154 @@ def train_step_adam(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-3,
     body = train_step_adam_fn(cfg, lr, b1, b2, eps, sp=sp, dp=dp, with_grad_norm=with_grad_norm)
     out = (pspec, ospec, P(), P()) if with_grad_norm else (pspec, ospec, P())
     return run_spmd(mesh, body, (pspec, ospec, P(dp, sp), P(dp, sp)), out)
+
+
+# ---- the pipelined steps (dp x sp x stage) -------------------------------------------
+
+
+def stack_layers(params: dict) -> dict:
+    """The per-layer dicts stacked into one dict of ``(n_layers, ...)``
+    tensors: the layout the stage axis splits (leading dim = layer = stage
+    ownership)."""
+    layers = params["layers"]
+    return {"layers": {k: torch.stack([p[k] for p in layers]) for k in layers[0]}}
+
+
+def unstack_layers(stacked: dict) -> dict:
+    """The inverse of :func:`stack_layers`."""
+    sl = stacked["layers"]
+    n = next(iter(sl.values())).shape[0]
+    return {"layers": [{k: sl[k][i] for k in sl} for i in range(n)]}
+
+
+def param_spec_pp(cfg: TransformerConfig, stage: str = "stage", dp: str = "dp") -> dict:
+    """PartitionSpec tree for :func:`stack_layers`' output: every leaf split
+    over ``stage`` on the layer dim, expert leaves also over ``dp`` on their
+    expert dim."""
+    return {"layers": {name: P(stage, dp) if name in EXPERT_LEAVES else P(stage)
+                       for name in LAYER_LEAVES}}
+
+
+def _pp_loss_fn(cfg: TransformerConfig, n_micro: int, sp: str, dp: str, stage: str):
+    """The pipelined loss both pipelined step builders share: GPipe
+    microbatching over ``stage`` around the dp x sp block (ring attention
+    over sp, expert MoE over dp).
+
+    Each stage rank owns ``n_layers / |stage|`` consecutive layers (stacked
+    leaves, :func:`param_spec_pp`); the local batch splits into ``n_micro``
+    microbatches that stream through the open ppermute chain, and every tick
+    runs every stage's layers at once. The MoE aux loss accumulates per
+    (tick, stage), masked by schedule validity, and is averaged over
+    microbatches, so its scale matches the sequential step's."""
+
+    def loss_fn(stacked, x, y):
+        cd = getattr(torch, cfg.compute_dtype)
+        if cd != torch.float32:
+            stacked = _map(lambda _p, w: w.to(cd), stacked)
+            x = x.to(cd)
+        m = _nmesh()
+        sl = stacked["layers"]
+        ls = next(iter(sl.values())).shape[m]  # layers a stage
+        B, S, d = x.shape[m:]
+        if B % n_micro:
+            raise ValueError(f"local batch {B} not divisible by {n_micro} microbatches")
+        micro = x.reshape(*x.shape[:m], n_micro, B // n_micro, S, d)
+
+        def stage_apply(act):
+            aux = torch.zeros(current_mesh().shape, dtype=torch.float32, device=act.device)
+            for i in range(ls):
+                act, a = _block({k: sl[k].select(m, i) for k in sl}, act, cfg, sp, dp)
+                aux = aux + a
+            return act, aux
+
+        out, aux_acc = gpipe_scan(stage_apply, micro, stage)
+        out = out.reshape(*out.shape[:m], B, S, d)
+        mse = torch.mean(torch.square(out.float() - y.float()), dim=tuple(range(m, out.ndim)))
+        return _pmean(mse + cfg.aux_coef * (aux_acc / n_micro), (dp, sp))
+
+    return loss_fn
+
+
+def _validate_pp(mesh: StackedMesh, cfg: TransformerConfig, dp: str, sp: str,
+                 stage: str) -> None:
+    """The pipelined step builders' shared preconditions."""
+    _validate_step_config(mesh, cfg, dp, sp)
+    n_stage = mesh.shape[mesh.axis_names.index(stage)]
+    if cfg.n_layers % n_stage:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by stage size {n_stage}")
+
+
+def _pp_loss_and_grads(loss_fn, stacked, x, y, dp: str, sp: str, stage: str):
+    """Loss and gradients with the 3-axis reduction: :func:`_grad_reduce`
+    for the dp/sp copy axes, then ÷|stage|. Every stage rank seeds its own
+    copy of the stage-replicated loss, and the backward of the stage sum and
+    of the ppermute chain carries all |stage| seeds to every leaf, as the
+    psum and ppermute transposes do in the JAX package."""
+    loss, grads = _value_and_grad_of(loss_fn, stacked, x, y)
+    grads = _grad_reduce(grads, dp, sp)
+    n_stage = axis_size(stage)
+    if n_stage > 1:
+        grads = _map(lambda _p, g: g / n_stage, grads)
+    return loss, grads
+
+
+def train_step_pp_fn(cfg: TransformerConfig, lr: float = 1e-2, n_micro: int = 2,
+                     sp: str = "sp", dp: str = "dp", stage: str = "stage"):
+    """The 3-axis ``run_spmd`` body with SGD: (stacked, x, y) -> (stacked,
+    loss). See :func:`_pp_loss_fn` for the pipeline."""
+    loss_fn = _pp_loss_fn(cfg, n_micro, sp, dp, stage)
+
+    def step(stacked, x, y):
+        loss, grads = _pp_loss_and_grads(loss_fn, stacked, x, y, dp, sp, stage)
+        return _map(lambda _p, w, g: w - lr * g, stacked, grads), loss
+
+    return step
+
+
+def train_step_pp(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-2,
+                  n_micro: int = 2, dp: str = "dp", sp: str = "sp", stage: str = "stage"):
+    """The 3-axis training step over ``mesh`` (dp x sp x stage): fn(stacked,
+    x, y) -> (stacked, loss), the :func:`stack_layers` layout split by
+    :func:`param_spec_pp`, x and y ``(batch, seq, d_model)`` split P(dp, sp).
+
+    The MoE aux term is averaged over microbatches and is nonlinear in the
+    routing group's size, so an ``n_micro > 1`` step is not the sequential
+    (``n_micro == 1``) step: compare losses across schedules at one
+    ``n_micro``."""
+    _validate_pp(mesh, cfg, dp, sp, stage)
+    pspec = param_spec_pp(cfg, stage, dp)
+    return run_spmd(mesh, train_step_pp_fn(cfg, lr, n_micro, sp=sp, dp=dp, stage=stage),
+                    (pspec, P(dp, sp), P(dp, sp)), (pspec, P()))
+
+
+def adam_state_spec_pp(cfg: TransformerConfig, stage: str = "stage", dp: str = "dp") -> dict:
+    """PartitionSpec tree for the stacked Adam moments."""
+    return {"mu": param_spec_pp(cfg, stage, dp), "nu": param_spec_pp(cfg, stage, dp), "t": P()}
+
+
+def train_step_pp_adam_fn(cfg: TransformerConfig, lr: float = 1e-3, b1: float = 0.9,
+                          b2: float = 0.999, eps: float = 1e-8, n_micro: int = 2,
+                          sp: str = "sp", dp: str = "dp", stage: str = "stage"):
+    """The 3-axis body with Adam: (stacked, opt, x, y) -> (stacked, opt,
+    loss); the moments are stacked and split like the params."""
+    loss_fn = _pp_loss_fn(cfg, n_micro, sp, dp, stage)
+
+    def step(stacked, opt, x, y):
+        loss, grads = _pp_loss_and_grads(loss_fn, stacked, x, y, dp, sp, stage)
+        new_params, new_opt = _adam_update(stacked, opt, grads, lr, b1, b2, eps)
+        return new_params, new_opt, loss
+
+    return step
+
+
+def train_step_pp_adam(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-3,
+                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                       n_micro: int = 2, dp: str = "dp", sp: str = "sp",
+                       stage: str = "stage"):
+    """:func:`train_step_pp` with Adam: fn(stacked, opt, x, y) -> (stacked,
+    opt, loss), ``opt`` from :func:`init_adam_state` of the stacked params."""
+    _validate_pp(mesh, cfg, dp, sp, stage)
+    pspec, ospec = param_spec_pp(cfg, stage, dp), adam_state_spec_pp(cfg, stage, dp)
+    return run_spmd(mesh, train_step_pp_adam_fn(cfg, lr, b1, b2, eps, n_micro, sp=sp, dp=dp,
+                                                stage=stage),
+                    (pspec, ospec, P(dp, sp), P(dp, sp)), (pspec, ospec, P()))

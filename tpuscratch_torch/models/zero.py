@@ -1,8 +1,7 @@
 """ZeRO-sharded training step: reduce-scatter grad sync, dp-sharded fused
 Adam, deferred-sync gradient accumulation.
 
-The twin of ``tpuscratch.models.zero``'s dp x sp part (its plan and
-pipeline steps wait for ROADMAP A13d). The replicated step
+The twin of ``tpuscratch.models.zero``. The replicated step
 (``models.transformer.train_step_adam``) all-reduces every gradient and
 every rank holds the params and both Adam moments whole. ZeRO (stage 1/2):
 
@@ -26,6 +25,12 @@ every rank holds the params and both Adam moments whole. ZeRO (stage 1/2):
   the same bit for bit (the JAX package lets its scheduler overlap the
   chains; here they run in order on one stream).
 
+The plan step (``train_step_plan``) composes the pipelined loss of
+``transformer._pp_loss_fn`` (dp x sp x pp) with either dp-sharded ZeRO
+moments, each (stage, dp) rank holding its shard of its stage's flat vector
+(``init_plan_zero_state``), or the stacked replicated Adam moments; the
+overlap schedule comes from the ``ShardingPlan``.
+
 Inside ``run_spmd`` every value is stacked ``(*mesh, ...)``: a rank's pick
 of its shard is an index over the dp dim from ``axis_index``, and every
 per-rank op counts its dims from the end. ``guard=`` and ``counter=`` are
@@ -46,17 +51,24 @@ from tpuscratch_torch.models.transformer import (
     LAYER_LEAVES,
     TransformerConfig,
     _adam_apply,
+    _adam_update,
     _is_expert_leaf,
     _jax_paths,
     _map,
     _no_levers,
+    _pp_loss_and_grads,
+    _pp_loss_fn,
+    _validate_pp,
     _validate_step_config,
     _value_and_grad,
+    _value_and_grad_of,
     adam_alpha,
+    adam_state_spec_pp,
     expert_leaves,
     nonexpert_size,
     pack_nonexpert,
     param_spec,
+    param_spec_pp,
     params_from_numpy,
     unpack_nonexpert,
 )
@@ -65,9 +77,14 @@ from tpuscratch_torch.runtime.errors import CommError
 from tpuscratch_torch.runtime.mesh import StackedMesh, resolve_device
 
 __all__ = [
+    "init_plan_zero_state",
     "init_zero_adam_state",
     "local_zero_state",
+    "plan_zero_state_spec",
+    "put_plan_state",
     "reshard_state",
+    "train_step_plan",
+    "train_step_plan_fn",
     "train_step_zero",
     "train_step_zero_fn",
     "zero_flat_size",
@@ -435,5 +452,163 @@ def train_step_zero(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-3,
     body = train_step_zero_fn(cfg, lr, b1, b2, eps, sp=sp, dp=dp, accum_steps=accum_steps,
                               with_grad_norm=with_grad_norm, fused=fused,
                               overlap_blocks=overlap_blocks, donate=donate)
+    out = (pspec, ospec, P(), P()) if with_grad_norm else (pspec, ospec, P())
+    return run_spmd(mesh, body, (pspec, ospec, dspec, dspec), out)
+
+
+# ---- the plan step: dp x sp x pp GPipe loss + dp-sharded ZeRO moments ----------------
+
+
+def init_plan_zero_state(stacked, plan) -> dict:
+    """Fresh ZeRO Adam state for a pipelined plan's stacked params
+    (``transformer.stack_layers``): ``mu_flat``/``nu_flat`` ``(|pp| *
+    flat_stage,)`` f32 vectors, spec ``P((pp, dp))``, each (stage, dp) rank
+    holding its 1/|dp| shard of its stage's packed non-expert vector;
+    ``mu_exp``/``nu_exp`` the stacked expert-leaf moments (split ``P(pp,
+    ep)`` with their leaves); ``t`` the step count. With ``|pp| = 1`` this is
+    :func:`init_zero_adam_state` of the stacked tree."""
+    n_pp, n_dp = plan.pp_size, plan.dp_size
+    flat = zero_flat_size(nonexpert_size(stacked) // n_pp, n_dp)
+    exp = expert_leaves(stacked)
+    dev = _jax_paths(stacked)[0][1].device
+    return {
+        "mu_flat": torch.zeros(n_pp * flat, dtype=torch.float32, device=dev),
+        "nu_flat": torch.zeros(n_pp * flat, dtype=torch.float32, device=dev),
+        "mu_exp": [torch.zeros_like(x) for x in exp],
+        "nu_exp": [torch.zeros_like(x) for x in exp],
+        "t": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def plan_zero_state_spec(cfg: TransformerConfig, plan) -> dict:
+    """PartitionSpec tree for :func:`init_plan_zero_state`'s output, built
+    through the plan's logical-axis resolver."""
+    n_exp = sum(1 for name in LAYER_LEAVES if name in EXPERT_LEAVES)
+    flat = plan.spec(("pp", "dp"))
+    exp = [plan.spec("pp", "ep")] * n_exp
+    return {"mu_flat": flat, "nu_flat": flat, "mu_exp": exp, "nu_exp": list(exp), "t": P()}
+
+
+def put_plan_state(state, plan, cfg: TransformerConfig) -> dict:
+    """A plan-ZeRO state (numpy arrays, e.g. the JAX package's, or tensors on
+    the CPU) on the plan's device, bit for bit, in the layout
+    :func:`plan_zero_state_spec` gives: every dim a spec names must split
+    evenly over its axes, or this raises. ``t`` becomes a 0-dim int32."""
+    mesh = plan.mesh
+    spec = plan_zero_state_spec(cfg, plan)
+
+    def put(x, s):
+        t = (x.detach().to(mesh.device, copy=True) if isinstance(x, torch.Tensor)
+             else torch.from_numpy(np.array(x, copy=True)).to(mesh.device))
+        for i, entry in enumerate(s):
+            n = axis_size(entry, mesh) if entry is not None else 1
+            if t.ndim <= i or t.shape[i] % n:
+                raise ValueError(f"a plan state leaf {tuple(t.shape)} does not split as "
+                                 f"{s} over the mesh {mesh.shape}")
+        return t
+
+    out = {k: put(state[k], spec[k]) for k in ("mu_flat", "nu_flat")}
+    for k in ("mu_exp", "nu_exp"):
+        out[k] = [put(x, s) for x, s in zip(state[k], spec[k], strict=True)]
+    out["t"] = torch.tensor(int(state["t"]), dtype=torch.int32, device=mesh.device)
+    return out
+
+
+def _pp_grad_norm(grads, dp: str, stage: str) -> torch.Tensor:
+    """Global L2 norm ``(*mesh)`` of the reduced gradient under the stacked
+    (non-ZeRO) pp layout: every leaf is stage-split (different layers a
+    stage), so local square sums are summed over the stage axis; expert
+    leaves also over dp (different experts a rank). Leaves in the JAX
+    package's flatten order."""
+    total = 0.0
+    for path, g in _jax_paths(grads):
+        axes = (dp, stage) if _is_expert_leaf(path) else (stage,)
+        total = total + allreduce_sum(_local_sum(g), axes)
+    return torch.sqrt(total)
+
+
+def train_step_plan_fn(cfg: TransformerConfig, n_micro: int = 2, lr: float = 1e-3,
+                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, sp: str = "sp",
+                       dp: str = "dp", stage: str = "pp", zero: bool = True,
+                       overlap_blocks: int = 0, with_grad_norm: bool = False, guard=None,
+                       fused: bool = True, donate: bool = False):
+    """The 3-axis ``run_spmd`` body a ShardingPlan selects: (stacked, opt, x,
+    y) -> (stacked, opt, loss) (+ grad_norm with ``with_grad_norm``), the
+    GPipe loss of ``transformer._pp_loss_fn`` composed with either
+
+    - ``zero=True``: dp-sharded ZeRO moments. Each (stage, dp) rank packs its
+      stage's non-expert gradients flat, reduce-scatters over dp, sums over
+      the sp copies, divides by ``|dp|*|sp|*|pp|``, runs the fused Adam
+      update on its shard and all-gathers within its stage (every stage's
+      chain in the same calls). ``overlap_blocks=k`` cuts each into k block
+      chains: the same wire bytes, bit-identical results;
+    - ``zero=False``: the stacked Adam moments (``adam_state_spec_pp``) and
+      ``_grad_reduce`` then ÷|pp|.
+
+    ``donate`` (with ``zero``) lets the fused update write the flat moments
+    in place where each rank's shard is its own memory."""
+    _no_levers(guard, None)
+    loss_fn = _pp_loss_fn(cfg, n_micro, sp, dp, stage)
+
+    def core(params, x, y):
+        if not zero:
+            return _pp_loss_and_grads(loss_fn, params, x, y, dp, sp, stage)
+        lead = len(current_mesh().shape)
+        n_dp = axis_size(dp)
+        n = n_dp * axis_size(sp) * axis_size(stage)
+        loss, grads = _value_and_grad_of(loss_fn, params, x, y)
+        flat_size = zero_flat_size(nonexpert_size(params, lead), n_dp)
+        blocks = _overlap_blocks(overlap_blocks, flat_size // n_dp)
+        g_shard, g_exp = _zero_grad_sync(grads, n, dp, sp, flat_size, blocks)
+        return loss, (g_shard, g_exp, flat_size)
+
+    def step(params, opt, x, y):
+        loss, payload = core(params, x, y)
+        if zero:
+            g_shard, g_exp, flat_size = payload
+            new_params, new_opt = _zero_apply_update(params, opt, g_shard, g_exp, flat_size, lr,
+                                                     b1, b2, eps, dp, fused, donate)
+        else:
+            new_params, new_opt = _adam_update(params, opt, payload, lr, b1, b2, eps)
+        if not with_grad_norm:
+            return new_params, new_opt, loss
+        gnorm = (_zero_grad_norm(g_shard, g_exp, (dp, stage)) if zero
+                 else _pp_grad_norm(payload, dp, stage))
+        return new_params, new_opt, loss, gnorm
+
+    return step
+
+
+def train_step_plan(plan, cfg: TransformerConfig, lr: float = 1e-3, b1: float = 0.9,
+                    b2: float = 0.999, eps: float = 1e-8, zero: bool = True,
+                    with_grad_norm: bool = False, counter=None, guard=None, fused: bool = True,
+                    donate: bool = True):
+    """The plan-composed training step over ``plan.mesh``: fn(stacked, opt,
+    x, y) -> (stacked, opt, loss), the ``transformer.stack_layers`` layout
+    split by ``param_spec_pp`` over the plan's pp/ep axes, ``opt`` from
+    :func:`init_plan_zero_state` (``zero=True``; with ``donate`` the step
+    writes its flat moments in place where it can, see
+    :func:`train_step_zero`, so do not reuse a donated state) or
+    ``init_adam_state`` of the stacked tree (``zero=False``). In place
+    means where one stride walks every rank's flat shard: the ``(pp, dp)``
+    layout of a plan with both axes past 1 takes two, and its step writes
+    new tensors. The overlap schedule comes from the plan
+    (``plan.overlap_blocks``). ``counter`` and ``guard`` are not ported
+    (ROADMAP A10)."""
+    mesh, dp, sp, stage = plan.mesh, plan.dp, plan.sp, plan.pp
+    if stage is None:
+        raise ValueError("train_step_plan needs a pipelined plan (pp=<axis name>); a dp x sp "
+                         "plan trains through train_step_adam / train_step_zero")
+    if plan.ep_axis != plan.dp:
+        raise NotImplementedError("expert parallelism rides the dp axis (EP groups == DP "
+                                  "groups); a distinct ep mesh axis is not supported")
+    _no_levers(guard, counter)
+    _validate_pp(mesh, cfg, dp, sp, stage)
+    pspec = param_spec_pp(cfg, stage, dp)
+    ospec = plan_zero_state_spec(cfg, plan) if zero else adam_state_spec_pp(cfg, stage, dp)
+    dspec = plan.data_spec()
+    body = train_step_plan_fn(cfg, plan.n_micro, lr, b1, b2, eps, sp=sp, dp=dp, stage=stage,
+                              zero=zero, overlap_blocks=plan.overlap_blocks,
+                              with_grad_norm=with_grad_norm, fused=fused, donate=donate)
     out = (pspec, ospec, P(), P()) if with_grad_norm else (pspec, ospec, P())
     return run_spmd(mesh, body, (pspec, ospec, dspec, dspec), out)
