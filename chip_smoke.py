@@ -156,6 +156,32 @@ Phases 25 and 26 run after 23, before 24's lines:
    {1, 2}^2, serial against overlap) through ``bench.record`` with steps and
    repeats cut, and the bubble bench at M = 4, 8 and 32 on 4 stacked stages.
 
+Phase 27 runs after 26, before 24's lines:
+
+27. the solvers: the streamed 3D kernel against its plain version as the
+   3D multigrid's ``jacobi-stream`` smoother calls it (rhs mode, depth 2,
+   z-slab cores of 256^3 on 1x1x1 and 2x1x1 and of 128^3), bit-equal;
+   ``poisson_solve`` (CG and pipelined CG) at 1024^2 on 1x1 and 256^2 on
+   1x1 and 2x2; ``mg_poisson_solve`` and ``pcg_poisson_solve`` at 1024^2
+   on 1x1 and 2x2; ``mg_poisson3d_solve`` at 256^3 with ``rbgs``,
+   ``jacobi``, ``jacobi-stream`` and ``rbgs`` at s_step 2 (bit-identical to
+   s_step 1), at 512x256x256
+   with ``jacobi-stream`` on 2x1x1 stacked and 1x1x1, and
+   ``pcg_poisson3d_solve``; the spectral solvers at 4096^2 on 1 and 4
+   stacked ranks and at 256^3, both impls. Every solution is held to a
+   float64 numpy residual (ORACLE_C, SPECTRAL_C; in 2D multigrid plus the
+   f32 floor, which a solve stopped short must break), the solvers to each other
+   (SOLVER_XTOL, iterations), and the streamed kernel's launches in each
+   ``jacobi-stream`` solve (zeroed just before, read just after) to the
+   rule's count (``multigrid3d.stream_launches`` x cycles). Then the pair
+   transforms, direct and four-step, at 1024^2 and 8192^2 against
+   complex128 ``torch.fft`` (PAIR_FFT_TOL); with TF32 on, the transform
+   must refuse to run, and with that refusal taken out its TF32 products
+   must break the limit; config 8 through ``bench.record`` (one timed call a
+   point, at most 100 round trips a race point) and ``bench.mg3d_chip``'s
+   race at 256^3, with a profile of a V-cycle for each smoother (device
+   time by kernel, idle share).
+
 Any failure raises and exits non-zero; without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -173,6 +199,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -3116,6 +3143,386 @@ def phase26_configs11pp_14() -> list:
     return out
 
 
+# Phase 27: the solvers at the JAX package's chip sizes.
+OMEGA3 = 6 / 7                  # multigrid3d's Jacobi damping: the streamed smoother's weights
+CG_TOL = 1e-5
+# 2D multigrid at 1024^2: f32 cannot hold the residual much under 1e-5 of
+# ||b|| there (a tol 1e-6 solve stagnates at 9.9e-6 on the CPU port), so
+# the solve asks for 1e-5; 3D at 256^3 reaches 1e-6 (6.6e-7 on the CPU).
+MG2_TOL, MG3_TOL = 1e-5, 1e-6
+# Sizes: CG at 1024^2 on 1x1 (the geometry the JAX program cache names) and
+# 256^2 on 1x1 and 2x2 (config 15's CG geometry); 2D multigrid at 1024^2;
+# 3D at 256^3 (mg3d_chip's N) and 512x256x256 on 2x1x1; the spectral
+# solve at 4096^2 and 256^3; the pair transforms at 1024^2 and 8192^2.
+CG_SIZES, MG2_N, MG3_N, SPECTRAL2_N, FFT_SIZES = (1024, 256), 1024, 256, 4096, (1024, 8192)
+# The float64 oracle's residual ||A x - b|| against c * tol * ||b||. Classic
+# CG stops on its recurrence residual (<= tol), and the true one drifts from
+# it with the rounding of every update of x: 26.6 tol after 2152 iterations
+# at 1024^2, the same in the JAX package and the port on the CPU. Pipelined
+# CG refreshes its residual every 96 iterations (the JAX test's own 10 tol);
+# multigrid and MG-PCG measure the true residual (the JAX tests' 2.5 tol).
+ORACLE_C = {"cg": 50.0, "pipelined": 10.0, "mg": 2.5}
+# Rounding the exact solution to f32 alone leaves a residual of up to
+# ||A|| u ||x|| / ||b|| (||A|| = 8 in 2D, 12 in 3D, u = 2^-24): the f32
+# floor, _f32_floor. At 1024^2 in 2D it is as large as 2.5 tol, so the 2D
+# multigrid solves are held to 2.5 tol plus the floor, and a solve stopped
+# short (MG three cycles, MG-PCG two iterations before its own stop, which
+# leaves ~2e-4) must break that limit. A spectral solve's residual is the
+# floor, and the transforms' products add some multiples of it.
+SPECTRAL_C = 16.0
+SHORT_2D = {"mg_poisson_solve": ("max_cycles", 3), "pcg_poisson_solve": ("max_iters", 2)}
+PIPELINED_ITERS = 0.03        # pipelined CG's iterations, 2x2 against 1x1
+CYCLES_3D = (4, 14)             # the JAX tests' cycle counts in 3D
+SOLVER_XTOL = 1e-4              # solutions held to each other, of max|x|
+
+
+def _lap3_np(x: np.ndarray) -> np.ndarray:
+    """The periodic 7-point operator in numpy (the JAX tests' oracle)."""
+    return 6 * x - sum(np.roll(x, s, a) for a in range(3) for s in (1, -1))
+
+
+def _held_to_oracle(what, lap, x, b, limit) -> float:
+    """The relative residual of ``x`` under ``lap`` in float64; raises past
+    ``limit``."""
+    x64 = x.astype(np.float64)
+    rel = float(np.linalg.norm(lap(x64) - b) / np.linalg.norm(b))
+    log(f"    {what}: float64 oracle ||Ax - b|| / ||b|| {rel:.3e} (limit {limit:.3e})")
+    if not (math.isfinite(rel) and rel <= limit):
+        raise AssertionError(f"{what}: oracle residual {rel:.3e} > {limit:.3e}")
+    return rel
+
+
+def _f32_floor(x, b, norm_a) -> float:
+    return norm_a * 2.0**-24 * float(np.linalg.norm(x.astype(np.float64)) / np.linalg.norm(b))
+
+
+def _spectral_limit(x, b, norm_a) -> float:
+    return SPECTRAL_C * _f32_floor(x, b, norm_a)
+
+
+def _close(what, x, ref, tol=SOLVER_XTOL) -> float:
+    d = float(np.abs(x - ref).max() / np.abs(ref).max())
+    log(f"    {what}: max|x - x'| / max|x'| {d:.3e} (limit {tol:g})")
+    if not d <= tol:
+        raise AssertionError(f"{what}: {d:.3e} > {tol:g}")
+    return d
+
+
+def _within(what, a, b, slack: int = 1) -> None:
+    log(f"    {what}: {a} against {b} (within {slack})")
+    if abs(a - b) > slack:
+        raise AssertionError(f"{what}: {a} against {b}")
+
+
+def _solve(what, fn):
+    """``fn()``, a solver's ``(x, iterations, relres)`` or a direct
+    solver's ``x``, timed on the host (a solve ends by copying x to the
+    host); returns ``(x, iterations, relres)``, None for a direct solve."""
+    t0 = time.perf_counter()
+    out = fn()
+    s = time.perf_counter() - t0
+    x, k, rel = out if isinstance(out, tuple) else (out, None, None)
+    log(f"  {what}: {s:.3f} s" + ("" if k is None else f", {k} iterations, relres {rel:.3e}"))
+    return x, k, rel
+
+
+def _stream_at_solver_shapes(gen) -> float:
+    """Row 9's kernel against its plain version as the streamed smoother
+    calls it: z-slab cores of 256^3 (1x1x1 and 2x1x1) and 128^3, depth 2
+    (nu 2), the rhs term, weights (omega/6,)*6 + (1 - omega,). Bit-equal."""
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    coeffs, rc, k = (OMEGA3 / 6.0,) * 6 + (1.0 - OMEGA3,), OMEGA3 / 6.0, 2
+    worst = 0.0
+    for lead, shape in (((1, 1, 1), (MG3_N,) * 3), ((2, 1, 1), (MG3_N,) * 3),
+                        ((1, 1, 1), (MG3_N // 2,) * 3)):
+        cz, cy, cx = shape
+        a = (randn(lead + shape, gen), randn(lead + (k, cy, cx), gen),
+             randn(lead + (k, cy, cx), gen))
+        rhs = randn(lead + (cz + 2 * k, cy, cx), gen)
+        flags = torch.zeros(lead + (6,), dtype=torch.int32, device=DEVICE)
+        kernel = lambda: ss.seven_point_streamed_pallas(*a, shape, coeffs, k, rhs=rhs,  # noqa: E731
+                                                        rhs_coeff=rc)
+        plain = lambda: ss.seven_point_streamed_plain(*a, coeffs, k, flags, rhs=rhs,  # noqa: E731
+                                                      rhs_coeff=rc)
+        got, want = kernel(), plain()
+        err, bits = max_err(got, want), same_bits(got, want)
+        cells = got.numel()
+        b, by = bound((2 * cells + a[1].numel() + a[2].numel() + rhs.numel()) * 4, 15 * cells * k,
+                      F32_SEPARATE_OPS_PER_S)
+        log(f"  seven_point_streamed_pallas {lead}+{cz}^3 k={k} rhs: max_abs_err {err:.3e}, "
+            f"bit-equal {bits}; {device_ms(kernel, 10):.4f} ms (bound {b:.4f} by {by}, plain "
+            f"{device_ms(plain, 3):.4f})")
+        if not bits:
+            raise AssertionError(f"the streamed kernel at the solver's {lead}+{shape}: {err:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def _cg_and_mg_2d() -> None:
+    """CG and pipelined CG at 1024^2 (1x1) and 256^2 (1x1, 2x2); multigrid
+    and MG-PCG at 1024^2 on 1x1 and 2x2, held to the oracle, to each other
+    and to the spectral solve."""
+    from tpuscratch_torch.runtime.mesh import make_mesh_2d
+    from tpuscratch_torch.solvers import (mg_poisson_solve, pcg_poisson_solve,
+                                          periodic_poisson_fft, poisson_solve)
+    from tpuscratch_torch.solvers.cg import laplacian_apply_np
+    from tpuscratch_torch.solvers.spectral import periodic_laplacian_np
+
+    rng = np.random.default_rng(SEED)
+    for n in CG_SIZES:
+        b = rng.standard_normal((n, n)).astype(np.float32)
+        meshes = ((1, 1),) if n == CG_SIZES[0] else ((1, 1), (2, 2))
+        for method in ("cg", "pipelined"):
+            iters = {}
+            for shape in meshes:
+                x, iters[shape], rel = _solve(
+                    f"poisson_solve {n}^2 {shape[0]}x{shape[1]} method={method} tol {CG_TOL:g}",
+                    lambda: poisson_solve(b, make_mesh_2d(shape, DEVICE), tol=CG_TOL,
+                                          method=method))
+                if not rel <= CG_TOL:
+                    raise AssertionError(f"{method}: relres {rel:.3e} > tol")
+                _held_to_oracle(method, laplacian_apply_np, x, b, ORACLE_C[method] * CG_TOL)
+            if len(meshes) > 1:
+                # pipelined CG's restarted recurrence turns a reduction's
+                # rounding into iterations: the JAX package on the CPU takes
+                # 1219 on 1x1 and 1232 on 2x2 at 256^2, so it gets 3%
+                slack = 1 if method == "cg" else math.ceil(PIPELINED_ITERS * iters[(1, 1)])
+                _within(f"{method} iterations 2x2 against 1x1", iters[(2, 2)], iters[(1, 1)],
+                        slack)
+    b = rng.standard_normal((MG2_N, MG2_N)).astype(np.float32)
+    b -= b.mean()
+    x_sp = _solve(f"periodic_poisson_fft {MG2_N}^2 xla (the reference for MG)",
+                  lambda: periodic_poisson_fft(b, impl="xla", device=DEVICE))[0]
+    for name, fn in (("mg_poisson_solve", mg_poisson_solve),
+                     ("pcg_poisson_solve", pcg_poisson_solve)):
+        runs = {}
+        for shape in ((1, 1), (2, 2)):
+            x, k, rel = _solve(f"{name} {MG2_N}^2 {shape[0]}x{shape[1]} tol {MG2_TOL:g}",
+                                  lambda: fn(b, make_mesh_2d(shape, DEVICE), tol=MG2_TOL))
+            runs[shape] = x, k
+            _held_to_oracle(name, periodic_laplacian_np, x, b,
+                            ORACLE_C["mg"] * MG2_TOL + _f32_floor(x, b, 8))
+            _close(f"{name} against spectral", x, x_sp)
+        _within(f"{name} iterations 2x2 against 1x1", runs[(2, 2)][1], runs[(1, 1)][1])
+        cap, fewer = SHORT_2D[name]
+        short = max(1, runs[(1, 1)][1] - fewer)
+        with warnings.catch_warnings():  # the short solve warns that it stopped above tol
+            warnings.simplefilter("ignore", RuntimeWarning)
+            x = _solve(f"{name} stopped short, {cap}={short}",
+                       lambda: fn(b, make_mesh_2d((1, 1), DEVICE), tol=MG2_TOL,
+                                  **{cap: short}))[0]
+        try:
+            _held_to_oracle(f"{name} stopped short", periodic_laplacian_np, x, b,
+                            ORACLE_C["mg"] * MG2_TOL + _f32_floor(x, b, 8))
+        except AssertionError as e:
+            log(f"    caught, as it must be: {e}")
+        else:
+            raise AssertionError(f"{name} stopped {fewer} short of its stop passes the limit")
+
+
+def _mg_3d() -> int:
+    """3D multigrid at 256^3 with every smoother and s_step 2, the streamed
+    smoother on 2x1x1 (512x256x256) against 1x1x1, MG-PCG, and the spectral
+    solve; row 9's launches in each ``jacobi-stream`` solve held to the
+    rule's count. Returns those launches."""
+    from tpuscratch_torch.ops import stencil_stream as ss
+    from tpuscratch_torch.runtime.mesh import make_mesh
+    from tpuscratch_torch.solvers import (mg_poisson3d_solve, pcg_poisson3d_solve,
+                                          periodic_poisson3d_fft)
+    from tpuscratch_torch.solvers.multigrid3d import (_mg_prologue3, _stream_smoothable,
+                                                      stream_launches)
+
+    axes = ("z", "row", "col")
+    rng = np.random.default_rng(SEED + 1)
+    total = 0
+
+    def mg3(b, dims, smoother, s_step=1):
+        nonlocal total
+        mesh = make_mesh(dims, axes, DEVICE)
+        ss.reset_launches()
+        x, k, rel = _solve(
+            f"mg_poisson3d_solve {'x'.join(map(str, b.shape))} on {'x'.join(map(str, dims))} "
+            f"smoother={smoother} s_step={s_step} tol {MG3_TOL:g}",
+            lambda: mg_poisson3d_solve(b, mesh, tol=MG3_TOL, smoother=smoother, s_step=s_step))
+        n = ss.seven_point_streamed_pallas.launches
+        if smoother == "jacobi-stream":
+            specs = _mg_prologue3(b, mesh, None)[2]
+            want = stream_launches(specs) * k
+            levels = [i for i, (s6, _) in enumerate(specs) if _stream_smoothable(s6, 2)]
+            log(f"    stream3d_kernel launches {n} (the rule: {stream_launches(specs)} a cycle, "
+                f"levels {levels} stream, x {k} cycles = {want})")
+            if n != want or n == 0:
+                raise AssertionError(f"jacobi-stream launched the kernel {n} times, want {want}")
+            total += n
+        elif n:
+            raise AssertionError(f"smoother {smoother} launched the streamed kernel {n} times")
+        if not (CYCLES_3D[0] <= k <= CYCLES_3D[1] and rel <= 2.5 * MG3_TOL):
+            raise AssertionError(f"mg3d {smoother}: {k} cycles, relres {rel:.3e}")
+        _held_to_oracle("mg_poisson3d_solve", _lap3_np, x, b, ORACLE_C["mg"] * MG3_TOL)
+        return x, k
+
+    b = rng.standard_normal((MG3_N,) * 3).astype(np.float32)
+    b -= b.mean()
+    runs = {sm: mg3(b, (1, 1, 1), sm) for sm in ("rbgs", "jacobi", "jacobi-stream")}
+    xs2, ks2 = mg3(b, (1, 1, 1), "rbgs", s_step=2)
+    # the deep smoother runs the per-sweep one's ops in its order: the same bits
+    same = np.array_equal(xs2, runs["rbgs"][0])
+    log(f"    s_step 2 against 1: cycles {ks2} / {runs['rbgs'][1]}, bit-identical {same}")
+    if ks2 != runs["rbgs"][1] or not same:
+        raise AssertionError("s_step 2 is not bit-identical to s_step 1")
+    _within("jacobi-stream cycles against jacobi", runs["jacobi-stream"][1],
+                runs["jacobi"][1])
+    _close("jacobi-stream against jacobi", runs["jacobi-stream"][0], runs["jacobi"][0])
+    x_sp = _solve(f"periodic_poisson3d_fft {MG3_N}^3 xla (the reference for MG)",
+                  lambda: periodic_poisson3d_fft(b, impl="xla", device=DEVICE))[0]
+    for sm, (x, _) in runs.items():
+        _close(f"mg3d {sm} against spectral", x, x_sp)
+    x, k, rel = _solve(f"pcg_poisson3d_solve {MG3_N}^3 tol {MG3_TOL:g}",
+                          lambda: pcg_poisson3d_solve(b, device=DEVICE, tol=MG3_TOL))
+    _held_to_oracle("pcg_poisson3d_solve", _lap3_np, x, b, ORACLE_C["mg"] * MG3_TOL)
+    _close("pcg3d against spectral", x, x_sp)
+    del runs, x_sp
+    b = rng.standard_normal((2 * MG3_N, MG3_N, MG3_N)).astype(np.float32)
+    b -= b.mean()
+    x2, k2 = mg3(b, (2, 1, 1), "jacobi-stream")
+    x1, k1 = mg3(b, (1, 1, 1), "jacobi-stream")
+    _within("jacobi-stream cycles 2x1x1 against 1x1x1", k2, k1)
+    _close("jacobi-stream 2x1x1 against 1x1x1", x2, x1)
+    return total
+
+
+def _spectral_and_fft() -> None:
+    """The spectral solvers (4096^2 on 1 and 4 ranks, 256^3, both impls)
+    against the oracle and each other; the pair transforms against
+    complex128 at 1024^2 and 8192^2, and a planted TF32 run that
+    PAIR_FFT_TOL must catch."""
+    from tpuscratch_torch.bench.fft_bench import forward_error
+    from tpuscratch_torch.comm import P, run_spmd
+    from tpuscratch_torch.parallel import fft as pfft
+    from tpuscratch_torch.parallel.fft import PAIR_FFT_TOL, fft2_sharded_pair
+    from tpuscratch_torch.runtime.mesh import make_mesh_1d
+    from tpuscratch_torch.solvers import periodic_poisson3d_fft, periodic_poisson_fft
+    from tpuscratch_torch.solvers.spectral import periodic_laplacian_np
+
+    rng = np.random.default_rng(SEED + 2)
+    b = rng.standard_normal((SPECTRAL2_N,) * 2).astype(np.float32)
+    b -= b.mean()
+    ref = None
+    for impl in ("xla", "dft"):
+        for n in (1, 4):
+            x = _solve(f"periodic_poisson_fft {SPECTRAL2_N}^2 on {n} ranks impl={impl}",
+                       lambda: periodic_poisson_fft(b, make_mesh_1d("x", n, DEVICE), impl=impl))[0]
+            _held_to_oracle("periodic_poisson_fft", periodic_laplacian_np, x, b,
+                            _spectral_limit(x, b, 8))
+            if ref is None:
+                ref = x
+            else:
+                _close(f"impl={impl} on {n} ranks against xla on 1", x, ref)
+    b = rng.standard_normal((MG3_N,) * 3).astype(np.float32)
+    b -= b.mean()
+    ref = None
+    for impl in ("xla", "dft"):
+        x = _solve(f"periodic_poisson3d_fft {MG3_N}^3 impl={impl}",
+                   lambda: periodic_poisson3d_fft(b, impl=impl, device=DEVICE))[0]
+        _held_to_oracle("periodic_poisson3d_fft", _lap3_np, x, b, _spectral_limit(x, b, 12))
+        if ref is None:
+            ref = x
+        else:
+            _close("impl=dft against xla", x, ref)
+    del b, ref, x
+
+    mesh = make_mesh_1d("x", 1, DEVICE)
+
+    def fwd_err(n, method):
+        g = torch.Generator(device=DEVICE).manual_seed(n)
+        re, im = randn((n, n), g), randn((n, n), g)
+        prog = run_spmd(mesh, lambda r, i: fft2_sharded_pair(r, i, "x", method=method),
+                        (P("x"), P("x")), (P("x"), P("x")))
+        return forward_error(prog(re, im), re, im)
+
+    for n in FFT_SIZES:
+        for method in ("direct", "four-step"):
+            err = fwd_err(n, method)
+            log(f"  fft2_sharded_pair {n}^2 {method}: max|got - want| / max|want| {err:.3e} "
+                f"against complex128 torch.fft (limit {PAIR_FFT_TOL:g})")
+            if not err <= PAIR_FFT_TOL:
+                raise AssertionError(f"pair FFT {method} at {n}^2: {err:.3e}")
+            torch.cuda.empty_cache()
+    # with TF32 on the pair transform refuses to run; with that refusal
+    # taken out, its TF32 products must break PAIR_FFT_TOL
+    tf32, guard = torch.backends.cuda.matmul.allow_tf32, pfft._require_f32_products
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        try:
+            fwd_err(FFT_SIZES[0], "direct")
+        except RuntimeError as e:
+            log(f"  TF32 on: the pair transform refuses ({str(e)[:60]}...)")
+        else:
+            raise AssertionError("the pair transform ran with TF32 products allowed")
+        pfft._require_f32_products = lambda x: None
+        planted = {m: fwd_err(FFT_SIZES[0], m) for m in ("direct", "four-step")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, pfft._require_f32_products = tf32, guard
+    log(f"  planted TF32 products at {FFT_SIZES[0]}^2 (refusal taken out): {planted} "
+        f"(each must exceed {PAIR_FFT_TOL:g})")
+    if min(planted.values()) <= PAIR_FFT_TOL:
+        raise AssertionError("a TF32 pair transform passes PAIR_FFT_TOL")
+
+
+def phase27_solvers(gen) -> tuple[int, float]:
+    """The solvers (module comment). Returns row 9's launches on the
+    solver path and its worst error against the plain version."""
+    from tpuscratch_torch.bench.mg3d_chip import SMOOTHERS, profile_cycles, race
+    from tpuscratch_torch.bench.record import config8_dft
+
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        log(f"  [{what} done at {time.perf_counter() - t0:.1f} s of phase 27]")
+
+    err = _stream_at_solver_shapes(gen)
+    torch.cuda.empty_cache()
+    lap("the kernel at the solver's shapes")
+    _cg_and_mg_2d()
+    lap("CG and 2D multigrid")
+    launches = _mg_3d()
+    torch.cuda.empty_cache()
+    lap("3D multigrid")
+    _spectral_and_fft()
+    torch.cuda.empty_cache()
+    lap("spectral and the pair FFT")
+    out: list = []
+    # one timed call a point (record's default 3) of at most 100 round trips (record's 1000)
+    res = config8_dft(out, iters=1, device=DEVICE, max_rounds=100)
+    for n, point in res["race"].items():
+        log(f"  config 8 at {n}^2: " + ", ".join(
+            f"{m} {s * 1e3:.4f} ms" for m, s in point["s_per_roundtrip"].items())
+            + f", winner {point.get('winner')}")
+        if point.get("errors") or len(point["s_per_roundtrip"]) != 2:
+            raise AssertionError(f"config 8 at {n}^2: {point}")
+    tflops = out[0]["value"]
+    log(f"  config 8 pair_dft_roundtrip_tflops {tflops:.3f} ({res['headline'].summary()}; "
+        f"f32 bound {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    if not (math.isfinite(tflops) and tflops > 0):
+        raise AssertionError(f"config 8: {out[0]}")
+    lap("config 8")
+    ms = race(MG3_N, device=DEVICE)
+    log(f"  mg3d_chip at {MG3_N}^3: " + ", ".join(f"{k} {v:.3f} ms/V-cycle" for k, v in ms.items()))
+    if not all(math.isfinite(v) and v > 0 for v in ms.values()):
+        raise AssertionError(f"mg3d_chip: {ms}")
+    lap("mg3d_chip's race")
+    for sm in SMOOTHERS:
+        p = profile_cycles(MG3_N, sm, device=DEVICE)
+        log(f"  a V-cycle's profile, {sm}: {p['cycle_ms']:.3f} ms a cycle, device "
+            f"{p['device_ms']:.3f} ms (idle share {p['idle_share']:.3f}), "
+            f"{p['launches_per_cycle']:.0f} launches; by group " + ", ".join(
+                f"{g} {v:.3f}" for g, v in p["groups_ms"].items()) + "; top " + ", ".join(
+                f"{k} {v:.3f}" for k, v in p["top_ms"][:5]))
+    log(f"  phase 27 took {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3123,74 +3530,82 @@ def main() -> int:
     import tpuscratch_torch  # noqa: F401  (fails outside a checkout)
 
     t0 = time.perf_counter()
-    log("== phase 1: card and toolchain")
+
+    def stage(title: str) -> None:  # each phase's start, in seconds since the smoke began
+        log(f"{title} [{time.perf_counter() - t0:.1f} s]")
+
+    stage("== phase 1: card and toolchain")
     phase1_card()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    log("== phase 2: kernels against their plain versions")
+    stage("== phase 2: kernels against their plain versions")
     errs, rows = phase2_kernels(gen)
-    log("== phase 3: main path (distributed_stencil, 1x1, 1024^2)")
+    stage("== phase 3: main path (distributed_stencil, 1x1, 1024^2)")
     counts = phase3_main_path()
-    log("== phase 4: headline and rates")
+    stage("== phase 4: headline and rates")
     phase4_headline()
-    log("== phase 5: dot-product and fill kernels against their plain versions")
+    stage("== phase 5: dot-product and fill kernels against their plain versions")
     errs2, rows2 = phase5_dot_fill_kernels(gen)
-    log("== phase 6: dot path (config 2, 1-rank mesh, 1e8 f32) and iota2d")
+    stage("== phase 6: dot path (config 2, 1-rank mesh, 1e8 f32) and iota2d")
     counts2 = phase6_dot_path()
-    log("== phase 7: pingpong (config 3, 2 ranks stacked on the card) and host staging")
+    stage("== phase 7: pingpong (config 3, 2 ranks stacked on the card) and host staging")
     phase7_pingpong()
-    log("== phase 8: streamed and DMA-halo kernels against their plain versions")
+    stage("== phase 8: streamed and DMA-halo kernels against their plain versions")
     errs3, rows3 = phase8_stream_dma_kernels(gen)
-    log("== phase 9: stream/dma path (distributed_stencil, 1024^2 on 1x1, 8192^2 on 4x4)")
+    stage("== phase 9: stream/dma path (distributed_stencil, 1024^2 on 1x1, 8192^2 on 4x4)")
     counts3 = phase9_stream_dma_path()
-    log("== phase 10: configs 4 (8192^2 on 4x4) and 10 (DMA halo, 1024^2)")
+    stage("== phase 10: configs 4 (8192^2 on 4x4) and 10 (DMA halo, 1024^2)")
     phase10_configs()
     # the float64 oracle of phase 12 runs on the host while phase 11 runs
     worlds = _worlds3d()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     oracle = pool.submit(_oracle3d, worlds[(1, 1, 1)], STEPS)
-    log("== phase 11: 3D kernels against their plain versions")
+    stage("== phase 11: 3D kernels against their plain versions")
     errs4, rows4 = phase11_kernels3d(gen)
-    log("== phase 12: 3D path (distributed_stencil3d, 256x512x512 on 1x1x1, 512^3 on 2x2x2)")
+    stage("== phase 12: 3D path (distributed_stencil3d, 256x512x512 on 1x1x1, 512^3 on 2x2x2)")
     counts4 = phase12_path3d(worlds, oracle)
     pool.shutdown()
     del worlds, oracle
-    log("== phase 13: config 9 (3D 7-point stencil, 256x512x512)")
+    stage("== phase 13: config 9 (3D 7-point stencil, 256x512x512)")
     phase13_config9()
-    log("== phase 14: the paged-attention kernel against its plain version")
+    stage("== phase 14: the paged-attention kernel against its plain version")
     errs5, rows5 = phase14_paged_kernel(gen)
     cfg12, scfg12, weights = _serve_setup()
-    log("== phase 15: serving path (ServeEngine, config 12's model, 1x1, 8 requests)")
+    stage("== phase 15: serving path (ServeEngine, config 12's model, 1x1, 8 requests)")
     counts5 = phase15_serve_path(cfg12, scfg12, weights)
-    log("== phase 16: config 12 (serving decode: batches 1, 8, 32) and a tick's profile")
+    stage("== phase 16: config 12 (serving decode: batches 1, 8, 32) and a tick's profile")
     phase16_config12(cfg12, scfg12, weights)
     del weights
     torch.cuda.empty_cache()
-    log("== phase 17: the flash kernels against their plain versions")
+    stage("== phase 17: the flash kernels against their plain versions")
     errs6, rows6 = phase17_flash_kernels(gen)
     torch.cuda.empty_cache()
-    log("== phase 18: training path (train_step, config 11's model, 1x1, xla / pallas / ulysses)")
+    stage("== phase 18: training path (train_step, config 11's model, 1x1, xla / pallas / ulysses)")
     counts6 = phase18_train_path()
     torch.cuda.empty_cache()
-    log("== phase 19: configs 6 (flash attention, S 4096) and 11 (train step) and a step's profile")
+    stage("== phase 19: configs 6 (flash attention, S 4096) and 11 (train step) and a step's profile")
     phase19_configs6_11()
     torch.cuda.empty_cache()
-    log("== phase 20: the fused Adam kernel against its plain version")
+    stage("== phase 20: the fused Adam kernel against its plain version")
     errs7, rows7 = phase20_fused_adam(gen)
-    log("== phase 21: ZeRO path (train_step_zero, config 13's model, 1x1, dp 2 and dp 4 stacked)")
+    stage("== phase 21: ZeRO path (train_step_zero, config 13's model, 1x1, dp 2 and dp 4 stacked)")
     counts7 = phase21_zero_path()
-    log("== phase 22: config 13 (replicated vs ZeRO, dp 1/2/4, accumulation), a step's profile, "
+    stage("== phase 22: config 13 (replicated vs ZeRO, dp 1/2/4, accumulation), a step's profile, "
         "adam_bench")
     phase22_config13()
-    log("== phase 23: the copy probes (256x512x512 f32) and the measured copy rate")
+    stage("== phase 23: the copy probes (256x512x512 f32) and the measured copy rate")
     errs8, rows8, counts8 = phase23_copy_probes()
     torch.cuda.empty_cache()
-    log("== phase 25: pipelined training path (train_step_pp, train_step_plan pp2 x dp2, "
+    stage("== phase 25: pipelined training path (train_step_pp, train_step_plan pp2 x dp2, "
         "config 11's model) and the SSM block")
     counts9, errs9 = phase25_pipelined_path(gen)
     torch.cuda.empty_cache()
-    log("== phase 26: config 11's pp row, config 14 (plan overlap, pp x dp in {1, 2}^2) and the "
+    stage("== phase 26: config 11's pp row, config 14 (plan overlap, pp x dp in {1, 2}^2) and the "
         "bubble bench")
     phase26_configs11pp_14()
+    torch.cuda.empty_cache()
+    stage("== phase 27: the solvers (CG, multigrid 2D and 3D with the streamed smoother, spectral, "
+        "the pair FFT), config 8 and mg3d_chip")
+    stream_launches, errs10 = phase27_solvers(gen)
 
     from tpuscratch_torch.bench import dma_bound as tb
     from tpuscratch_torch.ops import adam as tadam
@@ -3261,6 +3676,11 @@ def main() -> int:
             raise AssertionError(f"the pipelined path never launched {name}")
         counts[name] += n
         errs[name] = max(errs[name], errs9[name])
+    # the solver path (phase 27) launches the streamed 3D kernel in rhs mode
+    name = "seven_point_streamed_pallas"
+    by_path[name] = {"phase 12": counts[name], "phase 27": stream_launches}
+    counts[name] += stream_launches
+    errs[name] = max(errs[name], errs10)
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])

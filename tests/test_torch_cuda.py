@@ -13,6 +13,9 @@ and iota2d are bit-equal. The fused Adam kernel (``adam.cu``) and the
 copy probes (``copy_probes.cu``) round every operation as their plain
 versions do: bit-equal, also for the ZeRO step that runs the kernel, and
 the pipelined plan step's overlap schedule is bit-equal to its serial one.
+The 3D multigrid's streamed smoother, run on the card, is bit-equal to the
+same call on the CPU, and a ``jacobi-stream`` solve launches the streamed
+kernel as often as ``multigrid3d.stream_launches`` says.
 
 Imports no JAX, so it runs on a card host without it:
 
@@ -1424,3 +1427,93 @@ def test_copy_probe_refusals(card):
         tb.hbm2hbm()(torch.zeros(5, device=card), c)
     with pytest.raises(ValueError, match="shared memory"):
         tb.manual_stream(65536, 4, "touch")(torch.zeros(64, device=card), c)
+
+
+# the streamed 3D smoother of the 3D multigrid (solvers.multigrid3d): the
+# kernel in rhs mode against the same call on the plain version on the CPU
+@pytest.mark.parametrize("dims,sweeps", [((1, 1, 1), 2), ((2, 1, 1), 2), ((1, 1, 1), 5)])
+def test_jacobi_smooth3_stream(card, dims, sweeps):
+    from tpuscratch_torch.comm.spmd import mesh_context
+    from tpuscratch_torch.solvers import multigrid3d as mg3
+
+    core = (16, 8, 128)
+    world = np.zeros(tuple(c * d for c, d in zip(core, dims)), np.float32)
+    u, f = (_rand(tuple(dims) + core, seed, "cpu") for seed in (40, 41))
+    out = {}
+    for dev in ("cpu", card):
+        mesh = make_mesh(dims, ("z", "row", "col"), device=dev)
+        spec = mg3._mg_prologue3(world, mesh, None)[2][0][0]
+        ts.reset_launches()
+        with mesh_context(mesh):
+            out[str(dev)] = mg3.jacobi_smooth3_stream(u.to(dev), f.to(dev), spec, 6 / 7, sweeps)
+    assert ts.seven_point_streamed_pallas.launches == (2 if sweeps == 5 else 1)
+    assert torch.equal(_bits(out[str(card)].cpu()), _bits(out["cpu"]))
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 64), (64, 16, 128)])
+def test_jacobi_stream_solve_launches_by_the_rule(card, shape):
+    # at 64^3 no level is 128 columns wide, so the rule admits none and the
+    # kernel must not launch; at 64x16x128 the finest level streams
+    from tpuscratch_torch.solvers import multigrid3d as mg3
+
+    b = np.random.default_rng(42).standard_normal(shape).astype(np.float32)
+    b -= b.mean()
+    mesh = make_mesh((1, 1, 1), ("z", "row", "col"), device=card)
+    ts.reset_launches()
+    x, cycles, rel = mg3.mg_poisson3d_solve(b, mesh, tol=1e-6, smoother="jacobi-stream")
+    launches = ts.seven_point_streamed_pallas.launches
+    specs = mg3._mg_prologue3(b, mesh, None)[2]
+    assert launches == mg3.stream_launches(specs) * cycles
+    assert (launches > 0) == (shape[2] >= 128)
+    xc, cc, _ = mg3.mg_poisson3d_solve(b, make_mesh((1, 1, 1), ("z", "row", "col"),
+                                                    device="cpu"),
+                                       tol=1e-6, smoother="jacobi-stream")
+    assert rel <= 2.5e-6 and abs(cycles - cc) <= 1
+    assert np.abs(x - xc).max() <= 1e-4 * np.abs(xc).max()
+
+
+# the deep (s-step) smoothers of the 3D multigrid against the per-sweep
+# ones on the card: the same elementwise ops in the same order, so the
+# same bits, as on the CPU (the JAX tests' (sweeps, s) cases)
+@pytest.mark.parametrize("dims", [(1, 1, 1), (2, 2, 2)])
+@pytest.mark.parametrize("smoother,sweeps,s,rev", [
+    ("jacobi", 4, 2, False), ("jacobi", 5, 2, False), ("jacobi", 4, 4, False),
+    ("jacobi", 3, 3, False), ("rbgs", 4, 2, False), ("rbgs", 3, 2, True), ("rbgs", 4, 3, False)])
+def test_deep_smoothers_bit_identical(card, dims, smoother, sweeps, s, rev):
+    from tpuscratch_torch.comm.spmd import mesh_context
+    from tpuscratch_torch.solvers import multigrid3d as mg3
+
+    core = (16, 16, 16)
+    world = np.zeros(tuple(c * d for c, d in zip(core, dims)), np.float32)
+    u, f = (_rand(tuple(dims) + core, seed, card) for seed in (50, 51))
+    mesh = make_mesh(dims, ("z", "row", "col"), device=card)
+    spec = mg3._mg_prologue3(world, mesh, None)[2][0][0]
+    with mesh_context(mesh):
+        if smoother == "jacobi":
+            shal = mg3.jacobi_smooth3(u, f, spec, 6 / 7, sweeps)
+            deep = mg3.jacobi_smooth3_deep(u, f, spec, 6 / 7, sweeps, s)
+        else:
+            shal = mg3.rbgs_smooth3(u, f, spec, sweeps, rev)
+            deep = mg3.rbgs_smooth3_deep(u, f, spec, sweeps, s, rev)
+    assert deep.is_cuda and not torch.equal(deep, u)
+    assert torch.equal(_bits(deep), _bits(shal))
+
+
+def test_pair_fft_refuses_tf32_products(card):
+    from tpuscratch_torch.parallel import fft as pfft
+
+    mesh = make_mesh_1d("x", 1, device=card)
+    prog = run_spmd(mesh, lambda r, i: pfft.fft2_sharded_pair(r, i, "x", method="direct"),
+                    (P("x"), P("x")), (P("x"), P("x")))
+    re, im = _rand((64, 64), 60, card), _rand((64, 64), 61, card)
+    want = prog(re, im)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert pfft.tf32_products()
+        with pytest.raises(RuntimeError, match="TF32"):
+            prog(re, im)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert not pfft.tf32_products()
+    assert all(torch.equal(a, b) for a, b in zip(prog(re, im), want))

@@ -64,7 +64,11 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.bench.adam_bench", "tpuscratch_torch.bench.dma_bound",
                 "tpuscratch_torch.parallel.plan", "tpuscratch_torch.parallel.pipeline",
                 "tpuscratch_torch.parallel.ssm", "tpuscratch_torch.models.ssm",
-                "tpuscratch_torch.bench.train_ablation", "tpuscratch_torch.bench.pipeline_bench"):
+                "tpuscratch_torch.bench.train_ablation", "tpuscratch_torch.bench.pipeline_bench",
+                "tpuscratch_torch.solvers", "tpuscratch_torch.solvers.cg",
+                "tpuscratch_torch.solvers.spectral", "tpuscratch_torch.solvers.multigrid",
+                "tpuscratch_torch.solvers.multigrid3d", "tpuscratch_torch.parallel.fft",
+                "tpuscratch_torch.bench.fft_bench", "tpuscratch_torch.bench.mg3d_chip"):
         assert mod in got["modules"]
 
 
@@ -168,3 +172,25 @@ def test_zero_and_probe_entry_points_need_a_card_unless_asked_for_the_cpu():
         adam_bench.race(device="cpu")
     state = init_zero_adam_state({"layers": [{"wq": torch.zeros(3)}]}, 1)
     assert state["mu_flat"].device.type == "cpu" and state["mu_flat"].shape == (8,)
+
+
+def test_solver_entry_points_need_a_card_unless_asked_for_the_cpu():
+    import numpy as np
+    import torch
+
+    from tpuscratch_torch import solvers
+    from tpuscratch_torch.bench import fft_bench, mg3d_chip
+    from tpuscratch_torch.bench.record import config8_dft
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    b2, b3 = np.ones((16, 16), np.float32), np.ones((16, 16, 16), np.float32)
+    for call in (lambda: solvers.poisson_solve(b2), lambda: solvers.mg_poisson_solve(b2),
+                 lambda: solvers.pcg_poisson_solve(b2), lambda: solvers.mg_poisson3d_solve(b3),
+                 lambda: solvers.pcg_poisson3d_solve(b3), lambda: solvers.periodic_poisson_fft(b2),
+                 lambda: solvers.periodic_poisson3d_fft(b3), fft_bench.bench_dft,
+                 lambda: mg3d_chip.race(16, levels=2), lambda: config8_dft([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert solvers.mg_poisson3d_solve(b3 - 1.0, device="cpu")[1] == 0
+    assert set(mg3d_chip.race(16, levels=2, smoothers=("rbgs",), device="cpu", iters=1)) == {"rbgs"}

@@ -18,7 +18,13 @@ stencil (``ops.stencil_stream``, ``ops.halo_dma``), the 3D halo and
 ``ops.stencil_kernel`` and ``ops.stencil_stream``), and the serving path's
 default (``serve``, ``parallel.expert``, ``parallel.scores``,
 ``models.transformer``, ``bench.decode_bench``, with the paged-attention
-kernel of ``ops.attention``).
+kernel of ``ops.attention``), the training paths (``ops.attention``'s
+flash kernels, ``parallel.{ring,ring_attention,ulysses}``, ``ops.adam``,
+``models.zero``, ``parallel.{plan,pipeline,ssm}``, ``models.ssm``), and
+the solvers (``solvers``: CG and pipelined CG, 2D and 3D multigrid, whose
+``jacobi-stream`` smoother runs the streamed 3D kernel, and the spectral
+solvers over ``parallel.fft``, the pencil FFT; ``bench.fft_bench``,
+``bench.mg3d_chip``).
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
-"""BASELINE configs 2, 3, 4, 6, 9, 10, 11, 12, 13 and 14 on the card.
+"""BASELINE configs 2, 3, 4, 6, 8, 9, 10, 11, 12, 13 and 14 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,9,10,11,12,13,14]``
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,8,9,10,11,12,13,14]``
 prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
-2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 9 the 3D
+2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 8 the
+pair-FFT round trip at 1024^2 and the direct against four-step race, 9 the 3D
 7-point stencil at 256x512x512, 10 the DMA-halo stencil at 1024^2, 11 the
 composed train step (the 4-layer MoE transformer at d_model 1024, batch 8,
 seq 2048) and its pipelined step on a 1x1x1 mesh, 12 serving decode (the
@@ -12,7 +13,9 @@ ZeRO-sharded training of that model at dp 1, 2 and 4 stacked on the card,
 and the accumulation sweep, 14 the plan-composed ZeRO step at pp x dp in
 {1, 2}^2, serial against the overlap schedule.
 Each line names the device it ran on. Unlike the JAX harness, nothing is
-caught: a failing method, impl or re-measure fails the run.
+caught (a failing method, impl or re-measure fails the run), except in
+config 8's race, which records a point's error in the line, as the JAX
+harness does, and leaves that point's time out.
 """
 
 from __future__ import annotations
@@ -147,6 +150,63 @@ def config10_dma_halo(out: list, iters: int = 3, grid=(1024, 1024), impls=CONFIG
           us_per_step={i: r.p50 / (r.items // cells) * 1e6 for i, r in rows.items()},
           detail=best.name, n_devices=1)
     return rows
+
+
+#: Config 8's race sizes on the card (the JAX package's chip set) and
+#: the FLOPs a timed call aims at (~1 s of products).
+CONFIG8_SIZES = (512, 1024, 4096, 8192)
+CONFIG8_TARGET_FLOPS = 2e13
+
+
+def config8_dft(out: list, iters: int = 3, device=None, sizes=None,
+                max_rounds: int = 1000) -> dict:
+    """The pair-FFT round trip: the headline ``pair_dft_roundtrip_tflops``
+    (1000 direct round trips at 1024^2 on the card), then the race of the
+    direct DFT against the four-step split, seconds a fwd+inv round trip at
+    each of ``sizes`` (the card's default 512, 1024, 4096 and 8192; 64 and
+    128 on the CPU), the winner a size; FLOP rates of the two methods are
+    not comparable. The JAX harness skips direct above 2e8 bytes of tables
+    (its remote compile's limit); here 8192's two tables are 537 MB of the
+    card's memory and race. A race point times round trips of about 2e13
+    FLOPs on the card, at most ``max_rounds`` (the JAX harness's 1000). A
+    point that raises is recorded under ``errors`` and has no time.
+    Returns ``{"headline", "race"}``."""
+    from tpuscratch_torch.bench.fft_bench import bench_dft, pair_fft_flops
+
+    mesh = make_mesh_1d("x", device=device)
+    on_card = mesh.device.type == "cuda"
+    r = bench_dft(iters=iters, mesh=mesh)
+    print(f"# {r.summary()}", file=sys.stderr)
+    _emit(out, mesh, config=8, metric="pair_dft_roundtrip_tflops", value=r.items_per_s / 1e12,
+          p50_s=r.p50, detail=f"{r.name} (float32 products)", n_devices=1)
+    if sizes is None:
+        sizes = CONFIG8_SIZES if on_card else (64, 128)
+    target = CONFIG8_TARGET_FLOPS if on_card else 2e7
+    race: dict[str, dict] = {}
+    for n in sizes:
+        per, errors = {}, {}
+        for method in ("direct", "four-step"):
+            rounds = max(1, min(max_rounds, int(target / pair_fft_flops(n, method, 1))))
+            try:
+                rm = bench_dft(n=n, rounds=rounds, iters=iters, mesh=mesh, method=method,
+                               fence="readback" if on_card else "block")
+            except Exception as e:  # noqa: BLE001 -- the point's error goes into the line
+                errors[method] = f"{type(e).__name__}: {e}"
+                print(f"# config 8 {method}@{n} failed: {errors[method]}", file=sys.stderr)
+                continue
+            per[method] = rm.p50 / rounds
+            print(f"# {rm.summary()} -> {per[method] * 1e3:.4f} ms/round", file=sys.stderr)
+        race[str(n)] = {"s_per_roundtrip": per, **({"errors": errors} if errors else {}),
+                        **({"winner": min(per, key=per.get)} if per else {})}
+    timed = {n: v for n, v in race.items() if "winner" in v}
+    if timed:
+        # the value is pinned to the 1024^2 winner, as in the JAX harness
+        ref = timed.get("1024") or timed[max(timed, key=int)]
+        _emit(out, mesh, config=8, metric="pair_fft_crossover",
+              value=ref["s_per_roundtrip"][ref["winner"]], race=race,
+              detail="s per fwd+inv 2D round trip at 1024^2 (winner); full race in 'race'",
+              n_devices=1)
+    return {"headline": r, "race": race}
 
 
 #: Config 9's race: every one-step impl and the streamed kernel at two depths.
@@ -545,14 +605,15 @@ def config14_plan_overlap(out: list, iters: int = 2, steps: int | None = None, d
 
 
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
-           6: config6_flash_attention, 9: config9_stencil3d, 10: config10_dma_halo,
+           6: config6_flash_attention, 8: config8_dft, 9: config9_stencil3d,
+           10: config10_dma_halo,
            11: config11_train, 12: config12_decode, 13: config13_zero_train,
            14: config14_plan_overlap}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,6,9,10,11,12,13,14",
+    ap.add_argument("--configs", default="2,3,4,6,8,9,10,11,12,13,14",
                     help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []

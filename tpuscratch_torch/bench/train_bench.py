@@ -21,6 +21,7 @@ term 12 S d a token a layer (halved when causal).
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -137,10 +138,16 @@ def train_data(seed: int, batch: int, seq: int, d_model: int, device,
                accum_steps: int = 1) -> tuple:
     """(x, y) ``(batch, seq, d_model)`` f32 standard normals from ``seed``,
     ``(accum_steps, batch, seq, d_model)`` when ``accum_steps > 1``."""
-    rng = np.random.default_rng(seed)
     shape = (batch, seq, d_model) if accum_steps == 1 else (accum_steps, batch, seq, d_model)
-    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-                 for _ in range(2))
+    return tuple(torch.tensor(a, device=device) for a in _data_numpy(seed, shape))
+
+
+@functools.lru_cache(maxsize=2)
+def _data_numpy(seed: int, shape: tuple) -> tuple:
+    # kept for the next call with the same draws (a benchmark takes them
+    # once a run, and they cost seconds on the host); train_data copies
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(2))
 
 
 def bench_train(mesh: Optional[StackedMesh] = None, cfg: Optional[TransformerConfig] = None,
