@@ -182,6 +182,26 @@ Phase 27 runs after 26, before 24's lines:
    race at 256^3, with a profile of a V-cycle for each smoother (device
    time by kernel, idle share).
 
+Phase 28 runs after 27, before 24's lines:
+
+28. the fault-tolerant chunked path: ``checkpointed_stencil`` at 1024^2 on
+   1x1, 1024 steps, a save every 256, with ``resident:8`` (row 4) and
+   ``deep-pallas:16`` (row 3): a child process ends itself with ``os._exit``
+   after its second save and the run resumes here, bit-identical to the
+   uninterrupted run and to ``distributed_stencil``; the async run's
+   checkpoints byte-identical to the blocking run's; rows 3 and 4 held to
+   16 launches and 1 launch a chunk. The trainer at config 11's width
+   (batch cut to 2; ``attn_impl="pallas"``, rows 15 and 16): SGD on 1x1, 6
+   steps, a save every 3, clean; a NaN at step 4 rolled back by the guard;
+   a preemption under ``supervise_train``; ZeRO Adam on 2 stacked dp ranks
+   (row 14) with async saves, preempted once — each bit-identical to its
+   clean run, the launches held to layers x steps run. The solver runner at
+   256^3 with ``jacobi-stream`` (row 9), 3 cycles a chunk, preempted after
+   chunk 2, bit-identical to the unfaulted chunked solve, row 9 held to
+   ``stream_launches`` x cycles. Config 16 through ``bench.record``: each
+   workload's goodput, checkpoint and restart shares, blocking and async,
+   ``GoodputReport.check`` live. Each save's bytes and seconds are logged.
+
 Any failure raises and exits non-zero; without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -3523,6 +3543,367 @@ def phase27_solvers(gen) -> tuple[int, float]:
     return launches, err
 
 
+# ---- phase 28: the fault-tolerant chunked path ----------------------------------------
+
+FT_WORLD, FT_STEPS, FT_EVERY = 1024, 1024, 256   # halo: 1024^2, a save every 256 steps
+FT_IMPLS = {"resident:8": ("resident_periodic_pallas", 1),   # launches a chunk (the rule)
+            "deep-pallas:16": ("deep_trapezoid_pallas", FT_EVERY // 16)}
+FT_TRAIN_STEPS, FT_TRAIN_EVERY, FT_TRAIN_BATCH = 6, 3, 2
+FT_SOLVE_CHUNK = 3
+
+# the child: the port's driver, ended with os._exit after its second save
+FT_CHILD = r"""
+import os, sys
+import numpy as np
+from tpuscratch_torch.halo.driver import checkpointed_stencil
+
+class ExitAfterSecondSave:
+    enabled = True
+    saves = 0
+    def emit(self, event, **fields):
+        if event == "ckpt/save":
+            ExitAfterSecondSave.saves += 1
+            if ExitAfterSecondSave.saves == 2:
+                os._exit(17)
+    def emit_metrics(self, *a, **k): pass
+    def flush(self): pass
+    def close(self): pass
+
+world = np.load(sys.argv[1])
+checkpointed_stencil(world, int(sys.argv[3]), sys.argv[2], save_every=int(sys.argv[4]),
+                     impl=sys.argv[5], keep=8, sink=ExitAfterSecondSave(), device=sys.argv[6])
+raise SystemExit("the driver finished without being ended")
+"""
+
+
+class _SaveLog:
+    """A sink that logs every checkpoint event's bytes and seconds and keeps
+    the events."""
+
+    enabled = True
+
+    def __init__(self, label: str):
+        self.label, self.events = label, []
+
+    def emit(self, event: str, **f) -> None:
+        self.events.append({"event": event, **f})
+        if event in ("ckpt/save", "ckpt/snapshot", "ckpt/write"):
+            b = f.get("bytes", 0)
+            copy = (f", its device-to-host copy {f['copy_device_s']:.4f} s on the device"
+                    if "copy_device_s" in f else "")
+            log(f"    {self.label} {event} step {f.get('step')}: {b / 1e6:.1f} MB in "
+                f"{f['wall_s']:.4f} s ({b / max(f['wall_s'], 1e-9) / 1e9:.2f} GB/s){copy}")
+
+    def emit_metrics(self, *a, **k) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _same_dirs(a: pathlib.Path, b: pathlib.Path) -> int:
+    """Every file of two checkpoint directories byte for byte; returns the
+    files compared."""
+    fa = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    fb = sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    if fa != fb or not fa:
+        raise AssertionError(f"checkpoint files differ: {fa} / {fb}")
+    for rel in fa:
+        if (a / rel).read_bytes() != (b / rel).read_bytes():
+            raise AssertionError(f"async checkpoint {rel} differs from the blocking one")
+    return len(fa)
+
+
+def _ft_halo(tmp: pathlib.Path) -> dict:
+    """(a): checkpointed_stencil killed in a child after its second save and
+    resumed here, against the uninterrupted run, distributed_stencil and the
+    async run's checkpoints; rows 3 and 4 held to the rule's launches."""
+    from tpuscratch_torch.halo.driver import checkpointed_stencil, distributed_stencil
+    from tpuscratch_torch.ops import stencil_kernel as sk
+    from tpuscratch_torch.runtime import checkpoint
+
+    world = np.random.default_rng(SEED + 28).standard_normal((FT_WORLD,) * 2).astype(np.float32)
+    np.save(tmp / "world.npy", world)
+    root = pathlib.Path(__file__).resolve().parent
+    children = {impl: subprocess.Popen(
+        [sys.executable, "-c", FT_CHILD, str(tmp / "world.npy"), str(tmp / f"killed_{impl}"),
+         str(FT_STEPS), str(FT_EVERY), impl, DEVICE], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for impl in FT_IMPLS}
+    chunks = FT_STEPS // FT_EVERY
+    launches = {}
+
+    def counted(name, per, n_chunks, what, fn):
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        n = sk.launch_counts()[name]
+        log(f"  {what}: {time.perf_counter() - t0:.3f} s, {name} launched {n} "
+            f"(the rule: {per} x {n_chunks} chunks)")
+        if n != per * n_chunks:
+            raise AssertionError(f"{what}: {name} launched {n}, want {per * n_chunks}")
+        launches[name] = launches.get(name, 0) + n
+        return out
+
+    for impl, (name, per) in FT_IMPLS.items():
+        base, _, arg = impl.partition(":")
+        halo = (int(arg),) * 2 if base.startswith("deep") else (1, 1)
+        whole = counted(name, per if base.startswith("deep") else 1,
+                        chunks if base.startswith("deep") else 1,
+                        f"distributed_stencil {FT_WORLD}^2 x{FT_STEPS} impl={impl}",
+                        lambda: distributed_stencil(world, FT_STEPS, halo=halo, impl=base,
+                                                    device=DEVICE))
+        outs = {}
+        for mode in ("blocking", "async"):
+            sink = _SaveLog(f"{impl} {mode}")
+            outs[mode] = counted(
+                name, per, chunks, f"checkpointed_stencil impl={impl} {mode}, a save every "
+                f"{FT_EVERY}",
+                lambda: checkpointed_stencil(world, FT_STEPS, str(tmp / f"{mode}_{impl}"),
+                                             save_every=FT_EVERY, impl=impl, keep=chunks,
+                                             sink=sink, async_ckpt=mode == "async",
+                                             device=DEVICE))
+        files = _same_dirs(tmp / f"blocking_{impl}", tmp / f"async_{impl}")
+        log(f"  {impl}: the async run's {files} checkpoint files are byte-identical to the "
+            f"blocking run's")
+        child = children[impl]
+        _, err = child.communicate(timeout=300)
+        at = checkpoint.latest_step(tmp / f"killed_{impl}")
+        log(f"  the child ended with code {child.returncode} at step {at}")
+        if child.returncode != 17 or at != 2 * FT_EVERY:
+            raise AssertionError(f"the killed child: code {child.returncode}, step {at}: {err[-2000:]}")
+        resumed = counted(name, per, chunks - 2, f"resumed {impl} from step {at} here",
+                          lambda: checkpointed_stencil(world, FT_STEPS, str(tmp / f"killed_{impl}"),
+                                                       save_every=FT_EVERY, impl=impl,
+                                                       device=DEVICE))
+        for label, ref in (("the uninterrupted run", outs["blocking"]),
+                           ("the async run", outs["async"]),
+                           (f"distributed_stencil impl={base}", whole)):
+            same = np.array_equal(resumed, ref)
+            log(f"  {impl} resumed against {label}: bit-identical {same}")
+            if not same:
+                raise AssertionError(f"{impl}: the resumed run differs from {label}: "
+                                     f"{float(np.abs(resumed - ref).max()):.3e}")
+        if not np.isfinite(resumed).all():
+            raise AssertionError(f"{impl}: non-finite cells")
+    return launches
+
+
+def _params_same(a, b) -> bool:
+    from tpuscratch_torch.runtime.checkpoint import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _ft_train(tmp: pathlib.Path) -> tuple[dict, list]:
+    """(b): the trainer at config 11's width (batch cut to 2): SGD clean, a
+    NaN rolled back, a preemption under supervise_train; ZeRO Adam on 2
+    stacked dp ranks with async saves, preempted once. Returns the flash and
+    fused Adam launches and the ``reduced`` list."""
+    import dataclasses
+    import shutil
+
+    from tpuscratch_torch.bench.train_bench import default_train_setup
+    from tpuscratch_torch.ft import ChaosPlan, Fault, GuardPolicy, supervise_train
+    from tpuscratch_torch.models.trainer import train
+    from tpuscratch_torch.obs.metrics import MetricsRegistry
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    cfg, batch, seq, _ = default_train_setup(on_card=True)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    reduced = [f"batch {batch} -> {FT_TRAIN_BATCH}", f"steps -> {FT_TRAIN_STEPS}"]
+    kw = dict(save_every=FT_TRAIN_EVERY, batch=FT_TRAIN_BATCH, seq=seq, keep=1, lr=1e-3, seed=3)
+    launches = {"_flash_fwd_call": 0, "_flash_bwd_call": 0, "fused_adam_flat": 0}
+
+    def run(what, fn, d, steps_run, layers, adam_steps=0):
+        ta.reset_launches()
+        tadam.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        got = {**ta.launch_counts(), **tadam.launch_counts()}
+        want = layers * steps_run
+        log(f"  {what}: {wall:.3f} s, {steps_run} steps run; launches fwd "
+            f"{got['_flash_fwd_call']} bwd {got['_flash_bwd_call']} (the rule: {layers} layers x "
+            f"{steps_run} steps = {want}), fused Adam {got['fused_adam_flat']}")
+        if (got["_flash_fwd_call"], got["_flash_bwd_call"]) != (want, want):
+            raise AssertionError(f"{what}: flash launches {got}, want {want}")
+        if adam_steps and got["fused_adam_flat"] != adam_steps:
+            raise AssertionError(f"{what}: fused Adam launched {got['fused_adam_flat']}, "
+                                 f"want {adam_steps}")
+        for k in launches:
+            launches[k] += got[k]
+        shutil.rmtree(d, ignore_errors=True)
+        return out
+
+    mesh = make_mesh((1, 1), ("dp", "sp"), DEVICE)
+    n = FT_TRAIN_STEPS
+    sink = _SaveLog("sgd clean")
+    clean, rep = run("SGD clean, 1x1", lambda: train(mesh, cfg, n, str(tmp / "sgd"), obs=sink,
+                                                       **kw), tmp / "sgd", n, cfg.n_layers)
+    if not all(math.isfinite(v) for v in rep.losses):
+        raise AssertionError(f"SGD losses {rep.losses}")
+    compiles = [e["compiles"] for e in sink.events if e["event"] == "train/run"]
+    compile_s = sum(e["compile_s"] for e in sink.events if "compile_s" in e)
+    log(f"    losses {rep.losses}; step builds {compiles} (one a run by construction); "
+        f"compile_s {compile_s} (no kernel library loaded in the run)")
+    if compile_s != 0:
+        raise AssertionError(f"the trainer booked {compile_s} s of kernel builds")
+    plan = ChaosPlan(0, [Fault("train/grad", at=(4,), kind="nan")])
+    healed, rep = run("SGD, a NaN at step 4 under GuardPolicy(max_skips=0, max_rollbacks=1)",
+                      lambda: train(mesh, cfg, n, str(tmp / "nan"), chaos=plan,
+                                    guard=GuardPolicy(max_skips=0, max_rollbacks=1),
+                                    obs=_SaveLog("sgd nan"), **kw),
+                      tmp / "nan", n + FT_TRAIN_EVERY, cfg.n_layers)
+    same = _params_same(healed, clean)
+    log(f"    skipped {rep.skipped}, rollbacks {rep.rollbacks}; bit-identical to the clean run "
+        f"{same}")
+    if not (same and rep.skipped == 1 and rep.rollbacks == 1):
+        raise AssertionError(f"the NaN rollback: {rep}, bit-identical {same}")
+    del healed
+    metrics = MetricsRegistry()
+    plan = ChaosPlan(0, [Fault("train/preempt", at=(FT_TRAIN_EVERY,), kind="preempt")])
+    resumed, rep = run(f"SGD preempted after the step-{FT_TRAIN_EVERY} save, under "
+                       "supervise_train",
+                       lambda: supervise_train(mesh, cfg, n, str(tmp / "pre"), chaos=plan,
+                                               metrics=metrics, obs=_SaveLog("sgd preempted"),
+                                               **kw), tmp / "pre", n, cfg.n_layers)
+    restarts = int(metrics.counter("ft/restarts").value)
+    same = _params_same(resumed, clean)
+    log(f"    restarts {restarts}; bit-identical to the clean run {same}")
+    if not (same and restarts == 1):
+        raise AssertionError(f"the preempted run: restarts {restarts}, bit-identical {same}")
+    del resumed, clean
+    torch.cuda.empty_cache()
+
+    zmesh = make_mesh((2, 1), ("dp", "sp"), DEVICE)
+    zkw = dict(kw, optimizer="adam", zero=True, lr=1e-4)
+    zclean, _ = run("ZeRO Adam clean, dp 2 stacked",
+                    lambda: train(zmesh, cfg, n, str(tmp / "zclean"),
+                                  obs=_SaveLog("zero clean"), **zkw),
+                    tmp / "zclean", n, cfg.n_layers, adam_steps=n)
+    metrics = MetricsRegistry()
+    plan = ChaosPlan(0, [Fault("train/preempt", at=(FT_TRAIN_EVERY,), kind="preempt")])
+    zres, _ = run("ZeRO Adam dp 2, async saves, preempted once",
+                  lambda: supervise_train(zmesh, cfg, n, str(tmp / "zpre"), chaos=plan,
+                                          metrics=metrics, obs=_SaveLog("zero async"),
+                                          async_ckpt=True, **zkw),
+                  tmp / "zpre", n, cfg.n_layers, adam_steps=n)
+    restarts = int(metrics.counter("ft/restarts").value)
+    same = _params_same(zres, zclean)
+    log(f"    restarts {restarts}; bit-identical to the clean ZeRO run {same}")
+    if not (same and restarts == 1):
+        raise AssertionError(f"the preempted ZeRO run: restarts {restarts}, bit-identical {same}")
+    return launches, reduced
+
+
+def _ft_solver(tmp: pathlib.Path) -> int:
+    """(c): supervised_mg3d_solve at 256^3, jacobi-stream, preempted after
+    its second chunk, against checkpointed_mg3d_solve with no fault; row 9's
+    launches held to stream_launches x the cycles run."""
+    from tpuscratch_torch.ft import ChaosPlan, Fault
+    from tpuscratch_torch.obs.metrics import MetricsRegistry
+    from tpuscratch_torch.ops import stencil_stream as ss
+    from tpuscratch_torch.runtime.mesh import make_mesh
+    from tpuscratch_torch.solvers.multigrid3d import _mg_prologue3, stream_launches
+    from tpuscratch_torch.solvers.runner import checkpointed_mg3d_solve, supervised_mg3d_solve
+
+    b = np.random.default_rng(SEED + 29).standard_normal((MG3_N,) * 3).astype(np.float32)
+    b -= b.mean()
+    mesh = make_mesh((1, 1, 1), ("z", "row", "col"), DEVICE)
+    per_cycle = stream_launches(_mg_prologue3(b, mesh, None)[2])
+    kw = dict(mesh=mesh, tol=MG3_TOL, chunk_cycles=FT_SOLVE_CHUNK, smoother="jacobi-stream",
+              keep=1)
+    total = 0
+    runs = {}
+    for label, fn in (
+            ("checkpointed_mg3d_solve, no fault", lambda: checkpointed_mg3d_solve(
+                b, str(tmp / "solve"), sink=_SaveLog("solver"), **kw)),
+            (f"supervised_mg3d_solve, preempted after chunk 2", lambda: supervised_mg3d_solve(
+                b, str(tmp / "solve_pre"), metrics=metrics, sink=_SaveLog("solver preempted"),
+                chaos=ChaosPlan(0, [Fault("solver/preempt", at=(2 * FT_SOLVE_CHUNK,),
+                                          kind="preempt")]), **kw))):
+        metrics = MetricsRegistry()
+        ss.reset_launches()
+        t0 = time.perf_counter()
+        x, rep = fn()
+        n = ss.seven_point_streamed_pallas.launches
+        cycles = rep.cycles - rep.resumed_at + (2 * FT_SOLVE_CHUNK if rep.resumed_at else 0)
+        log(f"  {label} {MG3_N}^3: {time.perf_counter() - t0:.3f} s, {rep}; "
+            f"stream3d_kernel launches {n} (the rule: {per_cycle} x {cycles} cycles)")
+        if n != per_cycle * cycles or not rep.converged:
+            raise AssertionError(f"{label}: {n} launches, want {per_cycle * cycles}; {rep}")
+        total += n
+        runs[label] = x, rep
+    (xa, ra), (xb, rb) = runs.values()
+    same = np.array_equal(xa, xb) and ra.cycles == rb.cycles
+    log(f"  the preempted solve against the uninterrupted one: {rb.cycles} / {ra.cycles} cycles, "
+        f"bit-identical {same}")
+    if not same:
+        raise AssertionError("the preempted solve is not bit-identical to the uninterrupted one")
+    _held_to_oracle("checkpointed_mg3d_solve", _lap3_np, xa, b, ORACLE_C["mg"] * MG3_TOL)
+    return total
+
+
+def phase28_fault_tolerant() -> dict:
+    """The fault-tolerant chunked path (module comment). Returns the
+    launches of rows 3, 4, 9, 14, 15 and 16 on this phase's runs."""
+    import shutil
+    import tempfile
+
+    from tpuscratch_torch.bench.record import config16_elastic_goodput
+
+    from tpuscratch_torch.ops.common import build_all, library
+    from tpuscratch_torch.runtime.chunked import kernel_builds
+
+    # every library loaded up front (earlier phases have loaded them when the
+    # whole smoke runs): no chunk of this phase may then book a build
+    for name in build_all():
+        library(name)
+    t0 = time.perf_counter()
+    built = kernel_builds()
+
+    def lap(what: str) -> None:
+        log(f"  [{what} done at {time.perf_counter() - t0:.1f} s of phase 28]")
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tpuscratch_ft_"))
+    try:
+        launches = _ft_halo(tmp)
+        lap("(a) the halo driver")
+        more, reduced = _ft_train(tmp)
+        launches.update(more)
+        torch.cuda.empty_cache()
+        lap(f"(b) the trainer (reduced: {', '.join(reduced)})")
+        launches["seven_point_streamed_pallas"] = _ft_solver(tmp)
+        lap("(c) the solver runner")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = config16_elastic_goodput([], device=DEVICE)
+    for name, r in res.items():
+        row = r["row"]
+        log(f"  config 16 {name}: goodput {row['goodput_fraction_blocking']:.4f} blocking / "
+            f"{row['goodput_fraction_async']:.4f} async; checkpoint share "
+            f"{row['checkpoint_share_blocking']:.4f} / {row['checkpoint_share_async']:.4f}; "
+            f"restart share {row['restart_share_blocking']:.4f} / "
+            f"{row['restart_share_async']:.4f}; wall {row['wall_s_blocking']:.3f} / "
+            f"{row['wall_s_async']:.3f} s; overlapped writes {row['overlapped_write_s']:.4f} s, "
+            f"their device-to-host copies {row['copy_device_s_async']:.4f} s on the device "
+            f"(booked in the chunks after each snapshot)")
+    lap("(d) config 16")
+    zero = [k for k, v in launches.items() if v == 0]
+    if zero:
+        raise AssertionError(f"phase 28 never launched {zero}")
+    if kernel_builds() != built:
+        raise AssertionError(f"phase 28 loaded {kernel_builds() - built} kernel libraries")
+    log(f"  phase 28 launches {launches}; took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3606,6 +3987,10 @@ def main() -> int:
     stage("== phase 27: the solvers (CG, multigrid 2D and 3D with the streamed smoother, spectral, "
         "the pair FFT), config 8 and mg3d_chip")
     stream_launches, errs10 = phase27_solvers(gen)
+    torch.cuda.empty_cache()
+    stage("== phase 28: the fault-tolerant chunked path (checkpointed_stencil killed and resumed, "
+          "the trainer at config 11's width, the solver runner; config 16)")
+    ft_launches = phase28_fault_tolerant()
 
     from tpuscratch_torch.bench import dma_bound as tb
     from tpuscratch_torch.ops import adam as tadam
@@ -3681,6 +4066,10 @@ def main() -> int:
     by_path[name] = {"phase 12": counts[name], "phase 27": stream_launches}
     counts[name] += stream_launches
     errs[name] = max(errs[name], errs10)
+    # the fault-tolerant chunked path (phase 28) runs rows 3, 4, 9 and 14-16 again
+    for name, n in ft_launches.items():
+        by_path.setdefault(name, {"phase 3": counts[name]})["phase 28"] = n
+        counts[name] += n
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])

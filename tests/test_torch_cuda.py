@@ -15,7 +15,10 @@ versions do: bit-equal, also for the ZeRO step that runs the kernel, and
 the pipelined plan step's overlap schedule is bit-equal to its serial one.
 The 3D multigrid's streamed smoother, run on the card, is bit-equal to the
 same call on the CPU, and a ``jacobi-stream`` solve launches the streamed
-kernel as often as ``multigrid3d.stream_launches`` says.
+kernel as often as ``multigrid3d.stream_launches`` says. The async
+checkpoint's snapshot holds the values its tree had, whatever the streams
+do before and after it, and the guarded train step on the card gives the
+CPU run's statuses.
 
 Imports no JAX, so it runs on a card host without it:
 
@@ -1517,3 +1520,77 @@ def test_pair_fft_refuses_tf32_products(card):
         torch.backends.cuda.matmul.allow_tf32 = prev
     assert not pfft.tf32_products()
     assert all(torch.equal(a, b) for a, b in zip(prog(re, im), want))
+
+
+def test_async_snapshot_race_on_a_cuda_stream(card, tmp_path):
+    """The async checkpoint's two races on the card: its copy must wait for
+    the work queued before the snapshot (the fill to 1 behind a sleep
+    kernel), and the work queued after it (an in-place fill to 2, as a
+    donated state's update) must wait for the copy. The host does not wait
+    for either: once the pinned buffers are pooled (a first snapshot of the
+    same shapes, as every save after a run's first), ``snapshot`` returns
+    while the sleep still runs. The write reports the copy's device time."""
+    from tpuscratch_torch.runtime import checkpoint
+    from tpuscratch_torch.runtime.async_ckpt import AsyncCheckpointer
+
+    x = torch.zeros(16 << 20, device=card)
+    y = torch.zeros(3, 5, device=card)
+    writes = []
+
+    class Sink:
+        def emit(self, event, **f):
+            writes.append(f)
+
+    with AsyncCheckpointer(sink=Sink()) as ck:
+        ck.snapshot(tmp_path / "warm", 1, {"x": x, "y": y, "n": np.int32(0)})
+        ck.drain()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        x.fill_(1.0)
+        y.fill_(1.0)
+        queued = torch.cuda.Event()
+        queued.record()
+        ck.snapshot(tmp_path / "ck", 1, {"x": x, "y": y, "n": np.int32(7)})
+        waited = queued.query()
+        x.fill_(2.0)
+        y.add_(1.0)
+        ck.drain()
+    got, _, _ = checkpoint.restore(tmp_path / "ck", {"x": x, "y": y, "n": np.int32(0)})
+    assert got["x"].is_cuda and int(got["n"]) == 7
+    assert float(got["x"].min()) == float(got["x"].max()) == 1.0, "the copy raced the fills"
+    assert bool((got["y"] == 1.0).all()), "the copy raced the fills"
+    assert bool((x == 2.0).all()) and bool((y == 2.0).all())
+    assert not waited, "snapshot waited for the device"
+    assert len(writes) == 2 and writes[1]["copy_device_s"] > 0.0
+
+
+def test_guarded_step_on_the_card_against_the_cpu(card):
+    """``train_step(guard=...)`` with the flash kernels on the card against
+    the same step's plain path on the CPU: the same statuses (clipped, then
+    skipped on an Inf batch); a skipped step returns the params bit for bit;
+    the clipped step's loss within 1e-5 relative and its update within
+    1e-4 of the largest update (the kernels and cuBLAS sum in other orders)
+    plus two f32 spacings of the parameter (how finely the stored
+    parameter shows an update)."""
+    from tpuscratch_torch.models import transformer as mt
+
+    cfg = mt.TransformerConfig(d_model=64, n_heads=2, n_experts=2, d_ff=96,
+                               capacity_factor=2.0, attn_impl="pallas")
+    x, y = _rand((2, 64, 64), 70, "cpu"), _rand((2, 64, 64), 71, "cpu")
+    bad = x.clone()
+    bad[0, 0, 0] = math.inf
+    out = {}
+    for dev in ("cpu", card):
+        step = mt.train_step(make_mesh((1, 1), ("dp", "sp"), device=dev), cfg, lr=0.05,
+                             guard=(0.1, 1e30))
+        p0 = mt.init_params(0, cfg, dev)
+        ref = torch.tensor(float("nan"), device=dev)
+        out[str(dev)] = [step(p0, xb.to(dev), y.to(dev), ref) for xb in (x, bad)], p0
+    (cpu, cp0), (gpu, gp0) = out["cpu"], out[str(card)]
+    assert [int(r[3]) for r in cpu] == [int(r[3]) for r in gpu] == [1, 2]
+    assert all(torch.equal(a, b) for a, b in zip(mt._leaves(gpu[1][0]), mt._leaves(gp0)))
+    assert abs(float(gpu[0][1]) - float(cpu[0][1])) <= 1e-5 * abs(float(cpu[0][1]))
+    for w, a, b in zip(mt._leaves(cp0), mt._leaves(cpu[0][0]), mt._leaves(gpu[0][0])):
+        ua, ub = a - w, b.cpu() - w
+        seen = 2 * torch.from_numpy(np.spacing(w.abs().numpy()))
+        assert bool(((ua - ub).abs() <= 1e-4 * float(ua.abs().max()) + seen).all())

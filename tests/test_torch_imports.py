@@ -68,7 +68,15 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.solvers", "tpuscratch_torch.solvers.cg",
                 "tpuscratch_torch.solvers.spectral", "tpuscratch_torch.solvers.multigrid",
                 "tpuscratch_torch.solvers.multigrid3d", "tpuscratch_torch.parallel.fft",
-                "tpuscratch_torch.bench.fft_bench", "tpuscratch_torch.bench.mg3d_chip"):
+                "tpuscratch_torch.bench.fft_bench", "tpuscratch_torch.bench.mg3d_chip",
+                "tpuscratch_torch.obs", "tpuscratch_torch.obs.sink",
+                "tpuscratch_torch.obs.metrics", "tpuscratch_torch.obs.trace",
+                "tpuscratch_torch.obs.goodput", "tpuscratch_torch.obs.report",
+                "tpuscratch_torch.ft", "tpuscratch_torch.ft.retry", "tpuscratch_torch.ft.guards",
+                "tpuscratch_torch.ft.chaos", "tpuscratch_torch.ft.supervisor",
+                "tpuscratch_torch.runtime.checkpoint", "tpuscratch_torch.runtime.async_ckpt",
+                "tpuscratch_torch.runtime.chunked", "tpuscratch_torch.models.trainer",
+                "tpuscratch_torch.solvers.runner"):
         assert mod in got["modules"]
 
 
@@ -194,3 +202,28 @@ def test_solver_entry_points_need_a_card_unless_asked_for_the_cpu():
             call()
     assert solvers.mg_poisson3d_solve(b3 - 1.0, device="cpu")[1] == 0
     assert set(mg3d_chip.race(16, levels=2, smoothers=("rbgs",), device="cpu", iters=1)) == {"rbgs"}
+
+
+def test_chunked_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
+    import numpy as np
+    import torch
+
+    from tpuscratch_torch.bench.record import config16_elastic_goodput
+    from tpuscratch_torch.halo.driver import checkpointed_stencil
+    from tpuscratch_torch.models.trainer import synthetic_batch, train
+    from tpuscratch_torch.models.transformer import TransformerConfig
+    from tpuscratch_torch.runtime.mesh import make_mesh
+    from tpuscratch_torch.solvers.runner import checkpointed_mg3d_solve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    w, b = np.ones((8, 8), np.float32), np.zeros((8, 8, 8), np.float32)
+    for call in (lambda: checkpointed_stencil(w, 2, str(tmp_path / "a")),
+                 lambda: checkpointed_mg3d_solve(b, str(tmp_path / "b")),
+                 lambda: synthetic_batch(0, 0, 1, 2, 4),
+                 lambda: train(make_mesh((1, 1), ("dp", "sp")), TransformerConfig(), 1,
+                               str(tmp_path / "c")),
+                 lambda: config16_elastic_goodput([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert checkpointed_stencil(w, 2, str(tmp_path / "d"), save_every=1, device="cpu").shape == (8, 8)

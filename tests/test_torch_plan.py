@@ -276,11 +276,35 @@ def test_fused_launches_once_a_step_and_once_a_block_and_donates(dims):
 
 
 def test_plan_step_refusals():
-    _, tc = _cfgs()
-    _, tp = _plans()
-    for kw in ({"guard": (1.0, 2.0)}, {"counter": object()}):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tz.train_step_plan(tp, tc, **kw)
+    """The plan step's ``guard=`` and ``counter=`` levers (once refused
+    here) against the JAX guarded plan step on pp2 x dp2: the same
+    statuses; a clean guarded step bit-identical to the port's unguarded
+    one; a NaN step keeps the stacked params and the plan state bit for
+    bit; one build counted. Then the refusals."""
+    from tpuscratch_torch.obs import CompileCounter
+
+    jc, tc = _cfgs()
+    jp, tp = _plans()
+    counter = CompileCounter()
+    x, y = _data()
+    bad = x.copy()
+    bad[0, 0, 0] = np.nan
+    jfn = jz.train_step_plan(jp, jc, lr=0.01, guard=(1e30, 1e30))
+    tfn = tz.train_step_plan(tp, tc, lr=0.01, guard=(1e30, 1e30), counter=counter)
+    _, plain_p, plain_o = _port_run(tp, 1)
+    for xb, want in ((x, 0), (bad, 2)):
+        js = jfn(jax.tree_util.tree_map(jnp.asarray, _stacked()),
+                 jz.init_plan_zero_state(jax.tree_util.tree_map(jnp.asarray, _stacked()), jp),
+                 jnp.asarray(xb), jnp.asarray(y), jnp.float32(np.nan))[-1]
+        p0 = tt.params_from_numpy(_stacked(), "cpu")
+        o0 = tz.init_plan_zero_state(p0, tp)
+        new_p, new_o, _, _, ts = tfn(p0, o0, to_torch(xb), to_torch(y), torch.tensor(np.nan))
+        assert int(js) == int(ts) == want
+        if want == 0:
+            assert _equal(new_p, plain_p) and torch.equal(new_o["mu_flat"], plain_o["mu_flat"])
+        else:
+            assert _equal(new_p, p0) and torch.equal(new_o["mu_flat"], o0["mu_flat"])
+    assert counter.count == 1
     with pytest.raises(ValueError, match="pipelined plan"):
         tz.train_step_plan(ShardingPlan(tp.mesh), tc)
     with pytest.raises(NotImplementedError, match="ep"):

@@ -145,13 +145,43 @@ def test_grad_norm_and_sharding_invariance():
 
 
 def test_levers_not_ported_and_validation():
-    _, tc = _cfgs()
+    """The ``guard=`` and ``counter=`` levers (once refused here) against the
+    JAX package's: the guarded SGD and Adam steps give the JAX statuses and
+    the unguarded steps' tolerances (loss 1e-5 relative, updates 1e-4 /
+    1e-5), a skipped step keeps params and Adam state bit for bit, and the
+    counter counts one build a step function; then the validation."""
+    from tpuscratch_torch.obs import CompileCounter
+
+    jc, tc = _cfgs()
     mesh = make_mesh((1, 1), ("dp", "sp"), device="cpu")
-    for kw in (dict(guard=(1.0, 2.0)), dict(counter=object())):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tt.train_step(mesh, tc, **kw)
-        with pytest.raises(NotImplementedError, match="A10"):
-            tt.train_step_adam(mesh, tc, **kw)
+    jmesh = jax_mesh((1, 1), ("dp", "sp"), jax.devices()[:1])
+    params = _np_tree(jt.init_params(3, jc))
+    x, y = _data(21)
+    bad = x.copy()
+    bad[0, 0, 0] = np.inf
+    counter = CompileCounter()
+    guard = (1e-3, 1e30)  # every clean step clips
+    jstep = jt.train_step_adam(jmesh, jc, lr=1e-3, guard=guard)
+    tstep = tt.train_step_adam(mesh, tc, lr=1e-3, guard=guard, counter=counter)
+    opt = _np_tree(jt.init_adam_state(jax.tree_util.tree_map(jnp.asarray, params)))
+    for xb, want in ((x, 1), (bad, 2)):
+        jp, jo, jl, jg, js = jstep(jax.tree_util.tree_map(jnp.asarray, params),
+                                   jax.tree_util.tree_map(jnp.asarray, opt), jnp.asarray(xb),
+                                   jnp.asarray(y), jnp.float32(np.nan))
+        t0 = tt.params_from_numpy(params, "cpu")
+        o0 = tt.adam_state_from_numpy(opt, "cpu")
+        tp, to, tl, tg, ts = tstep(t0, o0, to_torch(xb), to_torch(y), torch.tensor(np.nan))
+        assert int(js) == int(ts) == want
+        if want == 2:
+            assert all(torch.equal(a, b) for a, b in zip(tt._leaves(tp), tt._leaves(t0)))
+            assert all(torch.equal(a, b) for a, b in zip(tt._leaves(to), tt._leaves(o0)))
+        else:
+            assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+            _compare_updates(params, jp, tp, 1e-3, rtol=1e-4, atol=1e-5)
+            assert int(to["t"]) == int(jo["t"]) == 1
+    assert counter.count == 1
+    tt.train_step(mesh, tc, counter=counter)
+    assert counter.count == 2
     with pytest.raises(ValueError, match="not divisible by dp"):
         tt.train_step(make_mesh((2, 1), ("dp", "sp"), device="cpu"),
                       dataclasses.replace(tc, n_experts=3))

@@ -371,19 +371,43 @@ def test_throughput_program_zero_accum_runs():
 
 
 def test_levers_not_ported_raise():
-    _, tc = _cfgs()
-    mesh = make_mesh((1, 1), ("dp", "sp"), device="cpu")
-    for kw in ({"guard": (1.0, 2.0)}, {"counter": object()}):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tz.train_step_zero(mesh, tc, **kw)
-    # the plan-composed step runs since it was ported; its levers raise as well
-    from tpuscratch_torch.parallel.plan import ShardingPlan
+    """The ZeRO step's ``guard=`` and ``counter=`` levers (once refused here)
+    against the JAX guarded ZeRO step on 2x2: the same statuses, losses
+    1e-5 relative and params 1e-5 (this file's tolerances) on a clipped
+    step; a skipped step keeps params, flat shards, expert moments and the
+    step count bit for bit (a guarded step writes no moment in place); the
+    counter counts one build."""
+    from tpuscratch_torch.obs import CompileCounter
 
-    plan = ShardingPlan(make_mesh((1, 1, 1), ("dp", "sp", "pp"), device="cpu"), pp="pp",
-                        n_micro=2)
-    for kw in ({"guard": (1.0, 2.0)}, {"counter": object()}):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tz.train_step_plan(plan, tc, **kw)
+    jc, tc = _cfgs()
+    dims = (2, 2)
+    params = _np(jt.init_params(0, jc))
+    x, y = _data()
+    bad = x.copy()
+    bad[1, 2, 3] = np.nan
+    jmesh = jax_mesh(dims, ("dp", "sp"), jax.devices()[:4])
+    guard = (1e-3, 1e30)
+    jfn = jz.train_step_zero(jmesh, jc, lr=0.01, donate=False, guard=guard)
+    counter = CompileCounter()
+    tfn = tz.train_step_zero(make_mesh(dims, ("dp", "sp"), device="cpu"), tc, lr=0.01,
+                             guard=guard, counter=counter)
+    jo0 = jz.put_zero_state(jz.init_zero_adam_state(jax.tree_util.tree_map(jnp.asarray, params),
+                                                    2), jmesh, jc)
+    for xb, want in ((x, 1), (bad, 2)):
+        jp, jo, jl, _, js = jfn(jax.tree_util.tree_map(jnp.asarray, params), jo0,
+                                jnp.asarray(xb), jnp.asarray(y), jnp.float32(np.nan))
+        p0 = tt.params_from_numpy(params, "cpu")
+        o0 = tz.zero_state_from_numpy(_np(jz.init_zero_adam_state(params, 2)), "cpu")
+        tp, to, tl, _, ts = tfn(p0, o0, to_torch(xb), to_torch(y), torch.tensor(np.nan))
+        assert int(js) == int(ts) == want
+        if want == 2:
+            assert _equal(tp, p0) and _equal(to, o0) and int(to["t"]) == 0
+        else:
+            np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+            for a, (_, b) in zip(jax.tree_util.tree_leaves(jp), tt._jax_paths(tp)):
+                np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-5)
+            assert int(to["t"]) == int(jo["t"]) == 1
+    assert counter.count == 1
 
 
 def test_config13_emits_the_jax_rows_keys():

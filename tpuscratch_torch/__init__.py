@@ -24,7 +24,10 @@ flash kernels, ``parallel.{ring,ring_attention,ulysses}``, ``ops.adam``,
 the solvers (``solvers``: CG and pipelined CG, 2D and 3D multigrid, whose
 ``jacobi-stream`` smoother runs the streamed 3D kernel, and the spectral
 solvers over ``parallel.fft``, the pencil FFT; ``bench.fft_bench``,
-``bench.mg3d_chip``).
+``bench.mg3d_chip``), and the fault-tolerant chunked path (``runtime.
+{checkpoint,async_ckpt,chunked}``, ``obs``, ``ft``, ``models.trainer``,
+``halo.driver.checkpointed_stencil``, ``solvers.runner``), which runs
+the existing kernels in checkpointed, resumable chunks.
 """
 
 __version__ = "0.1.0"

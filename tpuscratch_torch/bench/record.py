@@ -1,6 +1,6 @@
-"""BASELINE configs 2, 3, 4, 6, 8, 9, 10, 11, 12, 13 and 14 on the card.
+"""BASELINE configs 2, 3, 4, 6, 8, 9, 10, 11, 12, 13, 14 and 16 on the card.
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,8,9,10,11,12,13,14]``
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,8,9,10,11,12,13,14,16]``
 prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
 2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 8 the
@@ -11,7 +11,9 @@ seq 2048) and its pipelined step on a 1x1x1 mesh, 12 serving decode (the
 same model behind the continuous-batching engine), 13 replicated against
 ZeRO-sharded training of that model at dp 1, 2 and 4 stacked on the card,
 and the accumulation sweep, 14 the plan-composed ZeRO step at pp x dp in
-{1, 2}^2, serial against the overlap schedule.
+{1, 2}^2, serial against the overlap schedule, 16 the goodput of the three
+chunked workloads (trainer, halo driver, solver runner) preempted once
+under the supervisor, with blocking and with async checkpoints.
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught (a failing method, impl or re-measure fails the run), except in
 config 8's race, which records a point's error in the line, as the JAX
@@ -604,16 +606,144 @@ def config14_plan_overlap(out: list, iters: int = 2, steps: int | None = None, d
     return rows
 
 
+def config16_elastic_goodput(out: list, device=None, train_steps: int = 20,
+                             halo_grid: int = 1024, solver_tile: int = 32) -> dict:
+    """Elastic fault tolerance under chaos: a preempt-and-restart run of
+    each chunked workload (trainer, halo driver, solver runner), once with
+    blocking saves and once with async checkpointing, each accounted by
+    ``obs.goodput`` from its own JSONL stream with ``GoodputReport.check``
+    called live (the buckets must sum to the wall exactly). One row per
+    workload: the checkpoint and restart badput shares, the goodput
+    fraction, the walls, the overlapped background write seconds and the
+    device seconds of the async snapshots' copies (the compute stream
+    waits for them, so they land in the chunks, not in the checkpoint
+    bucket). The
+    JAX harness's sizes and fault positions on 4 stacked ranks:
+    the trainer at d_model 256, 2 layers, Adam, ``train_steps`` steps, a
+    save every 2, preempted at 10; the halo driver at ``halo_grid``^2, 40
+    steps, a save every 5, preempted at 20; the solver at
+    ``solver_tile``^3 a rank on (2, 2, 1), tol 1e-7, 4 cycles a chunk,
+    preempted at cycle 8. Unlike the JAX harness, a failing workload
+    raises. Returns ``{workload: {"row": ..., "reports": {mode:
+    GoodputReport}}}``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpuscratch_torch.ft.chaos import ChaosPlan, Fault
+    from tpuscratch_torch.ft.supervisor import RestartBudget, supervise, supervise_train
+    from tpuscratch_torch.halo.driver import checkpointed_stencil
+    from tpuscratch_torch.models.transformer import TransformerConfig
+    from tpuscratch_torch.obs.goodput import goodput_report
+    from tpuscratch_torch.obs.report import load_events
+    from tpuscratch_torch.obs.sink import Sink
+    from tpuscratch_torch.solvers.runner import checkpointed_mg3d_solve, supervised_mg3d_solve
+
+    budget = RestartBudget(max_restarts=3, backoff_s=0.05, max_backoff_s=0.2)
+    rng = np.random.default_rng(0)
+    tmesh = make_mesh((4, 1), ("dp", "sp"), device)
+
+    def run_train(ck, sink, async_on):
+        # big enough that serialization is the cost: ~16 MB params+moments
+        cfg = TransformerConfig(d_model=256, n_heads=2, n_experts=4, d_ff=512,
+                                n_layers=2, capacity_factor=2.0)
+        chaos = ChaosPlan(0, [Fault("train/preempt", at=(10,), kind="preempt")])
+        supervise_train(tmesh, cfg, train_steps, ck, budget=budget, sink=sink, obs=sink,
+                        chaos=chaos, save_every=2, batch=8, seq=32,
+                        optimizer="adam", async_ckpt=async_on)
+
+    hmesh = make_mesh_2d((2, 2), tmesh.device)
+    world = rng.standard_normal((halo_grid, halo_grid)).astype(np.float32)
+
+    def run_halo(ck, sink, async_on):
+        chaos = ChaosPlan(0, [Fault("halo/preempt", at=(20,), kind="preempt")])
+        supervise(lambda: checkpointed_stencil(world, 40, ck, save_every=5, mesh=hmesh,
+                                               sink=sink, chaos=chaos, async_ckpt=async_on),
+                  budget=budget, sink=sink)
+
+    dims = (2, 2, 1)
+    b = rng.standard_normal(tuple(d * solver_tile for d in dims)).astype(np.float32)
+    b -= b.mean()
+    solve_kw = dict(mesh=make_mesh(dims, ("z", "row", "col"), tmesh.device), tol=1e-7,
+                    max_cycles=24, chunk_cycles=4)
+
+    def run_solver(ck, sink, async_on):
+        chaos = ChaosPlan(0, [Fault("solver/preempt", at=(8,), kind="preempt")])
+        supervised_mg3d_solve(b, ck, sink=sink, chaos=chaos, budget=budget,
+                              async_ckpt=async_on, **solve_kw)
+
+    # a solve before any mode's sink exists, as the JAX harness warms its
+    # compiled program: one-time set-up must not land in the first mode
+    warm = tempfile.mkdtemp(prefix="tpuscratch_c16_warm_")
+    try:
+        checkpointed_mg3d_solve(b, f"{warm}/ck", **solve_kw)
+    finally:
+        shutil.rmtree(warm, ignore_errors=True)
+
+    def share(rep, bucket):
+        return rep.buckets.get(bucket, 0.0) / rep.wall_s if rep.wall_s else 0.0
+
+    results = {}
+    for name, body in (("train", run_train), ("halo", run_halo), ("solver", run_solver)):
+        reports, write_s, copy_s = {}, 0.0, 0.0
+        for mode, async_on in (("blocking", False), ("async", True)):
+            wd = tempfile.mkdtemp(prefix=f"tpuscratch_c16_{name}_")
+            try:
+                path = f"{wd}/obs.jsonl"
+                sink = Sink(path, run={"bench": f"record/config16/{name}", "mode": mode,
+                                       "platform": tmesh.device.type})
+                body(f"{wd}/ck", sink, async_on)
+                sink.close()
+                events = load_events([path])
+                rep = goodput_report(events)
+                rep.check()  # buckets sum to wall EXACTLY, or raise
+                reports[mode] = rep
+                if async_on:
+                    # the overlapped background write wall: not badput (it
+                    # ran beside the loop), shown for scale
+                    writes = [e for e in events if e.get("event") == "ckpt/write"]
+                    write_s = sum(e.get("wall_s", 0.0) for e in writes)
+                    # the snapshot copies' device time, which the compute
+                    # stream waits for: it lands in the chunks after each
+                    # snapshot, not in the checkpoint bucket
+                    copy_s = sum(e.get("copy_device_s", 0.0) for e in writes)
+            finally:
+                shutil.rmtree(wd, ignore_errors=True)
+        blk, asy = reports["blocking"], reports["async"]
+        row = {
+            "checkpoint_share_blocking": share(blk, "checkpoint"),
+            "checkpoint_share_async": share(asy, "checkpoint"),
+            "restart_share_blocking": share(blk, "restart"),
+            "restart_share_async": share(asy, "restart"),
+            "goodput_fraction_blocking": blk.goodput_fraction,
+            "goodput_fraction_async": asy.goodput_fraction,
+            "wall_s_blocking": blk.wall_s,
+            "wall_s_async": asy.wall_s,
+            "overlapped_write_s": write_s,
+            "copy_device_s_async": copy_s,
+        }
+        _emit(out, tmesh, config=16, metric=f"elastic_goodput_{name}",
+              value=row["goodput_fraction_async"], **row,
+              detail=(f"checkpoint badput share {100 * row['checkpoint_share_blocking']:.1f}% "
+                      f"-> {100 * row['checkpoint_share_async']:.1f}% (blocking -> async), "
+                      f"goodput {100 * row['goodput_fraction_blocking']:.1f}% -> "
+                      f"{100 * row['goodput_fraction_async']:.1f}%, one injected preemption "
+                      f"+ supervised restart, buckets sum-checked; 4 ranks stacked"))
+        results[name] = {"row": row, "reports": reports}
+    return results
+
+
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
            6: config6_flash_attention, 8: config8_dft, 9: config9_stencil3d,
            10: config10_dma_halo,
            11: config11_train, 12: config12_decode, 13: config13_zero_train,
-           14: config14_plan_overlap}
+           14: config14_plan_overlap, 16: config16_elastic_goodput}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,6,8,9,10,11,12,13,14",
+    ap.add_argument("--configs", default="2,3,4,6,8,9,10,11,12,13,14,16",
                     help="comma-separated config numbers")
     args = ap.parse_args(argv)
     out: list = []

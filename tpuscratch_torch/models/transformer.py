@@ -15,7 +15,9 @@ tensor is stacked ``(*mesh, ...)``: the step differentiates the stacked
 loss with torch's autograd (the collectives are differentiable torch
 ops), then ``_grad_reduce`` totals each leaf's per-copy gradients into the
 logical one. A step returns new parameters (and optimizer state); nothing
-is updated in place.
+is updated in place. ``guard=`` folds the device-side health guard of
+``ft.guards`` into a step (its status stays on the device), and
+``counter=`` (an ``obs.CompileCounter``) counts the step's builds.
 
 The pipelined steps (``train_step_pp``, ``train_step_pp_adam``) add a third
 axis, "stage": the layers are stacked (``stack_layers``) and split over it,
@@ -32,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from tpuscratch_torch.comm.collectives import allreduce_sum
+from tpuscratch_torch.comm.collectives import allreduce_min, allreduce_sum
 from tpuscratch_torch.comm.spmd import P, axis_size, current_mesh, run_spmd
 from tpuscratch_torch.parallel.expert import expert_parallel_ffn
 from tpuscratch_torch.parallel.pipeline import gpipe_scan
@@ -349,27 +351,70 @@ def _grad_norm(grads, dp: str) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _no_levers(guard, counter) -> None:
-    for name, value in (("guard", guard), ("counter", counter)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported to tpuscratch_torch yet (ROADMAP A10); the step "
-                f"runs with {name}=None")
+def _apply_guard(loss, gnorm, grads, ref_loss, clip_norm: float, spike_factor: float,
+                 dp: str, sp: str, extra_axes: tuple = ()):
+    """Device-side health guard (the device half of ``ft.guards``), on
+    stacked ``(*mesh)`` values:
+
+    - finiteness: each rank's ``isfinite(loss) & isfinite(gnorm)`` (a
+      NaN/Inf in any gradient leaf reaches the global norm) reduced with
+      a min over every mesh axis, so all ranks agree and the skip-select
+      below cannot diverge the replicas;
+    - loss spike: ``loss > spike_factor * ref_loss`` against the
+      caller-fed reference loss (the previous chunk's; a non-finite or
+      non-positive reference disables the check — the first chunk);
+    - clip: gradients above ``clip_norm`` are rescaled on the device.
+
+    Returns ``(ok, status, grads)``: ``ok`` ``(*mesh)`` gates the update
+    (a skipped step passes params through unchanged), ``status`` is the
+    int32 status (0 ok / 1 clipped / 2 skipped). ``extra_axes`` extends
+    the agreement to further mesh axes (the pipeline plan's stage axis).
+    ``grads`` is any tree whose leaves lead with the mesh dims."""
+    finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+    finite = allreduce_min(finite.to(torch.int32), (dp, sp) + tuple(extra_axes)) > 0
+    spiked = (torch.isfinite(ref_loss) & (ref_loss > 0)
+              & (loss > torch.full_like(ref_loss, spike_factor) * ref_loss))
+    ok = finite & ~spiked
+    clip = finite & (gnorm > clip_norm)
+    scale = torch.where(clip, torch.full_like(gnorm, clip_norm) / torch.clamp_min(gnorm, 1e-30),
+                        torch.ones_like(gnorm))
+    grads = _map(lambda _p, g: g * _under(scale, g.ndim), grads)
+    status = torch.where(ok, clip.to(torch.int32), torch.full_like(clip, 2, dtype=torch.int32))
+    return ok, status, grads
+
+
+def _select(ok: torch.Tensor, new, cur):
+    """``new`` where the guard let the step through, else ``cur``, leaf by
+    leaf (``ok`` leads every leaf)."""
+    return _map(lambda _p, a, b: torch.where(_under(ok, a.ndim), a, b), new, cur)
+
+
+def _built(counter, build):
+    """The step body ``build()`` makes. With a ``counter`` (an
+    ``obs.CompileCounter``) the build counts one: a step function is built
+    once and reused for every call, the JAX package's one trace a compile."""
+    return counter.wrap(build)() if counter is not None else build()
 
 
 def train_step_fn(cfg: TransformerConfig, lr: float = 1e-2, sp: str = "sp", dp: str = "dp",
-                  with_grad_norm: bool = False, guard=None):
+                  with_grad_norm: bool = False, guard: tuple | None = None):
     """The ``run_spmd`` body: (params, x, y) -> (new_params, loss), or
-    (new_params, loss, grad_norm) with ``with_grad_norm``. SGD."""
-    _no_levers(guard, None)
+    (new_params, loss, grad_norm) with ``with_grad_norm``. SGD.
 
-    def step(params, x, y):
+    ``guard=(clip_norm, spike_factor)`` folds the device-side health guard
+    in (:func:`_apply_guard`): the body becomes (params, x, y, ref_loss) ->
+    (new_params, loss, grad_norm, status), a skipped step passing params
+    through unchanged."""
+    def step(params, x, y, ref_loss=None):
         loss, grads = _value_and_grad(params, x, y, cfg, sp, dp)
         grads = _grad_reduce(grads, dp, sp)
+        gnorm = _grad_norm(grads, dp) if with_grad_norm or guard is not None else None
+        if guard is not None:
+            ok, status, grads = _apply_guard(loss, gnorm, grads, ref_loss, *guard, dp, sp)
         new_params = _map(lambda _p, w, g: w - lr * g, params, grads)
-        if with_grad_norm:
-            return new_params, loss, _grad_norm(grads, dp)
-        return new_params, loss
+        if guard is not None:
+            return _select(ok, new_params, params), loss, gnorm, status
+        return (new_params, loss, gnorm) if with_grad_norm else (new_params, loss)
 
     return step
 
@@ -392,12 +437,18 @@ def train_step(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-2, dp: 
     """The training step over ``mesh`` (axes ``dp`` x ``sp``): fn(params, x,
     y) -> (new_params, loss), x and y ``(batch, seq, d_model)`` split
     P(dp, sp), params laid out by ``param_spec``; ``with_grad_norm``
-    appends the grad-norm scalar. ``counter`` and ``guard`` are not ported
-    (ROADMAP A10)."""
-    _no_levers(guard, counter)
+    appends the grad-norm scalar. ``counter`` (an ``obs.CompileCounter``)
+    counts this build of the step body. ``guard=(clip_norm,
+    spike_factor)`` builds the guarded variant: fn(params, x, y, ref_loss)
+    -> (new_params, loss, grad_norm, status), ``ref_loss`` a 0-dim f32
+    tensor on the mesh's device and ``status`` a 0-dim int32 one, left on
+    the device for the caller to read when it chooses."""
     _validate_step_config(mesh, cfg, dp, sp)
     pspec = param_spec(cfg, dp)
-    body = train_step_fn(cfg, lr, sp=sp, dp=dp, with_grad_norm=with_grad_norm)
+    body = _built(counter, lambda: train_step_fn(cfg, lr, sp=sp, dp=dp,
+                                                 with_grad_norm=with_grad_norm, guard=guard))
+    if guard is not None:
+        return run_spmd(mesh, body, (pspec, P(dp, sp), P(dp, sp), P()), (pspec, P(), P(), P()))
     out = (pspec, P(), P()) if with_grad_norm else (pspec, P())
     return run_spmd(mesh, body, (pspec, P(dp, sp), P(dp, sp)), out)
 
@@ -454,17 +505,26 @@ def _adam_update(params, opt, grads, lr: float, b1: float, b2: float, eps: float
 
 def train_step_adam_fn(cfg: TransformerConfig, lr: float = 1e-3, b1: float = 0.9,
                        b2: float = 0.999, eps: float = 1e-8, sp: str = "sp", dp: str = "dp",
-                       with_grad_norm: bool = False, guard=None):
+                       with_grad_norm: bool = False, guard: tuple | None = None):
     """The ``run_spmd`` body: (params, opt, x, y) -> (params, opt, loss)
-    (+ grad_norm with ``with_grad_norm``)."""
-    _no_levers(guard, None)
+    (+ grad_norm with ``with_grad_norm``).
 
-    def step(params, opt, x, y):
+    ``guard=(clip_norm, spike_factor)``: as :func:`train_step_fn` —
+    (params, opt, x, y, ref_loss) -> (params, opt, loss, grad_norm,
+    status); a skipped step keeps the moments and the step count with
+    the params (a half-applied state would corrupt the bias correction)."""
+    def step(params, opt, x, y, ref_loss=None):
         loss, grads = _value_and_grad(params, x, y, cfg, sp, dp)
         grads = _grad_reduce(grads, dp, sp)
+        gnorm = _grad_norm(grads, dp) if with_grad_norm or guard is not None else None
+        if guard is not None:
+            ok, status, grads = _apply_guard(loss, gnorm, grads, ref_loss, *guard, dp, sp)
         new_params, new_opt = _adam_update(params, opt, grads, lr, b1, b2, eps)
+        if guard is not None:
+            return (_select(ok, new_params, params), _select(ok, new_opt, opt), loss, gnorm,
+                    status)
         if with_grad_norm:
-            return new_params, new_opt, loss, _grad_norm(grads, dp)
+            return new_params, new_opt, loss, gnorm
         return new_params, new_opt, loss
 
     return step
@@ -475,11 +535,16 @@ def train_step_adam(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-3,
                     sp: str = "sp", with_grad_norm: bool = False, counter=None, guard=None):
     """:func:`train_step` with Adam: fn(params, opt_state, x, y) -> (params,
     opt_state, loss); ``opt_state`` from :func:`init_adam_state`, moments
-    split like their params."""
-    _no_levers(guard, counter)
+    split like their params. ``counter`` and ``guard`` as in
+    :func:`train_step`: the guarded variant is fn(params, opt, x, y,
+    ref_loss) -> (params, opt, loss, grad_norm, status)."""
     _validate_step_config(mesh, cfg, dp, sp)
     pspec, ospec = param_spec(cfg, dp), adam_state_spec(cfg, dp)
-    body = train_step_adam_fn(cfg, lr, b1, b2, eps, sp=sp, dp=dp, with_grad_norm=with_grad_norm)
+    body = _built(counter, lambda: train_step_adam_fn(
+        cfg, lr, b1, b2, eps, sp=sp, dp=dp, with_grad_norm=with_grad_norm, guard=guard))
+    if guard is not None:
+        return run_spmd(mesh, body, (pspec, ospec, P(dp, sp), P(dp, sp), P()),
+                        (pspec, ospec, P(), P(), P()))
     out = (pspec, ospec, P(), P()) if with_grad_norm else (pspec, ospec, P())
     return run_spmd(mesh, body, (pspec, ospec, P(dp, sp), P(dp, sp)), out)
 

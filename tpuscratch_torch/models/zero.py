@@ -33,8 +33,10 @@ overlap schedule comes from the ``ShardingPlan``.
 
 Inside ``run_spmd`` every value is stacked ``(*mesh, ...)``: a rank's pick
 of its shard is an index over the dp dim from ``axis_index``, and every
-per-rank op counts its dims from the end. ``guard=`` and ``counter=`` are
-not ported (ROADMAP A10).
+per-rank op counts its dims from the end. ``guard=`` folds the
+device-side health guard in (a guarded step writes new moment tensors, so
+a skipped step can keep the old ones) and ``counter=`` counts the step's
+builds, as in ``models.transformer``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ from tpuscratch_torch.models.transformer import (
     _is_expert_leaf,
     _jax_paths,
     _map,
-    _no_levers,
+    _apply_guard,
+    _built,
+    _select,
     _pp_loss_and_grads,
     _pp_loss_fn,
     _validate_pp,
@@ -388,8 +392,13 @@ def train_step_zero_fn(cfg: TransformerConfig, lr: float = 1e-3, b1: float = 0.9
     (``transformer._adam_apply``). ``overlap_blocks=k`` (0/1 = off) splits
     the sync legs and the update into ``k`` block chains, bit-identical to
     the serial schedule. ``donate`` lets the fused update write the flat
-    moments in place (see :func:`train_step_zero`)."""
-    _no_levers(guard, None)
+    moments in place (see :func:`train_step_zero`).
+
+    ``guard=(clip_norm, spike_factor)``: (params, opt, x, y, ref_loss) ->
+    (params, opt, loss, grad_norm, status); a skipped step keeps the flat
+    moment shards, the expert moments and the step count with the params.
+    The guarded update never writes in place (``donate`` is ignored): the
+    old state must survive a skip."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
@@ -414,12 +423,22 @@ def train_step_zero_fn(cfg: TransformerConfig, lr: float = 1e-3, b1: float = 0.9
         g_shard, g_exp = _zero_grad_sync(grads, n, dp, sp, flat_size, blocks)
         return loss, g_shard, g_exp, flat_size
 
-    def step(params, opt, x, y):
+    def step(params, opt, x, y, ref_loss=None):
         loss, g_shard, g_exp, flat_size = core(params, x, y)
+        gnorm = (_zero_grad_norm(g_shard, g_exp, dp) if with_grad_norm or guard is not None
+                 else None)
+        if guard is not None:
+            ok, status, clipped = _apply_guard(loss, gnorm, {"flat": g_shard, "exp": g_exp},
+                                               ref_loss, *guard, dp, sp)
+            g_shard, g_exp = clipped["flat"], clipped["exp"]
         new_params, new_opt = _zero_apply_update(params, opt, g_shard, g_exp, flat_size, lr,
-                                                 b1, b2, eps, dp, fused, donate)
+                                                 b1, b2, eps, dp, fused,
+                                                 donate and guard is None)
+        if guard is not None:
+            return (_select(ok, new_params, params), _select(ok, new_opt, opt), loss, gnorm,
+                    status)
         if with_grad_norm:
-            return new_params, new_opt, loss, _zero_grad_norm(g_shard, g_exp, dp)
+            return new_params, new_opt, loss, gnorm
         return new_params, new_opt, loss
 
     return step
@@ -443,15 +462,21 @@ def train_step_zero(mesh: StackedMesh, cfg: TransformerConfig, lr: float = 1e-3,
     ``|sp| > 1`` the sp copies share one buffer and the step writes new
     tensors), so the returned ``mu_flat``/``nu_flat`` are the passed ones
     and per-rank optimizer bytes stay one shard. Do not reuse a donated
-    state. ``counter`` and ``guard`` are not ported (ROADMAP A10)."""
-    _no_levers(guard, counter)
+    state. ``counter`` counts this build of the step body; ``guard=(clip_norm,
+    spike_factor)`` builds the guarded variant, fn(params, opt, x, y,
+    ref_loss) -> (params, opt, loss, grad_norm, status), which writes new
+    tensors."""
     _validate_step_config(mesh, cfg, dp, sp)
     pspec = param_spec(cfg, dp)
     ospec = zero_state_spec(cfg, dp)
     dspec = P(dp, sp) if accum_steps == 1 else P(None, dp, sp)
-    body = train_step_zero_fn(cfg, lr, b1, b2, eps, sp=sp, dp=dp, accum_steps=accum_steps,
-                              with_grad_norm=with_grad_norm, fused=fused,
-                              overlap_blocks=overlap_blocks, donate=donate)
+    body = _built(counter, lambda: train_step_zero_fn(
+        cfg, lr, b1, b2, eps, sp=sp, dp=dp, accum_steps=accum_steps,
+        with_grad_norm=with_grad_norm, guard=guard, fused=fused,
+        overlap_blocks=overlap_blocks, donate=donate))
+    if guard is not None:
+        return run_spmd(mesh, body, (pspec, ospec, dspec, dspec, P()),
+                        (pspec, ospec, P(), P(), P()))
     out = (pspec, ospec, P(), P()) if with_grad_norm else (pspec, ospec, P())
     return run_spmd(mesh, body, (pspec, ospec, dspec, dspec), out)
 
@@ -546,8 +571,12 @@ def train_step_plan_fn(cfg: TransformerConfig, n_micro: int = 2, lr: float = 1e-
       ``_grad_reduce`` then ÷|pp|.
 
     ``donate`` (with ``zero``) lets the fused update write the flat moments
-    in place where each rank's shard is its own memory."""
-    _no_levers(guard, None)
+    in place where each rank's shard is its own memory.
+
+    ``guard=(clip_norm, spike_factor)``: (stacked, opt, x, y, ref_loss) ->
+    (..., loss, grad_norm, status), the finiteness agreement extended over
+    the stage axis so a skip-select can never diverge stages; the guarded
+    update writes new tensors."""
     loss_fn = _pp_loss_fn(cfg, n_micro, sp, dp, stage)
 
     def core(params, x, y):
@@ -562,19 +591,34 @@ def train_step_plan_fn(cfg: TransformerConfig, n_micro: int = 2, lr: float = 1e-
         g_shard, g_exp = _zero_grad_sync(grads, n, dp, sp, flat_size, blocks)
         return loss, (g_shard, g_exp, flat_size)
 
-    def step(params, opt, x, y):
+    def step(params, opt, x, y, ref_loss=None):
         loss, payload = core(params, x, y)
+        gnorm = None
         if zero:
             g_shard, g_exp, flat_size = payload
-            new_params, new_opt = _zero_apply_update(params, opt, g_shard, g_exp, flat_size, lr,
-                                                     b1, b2, eps, dp, fused, donate)
+            if with_grad_norm or guard is not None:
+                gnorm = _zero_grad_norm(g_shard, g_exp, (dp, stage))
+            if guard is not None:
+                ok, status, clipped = _apply_guard(
+                    loss, gnorm, {"flat": g_shard, "exp": g_exp}, ref_loss, *guard, dp, sp,
+                    extra_axes=(stage,))
+                g_shard, g_exp = clipped["flat"], clipped["exp"]
+            new_params, new_opt = _zero_apply_update(params, opt, g_shard, g_exp, flat_size,
+                                                     lr, b1, b2, eps, dp, fused,
+                                                     donate and guard is None)
         else:
+            if with_grad_norm or guard is not None:
+                gnorm = _pp_grad_norm(payload, dp, stage)
+            if guard is not None:
+                ok, status, payload = _apply_guard(loss, gnorm, payload, ref_loss, *guard, dp,
+                                                   sp, extra_axes=(stage,))
             new_params, new_opt = _adam_update(params, opt, payload, lr, b1, b2, eps)
-        if not with_grad_norm:
-            return new_params, new_opt, loss
-        gnorm = (_zero_grad_norm(g_shard, g_exp, (dp, stage)) if zero
-                 else _pp_grad_norm(payload, dp, stage))
-        return new_params, new_opt, loss, gnorm
+        if guard is not None:
+            return (_select(ok, new_params, params), _select(ok, new_opt, opt), loss, gnorm,
+                    status)
+        if with_grad_norm:
+            return new_params, new_opt, loss, gnorm
+        return new_params, new_opt, loss
 
     return step
 
@@ -593,8 +637,10 @@ def train_step_plan(plan, cfg: TransformerConfig, lr: float = 1e-3, b1: float = 
     means where one stride walks every rank's flat shard: the ``(pp, dp)``
     layout of a plan with both axes past 1 takes two, and its step writes
     new tensors. The overlap schedule comes from the plan
-    (``plan.overlap_blocks``). ``counter`` and ``guard`` are not ported
-    (ROADMAP A10)."""
+    (``plan.overlap_blocks``). ``counter`` counts this build of the step
+    body; ``guard=(clip_norm, spike_factor)`` builds the guarded variant,
+    fn(stacked, opt, x, y, ref_loss) -> (stacked, opt, loss, grad_norm,
+    status), which writes new tensors."""
     mesh, dp, sp, stage = plan.mesh, plan.dp, plan.sp, plan.pp
     if stage is None:
         raise ValueError("train_step_plan needs a pipelined plan (pp=<axis name>); a dp x sp "
@@ -602,13 +648,16 @@ def train_step_plan(plan, cfg: TransformerConfig, lr: float = 1e-3, b1: float = 
     if plan.ep_axis != plan.dp:
         raise NotImplementedError("expert parallelism rides the dp axis (EP groups == DP "
                                   "groups); a distinct ep mesh axis is not supported")
-    _no_levers(guard, counter)
     _validate_pp(mesh, cfg, dp, sp, stage)
     pspec = param_spec_pp(cfg, stage, dp)
     ospec = plan_zero_state_spec(cfg, plan) if zero else adam_state_spec_pp(cfg, stage, dp)
     dspec = plan.data_spec()
-    body = train_step_plan_fn(cfg, plan.n_micro, lr, b1, b2, eps, sp=sp, dp=dp, stage=stage,
-                              zero=zero, overlap_blocks=plan.overlap_blocks,
-                              with_grad_norm=with_grad_norm, fused=fused, donate=donate)
+    body = _built(counter, lambda: train_step_plan_fn(
+        cfg, plan.n_micro, lr, b1, b2, eps, sp=sp, dp=dp, stage=stage, zero=zero,
+        overlap_blocks=plan.overlap_blocks, with_grad_norm=with_grad_norm, guard=guard,
+        fused=fused, donate=donate))
+    if guard is not None:
+        return run_spmd(mesh, body, (pspec, ospec, dspec, dspec, P()),
+                        (pspec, ospec, P(), P(), P()))
     out = (pspec, ospec, P(), P()) if with_grad_norm else (pspec, ospec, P())
     return run_spmd(mesh, body, (pspec, ospec, dspec, dspec), out)
