@@ -202,6 +202,27 @@ Phase 28 runs after 27, before 24's lines:
    workload's goodput, checkpoint and restart shares, blocking and async,
    ``GoodputReport.check`` live. Each save's bytes and seconds are logged.
 
+Phase 29 runs after 28, before 24's lines:
+
+29. the co-scheduler, the ledger, profiling and weak scaling: (a) config 18
+   through ``bench.record`` (a trainer and a 3D multigrid solve on 4
+   stacked ranks under ``MeshScheduler``'s GoodputShare, bit-identical to
+   solo, ``by_workload(...).check()`` live): goodput, shares,
+   ``share_err``, ms a switch; (b) the ZeRO trainer at config 11's width
+   (flash kernels, fused Adam, async saves; batch 2, 6 steps) and the 256^3
+   ``jacobi-stream`` solve, solo and co-scheduled: bit-identical, rows 9,
+   14, 15 and 16 launched as often as solo and as the rules say; (c) the
+   first tick of each workload under ``runtime.profiling.trace``, whose
+   file must name ``stream3d_kernel``, ``adam_kernel`` and the flash
+   forward and backward kernels; (d) config 15, its ledger columns held to
+   ``C15_LEDGER`` (the JAX ledger's numbers at these sizes); (e) config 5
+   (``xla``, 1-16 stacked ranks) and the same sweep with ``deep-pallas:16``
+   at 32 steps, row 3 held to 2 launches a run; (f) ``python -m
+   tpuscratch_torch.obs.regress`` on this phase's rows (exit 0 on the same
+   file, 1 with a rate halved) and ``python -m tpuscratch_torch.obs.report``
+   on (b)'s JSONL stream. Each step's seconds are printed
+   (``Timeline.report``).
+
 Any failure raises and exits non-zero; without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -3904,6 +3925,248 @@ def phase28_fault_tolerant() -> dict:
     return launches
 
 
+# ---- phase 29: the co-scheduler, the ledger, profiling, weak scaling, the CLIs -------
+
+P29_TARGETS = {"train": 0.7, "solver": 0.3}
+# the JAX ledger's numbers for config 15's columns at its chip sizes (32^3 a rank on
+# 2x2x2, 16 sweeps; CG on 2x2), which tests/test_torch_ledger.py holds the port's to
+C15_LEDGER = {"ppermutes_per_sweep_s1": 6.0, "halo_bytes_per_sweep_s1": 24576.0,
+              "ppermutes_per_sweep_s2": 3.375, "halo_bytes_per_sweep_s2": 29410.0,
+              "psums_total_classic": 3, "psums_per_iter_classic": 2,
+              "psums_total_pipelined": 2, "psums_per_iter_pipelined": 1}
+# the kernels phase 29 (b)'s profile must name (substrings of CUPTI's kernel names)
+P29_PROFILED = ("stream3d_kernel", "adam_kernel", "flash_fwd_", "flash_bwd_")
+P29_WEAK_ITERS = 3   # timed runs a weak-scaling point (bench_weak_scaling; 2 warm-up runs)
+
+
+def _p29_launches() -> dict:
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    return {"seven_point_streamed_pallas": ss.seven_point_streamed_pallas.launches,
+            **{k: v for k, v in ta.launch_counts().items() if k in ("_flash_fwd_call",
+                                                                      "_flash_bwd_call")},
+            "fused_adam_flat": tadam.fused_adam_flat.launches}
+
+
+def _p29_reset() -> None:
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    ss.reset_launches()
+    ta.reset_launches()
+    tadam.reset_launches()
+
+
+def _p29_kernel_cosched(tmp: pathlib.Path, tl) -> tuple[dict, str, list]:
+    """(b) and (c): the ZeRO trainer at config 11's width (flash, fused Adam,
+    async saves) and the 256^3 jacobi-stream solver, solo and then
+    co-scheduled under GoodputShare with the first two ticks under
+    ``profiling.trace``. Returns the co-scheduled run's launches, its JSONL
+    path and the ``reduced`` list."""
+    import dataclasses
+
+    from tpuscratch_torch.bench.train_bench import default_train_setup
+    from tpuscratch_torch.models.trainer import train_program
+    from tpuscratch_torch.obs.goodput import by_workload
+    from tpuscratch_torch.obs.report import load_events
+    from tpuscratch_torch.obs.sink import Sink
+    from tpuscratch_torch.runtime import profiling
+    from tpuscratch_torch.runtime.mesh import make_mesh
+    from tpuscratch_torch.runtime.scheduler import GoodputShare, MeshScheduler
+    from tpuscratch_torch.solvers.multigrid3d import _mg_prologue3, stream_launches
+    from tpuscratch_torch.solvers.runner import mg3d_solve_program
+
+    cfg, batch, seq, _ = default_train_setup(on_card=True)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    reduced = [f"batch {batch} -> {FT_TRAIN_BATCH}", f"steps -> {FT_TRAIN_STEPS}"]
+    zmesh = make_mesh((2, 1), ("dp", "sp"), DEVICE)
+    b = np.random.default_rng(SEED + 30).standard_normal((MG3_N,) * 3).astype(np.float32)
+    b -= b.mean()
+    smesh = make_mesh((1, 1, 1), ("z", "row", "col"), DEVICE)
+    per_cycle = stream_launches(_mg_prologue3(b, smesh, None)[2])
+
+    def programs(d: pathlib.Path, sink):
+        t = train_program(zmesh, cfg, FT_TRAIN_STEPS, str(d / "ckt"), save_every=FT_TRAIN_EVERY,
+                          batch=FT_TRAIN_BATCH, seq=seq, keep=1, lr=1e-4, seed=3,
+                          optimizer="adam", zero=True, async_ckpt=True, obs=sink)
+        s = mg3d_solve_program(b, str(d / "cks"), mesh=smesh, tol=MG3_TOL,
+                               chunk_cycles=FT_SOLVE_CHUNK, smoother="jacobi-stream", keep=1,
+                               sink=sink)
+        return t, s
+
+    runs, trace_path = {}, None
+    for mode in ("solo", "cosched"):
+        d = tmp / f"p29_{mode}"
+        path = d / "obs.jsonl"
+        d.mkdir()
+        sink = Sink(str(path), run={"bench": f"chip_smoke/phase29/{mode}", "platform": "cuda"})
+        t, s = programs(d, sink)
+        _p29_reset()
+        t0 = time.perf_counter()
+        with tl.span(f"29b {mode}"):
+            if mode == "solo":
+                res = {"train": t.run(), "solver": s.run()}
+            else:
+                sched = MeshScheduler(policy=GoodputShare(P29_TARGETS), sink=sink)
+                sched.add(t)
+                sched.add(s)
+                prof = profiling.trace(str(tmp / "p29_trace"))
+                traced = prof.__enter__()
+
+                def stop_after_both(sch):   # (c): the first tick of each workload
+                    if sch.ticks == 2:
+                        prof.__exit__(None, None, None)
+
+                sched.on_tick = stop_after_both
+                res = sched.run()
+                trace_path = traced.path
+        wall = time.perf_counter() - t0
+        sink.close()
+        got = _p29_launches()
+        (params, trep), (x, srep) = res["train"], res["solver"]
+        want = {"seven_point_streamed_pallas": per_cycle * srep.cycles,
+                "_flash_fwd_call": cfg.n_layers * FT_TRAIN_STEPS,
+                "_flash_bwd_call": cfg.n_layers * FT_TRAIN_STEPS,
+                "fused_adam_flat": FT_TRAIN_STEPS}
+        log(f"  (b) {mode}: {wall:.3f} s; trainer losses {trep.losses}; solver {srep}; "
+            f"launches {got} (the rules: {want})")
+        if got != want or not srep.converged:
+            raise AssertionError(f"(b) {mode}: launches {got}, want {want}; {srep}")
+        runs[mode] = (params, trep, x, srep, got, path)
+    (pa, ra, xa, sa, la, _), (pb, rb, xb, sb, lb, cpath) = runs["solo"], runs["cosched"]
+    same = (_params_same(pa, pb) and ra.losses == rb.losses and np.array_equal(xa, xb)
+            and sa.cycles == sb.cycles)
+    log(f"  (b) co-scheduled against solo: bit-identical {same}; launches equal {la == lb}")
+    if not (same and la == lb):
+        raise AssertionError("(b) the co-scheduled kernel paths differ from solo")
+    events = load_events([str(cpath)])
+    wg = by_workload(events, targets=P29_TARGETS)
+    wg.check()
+    run_ev = next(e for e in events if e.get("event") == "sched/run")
+    copies = sum(e.get("copy_device_s", 0.0) for e in events if e.get("event") == "ckpt/write")
+    shares = wg.shares
+    log(f"  (b) shares train {shares['train']:.4f} / solver {shares['solver']:.4f} against "
+        f"{P29_TARGETS} (share_err {max(abs(shares[k] - v) for k, v in P29_TARGETS.items()):.4f}, "
+        f"{run_ev['ticks']} ticks, {run_ev['switches']} switches); the async snapshots' copies "
+        f"{copies:.4f} s on the device, booked to the trainer by the tick fence")
+    # (c): the profile of the first tick of each workload
+    if trace_path is None:
+        raise AssertionError("(c) profiling.trace wrote no file")
+    trace = json.loads(pathlib.Path(trace_path).read_text())
+    kernels = {e.get("name", "") for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in kernels if k in n)[:2] for k in P29_PROFILED}
+    log(f"  (c) {trace_path}: {pathlib.Path(trace_path).stat().st_size / 1e6:.1f} MB, "
+        f"{len(kernels)} kernel names; {found}")
+    if not all(found.values()):
+        raise AssertionError(f"(c) the profile names none of {[k for k, v in found.items() if not v]}")
+    return lb, str(cpath), reduced
+
+
+def phase29_cosched_ledger() -> dict:
+    """The co-scheduler, the ledger, profiling, weak scaling and the CLIs
+    (module comment). Returns the launches of rows 3, 9, 14, 15 and 16."""
+    import shutil
+    import tempfile
+
+    from tpuscratch_torch.bench.record import (
+        config5_weak_scaling,
+        config15_solver,
+        config18_cosched,
+    )
+    from tpuscratch_torch.bench.weak_scaling import DEVICE_COUNTS, bench_weak_scaling
+    from tpuscratch_torch.ops import stencil_kernel as sk
+    from tpuscratch_torch.ops.common import build_all, library
+    from tpuscratch_torch.runtime.chunked import kernel_builds
+    from tpuscratch_torch.runtime.profiling import Timeline
+
+    for name in build_all():   # loaded by earlier phases when the whole smoke runs
+        library(name)
+    t0 = time.perf_counter()
+    built = kernel_builds()
+    tl = Timeline()
+    rows: list = []
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tpuscratch_p29_"))
+    try:
+        with tl.span("29a config 18"):
+            res = config18_cosched(rows, device=DEVICE)
+        row = res["row"]
+        log(f"  (a) config 18: goodput {row['goodput_fraction_cosched']:.4f} co-scheduled / "
+            f"{row['goodput_fraction_solo']:.4f} solo; shares train {row['share_train']:.4f} / "
+            f"solver {row['share_solver']:.4f} (targets 0.7 / 0.3, share_err "
+            f"{row['share_err']:.4f}); {row['switches']} switches, {1e3 * row['switch_s']:.3f} ms "
+            f"a switch; bit-identical to solo, both partition checks held")
+        launches, jsonl, reduced = _p29_kernel_cosched(tmp, tl)
+        with tl.span("29d config 15"):
+            c15 = config15_solver(rows, device=DEVICE)
+        for name, r in c15.items():
+            log(f"  (d) {name}: " + ", ".join(
+                f"{k} {v}" for k, v in r.items() if k not in ("detail", "device", "platform")))
+        cols = {**c15["solver_ca_smoothing"], **c15["solver_ca_cg"]}
+        got = {k: cols[k] for k in C15_LEDGER}
+        log(f"  (d) ledger columns {got}; the CPU twins' {C15_LEDGER}")
+        if got != C15_LEDGER:
+            raise AssertionError(f"(d) config 15's ledger columns {got} != {C15_LEDGER}")
+        with tl.span("29e config 5"):
+            pts = config5_weak_scaling(rows, device=DEVICE)
+        log(f"  (e) config 5 (xla): efficiency {rows[-1]['points']}, comm_ratio "
+            f"{rows[-1]['halo_bytes_per_cell']}")
+        deep = 0
+        with tl.span("29e deep-pallas:16 sweep"):
+            for n in DEVICE_COUNTS:
+                sk.reset_launches()
+                (p,) = bench_weak_scaling(per_chip=(1024, 1024), steps=32, device_counts=[n],
+                                          impl="deep-pallas:16", iters=P29_WEAK_ITERS,
+                                          device=DEVICE)
+                got = sk.deep_trapezoid_pallas.launches
+                want = 2 * (P29_WEAK_ITERS + 2)
+                log(f"  (e) deep-pallas:16 x32 on {n} ranks ({p.dims[0]}x{p.dims[1]}): "
+                    f"{p.per_chip_rate:.4e} cell-updates/s a rank; deep_trapezoid_pallas "
+                    f"launched {got} (the rule: 2 a run x {P29_WEAK_ITERS + 2} runs = {want})")
+                if got != want:
+                    raise AssertionError(f"(e) {n} ranks: row 3 launched {got}, want {want}")
+                deep += got
+        launches["deep_trapezoid_pallas"] = deep
+        del pts
+        # (f): the two command lines on this phase's own artifacts
+        with tl.span("29f CLIs"):
+            base, worse = tmp / "rows.json", tmp / "rows_halved.json"
+            base.write_text("".join(json.dumps(r) + "\n" for r in rows))
+            halved = [dict(r) for r in rows]
+            victim = next(r for r in halved if r["metric"] == "solver_weak_mg3d_1dev")
+            victim["cells_per_s"] /= 2
+            worse.write_text("".join(json.dumps(r) + "\n" for r in halved))
+            root = pathlib.Path(__file__).resolve().parent
+            for args, want_rc in (((base, base), 0), ((base, worse), 1)):
+                p = subprocess.run([sys.executable, "-m", "tpuscratch_torch.obs.regress",
+                                    *map(str, args)], cwd=root, capture_output=True, text=True,
+                                   timeout=120)
+                log(f"  (f) obs.regress {args[0].name} {args[1].name}: exit {p.returncode}; "
+                    f"{p.stdout.strip().splitlines()[:3]}")
+                if p.returncode != want_rc:
+                    raise AssertionError(f"(f) regress exited {p.returncode}, want {want_rc}: "
+                                         f"{p.stderr[-2000:]}")
+            p = subprocess.run([sys.executable, "-m", "tpuscratch_torch.obs.report", jsonl],
+                               cwd=root, capture_output=True, text=True, timeout=120)
+            lines = p.stdout.splitlines()
+            log(f"  (f) obs.report on (b)'s stream: exit {p.returncode}, {len(lines)} lines")
+            for ln in lines[:12]:
+                log(f"      {ln}")
+            if p.returncode != 0 or not any("sched/run" in ln for ln in lines):
+                raise AssertionError(f"(f) report failed: {p.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if kernel_builds() != built:
+        raise AssertionError(f"phase 29 loaded {kernel_builds() - built} kernel libraries")
+    log("  phase 29 timeline:\n" + "\n".join(f"    {ln}" for ln in tl.report().splitlines()))
+    log(f"  phase 29 launches {launches}; reduced: {', '.join(reduced)}; took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3991,6 +4254,10 @@ def main() -> int:
     stage("== phase 28: the fault-tolerant chunked path (checkpointed_stencil killed and resumed, "
           "the trainer at config 11's width, the solver runner; config 16)")
     ft_launches = phase28_fault_tolerant()
+    torch.cuda.empty_cache()
+    stage("== phase 29: the co-scheduler (config 18, the kernel paths co-scheduled and profiled), "
+          "config 15 with the ledger, config 5 and the deep-pallas:16 sweep, the CLIs")
+    sched_launches = phase29_cosched_ledger()
 
     from tpuscratch_torch.bench import dma_bound as tb
     from tpuscratch_torch.ops import adam as tadam
@@ -4069,6 +4336,10 @@ def main() -> int:
     # the fault-tolerant chunked path (phase 28) runs rows 3, 4, 9 and 14-16 again
     for name, n in ft_launches.items():
         by_path.setdefault(name, {"phase 3": counts[name]})["phase 28"] = n
+        counts[name] += n
+    # phase 29 runs rows 3, 9 and 14-16 co-scheduled and in the weak-scaling sweep
+    for name, n in sched_launches.items():
+        by_path[name]["phase 29"] = n
         counts[name] += n
     kernels = []
     for name, (src, tpu, main_shape) in table.items():

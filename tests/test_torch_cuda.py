@@ -1594,3 +1594,54 @@ def test_guarded_step_on_the_card_against_the_cpu(card):
         ua, ub = a - w, b.cpu() - w
         seen = 2 * torch.from_numpy(np.spacing(w.abs().numpy()))
         assert bool(((ua - ub).abs() <= 1e-4 * float(ua.abs().max()) + seen).all())
+
+
+def test_scheduler_fence_books_side_stream_work_to_its_tick(card):
+    """A tick that leaves work on a side stream (as an async snapshot's
+    copy does) has it booked to its own busy seconds: the scheduler fences
+    each tick, so the other workload's next tick, which would wait for it
+    on the shared card, does not pay for it."""
+    from tpuscratch_torch.runtime.chunked import ChunkedProgram, ChunkResult
+    from tpuscratch_torch.runtime.scheduler import MeshScheduler, RoundRobin
+
+    side = torch.cuda.Stream()
+
+    def prog(name, sleep_cycles):
+        def run_chunk(cp, pos):
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(sleep_cycles)   # left running when the chunk returns
+            return pos
+
+        return ChunkedProgram(workload=name, total=2, run_chunk=run_chunk,
+                              make_event=lambda cp, pos, p, sp: ChunkResult(pos + 1, save=False))
+
+    torch.cuda.synchronize()
+    sched = MeshScheduler(policy=RoundRobin())
+    sched.add(prog("slow", 200_000_000))
+    sched.add(prog("idle", 0))
+    sched.run()
+    busy = {n: e.busy_s for n, e in sched.entries.items()}
+    assert [e.ticks for e in sched.entries.values()] == [2, 2]
+    assert busy["slow"] > 0.05 and busy["slow"] > 10 * busy["idle"]
+
+
+def test_ledger_on_the_card_matches_the_cpu(card):
+    """``obs.ledger.analyze`` records the same collectives on CUDA tensors
+    as on CPU ones, and its flops leave out the hand-written kernels (a
+    ctypes launch no dispatch mode sees)."""
+    from tpuscratch_torch.halo.exchange import HaloSpec, halo_exchange
+    from tpuscratch_torch.halo.layout import TileLayout
+    from tpuscratch_torch.obs.ledger import analyze
+    from tpuscratch_torch.ops.fill import fill
+    from tpuscratch_torch.runtime.mesh import make_mesh, topology_of
+
+    leds = {}
+    for dev in ("cpu", card):
+        mesh = make_mesh((2, 2), ("row", "col"), device=dev)
+        spec = HaloSpec(layout=TileLayout(64, 48, 2, 2), topology=topology_of(mesh))
+        tiles = torch.randn((2, 2) + spec.layout.padded_shape, device=dev)
+        leds[str(dev)] = analyze(halo_exchange, tiles, spec)
+    a, b = leds.values()
+    assert a.collectives == b.collectives and a.count("collective-permute") == 8
+    led = analyze(lambda: fill((1024, 1024), 3.0, device=card))
+    assert led.flops == 0 and led.collectives == ()

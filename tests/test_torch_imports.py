@@ -76,7 +76,9 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.ft.chaos", "tpuscratch_torch.ft.supervisor",
                 "tpuscratch_torch.runtime.checkpoint", "tpuscratch_torch.runtime.async_ckpt",
                 "tpuscratch_torch.runtime.chunked", "tpuscratch_torch.models.trainer",
-                "tpuscratch_torch.solvers.runner"):
+                "tpuscratch_torch.solvers.runner", "tpuscratch_torch.obs.ledger",
+                "tpuscratch_torch.obs.regress", "tpuscratch_torch.runtime.profiling",
+                "tpuscratch_torch.runtime.scheduler", "tpuscratch_torch.bench.weak_scaling"):
         assert mod in got["modules"]
 
 

@@ -27,7 +27,11 @@ solvers over ``parallel.fft``, the pencil FFT; ``bench.fft_bench``,
 ``bench.mg3d_chip``), and the fault-tolerant chunked path (``runtime.
 {checkpoint,async_ckpt,chunked}``, ``obs``, ``ft``, ``models.trainer``,
 ``halo.driver.checkpointed_stencil``, ``solvers.runner``), which runs
-the existing kernels in checkpointed, resumable chunks.
+the existing kernels in checkpointed, resumable chunks, and above it the
+co-scheduler (``runtime.scheduler``), the communication ledger
+(``obs.ledger``), the regression gate and run report (``obs.regress``,
+``obs.report``), profiling (``runtime.profiling``) and weak scaling
+(``bench.weak_scaling``).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
-"""BASELINE configs 2, 3, 4, 6, 8, 9, 10, 11, 12, 13, 14 and 16 on the card.
+"""BASELINE configs 2-6, 8-16 and 18 on the card (config 1 is ``bench.headline``).
 
-``python -m tpuscratch_torch.bench.record [--configs 2,3,4,6,8,9,10,11,12,13,14,16]``
+``python -m tpuscratch_torch.bench.record [--configs 2,3,4,5,6,8,9,10,11,12,13,14,15,16,18]
+[--json PATH] [--check BASE.json [--noise 0.1]]``
 prints one JSON line per metric, with the JAX package's metric names
 (``tpuscratch.bench.record``): config 2 the dot product, 3 pingpong, 4 the
 2D stencil on a 4x4 mesh at 8192^2, 6 flash attention at S 4096, 8 the
@@ -13,7 +14,12 @@ ZeRO-sharded training of that model at dp 1, 2 and 4 stacked on the card,
 and the accumulation sweep, 14 the plan-composed ZeRO step at pp x dp in
 {1, 2}^2, serial against the overlap schedule, 16 the goodput of the three
 chunked workloads (trainer, halo driver, solver runner) preempted once
-under the supervisor, with blocking and with async checkpoints.
+under the supervisor, with blocking and with async checkpoints, 5 weak
+scaling of the 2D stencil over 1-16 stacked ranks, 15 the 3D multigrid's
+weak scaling and the s-step and pipelined-CG ablations with the ledger's
+collective counts, 18 a trainer and a solver co-scheduled on one card.
+``--json`` appends the rows to a file; ``--check`` diffs them against a
+baseline file through ``obs.regress``.
 Each line names the device it ran on. Unlike the JAX harness, nothing is
 caught (a failing method, impl or re-measure fails the run), except in
 config 8's race, which records a point's error in the line, as the JAX
@@ -734,24 +740,361 @@ def config16_elastic_goodput(out: list, device=None, train_steps: int = 20,
     return results
 
 
+def config5_weak_scaling(out: list, per_chip: int = 1024, iters: int = 3, steps: int = 10,
+                         device=None) -> list:
+    """Weak scaling: a ``per_chip``^2 tile a rank, ``steps`` steps of the
+    ``xla`` impl, on 1, 2, 4, 8 and 16 ranks stacked on the card, through
+    ``bench.weak_scaling``. The JAX harness refuses fewer than 2 devices;
+    stacked ranks need none. The row: the per-rank rate at the largest
+    mesh over the 1-rank rate, each point's efficiency and its analytic
+    halo bytes a cell. Returns the points."""
+    from tpuscratch_torch.bench.weak_scaling import (
+        DEVICE_COUNTS,
+        bench_weak_scaling,
+        efficiency,
+        report,
+    )
+
+    pts = bench_weak_scaling(per_chip=(per_chip, per_chip), steps=steps, iters=iters,
+                             device=device)
+    print(f"# {report(pts)}", file=sys.stderr)
+    eff = efficiency(pts)
+    mesh = make_mesh_2d(device=device)
+    _emit(out, mesh, config=5, metric="weak_scaling_efficiency", value=eff[DEVICE_COUNTS[-1]],
+          per_chip_tile=per_chip, points={str(n): e for n, e in eff.items()},
+          halo_bytes_per_cell={str(p.n_devices): p.comm_ratio for p in pts},
+          detail=(f"per-chip rate at N vs N=1, tile {per_chip}^2 x{steps} steps; "
+                  f"{_where(mesh)}, ranks stacked, no link"))
+    return pts
+
+
+def config15_solver(out: list, iters: int = 2, per_chip: int = 32, n2: int = 256,
+                    device=None) -> dict:
+    """Solver weak scaling and the communication-avoiding ablation, the
+    JAX harness's three row families at its chip sizes, the ranks stacked
+    on the card:
+
+    - ``solver_weak_mg3d_<n>dev``: ``per_chip``^3 a rank on 1x1x1,
+      2x1x1, 2x2x1 and 2x2x2 through ``checkpointed_mg3d_solve`` (64
+      cycles a chunk, tol 1e-6):
+      cells/s, V-cycles, the analytic ``comm_ratio`` (halo bytes a
+      computed cell a sweep, ``halo3d_traffic_per_chip``) and the per-rank
+      efficiency against the 1-rank point.
+    - ``solver_ca_smoothing``: damped Jacobi at s_step 1 against 2 on the
+      largest mesh — cells/s, cycles, and the ledger's
+      ``collective-permute`` count and bytes a sweep (s 1: one sweep's
+      program; s 2: 16 sweeps, 8 state exchanges and one rhs fill).
+    - ``solver_ca_cg``: classic against pipelined CG at ``n2``^2 on 2x2,
+      tol 1e-5: seconds to tolerance, iterations, and the ledger's
+      all-reduces: ``psums_total`` counts one init plus one loop body (a
+      run with ``max_iters=1``), the JAX program's static count (3 and
+      2); ``psums_per_iter`` is that less the init.
+
+    Each solve is timed ``iters`` times (best kept). Unlike the JAX
+    harness, a failing point raises. Returns ``{metric: row}``."""
+    import shutil
+    import tempfile
+    import time
+
+    import numpy as np
+
+    from tpuscratch_torch.bench.weak_scaling import halo3d_traffic_per_chip
+    from tpuscratch_torch.halo.driver import _setup, decompose
+    from tpuscratch_torch.halo.halo3d import HaloSpec3D, TileLayout3D
+    from tpuscratch_torch.halo.layout import TileLayout
+    from tpuscratch_torch.obs import ledger as obs_ledger
+    from tpuscratch_torch.runtime.mesh import topology_of
+    from tpuscratch_torch.runtime.topology import factor2d
+    from tpuscratch_torch.solvers.cg import _poisson_program, poisson_solve
+    from tpuscratch_torch.solvers.multigrid3d import jacobi_smooth3, jacobi_smooth3_deep
+    from tpuscratch_torch.solvers.runner import checkpointed_mg3d_solve
+
+    tol, cg_tol, sweeps = 1e-6, 1e-5, 16
+    rng = np.random.default_rng(0)
+    rows = {}
+
+    def solve_timed(b, mesh, **kw):
+        best = None
+        for _ in range(iters):
+            wd = tempfile.mkdtemp(prefix="tpuscratch_c15_")
+            try:
+                t0 = time.perf_counter()
+                _, rep = checkpointed_mg3d_solve(b, f"{wd}/ck", mesh=mesh, tol=tol,
+                                                 chunk_cycles=64, **kw)
+                wall = time.perf_counter() - t0
+            finally:
+                shutil.rmtree(wd, ignore_errors=True)
+            if best is None or wall < best[0]:
+                best = (wall, rep)
+        return best
+
+    # --- weak scaling through the checkpointed runner ------------------
+    points = []
+    for dims in ((1, 1, 1), (2, 1, 1), (2, 2, 1), (2, 2, 2)):
+        world = tuple(d * per_chip for d in dims)
+        b = rng.standard_normal(world).astype(np.float32)
+        b -= b.mean()
+        mesh = make_mesh(dims, ("z", "row", "col"), device)
+        wall, rep = solve_timed(b, mesh)
+        cells = float(np.prod(world))
+        halo_b, cells_chip = halo3d_traffic_per_chip(dims, (per_chip,) * 3)
+        points.append({"dims": dims, "n": math.prod(dims), "rate": cells * rep.cycles / wall,
+                       "cycles": rep.cycles, "comm_ratio": halo_b / cells_chip, "wall": wall,
+                       "mesh": mesh})
+    base_rate = points[0]["rate"] / points[0]["n"]
+    for p in points:
+        d = p["dims"]
+        rows[f"solver_weak_mg3d_{p['n']}dev"] = _emit(
+            out, p["mesh"], config=15, metric=f"solver_weak_mg3d_{p['n']}dev",
+            value=p["rate"], cells_per_s=p["rate"], cycles=p["cycles"],
+            comm_ratio=p["comm_ratio"], efficiency=p["rate"] / p["n"] / base_rate,
+            solve_s=p["wall"], n_devices=p["n"],
+            detail=(f"{d[0]}x{d[1]}x{d[2]} mesh, {per_chip}^3/chip, {p['cycles']} cycles, "
+                    f"{p['comm_ratio']:.3f} B/cell analytic; ranks stacked"))
+
+    # --- CA smoothing ablation on the largest mesh ---------------------
+    big = points[-1]
+    dims, mesh = big["dims"], big["mesh"]
+    world = tuple(d * per_chip for d in dims)
+    b = rng.standard_normal(world).astype(np.float32)
+    b -= b.mean()
+    cells = float(np.prod(world))
+    spec15 = HaloSpec3D(layout=TileLayout3D((per_chip,) * 3, (1, 1, 1)),
+                        topology=topology_of(mesh, periodic=True),
+                        axes=tuple(mesh.axis_names), neighbors=6)
+    smooth_arg = torch.zeros(dims + (per_chip,) * 3, dtype=torch.float32, device=mesh.device)
+
+    def smoother_ledger(fn, sweeps_in_program):
+        # the program runs once: its ops are the dynamic count of
+        # sweeps_in_program sweeps, normalized to one sweep
+        led = obs_ledger.analyze(fn, smooth_arg, smooth_arg)
+        return (led.count("collective-permute") / sweeps_in_program,
+                led.wire_bytes().get("collective-permute", 0.0) / sweeps_in_program)
+
+    row = {}
+    for s_step in (1, 2):
+        wall, rep = solve_timed(b, mesh, s_step=s_step, smoother="jacobi")
+        tag = f"s{s_step}"
+        row[f"cells_per_s_{tag}"] = cells * rep.cycles / wall
+        row[f"cycles_{tag}"] = rep.cycles
+        row[f"solve_s_{tag}"] = wall
+        if s_step == 1:
+            ppermutes, wire = smoother_ledger(
+                lambda u, f: jacobi_smooth3(u, f, spec15, 6 / 7, 1), 1)
+        else:
+            ppermutes, wire = smoother_ledger(
+                lambda u, f: jacobi_smooth3_deep(u, f, spec15, 6 / 7, sweeps, s_step), sweeps)
+        row[f"ppermutes_per_sweep_{tag}"] = ppermutes
+        row[f"halo_bytes_per_sweep_{tag}"] = wire
+    row["deep_speedup"] = row["cells_per_s_s2"] / row["cells_per_s_s1"]
+    rows["solver_ca_smoothing"] = _emit(
+        out, mesh, config=15, metric="solver_ca_smoothing", value=row["deep_speedup"], **row,
+        detail=(f"s-step smoothing {row['deep_speedup']:.3f}x cells/s, ppermutes/sweep "
+                f"{row['ppermutes_per_sweep_s1']:.0f} -> {row['ppermutes_per_sweep_s2']:.4g} "
+                f"(ledger), cycles {row['cycles_s1']} == {row['cycles_s2']}"))
+
+    # --- CG ablation: classic vs pipelined ------------------------------
+    b2 = rng.standard_normal((n2, n2)).astype(np.float32)
+    mesh2 = make_mesh_2d(factor2d(4), device)
+    mesh_s, topo_s, layout_s, spec_s = _setup((n2, n2), mesh2, (1, 1), periodic=False,
+                                              neighbors=4)
+    flat = TileLayout(layout_s.core_h, layout_s.core_w, 0, 0)
+    b2_tiles = torch.from_numpy(decompose(b2, topo_s, flat)).to(mesh_s.device)
+    cg_row = {}
+    for method in ("cg", "pipelined"):
+        poisson_solve(b2, mesh2, tol=cg_tol, max_iters=4 * n2, method=method)  # warm
+        best = math.inf
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            _, k, _ = poisson_solve(b2, mesh2, tol=cg_tol, max_iters=4 * n2, method=method)
+            best = min(best, time.perf_counter() - t0)
+        tag = "classic" if method == "cg" else "pipelined"
+        cg_row[f"solve_s_{tag}"] = best
+        cg_row[f"iterations_{tag}"] = int(k)
+        # one init plus ONE loop body: the JAX program's static count
+        led = obs_ledger.analyze(_poisson_program(mesh_s, spec_s, cg_tol, 1, method), b2_tiles)
+        cg_row[f"psums_total_{tag}"] = led.count("all-reduce")
+        cg_row[f"psums_per_iter_{tag}"] = led.count("all-reduce") - 1
+    cg_row["pipelined_speedup"] = cg_row["solve_s_classic"] / cg_row["solve_s_pipelined"]
+    rows["solver_ca_cg"] = _emit(
+        out, mesh2, config=15, metric="solver_ca_cg", value=cg_row["psums_per_iter_pipelined"],
+        **cg_row,
+        detail=(f"psums/iter {cg_row['psums_per_iter_classic']} -> "
+                f"{cg_row['psums_per_iter_pipelined']} (ledger), iters "
+                f"{cg_row['iterations_classic']} -> {cg_row['iterations_pipelined']}, "
+                f"time-to-tol {cg_row['pipelined_speedup']:.3f}x; {_where(mesh2)}, 4 ranks "
+                f"stacked: an allreduce is a sum over a tensor's leading dims, no link"))
+    return rows
+
+
+def config18_cosched(out: list, device=None, steps: int = 16, d_model: int = 128,
+                     solver_tile: int = 32, max_cycles: int = 24) -> dict:
+    """Mesh co-scheduling: a training run and an MG3D solve time-slicing
+    ONE card under ``runtime.scheduler.MeshScheduler``'s goodput-share
+    policy (targets 0.7 / 0.3), against the same two jobs run
+    back-to-back solo. The JAX harness's sizes on 4 stacked ranks: the
+    trainer at ``d_model`` 128, 2 heads, 4 experts, d_ff 2 x d_model, 2
+    layers, Adam, batch 8 x 32, ``steps`` steps, a save every 2; the
+    solver at ``solver_tile``^3 a rank on (2, 2, 1),
+    tol 1e-7, ``max_cycles`` cycles at most, 4 a chunk. Both programs run
+    once before the accounted arms. The co-scheduled results must be
+    bit-identical to solo, and ``by_workload(...).check()`` must hold
+    for both arms, or it raises. Returns ``{"row": ..., "solo": (train
+    result, solve result), "cosched": (...)}``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpuscratch_torch.models.trainer import train_program
+    from tpuscratch_torch.models.transformer import TransformerConfig
+    from tpuscratch_torch.obs.goodput import by_workload
+    from tpuscratch_torch.obs.report import load_events
+    from tpuscratch_torch.obs.sink import Sink
+    from tpuscratch_torch.runtime.checkpoint import tree_flatten
+    from tpuscratch_torch.runtime.scheduler import GoodputShare, MeshScheduler
+    from tpuscratch_torch.solvers.runner import mg3d_solve_program
+
+    n = 4
+    rng = np.random.default_rng(0)
+    mesh = make_mesh((n, 1), ("dp", "sp"), device)
+    cfg = TransformerConfig(d_model=d_model, n_heads=2, n_experts=n, d_ff=2 * d_model,
+                            n_layers=2)
+    sdims = (2, 2, 1)
+    b = rng.standard_normal(tuple(d * solver_tile for d in sdims)).astype(np.float32)
+    b -= b.mean()
+    smesh = make_mesh(sdims, ("z", "row", "col"), mesh.device)
+    solve_kw = dict(mesh=smesh, tol=1e-7, max_cycles=max_cycles, chunk_cycles=4)
+    targets = {"train": 0.7, "solver": 0.3}
+
+    def tprog(ck, sink):
+        return train_program(mesh, cfg, steps, ck, save_every=2, batch=2 * n, seq=32,
+                             optimizer="adam", obs=sink)
+
+    def sprog(ck, sink):
+        return mg3d_solve_program(b, ck, sink=sink, **solve_kw)
+
+    # both programs once OUTSIDE any accounting window, as the JAX harness
+    # warms its compiled programs: one-time set-up must not land in an arm
+    wwd = tempfile.mkdtemp(prefix="tpuscratch_c18_warm_")
+    try:
+        tprog(f"{wwd}/t", None).run()
+        sprog(f"{wwd}/s", None).run()
+    finally:
+        shutil.rmtree(wwd, ignore_errors=True)
+
+    arms = {}
+    for mode in ("solo", "cosched"):
+        wd = tempfile.mkdtemp(prefix=f"tpuscratch_c18_{mode}_")
+        try:
+            path = f"{wd}/obs.jsonl"
+            sink = Sink(path, run={"bench": f"record/config18/{mode}",
+                                   "platform": mesh.device.type})
+            sched_ev = None
+            if mode == "solo":
+                r_train = tprog(f"{wd}/ckt", sink).run()
+                r_solve = sprog(f"{wd}/cks", sink).run()
+            else:
+                sched = MeshScheduler(policy=GoodputShare(targets), sink=sink)
+                sched.add(tprog(f"{wd}/ckt", sink))
+                sched.add(sprog(f"{wd}/cks", sink))
+                res = sched.run()
+                r_train, r_solve = res["train"], res["solver"]
+            sink.close()
+            events = load_events([path])
+            wg = by_workload(events, targets=targets)
+            wg.check()  # both partition invariants, live, or raise
+            if mode == "cosched":
+                sched_ev = next(e for e in events if e.get("event") == "sched/run")
+            arms[mode] = (r_train, r_solve, wg, sched_ev)
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+
+    (p_solo, rep_solo), (x_solo, _), wg_solo, _ = arms["solo"]
+    (p_co, rep_co), (x_co, srep_co), wg_co, sched_ev = arms["cosched"]
+    la, lb = tree_flatten(p_solo)[0], tree_flatten(p_co)[0]
+    same_params = len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+    if not (same_params and rep_solo.losses == rep_co.losses and np.array_equal(x_solo, x_co)):
+        raise RuntimeError("co-scheduled results differ from solo — the chunk-boundary "
+                           "preemption contract is broken")
+
+    def agg_goodput(wg):
+        step = sum(r.buckets.get("step", 0.0) for r in wg.reports.values())
+        return step / wg.wall_s if wg.wall_s else 0.0
+
+    shares = wg_co.shares
+    share_err = max(abs(shares[k] - targets[k]) for k in targets)
+    switches = int(sched_ev.get("switches") or 0)
+    switch_s = float(sched_ev.get("overhead_s") or 0.0) / max(switches, 1)
+    row = {
+        "goodput_fraction_cosched": agg_goodput(wg_co),
+        "goodput_fraction_solo": agg_goodput(wg_solo),
+        "share_train": shares.get("train", 0.0),
+        "share_solver": shares.get("solver", 0.0),
+        "target_train": targets["train"],
+        "target_solver": targets["solver"],
+        "share_err": share_err,
+        "switches": switches,
+        "switch_s": switch_s,
+        "wall_s_cosched": wg_co.wall_s,
+        "wall_s_solo": wg_solo.wall_s,
+        "solver_cycles": srep_co.cycles,
+    }
+    _emit(out, mesh, config=18, metric="cosched_goodput_train_solver",
+          value=row["goodput_fraction_cosched"], **row,
+          detail=(f"train+solver on one card, GoodputShare targets "
+                  f"{targets['train']:.0%}/{targets['solver']:.0%}, achieved "
+                  f"{row['share_train']:.1%}/{row['share_solver']:.1%} (err {share_err:.1%}), "
+                  f"{switches} switches at {1e3 * switch_s:.2f} ms/switch, results "
+                  f"bit-identical to solo, both partition checks live; 4 ranks stacked"))
+    return {"row": row, "solo": (arms["solo"][0], arms["solo"][1]),
+            "cosched": (arms["cosched"][0], arms["cosched"][1])}
+
+
 CONFIGS = {2: config2_dot, 3: config3_pingpong, 4: config4_stencil_mesh,
-           6: config6_flash_attention, 8: config8_dft, 9: config9_stencil3d,
-           10: config10_dma_halo,
+           5: config5_weak_scaling, 6: config6_flash_attention, 8: config8_dft,
+           9: config9_stencil3d, 10: config10_dma_halo,
            11: config11_train, 12: config12_decode, 13: config13_zero_train,
-           14: config14_plan_overlap, 16: config16_elastic_goodput}
+           14: config14_plan_overlap, 15: config15_solver, 16: config16_elastic_goodput,
+           18: config18_cosched}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--configs", default="2,3,4,6,8,9,10,11,12,13,14,16",
+    ap.add_argument("--configs", default="2,3,4,5,6,8,9,10,11,12,13,14,15,16,18",
                     help="comma-separated config numbers")
+    ap.add_argument("--json", default=None, metavar="PATH",
+                    help="append this run's rows to PATH, one JSON object a line")
+    ap.add_argument("--check", default=None, metavar="BASE.json",
+                    help="after measuring, diff this run's rows against BASE.json through "
+                         "tpuscratch_torch.obs.regress; a regression beyond the noise band "
+                         "makes the exit code nonzero")
+    ap.add_argument("--noise", type=float, default=0.1,
+                    help="fractional noise band for --check (default 0.1)")
     args = ap.parse_args(argv)
     out: list = []
     for c in (int(s) for s in args.configs.split(",")):
         if c not in CONFIGS:
             raise SystemExit(f"config {c} is not ported (have {sorted(CONFIGS)})")
         CONFIGS[c](out)
-    return 0
+    if args.json:
+        with open(args.json, "a") as f:
+            for row in out:
+                f.write(json.dumps(row) + "\n")
+    rc = 0
+    if args.check:
+        from tpuscratch_torch.obs.regress import (
+            compare,
+            format_findings,
+            has_regression,
+            index_rows,
+            load_rows,
+        )
+
+        findings = compare(load_rows(args.check), index_rows(out), noise=args.noise)
+        print(format_findings(findings, args.noise), file=sys.stderr)
+        rc = 1 if has_regression(findings) else 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -23,6 +23,16 @@ and are not counted. The JAX package reads these bytes off a compiled
 program's collectives; here they are counted per call, so a collective the
 compiler would merge or elide still counts. With no counter open a
 collective pays one list test.
+
+Ops: inside ``with record_collectives() as ops:`` every collective, the
+p2p hops and each halo-exchange transfer (``halo.exchange``,
+``halo.stencil._neighbor_block``) append one ``(kind, payload_bytes,
+group_size)`` in the terms the JAX ledger reads off HLO
+(``tpuscratch.obs.ledger.parse_collectives``):
+``all-reduce``, ``all-gather`` (payload: the gathered result),
+``reduce-scatter`` (payload: the shard), ``all-to-all`` and
+``collective-permute`` (group: the pairs over the whole mesh). This is
+what ``obs.ledger.analyze`` reads.
 """
 
 from __future__ import annotations
@@ -81,12 +91,42 @@ def count_wire_bytes():
         _counting.remove(wb)
 
 
+_recording: list[list] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Append every collective op called while the block runs to a fresh
+    list of ``(kind, payload_bytes, group_size)`` (nested recorders each
+    see every op)."""
+    ops: list = []
+    _recording.append(ops)
+    try:
+        yield ops
+    finally:
+        _recording.remove(ops)
+
+
+def record_op(kind: str, payload_bytes: int, group_size: int) -> None:
+    """Append one op to every open recorder (one list test when none is)."""
+    for ops in _recording:
+        ops.append((kind, int(payload_bytes), int(group_size)))
+
+
+#: WireBytes leg -> (ledger kind, result payload from the per-rank input)
+_LEG_OPS = {"all_reduce": ("all-reduce", lambda b, n: b),
+            "reduce_scatter": ("reduce-scatter", lambda b, n: b // n),
+            "all_gather": ("all-gather", lambda b, n: b * n)}
+
+
 def _tally(leg: str, x: torch.Tensor, n: int) -> None:
     """Add a collective over ``n`` ranks of the stacked value ``x`` (its
-    per-rank payload) to every open counter."""
-    if not _counting:
+    per-rank payload) to every open counter and recorder."""
+    if not (_counting or _recording):
         return
     payload = x.numel() // math.prod(current_mesh().shape) * x.element_size()
+    kind, result = _LEG_OPS[leg]
+    record_op(kind, result(payload, n), n)
     if leg == "all_reduce":
         wire = 2.0 * (n - 1) / n * payload
     elif leg == "reduce_scatter":
@@ -253,6 +293,9 @@ def all_to_all(x, axis: AxisName, split_axis: int = 0, concat_axis: int = 0, til
     drops ``split_axis`` (its size must equal the axis size) and stacks
     them as a new ``concat_axis``."""
     f = _Front(x, axis)
+    if _recording:
+        record_op("all-to-all", x.numel() // math.prod(current_mesh().shape) * x.element_size(),
+                  f.n)
     s = _local_dim(split_axis, f)
     if not tiled and f.y.shape[f.lead + s] != f.n:
         raise ValueError(f"all_to_all: split dim of size {f.y.shape[f.lead + s]} "

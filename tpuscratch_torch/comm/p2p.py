@@ -14,8 +14,8 @@ from typing import Sequence
 
 import torch
 
-from tpuscratch_torch.comm.collectives import _Front
-from tpuscratch_torch.comm.spmd import AxisName, axis_size
+from tpuscratch_torch.comm.collectives import _Front, _recording, record_op
+from tpuscratch_torch.comm.spmd import AxisName, axis_size, current_mesh
 
 
 def ring_perm(n: int, disp: int = 1, periodic: bool = True) -> list[tuple[int, int]]:
@@ -41,6 +41,11 @@ def ppermute(x: torch.Tensor, axis: AxisName, pairs: Sequence[tuple[int, int]]) 
         raise ValueError(f"ppermute pairs must be a partial permutation, got {pairs}")
     if any(not 0 <= r < f.n for r in srcs + dsts):
         raise ValueError(f"ppermute pair out of range for axis size {f.n}: {pairs}")
+    if _recording:
+        # one collective-permute over the whole mesh: the pairs of every group
+        groups = current_mesh().size // f.n
+        record_op("collective-permute", x.numel() // current_mesh().size * x.element_size(),
+                  len(pairs) * groups)
     out = torch.empty_like(f.y)
     for s, d in pairs:
         out[d].copy_(f.y[s])

@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from tpuscratch_torch.comm.collectives import _recording, record_op
 from tpuscratch_torch.dtypes import SubarraySpec
 from tpuscratch_torch.halo.layout import TileLayout
 from tpuscratch_torch.runtime.topology import ALL_DIRECTIONS, CartTopology, Direction
@@ -127,11 +128,18 @@ def halo_arrivals(tiles: torch.Tensor, spec) -> list[torch.Tensor]:
     strip that lands in its ``plan()[i].recv`` rectangle, shaped
     ``(ranks, *recv.shape)``. ``spec`` is a ``HaloSpec`` or any spec of the
     same protocol over any number of mesh dims. A self-wrapping transfer's entry is a view of
-    ``tiles``; ``halo_scatter`` lands into a copy, so the view stays valid."""
+    ``tiles``; ``halo_scatter`` lands into a copy, so the view stays valid.
+
+    An open ledger (``comm.collectives.record_collectives``) records every
+    transfer as one ``collective-permute`` of the plan's pairs, self-wrap
+    ones too: the JAX package sends each through a ``ppermute``."""
     nd = _check_tiles(tiles, spec)
     out = []
     for t in spec.plan():
         payload = t.send.region(tiles).flatten(0, nd - 1)
+        if _recording:
+            record_op("collective-permute", payload[0].numel() * payload.element_size(),
+                      len(t.perm))
         if not t.is_identity:
             payload = payload.index_select(0, _index(_sources(t), tiles.device))
         out.append(payload)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuscratch_torch.comm.collectives import _recording, record_op
 from tpuscratch_torch.halo.exchange import (
     HaloSpec,
     _index,
@@ -218,13 +219,18 @@ def _neighbor_block(block: torch.Tensor, spec, off) -> torch.Tensor:
     """Each rank's copy of ``block`` (stacked over the mesh dims) from
     the rank at ``-off`` from it: the block a ``ppermute`` toward ``off``
     delivers. Zeros where no rank sends (an open edge, MPI_PROC_NULL), the
-    block itself where every rank sends to itself."""
+    block itself where every rank sends to itself. Only the gather is a
+    ``ppermute`` in the JAX package, so only it is recorded as a
+    ``collective-permute`` in an open ledger."""
     topo = spec.topology
     pairs = topo.send_permutation(off)
     if not pairs:
         return torch.zeros_like(block)
     if len(pairs) == topo.size and all(s == d for s, d in pairs):
         return block
+    if _recording:
+        record_op("collective-permute", block.numel() // topo.size * block.element_size(),
+                  len(pairs))
     src = list(range(topo.size))
     for s, d in pairs:
         src[d] = s

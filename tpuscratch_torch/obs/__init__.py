@@ -12,11 +12,29 @@
   totals and the straggler reports.
 - **goodput** — the goodput/badput partition of a run's wall time from
   its JSONL stream; the buckets sum to the wall time by construction.
-- **report** — :func:`load_events`, the JSONL reader.
+- **ledger** — the communication/compute ledger of one run of a program:
+  every collective it called (kind, payload, group), FLOPs from
+  ``torch.utils.flop_counter``, the analytic wire-byte formulas, the KV
+  byte counts and the achieved-fraction-of-roofline diff. The port has
+  no HLO, so the JAX ledger's HLO parser has no counterpart.
+- **report** — ``python -m tpuscratch_torch.obs.report run.jsonl``
+  collapses a run's JSONL into a summary table (the per-phase straggler
+  table when >= 2 hosts reported); :func:`load_events`, the JSONL reader.
+- **regress** — ``python -m tpuscratch_torch.obs.regress BASE.json
+  NEW.json`` diffs two ``bench/record --json`` artifacts against a noise
+  band and exits nonzero on a regression (also ``bench/record --check``).
+- ``runtime.profiling``'s ``Timeline``, ``Span``, ``cross_rank_span`` and
+  ``annotate`` (spans over this package's flight recorder) are re-exported
+  here.
 
-Not ported yet: ``ledger``, ``regress``, ``reqtrace`` and ``report``'s
-command line.
+Not ported yet: ``reqtrace`` (with the serving engine's hooks).
+
+The report, regress and profiling names load on first use, so
+``python -m tpuscratch_torch.obs.report`` / ``.regress`` run their
+module once.
 """
+
+import importlib
 
 from tpuscratch_torch.obs.metrics import (  # noqa: F401
     CompileCounter,
@@ -52,4 +70,38 @@ from tpuscratch_torch.obs.goodput import (  # noqa: F401
     by_workload,
     goodput_report,
 )
-from tpuscratch_torch.obs.report import load_events  # noqa: F401
+from tpuscratch_torch.obs.ledger import (  # noqa: F401
+    CollectiveOp,
+    GradSyncBytes,
+    KVHostTraffic,
+    Ledger,
+    RooflineReport,
+    all_gather_wire_bytes,
+    all_to_all_wire_bytes,
+    analyze,
+    grad_sync_wire_bytes,
+    kv_cache_bytes,
+    kv_host_traffic_bytes,
+    kv_page_bytes,
+    reduce_scatter_wire_bytes,
+    ring_all_reduce_wire_bytes,
+    roofline,
+)
+
+#: name -> module, loaded on first use (PEP 562)
+_LAZY = {
+    **{n: "tpuscratch_torch.obs.report" for n in (
+        "load_events", "stragglers", "summarize", "decompose", "request_waterfall",
+        "format_table")},
+    **{n: "tpuscratch_torch.obs.regress" for n in (
+        "Finding", "compare", "direction", "format_findings", "has_regression",
+        "index_rows", "load_rows", "noise_floor")},
+    **{n: "tpuscratch_torch.runtime.profiling" for n in (
+        "Span", "Timeline", "annotate", "cross_rank_span")},
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from tpuscratch_torch.models.transformer import TransformerConfig, init_params
+from tpuscratch_torch.obs.ledger import kv_cache_bytes
 from tpuscratch_torch.runtime.mesh import StackedMesh, resolve_device
 from tpuscratch_torch.serve.decode import (
     ProgramCounter,
@@ -42,7 +43,6 @@ from tpuscratch_torch.serve.kvcache import (
     CacheGeometry,
     PageAllocator,
     init_kv_cache,
-    kv_cache_bytes,
 )
 from tpuscratch_torch.serve.sampling import key, request_key, request_keys, sample_batch
 

@@ -28,6 +28,7 @@ from typing import Iterable, Optional
 import torch
 
 from tpuscratch_torch.comm.spmd import P
+from tpuscratch_torch.obs.ledger import kv_cache_bytes  # noqa: F401  (re-exported)
 from tpuscratch_torch.runtime.mesh import resolve_device
 
 #: symmetric int8 range: q in [-127, 127], value = q * scale
@@ -100,12 +101,6 @@ def kv_cache_spec(dp: str = "dp", sp: str = "sp", quantized: bool = False) -> di
         out["k_scale"] = P(None, dp, sp)
         out["v_scale"] = P(None, dp, sp)
     return out
-
-
-def kv_cache_bytes(cache: dict) -> int:
-    """Total buffer bytes of a cache (pages plus scale planes): a copy of
-    ``tpuscratch.obs.ledger.kv_cache_bytes``."""
-    return int(sum(t.numel() * t.element_size() for t in cache.values()))
 
 
 def quantize_pages(x: torch.Tensor, dtype=torch.int8) -> tuple[torch.Tensor, torch.Tensor]:
