@@ -223,6 +223,29 @@ Phase 29 runs after 28, before 24's lines:
    on (b)'s JSONL stream. Each step's seconds are printed
    (``Timeline.report``).
 
+Phase 30 runs after 29, before 24's lines:
+
+30. the reference's programs and C4: ``iota2d`` in int8, uint8 and int16 at
+   37x53, 5x257 and 8192^2 bit-equal to its plain version and the wrapped
+   linear index; the flash wrappers on float16 operands (widened to the f32
+   kernels) at three small ragged shapes and config 6's (S 4096, H 8, D 128,
+   causal and full), the output and f16 gradients within FLASH_TOL of the
+   plain version beyond their f16 rounding, the state and f32 gradients
+   within FLASH_TOL; ``paged_attention`` with a float16 q over f32, int8 and
+   fp8 pools at a ragged small geometry and config 12's, within PAGED_ATOL
+   beyond the f16 rounding; each timed beside its bound, its plain time and
+   its library call; then the same through ``iota2d``, ``flash_attention``
+   (forward and backward through autograd) and ``decode_attention``, the
+   launches counted; ex01-ex10 through their ``main()`` on the card (ex08 at
+   1e8 f32, ex09 at a 1024^2 world, 64 steps, ``--impl=pallas`` and
+   ``blocked``), each ``PASSED`` where its twin checks, the launches counted
+   (rows 1-2, 12a-12b, 13a); ``exchange_packed`` with each spec and mpi8's
+   struct scatter on 8 stacked ranks, bit-equal to the CPU; the native
+   planner's 2D plan on 64x64 ranks and 3D plan on 16^3, equal to the Python
+   planner's, both timed; the native pool's staging buffer against a
+   pageable one and against itself registered with the card, at 1, 32 and
+   256 MiB.
+
 Any failure raises and exits non-zero; without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -237,8 +260,10 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -4167,6 +4192,456 @@ def phase29_cosched_ledger() -> dict:
     return launches
 
 
+# ---- phase 30: the reference's programs (ex01-ex10), the A8 modules and C4 ------------
+
+# C4's dtypes on the card. iota2d in int8, uint8 and int16 must be bit-equal
+# to its plain version and to the exact linear index wrapped to the dtype.
+# float16 flash and a float16 paged q compute in f32 (the kernels take the
+# widened operands) and round their outputs to f16 once: an f16 output may
+# lie half an f16 ulp (2^-11 of |want|, 2^-25 below the normal range) from
+# the plain version's f32 result on the same widened inputs, and no further
+# than the f32 limits (FLASH_TOL of max(1, max|want|), PAGED_ATOL) beyond
+# that; the f32 state and f32 gradient partials are held to the f32 limits.
+C4_IOTA_DTYPES = (torch.int8, torch.uint8, torch.int16)
+C4_IOTA_SHAPES = ((37, 53), (5, 257), (8192, 8192))
+C4_IOTA_TIMED = 8192        # row 13b's shape, h = w
+C4_FLASH_SMALL = [((2,), 45, 83, 3, 128, False, 0, 0), ((), 70, 70, 2, 64, True, 0, 0),
+                  ((2,), 33, 65, 2, 256, True, 0, 0)]
+C4_POOLS = (torch.float32, torch.int8, torch.float8_e4m3fn)
+C4_FLASH_S = 4096           # config 6's sequence (H 8, D 128)
+# ex08 at config 2's width, ex09 at the headline's 1024^2 world (tiles of
+# 128 x 128 make 8 x 128 = 1024 on both axes of its 2x4 mesh) for 64 steps
+EX08_ARGV = ["100000000"]
+EX09_ARGV = ["128", "128", f"--steps={STEPS}"]
+EX09_IMPLS = ("pallas", "blocked")
+# the pool staging A/B's sizes (bytes)
+STAGING_SIZES = (1 << 20, 32 << 20, 256 << 20)
+# the planner's timed topologies
+PLAN2D_DIMS, PLAN3D_DIMS = (64, 64), (16, 16, 16)
+# the phase each kernel's launches were first counted in (by_path's key)
+FIRST_PATH = {"five_point_pallas": "phase 3", "five_point_blocked": "phase 3",
+              "dot_partials_prepped": "phase 6", "dot_full_prepped": "phase 6",
+              "fill": "phase 6", "iota2d": "phase 6", "paged_attention": "phase 15",
+              "_flash_fwd_call": "phase 18", "_flash_fwd_compact": "phase 18",
+              "_flash_bwd_call": "phase 18", "_flash_bwd_compact": "phase 18"}
+
+
+def _f16_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far an f16 result lies from the f32 result it rounds, beyond that
+    rounding (half an f16 ulp)."""
+    if got.dtype != torch.float16 or want.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite f16 values")
+    w = want.double()
+    slack = torch.clamp(w.abs() * 2.0 ** -11, min=2.0 ** -25)
+    return max(0.0, float(((got.double() - w).abs() - slack).max()))
+
+
+def _all_wrappers():
+    from tpuscratch_torch.bench import dma_bound as tb
+    from tpuscratch_torch.ops import adam as tadam
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.ops import halo_dma as hd
+    from tpuscratch_torch.ops import reduction as tr
+    from tpuscratch_torch.ops import stencil_kernel as sk
+    from tpuscratch_torch.ops import stencil_stream as ss
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    return (sk.WRAPPERS + tr.WRAPPERS + tf.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS + ta.WRAPPERS
+            + tadam.WRAPPERS + tb.WRAPPERS)
+
+
+def _reset_all() -> None:
+    for w in _all_wrappers():
+        w.launches = 0
+
+
+def _counts_all() -> dict:
+    return {w.__name__: w.launches for w in _all_wrappers() if w.launches}
+
+
+def _c4_iota(tf, errs, rows) -> None:
+    for dtype in C4_IOTA_DTYPES:
+        for h, w in C4_IOTA_SHAPES:
+            got = tf.iota2d((h, w), dtype)
+            exact = torch.arange(h * w, device=DEVICE, dtype=torch.int64).view(h, w).to(dtype)
+            if not (same_bits(got, tf.iota2d_plain((h, w), dtype, DEVICE))
+                    and same_bits(got, exact)):
+                raise AssertionError(f"iota2d {h}x{w} {str(dtype)[6:]}: not bit-equal to its "
+                                     "plain version and the wrapped linear index")
+            log(f"  iota2d {h}x{w} {str(dtype)[6:]:6s}: bit-equal (plain, wrapped index); "
+                f"last cell {int(got[-1, -1])}")
+        h = w = C4_IOTA_TIMED
+        esize = torch.empty((), dtype=dtype).element_size()
+        b, by = bound(esize * h * w, 2 * h * w)
+        lib = torch.arange(h * w, dtype=dtype, device=DEVICE).view(h, w)
+        log(f"  torch.arange(h*w, dtype={str(dtype)[6:]}) wraps as iota2d does: "
+            f"{same_bits(lib, tf.iota2d((h, w), dtype))}")
+        rows.append(dict(
+            name="iota2d", shape=f"{h}x{w} {str(dtype)[6:]}",
+            ms=device_ms(lambda: tf.iota2d((h, w), dtype)),
+            plain_ms=device_ms(lambda: tf.iota2d_plain((h, w), dtype, DEVICE), n=5),
+            library_ms=device_ms(lambda: torch.arange(h * w, dtype=dtype, device=DEVICE)
+                                 .view(h, w)),
+            library_shape=f"torch.arange(h*w, dtype={str(dtype)[6:]}).view(h, w)",
+            bound_ms=b, bound_by=by))
+        del lib
+    errs["iota2d"] = 0.0
+
+
+def _c4_flash_case(ta, lead, S, T, H, D, causal, qo, ko, gen, errs, label) -> None:
+    """One case: the f16 wrappers against the plain version on the widened
+    operands (out, state, f32 and f16 gradients), routes by the f32 rule."""
+    q, k, v, do = (randn(lead + (n, H, D), gen).to(torch.float16) for n in (S, T, T, S))
+    wide = [t.float() for t in (q, k, v, do)]
+    fwd_name = "_flash_fwd_compact" if causal and isinstance(qo, int) else "_flash_fwd_call"
+    bwd_name = fwd_name.replace("fwd", "bwd")
+    fwd, bwd = getattr(ta, fwd_name), getattr(ta, bwd_name)
+    compact = fwd_name.endswith("compact")
+    fcall = ((lambda st: fwd(q, k, v, qo, ko, return_state=st)) if compact else
+             (lambda st: fwd(q, k, v, qo, ko, causal, return_state=st)))
+    want = ta._flash_fwd_plain(*wide[:3], qo, ko, causal, False)
+    tol = FLASH_TOL * max(1.0, float(want.abs().max()))
+    e_out = _f16_excess(fcall(False), want)
+    route = fwd.route
+    state = fcall(True)
+    pstate = ta._flash_fwd_plain(*wide[:3], qo, ko, causal, True)
+    e_state = max(_flash_errs(g, w, torch.float32, "fwd")[0] / max(1.0, float(w.abs().max()))
+                  for g, w in zip(state, pstate))
+    o, lse = ta._normalize(*pstate, torch.float16)
+    delta = ta._delta(do, o)
+    bargs = (q, k, v, do, lse, delta, qo, ko) + (() if compact else (causal,))
+    pb32 = ta._flash_bwd_plain(*wide, lse, delta, qo, ko, causal, torch.float32)
+    e_b32 = max(float((g.double() - w.double()).abs().max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(bwd(*bargs, out_dtype=torch.float32), pb32))
+    g16 = bwd(*bargs)
+    e_b16 = max(_f16_excess(g, w) / max(1.0, float(w.abs().max())) for g, w in zip(g16, pb32))
+    want_route = "tf32" if D <= 128 else "fma"
+    worst = max(e_out / tol * FLASH_TOL, e_state, e_b32, e_b16)
+    log(f"  flash f16 {label}: out {e_out:.3e} past f16 rounding (limit {tol:.3e}), state "
+        f"{e_state:.3e}, f32 grads {e_b32:.3e}, f16 grads {e_b16:.3e} past rounding, of "
+        f"max(1, max|want|); routes {route}/{bwd.route} (f32 rule: {want_route})")
+    if worst > FLASH_TOL or route != want_route or bwd.route != want_route:
+        raise AssertionError(f"flash f16 {label}: worst {worst:.3e} > FLASH_TOL {FLASH_TOL:g} "
+                             f"or route {route}/{bwd.route} != {want_route}")
+    for name in (fwd_name, bwd_name):
+        errs[name] = max(errs.get(name, 0.0), worst)
+
+
+def _c4_flash(ta, gen, errs, rows) -> None:
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for i, (lead, S, T, H, D, causal, qo, ko) in enumerate(C4_FLASH_SMALL):
+        _c4_flash_case(ta, lead, S, T, H, D, causal, qo, ko, gen, errs, f"case {i} {lead}+{S}x{T}"
+                       f" H{H} D{D} {'causal' if causal else 'full'}")
+    S, H, D = C4_FLASH_S, 8, 128
+    for causal in (True, False):
+        _c4_flash_case(ta, (), S, S, H, D, causal, 0, 0, gen, errs,
+                       f"config 6 S{S} {'causal' if causal else 'full'}")
+        q, k, v, do = (randn((S, H, D), gen).to(torch.float16) for _ in range(4))
+        fwd_name = "_flash_fwd_compact" if causal else "_flash_fwd_call"
+        fwd, bwd = getattr(ta, fwd_name), getattr(ta, fwd_name.replace("fwd", "bwd"))
+        fcall = ((lambda: fwd(q, k, v, 0, 0)) if causal else (lambda: fwd(q, k, v, 0, 0, False)))
+        wide = [t.float() for t in (q, k, v, do)]
+        pcall = lambda: ta._flash_fwd_plain(*wide[:3], 0, 0, causal, False)  # noqa: E731
+        pairs = _kept_pairs(S, S, (), 0, 0, causal)
+        fflops = 4 * D * H * pairs
+        # f16 work at the card's f16 peak (989 TFLOP/s, as bf16), though the
+        # wrappers run it on the split-TF32 kernels (logged beside it)
+        b, by = _flash_bound(4 * q.numel() * 2, fflops, torch.bfloat16)
+        qt, kt, vt, dot = (t.transpose(0, 1).contiguous()[None] for t in (q, k, v, do))
+        shape = f"config 6 B1 S{S} H{H} D{D} {'causal' if causal else 'full'} float16"
+        rows.append(dict(name=fwd_name, shape=shape, ms=device_ms(fcall, n=10),
+                         plain_ms=device_ms(pcall, n=3),
+                         library_ms=device_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), n=10),
+                         library_shape="SDPA forward on (1, H, S, D) f16 copies",
+                         bound_ms=b, bound_by=by, gflop=fflops / 1e9,
+                         tf32_bound_ms=fflops / TF32_SPLIT_FLOP_PER_S * 1e3))
+        acc, m, l = ta._flash_fwd_plain(*wide[:3], 0, 0, causal, True)
+        o, lse = ta._normalize(acc, m, l, torch.float16)
+        delta = ta._delta(do, o)
+        bcall = ((lambda: bwd(q, k, v, do, lse, delta, 0, 0)) if causal else
+                 (lambda: bwd(q, k, v, do, lse, delta, 0, 0, False)))
+        pbcall = lambda: ta._flash_bwd_plain(*wide, lse, delta, 0, 0, causal)  # noqa: E731
+        b, by = _flash_bound(7 * q.numel() * 2 + 8 * H * S, 2.5 * fflops, torch.bfloat16)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (qt, kt, vt))
+        so = sdpa(qg, kg, vg, is_causal=causal)
+        rows.append(dict(
+            name=fwd_name.replace("fwd", "bwd"), shape=shape, ms=device_ms(bcall, n=5),
+            plain_ms=device_ms(pbcall, n=2),
+            library_ms=device_ms(lambda: torch.autograd.grad(so, (qg, kg, vg), dot,
+                                                            retain_graph=True), n=5),
+            library_shape="SDPA's autograd backward on (1, H, S, D) f16 copies",
+            bound_ms=b, bound_by=by, gflop=2.5 * fflops / 1e9,
+            tf32_bound_ms=2.5 * fflops / TF32_SPLIT_FLOP_PER_S * 1e3))
+        del q, k, v, do, wide, acc, m, l, o, lse, delta, qt, kt, vt, dot, qg, kg, vg, so
+        torch.cuda.empty_cache()
+
+
+def _c4_paged(ta, gen, errs, rows) -> None:
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
+    B, T = PAGED_TIMED["B"], PAGED_TIMED["T"]
+    err = 0.0
+    for dtype in C4_POOLS:
+        for K, small in ((1, True), (4, True), (1, False)):
+            if small:
+                ops = list(_paged_ops(gen, 6, K, 3, 40, 4, 64, 12, dtype))
+            else:
+                lens = np.full((B,), T, np.int64)
+                ops = list(_paged_ops(gen, B, K, H, D, page, 512, T // page, dtype, lens=lens))
+            q32 = ops[0]
+            ops[0] = q32.to(torch.float16)
+            got = ta.paged_attention(*ops)
+            want = ta._verify_attention_dense(ops[0].float(), *ops[1:])
+            e = _f16_excess(got, want)
+            what = (f"{str(dtype)[6:]} K={K} " + ("H=3 D=40 page=4 B=6 ragged" if small else
+                                                    f"B={B} T={T} H={H} D={D} page={page}"))
+            log(f"  paged_attention f16 q {what}: {e:.3e} past f16 rounding (atol "
+                f"{PAGED_ATOL:g}; {_paged_route()})")
+            if e > PAGED_ATOL or got.dtype != torch.float16:
+                raise AssertionError(f"paged_attention f16 q {what}: {e:.3e} > {PAGED_ATOL:g}")
+            err = max(err, e)
+            if not small:
+                k, v, table, lens_t = ops[1], ops[2], ops[3], ops[4]
+                b, by = bound(_paged_bytes(B, T, page, H, D, k, ops[0], table, lens_t),
+                              4 * B * H * T * D)
+                kg, vg = _pregathered(k, v, table, T)
+                mask = (torch.arange(T, device=DEVICE) < lens_t[:, None])[:, None, None, :]
+                qs = q32.transpose(1, 2)
+                rows.append(dict(
+                    name="paged_attention", shape=f"B{B} T{T} H{H} D{D} page{page} K1 "
+                    f"{str(dtype)[6:]} float16 q",
+                    ms=device_ms(lambda: ta.paged_attention(*ops)),
+                    plain_ms=device_ms(lambda: ta._verify_attention_dense(*ops), n=5),
+                    library_ms=device_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
+                    library_shape=f"SDPA on the pre-gathered (B, H, {T}, D) f32 view",
+                    bound_ms=b, bound_by=by))
+                del kg, vg
+            del ops, got, want
+    errs["paged_attention"] = err
+
+
+def _c4_path(ta, tf, gen) -> dict:
+    """C4's dtypes through the entry points a user calls, the launches
+    counted: iota2d at 8192^2, flash_attention forward and backward through
+    autograd at config 6's shape, decode_attention at config 12's."""
+    _reset_all()
+    for dtype in C4_IOTA_DTYPES:
+        got = tf.iota2d((8192, 8192), dtype)
+        if not same_bits(got, torch.arange(8192 * 8192, device=DEVICE).view(8192, 8192).to(dtype)):
+            raise AssertionError(f"iota2d 8192^2 {dtype}: not the wrapped linear index")
+    S, H, D = C4_FLASH_S, 8, 128
+    for causal in (True, False):
+        q, k, v, do = (randn((S, H, D), gen).to(torch.float16) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ta.flash_attention(*leaves, causal=causal)
+        out.backward(do)
+        want = ta._flash_fwd_plain(q.float(), k.float(), v.float(), 0, 0, causal, False)
+        e = _f16_excess(out.detach(), want)
+        if e > FLASH_TOL * max(1.0, float(want.abs().max())) or any(
+                t.grad.dtype != torch.float16 or not bool(torch.isfinite(t.grad).all())
+                for t in leaves):
+            raise AssertionError(f"flash_attention f16 config 6 {causal}: {e:.3e} or its "
+                                 "gradients are not finite f16")
+        del q, k, v, do, leaves, out, want
+    B, T = PAGED_TIMED["B"], PAGED_TIMED["T"]
+    H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
+    for dtype in C4_POOLS:
+        q, kp, vp, table, lens, ks, vs = _paged_ops(gen, B, 1, H, D, page, 512, T // page, dtype,
+                                                    lens=np.full((B,), T, np.int64))
+        got = ta.decode_attention(q[:, 0].half(), kp, vp, table, lens, ks, vs)
+        want = ta._verify_attention_dense(q.half().float(), kp, vp, table, lens, ks, vs)[:, 0]
+        if _f16_excess(got, want) > PAGED_ATOL:
+            raise AssertionError(f"decode_attention f16 q over {dtype}")
+    torch.cuda.synchronize()
+    counts = _counts_all()
+    log(f"  launches on C4's path: {counts}")
+    want = {"iota2d": 3, "_flash_fwd_compact": 1, "_flash_bwd_compact": 1,
+            "_flash_fwd_call": 1, "_flash_bwd_call": 1, "paged_attention": 3}
+    if counts != want:
+        raise AssertionError(f"C4's path launched {counts}, the rule says {want}")
+    return counts
+
+
+def _run_example(name: str, **kw) -> str:
+    """An example's ``main`` on the card, its output captured and logged."""
+    import contextlib
+    import io
+
+    mod = importlib.import_module(f"tpuscratch_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"    | {line}")
+    log(f"  {' '.join([name, *kw.get('argv', [])])}: {time.perf_counter() - t0:.2f} s")
+    if "FAILED" in out:
+        raise AssertionError(f"{name} printed FAILED")
+    twin = pathlib.Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    if '"PASSED"' in twin.read_text() and "PASSED" not in out:
+        raise AssertionError(f"{name} never reached its self-check")
+    return out
+
+
+def _examples(tmp: pathlib.Path) -> dict:
+    """ex01-ex10 through their ``main()`` on the card, the launches counted."""
+    _reset_all()
+    for name in ("ex01_hello_mesh", "ex02_pair_exchange", "ex03_token_ring",
+                 "ex04_neighbor_exchange", "ex05_structured_slices", "ex06_subgroups",
+                 "ex07_cartesian_grid"):
+        _run_example(name)
+    _run_example("ex08_dot_product", argv=EX08_ARGV)
+    for impl in EX09_IMPLS:
+        out = _run_example("ex09_stencil2d", argv=EX09_ARGV + [f"--impl={impl}"],
+                           outdir=tmp / f"ex09_{impl}")
+        if f"after {STEPS} steps" not in out:
+            raise AssertionError(f"ex09 --impl={impl} did not run {STEPS} steps")
+    _run_example("ex10_pingpong", argv=[])
+    counts = _counts_all()
+    log(f"  launches on the examples' path: {counts}")
+    want = {"five_point_pallas": STEPS, "five_point_blocked": STEPS}
+    for name in ("dot_full_prepped", "dot_partials_prepped", "fill"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"ex08 never launched {name}")
+    if any(counts.get(k) != n for k, n in want.items()):
+        raise AssertionError(f"ex09 launched {counts}, the rule says {want}")
+    return counts
+
+
+def _specs_on_the_card() -> None:
+    """exchange_packed with each spec on 8 stacked ranks and mpi8's struct
+    scatter, bit-equal to the same calls on the CPU."""
+    from tpuscratch_torch.comm import P, run_spmd, scatter_from_root
+    from tpuscratch_torch.dtypes import (HIndexedSpec, IndexedSpec, StructSpec, SubarraySpec,
+                                         exchange_packed)
+    from tpuscratch_torch.runtime.mesh import make_mesh_1d
+
+    perm = [(i, (i + 3) % 8) for i in range(8)]
+    rng = np.random.default_rng(SEED)
+    vec = rng.standard_normal((8, 16)).astype(np.float32)
+    tiles = rng.standard_normal((8, 6, 5)).astype(np.float32)
+    hspec = HIndexedSpec(((0, IndexedSpec(((1, 2), (9, 4)))), (1, SubarraySpec((2, 1), (3, 2)))))
+    cases = [
+        ("IndexedSpec", lambda x: exchange_packed(IndexedSpec(((5, 4), (12, 2))), x, "x", perm),
+         P("x", None), vec),
+        ("SubarraySpec", lambda x: exchange_packed(SubarraySpec((0, 0), (2, 3)), x, "x", perm,
+                                                   dest_spec=SubarraySpec((3, 2), (2, 3))),
+         P("x", None, None), tiles),
+        ("HIndexedSpec", lambda x, y: exchange_packed(hspec, [x, y], "x", perm),
+         (P("x", None), P("x", None, None)), (vec, tiles)),
+    ]
+    for name, fn, spec, data in cases:
+        data = data if isinstance(data, tuple) else (data,)
+        outs = []
+        for dev in ("cpu", DEVICE):
+            mesh = make_mesh_1d("x", 8, device=dev)
+            out = run_spmd(mesh, fn, spec, spec)(*(torch.from_numpy(a).to(dev) for a in data))
+            outs.append([t.cpu() for t in (out if isinstance(out, list) else [out])])
+        if not all(same_bits(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"exchange_packed {name}: the card differs from the CPU")
+        log(f"  exchange_packed {name:12s} on 8 stacked ranks: bit-equal to the CPU")
+    particles = {"pos": np.arange(16, dtype=np.float32), "id": np.arange(16, dtype=np.int32)}
+    sspec = StructSpec(("pos", "id"))
+    outs = []
+    for dev in ("cpu", DEVICE):
+        tree = {k: torch.from_numpy(v).to(dev) for k, v in particles.items()}
+        sspec.validate(tree)
+        out = run_spmd(make_mesh_1d("x", 8, device=dev),
+                       lambda t: {k: scatter_from_root(a, "x") for k, a in t.items()},
+                       P(), P("x"))(tree)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    if not all(same_bits(outs[0][k], outs[1][k]) for k in particles):
+        raise AssertionError("StructSpec scatter: the card differs from the CPU")
+    log("  StructSpec scatter (mpi8) on 8 stacked ranks: bit-equal to the CPU")
+
+
+def _planner() -> None:
+    """The native planner's 2D and 3D plans equal the Python planner's, both
+    timed (each from an empty cache)."""
+    from tpuscratch_torch.halo import exchange as ex
+    from tpuscratch_torch.halo import halo3d as h3
+    from tpuscratch_torch.halo.layout import TileLayout
+    from tpuscratch_torch.runtime.topology import CartTopology
+
+    cases = [("2D", PLAN2D_DIMS, 8, TileLayout(64, 64, 1, 1),
+              ex._cached_plan.__wrapped__, ex.python_plan),
+             ("3D", PLAN3D_DIMS, 26, h3.TileLayout3D((32, 32, 32), (1, 1, 1)),
+              h3._cached_plan3d.__wrapped__, h3.python_plan3d)]
+    for label, dims, nb, lay, nat, py in cases:
+        topo = CartTopology(dims, (True,) * len(dims))
+        t0 = time.perf_counter()
+        a = nat(lay, topo, nb)
+        t1 = time.perf_counter()
+        b = py(lay, topo, nb)
+        t2 = time.perf_counter()
+        if a != b:
+            raise AssertionError(f"the native {label} plan differs from the Python planner's")
+        log(f"  planner {label} {'x'.join(map(str, dims))} ranks, {nb} neighbors: native "
+            f"{(t1 - t0) * 1e3:.2f} ms, Python {(t2 - t1) * 1e3:.2f} ms, equal transfer for "
+            f"transfer ({len(a)} transfers)")
+
+
+def _staging_ab() -> None:
+    """The native pool's buffer against a pageable one (the same copies,
+    only the allocator differs), and the pool's buffer registered with the
+    card, at 1, 32 and 256 MiB."""
+    from tpuscratch_torch.bench import pingpong as pp
+    from tpuscratch_torch.native import hostpool
+
+    for nbytes in STAGING_SIZES:
+        n = nbytes // 4
+        buf = hostpool.default_pool().alloc(nbytes)
+        buf.register_with_card()
+        host = buf.tensor(torch.float32, (n,))
+        for label, run in (
+                ("native-pool", lambda: pp.native_pool_staging_roundtrip(n, iters=5)),
+                ("pageable-buffer", lambda: pp.pageable_buffer_staging_roundtrip(n, iters=5)),
+                ("registered-pool", lambda: pp._buffer_staging(host, n, 5, "registered-pool",
+                                                               None))):
+            res = run()
+            log(f"  staging A/B {nbytes >> 20:4d} MiB {label:16s}: {res.gbps:.2f} GB/s "
+                f"(p50 {res.p50 * 1e3:.4f} ms)")
+        del host
+        buf.free()
+
+
+def phase30_reference_programs(gen, tmp: pathlib.Path) -> tuple[dict, list]:
+    """C4's dtypes against their plain versions and through their entry
+    points, ex01-ex10 on the card, the derived datatypes, the native planner
+    and the pool staging A/B. Returns (launches on the phase's paths, the
+    C4 kernels' timed rows)."""
+    from tpuscratch_torch.ops import attention as ta
+
+    tf = importlib.import_module("tpuscratch_torch.ops.fill")
+    errs: dict = {}
+    rows: list = []
+    t0 = time.perf_counter()
+    _c4_iota(tf, errs, rows)
+    _c4_flash(ta, gen, errs, rows)
+    _c4_paged(ta, gen, errs, rows)
+    for r in rows:
+        tflops = (f" ({r['gflop'] / r['ms']:.2f} TFLOP/s; split-TF32 bound "
+                  f"{r['tf32_bound_ms']:.4f} ms)" if "gflop" in r else "")
+        log(f"  time {r['name']:20s} {r['shape']:48s} {r['ms']:.4f} ms{tflops} (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms: {r['library_shape']})")
+    log(f"  C4 kernels: worst errors {errs} ({time.perf_counter() - t0:.1f} s)")
+    counts = _c4_path(ta, tf, gen)
+    torch.cuda.empty_cache()
+    for name, n in _examples(tmp).items():
+        counts[name] = counts.get(name, 0) + n
+    torch.cuda.empty_cache()
+    _specs_on_the_card()
+    _planner()
+    _staging_ab()
+    return counts, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4258,16 +4733,14 @@ def main() -> int:
     stage("== phase 29: the co-scheduler (config 18, the kernel paths co-scheduled and profiled), "
           "config 15 with the ledger, config 5 and the deep-pallas:16 sweep, the CLIs")
     sched_launches = phase29_cosched_ledger()
-
-    from tpuscratch_torch.bench import dma_bound as tb
-    from tpuscratch_torch.ops import adam as tadam
-    from tpuscratch_torch.ops import attention as ta
-    from tpuscratch_torch.ops import halo_dma as hd
-    from tpuscratch_torch.ops import reduction as tr
-    from tpuscratch_torch.ops import stencil_kernel as sk
-    from tpuscratch_torch.ops import stencil_stream as ss
-
-    fill_mod = importlib.import_module("tpuscratch_torch.ops.fill")
+    torch.cuda.empty_cache()
+    stage("== phase 30: the reference's programs (ex01-ex10) on the card, the derived datatypes, "
+          "the native planner and host pool, and C4's dtypes")
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tpuscratch_p30_"))
+    try:
+        ref_launches, rows30 = phase30_reference_programs(gen, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # name -> (source, TPU kernel it replaces, the main shape's row)
     table = {
@@ -4341,6 +4814,14 @@ def main() -> int:
     for name, n in sched_launches.items():
         by_path[name]["phase 29"] = n
         counts[name] += n
+    # phase 30 runs rows 13b and 15-17 in C4's dtypes and rows 1-2, 12a-12b
+    # and 13a in the examples
+    for name, n in ref_launches.items():
+        if name not in by_path:
+            by_path[name] = {FIRST_PATH[name]: counts[name]}
+        by_path[name]["phase 30"] = n
+        counts[name] += n
+    rows += rows30
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])
@@ -4353,9 +4834,7 @@ def main() -> int:
             **({"library_shape": row["library_shape"]} if "library_shape" in row else {}),
             **({"cuda_kernels": row["cuda_kernels"]} if "cuda_kernels" in row else {}),
         })
-    wrappers = (sk.WRAPPERS + tr.WRAPPERS + fill_mod.WRAPPERS + ss.WRAPPERS + hd.WRAPPERS
-                + ta.WRAPPERS + tadam.WRAPPERS + tb.WRAPPERS)
-    if sorted(k["name"] for k in kernels) != sorted(w.__name__ for w in wrappers):
+    if sorted(k["name"] for k in kernels) != sorted(w.__name__ for w in _all_wrappers()):
         raise AssertionError("the kernels line misses a wrapper")
     log(f"== done in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -688,7 +688,8 @@ def test_3d_refusals(card):
 # iota2d write the same bits as their plain versions.
 
 RTOL_SUM = 1e-5
-FILL_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.int64]
+FILL_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int32, torch.int64,
+               torch.int8, torch.uint8, torch.int16]
 
 
 def _dot_close(got, want, x, y, offset=0.0):
@@ -735,7 +736,9 @@ def test_iota2d_kernel(card, dtype, shape):
 
 @pytest.mark.parametrize("cap", [1, 3, 132])
 @pytest.mark.parametrize("dtype,shape", [(torch.float32, (37, 53)), (torch.bfloat16, (5, 257)),
-                                         (torch.int64, (300, 71)), (torch.float16, (7, 1))])
+                                         (torch.int64, (300, 71)), (torch.float16, (7, 1)),
+                                         (torch.int8, (37, 53)), (torch.uint8, (5, 257)),
+                                         (torch.int16, (300, 71))])
 def test_iota2d_on_smaller_grids(card, cap, dtype, shape):
     # grids that stride over the units: the same elements
     nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
@@ -1046,6 +1049,16 @@ def test_paged_attention_wide_units_and_split(card, K, D, dtype, qdtype):
 PAGED_BF16_ATOL = 1e-2
 
 
+def _f16_excess(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far an f16 result lies from the f32 result it rounds, beyond
+    that rounding (half an f16 ulp: 2^-11 of |want|, 2^-25 below the
+    normal range): at most the f32 tolerance when the kernel's f32 result
+    is within it."""
+    want = want.double()
+    slack = torch.clamp(want.abs() * 2.0 ** -11, min=2.0 ** -25)
+    return float(((got.double() - want).abs() - slack).max())
+
+
 @pytest.mark.parametrize("K,D,dtype,qdtype", [
     (65, 40, torch.float32, torch.float32),     # past one query group of 64
     (128, 128, torch.int8, torch.float32),      # two full groups
@@ -1053,6 +1066,9 @@ PAGED_BF16_ATOL = 1e-2
     (65, 384, torch.float8_e4m3fn, torch.float32),
     (4, 128, torch.float32, torch.bfloat16),    # bf16 q returns bf16
     (70, 200, torch.int8, torch.bfloat16),
+    (1, 128, torch.float32, torch.float16),     # f16 q returns f16, every pool
+    (4, 128, torch.int8, torch.float16),
+    (20, 200, torch.float8_e4m3fn, torch.float16),
 ])
 def test_paged_attention_any_k_d_and_bf16(card, K, D, dtype, qdtype):
     ops = _paged_operands(70 + K + D, (), 5, K, 2, D, 8, 96, 28, dtype, card)
@@ -1061,6 +1077,11 @@ def test_paged_attention_any_k_d_and_bf16(card, K, D, dtype, qdtype):
     got = ta.paged_attention(*ops)
     assert ta.launch_counts()["paged_attention"] == 1
     assert got.dtype == qdtype and got.shape == ops[0].shape
+    if qdtype == torch.float16:  # f32 arithmetic: the plain f32 result, rounded once
+        want = ta._verify_attention_dense(ops[0].float(), *ops[1:])
+        assert _f16_excess(got, want) <= PAGED_ATOL
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        return
     want = ta._verify_attention_dense(*ops)
     atol = PAGED_ATOL if qdtype == torch.float32 else PAGED_BF16_ATOL
     assert float((got.float() - want.float()).abs().max()) <= atol
@@ -1226,6 +1247,37 @@ def test_flash_route_follows_the_shape_rule(card, dtype, D, want):
     o, lse = ta._normalize(acc, m, l, dtype)
     ta._flash_bwd_call(q, k, v, do, lse, ta._delta(do, o), 0, 0, True)
     assert ta._flash_fwd_call.route == want and ta._flash_bwd_call.route == want
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[i] for i in (0, 1, 3, 4, 9)],
+                         ids=[f"case{i}" for i in (0, 1, 3, 4, 9)])
+def test_flash_f16_takes_the_f32_kernels(card, case):
+    # f16 operands are widened to the f32 kernels: the state and the f32
+    # gradient partials within FLASH_TOL of the plain version on the widened
+    # operands, the f16 outputs and gradients that result rounded once
+    lead, S, T, H, D, causal, qo, ko = case
+    q, k, v, do = _flash_inputs(len(lead) + S + D, lead, S, T, H, D, torch.float16, card)
+    wide = [t.float() for t in (q, k, v, do)]
+    if not isinstance(qo, int):
+        qo, ko = torch.tensor(qo, device=card), torch.tensor(ko, device=card)
+    out = ta._flash_fwd_call(q, k, v, qo, ko, causal)
+    assert out.dtype == torch.float16
+    assert ta._flash_fwd_call.route == ("tf32" if D <= 128 else "fma")
+    want = ta._flash_fwd_plain(*wide[:3], qo, ko, causal, False)
+    assert _f16_excess(out, want) <= FLASH_TOL * max(1.0, float(want.abs().max()))
+    acc, m, l = ta._flash_fwd_call(q, k, v, qo, ko, causal, return_state=True)
+    pacc, pm, pl = ta._flash_fwd_plain(*wide[:3], qo, ko, causal, True)
+    for got, w in ((acc, pacc), (m, pm), (l, pl)):
+        assert _flash_ok(got, w, torch.float32)
+    o, lse = ta._normalize(pacc, pm, pl, torch.float16)
+    delta = ta._delta(do, o)
+    got = ta._flash_bwd_call(q, k, v, do, lse, delta, qo, ko, causal, out_dtype=torch.float32)
+    want = ta._flash_bwd_plain(*wide, lse, delta, qo, ko, causal, torch.float32)
+    for g, w in zip(got, want):
+        assert _flash_ok(g, w, torch.float32)
+    for g, w in zip(ta._flash_bwd_call(q, k, v, do, lse, delta, qo, ko, causal), want):
+        assert g.dtype == torch.float16
+        assert _f16_excess(g, w) <= FLASH_TOL * max(1.0, float(w.abs().max()))
 
 
 def test_flash_fully_masked_entry_is_zero(card):
@@ -1522,14 +1574,18 @@ def test_pair_fft_refuses_tf32_products(card):
     assert all(torch.equal(a, b) for a, b in zip(prog(re, im), want))
 
 
-def test_async_snapshot_race_on_a_cuda_stream(card, tmp_path):
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_async_snapshot_race_on_a_cuda_stream(card, tmp_path, with_pool):
     """The async checkpoint's two races on the card: its copy must wait for
     the work queued before the snapshot (the fill to 1 behind a sleep
     kernel), and the work queued after it (an in-place fill to 2, as a
     donated state's update) must wait for the copy. The host does not wait
     for either: once the pinned buffers are pooled (a first snapshot of the
     same shapes, as every save after a run's first), ``snapshot`` returns
-    while the sleep still runs. The write reports the copy's device time."""
+    while the sleep still runs. The write reports the copy's device time.
+    With a native ``HostPool`` (``pool=``) the same holds: its buffers are
+    registered with the card once and kept until ``close``."""
+    from tpuscratch_torch.native.hostpool import HostPool
     from tpuscratch_torch.runtime import checkpoint
     from tpuscratch_torch.runtime.async_ckpt import AsyncCheckpointer
 
@@ -1541,7 +1597,8 @@ def test_async_snapshot_race_on_a_cuda_stream(card, tmp_path):
         def emit(self, event, **f):
             writes.append(f)
 
-    with AsyncCheckpointer(sink=Sink()) as ck:
+    pool = HostPool(lock_pages=False) if with_pool else None
+    with AsyncCheckpointer(sink=Sink(), pool=pool) as ck:
         ck.snapshot(tmp_path / "warm", 1, {"x": x, "y": y, "n": np.int32(0)})
         ck.drain()
         torch.cuda.synchronize()
@@ -1562,6 +1619,9 @@ def test_async_snapshot_race_on_a_cuda_stream(card, tmp_path):
     assert bool((x == 2.0).all()) and bool((y == 2.0).all())
     assert not waited, "snapshot waited for the device"
     assert len(writes) == 2 and writes[1]["copy_device_s"] > 0.0
+    if with_pool:  # both leaves staged through the pool, all returned at close
+        assert pool.stats()["alloc_calls"] == 2 and pool.stats()["live_buffers"] == 0
+        pool.close()
 
 
 def test_guarded_step_on_the_card_against_the_cpu(card):
@@ -1645,3 +1705,37 @@ def test_ledger_on_the_card_matches_the_cpu(card):
     assert a.collectives == b.collectives and a.count("collective-permute") == 8
     led = analyze(lambda: fill((1024, 1024), 3.0, device=card))
     assert led.flops == 0 and led.collectives == ()
+
+
+# ---- the native library (native/src, built with g++) on the card host ---------------
+
+
+def test_native_library_builds_and_registers_with_the_card(card):
+    """The planner and pool library builds from the checkout's sources on
+    the card host; a pool buffer registered with the card is page-locked
+    (``is_pinned``), takes an asynchronous copy from the card and frees."""
+    from tpuscratch_torch import native
+    from tpuscratch_torch.halo.exchange import python_plan
+    from tpuscratch_torch.halo.layout import TileLayout
+    from tpuscratch_torch.native.hostpool import HostPool
+    from tpuscratch_torch.runtime.topology import CartTopology
+
+    assert native.build().exists() and native.has_plan3d()
+    lay, topo = TileLayout(16, 16, 1, 1), CartTopology((4, 8), (True, False))
+    assert native.build_plan((4, 8), (True, False), 16, 16, 1, 1, 8) == [
+        {"direction": t.direction.offset, "send_rect": (*t.send.offsets, *t.send.shape),
+         "recv_rect": (*t.recv.offsets, *t.recv.shape), "perm": list(t.perm)}
+        for t in python_plan(lay, topo, 8)]
+    x = _rand((1 << 20,), 3, card)
+    with HostPool(lock_pages=False) as pool:
+        buf = pool.alloc(x.numel() * 4)
+        host = buf.tensor(torch.float32, tuple(x.shape))
+        assert not host.is_pinned()
+        buf.register_with_card()
+        assert host.is_pinned()
+        host.copy_(x, non_blocking=True)
+        torch.cuda.synchronize()
+        assert torch.equal(host, x.cpu())
+        del host
+        buf.free()                       # unregisters, then returns the pages
+        assert pool.stats()["live_buffers"] == 0

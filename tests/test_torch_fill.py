@@ -23,7 +23,8 @@ jf = importlib.import_module("tpuscratch.ops.fill")
 tf = importlib.import_module("tpuscratch_torch.ops.fill")
 
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
-          (jnp.float16, torch.float16), (jnp.int32, torch.int32)]
+          (jnp.float16, torch.float16), (jnp.int32, torch.int32), (jnp.int8, torch.int8),
+          (jnp.uint8, torch.uint8), (jnp.int16, torch.int16)]
 SHAPES = [(8, 128), (37, 53)]
 
 
@@ -69,6 +70,20 @@ def test_iota2d_int64_and_exact_f32():
                                   np.arange(8 * 128, dtype=np.float32).reshape(8, 128))
 
 
+@pytest.mark.parametrize("tdt,last", [(torch.int16, 1960), (torch.uint8, 168), (torch.int8, -88)])
+def test_iota2d_small_ints_wrap(tdt, last):
+    # 37 * 53 - 1 = 1960 keeps its low 8 or 16 bits, as the JAX iota in the
+    # dtype does; the CUDA kernel has a dtype code for each
+    assert tf.iota2d((37, 53), tdt, device="cpu")[-1, -1].item() == last
+    assert tdt in tf.IOTA_DTYPES
+
+
+def test_iota2d_kernel_takes_every_dtype():
+    # every dtype the twins check has a kernel instantiation on the card
+    codes = [tf.IOTA_DTYPES[t] for _, t in DTYPES] + [tf.IOTA_DTYPES[torch.int64]]
+    assert len(set(codes)) == len(codes)
+
+
 def test_refusals():
     with pytest.raises(ValueError, match=r"\(rows, cols\)"):
         tf.iota2d((2, 3, 4), device="cpu")
@@ -104,7 +119,7 @@ def test_fill_blocks_shapes():
 
 
 @pytest.mark.parametrize("cap", [None, 1, 3])
-@pytest.mark.parametrize("esize", [2, 4, 8])
+@pytest.mark.parametrize("esize", [1, 2, 4, 8])
 @pytest.mark.parametrize("shape", [
     (37, 53), (8, 128), (5, 257), (1, 1), (3, 3), (7, 1), (1, 13), (2, 6), (300, 71),
 ])

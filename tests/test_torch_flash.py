@@ -9,7 +9,10 @@ backward entry point the ring calls.
 Tolerances are the JAX package's own in ``tests/test_attention.py``: the
 forward and state 1e-5 relative / 1e-6 absolute (f32 sums in other orders:
 the JAX kernels online over blocks, the plain path the whole row at once),
-gradients 1e-4 / 1e-5, bf16 0.05.
+gradients 1e-4 / 1e-5, bf16 0.05. Float16 operands compute in f32 on
+both sides (the JAX ``_mm_dtype``; the port widens them to the f32 kernels)
+and round the output and the gradients to f16: 2e-3, an f16 ulp at
+magnitudes under 4, which the f32 results' different sum orders can flip.
 """
 
 import jax
@@ -25,6 +28,7 @@ from tpuscratch_torch.ops import attention as ta
 FWD = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=0.05, atol=0.05)
+F16 = dict(rtol=2e-3, atol=2e-3)
 
 
 def _qkv(S, T, H, D, seed):
@@ -114,6 +118,38 @@ def test_bf16(causal):
     for a, b in zip(jg, leaves):
         np.testing.assert_allclose(b.grad.float().numpy(), np.asarray(a.astype(jnp.float32)),
                                    **BF16)
+
+
+@pytest.mark.parametrize("causal,S,T", [(False, 16, 16), (True, 16, 16), (True, 24, 40)])
+def test_f16(causal, S, T):
+    q, k, v = _qkv(S, T, 2, 8, 5 + S + T)
+    w = rand((S, 2, 8), 12)
+    got = _torch_flash(q, k, v, torch.float16, causal=causal)
+    assert got.dtype == torch.float16
+    want = _jax_flash(q, k, v, jnp.float16, causal=causal)
+    assert want.dtype == jnp.float16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **F16)
+
+    def jloss(q, k, v):
+        out = ja.flash_attention(q, k, v, causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(w))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    leaves = [to_torch(x).to(torch.float16).requires_grad_() for x in (q, k, v)]
+    (ta.flash_attention(*leaves, causal=causal).float() * to_torch(w)).sum().backward()
+    for a, b in zip(jg, leaves):
+        assert b.grad.dtype == torch.float16
+        np.testing.assert_allclose(b.grad.float().numpy(), np.asarray(a.astype(jnp.float32)),
+                                   **F16)
+
+
+def test_f16_operands_take_the_f32_kernels():
+    # on the card float16 operands reach the f32 kernels, widened
+    ops = ta._flash_operands("flash", [torch.ones(4, 2, 8, dtype=torch.float16)] * 3)
+    assert all(t.dtype == torch.float32 and t.is_contiguous() for t in ops)
+    with pytest.raises(TypeError, match="one dtype"):
+        ta._flash_operands("flash", [torch.ones(4, 2, 8, dtype=torch.float16),
+                                     torch.ones(4, 2, 8)])
 
 
 def test_leading_dims_with_per_entry_offsets():

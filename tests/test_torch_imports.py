@@ -21,8 +21,10 @@ names = ["tpuscratch_torch"] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+from tpuscratch_torch import native
 from tpuscratch_torch.ops import common
 print(json.dumps({
+    "native_loaded": native._lib is not None,
     "modules": names,
     "foreign": sorted(m for m in sys.modules
                       if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -44,7 +46,7 @@ def test_no_jax_and_no_build_at_import():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["foreign"] == []
-    assert got["libs"] == []
+    assert got["libs"] == [] and not got["native_loaded"]
     for mod in ("tpuscratch_torch.runtime.topology", "tpuscratch_torch.halo.exchange",
                 "tpuscratch_torch.ops.stencil_kernel", "tpuscratch_torch.bench.headline",
                 "tpuscratch_torch.comm.collectives", "tpuscratch_torch.ops.reduction",
@@ -78,7 +80,17 @@ def test_no_jax_and_no_build_at_import():
                 "tpuscratch_torch.runtime.chunked", "tpuscratch_torch.models.trainer",
                 "tpuscratch_torch.solvers.runner", "tpuscratch_torch.obs.ledger",
                 "tpuscratch_torch.obs.regress", "tpuscratch_torch.runtime.profiling",
-                "tpuscratch_torch.runtime.scheduler", "tpuscratch_torch.bench.weak_scaling"):
+                "tpuscratch_torch.runtime.scheduler", "tpuscratch_torch.bench.weak_scaling",
+                "tpuscratch_torch.dtypes", "tpuscratch_torch.dtypes.specs",
+                "tpuscratch_torch.runtime.config", "tpuscratch_torch.runtime.log",
+                "tpuscratch_torch.runtime.hostenv", "tpuscratch_torch.runtime.memory",
+                "tpuscratch_torch.native", "tpuscratch_torch.native.hostpool",
+                "tpuscratch_torch.examples", "tpuscratch_torch.examples._common",
+                *(f"tpuscratch_torch.examples.{name}" for name in (
+                    "ex01_hello_mesh", "ex02_pair_exchange", "ex03_token_ring",
+                    "ex04_neighbor_exchange", "ex05_structured_slices", "ex06_subgroups",
+                    "ex07_cartesian_grid", "ex08_dot_product", "ex09_stencil2d",
+                    "ex10_pingpong"))):
         assert mod in got["modules"]
 
 

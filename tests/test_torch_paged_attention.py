@@ -2,7 +2,9 @@
 the JAX package's: the plain version against the dense oracle (1e-6) and
 against the Pallas kernel run in interpret mode (the JAX tests'
 FUSED_PAGED_ATOL, 1e-5), on f32, int8 and fp8 pools with ragged lengths,
-sentinel table tails, an idle slot and K past page + 1."""
+sentinel table tails, an idle slot and K past page + 1. A float16 q
+computes in f32 on both sides and rounds the output to f16 (F16_ATOL:
+an f16 ulp at magnitudes under 4)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ from tpuscratch_torch.ops import attention as ta
 
 DENSE_ATOL = 1e-6   # f32 contractions summed in another order
 FUSED_ATOL = 1e-5   # the JAX tests' FUSED_PAGED_ATOL (online softmax)
+F16_ATOL = 2e-3
 DTYPES = [None, jnp.int8, jnp.float8_e4m3fn]
 
 
@@ -99,3 +102,18 @@ def test_fused_routing_on_the_cpu():
     # the kernel takes any head count, d_head and page size; only the pool
     # dtype must be on the ladder
     assert set(ta.POOL_DTYPES) == {torch.float32, torch.int8, torch.float8_e4m3fn}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_f16_q(dtype):
+    # a float16 q over every pool of the ladder: f16 out, f32 arithmetic
+    ops = paged_case(40, 3, 2, dtype=dtype, max_pages=4)
+    ops = (ops[0].astype(np.float16),) + tuple(ops[1:])
+    want = ja.verify_attention(*_jax(ops), fused=True)
+    assert want.dtype == jnp.float16
+    got = ta.paged_attention(*_torch(ops))
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=F16_ATOL, rtol=0)
+    # on the card the wrapper widens it to the f32-q kernel
+    assert torch.float16 in ta.PAGED_Q_WIDENED and torch.float16 not in ta.PAGED_Q_DTYPES

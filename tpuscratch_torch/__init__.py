@@ -35,3 +35,5 @@ co-scheduler (``runtime.scheduler``), the communication ledger
 """
 
 __version__ = "0.1.0"
+
+from tpuscratch_torch.runtime.config import Config  # noqa: E402,F401

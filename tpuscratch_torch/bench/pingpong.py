@@ -8,7 +8,8 @@ async variant's host-staging ablations at mpi-pingpong-gpu-async.cpp:
 a stacked mesh. On one card the ranks are slices of one tensor, so a
 hop is an on-card copy and no link is crossed: the sweep measures the
 copy path, not an interconnect. The host-staging ablations copy through
-pinned or pageable host memory.
+pinned or pageable host memory, or through a buffer of the native host
+pool.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from tpuscratch_torch.bench.timing import BenchResult, time_device
 from tpuscratch_torch.comm import P, run_spmd
 from tpuscratch_torch.comm.p2p import pingpong
+from tpuscratch_torch.native import hostpool
 from tpuscratch_torch.runtime import memory
 from tpuscratch_torch.runtime.mesh import StackedMesh, resolve_device
 
@@ -94,6 +96,25 @@ def _buffer_staging(buf: torch.Tensor, n_elems: int, iters: int, label: str, dev
         stage, x, iters=iters, warmup=1,
         name=f"{label} staging {n_elems * 4}B", bytes_moved=2 * n_elems * 4,
     )
+
+
+def native_pool_staging_roundtrip(n_elems: int, iters: int = 10, device=None) -> BenchResult:
+    """The reference's ``host_allocator`` ablation: stage through a buffer
+    of the native pool (``native/src/host_pool.cpp``: page-aligned, mlocked
+    where permitted; host_allocator.h:58-93 is the CUDA counterpart,
+    exercised the same way by mpi-pingpong-gpu-async.cpp:43-49). Compare
+    with ``pageable_buffer_staging_roundtrip``: the same copies, only the
+    buffer's allocator differs. The buffer is not registered with the
+    card, so its copies stage through the driver as pageable ones do."""
+    buf = hostpool.default_pool().alloc(n_elems * 4)
+    try:
+        host = buf.tensor(torch.float32, (n_elems,))
+        try:
+            return _buffer_staging(host, n_elems, iters, "native-pool", device)
+        finally:
+            del host  # the buffer refuses to free while a view is alive
+    finally:
+        buf.free()
 
 
 def pageable_buffer_staging_roundtrip(n_elems: int, iters: int = 10, device=None) -> BenchResult:

@@ -144,6 +144,25 @@ struct Arith<int64_t> {
   }
 };
 
+// int8, uint8 and int16 wrap as the dtype does: r * w + c in 32 bits,
+// whose low bits are those of the TPU kernel's product and sum in the
+// dtype (arithmetic modulo 2^8 or 2^16 keeps only the low bits).
+template <typename T>
+struct WrapInt {
+  template <typename V>
+  static __device__ T cvt(V v) { return (T)v; }
+  static __device__ T op(T r, T w, T c) {
+    return (T)((uint32_t)r * (uint32_t)w + (uint32_t)c);
+  }
+};
+
+template <>
+struct Arith<int8_t> : WrapInt<int8_t> {};
+template <>
+struct Arith<uint8_t> : WrapInt<uint8_t> {};
+template <>
+struct Arith<int16_t> : WrapInt<int16_t> {};
+
 // iota2d: unit q (16 bytes: E = 16 / sizeof(T) elements from element
 // q * E) by thread q % (blocks * IOTA_THREADS), as fill's body; the tail
 // (fewer than E elements) element by element, by the first threads of
@@ -195,7 +214,8 @@ static int launch_iota(void* out, long long h, long long w, int blocks, cudaStre
   return (int)cudaGetLastError();
 }
 
-// dtype codes: 0 f32, 1 bf16, 2 f16, 3 int32, 4 int64; `blocks` comes from
+// dtype codes: 0 f32, 1 bf16, 2 f16, 3 int32, 4 int64, 5 int8, 6 uint8,
+// 7 int16; `blocks` comes from
 // the host's rule (fill_blocks of the output's bytes); `out` 16-byte aligned.
 extern "C" int ts_iota2d(void* out, long long h, long long w, int dtype, int blocks,
                          void* stream) {
@@ -208,6 +228,9 @@ extern "C" int ts_iota2d(void* out, long long h, long long w, int dtype, int blo
     case 2: return launch_iota<__half>(out, h, w, blocks, s);
     case 3: return launch_iota<int32_t>(out, h, w, blocks, s);
     case 4: return launch_iota<int64_t>(out, h, w, blocks, s);
+    case 5: return launch_iota<int8_t>(out, h, w, blocks, s);
+    case 6: return launch_iota<uint8_t>(out, h, w, blocks, s);
+    case 7: return launch_iota<int16_t>(out, h, w, blocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,10 @@ Plan-then-execute, as in ``tpuscratch.halo.exchange``:
 - The PLAN is built once per (layout, topology, neighbors): for each of
   the 8 directions, the send strip (core edge), the landing strip (halo
   piece on the opposite side at the receiver), the flat-rank permutation
-  table and which ranks have a sender (open boundaries). The planner math
-  is the JAX package's pure-Python one.
+  table and which ranks have a sender (open boundaries). The native C++
+  planner builds it (``tpuscratch_torch.native``, as the JAX package's
+  plan does when its library is built); ``python_plan`` is the pure-Python
+  planner, its plain version, which the tests hold it equal to.
 - The EXECUTOR works on the ``(rows, cols, ph, pw)`` tensor holding every
   rank's tile, or on the stacked tensor of any plan with the same protocol
   (``halo.halo3d``'s ``(mz, my, mx, pz, py, px)``): the leading dims are
@@ -24,6 +26,7 @@ import functools
 
 import torch
 
+from tpuscratch_torch import native
 from tpuscratch_torch.comm.collectives import _recording, record_op
 from tpuscratch_torch.dtypes import SubarraySpec
 from tpuscratch_torch.halo.layout import TileLayout
@@ -76,6 +79,27 @@ class HaloSpec:
 def _cached_plan(
     layout: TileLayout, topology: CartTopology, neighbors: int
 ) -> tuple[Transfer, ...]:
+    """The plan from the native planner (one call for every direction)."""
+    out = []
+    for nat in native.build_plan(topology.dims, topology.periodic, layout.core_h,
+                                 layout.core_w, layout.halo_y, layout.halo_x, neighbors):
+        perm = tuple((int(a), int(b)) for a, b in nat["perm"])
+        receivers = {dst for _, dst in perm}
+        sy, sx, sh, sw = nat["send_rect"]
+        ry, rx, rh, rw = nat["recv_rect"]
+        out.append(Transfer(
+            direction=Direction(tuple(nat["direction"])),
+            send=SubarraySpec((sy, sx), (sh, sw)),
+            recv=SubarraySpec((ry, rx), (rh, rw)),
+            perm=perm,
+            has_sender=tuple(r in receivers for r in topology.ranks()),
+        ))
+    return tuple(out)
+
+
+def python_plan(layout: TileLayout, topology: CartTopology,
+                neighbors: int = 8) -> tuple[Transfer, ...]:
+    """The same plan from the pure-Python topology and layout math."""
     directions = ALL_DIRECTIONS if neighbors == 8 else EDGE_DIRECTIONS
     out = []
     for d in directions:

@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from tpuscratch_torch import native
 from tpuscratch_torch.dtypes import SubarraySpec
 from tpuscratch_torch.halo.driver import cores3d_from_numpy, tiles3d_from_numpy
 from tpuscratch_torch.halo.exchange import halo_arrivals, halo_scatter
@@ -154,8 +155,26 @@ class HaloSpec3D:
 def _cached_plan3d(
     layout: TileLayout3D, topology: CartTopology, neighbors: int = 6
 ) -> tuple[Transfer3D, ...]:
-    """The JAX package's pure-Python planner (its native C++ planner
-    builds the same plan and is not bound here)."""
+    """The plan from the native planner (``tpuscratch_torch.native``)."""
+    out = []
+    for nat in native.build_plan3d(topology.dims, topology.periodic, layout.core,
+                                   layout.halo, neighbors):
+        perm = tuple((int(a), int(b)) for a, b in nat["perm"])
+        receivers = {dst for _, dst in perm}
+        out.append(Transfer3D(
+            offset=tuple(nat["offset"]),
+            send=SubarraySpec(tuple(nat["send_rect"][:3]), tuple(nat["send_rect"][3:])),
+            recv=SubarraySpec(tuple(nat["recv_rect"][:3]), tuple(nat["recv_rect"][3:])),
+            perm=perm,
+            has_sender=tuple(r in receivers for r in topology.ranks()),
+        ))
+    return tuple(out)
+
+
+def python_plan3d(layout: TileLayout3D, topology: CartTopology,
+                  neighbors: int = 6) -> tuple[Transfer3D, ...]:
+    """The same plan from the pure-Python topology and layout math (the
+    native planner's plain version)."""
     directions = OFFSETS26 if neighbors == 26 else FACES
     out = []
     for d in directions:

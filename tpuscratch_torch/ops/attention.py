@@ -24,8 +24,10 @@ of ``vmap``:
   kernels are chosen by dtype and head width alone (``csrc/
   flash_attention.cu``): f32 heads up to 128 columns run split TF32 on the
   tensor cores, bf16 heads up to 448 the bf16 tensor-core kernels, wider
-  heads the FMA kernels; after each launch a wrapper's ``route`` attribute
-  names the kernels it took (``FLASH_ROUTES``).
+  heads the FMA kernels; f16 operands are widened to f32 and take the f32
+  kernels (the JAX kernel computes them in f32), their outputs rounded back
+  to f16; after each launch a wrapper's ``route`` attribute names the
+  kernels it took (``FLASH_ROUTES``).
 - ``_pick_block``: a tile hint (the TPU's power-of-two divisor rule no
   longer refuses anything): the kernels take any S, T >= 1 and mask their
   ragged edges. ``block_q``/``block_k`` are accepted everywhere and do not
@@ -52,7 +54,7 @@ Paged attention:
 
 Every paged operand may carry leading dims (the stacked mesh's ranks):
 rank r's queries attend rank r's pool. The kernel takes any query count K,
-any ``d_head`` and an f32 or bf16 q, and returns q's dtype; the TPU's
+any ``d_head`` and an f32, bf16 or f16 q, and returns q's dtype; the TPU's
 layout rules (``D % 128``, ``H % 8``, ``page_size % 8``, the VMEM
 head-block budget) do not apply.
 """
@@ -74,10 +76,17 @@ from tpuscratch_torch.parallel.scores import NEG_INF, masked_softmax
 
 #: pool dtype -> the kernel's dtype code (``csrc/paged_attention.cu``)
 POOL_DTYPES = {torch.float32: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
-#: q dtypes the paged kernel takes (its output has q's dtype)
+#: q dtypes the paged kernel takes as they are (its output has q's dtype)
 PAGED_Q_DTYPES = (torch.float32, torch.bfloat16)
-#: q/k/v dtypes the flash kernels take
+#: q dtypes the paged wrapper widens to float32 first (the JAX kernel
+#: computes in f32 too); the output is rounded back to q's dtype
+PAGED_Q_WIDENED = (torch.float16,)
+#: q/k/v dtypes the flash kernels take as they are
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
+#: q/k/v dtypes the flash wrappers widen to float32 first: the JAX kernel
+#: computes them in f32 (``_mm_dtype``), so they take the f32 kernels and
+#: their outputs are rounded back to the operands' dtype
+FLASH_WIDENED = (torch.float16,)
 #: ``ts_flash_last_route()`` -> the kernels a flash launch took: the FMA
 #: kernels (wide heads), split TF32 (f32) or the bf16 tensor-core kernels
 FLASH_ROUTES = ("fma", "tf32", "bf16")
@@ -219,17 +228,22 @@ def _offset_args(off, lead: tuple, device):
 
 
 def _flash_operands(name, tensors):
+    """The kernels' operands: contiguous, of one dtype the kernels take,
+    float16 widened to float32 (``FLASH_WIDENED``)."""
     for t in tensors:
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: operands on {t.device} and {tensors[0].device}")
-        if t.dtype not in FLASH_DTYPES or t.dtype != tensors[0].dtype:
-            raise TypeError(f"{name}: the CUDA kernels take float32 or bfloat16 operands of "
-                            f"one dtype, got {[str(x.dtype) for x in tensors]}")
+        if t.dtype not in FLASH_DTYPES + FLASH_WIDENED or t.dtype != tensors[0].dtype:
+            raise TypeError(f"{name}: the CUDA kernels take float32, bfloat16 or float16 "
+                            f"operands of one dtype, got {[str(x.dtype) for x in tensors]}")
+    if tensors[0].dtype in FLASH_WIDENED:
+        return [t.float().contiguous() for t in tensors]
     return [t.contiguous() for t in tensors]
 
 
 def _launch_fwd(wrapper, q, k, v, q_offset, kv_offset, causal, return_state):
     _check_flash(q, k, v)
+    io = q.dtype
     q, k, v = _flash_operands(wrapper.__name__, [q, k, v])
     lead = tuple(q.shape[:-3])
     S, H, D = q.shape[-3:]
@@ -255,11 +269,12 @@ def _launch_fwd(wrapper, q, k, v, q_offset, kv_offset, causal, return_state):
     check_status(lib, err, wrapper.__name__)
     wrapper.launches += 1
     wrapper.route = FLASH_ROUTES[lib.ts_flash_last_route()]
-    return (out, m, l) if return_state else out
+    return (out, m, l) if return_state else out.to(io)
 
 
 def _launch_bwd(wrapper, q, k, v, do, lse, delta, q_offset, kv_offset, causal, out_dtype):
     _check_flash(q, k, v)
+    io = q.dtype
     q, k, v = _flash_operands(wrapper.__name__, [q, k, v])
     do = do.to(q.dtype).contiguous()
     lead = tuple(q.shape[:-3])
@@ -270,14 +285,15 @@ def _launch_bwd(wrapper, q, k, v, do, lse, delta, q_offset, kv_offset, causal, o
                          f"delta {tuple(delta.shape)} for q {tuple(q.shape)}")
     lse = lse.float().contiguous()
     delta = delta.float().contiguous()
-    od = out_dtype or q.dtype
-    if od not in (torch.float32, q.dtype):
+    od = out_dtype or io
+    if od not in (torch.float32, io):
         raise TypeError(f"{wrapper.__name__}: out_dtype {od} is neither float32 nor q's dtype")
+    kod = od if od == q.dtype else torch.float32  # widened operands: f32 out, rounded after
     qo_t, qo = _offset_args(q_offset, lead, q.device)
     ko_t, ko = _offset_args(kv_offset, lead, q.device)
-    dq = torch.empty(q.shape, dtype=od, device=q.device)
-    dk = torch.empty(k.shape, dtype=od, device=q.device)
-    dv = torch.empty(k.shape, dtype=od, device=q.device)
+    dq = torch.empty(q.shape, dtype=kod, device=q.device)
+    dk = torch.empty(k.shape, dtype=kod, device=q.device)
+    dv = torch.empty(k.shape, dtype=kod, device=q.device)
     lib = _flash_lib()
     with torch.cuda.device(q.device):
         err = lib.ts_flash_bwd(
@@ -285,12 +301,12 @@ def _launch_bwd(wrapper, q, k, v, do, lse, delta, q_offset, kv_offset, causal, o
             delta.data_ptr(), None if qo_t is None else qo_t.data_ptr(),
             None if ko_t is None else ko_t.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), math.prod(lead), S, T, H, D, int(causal),
-            int(q.dtype == torch.bfloat16), int(od == torch.float32), qo, ko,
+            int(q.dtype == torch.bfloat16), int(kod == torch.float32), qo, ko,
             _kernel_scale(D, q.dtype), stream_of(q))
     check_status(lib, err, wrapper.__name__)
     wrapper.launches += 1
     wrapper.route = FLASH_ROUTES[lib.ts_flash_last_route()]
-    return dq, dk, dv
+    return dq.to(od), dk.to(od), dv.to(od)
 
 
 def _flash_fwd_call(q, k, v, q_offset, kv_offset, causal: bool, block_q=None, block_k=None,
@@ -710,11 +726,12 @@ def _paged_device(index: int) -> tuple[int, int]:
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                     v_scale=None) -> torch.Tensor:
-    """The paged-attention sweep: q ``(*lead, B, K, H, D)`` f32 or bf16
-    against ``(*lead, P, page, H, D)`` pools (f32, int8 or fp8-e4m3;
+    """The paged-attention sweep: q ``(*lead, B, K, H, D)`` f32, bf16 or
+    f16 against ``(*lead, P, page, H, D)`` pools (f32, int8 or fp8-e4m3;
     ``(*lead, P, H)`` f32 scales when quantized) through a ``(*lead, B,
     max_pages)`` table and ``(*lead, B)`` lengths -> ``(*lead, B, K, H, D)``
-    in q's dtype (softmax and accumulator in f32). On a CUDA tensor one
+    in q's dtype (softmax and accumulator in f32; an f16 q is widened to
+    f32 for the kernel and its output rounded back). On a CUDA tensor one
     call per rank, counted as one launch, streams each needed page through
     a shared-memory ring (``paged_plan``), split over the positions when
     the batch leaves the SMs idle, the splits merged by a second kernel in
@@ -731,8 +748,8 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
     if k_pages.dtype not in POOL_DTYPES:
         raise ValueError(f"paged_attention: pool dtype {k_pages.dtype} not in the ladder "
                          "(float32, int8, float8_e4m3fn)")
-    if q.dtype not in PAGED_Q_DTYPES:
-        raise TypeError(f"paged_attention: q must be float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in PAGED_Q_DTYPES + PAGED_Q_WIDENED:
+        raise TypeError(f"paged_attention: q must be float32, bfloat16 or float16, got {q.dtype}")
     quantized = k_scale is not None
     if quantized != (k_pages.dtype != torch.float32) or (v_scale is None) == quantized:
         raise ValueError("paged_attention: scales go with (and only with) quantized pools")
@@ -745,10 +762,11 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, k_scale=None,
                           (k_pages.data_ptr(), v_pages.data_ptr()))
     plan = paged_plan(B, K, H, D, page_size, page_table.shape[-1], esize, vb,
                       *_paged_device(q.device.index))
-    out = _paged_launch(plan, q, k_pages, v_pages, page_table, seq_lens, k_scale, v_scale)
+    wide = q.float() if q.dtype in PAGED_Q_WIDENED else q
+    out = _paged_launch(plan, wide, k_pages, v_pages, page_table, seq_lens, k_scale, v_scale)
     paged_attention.route = plan.route
     paged_attention.splits = plan.n_split
-    return out
+    return out.to(q.dtype)
 
 
 def _paged_launch(plan: PagedPlan, q, k_pages, v_pages, page_table, seq_lens, k_scale,

@@ -8,7 +8,8 @@ The twin of ``tpuscratch.ops.fill``: the reference's ``init_vector``
   ``dtype`` on the host as ``jnp.asarray([value], dtype)`` casts it; the
   kernel writes that bit pattern, so one kernel serves every dtype.
 - ``iota2d(shape, dtype)``: ``r * w + c`` computed in the dtype (two
-  rounded ops in float types), bit-equal to the TPU kernel.
+  rounded ops in float types; integers, 1 to 8 bytes, wrap), bit-equal
+  to the TPU kernel.
 
 Entry points run on the card unless ``device='cpu'`` is passed, which runs
 the plain torch versions (``fill_plain``, ``iota2d_plain``); the card-side
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -31,7 +33,8 @@ from tpuscratch_torch.runtime.mesh import resolve_device
 
 #: dtype -> the kernel's dtype code (``csrc/fill.cu``: ts_iota2d)
 IOTA_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
-               torch.int32: 3, torch.int64: 4}
+               torch.int32: 3, torch.int64: 4, torch.int8: 5, torch.uint8: 6,
+               torch.int16: 7}
 _BITS_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 FILL_THREADS = 256  # threads a block of fill's kernel (csrc/fill.cu), a 16-byte unit each
 
@@ -48,7 +51,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def _host_value(value, dtype: torch.dtype) -> torch.Tensor:
-    """``value`` cast to ``dtype`` on the host (one element)."""
+    """``value`` cast to ``dtype`` on the host (one element). A float into
+    an integer dtype truncates and saturates at the dtype's range (NaN
+    gives 0), as the JAX package's conversion does."""
+    if isinstance(value, float) and not (dtype.is_floating_point or dtype.is_complex
+                                         or dtype == torch.bool):
+        info = torch.iinfo(dtype)
+        v = 0.0 if math.isnan(value) else min(max(math.trunc(value), info.min), info.max)
+        return torch.tensor([v], dtype=dtype)
     return torch.tensor([value], dtype=dtype)
 
 

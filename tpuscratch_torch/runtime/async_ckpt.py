@@ -9,7 +9,12 @@ copy+serialize+publish wall. This module splits it in two:
 - **snapshot** (cheap for the host): an event is recorded on the
   compute stream, and a side stream waits on it and copies every CUDA
   leaf into pinned host memory (``non_blocking``; PyTorch's caching host
-  allocator pools those buffers across snapshots). The compute stream
+  allocator pools those buffers across snapshots; with ``pool=``, a
+  native ``HostPool``'s buffers, registered with the card
+  (``cudaHostRegister``) so the copy stays asynchronous, and kept, size by
+  size, for the next snapshot until ``close``, which unregisters them and
+  returns them to the pool: like a pinned allocation, a registration
+  waits for the device, so only a run's first snapshot pays it). The compute stream
   then waits on the copy's own event, so the next chunk's kernels, in
   place or not, and any reuse of a freed source's memory, cannot write
   the snapshotted storage before the copy has read it. That wait puts
@@ -37,6 +42,7 @@ stages inside the background save).
 
 from __future__ import annotations
 
+import gc
 import queue
 import threading
 import time
@@ -61,18 +67,25 @@ DEFAULT_WRITE_RETRY = RetryPolicy(max_attempts=3, base_s=0.01, max_s=0.1,
 class AsyncCheckpointer:
     """Snapshot-then-publish checkpointing with one background writer.
 
+    ``pool``: a ``native.hostpool.HostPool`` for the staging buffers
+    (default: PyTorch's pinned caching allocator), held until ``close``;
+    a leaf the pool cannot serve (zero bytes, or the pool exhausted) takes
+    a pinned buffer.
     ``retry``: the writer's ``ft.RetryPolicy`` (default
     :data:`DEFAULT_WRITE_RETRY`).  ``chaos``: an ``ft.ChaosPlan`` —
     plugs the ``ckpt/snapshot`` / ``ckpt/write`` injection sites in.
     ``sink``: receives one ``ckpt/write`` event per completed
     background write (emitted from the writer thread at its true end
     stamp).  ``metrics``: a ``MetricsRegistry`` — each snapshot sets
-    ``ckpt/snapshot_bytes``, each write counts ``ckpt/async_writes``.
+    ``ckpt/snapshot_bytes`` (and, with a pool, the ``hostpool/*`` gauges
+    from ``HostPool.stats()``), each write counts ``ckpt/async_writes``.
     """
 
-    def __init__(self, *, retry: Optional[RetryPolicy] = None,
+    def __init__(self, *, pool=None, retry: Optional[RetryPolicy] = None,
                  chaos=None, sink=None, metrics=None,
                  log: Callable[[str], None] = lambda s: None):
+        self._pool = pool
+        self._held: dict = {}    # nbytes -> registered pool buffers free for reuse
         self._retry = retry if retry is not None else DEFAULT_WRITE_RETRY
         self._chaos = chaos
         self._sink = sink
@@ -123,13 +136,17 @@ class AsyncCheckpointer:
             raise err
 
     def close(self) -> None:
-        """Drain, then retire the worker thread."""
+        """Drain, then retire the worker thread and return the held
+        staging buffers to the pool."""
         try:
             self.drain()
         finally:
             if self._worker is not None and self._worker.is_alive():
                 self._jobs.put(None)
             self._worker = None
+            held, self._held = self._held, {}
+            for buf in (b for bufs in held.values() for b in bufs):
+                buf.free()
 
     def abandon(self) -> None:
         """Close, but SWALLOW a write failure (logged) — the exit path
@@ -143,10 +160,30 @@ class AsyncCheckpointer:
 
     # ---- snapshot + background publish ---------------------------------
 
-    def _stage(self, leaves: list) -> tuple[list, list]:
+    def _host_buffer(self, src: torch.Tensor):
+        """(host tensor for ``src``'s copy, its pool buffer or None): a
+        pool buffer registered with the card, else a pinned tensor."""
+        nbytes = src.numel() * src.element_size()
+        if self._pool is not None and nbytes > 0:
+            held = self._held.get(nbytes)
+            buf = held.pop() if held else None
+            if buf is None:
+                try:
+                    buf = self._pool.alloc(nbytes)
+                except MemoryError:
+                    buf = None
+                if buf is not None:
+                    buf.register_with_card()
+            if buf is not None:
+                return buf.tensor(src.dtype, tuple(src.shape)), buf
+        return torch.empty(src.shape, dtype=src.dtype, pin_memory=True), None
+
+    def _stage(self, leaves: list) -> tuple[list, list, list]:
         """Every leaf to host memory. Returns (host tensors or arrays, a
-        (ready, done) event pair per device bracketing its copy)."""
+        (ready, done) event pair per device bracketing its copy, the pool
+        buffers used)."""
         staged: list = [None] * len(leaves)
+        bufs: list = []
         events = []
         by_device: dict = {}
         for i, leaf in enumerate(leaves):
@@ -168,9 +205,11 @@ class AsyncCheckpointer:
                 for i in idx:
                     src = leaves[i].detach()
                     checkpoint._np_dtype(src.dtype)  # refuse before copying
-                    buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-                    buf.copy_(src, non_blocking=True)
-                    staged[i] = buf
+                    host, buf = self._host_buffer(src)
+                    host.copy_(src, non_blocking=True)
+                    staged[i] = host
+                    if buf is not None:
+                        bufs.append(buf)
             done = torch.cuda.Event(enable_timing=True)
             done.record(side)
             # later work on the compute stream (an in-place update of a
@@ -178,7 +217,7 @@ class AsyncCheckpointer:
             # the copy to have read the source
             compute.wait_event(done)
             events.append((ready, done))
-        return staged, events
+        return staged, events, bufs
 
     def snapshot(self, ckpt_dir, step: int, tree, *,
                  metadata: Optional[dict] = None, tag: str = "state",
@@ -191,13 +230,12 @@ class AsyncCheckpointer:
             self._chaos.maybe_fail("ckpt/snapshot", op="ckpt/snapshot")
         t0 = time.perf_counter()
         leaves, _ = checkpoint.tree_flatten(tree)
-        staged, events = self._stage(leaves)
+        staged, events, bufs = self._stage(leaves)
         self.snapshot_bytes = sum(
             (v.numel() * v.element_size()) if isinstance(v, torch.Tensor) else v.nbytes
             for v in staged)
         blocking_s = time.perf_counter() - t0
-        if self._metrics is not None:
-            self._metrics.gauge("ckpt/snapshot_bytes").set(self.snapshot_bytes)
+        self._observe()
         write_hook = (self._chaos.stage_hook("ckpt/write")
                       if self._chaos is not None else None)
         # the closure holds the ONLY references to the host snapshot; a
@@ -211,12 +249,12 @@ class AsyncCheckpointer:
             for ready, done in box["events"]:
                 done.synchronize()  # the copy has landed in host memory
                 copy_s += ready.elapsed_time(done) / 1e3
-            host = checkpoint.tree_unflatten(
+            box["host"] = checkpoint.tree_unflatten(
                 box["tree"], [v.numpy() if isinstance(v, torch.Tensor) else v
                               for v in box["staged"]])
 
             def do_save():
-                path = checkpoint.save(ckpt_dir, step, host,
+                path = checkpoint.save(ckpt_dir, step, box["host"],
                                        metadata=metadata, tag=tag,
                                        hook=write_hook)
                 if keep is not None:
@@ -229,7 +267,19 @@ class AsyncCheckpointer:
                 self._error = exc
                 return
             finally:
+                # drop the snapshot's references, then keep the pool's
+                # buffers for the next snapshot; one a watchdog-abandoned
+                # attempt's thread may still view is dropped instead of
+                # reused (it leaks to the pool's finalizer)
                 box.clear()
+                for b in bufs:
+                    if b.live_views():
+                        gc.collect()
+                    if b.live_views():
+                        self._log("ckpt/write: leaked a staging buffer "
+                                  "still viewed by an abandoned attempt")
+                    else:
+                        self._held.setdefault(b.nbytes, []).append(b)
             wall = time.perf_counter() - w0
             self.writes += 1
             if self._metrics is not None:
@@ -241,6 +291,16 @@ class AsyncCheckpointer:
 
         self._submit(write)
         return blocking_s
+
+    def _observe(self) -> None:
+        if self._metrics is None:
+            return
+        self._metrics.gauge("ckpt/snapshot_bytes").set(self.snapshot_bytes)
+        if self._pool is not None:
+            stats = self._pool.stats()
+            for key in ("bytes_in_use", "bytes_cached", "high_water",
+                        "live_buffers", "trim_calls", "locked_bytes"):
+                self._metrics.gauge(f"hostpool/{key}").set(stats[key])
 
     def __enter__(self) -> "AsyncCheckpointer":
         return self

@@ -11,14 +11,17 @@ memory spaces of the JAX package are:
 - ``pinned_host``: a page-locked CPU tensor (``pin_memory``);
 - ``unpinned_host``: an ordinary, pageable CPU tensor.
 
-``put`` moves a tensor between them. Buffer donation (``memory.donate``)
-is not ported yet.
+``put`` moves a tensor between them; ``memory_kinds`` lists the spaces
+``put`` reaches from a device. ``donate`` is jit donation's counterpart:
+the wrapped function runs, then the donated inputs' storage is released
+(manual buffer reuse, the other thing a CUDA allocator is for).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -28,6 +31,60 @@ DEVICE = "device"
 PINNED_HOST = "pinned_host"
 UNPINNED_HOST = "unpinned_host"
 KINDS = (DEVICE, PINNED_HOST, UNPINNED_HOST)
+
+
+def memory_kinds(device=None) -> tuple[str, ...]:
+    """The memory spaces ``put`` reaches from ``device`` (default the card,
+    as ``resolve_device`` reads it): the device's own memory, page-locked
+    host memory where a CUDA driver can pin it, and pageable host memory."""
+    resolve_device(device)
+    pinned = (PINNED_HOST,) if torch.cuda.is_available() else ()
+    return (DEVICE,) + pinned + (UNPINNED_HOST,)
+
+
+def supports_kind(kind: str, device=None) -> bool:
+    return kind in memory_kinds(device)
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in _tensors(item)]
+    return []
+
+
+def donate(fn: Callable, argnums=0) -> Callable:
+    """``fn`` with donated inputs, the counterpart of ``jax.jit(fn,
+    donate_argnums=argnums)``: the wrapper returns what ``fn`` returns,
+    then releases the storage of every tensor in the donated arguments
+    (``untyped_storage().resize_(0)``: a donated tensor afterwards holds no
+    memory, as a donated JAX array is deleted; a tensor over memory torch
+    does not own, such as a numpy array's, lets go of it instead). Storage that an output
+    shares with a donated input (an in-place update, a view) is kept, so
+    no output loses its data. Callers must not use donated tensors
+    afterwards."""
+    argnums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        kept = {t.untyped_storage().data_ptr() for t in _tensors(out)}
+        for i in argnums:
+            for t in _tensors(args[i]):
+                st = t.untyped_storage()
+                if not st.nbytes() or st.data_ptr() in kept:
+                    continue
+                if st.resizable():
+                    st.resize_(0)
+                else:  # memory torch does not own (numpy's): drop the reference
+                    with torch.no_grad():
+                        t.set_()
+        return out
+
+    return wrapper
 
 
 def kind_of(x: torch.Tensor) -> str:

@@ -6,9 +6,8 @@ products are allreduced per-rank sums (``cg``; ``pipelined_cg`` folds an
 iteration's scalars into one allreduce), its spectral sibling over the
 pencil FFT (``spectral``), and geometric multigrid in 2D and 3D, whose 3D
 ``jacobi-stream`` smoother runs the streamed 3D kernel
-(``multigrid3d``). The JAX package's ``solvers.runner`` (the checkpointed,
-supervised 3D solve) is not ported: it needs the runtime, obs and ft
-layers.
+(``multigrid3d``), and ``solvers.runner``, the checkpointed, supervised
+3D solve over the chunked runtime.
 """
 
 from tpuscratch_torch.solvers.cg import (
