@@ -246,6 +246,39 @@ Phase 30 runs after 29, before 24's lines:
    pageable one and against itself registered with the card, at 1, 32 and
    256 MiB.
 
+Phase 31 runs after 30, before 24's lines:
+
+31. the serving levers at config 12's model on 1x1 (the kernel on unless a
+   step says otherwise, greedy): speculation (spec_k 4, batch 8, periodic
+   prompts of 64, 32 new tokens) equal with the plain attention, its
+   accept length, the identity tokens == prefills + slot_steps + accepted,
+   and the kernel launched n_layers x verify sweeps, the share of tokens
+   equal to the non-speculative engine's printed; macro decode at T 1, 4,
+   16 and T 4 async, batch 8: equal outputs, the kernel launched n_layers x
+   T a dispatch, host syncs a token falling about T-fold, ceil(slot_steps /
+   T) dispatches on a single stream, one T 16 dispatch under
+   ``set_sync_debug_mode("error")``, stop tokens truncating as at T 1, and
+   speculation at T 4 equal to speculation at T 1; prefix sharing over
+   ``shared_prefix_prompts(16, 64, r)`` at r 0, 0.5 and 0.9 on f32 and int8
+   pools, equal to the same engine with the plain attention (int8 at r
+   0.9), the prefill fraction falling, and a copy-on-write made; chunked
+   prefill (16) against monolithic in the long mix at 256, equal to the
+   plain attention's, the launches held to the rounds and context sweeps,
+   each p99 printed; a ``ChaosPlan`` at ``serve/prefill`` healed by
+   ``retry_budget`` 2 and a poison rid quarantined (the rest equal to the
+   plain attention's). Config 12's MoE drops tokens (capacity_factor 2
+   against 4 experts), so a run that batches the tokens otherwise
+   (unshared, monolithic, without the poison rid) routes them otherwise
+   (ROADMAP C5): sharing and chunking are held to the unshared and
+   monolithic engines at capacity_factor 4. ex24 through its ``main()`` on
+   8 ranks stacked on the card, ``PASSED``. Then the kernel at the verify
+   shape (K 5, B 8, T 96) and a context-prefill chunk (K 16, B 8, T 256) on
+   the three pools against its plain version, each timed beside its bound
+   and SDPA's; and config 12's ``serve_decode_spec``,
+   ``serve_prefix_share`` and ``serve_decode_macro`` rows through
+   ``bench.record``, one run of 16 ticks a point (``reduced``). The
+   phase's kernel launches join row 17's in the kernels line.
+
 Any failure raises and exits non-zero; without a CUDA card, or outside a
 checkout of the repository, it exits non-zero before printing any result.
 """
@@ -1848,7 +1881,7 @@ def phase16_config12(cfg, scfg, weights) -> list:
     from tpuscratch_torch.runtime.mesh import make_mesh
 
     out: list = []
-    config12_decode(out, device=DEVICE)
+    config12_decode(out, device=DEVICE, levers=False)   # the lever rows run in phase 31
     for r in out:
         log(f"  config 12 {r['metric']}: {r.get('value', '')} {r['detail']}")
     for s in out[0]["sweep"]:
@@ -4642,6 +4675,366 @@ def phase30_reference_programs(gen, tmp: pathlib.Path) -> tuple[dict, list]:
     return counts, rows
 
 
+# Phase 31: the serving levers at config 12's width. The engines run the
+# paged-attention kernel ("on") unless a step compares against the plain
+# attention ("off"); greedy throughout except the retry drains.
+P31_BATCH = 8               # decode slots
+P31_PROMPT = 64             # prompt tokens (config 12's)
+P31_NEW = 32                # new tokens a request
+P31_SPEC_K = 4              # draft tokens a verify sweep
+P31_T = (1, 4, 16)          # macro steps
+P31_SHARES = (0.0, 0.5, 0.9)
+P31_SHARE_NEW = 8
+P31_LONG = 256              # the long-mix's long prompt
+P31_CHUNK = 16              # chunk_prefill against monolithic
+P31_REPEATS = 1             # config 12's lever rows: one run a point (the harness takes 3)
+P31_TICKS = 16              # and 16 measured ticks (the harness's 64)
+# row 17 at the served K-query shapes: the verify step (K = spec_k + 1 over
+# a prompt of 64 and part of 32 new tokens) and a context-prefill chunk of
+# the long mix (K = chunk, the last chunk of a 256-token prompt)
+P31_ROW17 = (("verify", dict(B=8, K=P31_SPEC_K + 1, T=96)),
+             ("context prefill", dict(B=8, K=P31_CHUNK, T=P31_LONG)))
+
+
+def _p31_engine(mesh, cfg, scfg, weights, **kw):
+    import dataclasses
+
+    from tpuscratch_torch.serve import ServeEngine
+
+    kw.setdefault("fused_attention", "on")
+    return ServeEngine(mesh, cfg, dataclasses.replace(scfg, **kw), **weights)
+
+
+def _p31_run(what, mesh, cfg, scfg, weights, reqs, ta, counts, **kw):
+    """One engine drain; with the kernel on, its paged_attention launches are
+    zeroed just before and read just after, added to ``counts``, and
+    returned beside the report."""
+    eng = _p31_engine(mesh, cfg, scfg, weights, **kw)
+    ta.reset_launches()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ta.launch_counts().get("paged_attention", 0)
+    if kw.get("fused_attention", "on") == "on":
+        counts["paged_attention"] = counts.get("paged_attention", 0) + n
+    toks = [t for _, out in rep.outputs for t in out]
+    if rep.completed != len(reqs) - len(rep.quarantined) or not all(
+            0 <= t < scfg.vocab for t in toks):
+        raise AssertionError(f"{what}: {rep.completed} completed of {len(reqs)}, or a token "
+                             "out of the vocabulary")
+    log(f"  {what}: {wall:.2f} s, {rep.completed} done, tokens {rep.tokens_generated}, "
+        f"slot_steps {rep.slot_steps}, dispatches {rep.dispatches}, host_syncs "
+        f"{rep.host_syncs}, drafted {rep.drafted}, accepted {rep.accepted}, prefill_tokens "
+        f"{rep.prefill_tokens}, shared {rep.shared_tokens}, cow {rep.cow_pages}, "
+        f"paged_attention launches {n}")
+    return eng, rep, n
+
+
+def _same_outputs(what, a, b) -> None:
+    if a.outputs != b.outputs:
+        diff = sum(x != y for (_, p), (_, q) in zip(a.outputs, b.outputs) for x, y in zip(p, q))
+        raise AssertionError(f"{what}: outputs differ in {diff} places")
+
+
+def _p31_spec(mesh, cfg, scfg, weights, ta, counts) -> None:
+    from tpuscratch_torch.bench.decode_bench import accept_friendly_prompt
+    from tpuscratch_torch.serve import Request
+
+    reqs = [Request(rid=i, prompt=accept_friendly_prompt(P31_PROMPT, scfg.vocab, 3 + i % 4),
+                    max_new=P31_NEW) for i in range(P31_BATCH)]
+    kw = dict(n_slots=P31_BATCH, max_seq=P31_PROMPT + P31_NEW)
+    _, on, n = _p31_run("spec_k 4, kernel", mesh, cfg, scfg, weights, reqs, ta, counts,
+                        spec_k=P31_SPEC_K, **kw)
+    _, off, _ = _p31_run("spec_k 4, plain attention", mesh, cfg, scfg, weights, reqs, ta, counts,
+                         spec_k=P31_SPEC_K, fused_attention="off", **kw)
+    _, base, _ = _p31_run("no speculation, kernel", mesh, cfg, scfg, weights, reqs, ta, counts,
+                          **kw)
+    _same_outputs("spec: the kernel against the plain attention", on, off)
+    if not on.accept_len_mean or on.accept_len_mean <= 0:
+        raise AssertionError(f"spec: accept_len_mean {on.accept_len_mean}")
+    if on.tokens_generated != on.prefills + on.slot_steps + on.accepted:
+        raise AssertionError(f"spec: {on.tokens_generated} tokens != {on.prefills} prefills + "
+                             f"{on.slot_steps} slot steps + {on.accepted} accepted")
+    if n != cfg.n_layers * on.decode_steps:
+        raise AssertionError(f"spec: {n} paged_attention launches, want n_layers x verify "
+                             f"sweeps = {cfg.n_layers * on.decode_steps}")
+    pairs = [(x, y) for (_, p), (_, q) in zip(on.outputs, base.outputs) for x, y in zip(p, q)]
+    log(f"  spec: accept_len_mean {on.accept_len_mean:.3f}, {on.decode_steps} verify sweeps "
+        f"for {on.tokens_generated - on.prefills} decoded tokens (the plain engine: "
+        f"{base.decode_steps} steps); tokens equal to the non-speculative engine's: "
+        f"{sum(x == y for x, y in pairs)} of {len(pairs)}")
+
+
+def _p31_macro(mesh, cfg, scfg, weights, ta, counts) -> None:
+    from tpuscratch_torch.serve import Request
+
+    reqs = [Request(rid=i, prompt=tuple((7 * i + 3 * t) % scfg.vocab for t in range(P31_PROMPT)),
+                    max_new=P31_NEW) for i in range(P31_BATCH)]
+    kw = dict(n_slots=P31_BATCH, max_seq=P31_PROMPT + P31_NEW)
+    reps = {}
+    for T in P31_T:
+        _, reps[T], n = _p31_run(f"macro T={T}", mesh, cfg, scfg, weights, reqs, ta, counts,
+                                 macro_steps=T, **kw)
+        if n != cfg.n_layers * T * reps[T].dispatches:
+            raise AssertionError(f"macro T={T}: {n} launches, want n_layers x T x dispatches "
+                                 f"= {cfg.n_layers * T * reps[T].dispatches}")
+    _, reps["async"], _ = _p31_run("macro T=4 async", mesh, cfg, scfg, weights, reqs, ta, counts,
+                                   macro_steps=4, async_macro=True, **kw)
+    for k, r in reps.items():
+        _same_outputs(f"macro {k} against T=1", r, reps[1])
+    per_tok = {k: r.host_syncs / (r.tokens_generated - r.prefills) for k, r in reps.items()}
+    log("  macro: host syncs a decoded token " + ", ".join(f"T={k} {v:.4f}"
+                                                         for k, v in per_tok.items()))
+    for T in P31_T[1:]:
+        if per_tok[T] > 1.5 * per_tok[1] / T:
+            raise AssertionError(f"macro T={T}: {per_tok[T]:.4f} host syncs a token, T=1 "
+                                 f"{per_tok[1]:.4f}")
+    # the dispatch identity on a single stream
+    one = [Request(rid=1000, prompt=reqs[0].prompt, max_new=P31_NEW)]
+    for T in P31_T:
+        _, r, _ = _p31_run(f"one stream T={T}", mesh, cfg, scfg, weights, one, ta, counts,
+                           macro_steps=T, **kw)
+        if r.dispatches != -(-r.slot_steps // T):
+            raise AssertionError(f"one stream T={T}: {r.dispatches} dispatches != "
+                                 f"ceil({r.slot_steps} / {T})")
+    # one T = 16 dispatch under the sync debug mode: its one pull is the only sync
+    eng = _p31_engine(mesh, cfg, scfg, weights, macro_steps=16, **kw)
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    syncs0 = eng.host_syncs
+    ta.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts["paged_attention"] += ta.launch_counts().get("paged_attention", 0)
+    if eng.host_syncs - syncs0 != 1:
+        raise AssertionError(f"a T=16 dispatch made {eng.host_syncs - syncs0} pulls")
+    eng.run()
+    log("  macro: a T=16 dispatch ran under set_sync_debug_mode('error') with one host sync")
+    # stop tokens: each request stops at the token its T=1 run emitted 10th
+    stops = [Request(rid=r.rid, prompt=r.prompt, max_new=P31_NEW,
+                     stop_tokens=(dict(reps[1].outputs)[r.rid][9],)) for r in reqs]
+    _, s1, _ = _p31_run("stop tokens T=1", mesh, cfg, scfg, weights, stops, ta, counts, **kw)
+    _, s16, _ = _p31_run("stop tokens T=16", mesh, cfg, scfg, weights, stops, ta, counts,
+                         macro_steps=16, **kw)
+    _same_outputs("stop tokens: T=16 against T=1", s16, s1)
+    if not all(len(o) <= 10 for _, o in s1.outputs):
+        raise AssertionError("stop tokens did not truncate")
+    # speculation composed with T = 4 against speculation at T = 1
+    _, sp1, _ = _p31_run("spec_k 4 T=1", mesh, cfg, scfg, weights, reqs, ta, counts,
+                         spec_k=P31_SPEC_K, **kw)
+    _, sp4, _ = _p31_run("spec_k 4 T=4", mesh, cfg, scfg, weights, reqs, ta, counts,
+                         spec_k=P31_SPEC_K, macro_steps=4, **kw)
+    _same_outputs("spec x macro T=4 against spec at T=1", sp4, sp1)
+
+
+def _p31_share(mesh, cfg, scfg, weights, ta, counts) -> None:
+    import dataclasses
+
+    from tpuscratch_torch.bench.decode_bench import shared_prefix_prompts
+    from tpuscratch_torch.serve import Request
+
+    kw = dict(n_slots=P31_BATCH, max_seq=P31_PROMPT + P31_SHARE_NEW)
+    cow = 0
+    for kv in ("float32", "int8"):
+        fracs = []
+        for r in P31_SHARES:
+            reqs = [Request(rid=i, prompt=p, max_new=P31_SHARE_NEW) for i, p in
+                    enumerate(shared_prefix_prompts(2 * P31_BATCH, P31_PROMPT, r, scfg.vocab))]
+            _, shared, _ = _p31_run(f"prefix_share {kv} r={r}", mesh, cfg, scfg, weights, reqs,
+                                    ta, counts, prefix_share=True, kv_dtype=kv, **kw)
+            if kv == "float32" or r == P31_SHARES[-1]:   # int8's plain path is slow
+                _, dense, _ = _p31_run(f"prefix_share {kv} r={r}, plain attention", mesh, cfg,
+                                       scfg, weights, reqs, ta, counts, prefix_share=True,
+                                       kv_dtype=kv, fused_attention="off", **kw)
+                _same_outputs(f"prefix_share {kv} r={r}: the kernel against the plain "
+                              "attention", shared, dense)
+            _, plain, _ = _p31_run(f"unshared {kv} r={r}", mesh, cfg, scfg, weights, reqs, ta,
+                                   counts, kv_dtype=kv, **kw)
+            # config 12's MoE drops tokens (capacity_factor 2 < 4 experts), so the
+            # outputs follow how the prompt tokens were batched (ROADMAP C5)
+            log(f"  prefix_share {kv} r={r}: prefill_frac "
+                f"{shared.prefill_tokens / (shared.prefill_tokens + shared.shared_tokens):.4f}, "
+                f"cow_pages {shared.cow_pages}, subpage_tokens {shared.subpage_tokens}; "
+                f"{_diff(shared, plain)} tokens differ from the unshared engine")
+            fracs.append(shared.prefill_tokens / (shared.prefill_tokens + shared.shared_tokens))
+            cow += shared.cow_pages
+        if not fracs[0] > fracs[1] > fracs[2]:
+            raise AssertionError(f"prefix_share {kv}: prefill_frac {fracs} does not fall")
+    if cow < 1:
+        raise AssertionError("prefix sharing made no copy-on-write")
+    # where the MoE drops nothing (capacity_factor = n_experts), sharing
+    # changes no output: f32 at r 0 and 0.9 against the unshared engine
+    full = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    for r in (0.0, 0.9):
+        reqs = [Request(rid=i, prompt=p, max_new=P31_SHARE_NEW) for i, p in
+                enumerate(shared_prefix_prompts(2 * P31_BATCH, P31_PROMPT, r, scfg.vocab))]
+        _, a, _ = _p31_run(f"prefix_share r={r}, capacity_factor {full.capacity_factor:g}", mesh,
+                           full, scfg, weights, reqs, ta, counts, prefix_share=True, **kw)
+        _, b, _ = _p31_run(f"unshared r={r}, capacity_factor {full.capacity_factor:g}", mesh,
+                           full, scfg, weights, reqs, ta, counts, **kw)
+        _same_outputs(f"prefix_share r={r} against unshared without MoE drops", a, b)
+
+
+def _diff(a, b) -> int:
+    return sum(x != y for (_, p), (_, q) in zip(a.outputs, b.outputs) for x, y in zip(p, q))
+
+
+def _p31_chunk(mesh, cfg, scfg, weights, ta, counts) -> None:
+    import dataclasses
+
+    from tpuscratch_torch.bench.decode_bench import bench_chunk_longmix
+
+    sc = dataclasses.replace(scfg, n_slots=P31_BATCH, max_seq=P31_LONG + 32,
+                             fused_attention="on")
+    ta.reset_launches()
+    # config 12's MoE drops tokens: the chunked outputs are held to the same
+    # stream with the plain attention (ROADMAP C5)
+    res = bench_chunk_longmix(mesh, cfg, sc, chunk=P31_CHUNK, long_len=P31_LONG, against="plain",
+                              **weights)
+    n = ta.launch_counts()["paged_attention"]
+    counts["paged_attention"] += n
+    if n != cfg.n_layers * res["sweeps_total"]:
+        raise AssertionError(f"long mix: {n} launches, want n_layers x (rounds + context "
+                             f"sweeps) = {cfg.n_layers * res['sweeps_total']}")
+    log(f"  chunk_prefill {P31_CHUNK} against monolithic, long prompt {P31_LONG}: equal to the "
+        f"plain attention's, {res['mono_diff']} tokens differ from monolithic; "
+        f"{res['ctx_sweeps']} context-prefill sweeps in the chunked window "
+        f"({cfg.n_layers * res['ctx_sweeps']} of the {n} paged_attention launches); p99 a tick "
+        f"{res['p99_s_mono'] * 1e3:.3f} ms monolithic, {res['p99_s_chunked'] * 1e3:.3f} ms "
+        f"chunked (max {res['max_s_mono'] * 1e3:.3f} / {res['max_s_chunked'] * 1e3:.3f} ms)")
+    full = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    ta.reset_launches()
+    res = bench_chunk_longmix(mesh, full, sc, chunk=P31_CHUNK, long_len=P31_LONG, **weights)
+    counts["paged_attention"] += ta.launch_counts()["paged_attention"]
+    log(f"  the same at capacity_factor {full.capacity_factor:g} (no MoE drop): chunked equal to "
+        f"monolithic; p99 {res['p99_s_mono'] * 1e3:.3f} / {res['p99_s_chunked'] * 1e3:.3f} ms")
+
+
+def _p31_retries(mesh, cfg, scfg, weights, ta, counts) -> None:
+    import dataclasses
+
+    from tpuscratch_torch.ft.chaos import ChaosPlan, Fault
+    from tpuscratch_torch.serve import Request, ServeEngine
+
+    reqs = [Request(rid=i, prompt=tuple((5 * i + t) % scfg.vocab for t in range(P31_PROMPT)),
+                    max_new=8) for i in range(4)]
+    sc = dataclasses.replace(scfg, n_slots=4, max_seq=P31_PROMPT + 8, fused_attention="on")
+    clean = ServeEngine(mesh, cfg, sc, **weights).run(reqs)
+    plan = ChaosPlan(0, [Fault("serve/prefill", key=1, at=(0, 1), times=2)])
+    eng = ServeEngine(mesh, cfg, dataclasses.replace(sc, retry_budget=2), chaos=plan, **weights)
+    healed = eng.run(reqs)
+    _same_outputs("retry_budget 2, two transient faults", healed, clean)
+    if healed.quarantined or plan.fired.get("serve/prefill") != 2:
+        raise AssertionError(f"retries: quarantined {healed.quarantined}, fired {plan.fired}")
+    poisoned = {}
+    for mode in ("on", "off"):
+        plan2 = ChaosPlan(0, [Fault("serve/prefill", key=1, p=1.0, at=None, times=None)])
+        eng2 = ServeEngine(mesh, cfg, dataclasses.replace(sc, retry_budget=2,
+                                                          fused_attention=mode),
+                           chaos=plan2, **weights)
+        poisoned[mode] = eng2.run(reqs)
+        if poisoned[mode].quarantined != (1,) or eng2.free_pages() != [sc.n_pages]:
+            raise AssertionError(f"retries: a spent budget gave quarantined "
+                                 f"{poisoned[mode].quarantined}, free pages {eng2.free_pages()}")
+    # without rid 1 the others decode in another batch, which config 12's
+    # dropping MoE routes otherwise: held to the plain attention (ROADMAP C5)
+    _same_outputs("retries: the poisoned drain, kernel against plain attention", poisoned["on"],
+                  poisoned["off"])
+    rest = tuple((r, t) for r, t in clean.outputs if r != 1)
+    diff = sum(x != y for (_, p), (_, q) in zip(poisoned["on"].outputs, rest) for x, y in zip(p, q))
+    log(f"  retries: two transient prefill faults healed (outputs equal the unfaulted drain); "
+        f"a poison rid quarantined after {1 + 2} attempts, the other 3 served ({diff} tokens "
+        f"differ from the unfaulted drain's), no page leaked")
+
+
+def _p31_row17(gen, ta) -> tuple[float, list]:
+    """Row 17 at the served K-query shapes on the three pools, against its
+    plain version, each timed beside its bound and SDPA's on the
+    pre-gathered view."""
+    H, D, page = PAGED_GEOM["H"], PAGED_GEOM["D"], PAGED_GEOM["page"]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    err, rows = 0.0, []
+    for what, sh in P31_ROW17:
+        B, K, T = sh["B"], sh["K"], sh["T"]
+        for dtype in (torch.float32, torch.int8, torch.float8_e4m3fn):
+            lens = np.full(B, T - K + 1)        # the last query attends T positions
+            q, k, v, table, lens_d, ks, vs = _paged_ops(gen, B, K, H, D, page, 512,
+                                                        -(-T // page), dtype, lens=lens)
+            ops = (q, k, v, table, lens_d, ks, vs)
+            e = max_err(ta.paged_attention(*ops), ta._verify_attention_dense(*ops))
+            if e > PAGED_ATOL:
+                raise AssertionError(f"paged_attention {what} K={K} {str(dtype)[6:]}: "
+                                     f"max_abs_err {e:.3e} (atol {PAGED_ATOL:g})")
+            err = max(err, e)
+            # K queries a slot make the scores and the weighted sum products
+            # that f32 work may run at on the tensor cores (split TF32, as
+            # for the flash rows); int8 and e4m3 keys are exact in TF32
+            b, by = bound(_paged_bytes(B, T, page, H, D, k, q, table, lens_d),
+                          4 * B * K * H * T * D, TF32_SPLIT_FLOP_PER_S)
+            kg, vg = _pregathered(k, v, table, T)
+            qs = q.transpose(1, 2)                                    # (B, H, K, D)
+            mask = (torch.arange(T, device=DEVICE)[None, None, :]
+                    < (lens_d[:, None, None] + torch.arange(K, device=DEVICE)[None, :, None]))
+            mask = mask[:, None]                                      # (B, 1, K, T)
+            rows.append(dict(
+                name="paged_attention",
+                shape=f"{what} B{B} T{T} H{H} D{D} page{page} K{K} {str(dtype)[6:]}",
+                ms=device_ms(lambda: ta.paged_attention(*ops)),
+                plain_ms=device_ms(lambda: ta._verify_attention_dense(*ops), n=5),
+                library_ms=device_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask)),
+                library_shape=f"SDPA on the pre-gathered (B, H, {T}, D) f32 view",
+                bound_ms=b, bound_by=by))
+            log(f"  paged_attention {what} K={K:2d} {str(dtype)[6:]:14s} B={B} T={T}: "
+                f"max_abs_err {e:.3e}, {_paged_route()}")
+    for r in rows:
+        log(f"  time {r['name']} {r['shape']:52s} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms)")
+    return err, rows
+
+
+def phase31_serving_levers(cfg, scfg, weights, gen) -> tuple[dict, float, list]:
+    """Speculation, macro decode, prefix sharing, chunked prefill and
+    retries through ``ServeEngine`` at config 12's model on 1x1, ex24 on
+    the card, row 17 at the verify and context-prefill shapes, and config
+    12's lever rows through ``bench.record``. Returns (paged_attention launches on the
+    phase's engine paths, row 17's worst error, its timed rows)."""
+    from tpuscratch_torch.bench.record import config12_lever_rows
+    from tpuscratch_torch.ops import attention as ta
+    from tpuscratch_torch.runtime.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("dp", "sp"), DEVICE)
+    counts = {"paged_attention": 0}
+    for step in (_p31_spec, _p31_macro, _p31_share, _p31_chunk, _p31_retries):
+        t0 = time.perf_counter()
+        step(mesh, cfg, scfg, weights, ta, counts)
+        log(f"  {step.__name__[5:]}: {time.perf_counter() - t0:.1f} s")
+    # ex24, the serving example, on 8 ranks stacked on the card (2x4 mesh)
+    ta.reset_launches()
+    _run_example("ex24_serving", argv=[])
+    n = ta.launch_counts().get("paged_attention", 0)
+    if n < 1:
+        raise AssertionError("ex24 never launched paged_attention")
+    counts["paged_attention"] += n
+    err, rows = _p31_row17(gen, ta)
+    out: list = []
+    t0 = time.perf_counter()
+    res = config12_lever_rows(out, device=DEVICE, weights=weights, repeats=P31_REPEATS,
+                              measure_steps=P31_TICKS)
+    for r in out:
+        log(f"  config 12 {r['metric']}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k not in ("metric", "config", "detail")))
+    log(f"  config 12 lever rows: {time.perf_counter() - t0:.1f} s (macro at batch "
+        f"{res['macro_batch']})")
+    log(f"  launches on the phase's engine paths: {counts}")
+    return counts, err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4741,6 +5134,12 @@ def main() -> int:
         ref_launches, rows30 = phase30_reference_programs(gen, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stage("== phase 31: speculation, macro decode, prefix sharing, chunked prefill and retries "
+          "at config 12's width")
+    cfg12, scfg12, weights = _serve_setup()
+    lever_launches, err31, rows31 = phase31_serving_levers(cfg12, scfg12, weights, gen)
+    del weights
 
     # name -> (source, TPU kernel it replaces, the main shape's row)
     table = {
@@ -4822,6 +5221,14 @@ def main() -> int:
         by_path[name]["phase 30"] = n
         counts[name] += n
     rows += rows30
+    # phase 31 runs row 17 in the verify step, the macro loops and context prefill
+    for name, n in lever_launches.items():
+        if name not in by_path:
+            by_path[name] = {FIRST_PATH[name]: counts[name]}
+        by_path[name]["phase 31"] = n
+        counts[name] += n
+    errs["paged_attention"] = max(errs["paged_attention"], err31)
+    rows += rows31
     kernels = []
     for name, (src, tpu, main_shape) in table.items():
         row = next(r for r in rows if r["name"] == name and main_shape in r["shape"])

@@ -1739,3 +1739,123 @@ def test_native_library_builds_and_registers_with_the_card(card):
         del host
         buf.free()                       # unregisters, then returns the pages
         assert pool.stats()["live_buffers"] == 0
+
+
+# ---- the serving levers on the card: sync-free writes, dispatches, accept rule -----------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.float8_e4m3fn])
+def test_put_is_sync_free_and_bit_equal_to_the_masked_write(card, dtype):
+    """``serve.decode._Writes`` and ``_put`` under
+    ``set_sync_debug_mode("error")``: one scatter, bit-equal to the masked
+    write made entry by entry on the host, with dropped entries sharing a
+    kept entry's target and a rank with no kept entry (both land in the
+    pool's write sink)."""
+    from tpuscratch_torch.comm.spmd import mesh_context
+    from tpuscratch_torch.serve.decode import _put, _Writes
+    from tpuscratch_torch.serve.kvcache import CacheGeometry, init_kv_cache
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    L, P_, page, H, D, B, li = 2, 6, 4, 3, 8, 5, 1
+    pool = init_kv_cache(CacheGeometry(L, P_, page, H, D), 2, dtype, device=card)["k"]
+    pool.copy_(torch.randn(pool.shape, generator=g).mul(50).to(dtype))
+    pages = torch.randint(0, P_ + 1, (2, B), generator=g, dtype=torch.int32)
+    offs = torch.randint(0, page, (2, B), generator=g, dtype=torch.int32)
+    pages[0] = torch.tensor([0, P_, 0, 1, P_ + 3], dtype=torch.int32)  # dropped entries on
+    offs[0] = torch.tensor([1, 1, 2, 1, 3], dtype=torch.int32)         # a kept entry's target
+    pages[1] = P_                                                       # rank 1 keeps nothing
+    vals = torch.randn((2, B, H, D), generator=g).mul(50).to(dtype)
+    want = pool.cpu().clone()
+    for r in range(2):
+        for b in range(B):
+            if pages[r, b] < P_:
+                want[li, r * P_ + int(pages[r, b]), int(offs[r, b])] = vals[r, b]
+    # the stacked (dp 2, sp 1) views that run_spmd hands a program
+    dst = pool.unflatten(1, (2, P_)).movedim(1, 0).unsqueeze(1)
+    pages_d, offs_d, vals_d = (t.unsqueeze(1).to(card) for t in (pages, offs, vals))
+    with mesh_context(make_mesh((2, 1), ("dp", "sp"), card)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _put(dst, li, _Writes((pages_d, offs_d), pages_d < P_, P_, L), vals_d)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(pool.cpu().view(torch.uint8), want.view(torch.uint8))
+
+
+def _serve_engine(card, **kw):
+    from tpuscratch_torch.models.transformer import TransformerConfig
+    from tpuscratch_torch.serve import ServeConfig, ServeEngine
+
+    cfg = TransformerConfig(d_model=64, n_heads=4, n_experts=4, d_ff=96, n_layers=2,
+                            capacity_factor=4.0)
+    scfg = ServeConfig(n_slots=4, n_pages=64, page_size=8, max_seq=96, vocab=32, seed=1, **kw)
+    return ServeEngine(make_mesh((1, 1), ("dp", "sp"), card), cfg, scfg)
+
+
+def _periodic_requests(n=4, max_new=40):
+    from tpuscratch_torch.serve import Request
+
+    return [Request(rid=i, prompt=tuple((t % (2 + i % 3)) + 1 for t in range(12 + i)),
+                    max_new=max_new) for i in range(n)]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(spec_k=3), dict(macro_steps=16),
+                                dict(macro_steps=16, kv_dtype="int8"),
+                                dict(spec_k=3, macro_steps=4)],
+                         ids=["decode", "verify", "macro16", "macro16-int8", "spec-macro4"])
+def test_a_dispatch_makes_one_host_sync(card, kw):
+    """One engine tick past admission (a decode step, a verify step, a
+    macro dispatch) under ``set_sync_debug_mode("error")``: the one pull of
+    its sampled tokens (exempt inside the engine) is its only host sync."""
+    eng = _serve_engine(card, fused_attention="on", **kw)
+    for r in _periodic_requests():
+        eng.submit(r)
+    eng.step()                          # admissions (prefill, first token) and a dispatch
+    assert eng.n_active == 4 and not eng.n_queued
+    syncs0, disp0 = eng.host_syncs, eng.dispatches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.dispatches - disp0 == 1 and eng.host_syncs - syncs0 == 1
+
+
+@pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (0.8, 4)])
+def test_accept_batch_on_the_card_equals_the_cpu(card, temperature, top_k):
+    """The device accept rule on the card against the same call on the CPU:
+    the same accepted lengths and terminal tokens (the uniforms, keys and
+    argmax are integer or bit-exact; the f32 softmax of the card may move
+    a threshold by an ulp, which these draws are not near)."""
+    from tpuscratch_torch.serve.sampling import accept_batch, key
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B, K, V = 16, 5, 64
+    logits = torch.randn((B, K, V), generator=g) * 3
+    drafts = torch.randint(0, V, (B, K - 1), generator=g, dtype=torch.int32)
+    drafts[:8] = logits.argmax(-1)[:8, :K - 1].to(torch.int32)
+    dlen = torch.randint(0, K, (B,), generator=g, dtype=torch.int32)
+    rids = torch.arange(B, dtype=torch.int32) + 100
+    pos0 = torch.arange(B, dtype=torch.int32) * 7
+    args = (rids, pos0, logits, drafts, dlen)
+    want = accept_batch(key(11, "cpu"), *args, temperature=temperature, top_k=top_k)
+    got = accept_batch(key(11, card), *(a.to(card) for a in args), temperature=temperature,
+                       top_k=top_k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_macro_dispatch_equal_with_and_without_the_kernel(card, kv_dtype):
+    """A T = 16 macro engine with the paged-attention kernel and with the
+    plain attention: equal greedy outputs, and the kernel launched n_layers
+    x T times a dispatch (every round runs, masked)."""
+    reports = {}
+    for mode in ("off", "on"):
+        eng = _serve_engine(card, fused_attention=mode, macro_steps=16, kv_dtype=kv_dtype)
+        ta.reset_launches()
+        reports[mode] = eng.run(_periodic_requests(max_new=24))
+        if mode == "on":
+            assert ta.launch_counts()["paged_attention"] == 2 * 16 * reports[mode].dispatches
+    assert reports["on"].outputs == reports["off"].outputs

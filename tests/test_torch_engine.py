@@ -1,8 +1,9 @@
 """The port's serving engine (``tpuscratch_torch.serve.engine``) against
 the JAX package's: the same tokens for the same traffic (greedy, and
 temperature 0.8 with top-k) on a 1x1 and a 1x2 (dp, sp) mesh, the same
-report counters, config 12 at the CPU shapes, and the levers not ported
-refusing to start."""
+report counters, config 12 at the CPU shapes with its lever rows keyed as
+the JAX harness keys them, the ServeConfig refusals of the JAX engine, and
+the parts not ported (the host KV tier, the tracer) refusing to start."""
 
 import dataclasses
 
@@ -74,12 +75,47 @@ def test_config12_rows_at_cpu_shapes():
     out: list = []
     res = config12_decode(out, device="cpu")
     assert [r["metric"] for r in out] == ["serve_decode_tokens_per_s", "serve_decode_roofline",
-                                          "serve_kv_cache_bytes"]
+                                          "serve_kv_cache_bytes", "serve_decode_spec",
+                                          "serve_prefix_share", "serve_decode_macro"]
     assert [r["batch"] for r in out[0]["sweep"]] == [1, 4]
     assert all(r["platform"] == "cpu" and r["device"] == "cpu" for r in out)
     assert out[1]["kernel"] == "dense" and "fused_speedup" not in out[1]
     assert out[2]["bytes_per_token_f32"] == 256.0 and out[2]["bytes_per_token_int8"] == 68.0
     assert res["fused"] is None and len(res["sweep"]) == 2
+    spec, share, macro = out[3:]
+    assert spec["accept_len_mean"] > 0 and spec["value"] > 0
+    assert 1.0 > share["prefill_frac_r50"] > share["prefill_frac_r90"]
+    assert [macro[f"dispatches_per_token_t{T}"] for T in (1, 4, 16)] == [1.0, 0.25, 0.0625]
+    assert macro["host_syncs_per_token_t16"] == 0.0625 and res["macro_batch"] == 1
+    # the long mix holds the chunked outputs to the monolithic run's here
+    assert res["longmix_against"] == "monolithic" and res["longmix"]["mono_diff"] == 0
+
+
+def _jax_row_keys(metric: str) -> set:
+    """The keywords the JAX harness's ``_emit`` of ``metric`` names, read
+    from its source."""
+    import ast
+    import pathlib
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "tpuscratch" / "bench" / "record.py"
+    for node in ast.walk(ast.parse(src.read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "_emit":
+            kw = {k.arg: k.value for k in node.keywords}
+            if isinstance(kw.get("metric"), ast.Constant) and kw["metric"].value == metric:
+                return set(kw)
+    raise AssertionError(f"no _emit of {metric} in the JAX harness")
+
+
+def test_config12_lever_rows_keys_follow_the_jax_source():
+    from tpuscratch_torch.bench.record import config12_lever_rows
+
+    out: list = []
+    config12_lever_rows(out, device="cpu")
+    assert [r["metric"] for r in out] == ["serve_decode_spec", "serve_prefix_share",
+                                          "serve_decode_macro"]
+    for row in out:
+        assert set(row) - {"platform", "device"} == _jax_row_keys(row["metric"]), row["metric"]
+        assert row["platform"] == "cpu" and row["config"] == 12
 
 
 @pytest.mark.parametrize("on_card", [True, False])
@@ -95,13 +131,31 @@ def test_decode_setup_and_budget_equal_jax(on_card):
                             measure_steps=kw["measure_steps"])
 
 
-@pytest.mark.parametrize("knob,value", [("spec_k", 2), ("macro_steps", 4), ("async_macro", True),
-                                        ("prefix_share", True), ("chunk_prefill", 4),
-                                        ("kv_host_pages", 8), ("retry_budget", 1)])
+@pytest.mark.parametrize("knob,value", [("kv_host_pages", 8), ("tracer", "a tracer")])
 def test_levers_not_ported_raise(knob, value):
-    scfg = dataclasses.replace(ServeConfig(), **{knob: value})
+    # the host KV tier and the per-request tracer wait for ROADMAP A14's parts 3 and 4
+    mesh = make_mesh((1, 1), ("dp", "sp"), device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
-        ServeEngine(make_mesh((1, 1), ("dp", "sp"), device="cpu"), TransformerConfig(), scfg)
+        if knob == "tracer":
+            ServeEngine(mesh, TransformerConfig(), ServeConfig(), tracer=value)
+        else:
+            ServeEngine(mesh, TransformerConfig(), dataclasses.replace(ServeConfig(),
+                                                                       **{knob: value}))
+
+
+@pytest.mark.parametrize("bad", [dict(spec_k=-1), dict(macro_steps=0), dict(chunk_prefill=-1),
+                                 dict(retry_budget=1, prefix_share=True),
+                                 dict(retry_budget=1, chunk_prefill=4)],
+                         ids=["spec_k", "macro_steps", "chunk_prefill", "retry-share",
+                              "retry-chunk"])
+def test_serve_config_refusals_equal_jax(bad):
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jax_mesh((1, 1), ("dp", "sp"), jax.devices()[:1]), JaxConfig(**CFG),
+                  JaxServeConfig(**bad))
+    with pytest.raises(ValueError) as got:
+        ServeEngine(make_mesh((1, 1), ("dp", "sp"), device="cpu"), TransformerConfig(**CFG),
+                    ServeConfig(**bad))
+    assert str(got.value) == str(want.value)
 
 
 def test_engine_refusals():

@@ -6,7 +6,7 @@ and its deterministic lines equal the JAX example's line for line.
 
 Dropped before the comparison, by name:
 - timing lines: every ``BenchResult.summary()`` line (the dot, pingpong and
-  host-staging rates; they hold ``p50``);
+  host-staging rates; they hold ``p50``) and ex24's ``wall:`` line;
 - temporary paths: ex09's ``per-rank dumps written to <dir>`` line;
 - device identity: ex01's hello line and its ``[rank 0]`` lines, which name
   the JAX example's 8 virtual CPU devices and the port's one device (their
@@ -32,6 +32,8 @@ EXAMPLES = sorted(p.stem for p in (ROOT / "tpuscratch_torch" / "examples").glob(
 def _dropped(name: str, line: str) -> bool:
     if " p50 " in line or line.startswith("per-rank dumps written to "):
         return True
+    if name == "ex24_serving" and line.startswith("wall: "):
+        return True
     return name == "ex01_hello_mesh" and (line.startswith("process ") or line.startswith("[rank"))
 
 
@@ -43,8 +45,9 @@ def _run(main, capsys, **kw) -> str:
 
 
 def test_every_jax_example_1_to_10_has_a_twin():
+    # ex01-ex10, and the later examples whose modules have landed (ex24: serving)
     jax_names = sorted(p.stem for p in (ROOT / "examples").glob("ex*.py")
-                       if int(p.stem[2:4]) <= 10)
+                       if int(p.stem[2:4]) <= 10 or int(p.stem[2:4]) == 24)
     assert EXAMPLES == jax_names
 
 

@@ -90,7 +90,7 @@ def test_no_jax_and_no_build_at_import():
                     "ex01_hello_mesh", "ex02_pair_exchange", "ex03_token_ring",
                     "ex04_neighbor_exchange", "ex05_structured_slices", "ex06_subgroups",
                     "ex07_cartesian_grid", "ex08_dot_product", "ex09_stencil2d",
-                    "ex10_pingpong"))):
+                    "ex10_pingpong", "ex24_serving"))):
         assert mod in got["modules"]
 
 

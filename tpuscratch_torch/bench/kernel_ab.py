@@ -44,7 +44,12 @@ vectors):
   whatever the wrapper runs after it), held bit-equal to the plain core and
   ``rebuild`` first, beside ``conv2d`` and ``conv2d`` with ``rebuild``;
 - ``iota``: ``iota2d`` at 37x53 and 8192^2 f32 and 8192^2 bf16, held
-  bit-equal first, beside ``torch.arange(h * w).view(h, w)``.
+  bit-equal first, beside ``torch.arange(h * w).view(h, w)``;
+- ``engine``: config 12's default decode row, the serve engine's steady
+  tick at batch 8 and 32 (``bench_decode`` at ``default_decode_setup``'s
+  card shapes, seeded weights): the wall ms of a tick (the median of three
+  windows, each the mean of its measured ticks; tokens/s is the batch over
+  it), host and card together.
 
 Usage, from the root of a checkout, on a machine with a card:
 
@@ -59,7 +64,7 @@ stream3d: the z chunks of 1 to 8 and 16 chunks a rank; stream2d, deep
 and trapezoid: other levels a stage, half-width strips and other row
 chunks than ``march_plan``'s; resident: every fold, 1 to 3 blocks an SM;
 five: every load width the pitch allows; iota: smaller grids).
-``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep,trapezoid,resident,five,iota``
+``--only paged,hbm,dot,fill,probes,ring,stream3d,stream2d,deep,trapezoid,resident,five,iota,engine``
 picks case groups.
 ``--root`` imports ``tpuscratch_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive`` into ``build/parent``), whose
@@ -867,10 +872,34 @@ def iota_sweep(gen):
                    device_ms(call))
 
 
+ENGINE_BATCHES = (8, 32)
+
+
+def engine_cases(gen):
+    """(case, ms) of config 12's default decode row: the wall time of one
+    engine tick at batch 8 and 32, the median of three windows."""
+    import dataclasses
+
+    from tpuscratch_torch.bench.decode_bench import bench_decode, default_decode_setup
+    from tpuscratch_torch.models.transformer import init_params
+    from tpuscratch_torch.runtime.mesh import make_mesh
+    from tpuscratch_torch.serve.engine import init_embed
+
+    cfg, scfg, _, kwargs = default_decode_setup(True)
+    mesh = make_mesh((1, 1), ("dp", "sp"), "cuda")
+    weights = dict(params=init_params(scfg.seed, cfg, "cuda"),
+                   embed=init_embed(scfg.seed, scfg.vocab, cfg.d_model, "cuda"))
+    for batch in ENGINE_BATCHES:
+        ticks = sorted(1e3 * batch / bench_decode(mesh, cfg, dataclasses.replace(
+            scfg, n_slots=batch), **kwargs, **weights).tokens_per_s for _ in range(3))
+        yield f"engine decode batch {batch} (ms a tick, median of 3)", ticks[1]
+
+
 GROUPS = {"paged": paged_cases, "hbm": hbm_cases, "dot": dot_cases, "fill": fill_cases,
           "probes": probe_cases, "ring": ring_cases, "stream3d": stream3d_cases,
           "stream2d": stream2d_cases, "deep": deep_cases, "trapezoid": trapezoid_cases,
-          "resident": resident_cases, "five": five_cases, "iota": iota_cases}
+          "resident": resident_cases, "five": five_cases, "iota": iota_cases,
+          "engine": engine_cases}
 
 
 def main(argv=None) -> int:

@@ -37,9 +37,14 @@ import sys
 import torch
 
 from tpuscratch_torch.bench.decode_bench import (
+    accept_friendly_prompt,
+    bench_chunk_longmix,
     bench_decode,
+    bench_serve_stream,
     default_decode_setup,
+    fitting_batches,
     peak_hbm_bytes_per_s,
+    shared_prefix_prompts,
 )
 from tpuscratch_torch.bench.decode_bench import sweep as decode_sweep
 from tpuscratch_torch.bench.dot_bench import bench_dot
@@ -331,11 +336,12 @@ def _median_of(runs, key):
     return runs[len(runs) // 2]
 
 
-def config12_decode(out: list, device=None) -> dict:
+def config12_decode(out: list, device=None, levers: bool = True) -> dict:
     """Serving decode: steady-state engine ticks (continuous batching,
     paged KV cache) across the batch sweep, tokens/s and the per-token
     latency tail, the median of three complete sweeps by their best
-    tokens/s. Three rows: ``serve_decode_tokens_per_s``,
+    tokens/s. Three rows, then (``levers``) the three of
+    :func:`config12_lever_rows`: ``serve_decode_tokens_per_s``,
     ``serve_decode_roofline`` (the sweep's bytes over the wall against the
     memory rate; on the card the best batch re-run with
     ``fused_attention="on"`` and then ``"off"``, back to back, their ratio
@@ -393,7 +399,120 @@ def config12_decode(out: list, device=None) -> dict:
           bytes_per_token_fp8=per_tok["fp8"], int8_ratio=per_tok["int8"] / per_tok["f32"],
           detail=f"{per_tok['f32']:.0f} -> {per_tok['int8']:.0f} B/token "
                  f"({per_tok['int8'] / per_tok['f32']:.3f}x) at config-12 geometry")
-    return {"sweep": results, "fused": fused, "plain": plain}
+    res = {"sweep": results, "fused": fused, "plain": plain}
+    if levers:
+        res.update(config12_lever_rows(out, device=dev, weights=weights))
+    return res
+
+
+def config12_lever_rows(out: list, device=None, weights: dict | None = None,
+                        repeats: int = 3, measure_steps: int | None = None) -> dict:
+    """Config 12's rows of the serving levers, with the JAX rows' names and
+    keys (each wall-clock figure the median of ``repeats`` runs, three as in
+    the JAX harness, over ``default_decode_setup``'s measured ticks unless
+    ``measure_steps`` cuts them; a cut adds a ``reduced`` key to each row):
+
+    - ``serve_decode_spec``: speculation (spec_k 4 on the card, 3 on the
+      CPU; batch 8 on the card) on an accept-friendly periodic prompt,
+      beside the same workload without it;
+    - ``serve_prefix_share``: a stream of ``2 x n_slots`` prompts sharing
+      0, 0.5 and 0.9 of their tokens, the static prefill fraction and
+      fresh K/V bytes per token, with the chunked-prefill long mix (a
+      256-token prompt on the card, 32 on the CPU, against monolithic;
+      ``bench_chunk_longmix``'s ``against`` by the MoE's capacity);
+    - ``serve_decode_macro``: the steady window at macro_steps 1, 4 and 16
+      at the largest batch whose T = 16 bank fits the pool.
+
+    ``weights`` (``params``/``embed``) default to the seeded draws."""
+    from tpuscratch_torch.models.transformer import init_params
+    from tpuscratch_torch.runtime.mesh import resolve_device
+    from tpuscratch_torch.serve.engine import init_embed
+
+    dev = resolve_device(device)
+    on_card = dev.type == "cuda"
+    cfg, scfg, batches, kwargs = default_decode_setup(on_card)
+    mesh = make_mesh((1, 1), ("dp", "sp"), dev)
+    if weights is None:
+        weights = dict(params=init_params(scfg.seed, cfg, dev),
+                       embed=init_embed(scfg.seed, scfg.vocab, cfg.d_model, dev))
+    reduced = {"repeats": repeats} if repeats < 3 else {}
+    if measure_steps is not None and measure_steps < kwargs["measure_steps"]:
+        kwargs = dict(kwargs, measure_steps=measure_steps)
+        reduced["measure_steps"] = measure_steps
+    cut = {"reduced": reduced} if reduced else {}
+    cut_streams = {"reduced": {"repeats": repeats}} if repeats < 3 else {}   # no ticks to cut
+    batch = min(batches[-1], 8) if on_card else batches[-1]
+    prompt = accept_friendly_prompt(kwargs["prompt_len"], scfg.vocab)
+    kw = {k: v for k, v in kwargs.items() if k != "prompt_len"}
+    base = _median_of([bench_decode(mesh, cfg, dataclasses.replace(scfg, n_slots=batch),
+                                    prompt=prompt, **kw, **weights) for _ in range(repeats)],
+                      key=lambda r: r.tokens_per_s)
+    spec = _median_of([bench_decode(mesh, cfg, dataclasses.replace(
+        scfg, n_slots=batch, spec_k=4 if on_card else 3), prompt=prompt, **kw, **weights)
+        for _ in range(repeats)], key=lambda r: r.tokens_per_s)
+    _emit(out, mesh, config=12, metric="serve_decode_spec", value=spec.tokens_per_s,
+          nospec_tokens_per_s=base.tokens_per_s,
+          spec_speedup=spec.tokens_per_s / base.tokens_per_s,
+          accept_len_mean=spec.accept_len_mean, p50_s=spec.p50_s, p99_s=spec.p99_s,
+          detail=spec.summary(), **cut)
+
+    length = max(4 * scfg.page_size, kwargs["prompt_len"])
+    max_new = 8
+    share_scfg = dataclasses.replace(scfg, max_seq=max(scfg.max_seq, length + max_new),
+                                     prefix_share=True)
+    share = {}
+    for ratio in (0.0, 0.5, 0.9):
+        prompts = shared_prefix_prompts(scfg.n_slots * 2, length, ratio, scfg.vocab)
+        share[ratio] = _median_of([bench_serve_stream(mesh, cfg, share_scfg, prompts,
+                                                      max_new=max_new, **weights)
+                                   for _ in range(repeats)], key=lambda r: r["p99_tick_s"])
+    long_len = 256 if on_card else 32
+    long_scfg = dataclasses.replace(scfg, max_seq=max(scfg.max_seq, long_len + 32),
+                                    n_pages=max(scfg.n_pages, 64))
+    # the chunked outputs equal the monolithic ones only where the MoE drops
+    # no token (the CPU shapes: capacity 2 = 2 experts); config 12 on the card
+    # drops, and holds them to the chunked stream's plain attention (C5)
+    against = "monolithic" if cfg.capacity_factor >= cfg.n_experts else "plain"
+    longmix = _median_of([bench_chunk_longmix(mesh, cfg, long_scfg, chunk=scfg.page_size,
+                                              long_len=long_len, against=against, **weights)
+                          for _ in range(repeats)], key=lambda r: r["p99_ratio"])
+    _emit(out, mesh, config=12, metric="serve_prefix_share",
+          prefill_frac_r50=share[0.5]["prefill_frac"],
+          prefill_frac_r90=share[0.9]["prefill_frac"],
+          fresh_kv_bytes_per_token_r0=share[0.0]["fresh_kv_bytes_per_token"],
+          fresh_kv_bytes_per_token_r50=share[0.5]["fresh_kv_bytes_per_token"],
+          fresh_kv_bytes_per_token_r90=share[0.9]["fresh_kv_bytes_per_token"],
+          p99_s_r0=share[0.0]["p99_tick_s"], p99_s_r90=share[0.9]["p99_tick_s"],
+          p99_s_longmix_mono=longmix["p99_s_mono"],
+          p99_s_longmix_chunked=longmix["p99_s_chunked"],
+          longmix_p99_ratio=longmix["p99_ratio"],
+          detail=(f"prefill_frac 1 -> {share[0.5]['prefill_frac']:.3f} -> "
+                  f"{share[0.9]['prefill_frac']:.3f} at share 0/0.5/0.9; long-mix p99 "
+                  f"{longmix['p99_ratio']:.3f}x chunked"), **cut_streams)
+
+    # a macro slot's budget (and page reservation) scales by T: the largest
+    # batch whose T = 16 bank fits the pool, the same batch at every T
+    _, fit = fitting_batches(scfg, batches, kwargs["prompt_len"], kwargs["measure_steps"],
+                             tokens_per_tick=16)
+    macro_batch = max(fit or (1,))
+    macro = {T: _median_of([bench_decode(mesh, cfg, dataclasses.replace(
+        scfg, n_slots=macro_batch, macro_steps=T), **kwargs, **weights) for _ in range(repeats)],
+        key=lambda r: r.tokens_per_s) for T in (1, 4, 16)}
+    r1, r16 = macro[1], macro[16]
+    _emit(out, mesh, config=12, metric="serve_decode_macro", value=r16.tokens_per_s,
+          tokens_per_s_t1=r1.tokens_per_s, tokens_per_s_t4=macro[4].tokens_per_s,
+          tokens_per_s_t16=r16.tokens_per_s, macro_speedup=r16.tokens_per_s / r1.tokens_per_s,
+          dispatches_per_token_t1=r1.dispatches_per_token,
+          dispatches_per_token_t4=macro[4].dispatches_per_token,
+          dispatches_per_token_t16=r16.dispatches_per_token,
+          host_syncs_per_token_t1=r1.host_syncs_per_token,
+          host_syncs_per_token_t16=r16.host_syncs_per_token,
+          detail=(f"T=16 {r16.tokens_per_s:.3e} tok/s ({r16.tokens_per_s / r1.tokens_per_s:.2f}x "
+                  f"vs T=1); dispatches/token {r1.dispatches_per_token:.4f} -> "
+                  f"{r16.dispatches_per_token:.4f}, host syncs/token "
+                  f"{r1.host_syncs_per_token:.4f} -> {r16.host_syncs_per_token:.4f}"), **cut)
+    return {"spec": spec, "nospec": base, "share": share, "longmix": longmix,
+            "longmix_against": against, "macro": macro, "macro_batch": macro_batch}
 
 
 def _sync_bytes(step, *args):

@@ -24,14 +24,22 @@ nothing).
 
 Each ``build_*`` program is counted by a :class:`ProgramCounter` at its
 first call, the number the JAX package's compile counter reports (one per
-prefill bucket, one decode program). The macro-step and speculative loops
-wait for the speculation slice of the port.
+prefill bucket, one decode program).
+
+The device-resident loops (``build_decode_loop``, ``build_spec_decode_loop``)
+run T whole engine ticks in one call with the slot state carried on the
+device: no value crosses to the host until the caller pulls the outputs.
+The JAX loops skip idle rounds with ``lax.cond`` on a mesh-wide psum; that
+predicate would need a host read here, so every round runs, masked (an
+idle round writes nothing and emits nothing, so the outputs are the
+same), and a dispatch launches each layer's attention T times.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from tpuscratch_torch.comm.collectives import allreduce_sum
@@ -54,6 +62,7 @@ from tpuscratch_torch.serve.kvcache import (
     kv_cache_spec,
     quantize_pages,
 )
+from tpuscratch_torch.serve.sampling import accept_batch, request_keys, sample_batch
 
 
 class ProgramCounter:
@@ -208,24 +217,66 @@ def _moe_residual(p, x, cfg: TransformerConfig, dp: str):
     return x + moe
 
 
-def _put(dst: torch.Tensor, li: int, idx: tuple, vals: torch.Tensor,
-         valid: torch.Tensor) -> None:
-    """``dst[rank, li, *idx] = vals`` where ``valid`` (in place): dst
-    ``(*mesh, L, ...)``, idx tensors and valid ``(*mesh, *b)``, vals
-    ``(*mesh, *b, ...)`` -- the JAX ``.at[li, *idx].set(vals,
-    mode="drop")`` with invalid entries dropped."""
-    c = valid.nonzero(as_tuple=True)
+class _Writes:
+    """Where one masked write lands, planned once for every layer and pool
+    it writes (the JAX ``.at[li, *idx].set(vals, mode="drop")``, with no
+    read of the device from the host).
+
+    Kept entries land on their targets, which they never share (distinct
+    positions, or distinct pages). Dropped entries all land on the pool's
+    write sink, the page that ``init_kv_cache`` leaves in each pool's
+    storage past its end: in the stacked view it is page ``n_pages`` of
+    the last layer at every mesh dim's last index, which no table
+    reaches. So a scatter with duplicate indices (no defined winner on
+    the card) only ever races on the sink, and the pool reads as after
+    the masked write, bit for bit. ``idx`` tensors (a page id first) and
+    ``valid`` are ``(*mesh, *b)``."""
+
+    def __init__(self, idx: tuple, valid: torch.Tensor, n_pages: int, n_layers: int):
+        m = _nmesh()
+        lead = valid.shape[:m]
+        self.at = tuple(torch.where(valid, i, n - 1)
+                        for i, n in zip(lead_index(lead, valid.ndim, valid.device), lead))
+        self.idx = (torch.where(valid, idx[0], n_pages),
+                    *(torch.where(valid, i, 0) for i in idx[1:]))
+        layers = torch.arange(n_layers, device=valid.device).view(n_layers, *[1] * valid.ndim)
+        self.layer = torch.where(valid, layers, n_layers - 1)     # one row a layer
+
+
+def _with_sink(dst: torch.Tensor) -> torch.Tensor:
+    """``dst`` ``(*mesh, L, n_pages, ...)`` seen with one more page, whose
+    last is the write sink past the pool's end (see :class:`_Writes`)."""
     m = _nmesh()
-    dst[(*c[:m], li, *(i[c] for i in idx))] = vals[c].to(dst.dtype)
+    shape = list(dst.shape)
+    shape[m + 1] += 1
+    sink = sum((n - 1) * s for n, s in zip(shape[:m + 1], dst.stride()))
+    sink += dst.shape[m + 1] * dst.stride(m + 1)
+    end = sum((n - 1) * s for n, s in zip(dst.shape, dst.stride()))
+    why = ("serve programs write into pools made by init_kv_cache, whose storage holds a "
+           "write sink one page past the pool")
+    if sink <= end:
+        raise ValueError(why)
+    try:
+        return dst.as_strided(shape, dst.stride(), dst.storage_offset())
+    except RuntimeError as e:   # no room past the pool's end
+        raise ValueError(why) from e
 
 
-def _quant_write(pages_q, scales, li, write_page, write_off, new_vals) -> None:
+def _put(dst: torch.Tensor, li: int, w: _Writes, vals: torch.Tensor) -> None:
+    """``dst[rank, li, *idx] = vals`` where valid, in place, in one scatter
+    as ``w`` planned it: dst ``(*mesh, L, n_pages, ...)`` a view of an
+    ``init_kv_cache`` pool, vals ``(*mesh, *b, ...)``."""
+    _with_sink(dst)[(*w.at, w.layer[li], *w.idx)] = vals.to(dst.dtype)
+
+
+def _quant_write(pages_q, scales, li, write_page, write_off, new_vals, w: _Writes) -> None:
     """One quantized token write per slot, in place: insert ``new_vals``
     ``(*mesh, B, H, D)`` at (``write_page``, ``write_off``) of layer
     ``li``'s pool, requantizing each touched page from its dequantized view
     with entries beyond the write offset zeroed (freed-page leftovers and
     rejected draft tokens must not inflate a page's scale). Sentinel write
-    pages gather a clipped page but write nothing."""
+    pages gather a clipped page but write nothing (``w`` plans the page
+    writes)."""
     m = _nmesh()
     n_pages, page_size = pages_q.shape[m + 1], pages_q.shape[m + 2]
     idx = torch.clamp(write_page, 0, n_pages - 1)
@@ -236,9 +287,8 @@ def _quant_write(pages_q, scales, li, write_page, write_off, new_vals) -> None:
     pg = torch.where(offs == wo, new_vals.unsqueeze(-3),
                      torch.where(offs < wo, pg, torch.zeros((), device=pg.device)))
     q, s = quantize_pages(pg, pages_q.dtype)
-    valid = write_page < n_pages
-    _put(pages_q, li, (write_page,), q, valid)
-    _put(scales, li, (write_page,), s, valid)
+    _put(pages_q, li, w, q)
+    _put(scales, li, w, s)
 
 
 def _layer(t, li: int):
@@ -270,18 +320,21 @@ def decode_step_fn(cfg: TransformerConfig, sp: str = "sp", dp: str = "dp",
         # permutation makes their zero vectors lose every capacity tie
         perm = torch.argsort((seq_lens == 0).to(torch.int32), dim=-1, stable=True)
         inv = torch.argsort(perm, dim=-1)
+        n_pages = kv_k.shape[_nmesh() + 1]
+        valid = write_page < n_pages
+        w = _Writes((write_page,) if quantized else (write_page, write_off), valid, n_pages,
+                    len(params["layers"]))
         for li, p in enumerate(params["layers"]):
             h = _rms_norm(x, _lead(p["ln1"], x.ndim))
             q = _head_slice(_mm(h, p["wq"]).unflatten(-1, (H, Dh)), sp)
             k = _head_slice(_mm(h, p["wk"]).unflatten(-1, (H, Dh)), sp)
             v = _head_slice(_mm(h, p["wv"]).unflatten(-1, (H, Dh)), sp)
             if quantized:
-                _quant_write(kv_k, k_scale, li, write_page, write_off, k)
-                _quant_write(kv_v, v_scale, li, write_page, write_off, v)
+                _quant_write(kv_k, k_scale, li, write_page, write_off, k, w)
+                _quant_write(kv_v, v_scale, li, write_page, write_off, v, w)
             else:
-                valid = write_page < kv_k.shape[_nmesh() + 1]
-                _put(kv_k, li, (write_page, write_off), k, valid)
-                _put(kv_v, li, (write_page, write_off), v, valid)
+                _put(kv_k, li, w, k)
+                _put(kv_v, li, w, v)
             attn = decode_attention(q, _layer(kv_k, li), _layer(kv_v, li), page_tables, seq_lens,
                                     _layer(k_scale, li), _layer(v_scale, li), fused=fused)
             x = _attn_residual(p, attn, x, cfg, sp)
@@ -337,6 +390,12 @@ def verify_step_fn(cfg: TransformerConfig, n_draft: int, sp: str = "sp", dp: str
         idle = (write_pages >= n_pages).reshape(*lead, B * K)
         perm = torch.argsort(idle.to(torch.int32), dim=-1, stable=True)
         inv = torch.argsort(perm, dim=-1)
+        valid = write_pages < n_pages
+        if quantized:   # a page write a position (planned once for every layer)
+            ws = [_Writes((write_pages[..., j],), valid[..., j], n_pages, len(params["layers"]))
+                  for j in range(K)]
+        else:
+            w = _Writes((write_pages, write_offs), valid, n_pages, len(params["layers"]))
         for li, p in enumerate(params["layers"]):
             h = _rms_norm(x, _lead(p["ln1"], x.ndim))
             q = _head_slice(_mm(h, p["wq"]).unflatten(-1, (H, Dh)), sp)
@@ -347,13 +406,12 @@ def verify_step_fn(cfg: TransformerConfig, n_draft: int, sp: str = "sp", dp: str
                 # page, and each requantizing write must see the last one
                 for j in range(K):
                     _quant_write(kv_k, k_scale, li, write_pages[..., j], write_offs[..., j],
-                                 k[..., j, :, :])
+                                 k[..., j, :, :], ws[j])
                     _quant_write(kv_v, v_scale, li, write_pages[..., j], write_offs[..., j],
-                                 v[..., j, :, :])
+                                 v[..., j, :, :], ws[j])
             else:
-                valid = write_pages < n_pages
-                _put(kv_k, li, (write_pages, write_offs), k, valid)
-                _put(kv_v, li, (write_pages, write_offs), v, valid)
+                _put(kv_k, li, w, k)
+                _put(kv_v, li, w, v)
             attn = verify_attention(q, _layer(kv_k, li), _layer(kv_v, li), page_tables, seq_lens,
                                     _layer(k_scale, li), _layer(v_scale, li), fused=fused)
             x = _attn_residual(p, attn, x, cfg, sp)
@@ -399,6 +457,264 @@ def build_context_prefill(mesh: StackedMesh, cfg: TransformerConfig, geom: Cache
     return _build_k_step(mesh, cfg, geom, chunk - 1, dp, sp, counter, quantized, fused)
 
 
+def _embed_rows(embed: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """Rows ``toks`` ``(*mesh, ...)`` of the stacked ``(*mesh, V, d)`` table."""
+    m = _nmesh()
+    flat = toks.reshape(*toks.shape[:m], -1).long()
+    rows = torch.take_along_dim(embed, flat[..., None], dim=-2)
+    return rows.reshape(*toks.shape, embed.shape[-1])
+
+
+def decode_loop_fn(cfg: TransformerConfig, geom: CacheGeometry, macro_steps: int,
+                   temperature: float = 0.0, top_k: int = 0, sp: str = "sp", dp: str = "dp",
+                   quantized: bool = False, fused: bool | None = None):
+    """The macro-step body: ``macro_steps`` whole engine ticks (decode
+    step, unembed, sample, K/V write, frontier advance) in one call,
+    (params, kv, embed, key_data, tables, n_cached, rids, positions,
+    budgets, last_tok, stop_mask, stopped, emitted) -> ((T, B) tokens,
+    (T, B) active mask, n_cached, positions, last_tok, emitted, stopped),
+    the cache updated in place.
+
+    Local shapes as the JAX body's: tables ``(B, max_pages)`` each slot's
+    full page list; n_cached ``(B,)`` (0 idles the slot); rids/positions
+    the sampling chain, positions advanced in the carry; budgets the
+    tokens a slot may still emit; stop_mask ``(B, V)`` bool; stopped and
+    emitted passed in so a dispatch can continue another's carry. Each
+    round is one engine tick: a slot is active while it is cached, has
+    budget and has not emitted a stop token (the stop token is emitted,
+    then the slot idles); an idle slot gets the zero vector, ``seq_len
+    == 0`` and the write sentinel; the write target comes from the
+    slot's own table row; keys are ``fold_in(fold_in(seed, rid),
+    position)``. Every round runs (no early exit: see the module
+    docstring)."""
+    if macro_steps < 1:
+        raise ValueError(f"macro_steps must be >= 1, got {macro_steps}")
+    step = decode_step_fn(cfg, sp=sp, dp=dp, quantized=quantized, fused=fused)
+    page_size, n_pages = geom.page_size, geom.n_pages
+
+    def loop(params, kv, embed, key_data, tables, n_cached, rids, positions, budgets,
+             last_tok, stop_mask, stopped, emitted):
+        key = key_data.unsqueeze(-2)                     # (*mesh, 1, 2) against (*mesh, B)
+        max_pages = tables.shape[-1]
+        toks_out, mask_out = [], []
+        for _ in range(macro_steps):
+            active = (n_cached > 0) & (emitted < budgets) & ~stopped
+            act_i = active.to(n_cached.dtype)
+            x = torch.where(active[..., None], _embed_rows(embed, last_tok), 0.0)
+            seq = torch.where(active, n_cached + 1, 0)
+            pidx = torch.clamp(torch.div(n_cached, page_size, rounding_mode="floor"), 0,
+                               max_pages - 1)
+            wp = torch.where(active, torch.take_along_dim(tables, pidx[..., None].long(),
+                                                          dim=-1)[..., 0], n_pages)
+            woff = torch.where(active, n_cached % page_size, 0)
+            out = step(params, kv, x, tables, wp, woff, seq)
+            logits = _mm(out, embed.transpose(-1, -2))
+            keys = request_keys(key, rids, positions) if temperature > 0 else None
+            toks = sample_batch(keys, logits, temperature, top_k)
+            toks = torch.where(active, toks, 0)
+            hit = torch.take_along_dim(stop_mask, toks[..., None].long(), dim=-1)[..., 0]
+            stopped = stopped | (active & hit)
+            n_cached = n_cached + act_i
+            positions = positions + act_i
+            last_tok = torch.where(active, toks, last_tok)
+            emitted = emitted + act_i
+            toks_out.append(toks)
+            mask_out.append(active)
+        m = _nmesh()
+        return (torch.stack(toks_out, dim=m), torch.stack(mask_out, dim=m), n_cached,
+                positions, last_tok, emitted, stopped)
+
+    return loop
+
+
+def _loop_program(mesh, body, in_specs, out_specs, n_rounds: int, counter):
+    """The program ``(params, kv, *args) -> (*per-round outputs, kv, *carry)``
+    of a loop body that updates the cache in place and returns its
+    ``n_rounds`` per-round outputs first (the JAX programs' output order)."""
+    prog = run_spmd(mesh, body, in_specs, out_specs)
+
+    def run(params, kv, *args):
+        outs = prog(params, kv, *args)
+        return (*outs[:n_rounds], kv, *outs[n_rounds:])
+
+    return counter.wrap(run) if counter is not None else run
+
+
+def build_decode_loop(mesh: StackedMesh, cfg: TransformerConfig, geom: CacheGeometry,
+                      macro_steps: int, temperature: float = 0.0, top_k: int = 0,
+                      dp: str = "dp", sp: str = "sp", counter: ProgramCounter | None = None,
+                      quantized: bool = False, fused: bool | None = None):
+    """The macro-step decode over ``mesh``: fn(params, kv, embed, key_data,
+    tables ``(B, max_pages)``, n_cached, rids, positions, budgets, last_tok
+    (``(B,)`` int32), stop_mask ``(B, V)`` bool, stopped ``(B,)`` bool,
+    emitted ``(B,)`` int32) -> (tokens ``(T, B)``, active mask ``(T, B)``,
+    kv, n_cached, positions, last_tok, emitted, stopped), slots split over
+    ``dp``, the carry left on the device. One call, and one pull of its
+    outputs, per ``macro_steps`` tokens. See :func:`decode_loop_fn`."""
+    check_serve_mesh(mesh, cfg, dp, sp)
+    _check_geometry(cfg, geom)
+    body = decode_loop_fn(cfg, geom, macro_steps, temperature=temperature, top_k=top_k, sp=sp,
+                          dp=dp, quantized=quantized, fused=fused)
+    specs = (param_spec(cfg, dp), kv_cache_spec(dp, sp, quantized), P(), P()) + (P(dp),) * 9
+    return _loop_program(mesh, body, specs, (P(None, dp),) * 2 + (P(dp),) * 5, 2, counter)
+
+
+def macro_occupancy(mask) -> tuple[int, np.ndarray]:
+    """A macro dispatch's ``(T, B)`` activity mask (the plain loop's
+    active mask, or ``n_emit > 0`` under speculation) -> (rounds any slot
+    ran, rounds each slot ran): per-slot masks are prefixes, so the
+    longest column is the bank's round count."""
+    m = np.asarray(mask, dtype=bool)
+    return int(m.any(axis=1).sum()), m.sum(axis=0).astype(np.int64)
+
+
+def propose_draft_batch(hist: torch.Tensor, ctx_len: torch.Tensor, k: int,
+                        ngram: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`propose_draft` for a whole slot bank on the device: ``hist``
+    ``(..., B, S)`` int32 each slot's prompt + generated tokens, zero past
+    ``ctx_len`` ``(..., B)`` -> (drafts ``(..., B, k)`` int32, zero past each
+    draft's length, draft_len ``(..., B)``). The largest matching start
+    whose continuation is a full ``k`` tokens wins, else the largest
+    matching start with its truncated continuation -- the host rule's
+    descent. Windows read a ``-1``-padded history, which never equals a
+    token."""
+    if k < 1 or ngram < 1:
+        raise ValueError(f"need k >= 1 and ngram >= 1, got {k}, {ngram}")
+    S = hist.shape[-1]
+    pad = torch.full((*hist.shape[:-1], ngram + k), -1, dtype=hist.dtype, device=hist.device)
+    hist_pad = torch.cat([hist, pad], dim=-1)
+    idx = torch.arange(S, device=hist.device)
+    n = ctx_len[..., None].long()
+    match = torch.ones(hist.shape, dtype=torch.bool, device=hist.device)
+    for j in range(ngram):
+        suffix_j = torch.take_along_dim(hist, torch.clamp(n - ngram + j, 0, S - 1), dim=-1)
+        match = match & (hist_pad[..., j:j + S] == suffix_j)
+    cand = match & (idx <= n - ngram - 1)
+    full = cand & (idx <= n - ngram - k)
+    i_part = torch.where(cand, idx, -1).amax(dim=-1)
+    i_full = torch.where(full, idx, -1).amax(dim=-1)
+    i0 = torch.where(i_full >= 0, i_full, i_part)
+    ctx = ctx_len.long()
+    dlen = torch.where(i_full >= 0, k, torch.where(i_part >= 0, ctx - i_part - ngram, 0))
+    dlen = torch.where((ctx >= ngram + 1) & (i0 >= 0), dlen, 0)
+    jk = torch.arange(k, device=hist.device)
+    gat = i0[..., None] + ngram + jk
+    drafts = torch.take_along_dim(hist_pad, torch.clamp(gat, 0, S + ngram + k - 1), dim=-1)
+    drafts = torch.where(jk < dlen[..., None], drafts, 0)
+    return drafts.to(torch.int32), dlen.to(torch.int32)
+
+
+def spec_decode_loop_fn(cfg: TransformerConfig, geom: CacheGeometry, macro_steps: int,
+                        spec_k: int, temperature: float = 0.0, top_k: int = 0, ngram: int = 2,
+                        sp: str = "sp", dp: str = "dp", quantized: bool = False,
+                        fused: bool | None = None):
+    """The speculative macro-step body: T whole speculation rounds (draft
+    proposal from the device-resident history, the K-token verify step,
+    the accept rule, frontier and history advance) in one call,
+    (params, kv, embed, key_data, tables, n_cached, rids, positions,
+    budgets, last_tok, hist, stop_mask, stopped) -> ((T, B, K) tokens,
+    (T, B) n_emit, (T, B) draft_len), the cache updated in place, ``K =
+    spec_k + 1``. Each round is one ``_spec_sweep`` tick of the engine:
+    the draft clamped to the remaining budget less one; beyond-draft
+    positions get zero vectors and the write sentinel; accept draws key
+    off the host rule's chains at ``position0 = positions``; a stop token
+    in the emitted run truncates it there and idles the slot. Every round
+    runs (no early exit)."""
+    if macro_steps < 1:
+        raise ValueError(f"macro_steps must be >= 1, got {macro_steps}")
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    K = spec_k + 1
+    step = verify_step_fn(cfg, spec_k, sp=sp, dp=dp, quantized=quantized, fused=fused)
+    page_size, n_pages = geom.page_size, geom.n_pages
+
+    def loop(params, kv, embed, key_data, tables, n_cached, rids, positions, budgets,
+             last_tok, hist, stop_mask, stopped):
+        key = key_data.unsqueeze(-2)
+        S = hist.shape[-1]
+        max_pages = tables.shape[-1]
+        dev = tables.device
+        jpos = torch.arange(K, device=dev)
+        jk = torch.arange(spec_k, device=dev)
+        emitted = torch.zeros_like(budgets)
+        toks_out, emit_out, dlen_out = [], [], []
+        for _ in range(macro_steps):
+            active = (n_cached > 0) & (emitted < budgets) & ~stopped
+            ctx_len = n_cached + 1
+            drafts, dlen = propose_draft_batch(hist, ctx_len, spec_k, ngram)
+            # the sweep emits n_acc + 1 <= dlen + 1 tokens: never past the budget
+            dlen = torch.minimum(dlen, budgets - emitted - 1)
+            dlen = torch.where(active, torch.clamp_min(dlen, 0), 0)
+            drafts = torch.where(jk < dlen[..., None], drafts, 0)
+            toks_in = torch.cat([last_tok[..., None], drafts], dim=-1)
+            live = active[..., None] & (jpos <= dlen[..., None])
+            x = torch.where(live[..., None], _embed_rows(embed, toks_in), 0.0)
+            wpos = n_cached[..., None] + jpos
+            pidx = torch.clamp(torch.div(wpos, page_size, rounding_mode="floor"), 0,
+                               max_pages - 1)
+            wp = torch.where(live, torch.take_along_dim(tables, pidx.long(), dim=-1), n_pages)
+            woff = torch.where(live, wpos % page_size, 0)
+            seq = torch.where(active, n_cached + 1, 0)
+            out = step(params, kv, x, tables, wp, woff, seq)
+            logits = _mm(out, embed.transpose(-1, -2))
+            n_acc, term = accept_batch(key, rids, positions, logits, drafts, dlen,
+                                       temperature=temperature, top_k=top_k)
+            n_acc = torch.where(active, n_acc, 0)
+            term = torch.where(active, term, 0)
+            drafts_pad = torch.cat([drafts, torch.zeros_like(drafts[..., :1])], dim=-1)
+            na = n_acc[..., None]
+            toks_k = torch.where(jpos < na, drafts_pad, torch.where(jpos == na, term[..., None], 0))
+            toks_k = torch.where(active[..., None], toks_k, 0)
+            n_emit = torch.where(active, n_acc + 1, 0)
+            # a stop token truncates the emitted run (the stop token is kept)
+            is_stop = (torch.take_along_dim(stop_mask, toks_k.long(), dim=-1)
+                       & (jpos < n_emit[..., None]))
+            has_stop = is_stop.any(dim=-1)
+            j_stop = torch.argmax(is_stop.to(torch.int8), dim=-1)
+            n_emit = torch.where(has_stop, j_stop.to(n_emit.dtype) + 1, n_emit)
+            toks_k = torch.where(jpos < n_emit[..., None], toks_k, 0)
+            stopped = stopped | (active & has_stop)
+            # extend the proposer's history window (dropped writes land in a
+            # spare column that is cut off again)
+            wpos_h = torch.where(jpos < n_emit[..., None], ctx_len[..., None] + jpos, S)
+            hist = torch.cat([hist, torch.zeros_like(hist[..., :1])], dim=-1).scatter(
+                -1, torch.clamp(wpos_h, 0, S).long(), toks_k)[..., :S]
+            last_idx = torch.clamp(n_emit - 1, 0, K - 1)
+            new_last = torch.take_along_dim(toks_k, last_idx[..., None].long(), dim=-1)[..., 0]
+            last_tok = torch.where(active, new_last, last_tok)
+            n_cached = n_cached + n_emit
+            positions = positions + n_emit
+            emitted = emitted + n_emit
+            toks_out.append(toks_k)
+            emit_out.append(n_emit)
+            dlen_out.append(dlen)
+        m = _nmesh()
+        return (torch.stack(toks_out, dim=m), torch.stack(emit_out, dim=m),
+                torch.stack(dlen_out, dim=m))
+
+    return loop
+
+
+def build_spec_decode_loop(mesh: StackedMesh, cfg: TransformerConfig, geom: CacheGeometry,
+                           macro_steps: int, spec_k: int, temperature: float = 0.0,
+                           top_k: int = 0, ngram: int = 2, dp: str = "dp", sp: str = "sp",
+                           counter: ProgramCounter | None = None, quantized: bool = False,
+                           fused: bool | None = None):
+    """The speculative macro-step decode over ``mesh``: fn(params, kv,
+    embed, key_data, tables, n_cached, rids, positions, budgets, last_tok,
+    hist ``(B, S)`` int32, stop_mask ``(B, V)`` bool, stopped ``(B,)``
+    bool) -> (tokens ``(T, B, K)``, n_emit ``(T, B)``, draft_len ``(T,
+    B)``, kv). One call, and one pull, per T speculation rounds (up to
+    ``T * (spec_k + 1)`` tokens a slot). See :func:`spec_decode_loop_fn`."""
+    check_serve_mesh(mesh, cfg, dp, sp)
+    _check_geometry(cfg, geom)
+    body = spec_decode_loop_fn(cfg, geom, macro_steps, spec_k, temperature=temperature,
+                               top_k=top_k, ngram=ngram, sp=sp, dp=dp, quantized=quantized,
+                               fused=fused)
+    specs = (param_spec(cfg, dp), kv_cache_spec(dp, sp, quantized), P(), P()) + (P(dp),) * 9
+    return _loop_program(mesh, body, specs, (P(None, dp),) * 3, 3, counter)
+
+
 def prefill_fn(cfg: TransformerConfig, geom: CacheGeometry, sp: str = "sp", dp: str = "dp",
                quantized: bool = False):
     """The prefill body: (params, kv, x, pages, n_tok) -> out, the cache
@@ -440,6 +756,8 @@ def prefill_fn(cfg: TransformerConfig, geom: CacheGeometry, sp: str = "sp", dp: 
                                       kv_k.dtype)
         # causal x true-length mask: padded keys never attend
         mask = (pos[:, None] >= pos[None, :]) & (pos[None, :] < n_tok)
+        w = (_Writes((pg_write,), pg_write < n_pages, n_pages, len(params["layers"]))
+             if quantized else _Writes((pg, off), pg < n_pages, n_pages, len(params["layers"])))
         for li, p in enumerate(params["layers"]):
             h = _rms_norm(x, _lead(p["ln1"], x.ndim))
             q = _head_slice(_mm(h, p["wq"]).unflatten(-1, (H, Dh)), sp)
@@ -448,15 +766,13 @@ def prefill_fn(cfg: TransformerConfig, geom: CacheGeometry, sp: str = "sp", dp: 
             if quantized:
                 qk, sk = quant_pages(k)
                 qv, sv = quant_pages(v)
-                valid = pg_write < n_pages
-                _put(kv_k, li, (pg_write,), qk, valid)
-                _put(kv_v, li, (pg_write,), qv, valid)
-                _put(k_scale, li, (pg_write,), sk, valid)
-                _put(v_scale, li, (pg_write,), sv, valid)
+                _put(kv_k, li, w, qk)
+                _put(kv_v, li, w, qv)
+                _put(k_scale, li, w, sk)
+                _put(v_scale, li, w, sv)
             else:
-                valid = pg < n_pages
-                _put(kv_k, li, (pg, off), k, valid)
-                _put(kv_v, li, (pg, off), v, valid)
+                _put(kv_k, li, w, k)
+                _put(kv_v, li, w, v)
             s = masked_scores(q, k, mask)                           # (*mesh, H_loc, S, S)
             pr = masked_softmax(s, mask)
             attn = torch.einsum("...hst,...thd->...shd", pr, v.float())
